@@ -1,0 +1,112 @@
+"""Width-strided DLA-style range backbone (counterpart of the JAX
+``models/backbone.py``): five residual stages strided only along width,
+four transposed-conv aggregation nodes, multi-scale output
+``{1: concat(stem, agg3), 2: agg2a, 4: agg2, 16: res3}`` (NCHW)."""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+from torch import nn
+
+from range_view_3d_detection_torch.models.blocks import (
+    AggregationBlock,
+    BasicBlock,
+    ResidualBlock,
+)
+from range_view_3d_detection_torch.models.stems import MetaKernel
+
+
+def out_channels(layers: Sequence[int]) -> Dict[int, int]:
+    """Channels of each multi-scale output of :class:`RangeBackbone`."""
+    return {1: 2 * layers[0], 2: layers[1], 4: layers[2], 16: layers[4]}
+
+
+class RangeBackbone(nn.Module):
+    """DLA-style backbone over stem features (eval forward)."""
+
+    def __init__(
+        self,
+        layers: Sequence[int],
+        stage_blocks: Sequence[int] = (2, 3, 3, 5, 5),
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        ch, nb = list(layers), list(stage_blocks)
+        ins = [ch[0]] + ch[:4]
+        for i in range(5):
+            self.add_module(
+                f"ResidualBlock_{i}",
+                ResidualBlock(
+                    ins[i], ch[i], nb[i], strides=(1, 1) if i == 0 else (1, 2),
+                    dtype=dtype,
+                ),
+            )
+        # flax creation order: agg2, agg1, agg2a, agg3.
+        aggs = [
+            (ch[4], ch[2], (3, 8), (1, 4), (1, 2), 2),  # agg2 <- res3
+            (ch[2], ch[0], (3, 8), (1, 4), (1, 2), 2),  # agg1 <- res2
+            (ch[2], ch[1], (3, 4), (1, 2), (1, 1), 1),  # agg2a <- agg2
+            (ch[1], ch[0], (3, 4), (1, 2), (1, 1), 2),  # agg3 <- agg2a
+        ]
+        for i, (cin, cout, k, s, p, n) in enumerate(aggs):
+            self.add_module(
+                f"AggregationBlock_{i}",
+                AggregationBlock(cin, cout, k, s, p, n, dtype=dtype),
+            )
+
+    def forward(self, features: torch.Tensor) -> Dict[int, torch.Tensor]:
+        res1 = self.ResidualBlock_0(features)
+        res2a = self.ResidualBlock_1(res1)
+        res2 = self.ResidualBlock_2(res2a)
+        res3a = self.ResidualBlock_3(res2)
+        res3 = self.ResidualBlock_4(res3a)
+        agg2 = self.AggregationBlock_0(res2, res3)
+        agg1 = self.AggregationBlock_1(res1, res2)
+        agg2a = self.AggregationBlock_2(res2a, agg2)
+        agg3 = self.AggregationBlock_3(agg1, agg2a)
+        agg3 = torch.cat([features, agg3], dim=1)
+        return {1: agg3, 2: agg2a, 4: agg2, 16: res3}
+
+
+class RangeNet(nn.Module):
+    """Stem selector (META or BASIC) + backbone."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        layers: Sequence[int],
+        stage_blocks: Sequence[int] = (2, 3, 3, 5, 5),
+        stem_type: str = "META",
+        num_neighbors: int = 3,
+        num_layers: int = 2,
+        projection_kernel_size: int = 1,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.stem_type = stem_type.upper()
+        if self.stem_type == "META":
+            self.MetaKernel_0 = MetaKernel(
+                in_channels, layers[0], num_neighbors, num_layers, dtype=dtype
+            )
+        elif self.stem_type == "BASIC":
+            pk = projection_kernel_size
+            self.BasicBlock_0 = BasicBlock(
+                in_channels, layers[0], (pk, pk), project=True, dtype=dtype
+            )
+        else:
+            raise NotImplementedError(f"stem_type={stem_type} is not ported")
+        self.RangeBackbone_0 = RangeBackbone(layers, stage_blocks, dtype=dtype)
+
+    def forward(
+        self, features: torch.Tensor, cart: torch.Tensor
+    ) -> Dict[int, torch.Tensor]:
+        """``features`` NCHW, ``cart`` (B, H, W, 3)."""
+        features = features.to(self.dtype)
+        if self.stem_type == "META":
+            stem = self.MetaKernel_0(features, cart)
+        else:
+            stem = self.BasicBlock_0(features)
+        return self.RangeBackbone_0(stem)

@@ -1,0 +1,104 @@
+"""Serving entry point: the flagship configuration, sample inputs, and a
+``Predictor`` that answers requests with forward -> decode -> NMS.
+
+``_flagship_config`` and ``_sample_inputs`` are the port's own copies of
+the JAX package's ``__graft_entry__.py`` helpers (numpy only).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
+from range_view_3d_detection_torch.models.detector import Detector, DetectorConfig
+from range_view_3d_detection_torch.ops.nms import NMSResult
+
+
+def _flagship_config(tiny: bool = False) -> DetectorConfig:
+    """rv-av2 flagship (``conf/experiment/rv-av2.yaml``), or a tiny twin."""
+    if tiny:
+        return DetectorConfig(
+            tasks=((0, ("PEDESTRIAN", "REGULAR_VEHICLE")),),
+            in_channels=5,
+            layers=(8, 8, 8, 8, 8),
+            stem_type="META",
+            fpn=((1, 16),),
+            fpn_kernel_sizes=((1, (3, 3)),),
+            classification_head_channels=8,
+            regression_head_channels=8,
+            num_classification_blocks=1,
+            num_regression_blocks=1,
+            dtype="float32",
+        )
+    cats = tuple(f"C{i}" for i in range(26))
+    return DetectorConfig(
+        tasks=((0, cats),),
+        in_channels=5,
+        layers=(256, 128, 128, 128, 128),
+        stem_type="META",
+        fpn=((1, 512),),
+        fpn_kernel_sizes=((1, (3, 3)),),
+        classification_head_channels=512,
+        regression_head_channels=512,
+        dtype="bfloat16",
+    )
+
+
+def _sample_inputs(
+    B: int, H: int, W: int, C: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A synthetic range image: (features (B,H,W,C), cart (B,H,W,3), mask)."""
+    rng = np.random.default_rng(seed)
+    az = np.linspace(-np.pi, np.pi, W, endpoint=False, dtype=np.float32)
+    incl = np.linspace(-0.3, 0.1, H, dtype=np.float32)
+    r = rng.uniform(5, 60, size=(B, H, W)).astype(np.float32)
+    cart = np.stack(
+        [
+            r * np.cos(incl[None, :, None]) * np.cos(az[None, None, :]),
+            r * np.cos(incl[None, :, None]) * np.sin(az[None, None, :]),
+            r * np.sin(incl[None, :, None]),
+        ],
+        axis=-1,
+    )
+    feats = np.concatenate(
+        [rng.uniform(0, 1, (B, H, W, C - 3)).astype(np.float32), cart], axis=-1
+    )
+    mask = r > 6.0
+    return feats, cart, mask
+
+
+class Predictor:
+    """Serves detections: ``predictor(feats, cart, mask) -> NMSResult``.
+
+    Runs on ``device`` (``"cuda"`` unless the caller asks for the CPU; a
+    host without a CUDA device raises). Weights come from ``generator``
+    or are loaded afterwards into ``predictor.model``.
+    """
+
+    def __init__(
+        self,
+        cfg: DetectorConfig,
+        decoder_cfg: DecoderConfig = DecoderConfig(),
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Predictor: no CUDA device on this host; pass device='cpu' "
+                "to run the plain kernels on the CPU"
+            )
+        self.cfg = cfg
+        self.decoder_cfg = decoder_cfg
+        self.model = Detector(cfg, device=self.device, generator=generator)
+
+    def __call__(self, feats, cart, mask) -> NMSResult:
+        with torch.inference_mode():
+            feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
+            cart = torch.as_tensor(cart, dtype=torch.float32, device=self.device)
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+            out = self.model(feats, cart, mask)
+            return decode(out, self.decoder_cfg, self.cfg.tasks_dict, use_nms=True)

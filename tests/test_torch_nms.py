@@ -1,0 +1,156 @@
+"""Port parity for rotated IoU and NMS (the plain twin of K2), CPU.
+
+- ``iou_rotated_bev`` against the JAX ``ops.iou``: atol 1e-5.
+- The plain scan against the JAX Pallas scan in interpret mode on the
+  same IoU matrix: ``keep`` equal, ``merged`` within 1e-5.
+- The port's batched multi-class NMS against the JAX ``multiclass_nms``
+  (lax block scan and Pallas interpret) for WEIGHTED, HARD, duplicated
+  boxes (exact ties), a post-NMS cap and cap > n: ``keep`` equal, kept
+  cuboids within atol 1e-4 and scores within 1e-5.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
+from range_view_3d_detection_torch.ops import iou as tiou
+from range_view_3d_detection_torch.ops.nms import (
+    batched_multiclass_nms,
+    multiclass_nms as port_multiclass_nms,
+)
+from range_view_3d_detection_tpu.kernels.nms_pallas import nms_scan_pallas
+from range_view_3d_detection_tpu.ops import iou as jiou
+from range_view_3d_detection_tpu.ops.nms import multiclass_nms
+
+torch.set_num_threads(2)
+
+
+def _random_boxes(n, seed=0, spread=12.0):
+    rng = np.random.default_rng(seed)
+    boxes = np.stack(
+        [
+            rng.uniform(-spread, spread, n),
+            rng.uniform(-spread, spread, n),
+            rng.uniform(-2, 2, n),
+            rng.uniform(2, 6, n),
+            rng.uniform(1, 3, n),
+            rng.uniform(1, 2, n),
+            rng.uniform(-np.pi, np.pi, n),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    cats = rng.integers(0, 3, n).astype(np.int32)
+    return boxes, scores, cats
+
+
+def test_iou_matches_jax():
+    boxes, _, _ = _random_boxes(48, seed=1, spread=5.0)
+    bev = boxes[:, [0, 1, 3, 4, 6]]
+    # Identical and axis-aligned tangent pairs: the half-weight edge rule.
+    bev[1] = bev[0]
+    bev[2] = [0.0, 0.0, 4.0, 2.0, 0.0]
+    bev[3] = [4.0, 0.0, 4.0, 2.0, 0.0]
+    want = np.asarray(jiou.iou_rotated_bev(jnp.asarray(bev), jnp.asarray(bev[:30])))
+    got = tiou.iou_rotated_bev(torch.from_numpy(bev), torch.from_numpy(bev[:30]))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    batched = tiou.iou_rotated_bev(
+        torch.from_numpy(np.stack([bev, bev[::-1].copy()])),
+        torch.from_numpy(np.stack([bev, bev[::-1].copy()])),
+    )
+    np.testing.assert_array_equal(batched[0].numpy(), tiou.iou_rotated_bev(
+        torch.from_numpy(bev), torch.from_numpy(bev)).numpy())
+
+
+@pytest.mark.parametrize("merge_threshold", [0.5, 1.01])
+def test_plain_scan_matches_pallas_interpret(merge_threshold):
+    boxes, scores, _ = _random_boxes(128, seed=4)
+    order = np.argsort(-scores, kind="stable")
+    boxes, scores = boxes[order], scores[order]
+    bev = boxes[:, [0, 1, 3, 4, 6]]
+    iou = np.array(jiou.iou_rotated_bev(jnp.asarray(bev), jnp.asarray(bev)))
+    valid = scores >= 0.1
+    payload = np.concatenate(
+        [boxes[:, :6], np.sin(boxes[:, 6:]), np.cos(boxes[:, 6:]), scores[:, None]],
+        axis=-1,
+    ).astype(np.float32)
+    kw = dict(iou_threshold=0.3, merge_threshold=merge_threshold)
+    want_keep, want_merged = nms_scan_pallas(
+        iou, scores, valid, payload, interpret=True, **kw
+    )
+    launches = nms_scan.launches
+    keep, merged = nms_scan(
+        *(torch.from_numpy(a[None]) for a in (iou, scores, valid, payload)), **kw
+    )
+    assert nms_scan.launches == launches  # CPU: the twin
+    assert 0 < int(keep.sum()) < int(valid.sum())  # something was suppressed
+    np.testing.assert_array_equal(keep[0].numpy(), np.asarray(want_keep))
+    np.testing.assert_allclose(merged[0].numpy(), np.asarray(want_merged), atol=1e-5)
+    keep_p, merged_p = nms_scan_plain(
+        *(torch.from_numpy(a[None]) for a in (iou, scores, valid, payload)), **kw
+    )
+    assert torch.equal(keep_p, keep) and torch.equal(merged_p, merged)
+
+
+def _duplicated(n, seed):
+    """Each box twice, with the same score: exact ties in the sort and in
+    the weighted merge. One category: the class-offset grid moves
+    category k >= 1 to 2000 m multiples, where fp32 spacing (~2.4e-4 m)
+    exceeds the IoU clipping tolerance (1e-4 m) and the self-IoU of a
+    duplicate pair is ulp-sensitive in both packages (ROADMAP Queue 3)."""
+    boxes, scores, _ = _random_boxes(n // 2, seed=seed)
+    return (
+        np.concatenate([boxes, boxes]),
+        np.concatenate([scores, scores]),
+        np.zeros(n, np.int32),
+    )
+
+
+NMS_CASES = {
+    "weighted": (lambda s: _random_boxes(128, seed=s), dict(cap=128, block=32)),
+    "hard": (lambda s: _random_boxes(64, seed=s), dict(cap=64, block=16, mode="HARD")),
+    "duplicated_ties": (lambda s: _duplicated(96, s), dict(cap=96, block=32)),
+    "post_nms_cap": (
+        lambda s: _random_boxes(128, seed=s), dict(cap=128, block=32, num_post_nms=10)
+    ),
+    "cap_above_n": (lambda s: _random_boxes(100, seed=s), dict(cap=128, block=64)),
+}
+
+
+@pytest.mark.parametrize("backend", ["lax", "pallas_interpret"])
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+def test_multiclass_nms_matches_jax(case, backend):
+    make, kw = NMS_CASES[case]
+    images = [make(seed) for seed in (9, 10)]
+    got = batched_multiclass_nms(
+        *(torch.from_numpy(np.stack(a)) for a in zip(*images)),
+        iou_threshold=0.3, min_confidence=0.1, **kw,
+    )
+    for b, (boxes, scores, cats) in enumerate(images):
+        ref = multiclass_nms(
+            jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(cats),
+            backend=backend, iou_threshold=0.3, min_confidence=0.1, **kw,
+        )
+        keep = np.asarray(ref.keep)
+        np.testing.assert_array_equal(got.keep[b].numpy(), keep)
+        np.testing.assert_array_equal(
+            got.categories[b].numpy(), np.asarray(ref.categories)
+        )
+        np.testing.assert_allclose(
+            got.cuboids[b].numpy()[keep], np.asarray(ref.cuboids)[keep], atol=1e-4
+        )
+        np.testing.assert_allclose(
+            got.scores[b].numpy()[keep], np.asarray(ref.scores)[keep], atol=1e-5
+        )
+        if kw.get("num_post_nms"):
+            assert keep.sum() == kw["num_post_nms"]
+    single = port_multiclass_nms(
+        *(torch.from_numpy(a) for a in images[1]),
+        iou_threshold=0.3, min_confidence=0.1, **kw,
+    )
+    for got_b, single_b in zip(got, single):
+        assert torch.equal(got_b[1], single_b)

@@ -1,0 +1,110 @@
+"""Rules of the PyTorch port, checked on the CPU.
+
+- Every port module and ``chip_smoke.py`` import with JAX and the JAX
+  package made unimportable.
+- Entry points default to the card: on a host without a CUDA device,
+  ``Predictor`` with its default device and ``python chip_smoke.py`` fail
+  loudly instead of running on the CPU.
+- The flax -> torch transplant round-trips every leaf of the tiny
+  config's variables, and loads strictly into the port's Detector.
+"""
+
+from __future__ import annotations
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+import range_view_3d_detection_torch
+from range_view_3d_detection_torch import serving
+from range_view_3d_detection_torch.transplant import (
+    flax_to_state_dict,
+    state_dict_to_flax,
+)
+from range_view_3d_detection_tpu.models.detector import Detector
+from test_torch_blocks import numpy_tree, randomize_bn
+
+torch.set_num_threads(2)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    pkg = range_view_3d_detection_torch
+    names = [pkg.__name__]
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_without_jax():
+    modules = _port_modules()
+    assert "range_view_3d_detection_torch.kernels.stem" in modules
+    code = "\n".join(
+        [
+            "import importlib, sys",
+            "sys.modules['jax'] = None",
+            "sys.modules['range_view_3d_detection_tpu'] = None",
+            f"sys.path.insert(0, {str(REPO)!r})",
+            f"for name in {modules!r}:",
+            "    importlib.import_module(name)",
+            "import chip_smoke",
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'range_view_3d_detection_tpu') "
+            "and sys.modules[m] is not None]",
+            "assert not bad, bad",
+            "print('ok')",
+        ]
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=REPO,
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_entry_points_refuse_a_host_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.Predictor(serving._flagship_config(tiny=True))
+    smoke = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert smoke.returncode != 0
+    assert '"ok": true' not in smoke.stdout
+    # Alone in a directory, without the port, it fails too.
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    alone = subprocess.run(
+        [sys.executable, str(lone)], capture_output=True, text=True, timeout=120,
+        cwd=tmp_path,
+    )
+    assert alone.returncode != 0 and '"ok": true' not in alone.stdout
+
+
+def test_transplant_round_trips_tiny_tree():
+    cfg = graft._flagship_config(tiny=True)
+    feats, cart, mask = serving._sample_inputs(1, 4, 32, cfg.in_channels)
+    v = Detector(cfg).init(jax.random.PRNGKey(0), feats, cart, mask, train=False)
+    params, stats = randomize_bn(v["params"], v["batch_stats"], seed=1)
+
+    model = serving.Predictor(
+        serving._flagship_config(tiny=True), device="cpu"
+    ).model
+    model.load_state_dict(flax_to_state_dict(params, stats), strict=True)
+    back_params, back_stats = state_dict_to_flax(model.state_dict())
+
+    for want, got in ((params, back_params), (stats, back_stats)):
+        want_leaves = jax.tree_util.tree_leaves_with_path(numpy_tree(want))
+        got_leaves = dict(jax.tree_util.tree_leaves_with_path(got))
+        assert len(want_leaves) == len(got_leaves)
+        for path, leaf in want_leaves:
+            np.testing.assert_array_equal(got_leaves[path], leaf, err_msg=str(path))
