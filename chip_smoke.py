@@ -21,7 +21,23 @@ Phases, each of which raises (non-zero exit) on failure:
 6. timings (CUDA events, warm-up, median) of each kernel, its plain twin
    and its bound, ms per request of the main path, its forward and
    decode + NMS device times, and a torch.profiler table of one request's
-   device time by kernel.
+   device time by kernel;
+7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
+   1 and 2, bf16 and fp32 output: ``torch.equal`` (integer work is exact);
+8. int8 path: the phase-5 model is folded, calibrated on request 0 and
+   quantized (full scope, ``Predictor.quantize``); one request captures
+   every K3 launch's inputs, then 4 requests must launch K1, K2 and K3 and
+   not K4, give finite outputs with detections kept, and the NMS must
+   equal the plain scan; the head outputs' relative RMS to the bf16 path
+   and the kept-box agreement are printed (not gated);
+9. K3 against its twin on every distinct shape that request launched,
+   bf16 and fp32 output: ``torch.equal``; each shape's time, launches per
+   request and bound, their sums over a request, and a bf16 cuDNN conv at
+   the tower shape for context;
+10. the int8 path with ``stem_int8=True``: K4 must launch and K1 not; K4
+   against its twin on the captured flagship inputs and at (1, 3, 37,
+   256): max|diff| <= 1e-4 * max|ref|; K4's time, bound and twin's time;
+11. ms per request of both int8 paths and a profiler table of one request.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -40,6 +56,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak
 H100_FP32_FLOPS = 67e12  # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 SEED = 0
@@ -120,6 +137,69 @@ def nms_case(B, cap, gen, device):
     return iou, scores, scores >= 0.1, payload
 
 
+def check_nms_against_plain(model, request, cfg, dec, device) -> float:
+    """The main path's NMS on request's proposals equals the plain scan."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
+    from range_view_3d_detection_torch.models.decoder import decode
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+
+    with torch.inference_mode():
+        out = model(*(torch.as_tensor(a, device=device) for a in request))
+        props = decode(out, dec, cfg.tasks_dict, use_nms=False)
+        inputs = nms_ops.nms_inputs(
+            *props, cap=min(dec.nms_cap, props.scores.shape[1]),
+            min_confidence=dec.min_confidence, mode=dec.nms_mode,
+        )
+        kw = dict(iou_threshold=dec.nms_threshold, merge_threshold=inputs.merge_threshold)
+        got = nms_ops.nms_result(inputs, *nms_scan(*inputs[:4], **kw), dec.num_post_nms)
+        want = nms_ops.nms_result(
+            inputs, *nms_scan_plain(*inputs[:4], **kw), dec.num_post_nms
+        )
+    check(torch.equal(got.keep, want.keep), "main-path NMS keep differs from the twin")
+    k = want.keep
+    nms_err = (got.cuboids[k] - want.cuboids[k]).abs().max().item()
+    check(nms_err <= 1e-3, f"main-path NMS cuboids max|diff| {nms_err}")
+    return nms_err
+
+
+def check_results(results) -> list:
+    """Finite kept detections in every request; the kept counts."""
+    import torch
+
+    for r in results:
+        for t in (r.cuboids, r.scores):
+            check(bool(torch.isfinite(t[r.keep]).all()), "non-finite detections")
+        check(r.keep.shape[0] == 2, f"keep shape {tuple(r.keep.shape)}")
+    kept = [int(r.keep.sum()) for r in results]
+    check(min(kept) > 0, f"no detections kept: {kept}")
+    return kept
+
+
+def rel_rms(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).pow(2).mean() / want.pow(2).mean()).sqrt().item()
+
+
+def kept_match(results, refs) -> float:
+    """Share of the reference's kept boxes that a kept box of ``results``
+    matches (same category, BEV centre within 1 m)."""
+    import torch
+
+    matched = total = 0
+    for r, ref in zip(results, refs):
+        for i in range(ref.keep.shape[0]):
+            kr, kg = ref.keep[i], r.keep[i]
+            if not kr.any():
+                continue
+            d = torch.cdist(ref.cuboids[i][kr][:, :2], r.cuboids[i][kg][:, :2])
+            same = ref.categories[i][kr][:, None] == r.categories[i][kg][None]
+            matched += int(((d < 1.0) & same).any(1).sum()) if kg.any() else 0
+            total += int(kr.sum())
+    return matched / max(total, 1)
+
+
 def profile_request(predictor, request) -> None:
     """Print the device time of one request by kernel (torch.profiler)."""
     import torch
@@ -140,6 +220,220 @@ def profile_request(predictor, request) -> None:
         f"({100 * busy_ms / wall_ms:.1f}%)")
 
 
+def k3_shape_cost(key, B, H):
+    """(operations, bytes) of one K3 launch at (Cin, Cout, W, stride)."""
+    cin, cout, W, stride = key
+    wo = (W - 1) // stride + 1
+    ops = 2 * B * H * wo * 9 * cin * cout
+    nbytes = B * H * W * cin + 9 * cin * cout + 4 * cout + 2 * B * H * wo * cout
+    return ops, nbytes
+
+
+def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
+                gen, smi) -> list:
+    """Phases 7-11: K3 at odd shapes, the int8 path with the K1 stem and
+    with the K4 stem, K3/K4 against their twins on the path's inputs, and
+    timings. Returns the K3 and K4 entries of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from range_view_3d_detection_torch.kernels.conv import (
+        conv3x3_i8_fused,
+        conv3x3_i8_fused_plain,
+    )
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import (
+        meta_kernel_fused,
+        meta_kernel_fused_i8,
+        meta_kernel_fused_i8_plain,
+    )
+    from range_view_3d_detection_torch.models import blocks, quantized, stems
+
+    def rand_i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device)
+
+    def k3_equal(x, w, dq, stride, tag) -> float:
+        err = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            got = conv3x3_i8_fused(x, w, dq, stride_w=stride, out_dtype=dt)
+            want = conv3x3_i8_fused_plain(x, w, dq, stride_w=stride, out_dtype=dt)
+            torch.cuda.synchronize()
+            n_diff = int((got != want).sum())
+            check(torch.equal(got, want), f"K3 {tag} {dt}: {n_diff} elements differ")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+        say(f"K3 {tag}: bf16 and fp32 outputs equal to the twin")
+        return err
+
+    # 7. K3 against its twin at small odd shapes.
+    for shape, cout, stride in (((1, 5, 33, 32), 32, 1), ((1, 6, 18, 32), 32, 2)):
+        dq = torch.rand(cout, generator=gen).to(device) * 1e-3 + 1e-4
+        k3_equal(rand_i8(*shape), rand_i8(9, shape[-1], cout), dq, stride,
+                 f"{shape}->{cout} stride {stride}")
+
+    # 8. The int8 path: fold, calibrate on request 0, quantize (full scope).
+    model = predictor.model
+    t0 = time.perf_counter()
+    predictor.quantize([requests[0]], scope="full")
+    torch.cuda.synchronize()
+    say(f"int8: folded, calibrated on request 0 and quantized "
+        f"in {time.perf_counter() - t0:.1f} s")
+    captured = {}
+
+    def capturing(x, w, dq, *, stride_w=1, out_dtype=torch.bfloat16):
+        key = (x.shape[-1], w.shape[-1], x.shape[2], stride_w)
+        entry = captured.setdefault(key, dict(
+            inputs=(x.clone(), w, dq.clone()), out_dtype=out_dtype, per_request=0))
+        entry["per_request"] += 1
+        return conv3x3_i8_fused(x, w, dq, stride_w=stride_w, out_dtype=out_dtype)
+
+    blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = capturing
+    try:
+        predictor(*requests[0])  # warm-up, and one request's K3 inputs
+    finally:
+        blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = conv3x3_i8_fused
+    torch.cuda.synchronize()
+
+    def serve(tag):
+        for fn in (meta_kernel_fused, meta_kernel_fused_i8, nms_scan, conv3x3_i8_fused):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results = [predictor(*r) for r in requests]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(requests)
+        launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches,
+                    "K3": conv3x3_i8_fused.launches, "K4": meta_kernel_fused_i8.launches}
+        kept = check_results(results)
+        nms_err = check_nms_against_plain(model, requests[0], cfg, dec, device)
+        with torch.inference_mode():
+            head = model(*(torch.as_tensor(a, device=device) for a in requests[0]))
+        rms = {k: rel_rms(head["head"][1][0][k], v) for k, v in bf16_heads.items()}
+        say(f"{tag}: {len(requests)} requests, launches {launches}, kept {kept}, "
+            f"NMS == plain scan (cuboids max|diff| {nms_err:.3g}); head relative "
+            f"RMS to bf16 " + ", ".join(f"{k} {v:.4g}" for k, v in rms.items())
+            + f"; bf16 kept boxes matched {kept_match(results, bf16_results):.3f}, "
+            f"int8 kept boxes matched by bf16 {kept_match(bf16_results, results):.3f}; "
+            f"{ms:.3f} ms/request, {2 * 1e3 / ms:.2f} frames/s on {smi}")
+        return launches, ms
+
+    launches, int8_ms = serve("int8 path (K1 stem)")
+    check(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3"] > 0,
+          f"a kernel of the int8 path did not run: {launches}")
+    check(launches["K4"] == 0, f"K4 ran with stem_int8=False: {launches}")
+    k3_launches = launches["K3"]
+    per_request = sum(e["per_request"] for e in captured.values())
+    check(k3_launches == per_request * len(requests),
+          f"K3 launches {k3_launches} != {per_request} per request x {len(requests)}")
+
+    # 9. K3 against its twin on every distinct shape of the request; timings.
+    B, H = requests[0][0].shape[:2]
+    sums = dict(ms=0.0, plain=0.0, ops_ms=0.0, bytes_ms=0.0, bound=0.0)
+    k3_err = 0.0
+    for key in sorted(captured):
+        e = captured[key]
+        x, w, dq = e["inputs"]
+        cin, cout, W, stride = key
+        k3_err = max(k3_err, k3_equal(
+            x, w, dq, stride, f"Cin {cin} Cout {cout} W {W} stride {stride}"))
+        run = dict(stride_w=stride, out_dtype=e["out_dtype"])
+        ms = cuda_ms(lambda: conv3x3_i8_fused(x, w, dq, **run), reps=10)
+        plain = cuda_ms(lambda: conv3x3_i8_fused_plain(x, w, dq, **run), reps=2, warmup=1)
+        ops, nbytes = k3_shape_cost(key, B, H)
+        bound, by = bound_ms(ops, H100_INT8_OPS, nbytes)
+        n = e["per_request"]
+        sums["ms"] += n * ms
+        sums["plain"] += n * plain
+        sums["bound"] += n * bound
+        sums["ops_ms"] += n * ops / H100_INT8_OPS * 1e3
+        sums["bytes_ms"] += n * nbytes / H100_BYTES_PER_S * 1e3
+        say(f"K3 Cin {cin} Cout {cout} W {W} stride {stride}: {n} launches/request, "
+            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}), "
+            f"{ops / ms / 1e9:.1f} TOP/s ({100 * bound / ms:.1f}% of bound) on {smi}")
+    k3_by = "operations" if sums["ops_ms"] >= sums["bytes_ms"] else "bytes"
+    say(f"K3 per request: {per_request} launches, kernel {sums['ms']:.3f} ms, "
+        f"plain {sums['plain']:.3f} ms, bound {sums['bound']:.3f} ms ({k3_by}) on {smi}")
+    # Context: a bf16 conv (cuDNN) at the costliest shape, the head towers.
+    top = max(captured, key=lambda k: k3_shape_cost(k, B, H)[0])
+    cin, cout, W, stride = top
+    xc = torch.randn((B, cin, H, W), generator=gen).to(
+        device, torch.bfloat16, memory_format=torch.channels_last)
+    wc = (torch.randn((cout, cin, 3, 3), generator=gen) * 0.02).to(
+        device, torch.bfloat16, memory_format=torch.channels_last)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xc, wc, stride=(1, stride), padding=1), reps=10)
+    say(f"context: bf16 cuDNN conv {cin}->{cout} 3x3 stride {stride} at "
+        f"{B}x{H}x{W}: {cudnn_ms:.4f} ms (bound "
+        f"{k3_shape_cost(top, B, H)[0] / H100_BF16_FLOPS * 1e3:.4f} ms at the bf16 "
+        f"peak) on {smi}")
+    del xc, wc, captured
+    with torch.inference_mode():
+        profile_request(predictor, requests[1])
+
+    # 10. The int8 path with the int8 stem (K4).
+    predictor.quantize(quant_tree=predictor.quant_tree, stem_int8=True)
+    k4_cap = {}
+
+    def capturing_k4(*args):
+        k4_cap.setdefault("args", [a.clone() for a in args])
+        return meta_kernel_fused_i8(*args)
+
+    stems.meta_kernel_fused_i8 = capturing_k4
+    try:
+        predictor(*requests[0])  # warm-up, and the stem's K4 inputs
+    finally:
+        stems.meta_kernel_fused_i8 = meta_kernel_fused_i8
+    launches, int8_stem_ms = serve("int8 path (K4 stem)")
+    check(launches["K4"] > 0 and launches["K1"] == 0,
+          f"stem_int8=True: K4 must run and K1 not: {launches}")
+    k4_launches = launches["K4"]
+    k4_args = k4_cap["args"]
+    C = k4_args[0].shape[-1]
+    # A small ragged crop of the same inputs: edges and a partial tile.
+    small = [a[:1, :3, :37].contiguous() for a in k4_args[:2]] + k4_args[2:]
+    k4_err = 0.0
+    for tag, args in (("flagship (captured)", k4_args), ("crop", small)):
+        got = meta_kernel_fused_i8(*args)
+        want = meta_kernel_fused_i8_plain(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ref = want.abs().max().item()
+        n_diff = int((got != want).sum())
+        check(bool(torch.isfinite(got).all()), f"K4 non-finite at {tag}")
+        check(err <= 1e-4 * ref, f"K4 {tag}: max|diff| {err} > 1e-4 * {ref}")
+        say(f"K4 {tag} {tuple(args[0].shape)}: max|diff| {err:.4g} (max|ref| "
+            f"{ref:.4g}), {n_diff} of {got.numel()} elements differ; ok")
+        k4_err = max(k4_err, err)
+    k4_ms = cuda_ms(lambda: meta_kernel_fused_i8(*k4_args), reps=10)
+    k4_plain_ms = cuda_ms(lambda: meta_kernel_fused_i8_plain(*k4_args), reps=2, warmup=1)
+    Bk, Hk, Wk = k4_args[0].shape[:3]
+    k4_ops = 2 * Bk * Hk * Wk * 9 * 2 * C * C
+    k4_bytes = 2 * (2 * Bk * Hk * Wk * C) + 10 * C * C + 4 * 13 * C + 4 * Bk * Hk * Wk * C
+    k4_bound, k4_by = bound_ms(k4_ops, H100_INT8_OPS, k4_bytes)
+    say(f"K4 flagship: kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, "
+        f"bound {k4_bound:.3f} ms ({k4_by}) on {smi}")
+
+    # 11. Summary of the int8 paths.
+    say(f"int8 path: K1 stem {int8_ms:.3f} ms/request ({2e3 / int8_ms:.2f} frames/s), "
+        f"K4 stem {int8_stem_ms:.3f} ms/request ({2e3 / int8_stem_ms:.2f} frames/s), "
+        f"B=2 on {smi}")
+    return [
+        {
+            "name": "conv3x3_i8_fused", "route": "cuda",
+            "source": "range_view_3d_detection_torch/csrc/conv3x3_i8.cu",
+            "replaces": "range_view_3d_detection_tpu/kernels/conv_pallas.py:150",
+            "launches": k3_launches, "max_abs_err": k3_err,
+            "ms": sums["ms"], "plain_ms": sums["plain"], "bound_ms": sums["bound"],
+            "bound_by": k3_by, "library_ms": None,
+        },
+        {
+            "name": "meta_kernel_fused_i8", "route": "cuda",
+            "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused_i8.cu",
+            "replaces": "range_view_3d_detection_tpu/kernels/stem_pallas.py:176",
+            "launches": k4_launches, "max_abs_err": k4_err,
+            "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+            "bound_by": k4_by, "library_ms": None,
+        },
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -157,7 +451,6 @@ def main() -> int:
     )
     from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
     from range_view_3d_detection_torch.models.stems import MetaKernel
-    from range_view_3d_detection_torch.ops import nms as nms_ops
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -259,36 +552,16 @@ def main() -> int:
     launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches}
     say(f"main path: {len(requests)} requests, launches {launches}")
     check(launches["K1"] > 0 and launches["K2"] > 0, f"a kernel did not run: {launches}")
-    for r in results:
-        for t in (r.cuboids, r.scores):
-            check(bool(torch.isfinite(t[r.keep]).all()), "non-finite detections")
-        check(r.keep.shape[0] == 2, f"keep shape {tuple(r.keep.shape)}")
-    kept = [int(r.keep.sum()) for r in results]
-    check(min(kept) > 0, f"no detections kept: {kept}")
-
-    # The same proposals through the plain scan.
-    with torch.inference_mode():
-        out = model(*(torch.as_tensor(a, device=device) for a in requests[0]))
-        props = decode(out, dec, cfg.tasks_dict, use_nms=False)
-        inputs = nms_ops.nms_inputs(
-            *props, cap=min(dec.nms_cap, props.scores.shape[1]),
-            min_confidence=dec.min_confidence, mode=dec.nms_mode,
-        )
-        kw = dict(iou_threshold=dec.nms_threshold, merge_threshold=inputs.merge_threshold)
-        got = nms_ops.nms_result(inputs, *nms_scan(*inputs[:4], **kw), dec.num_post_nms)
-        want = nms_ops.nms_result(
-            inputs, *nms_scan_plain(*inputs[:4], **kw), dec.num_post_nms
-        )
-    check(torch.equal(got.keep, want.keep), "main-path NMS keep differs from the twin")
-    k = want.keep
-    nms_err = (got.cuboids[k] - want.cuboids[k]).abs().max().item()
-    check(nms_err <= 1e-3, f"main-path NMS cuboids max|diff| {nms_err}")
-    n_valid = int(inputs.valid.sum())
-    say(f"main path: kept {kept} per request of {tuple(inputs.valid.shape)} "
-        f"slots ({n_valid} valid in request 0), "
+    kept = check_results(results)
+    nms_err = check_nms_against_plain(model, requests[0], cfg, dec, device)
+    say(f"main path: kept {kept} per request, "
         f"NMS == plain scan (cuboids max|diff| {nms_err:.3g}), "
         f"{ms_per_request:.2f} ms/request, "
         f"{2 * 1e3 / ms_per_request:.2f} frames/s")
+    bf16_results = results
+    with torch.inference_mode():
+        bf16_heads = model(*(torch.as_tensor(a, device=device) for a in requests[0]))
+        bf16_heads = {k: v for k, v in bf16_heads["head"][1][0].items()}
 
     # 6. Timings at the main path's shapes.
     k1_ms = cuda_ms(lambda: meta_kernel_fused(**k1_in), reps=10)
@@ -336,6 +609,9 @@ def main() -> int:
         f"{2 * 1e3 / ms_per_request:.2f} frames/s; forward {fwd_ms:.3f} ms, "
         f"decode+NMS {dec_ms:.3f} ms (device) on {smi}; "
         f"total {time.perf_counter() - t_start:.0f} s")
+    kernels += int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec,
+                           device, gen, smi)
+    say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -37,6 +37,10 @@ SIGNATURES = {
     # iou, scores, valid, payload, keep, merged, B, cap, P, iou_thr,
     # merge_thr, stream
     "rv3d_nms_scan": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
+    # x, wt, dq, out, B, H, W, Cin, Cout, stride, out_bf16, stream
+    "rv3d_conv3x3_i8": [_P] * 4 + [_I] * 7 + [_P],
+    # g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream
+    "rv3d_meta_kernel_fused_i8": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

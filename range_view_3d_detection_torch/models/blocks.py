@@ -9,6 +9,11 @@ conv output and casts back to the compute dtype.
 Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``,
 ``ConvNormAct_1``, ...) so ``transplant.py`` maps a flax variable path to
 a ``state_dict`` key one to one.
+
+Int8 serving (``models/quantized.py``): ``quantize(in_scale)`` switches a
+BN-bearing ``ConvNormAct`` or a ``TorchConvTranspose`` to int8 operands
+with int32 accumulation (``quantize(None)`` switches it back); both
+record their input absmax while the model is calibrated.
 """
 
 from __future__ import annotations
@@ -18,6 +23,13 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+from range_view_3d_detection_torch.models.quantized import (
+    Int8Conv,
+    quantize_to_int8,
+    weight_scale_per_channel,
+)
 
 IntPair = Union[int, Sequence[int]]
 
@@ -67,12 +79,35 @@ class ConvNormAct(nn.Module):
         )
         if norm:
             self.BatchNorm_0 = batch_norm(features)
+        self.int8: Int8Conv | None = None
+
+    @property
+    def calibrates_input(self) -> bool:
+        """BN-bearing blocks take a calibrated input scale (JAX sows them)."""
+        return self.norm
+
+    def calib_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def quant_scales(self) -> dict:
+        return {} if self.int8 is None else {"in_scale": float(self.int8.in_scale)}
+
+    def quantize(self, in_scale: float | None) -> None:
+        """Run ``Conv_0`` on int8 operands with ``in_scale`` (None: fp)."""
+        self.int8 = None if in_scale is None else Int8Conv(
+            self.Conv_0, in_scale, self.dtype
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        conv = self.Conv_0
-        bias = None if conv.bias is None else conv.bias.to(dt)
-        y = F.conv2d(x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding)
+        if self.int8 is not None:
+            y = self.int8(x)
+        else:
+            conv = self.Conv_0
+            bias = None if conv.bias is None else conv.bias.to(dt)
+            y = F.conv2d(
+                x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding
+            )
         if self.norm:
             y = self.BatchNorm_0(y.float()).to(dt)
         if self.act:
@@ -80,13 +115,43 @@ class ConvNormAct(nn.Module):
         return y
 
 
+def phase_merged_kernel(kernel: torch.Tensor, sw: int) -> torch.Tensor:
+    """Merge a ``(kh, 2*sw, ci, co)`` transposed-conv kernel (flax HWIO,
+    cross-correlation over the dilated input) into the ``(kh, 3, ci,
+    sw*co)`` kernel of its exact subpixel decomposition: a copy of the JAX
+    ``blocks.py::_phase_merged_kernel``.
+
+    For width stride ``sw``, kernel width ``2*sw`` and padding ``sw//2``,
+    output column ``x = sw*q + r`` reads two taps ``kw = (c - r) mod sw``
+    (``c = 2*sw-1-sw//2``) at input columns ``q-1``/``q``/``q+1``, so each
+    phase ``r`` is a stride-1 conv with a 3-wide window, and the phases
+    interleave (r-major output blocks) into the transposed conv's output.
+    """
+    kh, kwt, ci, co = kernel.shape
+    c = kwt - 1 - sw // 2
+    merged = kernel.new_zeros((kh, 3, ci, sw * co))
+    for kw in range(kwt):
+        r = (c - kw) % sw
+        j = (r + kw - c) // sw + 1  # input-column offset {-1,0,+1} -> {0,1,2}
+        merged[:, j, :, r * co : (r + 1) * co] = kernel[:, kw]
+    return merged
+
+
 class TorchConvTranspose(nn.ConvTranspose2d):
-    """Transposed conv, fp path of the JAX ``TorchConvTranspose``.
+    """Transposed conv, counterpart of the JAX ``TorchConvTranspose``.
 
     The JAX module cross-correlates the stride-dilated input with its
     stored HWIO kernel; ``ConvTranspose2d`` does the same with the kernel
     flipped in space, and its output size ``(in-1)*s + k - 2p`` matches.
     ``transplant.py`` flips the kernel.
+
+    Int8 (after ``quantize``): the int8 weights are merged into the phase
+    decomposition's stride-1 3x3 kernel with ``sw * co`` outputs, which
+    the int8 conv kernel (K3) runs; its output ``(B, H, W, sw*co)``
+    interleaves into ``(B, H, W*sw, co)`` as a view. Integer sums are
+    exact, so the result equals the JAX package's ``lhs_dilation``
+    lowering. Every aggregation node's shape qualifies (height stride 1,
+    kernel ``(3, 2*sw)``, padding ``(1, sw//2)``); another is refused.
     """
 
     def __init__(
@@ -107,12 +172,54 @@ class TorchConvTranspose(nn.ConvTranspose2d):
             bias=False,
         )
         self.dtype = dtype
+        for name in ("int8_scale", "int8_taps", "int8_dq"):
+            self.register_buffer(name, None, persistent=False)
+
+    calibrates_input = True
+
+    def calib_input(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype)
+
+    def quant_scales(self) -> dict:
+        return {} if self.int8_scale is None else {"in_scale": float(self.int8_scale)}
+
+    @torch.no_grad()
+    def quantize(self, in_scale: float | None) -> None:
+        """Run on int8 operands with ``in_scale`` (None: fp)."""
+        self.int8_scale = None
+        if in_scale is None:
+            return
+        (kh, kw), (sh, sw), (ph, pw) = self.kernel_size, self.stride, self.padding
+        if not (sh == 1 and sw >= 2 and kw == 2 * sw and 2 * pw == sw and kh == 3 and ph == 1):
+            raise NotImplementedError(
+                f"TorchConvTranspose int8: no phase decomposition for kernel "
+                f"{(kh, kw)}, stride {(sh, sw)}, padding {(ph, pw)}"
+            )
+        # The flax HWIO kernel: (I, O, kh, kw) flipped in space back.
+        w = self.weight.detach().float().flip(2, 3).permute(2, 3, 0, 1)
+        w_scale = weight_scale_per_channel(w, out_dim=3)
+        w_i8 = quantize_to_int8(w, w_scale)
+        merged = phase_merged_kernel(w_i8, sw)  # (3, 3, ci, sw*co)
+        ci, sco = merged.shape[2:]
+        taps = merged.reshape(9, ci, sco).transpose(1, 2).contiguous()
+        scale = torch.as_tensor(in_scale, dtype=torch.float32, device=w.device)
+        self.int8_scale = scale.reshape(())
+        self.int8_taps = taps.transpose(1, 2)  # (9, ci, sw*co), [n][k] memory
+        self.int8_dq = (scale * w_scale).repeat(sw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.conv_transpose2d(
-            x.to(dt), self.weight.to(dt), None, self.stride, self.padding
+        if self.int8_scale is None:
+            return F.conv_transpose2d(
+                x.to(dt), self.weight.to(dt), None, self.stride, self.padding
+            )
+        xq = quantize_to_int8(x.to(dt), self.int8_scale).permute(0, 2, 3, 1)
+        y = conv3x3_i8_fused(
+            xq.contiguous(), self.int8_taps, self.int8_dq, stride_w=1, out_dtype=dt
         )
+        B, H, W, sco = y.shape
+        sw = self.stride[1]
+        return y.reshape(B, H, W * sw, sco // sw).permute(0, 3, 1, 2)
 
 
 class BasicBlock(nn.Module):

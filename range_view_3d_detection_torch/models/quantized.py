@@ -1,0 +1,315 @@
+"""Post-training int8 quantization of the serving forward (PTQ).
+
+Counterpart of the JAX ``models/quantized.py`` (``Int8Conv``,
+``calibrate_scales``, ``filter_scope``) and of ``tools/export.py::
+fold_batch_norms``. The pipeline, as the JAX package's serving point runs
+it: fold the BatchNorm statistics, calibrate one activation scale per
+quantizable block on a few batches, then quantize:
+
+- every BN-bearing ``ConvNormAct`` and every ``TorchConvTranspose`` whose
+  scope carries an ``in_scale`` quantizes its input per tensor and its
+  weight per output channel to symmetric int8, accumulates in int32 and
+  dequantizes into the unchanged BatchNorm epilogue;
+- the MetaKernel stem takes the int8 kernel (K4) when asked
+  (``stem_int8=True``) and its two scales exist; else it stays on K1.
+
+Scales live in a nested dict with the layout of the JAX ``quant``
+collection (``RangeNet_0/.../ConvNormAct_0/in_scale``,
+``.../MetaKernel_0/stem_hh_scale``), so a JAX quant tree (numpy) loads
+unchanged. Weights are quantized once, in :func:`quantize_model`, into
+non-persistent buffers: the ``state_dict`` keeps its fp layout.
+
+Routing is by shape only: a 3x3 conv with height stride 1 and width
+stride 1 or 2 runs the int8 conv kernel (K3, ``kernels/conv.py``); a 1x1
+conv is a plain int8 matrix product (``torch._int_mm`` on the card, an
+exact fp64 product on the CPU), as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+
+INT8_MAX = 127.0
+BN_EPS = 1e-5  # flax BatchNorm epsilon, used across the model
+
+
+def weight_scale_per_channel(w: torch.Tensor, out_dim: int = 0) -> torch.Tensor:
+    """Symmetric int8 scale per output channel: ``max(max|w| / 127, 1e-12)``
+    over every dimension but ``out_dim`` (fp32)."""
+    w = w.float()
+    dims = tuple(d for d in range(w.dim()) if d != out_dim)
+    return torch.clamp(w.abs().amax(dim=dims) / INT8_MAX, min=1e-12)
+
+
+def quantize_to_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / scale), ±127)`` as int8 (round half to even; a
+    division, not a product by the reciprocal, as in the JAX package)."""
+    return torch.clamp(torch.round(x.float() / scale), -INT8_MAX, INT8_MAX).to(
+        torch.int8
+    )
+
+
+def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """Exact ``a @ w_nk.T`` of int8 operands as fp32 (int32 then f32).
+
+    ``a`` is (M, K) int8 and ``w_nk`` (N, K) int8 with K and N multiples
+    of 8 (the caller zero-pads). The card runs ``torch._int_mm`` (int32
+    accumulate); the CPU an fp64 product, exact below 2**53. Either sum is
+    converted to fp32 once, rounding to nearest.
+    """
+    if a.device.type == "cuda":
+        return torch._int_mm(a, w_nk.t()).float()
+    return (a.double() @ w_nk.double().t()).float()
+
+
+class Int8Conv(nn.Module):
+    """Int8 twin of a ``ConvNormAct``'s ``Conv_0``, built from its weights.
+
+    Per output channel ``w_scale = max(max|w| / 127, 1e-12)`` over
+    (I, kh, kw) and ``w_i8 = clip(round(w / w_scale), ±127)``; the input is
+    quantized per tensor with ``in_scale``; the int32 sum is dequantized
+    with ``acc.float() * (in_scale * w_scale)``, the bias (if any) added in
+    fp32, and the result cast to ``dtype``. All tensors are non-persistent
+    buffers.
+    """
+
+    def __init__(self, conv: nn.Conv2d, in_scale, dtype: torch.dtype):
+        super().__init__()
+        kh, kw = conv.kernel_size
+        sh, sw = conv.stride
+        self.dtype = dtype
+        self.stride = (sh, sw)
+        w = conv.weight.detach().float()
+        w_scale = weight_scale_per_channel(w)
+        w_i8 = quantize_to_int8(w, w_scale[:, None, None, None])
+        in_scale = torch.as_tensor(in_scale, dtype=torch.float32, device=w.device)
+        self.register_buffer("in_scale", in_scale.reshape(()), persistent=False)
+        self.register_buffer("dq", in_scale * w_scale, persistent=False)
+        bias = None if conv.bias is None else conv.bias.detach().float()
+        self.register_buffer("bias", bias, persistent=False)
+        if (kh, kw) == (3, 3) and sh == 1 and sw in (1, 2) and bias is None:
+            self.route = "k3"
+            # (9, Cin, Cout) taps, dy-major, viewed from (9, Cout, Cin)
+            # memory: the kernel's [n][k] operand layout, so the wrapper's
+            # transpose back is free.
+            taps = w_i8.permute(2, 3, 0, 1).reshape(9, w.shape[0], w.shape[1])
+            self.register_buffer(
+                "w_taps", taps.contiguous().transpose(1, 2), persistent=False
+            )
+        elif (kh, kw) == (1, 1) and conv.padding == (0, 0):
+            self.route = "matmul"
+            cout, cin = w.shape[:2]
+            pad_k, pad_n = -cin % 8, -cout % 8
+            self.register_buffer(
+                "w_nk", F.pad(w_i8[:, :, 0, 0], (0, pad_k, 0, pad_n)),
+                persistent=False,
+            )
+            self.cout = cout
+        else:
+            raise NotImplementedError(
+                f"Int8Conv: no int8 route for kernel {(kh, kw)}, stride "
+                f"{(sh, sw)}, padding {conv.padding}, bias {bias is not None}"
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` NCHW (channels_last memory) -> NCHW in ``dtype``."""
+        xq = quantize_to_int8(x, self.in_scale).permute(0, 2, 3, 1)  # NHWC
+        if self.route == "k3":
+            y = conv3x3_i8_fused(
+                xq.contiguous(), self.w_taps, self.dq, stride_w=self.stride[1],
+                out_dtype=self.dtype,
+            )
+            return y.permute(0, 3, 1, 2)
+        sh, sw = self.stride
+        xq = xq[:, ::sh, ::sw]
+        B, H, W, cin = xq.shape
+        a = F.pad(xq, (0, self.w_nk.shape[1] - cin)).reshape(B * H * W, -1)
+        y = int8_matmul(a, self.w_nk)[:, : self.cout] * self.dq
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(self.dtype).reshape(B, H, W, self.cout).permute(0, 3, 1, 2)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm fold, calibration, scope filter, quantization of a model
+# ---------------------------------------------------------------------------
+
+
+def _fold(scale, bias, mean, var) -> None:
+    # fp32 sqrt rounded once to nearest: through fp64, since PyTorch's
+    # vectorized fp32 sqrt on the CPU is not correctly rounded.
+    inv = scale / torch.sqrt((var + BN_EPS).double()).float()
+    bias.copy_(bias - mean * inv)
+    scale.copy_(inv)
+    mean.zero_()
+    var.copy_(torch.ones_like(var) - BN_EPS)
+
+
+@torch.no_grad()
+def fold_batch_norms(model: nn.Module) -> nn.Module:
+    """Bake running statistics into every BatchNorm's affine, in place.
+
+    ``weight <- weight / sqrt(var + 1e-5)``, ``bias <- bias - mean *
+    weight'``, ``mean <- 0``, ``var <- 1 - 1e-5`` (fp32, the operations of
+    ``tools/export.py::fold_batch_norms``), for every ``BatchNorm2d`` and
+    the MetaKernel's explicit ``pos_{i}_bn_*`` tensors. Each BN stays in
+    place; the conv weights are not touched.
+    """
+    for m in model.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            _fold(m.weight, m.bias, m.running_mean, m.running_var)
+        for name, p in list(m.named_parameters(recurse=False)):
+            if name.endswith("_bn_scale"):
+                base = name[: -len("_scale")]
+                _fold(
+                    p, getattr(m, f"{base}_bias"), getattr(m, f"{base}_mean"),
+                    getattr(m, f"{base}_var"),
+                )
+    return model
+
+
+def _to_scale(absmax: float) -> np.ndarray:
+    """absmax -> absmax / 127 (fp32), or 1.0 for an all-zero input."""
+    return np.asarray(absmax / INT8_MAX if absmax > 0 else 1.0, np.float32)
+
+
+@torch.no_grad()
+def calibrate_scales(
+    model: nn.Module, batches: Iterable[Tuple[Any, Any, Any]]
+) -> Dict[str, Any]:
+    """Activation scales of every quantizable block, as a JAX quant tree.
+
+    Runs the eval forward on each ``(feats, cart, mask)`` batch (numpy or
+    tensors) and records the input absmax of every BN-bearing
+    ``ConvNormAct`` and every ``TorchConvTranspose`` (forward pre-hooks),
+    and the MetaKernel's ``hh`` and ``p * feats`` absmaxes (its accumulate
+    path, which the stem takes while calibrating, as in JAX). Takes the
+    max over batches and returns ``{...: {"in_scale": absmax / 127}}``
+    with ``stem_hh_scale``/``stem_pf_scale`` beside the stem's blocks.
+    """
+    device = next(model.parameters()).device
+    absmax: Dict[Tuple[str, str], torch.Tensor] = {}
+
+    def record(scope: str, key: str, value: torch.Tensor) -> None:
+        v = value.detach().float().abs().amax()
+        prev = absmax.get((scope, key))
+        absmax[(scope, key)] = v if prev is None else torch.maximum(prev, v)
+
+    handles, sinks = [], []
+    for name, m in model.named_modules():
+        if getattr(m, "calibrates_input", False):
+            handles.append(
+                m.register_forward_pre_hook(
+                    lambda mod, args, _n=name: record(_n, "in", mod.calib_input(args[0]))
+                )
+            )
+        if hasattr(m, "calib_sink"):
+            m.calib_sink = lambda key, v, _n=name: record(_n, key, v)
+            sinks.append(m)
+    n_batches = 0
+    try:
+        for feats, cart, mask in batches:
+            model(
+                torch.as_tensor(feats, dtype=torch.float32, device=device),
+                torch.as_tensor(cart, dtype=torch.float32, device=device),
+                torch.as_tensor(mask, dtype=torch.bool, device=device),
+            )
+            n_batches += 1
+    finally:
+        for h in handles:
+            h.remove()
+        for m in sinks:
+            m.calib_sink = None
+    if n_batches == 0:
+        raise ValueError("calibrate_scales needs at least one batch")
+    tree: Dict[str, Any] = {}
+    for (scope, key), v in absmax.items():
+        node = tree
+        for part in scope.split(".") if scope else ():
+            node = node.setdefault(part, {})
+        node[f"{key}_scale"] = _to_scale(float(v))
+    return tree
+
+
+def filter_scope(quant_tree: Dict[str, Any], scope: str) -> Dict[str, Any]:
+    """Restrict a quant tree: "full" keeps everything, "heads" keeps only
+    the DetectionHead towers (backbone and stem run in the compute dtype)."""
+    if scope == "full":
+        return quant_tree
+    if scope != "heads":
+        raise ValueError(f"unknown quantization scope: {scope!r}")
+
+    def prune(node, under_head):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                sub = prune(v, under_head or k.startswith("DetectionHead"))
+                if sub:
+                    out[k] = sub
+            elif under_head:
+                out[k] = v
+        return out
+
+    return prune(quant_tree, False)
+
+
+def _scale_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _scale_leaves(v, prefix + (k,))
+        else:
+            yield prefix, k, float(np.asarray(v, dtype=np.float32))
+
+
+@torch.no_grad()
+def quantize_model(
+    model: nn.Module, quant_tree: Mapping[str, Any], stem_int8: bool = False
+) -> nn.Module:
+    """Quantize ``model`` in place from ``quant_tree`` (JAX layout).
+
+    Every earlier quantization is dropped first, so calling it again with
+    another tree, scope or ``stem_int8`` re-quantizes from the fp weights.
+    A block runs int8 exactly when its scope carries an ``in_scale``; the
+    MetaKernel stem runs K4 when ``stem_int8`` and both of its scales are
+    present, else K1.
+    """
+    for m in model.modules():
+        if hasattr(m, "quantize"):
+            m.quantize(None)
+        if hasattr(m, "quantize_stem"):
+            m.quantize_stem(None, None)
+    stems: Dict[str, Dict[str, float]] = {}
+    for mods, leaf, value in _scale_leaves(quant_tree):
+        module = model.get_submodule(".".join(mods))
+        if leaf == "in_scale":
+            module.quantize(value)
+        elif leaf in ("stem_hh_scale", "stem_pf_scale"):
+            stems.setdefault(".".join(mods), {})[leaf] = value
+        else:
+            raise KeyError(f"quantize_model: unknown quant leaf {'/'.join(mods + (leaf,))}")
+    for name, s in stems.items():
+        if len(s) == 2:
+            model.get_submodule(name).quantize_stem(
+                s["stem_hh_scale"], s["stem_pf_scale"], use_kernel=stem_int8
+            )
+    return model
+
+
+def quant_tree_of(model: nn.Module) -> Dict[str, Any]:
+    """The quant tree (JAX layout, fp32 numpy leaves) a quantized model
+    holds: the inverse of :func:`quantize_model`."""
+    tree: Dict[str, Any] = {}
+    for name, m in model.named_modules():
+        for leaf, v in (m.quant_scales() if hasattr(m, "quant_scales") else {}).items():
+            node = tree
+            for part in name.split(".") if name else ():
+                node = node.setdefault(part, {})
+            node[leaf] = np.asarray(v, np.float32)
+    return tree

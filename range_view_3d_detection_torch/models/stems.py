@@ -2,25 +2,39 @@
 
 The eval MetaKernel goes through the fused stem kernel
 (``kernels/stem.py::meta_kernel_fused``, K1), whose plain twin is the
-JAX accumulate formulation with the Pallas kernel's rounding points. The
-stacked train path (batch-statistics BatchNorm over all neighbours) and
-``RangePartition`` are not ported yet; the BASIC stem is a
-:class:`~range_view_3d_detection_torch.models.blocks.BasicBlock`.
+JAX accumulate formulation with the Pallas kernel's rounding points.
+After ``quantize_stem`` it goes through the int8 kernel
+(``meta_kernel_fused_i8``, K4) instead; while the model is calibrated
+(``models/quantized.py::calibrate_scales``) it takes the accumulate path,
+which records the absmax of ``hh`` and ``p * feats``, as the JAX package
+does. The stacked train path (batch-statistics BatchNorm over all
+neighbours) and ``RangePartition`` are not ported yet; the BASIC stem is
+a :class:`~range_view_3d_detection_torch.models.blocks.BasicBlock`.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from range_view_3d_detection_torch.kernels.stem import meta_kernel_fused
+from range_view_3d_detection_torch.kernels.stem import (
+    meta_kernel_fused,
+    meta_kernel_fused_i8,
+)
 from range_view_3d_detection_torch.models.blocks import (
     BasicBlock,
     ConvNormAct,
     batch_norm,
 )
+from range_view_3d_detection_torch.models.quantized import (
+    INT8_MAX,
+    quantize_to_int8,
+    weight_scale_per_channel,
+)
 
 BN_EPS = 1e-5
+_I8_BUFFERS = ("i8_w1", "i8_k", "i8_a0", "i8_b0", "i8_a1", "i8_b1", "i8_kdq")
 
 
 class MetaKernel(nn.Module):
@@ -73,6 +87,85 @@ class MetaKernel(nn.Module):
             self.add_module(
                 f"fusion_{i}", ConvNormAct(C, C, (1, 1), dtype=dtype)
             )
+        # Int8 stem operands (quantize_stem), not part of the state_dict.
+        for name in _I8_BUFFERS:
+            self.register_buffer(name, None, persistent=False)
+        # While calibrating: callable(key, tensor) recording an absmax.
+        self.calib_sink = None
+        self.stem_scales: tuple[float, float] | None = None
+
+    def quant_scales(self) -> dict:
+        if self.stem_scales is None:
+            return {}
+        return dict(zip(("stem_hh_scale", "stem_pf_scale"), self.stem_scales))
+
+    @torch.no_grad()
+    def quantize_stem(
+        self, s_hh: float | None, s_pf: float | None, use_kernel: bool = True
+    ) -> None:
+        """Keep the calibrated ``hh`` and ``p * feats`` scales and, with
+        ``use_kernel``, run the stem through K4 (None: back to K1).
+
+        ``W1`` is quantized per output column and ``fusion1_kernel`` per
+        neighbour and output channel; the scales fold into the BN affines
+        in the JAX package's order of operations: ``a0/s_hh``, ``b0/s_hh``,
+        ``a1*(s_hh*w1_s)/s_pf``, ``b1/s_pf``, ``kdq = s_pf*k_s``.
+        """
+        for name in _I8_BUFFERS:
+            setattr(self, name, None)
+        self.stem_scales = None if s_hh is None or s_pf is None else (s_hh, s_pf)
+        if self.stem_scales is None or not use_kernel:
+            return
+        dev = self.fusion1_kernel.device
+        s_hh = torch.tensor(s_hh, dtype=torch.float32, device=dev)
+        s_pf = torch.tensor(s_pf, dtype=torch.float32, device=dev)
+        w1 = self.pos_1_conv_kernel.detach().float()
+        w1_s = weight_scale_per_channel(w1, out_dim=1)
+        w1_i8 = quantize_to_int8(w1, w1_s)
+        kf = self.fusion1_kernel.detach().float()
+        k_s = torch.clamp(kf.abs().amax(dim=1) / INT8_MAX, min=1e-12)  # (9, C)
+        k_i8 = quantize_to_int8(kf, k_s[:, None, :])
+        a0, b0 = self.bn_eval_affine(0)
+        a1, b1 = self.bn_eval_affine(1)
+        # Transposed views of [n][k] memory: the kernel's operand layout.
+        self.i8_w1 = w1_i8.t().contiguous().t()
+        self.i8_k = k_i8.transpose(1, 2).contiguous().transpose(1, 2)
+        self.i8_a0 = a0 / s_hh
+        self.i8_b0 = b0 / s_hh
+        self.i8_a1 = a1 * (s_hh * w1_s) / s_pf
+        self.i8_b1 = b1 / s_pf
+        self.i8_kdq = s_pf * k_s
+
+    def _pos_bn(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Eval BN_i in the JAX accumulate path's form, fp32."""
+        scale = getattr(self, f"pos_{i}_bn_scale")
+        bias = getattr(self, f"pos_{i}_bn_bias")
+        mean = getattr(self, f"pos_{i}_bn_mean")
+        var = getattr(self, f"pos_{i}_bn_var")
+        return (x.float() - mean) * torch.rsqrt(var + BN_EPS) * scale + bias
+
+    def _accumulate(self, g: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+        """The JAX eval accumulate path (``stems.py:353-395``), recording
+        ``stem_hh`` and ``stem_pf`` absmaxes into ``calib_sink``.
+        Returns ``geo`` (B, H, W, C) in the compute dtype."""
+        dt = self.dtype
+        H, W = g.shape[1:3]
+        gp = F.pad(g, (0, 0, 1, 1, 1, 1))
+        fp = F.pad(feats, (0, 0, 1, 1, 1, 1))
+        w1 = self.pos_1_conv_kernel.to(dt)
+        kernel = self.fusion1_kernel.to(dt)
+        geo = None
+        for dy in range(3):
+            for dx in range(3):
+                x0 = gp[:, dy : dy + H, dx : dx + W] - g
+                hh = torch.relu(self._pos_bn(x0, 0).to(dt))
+                pos = torch.relu(self._pos_bn(hh @ w1, 1).to(dt))
+                pf = pos * fp[:, dy : dy + H, dx : dx + W]
+                self.calib_sink("stem_hh", hh)
+                self.calib_sink("stem_pf", pf)
+                term = pf @ kernel[3 * dy + dx]
+                geo = term if geo is None else geo + term
+        return geo
 
     def bn_eval_affine(self, i: int):
         """(a, b) fp32 with eval BN_i(x) == a * x + b."""
@@ -93,16 +186,25 @@ class MetaKernel(nn.Module):
         feats = self.BasicBlock_0(features).permute(0, 2, 3, 1)  # NHWC
         # conv0 is linear and bias-free: pos0(rel_n) = shift_n(g) - g.
         g = cart.to(dt) @ self.pos_0_conv_kernel.to(dt)
-        a0, b0 = self.bn_eval_affine(0)
-        a1, b1 = self.bn_eval_affine(1)
-        geo = meta_kernel_fused(
-            g,
-            feats,
-            self.pos_1_conv_kernel.to(dt),
-            self.fusion1_kernel.to(dt),
-            a0, b0, a1, b1,
-        ).permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        geo = torch.relu(self.fusion1_bn(geo).to(dt))
+        if self.calib_sink is not None:
+            geo = self._accumulate(g, feats)
+        elif self.i8_w1 is not None:
+            geo = meta_kernel_fused_i8(
+                g, feats, self.i8_w1, self.i8_k, self.i8_a0, self.i8_b0,
+                self.i8_a1, self.i8_b1, self.i8_kdq,
+            )
+        else:
+            a0, b0 = self.bn_eval_affine(0)
+            a1, b1 = self.bn_eval_affine(1)
+            geo = meta_kernel_fused(
+                g,
+                feats,
+                self.pos_1_conv_kernel.to(dt),
+                self.fusion1_kernel.to(dt),
+                a0, b0, a1, b1,
+            )
+        geo = geo.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        geo = torch.relu(self.fusion1_bn(geo.float()).to(dt))
         for i in range(1, self.num_layers):
             geo = getattr(self, f"fusion_{i}")(geo)
         return geo

@@ -1,5 +1,6 @@
 """Serving entry point: the flagship configuration, sample inputs, and a
-``Predictor`` that answers requests with forward -> decode -> NMS.
+``Predictor`` that answers requests with forward -> decode -> NMS, in the
+compute dtype or, after ``Predictor.quantize``, on the int8 PTQ path.
 
 ``_flagship_config`` and ``_sample_inputs`` are the port's own copies of
 the JAX package's ``__graft_entry__.py`` helpers (numpy only).
@@ -7,13 +8,19 @@ the JAX package's ``__graft_entry__.py`` helpers (numpy only).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
 from range_view_3d_detection_torch.models.detector import Detector, DetectorConfig
+from range_view_3d_detection_torch.models.quantized import (
+    calibrate_scales,
+    filter_scope,
+    fold_batch_norms,
+    quantize_model,
+)
 from range_view_3d_detection_torch.ops.nms import NMSResult
 
 
@@ -94,6 +101,37 @@ class Predictor:
         self.cfg = cfg
         self.decoder_cfg = decoder_cfg
         self.model = Detector(cfg, device=self.device, generator=generator)
+        self.quant_tree: Mapping[str, Any] | None = None
+        self.bn_folded = False
+
+    def quantize(
+        self,
+        batches: Iterable[Tuple[Any, Any, Any]] | None = None,
+        *,
+        scope: str = "full",
+        stem_int8: bool = False,
+        quant_tree: Mapping[str, Any] | None = None,
+    ) -> "Predictor":
+        """Turn this predictor into the int8 PTQ predictor, in place.
+
+        The pipeline of the JAX package's serving point: fold the
+        BatchNorm statistics into their affines (once), calibrate the activation
+        scales on ``batches`` of ``(feats, cart, mask)`` (or take
+        ``quant_tree``, e.g. a JAX ``quant`` collection as numpy), keep
+        ``scope`` ("full" or "heads"), and quantize; the stem runs the
+        int8 kernel only with ``stem_int8``. Returns ``self``.
+        """
+        if (batches is None) == (quant_tree is None):
+            raise ValueError("Predictor.quantize: pass batches or quant_tree")
+        if not self.bn_folded:
+            fold_batch_norms(self.model)
+            self.bn_folded = True
+        with torch.inference_mode():
+            if quant_tree is None:
+                quant_tree = calibrate_scales(self.model, batches)
+        self.quant_tree = filter_scope(quant_tree, scope)
+        quantize_model(self.model, self.quant_tree, stem_int8=stem_int8)
+        return self
 
     def __call__(self, feats, cart, mask) -> NMSResult:
         with torch.inference_mode():

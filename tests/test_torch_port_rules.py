@@ -6,7 +6,8 @@
   ``Predictor`` with its default device and ``python chip_smoke.py`` fail
   loudly instead of running on the CPU.
 - The flax -> torch transplant round-trips every leaf of the tiny
-  config's variables, and loads strictly into the port's Detector.
+  config's variables, and loads strictly into the port's Detector; a JAX
+  quant tree round-trips through the scales of the quantized port model.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ def _port_modules():
 def test_port_imports_without_jax():
     modules = _port_modules()
     assert "range_view_3d_detection_torch.kernels.stem" in modules
+    assert "range_view_3d_detection_torch.kernels.conv" in modules
+    assert "range_view_3d_detection_torch.models.quantized" in modules
     code = "\n".join(
         [
             "import importlib, sys",
@@ -108,3 +111,34 @@ def test_transplant_round_trips_tiny_tree():
         assert len(want_leaves) == len(got_leaves)
         for path, leaf in want_leaves:
             np.testing.assert_array_equal(got_leaves[path], leaf, err_msg=str(path))
+
+
+def test_jax_quant_tree_round_trips_through_the_port():
+    from range_view_3d_detection_torch.models.quantized import (
+        fold_batch_norms,
+        quant_tree_of,
+        quantize_model,
+    )
+    from range_view_3d_detection_tpu.models.quantized import calibrate_scales
+    from tools.export import fold_batch_norms as jax_fold
+
+    cfg = graft._flagship_config(tiny=True)
+    batch = serving._sample_inputs(1, 4, 32, cfg.in_channels)
+    jx = Detector(cfg)
+    v = jx.init(jax.random.PRNGKey(0), *batch, train=False)
+    params, stats = randomize_bn(v["params"], v["batch_stats"], seed=1)
+    folded = jax_fold({"params": params, "batch_stats": stats})
+    qtree = calibrate_scales(jx, folded, [batch])
+
+    model = serving.Predictor(serving._flagship_config(tiny=True), device="cpu").model
+    model.load_state_dict(flax_to_state_dict(params, stats), strict=True)
+    fold_batch_norms(model)
+    keys = set(model.state_dict())
+    quantize_model(model, qtree)
+    assert set(model.state_dict()) == keys  # int8 operands are not state
+    want = dict(jax.tree_util.tree_leaves_with_path(numpy_tree(qtree)))
+    got = dict(jax.tree_util.tree_leaves_with_path(quant_tree_of(model)))
+    assert sorted(map(str, got)) == sorted(map(str, want))
+    for path, leaf in want.items():
+        assert got[path].dtype == np.float32
+        np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
