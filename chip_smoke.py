@@ -23,17 +23,27 @@ Phases, each of which raises (non-zero exit) on failure:
    decode + NMS device times, and a torch.profiler table of one request's
    device time by kernel;
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
-   1 and 2, bf16 and fp32 output: ``torch.equal`` (integer work is exact);
+   1 and 2, bf16 and fp32 output, in both operand forms
+   (int8, and bf16/fp32 activations with ``in_scale`` on rounding ties and
+   beyond the clamp): ``torch.equal`` (integer work is exact); and the
+   fused quantizer alone against ``quantize_to_int8`` on every finite
+   bf16 value and on fp32 values around every rounding boundary, at
+   scales inside and outside the range of its Markstein division;
 8. int8 path: the phase-5 model is folded, calibrated on request 0 and
    quantized (full scope, ``Predictor.quantize``); one request captures
-   every K3 launch's inputs, then 4 requests must launch K1, K2 and K3 and
-   not K4, give finite outputs with detections kept, and the NMS must
-   equal the plain scan; the head outputs' relative RMS to the bf16 path
-   and the kept-box agreement are printed (not gated);
-9. K3 against its twin on every distinct shape that request launched,
-   bf16 and fp32 output: ``torch.equal``; each shape's time, launches per
-   request and bound, their sums over a request, and a bf16 cuDNN conv at
-   the tower shape for context;
+   every K3 launch's inputs (each must be the unquantized, NHWC-contiguous
+   activation with its ``in_scale``), then 4 requests must launch K1, K2
+   and K3 and not K4, give finite outputs with detections kept, and the
+   NMS must equal the plain scan; the head outputs' relative RMS to the
+   bf16 path and the kept-box agreement are printed (not gated);
+9. K3 against its twin on every distinct shape that request launched, in
+   both operand forms, bf16 and fp32 output: ``torch.equal``; each shape's
+   time (CUDA events around eager launches, as every kernel is timed, and
+   device time by CUDA-graph replay beside it), launches per request,
+   bound (2 bytes per bf16 input element) and share of bound, their sums
+   over a request, a bf16 cuDNN conv at the
+   tower shape for context, and how many ``div``/``round``/``clamp``/
+   ``copy_`` ops one request runs on each path;
 10. the int8 path with ``stem_int8=True``: K4 must launch and K1 not; K4
    against its twin on the captured flagship inputs and at (1, 3, 37,
    256): max|diff| <= 1e-4 * max|ref|; K4's time, bound and twin's time;
@@ -87,6 +97,37 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in a
+    CUDA graph and replayed (no host launch gaps), median of 3 replays."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, reps=3, warmup=1) / calls
+    del graph
+    return ms
+
+
+def count_ops(predictor, request, names) -> dict:
+    """How many times each ATen op in ``names`` ran in one request."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        predictor(*request)
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.key in counts:
+            counts[e.key] += e.count
+    return counts
 
 
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
@@ -220,12 +261,16 @@ def profile_request(predictor, request) -> None:
         f"({100 * busy_ms / wall_ms:.1f}%)")
 
 
-def k3_shape_cost(key, B, H):
-    """(operations, bytes) of one K3 launch at (Cin, Cout, W, stride)."""
+def k3_shape_cost(key, B, H, in_bytes=1, out_bytes=2):
+    """(operations, bytes) of one K3 launch at (Cin, Cout, W, stride): the
+    input read once at ``in_bytes`` an element (2 for the bf16 activation
+    that the fused form quantizes, 1 for int8), weights, dq and the scale,
+    and the output written once."""
     cin, cout, W, stride = key
     wo = (W - 1) // stride + 1
     ops = 2 * B * H * wo * 9 * cin * cout
-    nbytes = B * H * W * cin + 9 * cin * cout + 4 * cout + 2 * B * H * wo * cout
+    nbytes = (in_bytes * B * H * W * cin + 9 * cin * cout + 4 * cout + 4
+              + out_bytes * B * H * wo * cout)
     return ops, nbytes
 
 
@@ -240,6 +285,7 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     from range_view_3d_detection_torch.kernels.conv import (
         conv3x3_i8_fused,
         conv3x3_i8_fused_plain,
+        quantize_to_int8,
     )
     from range_view_3d_detection_torch.kernels.nms import nms_scan
     from range_view_3d_detection_torch.kernels.stem import (
@@ -252,39 +298,99 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     def rand_i8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device)
 
-    def k3_equal(x, w, dq, stride, tag) -> float:
+    def k3_equal(x, w, dq, stride, tag, in_scale=None) -> float:
+        """K3 == its twin (torch.equal) in bf16 and fp32 output."""
         err = 0.0
         for dt in (torch.bfloat16, torch.float32):
-            got = conv3x3_i8_fused(x, w, dq, stride_w=stride, out_dtype=dt)
-            want = conv3x3_i8_fused_plain(x, w, dq, stride_w=stride, out_dtype=dt)
+            kw = dict(stride_w=stride, out_dtype=dt, in_scale=in_scale)
+            got = conv3x3_i8_fused(x, w, dq, **kw)
+            want = conv3x3_i8_fused_plain(x, w, dq, **kw)
             torch.cuda.synchronize()
             n_diff = int((got != want).sum())
             check(torch.equal(got, want), f"K3 {tag} {dt}: {n_diff} elements differ")
             err = max(err, (got.float() - want.float()).abs().max().item())
-        say(f"K3 {tag}: bf16 and fp32 outputs equal to the twin")
+        form = "int8" if in_scale is None else f"{x.dtype} + in_scale"
+        say(f"K3 {tag} ({form}): bf16 and fp32 outputs equal to the twin")
         return err
 
-    # 7. K3 against its twin at small odd shapes.
-    for shape, cout, stride in (((1, 5, 33, 32), 32, 1), ((1, 6, 18, 32), 32, 2)):
+    # 7. K3 against its twin at small odd shapes, in both operand forms: odd
+    # H (4 rows a block), W below and above the 64-pixel tile, Cin 32/64,
+    # Cout 16/32/48 (one ragged 128-channel tile) and 256/512 (several);
+    # activations on the .5 rounding boundaries (scale 2^-6) and beyond
+    # +-127.5 scales (clamp).
+    for shape, cout, stride in (((1, 5, 33, 32), 32, 1), ((1, 6, 18, 32), 32, 2),
+                                ((2, 7, 37, 64), 48, 1), ((1, 5, 131, 32), 16, 2),
+                                ((1, 3, 70, 64), 48, 1), ((1, 5, 70, 32), 512, 1),
+                                ((2, 3, 37, 64), 256, 2)):
         dq = torch.rand(cout, generator=gen).to(device) * 1e-3 + 1e-4
-        k3_equal(rand_i8(*shape), rand_i8(9, shape[-1], cout), dq, stride,
-                 f"{shape}->{cout} stride {stride}")
+        w = rand_i8(9, shape[-1], cout)
+        tag = f"{shape}->{cout} stride {stride}"
+        k3_equal(rand_i8(*shape), w, dq, stride, tag)
+        ties = torch.randint(-300, 301, shape, generator=gen).float() / 2 / 64
+        for dt in (torch.bfloat16, torch.float32):
+            k3_equal(ties.to(device, dt), w, dq, stride, tag + " ties/clamp",
+                     in_scale=torch.tensor(2.0**-6, device=device))
+            xr = torch.randn(shape, generator=gen) * 0.9
+            k3_equal(xr.to(device, dt), w, dq, stride, tag + " randn",
+                     in_scale=torch.tensor(0.0173, device=device))
+    # The fused quantizer alone (centre tap = identity, dq = 1, fp32 out)
+    # equals quantize_to_int8 on every finite bf16 value and on fp32 values
+    # within 3 ulps of every half-integer multiple of the scale.
+    eye = torch.zeros(9, 32, 32, dtype=torch.int8)
+    eye[4] = torch.eye(32, dtype=torch.int8)
+    eye, ones = eye.to(device), torch.ones(32, device=device)
+    bits = torch.arange(65536, dtype=torch.int32)
+    all_bf16 = bits[((bits >> 7) & 0xFF) != 0xFF].to(torch.int16).view(torch.bfloat16)
+    # 2^-70 and 2^70 lie outside the Markstein division's range and take
+    # the kernel's div.rn path.
+    n_checked = 0
+    scales = (2.0**-6, 0.0173, 1 / 3, 3.7, 123.456, 2.0**-70, 2.0**70)
+    for sc in scales:
+        base = ((torch.randint(-130, 130, (100000,), generator=gen).double() + 0.5)
+                * sc).float()
+        near = [base]
+        for step in (float("inf"), float("-inf")):
+            v = base
+            for _ in range(3):
+                v = torch.nextafter(v, torch.tensor(step))
+                near.append(v)
+        for vals in (all_bf16, torch.cat(near)):
+            vals = vals[: vals.numel() // 32 * 32].reshape(1, 1, -1, 32).to(device)
+            scale = torch.tensor(sc, device=device)
+            got = conv3x3_i8_fused(vals, eye, ones, out_dtype=torch.float32,
+                                   in_scale=scale)
+            want = quantize_to_int8(vals, scale).float()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"K3 quantizer s={sc} {vals.dtype}: "
+                  f"{int((got != want).sum())} values differ")
+            n_checked += vals.numel()
+    say(f"K3 fused quantizer: {n_checked} values (every finite bf16, fp32 near "
+        f"every rounding boundary) at {len(scales)} scales equal quantize_to_int8")
 
     # 8. The int8 path: fold, calibrate on request 0, quantize (full scope).
     model = predictor.model
+    op_names = ("aten::div", "aten::round", "aten::clamp", "aten::copy_")
+    bf16_ops = count_ops(predictor, requests[1], op_names)
     t0 = time.perf_counter()
     predictor.quantize([requests[0]], scope="full")
     torch.cuda.synchronize()
     say(f"int8: folded, calibrated on request 0 and quantized "
         f"in {time.perf_counter() - t0:.1f} s")
     captured = {}
+    k3_in = dict(launches=0, unquantized=0, nhwc_contiguous=0)
 
-    def capturing(x, w, dq, *, stride_w=1, out_dtype=torch.bfloat16):
+    def capturing(x, w, dq, *, stride_w=1, out_dtype=torch.bfloat16, in_scale=None):
         key = (x.shape[-1], w.shape[-1], x.shape[2], stride_w)
         entry = captured.setdefault(key, dict(
-            inputs=(x.clone(), w, dq.clone()), out_dtype=out_dtype, per_request=0))
+            inputs=(x.clone(), w, dq.clone(), in_scale), out_dtype=out_dtype,
+            per_request=0))
         entry["per_request"] += 1
-        return conv3x3_i8_fused(x, w, dq, stride_w=stride_w, out_dtype=out_dtype)
+        k3_in["launches"] += 1
+        k3_in["unquantized"] += int(in_scale is not None and x.dtype != torch.int8)
+        k3_in["nhwc_contiguous"] += int(x.is_contiguous())
+        return conv3x3_i8_fused(x, w, dq, stride_w=stride_w, out_dtype=out_dtype,
+                                in_scale=in_scale)
 
     blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = capturing
     try:
@@ -292,6 +398,12 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     finally:
         blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = conv3x3_i8_fused
     torch.cuda.synchronize()
+    dtypes = sorted({str(e["inputs"][0].dtype) for e in captured.values()})
+    say(f"K3 inputs of one int8 request: {k3_in['launches']} launches, "
+        f"{k3_in['unquantized']} given the unquantized activation ({', '.join(dtypes)}) "
+        f"and in_scale, {k3_in['nhwc_contiguous']} NHWC-contiguous (no copy)")
+    check(k3_in["unquantized"] == k3_in["launches"] == k3_in["nhwc_contiguous"],
+          f"a K3 input was quantized or copied before the launch: {k3_in}")
 
     def serve(tag):
         for fn in (meta_kernel_fused, meta_kernel_fused_i8, nms_scan, conv3x3_i8_fused):
@@ -324,33 +436,52 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     check(k3_launches == per_request * len(requests),
           f"K3 launches {k3_launches} != {per_request} per request x {len(requests)}")
 
-    # 9. K3 against its twin on every distinct shape of the request; timings.
+    # 9. K3 against its twin on every distinct shape of the request, in both
+    # operand forms; times (CUDA events around eager launches, as for the
+    # other kernels, and CUDA-graph replay beside them), bounds, shares.
     B, H = requests[0][0].shape[:2]
-    sums = dict(ms=0.0, plain=0.0, ops_ms=0.0, bytes_ms=0.0, bound=0.0)
+    sums = dict(eager=0.0, graph=0.0, i8=0.0, plain=0.0, ops_ms=0.0, bytes_ms=0.0,
+                bound=0.0)
     k3_err = 0.0
     for key in sorted(captured):
         e = captured[key]
-        x, w, dq = e["inputs"]
+        x, w, dq, s_in = e["inputs"]
         cin, cout, W, stride = key
-        k3_err = max(k3_err, k3_equal(
-            x, w, dq, stride, f"Cin {cin} Cout {cout} W {W} stride {stride}"))
+        tag = f"Cin {cin} Cout {cout} W {W} stride {stride}"
+        xq = quantize_to_int8(x, s_in)
+        k3_err = max(k3_err, k3_equal(x, w, dq, stride, tag, in_scale=s_in),
+                     k3_equal(xq, w, dq, stride, tag))
         run = dict(stride_w=stride, out_dtype=e["out_dtype"])
-        ms = cuda_ms(lambda: conv3x3_i8_fused(x, w, dq, **run), reps=10)
-        plain = cuda_ms(lambda: conv3x3_i8_fused_plain(x, w, dq, **run), reps=2, warmup=1)
-        ops, nbytes = k3_shape_cost(key, B, H)
+        fused = dict(run, in_scale=s_in)
+        eager = cuda_ms(lambda: conv3x3_i8_fused(x, w, dq, **fused), reps=10)
+        graph = graph_ms(lambda: conv3x3_i8_fused(x, w, dq, **fused))
+        i8_ms = graph_ms(lambda: conv3x3_i8_fused(xq, w, dq, **run))
+        plain = cuda_ms(lambda: conv3x3_i8_fused_plain(x, w, dq, **fused), reps=2, warmup=1)
+        out_bytes = 2 if e["out_dtype"] == torch.bfloat16 else 4
+        ops, nbytes = k3_shape_cost(key, B, H, x.element_size(), out_bytes)
         bound, by = bound_ms(ops, H100_INT8_OPS, nbytes)
+        i8_bound = bound_ms(ops, H100_INT8_OPS,
+                            k3_shape_cost(key, B, H, 1, out_bytes)[1])[0]
         n = e["per_request"]
-        sums["ms"] += n * ms
+        sums["eager"] += n * eager
+        sums["graph"] += n * graph
+        sums["i8"] += n * i8_ms
         sums["plain"] += n * plain
         sums["bound"] += n * bound
         sums["ops_ms"] += n * ops / H100_INT8_OPS * 1e3
         sums["bytes_ms"] += n * nbytes / H100_BYTES_PER_S * 1e3
-        say(f"K3 Cin {cin} Cout {cout} W {W} stride {stride}: {n} launches/request, "
-            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms ({by}), "
-            f"{ops / ms / 1e9:.1f} TOP/s ({100 * bound / ms:.1f}% of bound) on {smi}")
+        say(f"K3 {tag}: {n} launches/request; {x.dtype} + in_scale: kernel "
+            f"{eager:.4f} ms eager ({100 * bound / eager:.1f}% of bound), "
+            f"{graph:.4f} ms graph replay ({100 * bound / graph:.1f}%, "
+            f"{ops / graph / 1e9:.1f} TOP/s), bound {bound:.4f} ms ({by}); int8 form "
+            f"{i8_ms:.4f} ms graph replay ({100 * i8_bound / i8_ms:.1f}% of its "
+            f"bound); plain {plain:.3f} ms on {smi}")
     k3_by = "operations" if sums["ops_ms"] >= sums["bytes_ms"] else "bytes"
-    say(f"K3 per request: {per_request} launches, kernel {sums['ms']:.3f} ms, "
-        f"plain {sums['plain']:.3f} ms, bound {sums['bound']:.3f} ms ({k3_by}) on {smi}")
+    say(f"K3 per request: {per_request} launches, kernel {sums['eager']:.3f} ms eager "
+        f"({100 * sums['bound'] / sums['eager']:.1f}% of bound), {sums['graph']:.3f} ms "
+        f"graph replay ({100 * sums['bound'] / sums['graph']:.1f}%; int8 form "
+        f"{sums['i8']:.3f}), plain {sums['plain']:.3f} ms, bound {sums['bound']:.3f} ms "
+        f"({k3_by}) on {smi}")
     # Context: a bf16 conv (cuDNN) at the costliest shape, the head towers.
     top = max(captured, key=lambda k: k3_shape_cost(k, B, H)[0])
     cin, cout, W, stride = top
@@ -366,6 +497,13 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     del xc, wc, captured
     with torch.inference_mode():
         profile_request(predictor, requests[1])
+    int8_ops = count_ops(predictor, requests[1], op_names)
+    n_1x1 = sum(isinstance(m, quantized.Int8Conv) and m.route == "matmul"
+                for m in model.modules())
+    say("ops in one request, bf16 path -> int8 path (K1 stem): "
+        + ", ".join(f"{k} {bf16_ops[k]} -> {int8_ops[k]}" for k in op_names)
+        + f"; the int8 path's 1x1 convs quantize in torch ops ({n_1x1} of them), "
+        f"K3's {per_request} launches quantize in the kernel")
 
     # 10. The int8 path with the int8 stem (K4).
     predictor.quantize(quant_tree=predictor.quant_tree, stem_int8=True)
@@ -420,8 +558,8 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
             "source": "range_view_3d_detection_torch/csrc/conv3x3_i8.cu",
             "replaces": "range_view_3d_detection_tpu/kernels/conv_pallas.py:150",
             "launches": k3_launches, "max_abs_err": k3_err,
-            "ms": sums["ms"], "plain_ms": sums["plain"], "bound_ms": sums["bound"],
-            "bound_by": k3_by, "library_ms": None,
+            "ms": sums["eager"], "graph_ms": sums["graph"], "plain_ms": sums["plain"],
+            "bound_ms": sums["bound"], "bound_by": k3_by, "library_ms": None,
         },
         {
             "name": "meta_kernel_fused_i8", "route": "cuda",

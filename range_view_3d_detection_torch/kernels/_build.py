@@ -26,6 +26,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+# K3 encodes its TMA tensor map with cuTensorMapEncodeTiled, from libcuda.
+LINK_LIBS = ("-lcuda",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,8 +39,9 @@ SIGNATURES = {
     # iou, scores, valid, payload, keep, merged, B, cap, P, iou_thr,
     # merge_thr, stream
     "rv3d_nms_scan": [_P] * 6 + [_I] * 3 + [_F, _F, _P],
-    # x, wt, dq, out, B, H, W, Cin, Cout, stride, out_bf16, stream
-    "rv3d_conv3x3_i8": [_P] * 4 + [_I] * 7 + [_P],
+    # x, wt, dq, in_scale, out, B, H, W, Cin, Cout, stride, in_kind,
+    # out_bf16, stream
+    "rv3d_conv3x3_i8": [_P] * 5 + [_I] * 8 + [_P],
     # g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream
     "rv3d_meta_kernel_fused_i8": [_P] * 10 + [_I] * 4 + [_P],
 }
@@ -76,7 +79,7 @@ def library() -> ctypes.CDLL:
     digest = hashlib.sha256()
     for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode() + src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"librv3d_kernels_{tag}.so"
     build_seconds = 0.0
@@ -96,7 +99,7 @@ def library() -> ctypes.CDLL:
         ptxas_log = "".join(logs)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         _run_all(
-            [[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)]]
+            [[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), *LINK_LIBS, "-o", str(tmp)]]
         )
         os.replace(tmp, lib_path)
         build_seconds = time.perf_counter() - t0

@@ -147,7 +147,8 @@ class TorchConvTranspose(nn.ConvTranspose2d):
 
     Int8 (after ``quantize``): the int8 weights are merged into the phase
     decomposition's stride-1 3x3 kernel with ``sw * co`` outputs, which
-    the int8 conv kernel (K3) runs; its output ``(B, H, W, sw*co)``
+    the int8 conv kernel (K3) runs on the activation and ``in_scale``,
+    quantizing as it stages the input; its output ``(B, H, W, sw*co)``
     interleaves into ``(B, H, W*sw, co)`` as a view. Integer sums are
     exact, so the result equals the JAX package's ``lhs_dilation``
     lowering. Every aggregation node's shape qualifies (height stride 1,
@@ -213,9 +214,10 @@ class TorchConvTranspose(nn.ConvTranspose2d):
             return F.conv_transpose2d(
                 x.to(dt), self.weight.to(dt), None, self.stride, self.padding
             )
-        xq = quantize_to_int8(x.to(dt), self.int8_scale).permute(0, 2, 3, 1)
+        # K3 quantizes the NHWC view of the activation as it stages it.
         y = conv3x3_i8_fused(
-            xq.contiguous(), self.int8_taps, self.int8_dq, stride_w=1, out_dtype=dt
+            x.to(dt).permute(0, 2, 3, 1), self.int8_taps, self.int8_dq,
+            stride_w=1, out_dtype=dt, in_scale=self.int8_scale,
         )
         B, H, W, sco = y.shape
         sw = self.stride[1]

@@ -20,9 +20,12 @@ unchanged. Weights are quantized once, in :func:`quantize_model`, into
 non-persistent buffers: the ``state_dict`` keeps its fp layout.
 
 Routing is by shape only: a 3x3 conv with height stride 1 and width
-stride 1 or 2 runs the int8 conv kernel (K3, ``kernels/conv.py``); a 1x1
-conv is a plain int8 matrix product (``torch._int_mm`` on the card, an
-exact fp64 product on the CPU), as the JAX package leaves it to XLA.
+stride 1 or 2 runs the int8 conv kernel (K3, ``kernels/conv.py``), which
+takes the activation and ``in_scale`` and quantizes while it stages the
+input (``quantize_to_int8``, the JAX package's formula); a 1x1 conv
+quantizes in torch ops and is a plain int8 matrix product
+(``torch._int_mm`` on the card, an exact fp64 product on the CPU), as the
+JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -34,9 +37,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+from range_view_3d_detection_torch.kernels.conv import (
+    INT8_MAX,
+    conv3x3_i8_fused,
+    quantize_to_int8,
+)
 
-INT8_MAX = 127.0
 BN_EPS = 1e-5  # flax BatchNorm epsilon, used across the model
 
 
@@ -46,14 +52,6 @@ def weight_scale_per_channel(w: torch.Tensor, out_dim: int = 0) -> torch.Tensor:
     w = w.float()
     dims = tuple(d for d in range(w.dim()) if d != out_dim)
     return torch.clamp(w.abs().amax(dim=dims) / INT8_MAX, min=1e-12)
-
-
-def quantize_to_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``clip(round(x / scale), ±127)`` as int8 (round half to even; a
-    division, not a product by the reciprocal, as in the JAX package)."""
-    return torch.clamp(torch.round(x.float() / scale), -INT8_MAX, INT8_MAX).to(
-        torch.int8
-    )
 
 
 def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
@@ -120,13 +118,14 @@ class Int8Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` NCHW (channels_last memory) -> NCHW in ``dtype``."""
-        xq = quantize_to_int8(x, self.in_scale).permute(0, 2, 3, 1)  # NHWC
         if self.route == "k3":
+            # K3 quantizes the NHWC view as it stages it: no int8 copy.
             y = conv3x3_i8_fused(
-                xq.contiguous(), self.w_taps, self.dq, stride_w=self.stride[1],
-                out_dtype=self.dtype,
+                x.permute(0, 2, 3, 1), self.w_taps, self.dq,
+                stride_w=self.stride[1], out_dtype=self.dtype, in_scale=self.in_scale,
             )
             return y.permute(0, 3, 1, 2)
+        xq = quantize_to_int8(x, self.in_scale).permute(0, 2, 3, 1)  # NHWC
         sh, sw = self.stride
         xq = xq[:, ::sh, ::sw]
         B, H, W, cin = xq.shape

@@ -13,6 +13,15 @@
 - The port's int8 ``TorchConvTranspose`` (phase-merged, through the K3
   twin) against the JAX default ``lhs_dilation`` lowering, both
   aggregation node shapes: equal in fp32.
+- K3's second operand form (the bf16/fp32 activation and ``in_scale``,
+  quantized by the kernel as it stages its input) against
+  ``quantize_to_int8`` + the int8 form and against the JAX ``Int8Conv``
+  formula fed to the Pallas kernel (interpret mode) or the lax reference:
+  equal, on values on the .5 rounding boundaries (half to even) and past
+  +-127.5 scales (clamp), stride 1 and 2, odd W and H.
+- The int8 ``ConvNormAct`` (K3 route) and ``TorchConvTranspose`` hand K3
+  the unquantized NHWC activation and ``in_scale``, and quantize it in
+  torch ops no more (the 1x1 route still does).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 
 from range_view_3d_detection_torch.kernels import conv as tconv
 from range_view_3d_detection_torch.models import blocks as tb
+from range_view_3d_detection_torch.models import quantized as tq
 from range_view_3d_detection_torch.transplant import load_flax_variables
 from range_view_3d_detection_tpu.kernels.conv_pallas import conv3x3_i8_fused
 from range_view_3d_detection_tpu.models import blocks as jb
@@ -168,3 +178,112 @@ def test_int8_deconv_refuses_other_shapes():
     tx = tb.TorchConvTranspose(6, 5, (3, 3), (1, 2), (1, 1))
     with pytest.raises(NotImplementedError):
         tx.quantize(0.1)
+
+
+# (shape, cout, stride_w): odd W and H, stride 2 at even and odd W.
+FUSED_CASES = [
+    ((1, 5, 33, 32), 24, 1),
+    ((2, 4, 18, 32), 16, 2),
+    ((1, 3, 21, 64), 32, 2),
+]
+
+
+def _activation(kind, shape, dtype, rng):
+    """(x as numpy fp32 holding ``dtype`` values, in_scale)."""
+    if kind == "ties":
+        # Multiples of s/2 for s = 2^-6: every other value is a .5 tie of
+        # x / s, and |x / s| reaches 150 (clamped to 127).
+        s = np.float32(2.0**-6)
+        x = rng.integers(-300, 301, size=shape).astype(np.float32) * (s / 2)
+    else:
+        x = rng.normal(size=shape).astype(np.float32) * 3
+        s = np.float32(np.abs(x).max() / 127.0 * 0.8)  # the top 20% clamps
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16).astype(np.float32)
+    return x, s
+
+
+@pytest.mark.parametrize("kind", ["ties", "randn"])
+@pytest.mark.parametrize("in_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,cout,stride_w", FUSED_CASES)
+def test_k3_in_scale_form_matches_quantize_and_jax(shape, cout, stride_w, in_dtype, kind):
+    rng = np.random.default_rng(5)
+    B, H, W, Cin = shape
+    x, s = _activation(kind, shape, in_dtype, rng)
+    w = rng.integers(-127, 128, size=(3, 3, Cin, cout), dtype=np.int8)
+    dq = rng.uniform(1e-3, 2e-2, size=(cout,)).astype(np.float32)
+    out_dtype = "float32" if kind == "ties" else "bfloat16"
+    tdt = getattr(torch, out_dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, in_dtype))
+    tw, tdq = torch.from_numpy(w.reshape(9, Cin, cout)), torch.from_numpy(dq)
+    launches = tconv.conv3x3_i8_fused.launches
+    got = tconv.conv3x3_i8_fused(
+        tx, tw, tdq, stride_w=stride_w, out_dtype=tdt, in_scale=torch.tensor(s)
+    )
+    assert tconv.conv3x3_i8_fused.launches == launches  # CPU: the twin
+    assert got.dtype == tdt
+    xq = tconv.quantize_to_int8(tx, torch.tensor(s))
+    want = tconv.conv3x3_i8_fused(xq, tw, tdq, stride_w=stride_w, out_dtype=tdt)
+    assert torch.equal(got, want)
+    # The JAX Int8Conv formula, then its Pallas kernel (interpret) or lax.
+    jdt = jnp.dtype(out_dtype)
+    jx = jnp.asarray(x).astype(jnp.dtype(in_dtype))
+    jxq = jnp.clip(jnp.round(jx.astype(jnp.float32) / s), -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
+    if stride_w == 1 or W % 2 == 0:
+        ref = conv3x3_i8_fused(
+            jxq, jnp.asarray(w).reshape(9, Cin, cout), jnp.asarray(dq),
+            stride_w=stride_w, out_dtype=jdt, interpret=True,
+        )
+    else:  # the Pallas kernel takes even widths at stride 2
+        ref = _lax_ref(jxq, jnp.asarray(w), jnp.asarray(dq), stride_w).astype(jdt)
+    np.testing.assert_array_equal(
+        got.float().numpy(), np.asarray(ref).astype(np.float32)
+    )
+
+
+def _recording(monkeypatch):
+    """Record K3's calls and the torch quantize passes on activations."""
+    calls = {"k3": [], "quantize": 0}
+    k3, quantize = tconv.conv3x3_i8_fused, tq.quantize_to_int8
+
+    def fused(x, w, dq, **kw):
+        calls["k3"].append((x, kw))
+        return k3(x, w, dq, **kw)
+
+    def counted(x, scale):
+        calls["quantize"] += 1
+        return quantize(x, scale)
+
+    for mod in (tq, tb):
+        monkeypatch.setattr(mod, "conv3x3_i8_fused", fused)
+        monkeypatch.setattr(mod, "quantize_to_int8", counted)
+    return calls
+
+
+CALL_CASES = {
+    "3x3_s11": lambda: tb.ConvNormAct(32, 16, (3, 3), (1, 1)),
+    "3x3_s12": lambda: tb.ConvNormAct(32, 16, (3, 3), (1, 2)),
+    "deconv_s2": lambda: tb.TorchConvTranspose(32, 8, (3, 4), (1, 2), (1, 1)),
+    "deconv_s4": lambda: tb.TorchConvTranspose(32, 8, (3, 8), (1, 4), (1, 2)),
+    "1x1_s11": lambda: tb.ConvNormAct(32, 16, (1, 1), (1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CALL_CASES))
+def test_int8_blocks_hand_k3_the_unquantized_activation(case, monkeypatch):
+    torch.manual_seed(0)
+    module = CALL_CASES[case]().eval()
+    module.quantize(0.02)  # weights quantize here, before recording
+    calls = _recording(monkeypatch)
+    x = torch.randn(2, 32, 5, 12).to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        module(x)
+    if case.startswith("1x1"):  # the matmul route quantizes in torch ops
+        assert calls["k3"] == [] and calls["quantize"] == 1
+        return
+    assert calls["quantize"] == 0
+    [(xk, kw)] = calls["k3"]
+    assert xk.dtype == torch.float32 and xk.is_contiguous()  # NHWC, no copy
+    torch.testing.assert_close(xk, x.permute(0, 2, 3, 1), rtol=0, atol=0)
+    assert float(kw["in_scale"]) == np.float32(0.02)
