@@ -7,10 +7,13 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into ``build/``;
+   ptxas's register and spill lines, and zero spills in K1;
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
-   shape and at a small odd shape (edges, ragged tiles):
-   max|diff| <= 2e-2 * max|ref| (fp32 accumulation order, one-ulp bf16
-   flips of the intermediate ``p``);
+   shape, at a small odd shape (edges, ragged tiles), at a single row
+   with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
+   64): max|diff| <= 2e-2 * max|ref| (fp32 accumulation order, one-ulp
+   bf16 flips of the intermediate ``p``); a C the kernel does not take
+   (128) raises in the wrapper and is refused by the C entry point;
 4. K2 (NMS scan) against its plain twin on the same IoU tensors, B=2,
    cap=1024, WEIGHTED and HARD: ``keep`` identical, ``merged`` within 1e-4;
 5. main path: ``Predictor`` on the full rv-av2 flagship config (B=2,
@@ -18,8 +21,9 @@ Phases, each of which raises (non-zero exit) on failure:
    answers 4 requests; both kernels must launch, outputs must be finite
    with detections kept, and the NMS must agree with the plain scan on the
    same proposals;
-6. timings (CUDA events, warm-up, median) of each kernel, its plain twin
-   and its bound, ms per request of the main path, its forward and
+6. timings (CUDA events around eager launches, warm-up, median) of each
+   kernel, its plain twin and its bound (K1 also by CUDA-graph replay,
+   with its L2 weight bytes a call), ms per request of the main path, its forward and
    decode + NMS device times, and a torch.profiler table of one request's
    device time by kernel;
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -128,6 +133,19 @@ def count_ops(predictor, request, names) -> dict:
         if e.key in counts:
             counts[e.key] += e.count
     return counts
+
+
+def ptxas_spills(log: str, kernel: str) -> int:
+    """Bytes of spill stores and loads that ``ptxas -v`` reports for the
+    kernel whose (mangled) name contains ``kernel``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                               lines[i + 1])
+            check(spills is not None, f"no spill line for {kernel}")
+            return int(spills[1]) + int(spills[2])
+    raise RuntimeError(f"chip_smoke: {kernel} not in the ptxas log")
 
 
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
@@ -612,15 +630,20 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"  ptxas: {line.strip()}")
+    if lib.ptxas_log:
+        k1_spills = ptxas_spills(lib.ptxas_log, "meta_kernel_fused_wgmma")
+        check(k1_spills == 0, f"K1 spills {k1_spills} bytes")
+        say("K1 (meta_kernel_fused_wgmma): 0 bytes spilled")
+    else:
+        say("build: library reused from an earlier build, no ptxas log to check")
 
-    # 3. K1 against its plain twin.
+    # 3. K1 against its plain twin: the flagship shape, a small odd one, a
+    # single row with a ragged last tile, exact tiles.
     B, H, W, C = 2, 64, 1808, 256
     k1_in = stem_inputs(B, H, W, C, gen, device)
     k1_err = 0.0
-    for shape, x in (
-        ((B, H, W, C), k1_in),
-        ((1, 3, 37, C), stem_inputs(1, 3, 37, C, gen, device)),
-    ):
+    for shape in ((B, H, W, C), (1, 3, 37, C), (1, 1, 70, C), (2, 2, 64, C)):
+        x = k1_in if shape == (B, H, W, C) else stem_inputs(*shape, gen, device)
         got = meta_kernel_fused(**x)
         want = meta_kernel_fused_plain(**x)
         torch.cuda.synchronize()
@@ -630,6 +653,16 @@ def main() -> int:
         check(err <= 2e-2 * ref, f"K1 {shape}: max|diff| {err} > 2e-2 * {ref}")
         say(f"K1 {shape}: max|diff| {err:.4g} (max|ref| {ref:.4g}) ok")
         k1_err = max(k1_err, err)
+    narrow = stem_inputs(1, 1, 64, 128, gen, device)
+    try:
+        meta_kernel_fused(**narrow)
+    except ValueError as e:
+        say(f"K1 C=128: the wrapper raises ({e})")
+    else:
+        check(False, "K1 C=128: the wrapper did not raise")
+    err = lib.rv3d_meta_kernel_fused(*[None] * 9, 1, 1, 64, 128, None)
+    check(err != 0, "K1 C=128: the C entry point accepted it")
+    say(f"K1 C=128: the C entry point refuses it (cudaError_t {err})")
 
     # 4. K2 against its plain twin.
     cap = 1024
@@ -703,6 +736,7 @@ def main() -> int:
 
     # 6. Timings at the main path's shapes.
     k1_ms = cuda_ms(lambda: meta_kernel_fused(**k1_in), reps=10)
+    k1_graph_ms = graph_ms(lambda: meta_kernel_fused(**k1_in))
     k1_plain_ms = cuda_ms(lambda: meta_kernel_fused_plain(**k1_in), reps=3, warmup=1)
     k1_flops = 2 * B * H * W * 9 * 2 * C * C
     k1_bytes = 2 * (2 * B * H * W * C) + 2 * 10 * C * C + 16 * C + 4 * B * H * W * C
@@ -714,8 +748,14 @@ def main() -> int:
     k2_flops = live * cap * 2 * (1 + 9) * 2  # weights + dot products, per image-live step
     k2_bytes = 2 * cap * cap * 4 + 2 * cap * (4 + 1 + 9 * 4) + 2 * cap * (1 + 9 * 4)
     k2_bound, k2_by = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
-    say(f"K1 flagship: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, "
-        f"bound {k1_bound:.3f} ms ({k1_by}) on {smi}")
+    # Every 64-pixel tile streams W1 and the nine K_n through L2 once per
+    # neighbour: 9 x 2 C x C bf16.
+    k1_l2 = math.ceil(W / 64) * H * B * 9 * 2 * C * C * 2
+    say(f"K1 flagship: kernel {k1_ms:.4f} ms eager ({100 * k1_bound / k1_ms:.1f}% of "
+        f"bound), {k1_graph_ms:.4f} ms graph replay "
+        f"({100 * k1_bound / k1_graph_ms:.1f}%), plain {k1_plain_ms:.3f} ms, "
+        f"bound {k1_bound:.4f} ms ({k1_by}), L2 weight reads {k1_l2 / 1e9:.2f} GB a "
+        f"call ({k1_l2 / k1_ms / 1e9:.2f} TB/s eager) on {smi}")
     say(f"K2 cap {cap} B 2: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
         f"bound {k2_bound * 1e3:.2f} us ({k2_by}), {live} live steps on {smi}")
     kernels = [
@@ -724,7 +764,8 @@ def main() -> int:
             "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused.cu",
             "replaces": "range_view_3d_detection_tpu/kernels/stem_pallas.py:269",
             "launches": launches["K1"], "max_abs_err": k1_err,
-            "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+            "ms": k1_ms, "graph_ms": k1_graph_ms, "plain_ms": k1_plain_ms,
+            "bound_ms": k1_bound,
             "bound_by": k1_by, "library_ms": None,
         },
         {

@@ -70,6 +70,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kChunk = 32;        // input channels per stage (one wgmma k-step)
@@ -102,10 +104,6 @@ struct Smem {
   static_assert(kStages >= 2, "K3: not enough shared memory for 2 stages");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Byte offset of 16-byte half `half` of 32-byte row `row`: the 32-byte
 // swizzle (bit 4 ^= bit 7 of the address), as TMA's SWIZZLE_32B writes it
 // and wgmma's 32-byte-swizzle descriptors read it.
@@ -113,74 +111,11 @@ __device__ __forceinline__ int swz(int row, int half) {
   return row * kChunk + ((half ^ ((row >> 2) & 1)) << 4);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait until the phase of parity `parity` has completed. A wait of more
-// than 2^32 cycles (about 2 s) traps: a pipeline fault becomes a launch
-// failure, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  long long t0 = -1;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 < 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 32)) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator reads or writes across a
-// wgmma fence or wait.
-__device__ __forceinline__ void fence_operand(int& r) {
-  asm volatile("" : "+r"(r)::"memory");
 }
 
 // Shared-memory matrix descriptor: K-major, 32-byte swizzle, 8-row groups

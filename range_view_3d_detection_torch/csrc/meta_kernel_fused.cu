@@ -1,4 +1,4 @@
-// Fused eval MetaKernel stem (K1) for Hopper, bf16 in, fp32 out.
+// Fused eval MetaKernel stem (K1) for Hopper (sm_90a), bf16 in, fp32 out.
 //
 // Replaces range_view_3d_detection_tpu/kernels/stem_pallas.py::
 // meta_kernel_fused (_stem_kernel). Per pixel p of a (B, H, W, C) image:
@@ -8,227 +8,391 @@
 //
 // over the 3x3 neighbours d_n (dy-major). Out-of-image neighbours read
 // zeros for both g and feats (the Pallas kernel's zero column shift and
-// zeroed edge rows). The bf16 rounding points are the Pallas kernel's.
+// zeroed edge rows). The bf16 rounding points are the Pallas kernel's, and
+// those of the plain twin (kernels/stem.py::meta_kernel_fused_plain).
 //
-// Bound on the H100: two C x C GEMMs per neighbour and pixel, 5.46e11 flop
-// at B=2, 64x1808, C=256, i.e. 0.55 ms at 989 TFLOP/s bf16; the bytes
-// (g and feats read once, fp32 out written once, ~474 MB) take 0.14 ms, so
-// the kernel is compute-bound.
+// Bound on the H100 at B=2, 64x1808, C=256: two C x C GEMMs per neighbour
+// and pixel, 5.46e11 flop, 0.552 ms at 989 TFLOP/s bf16; the bytes (g and
+// feats read once, fp32 out written once, 474 MB) take 0.14 ms. So the
+// operations bound it, but every block needs all of W1 and the nine K_n
+// (1.25 MB bf16) for every neighbour: at 64 pixels a block that is 2.36 MB
+// a block and 8.8 GB of L2 reads a call (3712 blocks), about 1.6 ms at
+// ~5.5 TB/s. The weight stream through L2, not the tensor cores, is what
+// the design has to keep busy.
 //
-// Design. Pallas ran a sequential (B, H, 3) grid and carried the output
-// block across the dy steps; a GPU has no carry between blocks, so one
-// block owns a tile of kTileP pixels of one row and all C output channels
-// and loops over the 9 neighbours with the fp32 accumulator in registers.
-// Warp w owns output columns [32w, 32w + 32) for all kTileP rows, so the
-// block has C/32 warps. Per neighbour:
-//   A. all threads build hh (kTileP x C bf16) in shared memory;
-//   B. each warp computes its z = hh @ W1 slice with mma.sync m16n8k16
-//      (bf16 in, fp32 accumulate), applies BN1 + ReLU, rounds to bf16,
-//      multiplies by the shifted feats in bf16 and stores pf to shared
-//      memory;
-//   C. each warp accumulates pf @ K_n into its registers.
-// The weights are passed transposed ([n][k], 1.25 MB in all) so each mma's
-// B fragment is two 32-bit loads straight from L2, where all of them stay.
-// No wgmma, TMA or software pipelining yet: this is the simple version.
+// Design, from that:
+// - A block owns 64 pixels of one row and all C = 256 output channels and
+//   loops over the 9 neighbours. Two consumer warpgroups split the output
+//   channels: warpgroup j owns columns [128j, 128j + 128) of both z and the
+//   accumulator, 64 + 64 fp32 registers a thread (wgmma m64n128k16, bf16
+//   in, fp32 accumulate, A and B from shared memory).
+// - The weights arrive by TMA as W1^T and K_n^T ([n][k] bf16), in boxes of
+//   64 k x 256 n (32 KB, 128-byte swizzle: the K-major layout a wgmma
+//   descriptor reads), through a 4-stage mbarrier ring fed by one thread
+//   of a producer warpgroup. A neighbour is 8 boxes (4 of W1^T, then 4 of
+//   K_n^T), so the ring runs straight across neighbours and GEMMs; each
+//   stage is released as soon as the wgmma group that read it has retired
+//   (wait_group 1).
+//   Warpgroup j's B descriptor starts at its 128-row half of the box.
+//   setmaxnreg moves registers from the producer to the consumers.
+// - Per neighbour, hh (64 x 256 bf16, 32 KB) is built in shared memory in
+//   the same swizzled K-major layout, each warpgroup its half of the
+//   channels; GEMM1 gives z = hh @ W1 in registers; the BN1/ReLU/x fs
+//   epilogue writes pf over hh once both warpgroups' GEMM1 has retired;
+//   GEMM2 accumulates pf @ K_n over the full K = 256. Named barriers over
+//   the 256 consumer threads join the steps; generic stores are made
+//   visible to wgmma with fence.proxy.async.
+// - Shared memory: 128 KB of ring + 32 KB of hh/pf + BN1's affine, one
+//   block an SM.
+// - Host side: the two weight tensor maps are encoded per launch
+//   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTileP = 32;  // pixels per block: two 16-row mma tiles
-constexpr int kPad = 8;     // bf16 padding per shared-memory row (banks)
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float2 ld_bf16x2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+constexpr int kC = 256;          // channels (the META stem width)
+constexpr int kTileP = 64;       // pixels per block: one m64 tile
+constexpr int kHalfN = kC / 2;   // output channels per consumer warpgroup
+constexpr int kKB = kC / 64;     // 64-channel k-blocks (128-byte swizzle rows)
+constexpr int kStages = 4;
+constexpr int kBoxBytes = 64 * kC * 2;       // one weight box: 64 k x 256 n
+constexpr int kAtomBytes = kTileP * 128;     // one k-block of hh: 64 rows x 128 B
+constexpr int kHhBytes = kKB * kAtomBytes;   // 32 KB
+constexpr int kBoxesPerNb = 2 * kKB;         // W1^T, then K_n^T
+constexpr int kConsumerThreads = 256;
+// + one producer warpgroup, of which one thread issues the weight loads
+// (setmaxnreg works on whole warpgroups). 384 threads start at 168
+// registers a thread; the producer gives most of its share to the
+// consumers.
+constexpr int kThreads = kConsumerThreads + 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSmemBytes = kStages * kBoxBytes + kHhBytes + 2 * kC * 4 +
+                           2 * kStages * 8 + 1024;  // + alignment
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-// acc[mt][nt] += A[kTileP x C] (shared, row stride lda) @ B[C x C] for this
-// warp's columns [n0, n0 + 32); B is given transposed, bt[n * C + k].
-__device__ __forceinline__ void warp_gemm(float (&acc)[2][4][4],
-                                          const __nv_bfloat16* a_s, int lda,
-                                          const __nv_bfloat16* __restrict__ bt,
-                                          int C, int n0, int lane) {
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  for (int k0 = 0; k0 < C; k0 += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const __nv_bfloat16* r0 = a_s + (mt * 16 + gid) * lda + k0 + tig * 2;
-      const __nv_bfloat16* r1 = r0 + 8 * lda;
-      a[mt][0] = ld_u32(r0);
-      a[mt][1] = ld_u32(r1);
-      a[mt][2] = ld_u32(r0 + 8);
-      a[mt][3] = ld_u32(r1 + 8);
+// Byte offset of element (row m, channel k) of a 64-row K-major tile in
+// 128-byte-swizzle layout: k-block k / 64 is an 8 KB atom of 64 rows of
+// 128 bytes, and the 16-byte chunk index is XORed with m % 8, as TMA's
+// SWIZZLE_128B writes it.
+__device__ __forceinline__ int sw128(int m, int k) {
+  return (k >> 6) * kAtomBytes + m * 128 + ((((k >> 3) & 7) ^ (m & 7)) << 4) +
+         (k & 7) * 2;
+}
+
+// wgmma descriptor: K-major, 128-byte swizzle, 8-row groups 1024 bytes
+// apart (SBO); the leading offset is unused for K-major swizzled tiles.
+// A k16 step inside the 128-byte row advances the start address by 32
+// bytes (the atom is 1024-byte aligned, so the base offset is 0).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da,
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    meta_kernel_fused_wgmma(const __grid_constant__ CUtensorMap w1map,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __nv_bfloat16* __restrict__ g,
+                            const __nv_bfloat16* __restrict__ f,
+                            const float* __restrict__ a0, const float* __restrict__ b0,
+                            const float* __restrict__ a1, const float* __restrict__ b1,
+                            float* __restrict__ out, int H, int W) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  uint8_t* hh = smem + kStages * kBoxBytes;
+  float* a1_s = reinterpret_cast<float*>(hh + kHhBytes);
+  float* b1_s = a1_s + kC;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b1_s + kC);
+  uint64_t* empty = full + kStages;
+
+  const int w0 = blockIdx.x * kTileP;
+  const int h = blockIdx.y;
+  const size_t img = (size_t)blockIdx.z * H;
+
+  for (int i = threadIdx.x; i < kC; i += kThreads) {
+    a1_s[i] = a1[i];
+    b1_s[i] = b1[i];
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);                         // the TMA's bytes
+      mbar_init(&empty[s], kConsumerThreads / 32);    // each consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---------------- producer: one thread streams the weight boxes.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumerThreads) {
+      for (int i = 0; i < 9 * kBoxesPerNb; ++i) {
+        const int s = i % kStages;
+        const int lap = i / kStages;
+        if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+        mbar_arrive_tx(&full[s], kBoxBytes);
+        const int nb = i / kBoxesPerNb;
+        const int r = i % kBoxesPerNb;
+        const int k0 = (r % kKB) * 64;
+        if (r < kKB) {
+          tma_load_2d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0);
+        } else {
+          tma_load_2d(ring + s * kBoxBytes, &kmap, &full[s], k0, nb * kC);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers: warpgroup wg owns output columns
+    // [128 wg, 128 wg + 128).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int wq = t / 32;
+    const int gid = lane >> 2, tig = lane & 3;
+    const uint32_t ring_u32 = smem_u32(ring);
+    const uint32_t hh_u32 = smem_u32(hh);
+
+    // hh build: this thread's 8 channels [kb_ch, kb_ch + 8) of the
+    // warpgroup's half, for pixels t / 16 + 8 i.
+    const int hch = wg * kHalfN + (t % 16) * 8;
+    const int hrow = t / 16;
+    float sa0[8], sb0[8];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const __nv_bfloat16* bp =
-          bt + (size_t)(n0 + nt * 8 + gid) * C + k0 + tig * 2;
-      uint32_t b[2];
-      b[0] = __ldg(reinterpret_cast<const unsigned int*>(bp));
-      b[1] = __ldg(reinterpret_cast<const unsigned int*>(bp + 8));
+    for (int e = 0; e < 8; ++e) {
+      sa0[e] = a0[hch + e];
+      sb0[e] = b0[hch + e];
+    }
+
+    float acc[64];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(acc[mt][nt], a[mt], b);
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.f;
+      fence_operand(acc[i]);
+    }
+
+    int box = 0;  // weight boxes consumed so far
+    // d (+)= A @ B over K = 256: A is the hh/pf tile, B the next 4 boxes.
+    auto gemm = [&](float (&d)[64]) {
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < kKB; ++kb) {
+        const int s = box % kStages;
+        mbar_wait(&full[s], (box / kStages) & 1);
+        const uint64_t da = desc_sw128(hh_u32 + kb * kAtomBytes);
+        const uint64_t db = desc_sw128(ring_u32 + s * kBoxBytes + wg * kHalfN * 128);
+#pragma unroll
+        for (int k16 = 0; k16 < 4; ++k16)
+          wgmma_m64n128k16_bf16(d, da + 2 * k16, db + 2 * k16);  // +32 bytes
+        wgmma_commit();
+        if (kb > 0) {
+          wgmma_wait<1>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+        }
+        ++box;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_operand(d[i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+    };
+
+    for (int nb = 0; nb < 9; ++nb) {
+      const int dy = nb / 3;
+      const int dx = nb - dy * 3;
+      const int hs = h + dy - 1;
+      const bool row_ok = hs >= 0 && hs < H;
+
+      // 1. hh = bf16(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 16 bytes a
+      // thread and pixel; rows past W get finite values and are not stored.
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = hrow + 8 * i;
+        const int w = w0 + m;
+        const int ws = w + dx - 1;
+        uint4 gc = make_uint4(0, 0, 0, 0), gs = make_uint4(0, 0, 0, 0);
+        if (w < W) {
+          gc = __ldg(reinterpret_cast<const uint4*>(g + ((img + h) * W + w) * kC + hch));
+          if (row_ok && ws >= 0 && ws < W)
+            gs = __ldg(
+                reinterpret_cast<const uint4*>(g + ((img + hs) * W + ws) * kC + hch));
+        }
+        const uint32_t cw[4] = {gc.x, gc.y, gc.z, gc.w};
+        const uint32_t sw[4] = {gs.x, gs.y, gs.z, gs.w};
+        uint32_t o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
+          const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
+          o[q] = pack_bf16(
+              fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f),
+              fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f));
+        }
+        *reinterpret_cast<uint4*>(hh + sw128(m, hch)) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+      fence_proxy_async();
+      consumer_sync();
+
+      // 2. z = hh @ W1 (fp32), this warpgroup's 128 columns.
+      float z[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        z[i] = 0.f;
+        fence_operand(z[i]);
+      }
+      gemm(z);
+
+      // The shifted feats at this thread's accumulator rows and columns.
+      uint32_t fs[16][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int w = w0 + wq * 16 + gid + 8 * r;
+        const int ws = w + dx - 1;
+        const bool ok = w < W && row_ok && ws >= 0 && ws < W;
+        const __nv_bfloat16* fp = f + ((img + hs) * W + ws) * kC + wg * kHalfN + tig * 2;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          fs[j][r] = ok ? __ldg(reinterpret_cast<const unsigned int*>(fp + j * 8)) : 0u;
+      }
+      consumer_sync();  // both warpgroups' GEMM1 has read hh
+
+      // 3. pf = bf16(bf16(relu(a1 * z + b1)) * fs) over hh, in its layout.
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = wg * kHalfN + j * 8 + tig * 2;
+        const float2 s1 = *reinterpret_cast<const float2*>(a1_s + n);
+        const float2 t1 = *reinterpret_cast<const float2*>(b1_s + n);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = wq * 16 + gid + 8 * r;
+          const float pa =
+              round_bf16(fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r], s1.x), t1.x), 0.f));
+          const float pb = round_bf16(
+              fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r + 1], s1.y), t1.y), 0.f));
+          *reinterpret_cast<uint32_t*>(hh + sw128(m, n)) =
+              pack_bf16(__fmul_rn(pa, bf16_lo(fs[j][r])), __fmul_rn(pb, bf16_hi(fs[j][r])));
+        }
+      }
+      fence_proxy_async();
+      consumer_sync();
+
+      // 4. acc += pf @ K_n over the full K = 256.
+      gemm(acc);
+      consumer_sync();  // both warpgroups' GEMM2 has read pf
+    }
+
+    // Store this thread's accumulator rows and columns.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int w = w0 + wq * 16 + gid + 8 * r;
+      if (w >= W) continue;
+      float* op = out + ((img + h) * W + w) * kC + wg * kHalfN + tig * 2;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(op + j * 8) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-__global__ void meta_kernel_fused_kernel(
-    const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f,
-    const __nv_bfloat16* __restrict__ w1t, const __nv_bfloat16* __restrict__ kt,
-    const float* __restrict__ a0, const float* __restrict__ b0,
-    const float* __restrict__ a1, const float* __restrict__ b1,
-    float* __restrict__ out, int H, int W, int C) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lda = C + kPad;
-  __nv_bfloat16* hh_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* pf_s = hh_s + kTileP * lda;
-
-  const int w0 = blockIdx.x * kTileP;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int n0 = (tid >> 5) * 32;
-  const int half_c = C / 2;
-  const size_t img = (size_t)b * H;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
-
-  for (int nb = 0; nb < 9; ++nb) {
-    const int dy = nb / 3;
-    const int dx = nb - dy * 3;
-    const int hs = h + dy - 1;
-    const bool row_ok = hs >= 0 && hs < H;
-
-    // A. hh = bf16(relu(a0 * bf16(g(p + d) - g(p)) + b0)) for the tile.
-    for (int idx = tid; idx < kTileP * half_c; idx += blockDim.x) {
-      const int p = idx / half_c;
-      const int c = (idx - p * half_c) * 2;
-      const int w = w0 + p;
-      const int ws = w + dx - 1;
-      float2 gc = make_float2(0.f, 0.f);
-      float2 gs = make_float2(0.f, 0.f);
-      if (w < W) {
-        gc = ld_bf16x2(g + ((img + h) * W + w) * C + c);
-        if (row_ok && ws >= 0 && ws < W)
-          gs = ld_bf16x2(g + ((img + hs) * W + ws) * C + c);
-      }
-      const float x0a = round_bf16(__fsub_rn(gs.x, gc.x));
-      const float x0b = round_bf16(__fsub_rn(gs.y, gc.y));
-      const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, a0[c]), b0[c]), 0.f);
-      const float hb =
-          fmaxf(__fadd_rn(__fmul_rn(x0b, a0[c + 1]), b0[c + 1]), 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(hh_s + p * lda + c) =
-          __floats2bfloat162_rn(ha, hb);
-    }
-    __syncthreads();
-
-    // B. z = hh @ W1 (fp32), p = bf16(relu(a1 * z + b1)), pf = bf16(p * fs).
-    float z[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) z[mt][nt][r] = 0.f;
-    warp_gemm(z, hh_s, lda, w1t, C, n0, lane);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = n0 + nt * 8 + tig * 2;
-      const float s0 = a1[c], s1 = a1[c + 1];
-      const float t0 = b1[c], t1 = b1[c + 1];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int p = mt * 16 + gid + r * 8;
-          const int w = w0 + p;
-          const int ws = w + dx - 1;
-          float2 fs = make_float2(0.f, 0.f);
-          if (w < W && row_ok && ws >= 0 && ws < W)
-            fs = ld_bf16x2(f + ((img + hs) * W + ws) * C + c);
-          const float pa = round_bf16(
-              fmaxf(__fadd_rn(__fmul_rn(z[mt][nt][2 * r], s0), t0), 0.f));
-          const float pb = round_bf16(
-              fmaxf(__fadd_rn(__fmul_rn(z[mt][nt][2 * r + 1], s1), t1), 0.f));
-          *reinterpret_cast<__nv_bfloat162*>(pf_s + p * lda + c) =
-              __floats2bfloat162_rn(__fmul_rn(pa, fs.x), __fmul_rn(pb, fs.y));
-        }
-      }
-    }
-    __syncthreads();
-
-    // C. acc += pf @ K_n.
-    warp_gemm(acc, pf_s, lda, kt + (size_t)nb * C * C, C, n0, lane);
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int p = mt * 16 + gid + r * 8;
-        const int w = w0 + p;
-        if (w < W) {
-          const int c = n0 + nt * 8 + tig * 2;
-          *reinterpret_cast<float2*>(out + ((img + h) * W + w) * C + c) =
-              make_float2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
-        }
-      }
+// A 2-D bf16 tensor map over a [rows][kC] matrix, boxes of 64 k x 256 rows
+// in the 128-byte swizzle.
+bool weight_map(CUtensorMap* map, const void* base, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)kC, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kC * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)kC};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                const_cast<void*>(base), dims, strides, box,
+                                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 // g, feats: (B, H, W, C) bf16; w1t: (C, C) bf16 = W1^T; kt: (9, C, C) bf16
 // with kt[n] = K_n^T; a0, b0, a1, b1: (C,) fp32; out: (B, H, W, C) fp32.
-// C must be a multiple of 32 and at most 256 (one warp per 32 channels;
-// the two tiles then take at most 33 KB of shared memory).
+// C must be 256 (the tiling holds all C output channels in two warpgroups
+// and the weight box is 256 rows); w1t and kt 16-byte aligned.
 extern "C" int rv3d_meta_kernel_fused(const void* g, const void* feats,
                                       const void* w1t, const void* kt,
                                       const void* a0, const void* b0,
                                       const void* a1, const void* b1,
                                       void* out, int B, int H, int W, int C,
                                       void* stream) {
-  if (C % 32 != 0 || C <= 0 || C > 256 || B <= 0 || H <= 0 || W <= 0 ||
-      H > 65535 || B > 65535)
+  if (C != kC || B <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 2u * kTileP * (C + kPad) * sizeof(__nv_bfloat16);
+  CUtensorMap w1map, kmap;
+  if (!weight_map(&w1map, w1t, kC) || !weight_map(&kmap, kt, 9 * kC))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      meta_kernel_fused_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((W + kTileP - 1) / kTileP, H, B);
-  meta_kernel_fused_kernel<<<grid, C, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
-      (const __nv_bfloat16*)w1t, (const __nv_bfloat16*)kt, (const float*)a0,
-      (const float*)b0, (const float*)a1, (const float*)b1, (float*)out, H, W,
-      C);
+  meta_kernel_fused_wgmma<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
+      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
+      (float*)out, H, W);
   return (int)cudaGetLastError();
 }

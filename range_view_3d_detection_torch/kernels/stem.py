@@ -20,6 +20,9 @@ import torch.nn.functional as F
 from range_view_3d_detection_torch.kernels import _build
 
 NUM_NEIGHBORS = 3
+# K1's tiling holds all output channels of a 64-pixel tile in two
+# warpgroups (128 each) and loads weight boxes 256 rows tall.
+KERNEL_C = 256
 
 
 def meta_kernel_fused_plain(
@@ -81,9 +84,10 @@ def meta_kernel_fused(
 ) -> torch.Tensor:
     """Fused 9-neighbour stem accumulation (see :func:`meta_kernel_fused_plain`).
 
-    A CPU tensor takes the plain twin. A CUDA tensor launches the kernel
-    (bf16 ``g``/``feats``, C a multiple of 32 up to 256) or raises.
-    ``meta_kernel_fused.launches`` counts the kernel launches.
+    A CPU tensor takes the plain twin, at any C. A CUDA tensor launches the
+    kernel (bf16 ``g``/``feats``, C = 256, the META stem width of every
+    config) or raises. ``meta_kernel_fused.launches`` counts the kernel
+    launches.
     """
     if g.device.type == "cpu":
         return meta_kernel_fused_plain(g, feats, w1, k, a0, b0, a1, b1)
@@ -92,8 +96,8 @@ def meta_kernel_fused(
     B, H, W, C = g.shape
     if g.dtype != torch.bfloat16:
         raise TypeError(f"meta_kernel_fused: the kernel takes bf16, got {g.dtype}")
-    if C % 32 or C > 256:
-        raise ValueError(f"meta_kernel_fused: C={C} must be a multiple of 32, <= 256")
+    if C != KERNEL_C:
+        raise ValueError(f"meta_kernel_fused: the kernel takes C={KERNEL_C}, got C={C}")
     if feats.shape != g.shape or w1.shape != (C, C) or k.shape != (9, C, C):
         raise ValueError(
             f"meta_kernel_fused: shapes g{tuple(g.shape)} feats"
@@ -104,7 +108,7 @@ def meta_kernel_fused(
         raise ValueError("meta_kernel_fused: inputs on different devices")
     g = g.contiguous()
     feats = feats.to(torch.bfloat16).contiguous()
-    # Transposed weights: each mma B fragment is then two 32-bit loads.
+    # Transposed weights, [n][k]: the kernel's TMA boxes are K-major.
     w1t = w1.to(torch.bfloat16).t().contiguous()
     kt = k.to(torch.bfloat16).transpose(1, 2).contiguous()
     a0, b0, a1, b1 = (v.float().contiguous() for v in (a0, b0, a1, b1))

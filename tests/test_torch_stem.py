@@ -42,9 +42,16 @@ def _stem_inputs(B, H, W, C, seed=0):
     )
 
 
-@pytest.mark.parametrize("H", [6, 1])
-def test_plain_twin_matches_pallas_interpret(H):
-    x = _stem_inputs(1, H, 16, 8)
+# (H, W, C): the first two are the original cases; (1, 70) and (2, 64) are
+# the shapes at which chip_smoke.py holds the card's kernel against this
+# twin (a single row with a ragged last 64-pixel tile, an exact tile), at
+# a narrow C so the interpret-mode run stays short.
+@pytest.mark.parametrize(
+    "H, W, C", [(6, 16, 8), (1, 16, 8), (1, 70, 16), (2, 64, 16)],
+    ids=["6", "1", "H1-W70", "H2-W64"],
+)
+def test_plain_twin_matches_pallas_interpret(H, W, C):
+    x = _stem_inputs(1, H, W, C)
     want = np.asarray(meta_kernel_fused(**x, interpret=True))
     launches = tstem.meta_kernel_fused.launches
     got = tstem.meta_kernel_fused(**{k: torch.from_numpy(v) for k, v in x.items()})
