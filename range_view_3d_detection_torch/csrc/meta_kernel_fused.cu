@@ -61,6 +61,9 @@ constexpr int kTileP = 64;       // pixels per block: one m64 tile
 constexpr int kHalfN = kC / 2;   // output channels per consumer warpgroup
 constexpr int kKB = kC / 64;     // 64-channel k-blocks (128-byte swizzle rows)
 constexpr int kStages = 4;
+// Blocks of rows h, h + 1 form a cluster: each loads half of every weight
+// box and multicasts it to both, halving the L2 weight stream.
+constexpr int kClusterSize = 2;
 constexpr int kBoxBytes = 64 * kC * 2;       // one weight box: 64 k x 256 n
 constexpr int kAtomBytes = kTileP * 128;     // one k-block of hh: 64 rows x 128 B
 constexpr int kHhBytes = kKB * kAtomBytes;   // 32 KB
@@ -145,6 +148,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <int kCS>
 __global__ void __launch_bounds__(kThreads, 1)
     meta_kernel_fused_wgmma(const __grid_constant__ CUtensorMap w1map,
                             const __grid_constant__ CUtensorMap kmap,
@@ -164,7 +168,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int w0 = blockIdx.x * kTileP;
   const int h = blockIdx.y;
+  const bool h_ok = h < H;  // the grid's rows are rounded up to the cluster
   const size_t img = (size_t)blockIdx.z * H;
+  static_assert(kCS == 1 || kCS == 2, "K1: clusters of 1 or 2 blocks");
 
   for (int i = threadIdx.x; i < kC; i += kThreads) {
     a1_s[i] = a1[i];
@@ -173,16 +179,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);                         // the TMA's bytes
-      mbar_init(&empty[s], kConsumerThreads / 32);    // each consumer warp
+      mbar_init(&empty[s], kCS * kConsumerThreads / 32);  // each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (kCS > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
 
   if (threadIdx.x >= kConsumerThreads) {
     // ---------------- producer: one thread streams the weight boxes.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == kConsumerThreads) {
+      const int rank = kCS > 1 ? cluster_ctarank() : 0;
       for (int i = 0; i < 9 * kBoxesPerNb; ++i) {
         const int s = i % kStages;
         const int lap = i / kStages;
@@ -191,11 +202,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int nb = i / kBoxesPerNb;
         const int r = i % kBoxesPerNb;
         const int k0 = (r % kKB) * 64;
-        if (r < kKB) {
-          tma_load_2d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0);
+        // This block's 1/kCS of the box's rows, into every block of the
+        // cluster.
+        uint8_t* dst = ring + s * kBoxBytes + rank * (kBoxBytes / kCS);
+        const CUtensorMap* map = r < kKB ? &w1map : &kmap;
+        const int row = (r < kKB ? 0 : nb * kC) + rank * (kC / kCS);
+        if constexpr (kCS > 1) {
+          tma_load_2d_multicast(dst, map, &full[s], k0, row, (1 << kCS) - 1);
         } else {
-          tma_load_2d(ring + s * kBoxBytes, &kmap, &full[s], k0, nb * kC);
+          tma_load_2d(dst, map, &full[s], k0, row);
         }
+      }
+      // The other block writes into this one's ring and arrives on its
+      // barriers: stay until every stage has been released by both.
+      if constexpr (kCS > 1) {
+        for (int i = 9 * kBoxesPerNb; i < 9 * kBoxesPerNb + kStages; ++i)
+          mbar_wait(&empty[i % kStages], (i / kStages - 1) & 1);
       }
     }
   } else {
@@ -209,6 +231,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int gid = lane >> 2, tig = lane & 3;
     const uint32_t ring_u32 = smem_u32(ring);
     const uint32_t hh_u32 = smem_u32(hh);
+    const uint32_t peer = kCS > 1 ? cluster_ctarank() ^ 1 : 0;
+    // A stage is free once every consumer warp of the cluster has read it.
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[s]);
+        if constexpr (kCS > 1) mbar_arrive_cluster(&empty[s], peer);
+      }
+    };
 
     // hh build: this thread's 8 channels [kb_ch, kb_ch + 8) of the
     // warpgroup's half, for pixels t / 16 + 8 i.
@@ -244,16 +275,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         if (kb > 0) {
           wgmma_wait<1>();
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+          release((box - 1) % kStages);
         }
         ++box;
       }
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < 64; ++i) fence_operand(d[i]);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+      release((box - 1) % kStages);
     };
 
     for (int nb = 0; nb < 9; ++nb) {
@@ -270,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int w = w0 + m;
         const int ws = w + dx - 1;
         uint4 gc = make_uint4(0, 0, 0, 0), gs = make_uint4(0, 0, 0, 0);
-        if (w < W) {
+        if (w < W && h_ok) {
           gc = __ldg(reinterpret_cast<const uint4*>(g + ((img + h) * W + w) * kC + hch));
           if (row_ok && ws >= 0 && ws < W)
             gs = __ldg(
@@ -344,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int w = w0 + wq * 16 + gid + 8 * r;
-      if (w >= W) continue;
+      if (w >= W || !h_ok) continue;
       float* op = out + ((img + h) * W + w) * kC + wg * kHalfN + tig * 2;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -354,12 +383,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A 2-D bf16 tensor map over a [rows][kC] matrix, boxes of 64 k x 256 rows
-// in the 128-byte swizzle.
-bool weight_map(CUtensorMap* map, const void* base, int rows) {
+// A 2-D bf16 tensor map over a [rows][kC] matrix, boxes of 64 k x
+// box_rows rows in the 128-byte swizzle.
+bool weight_map(CUtensorMap* map, const void* base, int rows, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)kC, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)kC * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)kC};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                                 const_cast<void*>(base), dims, strides, box,
@@ -367,6 +396,36 @@ bool weight_map(CUtensorMap* map, const void* base, int rows) {
                                 CU_TENSOR_MAP_SWIZZLE_128B,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kCS>
+int launch(const void* g, const void* feats, const void* w1t, const void* kt,
+           const void* a0, const void* b0, const void* a1, const void* b1, void* out,
+           int B, int H, int W, void* stream) {
+  CUtensorMap w1map, kmap;
+  if (!weight_map(&w1map, w1t, kC, kC / kCS) || !weight_map(&kmap, kt, 9 * kC, kC / kCS))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = meta_kernel_fused_wgmma<kCS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((W + kTileP - 1) / kTileP, (H + kCS - 1) / kCS * kCS, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = kCS;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
+      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
+      (float*)out, H, W);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -383,16 +442,5 @@ extern "C" int rv3d_meta_kernel_fused(const void* g, const void* feats,
                                       void* stream) {
   if (C != kC || B <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap w1map, kmap;
-  if (!weight_map(&w1map, w1t, kC) || !weight_map(&kmap, kt, 9 * kC))
-    return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      meta_kernel_fused_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((W + kTileP - 1) / kTileP, H, B);
-  meta_kernel_fused_wgmma<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
-      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
-      (float*)out, H, W);
-  return (int)cudaGetLastError();
+  return launch<kClusterSize>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, stream);
 }
