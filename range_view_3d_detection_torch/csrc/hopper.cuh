@@ -59,43 +59,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// The same load, written to the same shared-memory offset (and completed
-// on the same mbarrier offset) in every CTA of the cluster in `cta_mask`.
-__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
-                                                      uint64_t* bar, int c0, int c1,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "h"(cta_mask)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// All threads of every CTA of the cluster.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-// Arrive on the mbarrier at the same shared-memory offset in CTA `cta` of
-// the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(cta)
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1, int c2) {
   asm volatile(

@@ -29,21 +29,24 @@
 // - The weights arrive by TMA as W1^T and K_n^T ([n][k] bf16), in boxes of
 //   64 k x 256 n (32 KB, 128-byte swizzle: the K-major layout a wgmma
 //   descriptor reads), through a 4-stage mbarrier ring fed by one thread
-//   of a producer warpgroup. A neighbour is 8 boxes (4 of W1^T, then 4 of
+//   of the producer warpgroup. A neighbour is 8 boxes (4 of W1^T, then 4 of
 //   K_n^T), so the ring runs straight across neighbours and GEMMs; each
 //   stage is released as soon as the wgmma group that read it has retired
 //   (wait_group 1).
 //   Warpgroup j's B descriptor starts at its 128-row half of the box.
 //   setmaxnreg moves registers from the producer to the consumers.
 // - Per neighbour, hh (64 x 256 bf16, 32 KB) is built in shared memory in
-//   the same swizzled K-major layout, each warpgroup its half of the
-//   channels; GEMM1 gives z = hh @ W1 in registers; the BN1/ReLU/x fs
-//   epilogue writes pf over hh once both warpgroups' GEMM1 has retired;
-//   GEMM2 accumulates pf @ K_n over the full K = 256. Named barriers over
-//   the 256 consumer threads join the steps; generic stores are made
-//   visible to wgmma with fence.proxy.async.
-// - Shared memory: 128 KB of ring + 32 KB of hh/pf + BN1's affine, one
-//   block an SM.
+//   the same swizzled K-major layout by the producer warpgroup's other
+//   three warps, one neighbour ahead, into one of two buffers (mbarriers
+//   hh_full / hh_empty), so the build overlaps the consumers' GEMMs.
+//   GEMM1 gives z = hh @ W1 in registers; the BN1/ReLU/x fs epilogue
+//   (fs loaded before GEMM1) writes pf over hh once both warpgroups'
+//   GEMM1 has retired; GEMM2 accumulates pf @ K_n over the full K = 256
+//   and frees the buffer. Named barriers over the 256 consumer threads
+//   join the steps; generic stores are made visible to wgmma with
+//   fence.proxy.async.
+// - Shared memory: 128 KB of ring + 2 x 32 KB of hh/pf + BN1's affine,
+//   one block an SM.
 // - Host side: the two weight tensor maps are encoded per launch
 //   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
 
@@ -61,23 +64,21 @@ constexpr int kTileP = 64;       // pixels per block: one m64 tile
 constexpr int kHalfN = kC / 2;   // output channels per consumer warpgroup
 constexpr int kKB = kC / 64;     // 64-channel k-blocks (128-byte swizzle rows)
 constexpr int kStages = 4;
-// Blocks of rows h, h + 1 form a cluster: each loads half of every weight
-// box and multicasts it to both, halving the L2 weight stream.
-constexpr int kClusterSize = 2;
 constexpr int kBoxBytes = 64 * kC * 2;       // one weight box: 64 k x 256 n
 constexpr int kAtomBytes = kTileP * 128;     // one k-block of hh: 64 rows x 128 B
-constexpr int kHhBytes = kKB * kAtomBytes;   // 32 KB
+constexpr int kHhBytes = kKB * kAtomBytes;   // 32 KB, two of them
 constexpr int kBoxesPerNb = 2 * kKB;         // W1^T, then K_n^T
 constexpr int kConsumerThreads = 256;
-// + one producer warpgroup, of which one thread issues the weight loads
-// (setmaxnreg works on whole warpgroups). 384 threads start at 168
-// registers a thread; the producer gives most of its share to the
-// consumers.
+// + one producer warpgroup: one thread of its first warp issues the
+// weight loads, its other three warps build hh. 384 threads start at 168
+// registers a thread; setmaxnreg moves 96 a thread from the producer to
+// the consumers.
 constexpr int kThreads = kConsumerThreads + 128;
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-constexpr int kSmemBytes = kStages * kBoxBytes + kHhBytes + 2 * kC * 4 +
-                           2 * kStages * 8 + 1024;  // + alignment
+constexpr int kBuilders = 96;
+constexpr int kProducerRegs = 72;
+constexpr int kConsumerRegs = 216;
+constexpr int kSmemBytes = kStages * kBoxBytes + 2 * kHhBytes + 2 * kC * 4 +
+                           2 * (kStages + 2) * 8 + 1024;  // + alignment
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -148,7 +149,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       : "l"(da), "l"(db), "r"(1));
 }
 
-template <int kCS>
 __global__ void __launch_bounds__(kThreads, 1)
     meta_kernel_fused_wgmma(const __grid_constant__ CUtensorMap w1map,
                             const __grid_constant__ CUtensorMap kmap,
@@ -161,16 +161,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
   uint8_t* hh = smem + kStages * kBoxBytes;
-  float* a1_s = reinterpret_cast<float*>(hh + kHhBytes);
+  float* a1_s = reinterpret_cast<float*>(hh + 2 * kHhBytes);
   float* b1_s = a1_s + kC;
   uint64_t* full = reinterpret_cast<uint64_t*>(b1_s + kC);
   uint64_t* empty = full + kStages;
+  uint64_t* hh_full = empty + kStages;  // hh buffer b holds neighbour nb, nb % 2 == b
+  uint64_t* hh_empty = hh_full + 2;
 
   const int w0 = blockIdx.x * kTileP;
   const int h = blockIdx.y;
-  const bool h_ok = h < H;  // the grid's rows are rounded up to the cluster
   const size_t img = (size_t)blockIdx.z * H;
-  static_assert(kCS == 1 || kCS == 2, "K1: clusters of 1 or 2 blocks");
 
   for (int i = threadIdx.x; i < kC; i += kThreads) {
     a1_s[i] = a1[i];
@@ -179,21 +179,81 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);                         // the TMA's bytes
-      mbar_init(&empty[s], kCS * kConsumerThreads / 32);  // each consumer warp
+      mbar_init(&empty[s], kConsumerThreads / 32);    // each consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&hh_full[b], kBuilders / 32);         // each builder warp
+      mbar_init(&hh_empty[b], kConsumerThreads / 32);  // each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (kCS > 1) {
-    cluster_sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   if (threadIdx.x >= kConsumerThreads) {
-    // ---------------- producer: one thread streams the weight boxes.
+    // ---------------- producer: one thread streams the weight boxes, three
+    // warps build hh one neighbour ahead of the consumers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == kConsumerThreads) {
-      const int rank = kCS > 1 ? cluster_ctarank() : 0;
+    if (threadIdx.x >= kConsumerThreads + 32) {
+      // This thread's 8 channels [ch, ch + 8), for pixels p0 + 3 i.
+      const int bt = threadIdx.x - kConsumerThreads - 32;
+      const int ch = (bt % 32) * 8;
+      const int p0 = bt / 32;
+      float sa0[8], sb0[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sa0[e] = a0[ch + e];
+        sb0[e] = b0[ch + e];
+      }
+      for (int nb = 0; nb < 9; ++nb) {
+        const int buf = nb & 1;
+        if (nb >= 2) mbar_wait(&hh_empty[buf], ((nb >> 1) - 1) & 1);
+        uint8_t* dst = hh + buf * kHhBytes;
+        const int dy = nb / 3;
+        const int dx = nb - dy * 3;
+        const int hs = h + dy - 1;
+        const bool row_ok = hs >= 0 && hs < H;
+        // hh = bf16(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 16 bytes a
+        // thread and pixel, 4 pixels' loads in flight; rows past W get
+        // finite values and are not stored.
+        for (int i0 = 0; i0 < (kTileP + 2) / 3; i0 += 4) {
+          uint4 gc[4], gs[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int p = p0 + 3 * (i0 + u);
+            const int w = w0 + p;
+            const int ws = w + dx - 1;
+            gc[u] = make_uint4(0, 0, 0, 0);
+            gs[u] = make_uint4(0, 0, 0, 0);
+            if (p < kTileP && w < W) {
+              gc[u] = __ldg(reinterpret_cast<const uint4*>(g + ((img + h) * W + w) * kC + ch));
+              if (row_ok && ws >= 0 && ws < W)
+                gs[u] = __ldg(
+                    reinterpret_cast<const uint4*>(g + ((img + hs) * W + ws) * kC + ch));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int p = p0 + 3 * (i0 + u);
+            if (p >= kTileP) continue;
+            const uint32_t cw[4] = {gc[u].x, gc[u].y, gc[u].z, gc[u].w};
+            const uint32_t sw[4] = {gs[u].x, gs[u].y, gs[u].z, gs[u].w};
+            uint32_t o[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
+              const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
+              o[q] = pack_bf16(
+                  fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f),
+                  fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f));
+            }
+            *reinterpret_cast<uint4*>(dst + sw128(p, ch)) = make_uint4(o[0], o[1], o[2], o[3]);
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(&hh_full[buf]);
+      }
+    } else if (threadIdx.x == kConsumerThreads) {
       for (int i = 0; i < 9 * kBoxesPerNb; ++i) {
         const int s = i % kStages;
         const int lap = i / kStages;
@@ -202,22 +262,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int nb = i / kBoxesPerNb;
         const int r = i % kBoxesPerNb;
         const int k0 = (r % kKB) * 64;
-        // This block's 1/kCS of the box's rows, into every block of the
-        // cluster.
-        uint8_t* dst = ring + s * kBoxBytes + rank * (kBoxBytes / kCS);
-        const CUtensorMap* map = r < kKB ? &w1map : &kmap;
-        const int row = (r < kKB ? 0 : nb * kC) + rank * (kC / kCS);
-        if constexpr (kCS > 1) {
-          tma_load_2d_multicast(dst, map, &full[s], k0, row, (1 << kCS) - 1);
+        if (r < kKB) {
+          tma_load_2d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0);
         } else {
-          tma_load_2d(dst, map, &full[s], k0, row);
+          tma_load_2d(ring + s * kBoxBytes, &kmap, &full[s], k0, nb * kC);
         }
-      }
-      // The other block writes into this one's ring and arrives on its
-      // barriers: stay until every stage has been released by both.
-      if constexpr (kCS > 1) {
-        for (int i = 9 * kBoxesPerNb; i < 9 * kBoxesPerNb + kStages; ++i)
-          mbar_wait(&empty[i % kStages], (i / kStages - 1) & 1);
       }
     }
   } else {
@@ -231,26 +280,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int gid = lane >> 2, tig = lane & 3;
     const uint32_t ring_u32 = smem_u32(ring);
     const uint32_t hh_u32 = smem_u32(hh);
-    const uint32_t peer = kCS > 1 ? cluster_ctarank() ^ 1 : 0;
-    // A stage is free once every consumer warp of the cluster has read it.
-    auto release = [&](int s) {
-      __syncwarp();
-      if (lane == 0) {
-        mbar_arrive(&empty[s]);
-        if constexpr (kCS > 1) mbar_arrive_cluster(&empty[s], peer);
-      }
-    };
-
-    // hh build: this thread's 8 channels [kb_ch, kb_ch + 8) of the
-    // warpgroup's half, for pixels t / 16 + 8 i.
-    const int hch = wg * kHalfN + (t % 16) * 8;
-    const int hrow = t / 16;
-    float sa0[8], sb0[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      sa0[e] = a0[hch + e];
-      sb0[e] = b0[hch + e];
-    }
 
     float acc[64];
 #pragma unroll
@@ -260,14 +289,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     int box = 0;  // weight boxes consumed so far
-    // d (+)= A @ B over K = 256: A is the hh/pf tile, B the next 4 boxes.
-    auto gemm = [&](float (&d)[64]) {
+    // d (+)= A @ B over K = 256: A is the hh/pf tile at a_u32, B the next
+    // 4 boxes.
+    auto gemm = [&](float (&d)[64], uint32_t a_u32) {
       wgmma_fence();
 #pragma unroll
       for (int kb = 0; kb < kKB; ++kb) {
         const int s = box % kStages;
         mbar_wait(&full[s], (box / kStages) & 1);
-        const uint64_t da = desc_sw128(hh_u32 + kb * kAtomBytes);
+        const uint64_t da = desc_sw128(a_u32 + kb * kAtomBytes);
         const uint64_t db = desc_sw128(ring_u32 + s * kBoxBytes + wg * kHalfN * 128);
 #pragma unroll
         for (int k16 = 0; k16 < 4; ++k16)
@@ -275,14 +305,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         if (kb > 0) {
           wgmma_wait<1>();
-          release((box - 1) % kStages);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
         }
         ++box;
       }
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < 64; ++i) fence_operand(d[i]);
-      release((box - 1) % kStages);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
     };
 
     for (int nb = 0; nb < 9; ++nb) {
@@ -291,46 +323,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int hs = h + dy - 1;
       const bool row_ok = hs >= 0 && hs < H;
 
-      // 1. hh = bf16(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 16 bytes a
-      // thread and pixel; rows past W get finite values and are not stored.
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = hrow + 8 * i;
-        const int w = w0 + m;
-        const int ws = w + dx - 1;
-        uint4 gc = make_uint4(0, 0, 0, 0), gs = make_uint4(0, 0, 0, 0);
-        if (w < W && h_ok) {
-          gc = __ldg(reinterpret_cast<const uint4*>(g + ((img + h) * W + w) * kC + hch));
-          if (row_ok && ws >= 0 && ws < W)
-            gs = __ldg(
-                reinterpret_cast<const uint4*>(g + ((img + hs) * W + ws) * kC + hch));
-        }
-        const uint32_t cw[4] = {gc.x, gc.y, gc.z, gc.w};
-        const uint32_t sw[4] = {gs.x, gs.y, gs.z, gs.w};
-        uint32_t o[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
-          const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
-          o[q] = pack_bf16(
-              fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f),
-              fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f));
-        }
-        *reinterpret_cast<uint4*>(hh + sw128(m, hch)) = make_uint4(o[0], o[1], o[2], o[3]);
-      }
-      fence_proxy_async();
-      consumer_sync();
+      const int buf = nb & 1;
+      uint8_t* hh_b = hh + buf * kHhBytes;
+      const uint32_t hh_b_u32 = hh_u32 + buf * kHhBytes;
 
-      // 2. z = hh @ W1 (fp32), this warpgroup's 128 columns.
-      float z[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        z[i] = 0.f;
-        fence_operand(z[i]);
-      }
-      gemm(z);
-
-      // The shifted feats at this thread's accumulator rows and columns.
+      // The shifted feats at this thread's accumulator rows and columns,
+      // in flight while hh is awaited and GEMM1 runs.
       uint32_t fs[16][2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -342,9 +340,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < 16; ++j)
           fs[j][r] = ok ? __ldg(reinterpret_cast<const unsigned int*>(fp + j * 8)) : 0u;
       }
+
+      // 1. z = hh @ W1 (fp32), this warpgroup's 128 columns, once the
+      // builders have filled hh's buffer.
+      mbar_wait(&hh_full[buf], (nb >> 1) & 1);
+      float z[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        z[i] = 0.f;
+        fence_operand(z[i]);
+      }
+      gemm(z, hh_b_u32);
       consumer_sync();  // both warpgroups' GEMM1 has read hh
 
-      // 3. pf = bf16(bf16(relu(a1 * z + b1)) * fs) over hh, in its layout.
+      // 2. pf = bf16(bf16(relu(a1 * z + b1)) * fs) over hh, in its layout.
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int n = wg * kHalfN + j * 8 + tig * 2;
@@ -357,23 +366,24 @@ __global__ void __launch_bounds__(kThreads, 1)
               round_bf16(fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r], s1.x), t1.x), 0.f));
           const float pb = round_bf16(
               fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r + 1], s1.y), t1.y), 0.f));
-          *reinterpret_cast<uint32_t*>(hh + sw128(m, n)) =
+          *reinterpret_cast<uint32_t*>(hh_b + sw128(m, n)) =
               pack_bf16(__fmul_rn(pa, bf16_lo(fs[j][r])), __fmul_rn(pb, bf16_hi(fs[j][r])));
         }
       }
       fence_proxy_async();
       consumer_sync();
 
-      // 4. acc += pf @ K_n over the full K = 256.
-      gemm(acc);
-      consumer_sync();  // both warpgroups' GEMM2 has read pf
+      // 3. acc += pf @ K_n over the full K = 256; then the buffer is free.
+      gemm(acc, hh_b_u32);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&hh_empty[buf]);
     }
 
     // Store this thread's accumulator rows and columns.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int w = w0 + wq * 16 + gid + 8 * r;
-      if (w >= W || !h_ok) continue;
+      if (w >= W) continue;
       float* op = out + ((img + h) * W + w) * kC + wg * kHalfN + tig * 2;
 #pragma unroll
       for (int j = 0; j < 16; ++j)
@@ -383,12 +393,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A 2-D bf16 tensor map over a [rows][kC] matrix, boxes of 64 k x
-// box_rows rows in the 128-byte swizzle.
-bool weight_map(CUtensorMap* map, const void* base, int rows, int box_rows) {
+// A 2-D bf16 tensor map over a [rows][kC] matrix, boxes of 64 k x 256 rows
+// in the 128-byte swizzle.
+bool weight_map(CUtensorMap* map, const void* base, int rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)kC, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)kC * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {64, (cuuint32_t)kC};
   const cuuint32_t elem_strides[2] = {1, 1};
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                                 const_cast<void*>(base), dims, strides, box,
@@ -396,36 +406,6 @@ bool weight_map(CUtensorMap* map, const void* base, int rows, int box_rows) {
                                 CU_TENSOR_MAP_SWIZZLE_128B,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int kCS>
-int launch(const void* g, const void* feats, const void* w1t, const void* kt,
-           const void* a0, const void* b0, const void* a1, const void* b1, void* out,
-           int B, int H, int W, void* stream) {
-  CUtensorMap w1map, kmap;
-  if (!weight_map(&w1map, w1t, kC, kC / kCS) || !weight_map(&kmap, kt, 9 * kC, kC / kCS))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = meta_kernel_fused_wgmma<kCS>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((W + kTileP - 1) / kTileP, (H + kCS - 1) / kCS * kCS, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = kCS;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
-      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
-      (float*)out, H, W);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -442,5 +422,16 @@ extern "C" int rv3d_meta_kernel_fused(const void* g, const void* feats,
                                       void* stream) {
   if (C != kC || B <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  return launch<kClusterSize>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, stream);
+  CUtensorMap w1map, kmap;
+  if (!weight_map(&w1map, w1t, kC) || !weight_map(&kmap, kt, 9 * kC))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      meta_kernel_fused_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((W + kTileP - 1) / kTileP, H, B);
+  meta_kernel_fused_wgmma<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
+      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
+      (float*)out, H, W);
+  return (int)cudaGetLastError();
 }
