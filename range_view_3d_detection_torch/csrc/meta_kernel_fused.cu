@@ -77,7 +77,7 @@ constexpr int kThreads = kConsumerThreads + 128;
 constexpr int kBuilders = 96;
 constexpr int kProducerRegs = 72;
 constexpr int kConsumerRegs = 216;
-constexpr int kSmemBytes = kStages * kBoxBytes + 2 * kHhBytes + 2 * kC * 4 +
+constexpr int kSmemBytes = kStages * kBoxBytes + 2 * kHhBytes + 4 * kC * 4 +
                            2 * (kStages + 2) * 8 + 1024;  // + alignment
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -163,7 +163,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* hh = smem + kStages * kBoxBytes;
   float* a1_s = reinterpret_cast<float*>(hh + 2 * kHhBytes);
   float* b1_s = a1_s + kC;
-  uint64_t* full = reinterpret_cast<uint64_t*>(b1_s + kC);
+  float* a0_s = b1_s + kC;
+  float* b0_s = a0_s + kC;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b0_s + kC);
   uint64_t* empty = full + kStages;
   uint64_t* hh_full = empty + kStages;  // hh buffer b holds neighbour nb, nb % 2 == b
   uint64_t* hh_empty = hh_full + 2;
@@ -173,6 +175,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t img = (size_t)blockIdx.z * H;
 
   for (int i = threadIdx.x; i < kC; i += kThreads) {
+    a0_s[i] = a0[i];
+    b0_s[i] = b0[i];
     a1_s[i] = a1[i];
     b1_s[i] = b1[i];
   }
@@ -198,12 +202,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int bt = threadIdx.x - kConsumerThreads - 32;
       const int ch = (bt % 32) * 8;
       const int p0 = bt / 32;
-      float sa0[8], sb0[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        sa0[e] = a0[ch + e];
-        sb0[e] = b0[ch + e];
-      }
+      // BN0's affine for the 8 channels stays in shared memory: the
+      // builders run at kProducerRegs registers.
+      const float* sa0 = a0_s + ch;
+      const float* sb0 = b0_s + ch;
       for (int nb = 0; nb < 9; ++nb) {
         const int buf = nb & 1;
         if (nb >= 2) mbar_wait(&hh_empty[buf], ((nb >> 1) - 1) & 1);
