@@ -11,14 +11,14 @@
 // zeroed edge rows). The bf16 rounding points are the Pallas kernel's, and
 // those of the plain twin (kernels/stem.py::meta_kernel_fused_plain).
 //
-// Bound on the H100 at B=2, 64x1808, C=256: two C x C GEMMs per neighbour
-// and pixel, 5.46e11 flop, 0.552 ms at 989 TFLOP/s bf16; the bytes (g and
-// feats read once, fp32 out written once, 474 MB) take 0.14 ms. So the
-// operations bound it, but every block needs all of W1 and the nine K_n
-// (1.25 MB bf16) for every neighbour: at 64 pixels a block that is 2.36 MB
-// a block and 8.8 GB of L2 reads a call (3712 blocks), about 1.6 ms at
-// ~5.5 TB/s. The weight stream through L2, not the tensor cores, is what
-// the design has to keep busy.
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W) at B=2, 64x1808, C=256:
+// two C x C GEMMs per neighbour and pixel, 5.46e11 flop, 0.552 ms at 989
+// TFLOP/s bf16; the bytes (g and feats read once, fp32 out written once,
+// 474 MB) take 0.14 ms. So the operations bound it. But every block needs
+// all of W1 and the nine K_n (1.25 MB bf16) for every neighbour: at 64
+// pixels a block that is 2.36 MB a block, 8.8 GB of L2 reads a call (3712
+// blocks), and a shared-memory hh/pf tile has to be built between the
+// GEMMs of every neighbour.
 //
 // Design, from that:
 // - A block owns 64 pixels of one row and all C = 256 output channels and
@@ -29,23 +29,27 @@
 // - The weights arrive by TMA as W1^T and K_n^T ([n][k] bf16), in boxes of
 //   64 k x 256 n (32 KB, 128-byte swizzle: the K-major layout a wgmma
 //   descriptor reads), through a 4-stage mbarrier ring fed by one thread
-//   of the producer warpgroup. A neighbour is 8 boxes (4 of W1^T, then 4 of
-//   K_n^T), so the ring runs straight across neighbours and GEMMs; each
+//   of the producer warpgroup. A neighbour is 8 boxes (4 of W1^T, then 4
+//   of K_n^T), so the ring runs straight across neighbours and GEMMs; each
 //   stage is released as soon as the wgmma group that read it has retired
-//   (wait_group 1).
-//   Warpgroup j's B descriptor starts at its 128-row half of the box.
-//   setmaxnreg moves registers from the producer to the consumers.
-// - Per neighbour, hh (64 x 256 bf16, 32 KB) is built in shared memory in
-//   the same swizzled K-major layout by the producer warpgroup's other
-//   three warps, one neighbour ahead, into one of two buffers (mbarriers
-//   hh_full / hh_empty), so the build overlaps the consumers' GEMMs.
-//   GEMM1 gives z = hh @ W1 in registers; the BN1/ReLU/x fs epilogue
-//   (fs loaded before GEMM1) writes pf over hh once both warpgroups'
-//   GEMM1 has retired; GEMM2 accumulates pf @ K_n over the full K = 256
-//   and frees the buffer. Named barriers over the 256 consumer threads
+//   (wait_group 1). Warpgroup j's B descriptor starts at its 128-row half
+//   of the box.
+// - A trace of the single-buffer form (consumers building hh themselves)
+//   gave, per neighbour: hh build 2.7 us, GEMM1 1.4 us (0.2 of it waiting
+//   for weights), epilogue 1.9 us, GEMM2 1.4 us (0.2 waiting). The weight
+//   stream kept up; the global-load latency of the build and of the
+//   epilogue's feats did not. So hh is built by the producer warpgroup's
+//   other three warps, one neighbour ahead, into one of two buffers
+//   (mbarriers hh_full / hh_empty), and the consumers load fs before
+//   GEMM1. (Sharing each weight box between a 2-block cluster by TMA
+//   multicast halved the L2 reads and was slower.)
+// - Per neighbour the consumers run GEMM1 (z = hh @ W1 in registers), the
+//   BN1/ReLU/x fs epilogue, which writes pf over hh once both warpgroups'
+//   GEMM1 has retired, and GEMM2 (acc += pf @ K_n over the full K = 256),
+//   which frees the buffer. Named barriers over the 256 consumer threads
 //   join the steps; generic stores are made visible to wgmma with
 //   fence.proxy.async.
-// - Shared memory: 128 KB of ring + 2 x 32 KB of hh/pf + BN1's affine,
+// - Shared memory: 128 KB of ring + 2 x 32 KB of hh/pf + the BN affines,
 //   one block an SM.
 // - Host side: the two weight tensor maps are encoded per launch
 //   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
@@ -71,12 +75,14 @@ constexpr int kBoxesPerNb = 2 * kKB;         // W1^T, then K_n^T
 constexpr int kConsumerThreads = 256;
 // + one producer warpgroup: one thread of its first warp issues the
 // weight loads, its other three warps build hh. 384 threads start at 168
-// registers a thread; setmaxnreg moves 96 a thread from the producer to
-// the consumers.
+// registers a thread; setmaxnreg moves 88 a thread from the producer to
+// the consumers (80 / 208: the fastest split without spills on the H100;
+// 72 / 216 spills in the builders, and a split above the 64,512 registers
+// that the launch holds makes setmaxnreg.inc wait forever).
 constexpr int kThreads = kConsumerThreads + 128;
 constexpr int kBuilders = 96;
-constexpr int kProducerRegs = 72;
-constexpr int kConsumerRegs = 216;
+constexpr int kProducerRegs = 80;
+constexpr int kConsumerRegs = 208;
 constexpr int kSmemBytes = kStages * kBoxBytes + 2 * kHhBytes + 4 * kC * 4 +
                            2 * (kStages + 2) * 8 + 1024;  // + alignment
 
@@ -198,14 +204,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // warps build hh one neighbour ahead of the consumers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x >= kConsumerThreads + 32) {
-      // This thread's 8 channels [ch, ch + 8), for pixels p0 + 3 i.
+      // This thread's 8 channels [ch, ch + 8), for pixels p0 + 3 i; BN0's
+      // affine for them is read from shared memory as 16-byte loads.
       const int bt = threadIdx.x - kConsumerThreads - 32;
       const int ch = (bt % 32) * 8;
       const int p0 = bt / 32;
-      // BN0's affine for the 8 channels stays in shared memory: the
-      // builders run at kProducerRegs registers.
-      const float* sa0 = a0_s + ch;
-      const float* sb0 = b0_s + ch;
       for (int nb = 0; nb < 9; ++nb) {
         const int buf = nb & 1;
         if (nb >= 2) mbar_wait(&hh_empty[buf], ((nb >> 1) - 1) & 1);
@@ -233,6 +236,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                     reinterpret_cast<const uint4*>(g + ((img + hs) * W + ws) * kC + ch));
             }
           }
+          float sa0[8], sb0[8];
+          *reinterpret_cast<float4*>(sa0) = *reinterpret_cast<const float4*>(a0_s + ch);
+          *reinterpret_cast<float4*>(sa0 + 4) = *reinterpret_cast<const float4*>(a0_s + ch + 4);
+          *reinterpret_cast<float4*>(sb0) = *reinterpret_cast<const float4*>(b0_s + ch);
+          *reinterpret_cast<float4*>(sb0 + 4) = *reinterpret_cast<const float4*>(b0_s + ch + 4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int p = p0 + 3 * (i0 + u);
