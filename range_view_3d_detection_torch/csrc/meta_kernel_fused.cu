@@ -34,17 +34,18 @@
 //   stage is released as soon as the wgmma group that read it has retired
 //   (wait_group 1). Warpgroup j's B descriptor starts at its 128-row half
 //   of the box.
-// - What limits it, measured: with the consumers building hh themselves,
-//   a neighbour took hh build 2.7 us, GEMM1 1.4 us (0.2 of it waiting for
-//   weights), epilogue 1.9 us, GEMM2 1.4 us (0.2 waiting). So hh is built
-//   by the producer warpgroup's other three warps, one neighbour ahead,
-//   into one of two buffers (mbarriers hh_full / hh_empty), and the
-//   consumers load fs before GEMM1: 2.05 -> 1.81 ms (CUDA-graph replay).
-//   The builders now take 6.4 us a neighbour and set the pace. Without the
-//   g and feats loads the kernel takes 1.12 ms, with the weights loaded for
-//   one neighbour only 1.66 ms: the activation loads, not the weight
-//   stream, bound it. (Sharing each weight box between a 2-block cluster by
-//   TMA multicast halves the L2 weight reads and took 2.80 ms.)
+// - What limits it, measured by chip_probe_k1.py: with the consumers
+//   building hh themselves, a neighbour took hh build 2.8 us, GEMM1 1.5 us
+//   (0.5 of it waiting for weights), epilogue and syncs 2.2 us, GEMM2
+//   1.3 us. So hh is built by the producer warpgroup's other three warps,
+//   one neighbour ahead, into one of two buffers (mbarriers hh_full /
+//   hh_empty), and the consumers load fs before GEMM1: 2.02-2.05 -> 1.83 ms
+//   (CUDA-graph replay). The builders now take 6.3 us a neighbour and set
+//   the pace. Without the g and feats loads the kernel takes 1.12 ms, with
+//   the weights loaded for one neighbour only 1.64-1.68 ms: the activation
+//   loads, more than the weight stream, bound it. (Sharing each weight box
+//   between a 2-block cluster by TMA multicast halves the L2 weight reads
+//   and took 2.80 ms.)
 // - Per neighbour the consumers run GEMM1 (z = hh @ W1 in registers), the
 //   BN1/ReLU/x fs epilogue, which writes pf over hh once both warpgroups'
 //   GEMM1 has retired, and GEMM2 (acc += pf @ K_n over the full K = 256),
