@@ -7,7 +7,9 @@
 Builds ``csrc/meta_kernel_fused.cu`` (or ``--source``, e.g. an earlier
 revision written out with ``git show``) with ``nvcc`` for ``sm_90a`` into
 ``build/k1_probe/``: once as it is, and once per variant made by patching
-the source text.
+the source text at fixed anchors. A variant whose anchor the source no
+longer holds is skipped, with a line that says so: the kernel is edited
+freely, and the probe follows it where it still applies.
 
 - ``--regs P/C``: the producer / consumer ``setmaxnreg`` split. Each split
   must stay within the 64,512 registers the 384-thread launch holds.
@@ -41,11 +43,15 @@ SHAPE = (2, 64, 1808, 256)
 TRACE_SLOTS = 384  # per block
 
 
+class MissingAnchor(RuntimeError):
+    """The source does not hold a variant's anchor exactly once."""
+
+
 def patch(src: str, old: str, new: str, regex: bool = False) -> str:
     """``src`` with ``old`` (exactly one occurrence) replaced by ``new``."""
     found = len(re.findall(old, src)) if regex else src.count(old)
     if found != 1:
-        raise RuntimeError(f"chip_probe_k1: anchor found {found} times: {old!r}")
+        raise MissingAnchor(f"anchor found {found} times: {old!r}")
     return re.sub(old, new, src) if regex else src.replace(old, new)
 
 
@@ -57,8 +63,8 @@ def with_regs(src: str, producer: int, consumer: int) -> str:
 
 
 def without_activations(src: str) -> str:
-    src = patch(src, "if (p < kTileP && w < W) {", "if (false) {")
-    return patch(src, "fs[j][r] = ok ? __ldg(", "fs[j][r] = false ? __ldg(")
+    src = patch(src, "if (p < kTileP && w < W && ch_ok) {", "if (false) {")
+    return patch(src, "fs[j][r] = ok && col_ok ? __ldg(", "fs[j][r] = false ? __ldg(")
 
 
 def weights_once(src: str) -> str:
@@ -104,9 +110,9 @@ def traced(src: str) -> str:
                 r"\1K1_T(9 + 8 * nb);\n\1\2\n\1K1_T(10 + 8 * nb);\n", regex=True)
     src = patch(src, r"( *)(gemm\(acc[^;]*\);)\n",
                 r"\1K1_T(11 + 8 * nb);\n\1\2\n\1K1_T(12 + 8 * nb);\n", regex=True)
-    src = patch(src, "    // Store this thread's accumulator rows and columns.\n",
+    src = patch(src, "    // Store this thread's accumulator rows and its columns below C.\n",
                 "    if (threadIdx.x == 0) { K1_SLOT(2) = clock64(); K1_SLOT(3) = k1_gtime(); }\n"
-                "    // Store this thread's accumulator rows and columns.\n")
+                "    // Store this thread's accumulator rows and its columns below C.\n")
     builder = "        if (nb >= 2) mbar_wait(&hh_empty[buf], ((nb >> 1) - 1) & 1);\n"
     if builder in src:
         b0 = "threadIdx.x == kConsumerThreads + 32"
@@ -117,6 +123,26 @@ def traced(src: str) -> str:
                     f"        if ({b0}) K1_SLOT(242 + 4 * nb) = clock64();\n"
                     "        if ((threadIdx.x & 31) == 0) mbar_arrive(&hh_full[buf]);\n")
     return src
+
+
+def make_variants(base: str, regs: str = "", ablate: bool = False,
+                  trace: bool = False):
+    """``({name: (source, exact)}, [skip messages])``: the source as it is,
+    and each asked-for variant whose anchors ``base`` holds. ``exact``
+    variants compute the kernel's function and are checked."""
+    makers = [(f"regs {s}", lambda src, s=s: with_regs(src, *map(int, s.split("/"))), True)
+              for s in filter(None, regs.split(","))]
+    if ablate:
+        makers += [("no-act", without_activations, False), ("w-once", weights_once, False)]
+    if trace:
+        makers.append(("trace", traced, True))
+    variants, skipped = {"as is": (base, True)}, []
+    for name, make, exact in makers:
+        try:
+            variants[name] = (make(base), exact)
+        except MissingAnchor as e:
+            skipped.append(f"{name}: skipped, {e}")
+    return variants, skipped
 
 
 def report_trace(t, ncta: int, smi: str) -> None:
@@ -169,16 +195,10 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}; source {args.source}", flush=True)
-    base = args.source.read_text()
-    variants = {"as is": (base, True)}
-    for split in filter(None, args.regs.split(",")):
-        p, c = map(int, split.split("/"))
-        variants[f"regs {p}/{c}"] = (with_regs(base, p, c), True)
-    if args.ablate:
-        variants["no-act"] = (without_activations(base), False)
-        variants["w-once"] = (weights_once(base), False)
-    if args.trace:
-        variants["trace"] = (traced(base), True)
+    variants, skipped = make_variants(args.source.read_text(), args.regs, args.ablate,
+                                      args.trace)
+    for line in skipped:
+        print(line, flush=True)
 
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "hopper.cuh").write_text((SOURCE.parent / "hopper.cuh").read_text())
@@ -195,7 +215,7 @@ def main() -> int:
         log = proc.communicate()[0].decode(errors="replace")
         cs.check(proc.returncode == 0, f"{name}: build failed\n{log}")
         spills = cs.ptxas_spills(log, "meta_kernel_fused_wgmma")
-        print(f"{name}: {spills} bytes spilled", flush=True)
+        print(f"{name}: bytes spilled {spills}", flush=True)
         lib = ctypes.CDLL(str(so))
         lib.rv3d_meta_kernel_fused.argtypes = _build.SIGNATURES["rv3d_meta_kernel_fused"]
         lib.rv3d_meta_kernel_fused.restype = ctypes.c_int

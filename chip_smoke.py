@@ -7,13 +7,17 @@ Phases, each of which raises (non-zero exit) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into ``build/``;
-   ptxas's register and spill lines, and zero spills in K1;
+   ptxas's register and spill lines (kept beside the library, so a reused
+   build is checked too), and zero spills in both instances of K1;
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
-   64): max|diff| <= 2e-2 * max|ref| (fp32 accumulation order, one-ulp
-   bf16 flips of the intermediate ``p``); a C the kernel does not take
-   (128) raises in the wrapper and is refused by the C entry point;
+   64), all at C = 256; at the Waymo and nuScenes stem width C = 128
+   (Waymo's padded 64x2656 image) and the synthetic configs' C = 32; and
+   at C = 96 and 160, which the kernel pads to its 128- and 256-wide
+   instances: max|diff| <= 2e-2 * max|ref| (fp32 accumulation order,
+   one-ulp bf16 flips of the intermediate ``p``); a C the kernel does not
+   take (48, 288) raises;
 4. K2 (NMS scan) against its plain twin on the same IoU tensors, B=2,
    cap=1024, WEIGHTED and HARD: ``keep`` identical, ``merged`` within 1e-4;
 5. main path: ``Predictor`` on the full rv-av2 flagship config (B=2,
@@ -23,7 +27,8 @@ Phases, each of which raises (non-zero exit) on failure:
    same proposals;
 6. timings (CUDA events around eager launches, warm-up, median) of each
    kernel, its plain twin and its bound (K1 also by CUDA-graph replay,
-   with its L2 weight bytes a call), ms per request of the main path, its forward and
+   with its L2 weight bytes a call, and at the Waymo stem shape), ms per
+   request of the main path, its forward and
    decode + NMS device times, and a torch.profiler table of one request's
    device time by kernel;
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
@@ -135,17 +140,19 @@ def count_ops(predictor, request, names) -> dict:
     return counts
 
 
-def ptxas_spills(log: str, kernel: str) -> int:
-    """Bytes of spill stores and loads that ``ptxas -v`` reports for the
-    kernel whose (mangled) name contains ``kernel``."""
+def ptxas_spills(log: str, kernel: str) -> dict:
+    """Bytes of spill stores and loads that ``ptxas -v`` reports for each
+    kernel (template instance) whose mangled name contains ``kernel``."""
     lines = log.splitlines()
+    found = {}
     for i, line in enumerate(lines):
         if "Function properties for" in line and kernel in line:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                lines[i + 1])
             check(spills is not None, f"no spill line for {kernel}")
-            return int(spills[1]) + int(spills[2])
-    raise RuntimeError(f"chip_smoke: {kernel} not in the ptxas log")
+            found[line.split()[-1]] = int(spills[1]) + int(spills[2])
+    check(bool(found), f"{kernel} not in the ptxas log")
+    return found
 
 
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
@@ -171,6 +178,14 @@ def stem_inputs(B, H, W, C, gen, device):
         a1=(torch.rand(C, generator=gen) + 0.5).to(device),
         b1=rn(C, std=0.5).to(device),
     )
+
+
+def k1_cost(B, H, W, C):
+    """(flop, bytes) of one K1 call: two C x C GEMMs per neighbour and
+    pixel; g and feats read once, the weights and affines, fp32 out."""
+    flops = 2 * B * H * W * 9 * 2 * C * C
+    nbytes = 2 * (2 * B * H * W * C) + 2 * 10 * C * C + 16 * C + 4 * B * H * W * C
+    return flops, nbytes
 
 
 def nms_case(B, cap, gen, device):
@@ -630,20 +645,24 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"  ptxas: {line.strip()}")
-    if lib.ptxas_log:
-        k1_spills = ptxas_spills(lib.ptxas_log, "meta_kernel_fused_wgmma")
-        check(k1_spills == 0, f"K1 spills {k1_spills} bytes")
-        say("K1 (meta_kernel_fused_wgmma): 0 bytes spilled")
-    else:
-        say("build: library reused from an earlier build, no ptxas log to check")
+    k1_spills = ptxas_spills(lib.ptxas_log, "meta_kernel_fused_wgmma")
+    check(len(k1_spills) == 2, f"K1 instances in the ptxas log: {k1_spills}")
+    check(not any(k1_spills.values()), f"K1 spills: {k1_spills}")
+    say(f"K1 (meta_kernel_fused_wgmma): {len(k1_spills)} instances, 0 bytes spilled")
 
     # 3. K1 against its plain twin: the flagship shape, a small odd one, a
-    # single row with a ragged last tile, exact tiles.
+    # single row with a ragged last tile, exact tiles; the Waymo stem
+    # (C = 128, 64x2656 with Waymo's padding), the synthetic configs'
+    # C = 32, and widths that the kernel pads (96 and 160).
     B, H, W, C = 2, 64, 1808, 256
     k1_in = stem_inputs(B, H, W, C, gen, device)
+    waymo = (2, 64, 2656, 128)
+    k1_waymo = stem_inputs(*waymo, gen, device)
     k1_err = 0.0
-    for shape in ((B, H, W, C), (1, 3, 37, C), (1, 1, 70, C), (2, 2, 64, C)):
-        x = k1_in if shape == (B, H, W, C) else stem_inputs(*shape, gen, device)
+    made = {(B, H, W, C): k1_in, waymo: k1_waymo}
+    for shape in ((B, H, W, C), (1, 3, 37, C), (1, 1, 70, C), (2, 2, 64, C), waymo,
+                  (2, 32, 256, 32), (1, 3, 37, 96), (1, 3, 37, 160)):
+        x = made[shape] if shape in made else stem_inputs(*shape, gen, device)
         got = meta_kernel_fused(**x)
         want = meta_kernel_fused_plain(**x)
         torch.cuda.synchronize()
@@ -653,16 +672,13 @@ def main() -> int:
         check(err <= 2e-2 * ref, f"K1 {shape}: max|diff| {err} > 2e-2 * {ref}")
         say(f"K1 {shape}: max|diff| {err:.4g} (max|ref| {ref:.4g}) ok")
         k1_err = max(k1_err, err)
-    narrow = stem_inputs(1, 1, 64, 128, gen, device)
-    try:
-        meta_kernel_fused(**narrow)
-    except ValueError as e:
-        say(f"K1 C=128: the wrapper raises ({e})")
-    else:
-        check(False, "K1 C=128: the wrapper did not raise")
-    err = lib.rv3d_meta_kernel_fused(*[None] * 9, 1, 1, 64, 128, None)
-    check(err != 0, "K1 C=128: the C entry point accepted it")
-    say(f"K1 C=128: the C entry point refuses it (cudaError_t {err})")
+    for bad in (48, 288):
+        try:
+            meta_kernel_fused(**stem_inputs(1, 1, 64, bad, gen, device))
+        except RuntimeError as e:
+            say(f"K1 C={bad}: refused ({e})")
+        else:
+            check(False, f"K1 C={bad}: the kernel accepted it")
 
     # 4. K2 against its plain twin.
     cap = 1024
@@ -738,8 +754,11 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: meta_kernel_fused(**k1_in), reps=10)
     k1_graph_ms = graph_ms(lambda: meta_kernel_fused(**k1_in))
     k1_plain_ms = cuda_ms(lambda: meta_kernel_fused_plain(**k1_in), reps=3, warmup=1)
-    k1_flops = 2 * B * H * W * 9 * 2 * C * C
-    k1_bytes = 2 * (2 * B * H * W * C) + 2 * 10 * C * C + 16 * C + 4 * B * H * W * C
+    waymo_ms = cuda_ms(lambda: meta_kernel_fused(**k1_waymo), reps=10)
+    waymo_graph_ms = graph_ms(lambda: meta_kernel_fused(**k1_waymo))
+    waymo_flops, waymo_bytes = k1_cost(*waymo)
+    waymo_bound, waymo_by = bound_ms(waymo_flops, H100_BF16_FLOPS, waymo_bytes)
+    k1_flops, k1_bytes = k1_cost(B, H, W, C)
     k1_bound, k1_by = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
     nms_kw = dict(iou_threshold=0.3, merge_threshold=0.5)
     k2_ms = cuda_ms(lambda: nms_scan(*k2_in, **nms_kw), reps=20)
@@ -756,6 +775,9 @@ def main() -> int:
         f"({100 * k1_bound / k1_graph_ms:.1f}%), plain {k1_plain_ms:.3f} ms, "
         f"bound {k1_bound:.4f} ms ({k1_by}), L2 weight reads {k1_l2 / 1e9:.2f} GB a "
         f"call ({k1_l2 / k1_ms / 1e9:.2f} TB/s eager) on {smi}")
+    say(f"K1 Waymo stem {waymo}: kernel {waymo_ms:.4f} ms eager "
+        f"({100 * waymo_bound / waymo_ms:.1f}% of bound), {waymo_graph_ms:.4f} ms "
+        f"graph replay, bound {waymo_bound:.4f} ms ({waymo_by}) on {smi}")
     say(f"K2 cap {cap} B 2: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
         f"bound {k2_bound * 1e3:.2f} us ({k2_by}), {live} live steps on {smi}")
     kernels = [

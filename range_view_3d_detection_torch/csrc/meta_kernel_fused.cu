@@ -21,39 +21,46 @@
 // GEMMs of every neighbour.
 //
 // Design, from that:
-// - A block owns 64 pixels of one row and all C = 256 output channels and
-//   loops over the 9 neighbours. Two consumer warpgroups split the output
-//   channels: warpgroup j owns columns [128j, 128j + 128) of both z and the
-//   accumulator, 64 + 64 fp32 registers a thread (wgmma m64n128k16, bf16
-//   in, fp32 accumulate, A and B from shared memory).
+// - C is any multiple of 32 up to 256 (the configs' META stems are 256,
+//   128 and 32 wide). The kernel is a template over a padded width Cp, 128
+//   (C <= 128) or 256: the weight boxes, the hh/pf tile and the
+//   accumulators are Cp wide, and channels C..Cp-1 are zeros (the TMA
+//   fills the weights outside the C x C matrices with zeros, hh and pf
+//   there are relu(0 * 0 + 0) with zero BN affines, and they are not
+//   stored).
+// - A block owns 64 pixels of one row and all Cp output channels and loops
+//   over the 9 neighbours. Two consumer warpgroups split the output
+//   channels: warpgroup j owns columns [j Cp/2, (j + 1) Cp/2) of both z and
+//   the accumulator, Cp/4 + Cp/4 fp32 registers a thread (wgmma m64nNk16
+//   with N = Cp/2, bf16 in, fp32 accumulate, A and B from shared memory).
 // - The weights arrive by TMA as W1^T and K_n^T ([n][k] bf16), in boxes of
-//   64 k x 256 n (32 KB, 128-byte swizzle: the K-major layout a wgmma
-//   descriptor reads), through a 4-stage mbarrier ring fed by one thread
-//   of the producer warpgroup. A neighbour is 8 boxes (4 of W1^T, then 4
-//   of K_n^T), so the ring runs straight across neighbours and GEMMs; each
-//   stage is released as soon as the wgmma group that read it has retired
-//   (wait_group 1). Warpgroup j's B descriptor starts at its 128-row half
-//   of the box.
-// - What limits it, measured by chip_probe_k1.py: with the consumers
-//   building hh themselves, a neighbour took hh build 2.8 us, GEMM1 1.5 us
-//   (0.5 of it waiting for weights), epilogue and syncs 2.2 us, GEMM2
-//   1.3 us. So hh is built by the producer warpgroup's other three warps,
-//   one neighbour ahead, into one of two buffers (mbarriers hh_full /
-//   hh_empty), and the consumers load fs before GEMM1: 2.02-2.05 -> 1.83 ms
-//   (CUDA-graph replay). The builders now take 6.3 us a neighbour and set
-//   the pace. Without the g and feats loads the kernel takes 1.12 ms, with
-//   the weights loaded for one neighbour only 1.64-1.68 ms: the activation
-//   loads, more than the weight stream, bound it. (Sharing each weight box
-//   between a 2-block cluster by TMA multicast halves the L2 weight reads
-//   and took 2.80 ms.)
+//   64 k x Cp n (128-byte swizzle: the K-major layout a wgmma descriptor
+//   reads), through a 4-stage mbarrier ring fed by one thread of the
+//   producer warpgroup. A neighbour is 2 Cp / 64 boxes (W1^T, then K_n^T),
+//   so the ring runs straight across neighbours and GEMMs; each stage is
+//   released as soon as the wgmma group that read it has retired
+//   (wait_group 1). Warpgroup j's B descriptor starts at its half of the
+//   box.
+// - What limits it, measured by chip_probe_k1.py at C = 256: with the
+//   consumers building hh themselves, a neighbour took hh build 2.8 us,
+//   GEMM1 1.5 us (0.5 of it waiting for weights), epilogue and syncs
+//   2.2 us, GEMM2 1.3 us. So hh is built by the producer warpgroup's other
+//   three warps, one neighbour ahead, into one of two buffers (mbarriers
+//   hh_full / hh_empty), and the consumers load fs before GEMM1: 2.02-2.05
+//   -> 1.83 ms (CUDA-graph replay). The builders now take 6.3 us a
+//   neighbour and set the pace. Without the g and feats loads the kernel
+//   takes 1.12 ms, with the weights loaded for one neighbour only
+//   1.64-1.68 ms: the activation loads, more than the weight stream, bound
+//   it. (Sharing each weight box between a 2-block cluster by TMA
+//   multicast halves the L2 weight reads and took 2.80 ms.)
 // - Per neighbour the consumers run GEMM1 (z = hh @ W1 in registers), the
 //   BN1/ReLU/x fs epilogue, which writes pf over hh once both warpgroups'
-//   GEMM1 has retired, and GEMM2 (acc += pf @ K_n over the full K = 256),
+//   GEMM1 has retired, and GEMM2 (acc += pf @ K_n over the full K = Cp),
 //   which frees the buffer. Named barriers over the 256 consumer threads
 //   join the steps; generic stores are made visible to wgmma with
 //   fence.proxy.async.
-// - Shared memory: 128 KB of ring + 2 x 32 KB of hh/pf + the BN affines,
-//   one block an SM.
+// - Shared memory: 4 boxes of ring + 2 hh/pf tiles + the BN affines (at
+//   Cp = 256: 128 + 64 + 4 KB), one block an SM.
 // - Host side: the two weight tensor maps are encoded per launch
 //   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
 
@@ -66,28 +73,28 @@
 
 namespace {
 
-constexpr int kC = 256;          // channels (the META stem width)
+constexpr int kMaxC = 256;
 constexpr int kTileP = 64;       // pixels per block: one m64 tile
-constexpr int kHalfN = kC / 2;   // output channels per consumer warpgroup
-constexpr int kKB = kC / 64;     // 64-channel k-blocks (128-byte swizzle rows)
 constexpr int kStages = 4;
-constexpr int kBoxBytes = 64 * kC * 2;       // one weight box: 64 k x 256 n
 constexpr int kAtomBytes = kTileP * 128;     // one k-block of hh: 64 rows x 128 B
-constexpr int kHhBytes = kKB * kAtomBytes;   // 32 KB, two of them
-constexpr int kBoxesPerNb = 2 * kKB;         // W1^T, then K_n^T
 constexpr int kConsumerThreads = 256;
 // + one producer warpgroup: one thread of its first warp issues the
 // weight loads, its other three warps build hh. 384 threads start at 168
 // registers a thread; setmaxnreg moves 88 a thread from the producer to
-// the consumers (80 / 208: the fastest split without spills on the H100;
-// 72 / 216 spills in the builders, and a split above the 64,512 registers
-// that the launch holds makes setmaxnreg.inc wait forever).
+// the consumers (80 / 208: the fastest split without spills on the H100
+// at Cp = 256; 72 / 216 spills in the builders, and a split above the
+// 64,512 registers that the launch holds makes setmaxnreg.inc wait
+// forever).
 constexpr int kThreads = kConsumerThreads + 128;
 constexpr int kBuilders = 96;
 constexpr int kProducerRegs = 80;
 constexpr int kConsumerRegs = 208;
-constexpr int kSmemBytes = kStages * kBoxBytes + 2 * kHhBytes + 4 * kC * 4 +
-                           2 * (kStages + 2) * 8 + 1024;  // + alignment
+
+// Shared memory of the Cp-wide instance: ring, two hh/pf tiles, the four
+// BN affines, the mbarriers, and room to align the ring to 1024 bytes.
+template <int kCp>
+constexpr int kSmemBytes = kStages * 64 * kCp * 2 + 2 * (kCp / 64) * kAtomBytes +
+                           4 * kCp * 4 + 2 * (kStages + 2) * 8 + 1024;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -122,8 +129,9 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
 }
 
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da,
-                                                     uint64_t db) {
+// d (+)= A @ B for one k16 step, N = 128 (Cp = 256) or 64 (Cp = 128) by the
+// size of the accumulator.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -157,7 +165,30 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
 
+template <int kCp>
 __global__ void __launch_bounds__(kThreads, 1)
     meta_kernel_fused_wgmma(const __grid_constant__ CUtensorMap w1map,
                             const __grid_constant__ CUtensorMap kmap,
@@ -165,16 +196,27 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const __nv_bfloat16* __restrict__ f,
                             const float* __restrict__ a0, const float* __restrict__ b0,
                             const float* __restrict__ a1, const float* __restrict__ b1,
-                            float* __restrict__ out, int H, int W) {
+                            float* __restrict__ out, int H, int W, int C) {
+  constexpr int kHalfN = kCp / 2;             // output channels per consumer warpgroup
+  constexpr int kKB = kCp / 64;               // 64-channel k-blocks (128-byte swizzle rows)
+  constexpr int kBoxBytes = 64 * kCp * 2;     // one weight box: 64 k x Cp n
+  constexpr int kHhBytes = kKB * kAtomBytes;  // one hh/pf tile, two of them
+  constexpr int kBoxesPerNb = 2 * kKB;        // W1^T, then K_n^T
+  constexpr int kJ = kHalfN / 8;              // 8-column groups of a warpgroup
+  // Builders: kCp / 8 threads of 8 channels cover a pixel; the 96 threads
+  // cover kPixGroups pixels at a time.
+  constexpr int kPixGroups = kBuilders / (kCp / 8);
+  constexpr int kPixSteps = (kTileP + kPixGroups - 1) / kPixGroups;
+
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
   uint8_t* hh = smem + kStages * kBoxBytes;
   float* a1_s = reinterpret_cast<float*>(hh + 2 * kHhBytes);
-  float* b1_s = a1_s + kC;
-  float* a0_s = b1_s + kC;
-  float* b0_s = a0_s + kC;
-  uint64_t* full = reinterpret_cast<uint64_t*>(b0_s + kC);
+  float* b1_s = a1_s + kCp;
+  float* a0_s = b1_s + kCp;
+  float* b0_s = a0_s + kCp;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b0_s + kCp);
   uint64_t* empty = full + kStages;
   uint64_t* hh_full = empty + kStages;  // hh buffer b holds neighbour nb, nb % 2 == b
   uint64_t* hh_empty = hh_full + 2;
@@ -183,11 +225,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.y;
   const size_t img = (size_t)blockIdx.z * H;
 
-  for (int i = threadIdx.x; i < kC; i += kThreads) {
-    a0_s[i] = a0[i];
-    b0_s[i] = b0[i];
-    a1_s[i] = a1[i];
-    b1_s[i] = b1[i];
+  for (int i = threadIdx.x; i < kCp; i += kThreads) {
+    const bool real = i < C;  // padded channels get zero affines
+    a0_s[i] = real ? a0[i] : 0.f;
+    b0_s[i] = real ? b0[i] : 0.f;
+    a1_s[i] = real ? a1[i] : 0.f;
+    b1_s[i] = real ? b1[i] : 0.f;
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -207,11 +250,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     // warps build hh one neighbour ahead of the consumers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x >= kConsumerThreads + 32) {
-      // This thread's 8 channels [ch, ch + 8), for pixels p0 + 3 i; BN0's
-      // affine for them is read from shared memory as 16-byte loads.
+      // This thread's 8 channels [ch, ch + 8), for pixels p0 + kPixGroups i;
+      // BN0's affine for them is read from shared memory as 16-byte loads.
       const int bt = threadIdx.x - kConsumerThreads - 32;
-      const int ch = (bt % 32) * 8;
-      const int p0 = bt / 32;
+      const int ch = (bt % (kCp / 8)) * 8;
+      const int p0 = bt / (kCp / 8);
+      const bool ch_ok = ch < C;
       for (int nb = 0; nb < 9; ++nb) {
         const int buf = nb & 1;
         if (nb >= 2) mbar_wait(&hh_empty[buf], ((nb >> 1) - 1) & 1);
@@ -220,23 +264,25 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int dx = nb - dy * 3;
         const int hs = h + dy - 1;
         const bool row_ok = hs >= 0 && hs < H;
+        // This thread's channels of pixel p: gc_row[p C], shifted gs_row[p C].
+        const __nv_bfloat16* gc_row = g + ((img + h) * W + w0) * C + ch;
+        const __nv_bfloat16* gs_row = g + ((img + hs) * W + w0 + dx - 1) * C + ch;
         // hh = bf16(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 16 bytes a
         // thread and pixel, 4 pixels' loads in flight; rows past W get
         // finite values and are not stored.
-        for (int i0 = 0; i0 < (kTileP + 2) / 3; i0 += 4) {
+        for (int i0 = 0; i0 < kPixSteps; i0 += 4) {
           uint4 gc[4], gs[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const int p = p0 + 3 * (i0 + u);
+            const int p = p0 + kPixGroups * (i0 + u);
             const int w = w0 + p;
             const int ws = w + dx - 1;
             gc[u] = make_uint4(0, 0, 0, 0);
             gs[u] = make_uint4(0, 0, 0, 0);
-            if (p < kTileP && w < W) {
-              gc[u] = __ldg(reinterpret_cast<const uint4*>(g + ((img + h) * W + w) * kC + ch));
+            if (p < kTileP && w < W && ch_ok) {
+              gc[u] = __ldg(reinterpret_cast<const uint4*>(gc_row + p * C));
               if (row_ok && ws >= 0 && ws < W)
-                gs[u] = __ldg(
-                    reinterpret_cast<const uint4*>(g + ((img + hs) * W + ws) * kC + ch));
+                gs[u] = __ldg(reinterpret_cast<const uint4*>(gs_row + p * C));
             }
           }
           float sa0[8], sb0[8];
@@ -246,7 +292,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<float4*>(sb0 + 4) = *reinterpret_cast<const float4*>(b0_s + ch + 4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const int p = p0 + 3 * (i0 + u);
+            const int p = p0 + kPixGroups * (i0 + u);
             if (p >= kTileP) continue;
             const uint32_t cw[4] = {gc[u].x, gc[u].y, gc[u].z, gc[u].w};
             const uint32_t sw[4] = {gs[u].x, gs[u].y, gs[u].z, gs[u].w};
@@ -276,15 +322,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int r = i % kBoxesPerNb;
         const int k0 = (r % kKB) * 64;
         if (r < kKB) {
-          tma_load_2d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0);
+          tma_load_3d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0, 0);
         } else {
-          tma_load_2d(ring + s * kBoxBytes, &kmap, &full[s], k0, nb * kC);
+          tma_load_3d(ring + s * kBoxBytes, &kmap, &full[s], k0, 0, nb);
         }
       }
     }
   } else {
     // ---------------- consumers: warpgroup wg owns output columns
-    // [128 wg, 128 wg + 128).
+    // [kHalfN wg, kHalfN (wg + 1)).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const int wg = threadIdx.x / 128;
     const int t = threadIdx.x % 128;
@@ -294,17 +340,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t ring_u32 = smem_u32(ring);
     const uint32_t hh_u32 = smem_u32(hh);
 
-    float acc[64];
+    float acc[kHalfN / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < kHalfN / 2; ++i) {
       acc[i] = 0.f;
       fence_operand(acc[i]);
     }
 
     int box = 0;  // weight boxes consumed so far
-    // d (+)= A @ B over K = 256: A is the hh/pf tile at a_u32, B the next
-    // 4 boxes.
-    auto gemm = [&](float (&d)[64], uint32_t a_u32) {
+    // d (+)= A @ B over K = Cp: A is the hh/pf tile at a_u32, B the next
+    // kKB boxes.
+    auto gemm = [&](float (&d)[kHalfN / 2], uint32_t a_u32) {
       wgmma_fence();
 #pragma unroll
       for (int kb = 0; kb < kKB; ++kb) {
@@ -314,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint64_t db = desc_sw128(ring_u32 + s * kBoxBytes + wg * kHalfN * 128);
 #pragma unroll
         for (int k16 = 0; k16 < 4; ++k16)
-          wgmma_m64n128k16_bf16(d, da + 2 * k16, db + 2 * k16);  // +32 bytes
+          wgmma_bf16(d, da + 2 * k16, db + 2 * k16);  // +32 bytes
         wgmma_commit();
         if (kb > 0) {
           wgmma_wait<1>();
@@ -325,7 +371,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < 64; ++i) fence_operand(d[i]);
+      for (int i = 0; i < kHalfN / 2; ++i) fence_operand(d[i]);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
     };
@@ -342,24 +388,26 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // The shifted feats at this thread's accumulator rows and columns,
       // in flight while hh is awaited and GEMM1 runs.
-      uint32_t fs[16][2];
+      uint32_t fs[kJ][2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int w = w0 + wq * 16 + gid + 8 * r;
         const int ws = w + dx - 1;
         const bool ok = w < W && row_ok && ws >= 0 && ws < W;
-        const __nv_bfloat16* fp = f + ((img + hs) * W + ws) * kC + wg * kHalfN + tig * 2;
+        const __nv_bfloat16* fp = f + ((img + hs) * W + ws) * C + wg * kHalfN + tig * 2;
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
-          fs[j][r] = ok ? __ldg(reinterpret_cast<const unsigned int*>(fp + j * 8)) : 0u;
+        for (int j = 0; j < kJ; ++j) {
+          const bool col_ok = wg * kHalfN + j * 8 < C;
+          fs[j][r] = ok && col_ok ? __ldg(reinterpret_cast<const unsigned int*>(fp + j * 8)) : 0u;
+        }
       }
 
-      // 1. z = hh @ W1 (fp32), this warpgroup's 128 columns, once the
-      // builders have filled hh's buffer.
+      // 1. z = hh @ W1 (fp32), this warpgroup's columns, once the builders
+      // have filled hh's buffer.
       mbar_wait(&hh_full[buf], (nb >> 1) & 1);
-      float z[64];
+      float z[kHalfN / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kHalfN / 2; ++i) {
         z[i] = 0.f;
         fence_operand(z[i]);
       }
@@ -368,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // 2. pf = bf16(bf16(relu(a1 * z + b1)) * fs) over hh, in its layout.
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kJ; ++j) {
         const int n = wg * kHalfN + j * 8 + tig * 2;
         const float2 s1 = *reinterpret_cast<const float2*>(a1_s + n);
         const float2 t1 = *reinterpret_cast<const float2*>(b1_s + n);
@@ -386,34 +434,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_proxy_async();
       consumer_sync();
 
-      // 3. acc += pf @ K_n over the full K = 256; then the buffer is free.
+      // 3. acc += pf @ K_n over the full K = Cp; then the buffer is free.
       gemm(acc, hh_b_u32);
       __syncwarp();
       if (lane == 0) mbar_arrive(&hh_empty[buf]);
     }
 
-    // Store this thread's accumulator rows and columns.
+    // Store this thread's accumulator rows and its columns below C.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int w = w0 + wq * 16 + gid + 8 * r;
       if (w >= W) continue;
-      float* op = out + ((img + h) * W + w) * kC + wg * kHalfN + tig * 2;
+      float* op = out + ((img + h) * W + w) * C + wg * kHalfN + tig * 2;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<float2*>(op + j * 8) =
-            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      for (int j = 0; j < kJ; ++j)
+        if (wg * kHalfN + j * 8 < C)
+          *reinterpret_cast<float2*>(op + j * 8) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
 }
 
-// A 2-D bf16 tensor map over a [rows][kC] matrix, boxes of 64 k x 256 rows
-// in the 128-byte swizzle.
-bool weight_map(CUtensorMap* map, const void* base, int rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)kC, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)kC * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)kC};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+// A 3-D bf16 tensor map over `mats` [C][C] matrices, boxes of 64 k x
+// `rows` n x 1 matrix in the 128-byte swizzle. Elements outside a matrix
+// (k or n >= C) arrive as zeros.
+bool weight_map(CUtensorMap* map, const void* base, int C, int rows, int mats) {
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)C, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)C * C * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                                 const_cast<void*>(base), dims, strides, box,
                                 elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                                 CU_TENSOR_MAP_SWIZZLE_128B,
@@ -421,30 +471,40 @@ bool weight_map(CUtensorMap* map, const void* base, int rows) {
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int kCp>
+int launch(const void* g, const void* feats, const void* w1t, const void* kt,
+           const void* a0, const void* b0, const void* a1, const void* b1, void* out,
+           int B, int H, int W, int C, void* stream) {
+  CUtensorMap w1map, kmap;
+  if (!weight_map(&w1map, w1t, C, kCp, 1) || !weight_map(&kmap, kt, C, kCp, 9))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = kSmemBytes<kCp>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      meta_kernel_fused_wgmma<kCp>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((W + kTileP - 1) / kTileP, H, B);
+  meta_kernel_fused_wgmma<kCp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
+      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
+      (float*)out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // g, feats: (B, H, W, C) bf16; w1t: (C, C) bf16 = W1^T; kt: (9, C, C) bf16
 // with kt[n] = K_n^T; a0, b0, a1, b1: (C,) fp32; out: (B, H, W, C) fp32.
-// C must be 256 (the tiling holds all C output channels in two warpgroups
-// and the weight box is 256 rows); w1t and kt 16-byte aligned.
+// C must be a multiple of 32 up to 256 (C <= 128 runs the 128-wide
+// instance, the rest the 256-wide one); w1t and kt 16-byte aligned.
 extern "C" int rv3d_meta_kernel_fused(const void* g, const void* feats,
                                       const void* w1t, const void* kt,
                                       const void* a0, const void* b0,
                                       const void* a1, const void* b1,
                                       void* out, int B, int H, int W, int C,
                                       void* stream) {
-  if (C != kC || B <= 0 || H <= 0 || W <= 0 || H > 65535 || B > 65535)
+  if (C <= 0 || C % 32 || C > kMaxC || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+      B > 65535)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap w1map, kmap;
-  if (!weight_map(&w1map, w1t, kC) || !weight_map(&kmap, kt, 9 * kC))
-    return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      meta_kernel_fused_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((W + kTileP - 1) / kTileP, H, B);
-  meta_kernel_fused_wgmma<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
-      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
-      (float*)out, H, W);
-  return (int)cudaGetLastError();
+  return C <= 128 ? launch<128>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, C, stream)
+                  : launch<256>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, C, stream);
 }

@@ -2,8 +2,9 @@
 
 At first use every source compiles to an object file in its own ``nvcc``
 process (all started together), the objects link into one shared library
-with a plain C interface under ``build/`` at the repository root, and the
-library is loaded with :mod:`ctypes`. The library's name carries a hash of
+with a plain C interface under ``build/`` at the repository root, beside
+ptxas's register and spill report, and the library is loaded with
+:mod:`ctypes`. The library's name carries a hash of
 the sources, so an edited source rebuilds and an unchanged one is reused.
 Nothing here runs at import time: the CPU tests import every module on a
 host without ``nvcc``.
@@ -82,9 +83,9 @@ def library() -> ctypes.CDLL:
     digest.update(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"librv3d_kernels_{tag}.so"
+    log_path = lib_path.with_suffix(".ptxas.log")
     build_seconds = 0.0
-    ptxas_log = ""
-    if not lib_path.exists():
+    if not (lib_path.exists() and log_path.exists()):
         t0 = time.perf_counter()
         nvcc = _nvcc()
         obj_dir = BUILD_DIR / f"obj_{tag}"
@@ -96,7 +97,7 @@ def library() -> ctypes.CDLL:
                 for s, o in zip(sources, objs)
             ]
         )
-        ptxas_log = "".join(logs)
+        log_path.write_text("".join(logs))
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         _run_all(
             [[nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), *LINK_LIBS, "-o", str(tmp)]]
@@ -109,7 +110,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.build_seconds = build_seconds
-    lib.ptxas_log = ptxas_log
+    # ptxas's register and spill report of the build, kept beside the library.
+    lib.ptxas_log = log_path.read_text()
     lib.path = str(lib_path)
     return lib
 

@@ -20,9 +20,6 @@ import torch.nn.functional as F
 from range_view_3d_detection_torch.kernels import _build
 
 NUM_NEIGHBORS = 3
-# K1's tiling holds all output channels of a 64-pixel tile in two
-# warpgroups (128 each) and loads weight boxes 256 rows tall.
-KERNEL_C = 256
 
 
 def meta_kernel_fused_plain(
@@ -85,9 +82,10 @@ def meta_kernel_fused(
     """Fused 9-neighbour stem accumulation (see :func:`meta_kernel_fused_plain`).
 
     A CPU tensor takes the plain twin, at any C. A CUDA tensor launches the
-    kernel (bf16 ``g``/``feats``, C = 256, the META stem width of every
-    config) or raises. ``meta_kernel_fused.launches`` counts the kernel
-    launches.
+    kernel (bf16 ``g``/``feats``, C a multiple of 32 up to 256: the
+    configs' META stems are 256, 128 and 32 wide) or raises; the kernel's
+    entry point refuses any other C. ``meta_kernel_fused.launches`` counts
+    the kernel launches.
     """
     if g.device.type == "cpu":
         return meta_kernel_fused_plain(g, feats, w1, k, a0, b0, a1, b1)
@@ -96,8 +94,6 @@ def meta_kernel_fused(
     B, H, W, C = g.shape
     if g.dtype != torch.bfloat16:
         raise TypeError(f"meta_kernel_fused: the kernel takes bf16, got {g.dtype}")
-    if C != KERNEL_C:
-        raise ValueError(f"meta_kernel_fused: the kernel takes C={KERNEL_C}, got C={C}")
     if feats.shape != g.shape or w1.shape != (C, C) or k.shape != (9, C, C):
         raise ValueError(
             f"meta_kernel_fused: shapes g{tuple(g.shape)} feats"
