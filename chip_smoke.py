@@ -18,19 +18,25 @@ Phases, each of which raises (non-zero exit) on failure:
    instances: max|diff| <= 2e-2 * max|ref| (fp32 accumulation order,
    one-ulp bf16 flips of the intermediate ``p``); a C the kernel does not
    take (48, 288) raises;
-4. K2 (NMS scan) against its plain twin on the same IoU tensors, B=2,
-   cap=1024, WEIGHTED and HARD: ``keep`` identical, ``merged`` within 1e-4;
+4. K2 (NMS scan) against its plain twin on the same IoU tensors, WEIGHTED
+   and HARD, at B in {1, 2, 3} x cap in {100, 512, 1024, 2048, 4096} and
+   on edge-case matrices (zeros on the diagonal, asymmetric, invalid
+   boxes in the middle, every box suppressed, duplicated boxes) at cap
+   100 and 1024: ``keep`` identical, ``merged`` within 1e-4; cap 4097
+   and a payload of 8 are refused;
 5. main path: ``Predictor`` on the full rv-av2 flagship config (B=2,
    64x1808, 26 classes, 512-channel towers, bf16, random seeded weights)
    answers 4 requests; both kernels must launch, outputs must be finite
    with detections kept, and the NMS must agree with the plain scan on the
    same proposals;
 6. timings (CUDA events around eager launches, warm-up, median) of each
-   kernel, its plain twin and its bound (K1 also by CUDA-graph replay,
-   with its L2 weight bytes a call, and at the Waymo stem shape), ms per
-   request of the main path, its forward and
-   decode + NMS device times, and a torch.profiler table of one request's
-   device time by kernel;
+   kernel, its plain twin and its bound (K1 and K2 also by CUDA-graph
+   replay; K1 with its L2 weight bytes a call, and at the Waymo stem
+   shape; K2 with its chain floor and the device time of each of its
+   three kernels), ms per request of the main path, its forward and
+   decode + NMS device times, decode + NMS split by stage (CUDA events)
+   and by op (torch.profiler), and a torch.profiler table of one
+   request's device time by kernel;
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
    1 and 2, bf16 and fp32 output, in both operand forms
    (int8, and bf16/fp32 activations with ``in_scale`` on rounding ties and
@@ -79,7 +85,12 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak
 H100_FP32_FLOPS = 67e12  # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
+# One dependent shared-memory round trip (about 30 cycles) at the H100
+# SXM's 1.98 GHz boost clock: K2's greedy keep needs one a live step.
+SMEM_STEP_S = 30 / 1.98e9
 SEED = 0
+NMS_EDGE_CASES = ("zero_diagonal", "asymmetric", "invalid_middle", "all_suppressed",
+                  "duplicated")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -188,8 +199,9 @@ def k1_cost(B, H, W, C):
     return flops, nbytes
 
 
-def nms_case(B, cap, gen, device):
-    """Sorted, overlapping boxes (one category) and their IoU matrix."""
+def nms_case(B, cap, gen, device, duplicated=False):
+    """Sorted, overlapping boxes (one category) and their IoU matrix, one
+    image at a time; ``duplicated``: each box twice with the same score."""
     import torch
 
     from range_view_3d_detection_torch.ops.iou import iou_rotated_bev
@@ -201,14 +213,144 @@ def nms_case(B, cap, gen, device):
         [u(-40, 40, B, cap), u(-40, 40, B, cap), u(-2, 2, B, cap),
          u(2, 6, B, cap), u(1, 3, B, cap), u(1, 2, B, cap),
          u(-math.pi, math.pi, B, cap)], dim=-1,
-    ).to(device)
-    scores = torch.sort(u(0, 1, B, cap), dim=-1, descending=True).values.to(device)
+    )
+    raw = u(0, 1, B, cap)
+    if duplicated:
+        half = cap // 2
+        boxes[:, half:] = boxes[:, : cap - half]
+        raw[:, half:] = raw[:, : cap - half]
+        order = torch.sort(raw, dim=-1, descending=True, stable=True).indices
+        boxes = torch.gather(boxes, 1, order[..., None].expand_as(boxes))
+    boxes = boxes.to(device)
+    scores = torch.sort(raw, dim=-1, descending=True).values.to(device)
     payload = torch.cat(
         [boxes[..., :6], torch.sin(boxes[..., 6:]), torch.cos(boxes[..., 6:]),
          scores[..., None]], dim=-1,
     )
-    iou = iou_rotated_bev(boxes[..., [0, 1, 3, 4, 6]], boxes[..., [0, 1, 3, 4, 6]])
+    bev = boxes[..., [0, 1, 3, 4, 6]]
+    iou = torch.stack([iou_rotated_bev(bev[b], bev[b]) for b in range(B)])
     return iou, scores, scores >= 0.1, payload
+
+
+def nms_edge_case(case, B, cap, gen, device):
+    """One of the CPU test's edge cases of the scan (``NMS_EDGE_CASES``)."""
+    import torch
+
+    iou, scores, valid, payload = nms_case(B, cap, gen, device,
+                                           duplicated=case == "duplicated")
+    if case == "zero_diagonal":
+        # Boxes that never kill (themselves included), each overlapping a
+        # later box that sees it: kept, they join that box's cluster.
+        for b in range(B):
+            idx = torch.randperm(cap - 1, generator=gen)[: cap // 4]
+            iou[b, idx, idx] = 0.0
+            for j in idx[: cap // 8].tolist():
+                iou[b, j] = 0.0
+                iou[b, int(torch.randint(j + 1, cap, (1,), generator=gen)), j] = 0.8
+    elif case == "asymmetric":  # the diagonal too, zeros included
+        r = torch.rand((B, cap, cap), generator=gen)
+        iou = (r * (torch.rand((B, cap, cap), generator=gen) < 0.08)).to(device)
+    elif case == "invalid_middle":
+        valid[:, cap // 4 : cap // 2] = False
+        valid[:, torch.randperm(cap, generator=gen)[: cap // 8].to(device)] = False
+    elif case == "all_suppressed":
+        iou = torch.ones_like(iou)
+    return iou, scores, valid, payload
+
+
+def check_k2(tag, inputs) -> float:
+    """K2 against its plain twin, WEIGHTED and HARD: ``keep`` identical,
+    ``merged`` within 1e-4. Returns max|merged diff|."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
+
+    worst, kept = 0.0, []
+    for mode, merge in (("WEIGHTED", 0.5), ("HARD", 1.01)):
+        kw = dict(iou_threshold=0.3, merge_threshold=merge)
+        keep, merged = nms_scan(*inputs, **kw)
+        keep_p, merged_p = nms_scan_plain(*inputs, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(keep, keep_p), f"K2 {tag} {mode}: keep differs from the "
+              f"twin in {int((keep != keep_p).sum())} slots")
+        err = (merged - merged_p).abs().max().item()
+        check(err <= 1e-4, f"K2 {tag} {mode}: merged max|diff| {err} > 1e-4")
+        worst = max(worst, err)
+        kept.append(int(keep.sum()))
+    say(f"K2 {tag}: keep identical (kept {kept[0]} WEIGHTED, {kept[1]} HARD of "
+        f"{int(inputs[2].sum())} valid), merged max|diff| {worst:.3g} ok")
+    return worst
+
+
+def kernel_device_us(fn, names, calls: int = 5) -> dict:
+    """Device microseconds a call of ``fn`` spends in each kernel whose
+    name contains one of ``names`` (torch.profiler, ``calls`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                found[n] += e.self_device_time_total / calls
+    return found
+
+
+def decode_split(out, dec, cfg, smi) -> None:
+    """Where decode + NMS spends its time: each stage by CUDA events around
+    eager launches, then one call's device time by op (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.models.decoder import decode
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+
+    props = decode(out, dec, cfg.tasks_dict, use_nms=False)
+    sel = dict(cap=min(dec.nms_cap, props.scores.shape[1]),
+               min_confidence=dec.min_confidence, mode=dec.nms_mode)
+    seen = {}
+    iou_fn = nms_ops.iou_rotated_bev
+
+    def capture(a, b):  # the class-offset boxes that the IoU matrix is of
+        seen["bev"] = a
+        return iou_fn(a, b)
+
+    nms_ops.iou_rotated_bev = capture
+    try:
+        inputs = nms_ops.nms_inputs(*props, **sel)
+    finally:
+        nms_ops.iou_rotated_bev = iou_fn
+    bev = seen["bev"]
+    kw = dict(iou_threshold=dec.nms_threshold, merge_threshold=inputs.merge_threshold)
+    keep, merged = nms_scan(*inputs[:4], **kw)
+    ms = {
+        "decode + NMS": cuda_ms(lambda: decode(out, dec, cfg.tasks_dict, use_nms=True),
+                                reps=5),
+        "proposals (sigmoid, box decode, range thinning, reductions)": cuda_ms(
+            lambda: decode(out, dec, cfg.tasks_dict, use_nms=False), reps=5),
+        "top-cap selection + IoU (nms_inputs)": cuda_ms(
+            lambda: nms_ops.nms_inputs(*props, **sel), reps=5),
+        "IoU matrix (iou_rotated_bev)": cuda_ms(lambda: iou_fn(bev, bev), reps=5),
+        "K2 (nms_scan)": cuda_ms(lambda: nms_scan(*inputs[:4], **kw), reps=5),
+        "output and post-NMS cap (nms_result)": cuda_ms(
+            lambda: nms_ops.nms_result(inputs, keep, merged, dec.num_post_nms), reps=5),
+    }
+    ms["sort, gathers, class offsets, payload"] = (
+        ms["top-cap selection + IoU (nms_inputs)"] - ms["IoU matrix (iou_rotated_bev)"])
+    say(f"decode + NMS by stage (CUDA events, B={bev.shape[0]}, cap {bev.shape[1]}, "
+        f"{smi}): " + "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode(out, dec, cfg.tasks_dict, use_nms=True)
+        torch.cuda.synchronize()
+    say("decode + NMS, one call, device time by op:")
+    say(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
 
 def check_nms_against_plain(model, request, cfg, dec, device) -> float:
@@ -680,21 +822,36 @@ def main() -> int:
         else:
             check(False, f"K1 C={bad}: the kernel accepted it")
 
-    # 4. K2 against its plain twin.
+    # 4. K2 against its plain twin: the timed case (B=2, cap=1024, drawn
+    # from the main generator as before), every B and cap it takes, and the
+    # edge cases, these from a generator of their own so the main path's
+    # weights stay as they were.
     cap = 1024
     k2_in = nms_case(2, cap, gen, device)
-    k2_err = 0.0
-    for mode, merge in (("WEIGHTED", 0.5), ("HARD", 1.01)):
-        kw = dict(iou_threshold=0.3, merge_threshold=merge)
-        keep, merged = nms_scan(*k2_in, **kw)
-        keep_p, merged_p = nms_scan_plain(*k2_in, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(keep, keep_p), f"K2 {mode}: keep differs from the twin")
-        err = (merged - merged_p).abs().max().item()
-        check(err <= 1e-4, f"K2 {mode}: merged max|diff| {err} > 1e-4")
-        say(f"K2 {mode}: keep identical ({int(keep.sum())} kept of "
-            f"{int(k2_in[2].sum())} valid), merged max|diff| {err:.3g} ok")
-        k2_err = max(k2_err, err)
+    k2_err = check_k2(f"B 2 cap {cap}", k2_in)
+    gen_k2 = torch.Generator().manual_seed(SEED + 2)
+    for b_k2 in (1, 2, 3):
+        for cap_k2 in (100, 512, 1024, 2048, 4096):
+            k2_err = max(k2_err, check_k2(f"B {b_k2} cap {cap_k2}",
+                                          nms_case(b_k2, cap_k2, gen_k2, device)))
+    for case in NMS_EDGE_CASES:
+        for cap_k2 in (100, 1024):
+            k2_err = max(k2_err, check_k2(f"{case} B 2 cap {cap_k2}",
+                                          nms_edge_case(case, 2, cap_k2, gen_k2, device)))
+    small = nms_case(1, 100, gen_k2, device)
+    for tag, args in (
+        ("cap 4097", (torch.zeros(1, 4097, 4097, device=device),
+                      torch.zeros(1, 4097, device=device),
+                      torch.ones(1, 4097, dtype=torch.bool, device=device),
+                      torch.zeros(1, 4097, 9, device=device))),
+        ("P = 8", (*small[:3], small[3][..., :8])),
+    ):
+        try:
+            nms_scan(*args, iou_threshold=0.3, merge_threshold=0.5)
+        except ValueError as e:
+            say(f"K2 {tag}: refused ({e})")
+        else:
+            check(False, f"K2 {tag}: the wrapper accepted it")
 
     # 5. Main path: the flagship Predictor answers requests.
     cfg = serving._flagship_config()
@@ -762,11 +919,18 @@ def main() -> int:
     k1_bound, k1_by = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
     nms_kw = dict(iou_threshold=0.3, merge_threshold=0.5)
     k2_ms = cuda_ms(lambda: nms_scan(*k2_in, **nms_kw), reps=20)
+    k2_graph_ms = graph_ms(lambda: nms_scan(*k2_in, **nms_kw))
     k2_plain_ms = cuda_ms(lambda: nms_scan_plain(*k2_in, **nms_kw), reps=3, warmup=1)
-    live = int(nms_scan(*k2_in, **nms_kw)[0].sum())
+    live_per_image = nms_scan(*k2_in, **nms_kw)[0].sum(-1)
+    live = int(live_per_image.sum())
     k2_flops = live * cap * 2 * (1 + 9) * 2  # weights + dot products, per image-live step
     k2_bytes = 2 * cap * cap * 4 + 2 * cap * (4 + 1 + 9 * 4) + 2 * cap * (1 + 9 * 4)
     k2_bound, k2_by = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
+    # The greedy keep's own floor: the images run side by side, each a chain
+    # of one shared-memory round trip a live step.
+    k2_chain_ms = int(live_per_image.max()) * SMEM_STEP_S * 1e3
+    k2_phases = kernel_device_us(lambda: nms_scan(*k2_in, **nms_kw),
+                                 ("nms_mask_kernel", "nms_keep_kernel", "nms_merge_kernel"))
     # Every 64-pixel tile streams W1 and the nine K_n through L2 once per
     # neighbour: 9 x 2 C x C bf16.
     k1_l2 = math.ceil(W / 64) * H * B * 9 * 2 * C * C * 2
@@ -778,8 +942,12 @@ def main() -> int:
     say(f"K1 Waymo stem {waymo}: kernel {waymo_ms:.4f} ms eager "
         f"({100 * waymo_bound / waymo_ms:.1f}% of bound), {waymo_graph_ms:.4f} ms "
         f"graph replay, bound {waymo_bound:.4f} ms ({waymo_by}) on {smi}")
-    say(f"K2 cap {cap} B 2: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
-        f"bound {k2_bound * 1e3:.2f} us ({k2_by}), {live} live steps on {smi}")
+    say(f"K2 cap {cap} B 2: kernel {k2_ms:.4f} ms eager "
+        f"({100 * k2_bound / k2_ms:.1f}% of bound), {k2_graph_ms:.4f} ms graph replay; "
+        f"device us by phase: " + ", ".join(f"{k} {v:.2f}" for k, v in k2_phases.items())
+        + f"; plain {k2_plain_ms:.3f} ms, bound {k2_bound * 1e3:.2f} us ({k2_by}), "
+        f"chain floor {k2_chain_ms * 1e3:.2f} us ({live} live steps, "
+        f"{int(live_per_image.max())} in the longer image) on {smi}")
     kernels = [
         {
             "name": "meta_kernel_fused", "route": "cuda",
@@ -795,8 +963,9 @@ def main() -> int:
             "source": "range_view_3d_detection_torch/csrc/nms_scan.cu",
             "replaces": "range_view_3d_detection_tpu/kernels/nms_pallas.py:121",
             "launches": launches["K2"], "max_abs_err": k2_err,
-            "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-            "bound_by": k2_by, "library_ms": None,
+            "ms": k2_ms, "graph_ms": k2_graph_ms, "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound, "bound_by": k2_by, "chain_floor_ms": k2_chain_ms,
+            "library_ms": None,
         },
     ]
     # Where a request's time goes: the forward, then decode + NMS.
@@ -805,6 +974,7 @@ def main() -> int:
         fwd_ms = cuda_ms(lambda: model(*tensors), reps=5)
         out = model(*tensors)
         dec_ms = cuda_ms(lambda: decode(out, dec, cfg.tasks_dict, use_nms=True), reps=5)
+        decode_split(out, dec, cfg, smi)
         profile_request(predictor, requests[1])
     say(f"main path: {ms_per_request:.3f} ms/request (B=2), "
         f"{2 * 1e3 / ms_per_request:.2f} frames/s; forward {fwd_ms:.3f} ms, "

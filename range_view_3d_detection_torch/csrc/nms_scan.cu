@@ -1,146 +1,325 @@
-// Greedy (weighted) NMS scan (K2) for Hopper, fp32.
+// Greedy (weighted) NMS scan (K2) for Hopper, fp32, in three launches.
 //
 // Replaces range_view_3d_detection_tpu/kernels/nms_pallas.py::
 // nms_scan_pallas (_nms_scan_kernel). Boxes come in descending score
-// order with a precomputed (cap, cap) rotated-IoU matrix. For each box i
-// still alive, in order: keep it; set its output to the score-weighted
-// mean of the payload over the alive boxes j with iou[i, j] >= merge_thr
-// (box i weighs at least its own score, so HARD mode's merge_thr 1.01
-// leaves it alone); then kill every alive box with iou[i, j] > iou_thr.
-// A box that is not alive keeps its own payload and is not kept.
+// order with a precomputed (cap, cap) rotated-IoU matrix. Box i is kept
+// when it is valid and no kept box k < i has iou[k, i] > iou_thr. A kept
+// box's output is the score-weighted mean of the payload over the boxes j
+// alive at step i with iou[i, j] >= merge_thr (box i weighs at least its
+// own score, so HARD mode's merge_thr 1.01 leaves it alone). j is alive
+// at step i when it is valid and killed_at[j] >= i, killed_at[j] being
+// the first kept k with iou[k, j] > iou_thr (cap if none): j is not in
+// R_i, the set that ~valid and the kept rows before i have removed. A
+// box that is not kept keeps its own payload.
 //
-// Bound on the H100: the IoU matrix is the only large input, 8.4 MB at
-// B=2, cap=1024, read in 2.5 us at 3.35 TB/s. The real limit is the chain
-// of cap dependent steps, each of which needs the previous step's alive
-// set: a latency chain of block-wide barriers and reductions.
+// What bounds it on the H100. The IoU matrix is the only large input:
+// 8.4 MB at B=2, cap=1024, read once in 2.5 us at 3.35 TB/s. The greedy
+// keep is a chain of dependent steps, each needing the set the earlier
+// steps removed; at one shared-memory round trip (about 30 cycles) a live
+// step, the 742 live steps of the longer flagship image take about 11 us.
+// The chain runs through comparisons only; the weighted merge is the only
+// arithmetic, and it can run once the chain is known.
 //
-// Design. One block per image, one thread per candidate lane (cap/1024
-// lanes per thread beyond 1024). alive, scores and the payload live in
-// shared memory for the whole scan. A step whose box is dead costs no
-// barrier and no reduction. A live step reads its IoU row once, makes the
-// 10 fp32 block reductions (wsum and the 9 payload dot products) with
-// warp shuffles and one shared-memory pass, and applies the suppression
-// after the first barrier so no thread can see box i die before it has
-// read that box i is alive. keep depends only on IoU comparisons and
-// alive, so it is exact; merged differs from the plain scan only by the
-// order of the fp32 sums.
+// Design.
+// 1. nms_mask_kernel, over all SMs: one warp per row (b, i) turns
+//    iou[b, i, :] > iou_thr into 32-bit words (16-byte loads, four
+//    columns a lane, the nibbles OR-ed across eight lanes; a word-wide
+//    ballot where cap % 4 != 0): the (B, 32 * W, W) uint32 mask, W =
+//    ceil(cap / 32), 256 KB at B=2, cap=1024.
+// 2. nms_keep_kernel, one warp per image: the removed set (initially
+//    ~valid and the bits past cap) lives in registers, word w in lane
+//    w % 32. It walks 32-row slabs of the mask, each copied into shared
+//    memory by cp.async kStages - 1 slabs ahead. Within a slab every lane
+//    resolves the diagonal word in registers (row r is kept when bit r of
+//    the removed word is clear; a kept row ORs its diagonal word in), then
+//    ORs the kept rows into every word of the removed set in ascending
+//    order. Before a kept row's OR each lane stores its word of the set,
+//    so R_i lands in seen[b, i] (one coalesced store a kept row); keep is
+//    exact, as it depends on comparisons only. Recording killed_at bit by
+//    bit instead (a divergent loop a kept row, every kept box killing
+//    itself) made this phase 89 us at B=2, cap=1024 on an H100 80GB HBM3
+//    at 700 W; as it is, it takes about 52 us there, five times the chain
+//    floor, and the single warp's time is not split further (PERF.md).
+// 3. nms_merge_kernel, over all SMs: one warp per row. A kept row reads
+//    its IoU row (16-byte loads where cap % 4 == 0) and its R_i once and
+//    forms the 10 fp32 sums of w_ij (wsum and the 9 payload dot
+//    products); a row that is not kept copies its payload. merged differs
+//    from the plain scan only by the order of the fp32 sums.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kP = 9;            // payload: x, y, z, l, w, h, sin, cos, score
-constexpr int kR = kP + 1;       // reductions per live step: wsum + payload
-constexpr int kMaxLanes = 32;    // lanes per thread (suppression bitmask)
+constexpr int kP = 9;             // payload: x, y, z, l, w, h, sin, cos, score
+constexpr int kR = kP + 1;        // merge sums: wsum + payload
+constexpr int kMaxCap = 4096;
+constexpr int kMaxWordsPerLane = kMaxCap / 32 / 32;  // removed-set words a lane
+constexpr int kStages = 4;        // mask slabs in flight in phase 2
+constexpr int kRowsPerBlock = 8;  // phases 1 and 3: one warp per row
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Phase 1: mask[b, i, w] bit t = iou[b, i, 32 w + t] > iou_thr.
+template <bool kVec>
+__global__ void nms_mask_kernel(const float* __restrict__ iou,
+                                uint32_t* __restrict__ mask, int rows,
+                                int cap, int nwords, float iou_thr) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warp
+  const int b = row / cap;
+  const int i = row - b * cap;
+  const float* src = iou + (size_t)row * cap;
+  uint32_t* dst = mask + ((size_t)b * 32 * nwords + i) * nwords;
+  if (kVec) {
+    // 128 columns an iteration; cap % 4 == 0, so a float4 is all in or out.
+#pragma unroll 4
+    for (int c0 = 0; c0 < cap; c0 += 128) {
+      const int col = c0 + 4 * lane;
+      uint32_t nib = 0;
+      if (col < cap) {
+        const float4 v = *reinterpret_cast<const float4*>(src + col);
+        nib = (uint32_t)(v.x > iou_thr) | ((uint32_t)(v.y > iou_thr) << 1) |
+              ((uint32_t)(v.z > iou_thr) << 2) | ((uint32_t)(v.w > iou_thr) << 3);
+      }
+      uint32_t word = nib << (4 * (lane & 7));
+      word |= __shfl_xor_sync(kFull, word, 1);
+      word |= __shfl_xor_sync(kFull, word, 2);
+      word |= __shfl_xor_sync(kFull, word, 4);
+      const int w = (c0 >> 5) + (lane >> 3);
+      if ((lane & 7) == 0 && w < nwords) dst[w] = word;
+    }
+  } else {
+    for (int w = 0; w < nwords; ++w) {
+      const int col = 32 * w + lane;
+      const uint32_t word = __ballot_sync(kFull, col < cap && src[col] > iou_thr);
+      if (lane == 0) dst[w] = word;
+    }
+  }
+}
+
+// Phase 2: the greedy keep of one image, one warp.
+__global__ void __launch_bounds__(32)
+    nms_keep_kernel(const uint32_t* __restrict__ mask,
+                    const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
+                    uint32_t* __restrict__ seen, int cap, int nwords) {
+  extern __shared__ __align__(16) uint32_t slab_s[];  // kStages x (32, nwords)
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int slab_words = 32 * nwords;
+  const uint32_t* mask_b = mask + (size_t)b * slab_words * nwords;
+  const uint8_t* valid_b = valid + (size_t)b * cap;
+  uint8_t* keep_b = keep + (size_t)b * cap;
+  uint32_t* seen_b = seen + (size_t)b * cap * nwords;
+
+  auto issue = [&](int s) {
+    if (s < nwords) {
+      const uint32_t* src = mask_b + (size_t)s * slab_words;
+      uint32_t* dst = slab_s + (s % kStages) * slab_words;
+      for (int c = 4 * lane; c < slab_words; c += 4 * 32) cp_async16(dst + c, src + c);
+    }
+    cp_async_commit();  // an empty group keeps the group count uniform
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // Removed set: ~valid, and every bit past cap (rows past cap never keep);
+  // word w = 32 k + l is rem[k] of lane l.
+  uint32_t rem[kMaxWordsPerLane];
+#pragma unroll
+  for (int k = 0; k < kMaxWordsPerLane; ++k) {
+    rem[k] = kFull;
+    if (32 * k >= nwords) continue;
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const int j = 32 * (32 * k + l) + lane;
+      const uint32_t dead = __ballot_sync(kFull, j >= cap || valid_b[j] == 0);
+      if (lane == l) rem[k] = dead;
+    }
+  }
+
+  for (int s = 0; s < nwords; ++s) {
+    issue(s + kStages - 1);  // refills the buffer slab s - 1 left
+    cp_async_wait<kStages - 1>();
+    __syncwarp();  // every lane's copies of slab s are in
+    const uint32_t* slab = slab_s + (s % kStages) * slab_words;
+    uint32_t diag = 0;
+#pragma unroll
+    for (int k = 0; k < kMaxWordsPerLane; ++k)
+      if (k == (s >> 5)) diag = rem[k];
+    diag = __shfl_sync(kFull, diag, s & 31);
+    uint32_t kept = 0;
+    if (diag != kFull) {
+      // The slab's diagonal words, then the greedy chain in registers:
+      // row r is kept when bit r is clear, and then ORs in its word.
+      uint32_t d[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) d[r] = slab[r * nwords + s];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const uint32_t live = ~diag & (1u << r);
+        kept |= live;
+        diag |= live ? d[r] : 0u;
+      }
+      // The kept rows, in ascending order, into every word of the set;
+      // each first leaves the set it saw in seen. The words are loaded
+      // before the chain, which then runs in registers.
+#pragma unroll
+      for (int k = 0; k < kMaxWordsPerLane; ++k) {
+        const int w = lane + 32 * k;
+        if (w < nwords) {
+          uint32_t m[32];
+#pragma unroll
+          for (int r = 0; r < 32; ++r) m[r] = slab[r * nwords + w];
+          uint32_t r_k = rem[k];
+          uint32_t* seen_w = seen_b + (size_t)32 * s * nwords + w;
+#pragma unroll
+          for (int r = 0; r < 32; ++r) {
+            const bool take = (kept >> r) & 1u;  // the same in every lane
+            if (take) seen_w[(size_t)r * nwords] = r_k;
+            r_k |= take ? m[r] : 0u;
+          }
+          rem[k] = r_k;
+        }
+      }
+    }
+    const int row = 32 * s + lane;
+    if (row < cap) keep_b[row] = (uint8_t)((kept >> lane) & 1u);
+    __syncwarp();  // slab s read by every lane before its buffer is refilled
+  }
+  cp_async_wait<0>();
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__global__ void nms_scan_kernel(const float* __restrict__ iou,
-                                const float* __restrict__ scores,
-                                const uint8_t* __restrict__ valid,
-                                const float* __restrict__ payload,
-                                uint8_t* __restrict__ keep,
-                                float* __restrict__ merged, int cap,
-                                float iou_thr, float merge_thr) {
-  extern __shared__ float smem[];
-  float* alive_s = smem;                 // (cap,) 0/1
-  float* score_s = alive_s + cap;        // (cap,)
-  float* pay_s = score_s + cap;          // (cap, kP)
-  float* red_s = pay_s + (size_t)cap * kP;  // (32, kR) warp partials
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  const float* iou_b = iou + (size_t)b * cap * cap;
-  const float* pay_b = payload + (size_t)b * cap * kP;
-  uint8_t* keep_b = keep + (size_t)b * cap;
-  float* merged_b = merged + (size_t)b * cap * kP;
-
-  for (int j = tid; j < cap; j += nthreads) {
-    alive_s[j] = valid[(size_t)b * cap + j] ? 1.f : 0.f;
-    score_s[j] = scores[(size_t)b * cap + j];
-    keep_b[j] = 0;
+// Phase 3: the weighted merge of each kept row; other rows copy.
+__device__ __forceinline__ void merge_term(float w, int j, const float* pay_b,
+                                           float* acc) {
+  if (w != 0.f) {
+    acc[0] += w;
+#pragma unroll
+    for (int k = 0; k < kP; ++k) acc[k + 1] += w * pay_b[(size_t)j * kP + k];
   }
-  for (int j = tid; j < cap * kP; j += nthreads) pay_s[j] = pay_b[j];
-  __syncthreads();
+}
 
-  for (int i = 0; i < cap; ++i) {
-    if (alive_s[i] == 0.f) {  // uniform: alive_s[i] last changed before a barrier
-      if (tid < kP) merged_b[(size_t)i * kP + tid] = pay_s[i * kP + tid];
-      continue;
-    }
-    const float* row = iou_b + (size_t)i * cap;
-    float part[kR];
+template <bool kVec>
+__global__ void nms_merge_kernel(const float* __restrict__ iou,
+                                 const float* __restrict__ scores,
+                                 const float* __restrict__ payload,
+                                 const uint8_t* __restrict__ keep,
+                                 const uint32_t* __restrict__ seen,
+                                 float* __restrict__ merged, int rows, int cap,
+                                 int nwords, float merge_thr) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warp
+  const int b = row / cap;
+  const int i = row - b * cap;
+  const float* pay_b = payload + (size_t)b * cap * kP;
+  float* out = merged + (size_t)row * kP;
+  if (!keep[row]) {
+    if (lane < kP) out[lane] = pay_b[(size_t)i * kP + lane];
+    return;
+  }
+  const float* iou_row = iou + (size_t)row * cap;
+  const float* score_b = scores + (size_t)b * cap;
+  const uint32_t* removed = seen + (size_t)row * nwords;  // R_i
+  const float self = score_b[i];
+  float acc[kR];
 #pragma unroll
-    for (int k = 0; k < kR; ++k) part[k] = 0.f;
-    uint32_t kill = 0;
-    for (int j = tid, l = 0; j < cap; j += nthreads, ++l) {
-      const float r = row[j];
-      float w = r >= merge_thr ? score_s[j] * alive_s[j] : 0.f;
-      if (j == i) w = fmaxf(w, score_s[i]);
-      part[0] += w;
+  for (int k = 0; k < kR; ++k) acc[k] = 0.f;
+  if (kVec) {
+    // Four columns a lane, 128 a warp; cap % 4 == 0.
+    for (int j0 = 4 * lane; j0 < cap; j0 += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(iou_row + j0);
+      const float4 sc = *reinterpret_cast<const float4*>(score_b + j0);
+      const uint32_t dead = removed[j0 >> 5] >> (j0 & 31);
+      const float vq[4] = {v.x, v.y, v.z, v.w};
+      const float sq[4] = {sc.x, sc.y, sc.z, sc.w};
 #pragma unroll
-      for (int k = 0; k < kP; ++k) part[k + 1] += w * pay_s[j * kP + k];
-      if (r > iou_thr) kill |= 1u << l;
-    }
-#pragma unroll
-    for (int k = 0; k < kR; ++k) part[k] = warp_sum(part[k]);
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < kR; ++k) red_s[warp * kR + k] = part[k];
-    }
-    __syncthreads();  // every thread has read alive_s[i] and alive_s[own]
-    for (int j = tid, l = 0; j < cap; j += nthreads, ++l)
-      if (kill & (1u << l)) alive_s[j] = 0.f;
-    if (warp == 0) {
-      float tot[kR];
-#pragma unroll
-      for (int k = 0; k < kR; ++k)
-        tot[k] = warp_sum(lane < nwarps ? red_s[lane * kR + k] : 0.f);
-      if (lane == 0) {
-        const float wsum = fmaxf(tot[0], 1e-8f);
-#pragma unroll
-        for (int k = 0; k < kP; ++k)
-          merged_b[(size_t)i * kP + k] = tot[k + 1] / wsum;
-        keep_b[i] = 1;
+      for (int q = 0; q < 4; ++q) {
+        float w = (!((dead >> q) & 1u) && vq[q] >= merge_thr) ? sq[q] : 0.f;
+        if (j0 + q == i) w = fmaxf(w, self);
+        merge_term(w, j0 + q, pay_b, acc);
       }
     }
-    __syncthreads();  // suppression visible; red_s free for the next step
+  } else {
+    for (int j = lane; j < cap; j += 32) {
+      const bool alive = !((removed[j >> 5] >> lane) & 1u);
+      float w = (alive && iou_row[j] >= merge_thr) ? score_b[j] : 0.f;
+      if (j == i) w = fmaxf(w, self);
+      merge_term(w, j, pay_b, acc);
+    }
   }
+#pragma unroll
+  for (int k = 0; k < kR; ++k) acc[k] = warp_sum(acc[k]);
+  const float wsum = fmaxf(acc[0], 1e-8f);
+#pragma unroll
+  for (int k = 0; k < kP; ++k)
+    if (lane == k) out[k] = acc[k + 1] / wsum;
 }
 
 }  // namespace
 
 // iou: (B, cap, cap) fp32; scores: (B, cap) fp32; valid: (B, cap) bool
 // (one byte each); payload: (B, cap, P) fp32 with P == 9; keep: (B, cap)
-// bool out; merged: (B, cap, P) fp32 out. One block per image.
+// bool out; merged: (B, cap, P) fp32 out; mask: (B, 32 W, W) and seen:
+// (B, cap, W) uint32 scratch, W = ceil(cap / 32). cap <= 4096. Three
+// launches on `stream`; returns the cudaError_t of the first that fails.
 extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
                              const void* valid, const void* payload,
-                             void* keep, void* merged, int B, int cap, int P,
-                             float iou_thr, float merge_thr, void* stream) {
-  if (P != kP || B <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = cap >= 1024 ? 1024 : ((cap + 31) / 32) * 32;
-  if ((cap + threads - 1) / threads > kMaxLanes)
+                             void* keep, void* merged, void* mask, void* seen,
+                             int B, int cap, int P, float iou_thr,
+                             float merge_thr, void* stream) {
+  if (P != kP || B <= 0 || cap <= 0 || cap > kMaxCap)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)cap * (2 + kP) + 32 * kR) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const int nwords = (cap + 31) / 32;
+  const int rows = B * cap;
+  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool vec = cap % 4 == 0 && ((uintptr_t)iou & 15) == 0 &&
+                   ((uintptr_t)scores & 15) == 0;
+  if (vec) {
+    nms_mask_kernel<true><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
+        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, iou_thr);
+  } else {
+    nms_mask_kernel<false><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
+        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, iou_thr);
   }
-  nms_scan_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)iou, (const float*)scores, (const uint8_t*)valid,
-      (const float*)payload, (uint8_t*)keep, (float*)merged, cap, iou_thr,
-      merge_thr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)kStages * 32 * nwords * sizeof(uint32_t);
+  static size_t smem_allowed = 48 * 1024;  // raised once, to the largest cap
+  if (smem > smem_allowed) {
+    e = cudaFuncSetAttribute(nms_keep_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_allowed = smem;
+  }
+  nms_keep_kernel<<<B, 32, smem, st>>>((const uint32_t*)mask, (const uint8_t*)valid,
+                                       (uint8_t*)keep, (uint32_t*)seen, cap, nwords);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  auto merge = vec ? nms_merge_kernel<true> : nms_merge_kernel<false>;
+  merge<<<blocks, 32 * kRowsPerBlock, 0, st>>>(
+      (const float*)iou, (const float*)scores, (const float*)payload,
+      (const uint8_t*)keep, (const uint32_t*)seen, (float*)merged, rows, cap,
+      nwords, merge_thr);
   return (int)cudaGetLastError();
 }

@@ -3,10 +3,13 @@
 Replaces ``range_view_3d_detection_tpu/kernels/nms_pallas.py::
 nms_scan_pallas`` (``_nms_scan_kernel``). The kernel is
 ``csrc/nms_scan.cu``; its header says what bounds it on the H100 (the
-chain of ``cap`` dependent steps; the IoU bytes take 2.5 us at B=2,
-cap=1024) and how its design follows from that. The plain twin is the
-JAX package's lax block scan (``ops/nms.py:177-214``) with the batch
-dimension written out.
+IoU bytes take 2.5 us at B=2, cap=1024; the greedy keep is a chain of
+dependent steps) and how its three phases follow from that: suppression
+bitmasks over all SMs, the greedy keep in one warp per image, the
+weighted merge over all SMs. The plain twin is the JAX package's lax
+block scan (``ops/nms.py:177-214``) with the batch dimension written out;
+:func:`nms_scan_bitmask_plain` is the kernel's three phases in torch ops,
+for the tests.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from range_view_3d_detection_torch.kernels import _build
 
@@ -60,6 +64,78 @@ def nms_scan_plain(
     return keep, merged
 
 
+def nms_scan_bitmask_plain(
+    iou: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    payload: torch.Tensor,
+    *,
+    iou_threshold: float,
+    merge_threshold: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's three phases in torch ops (for the tests).
+
+    1. Suppression words: bit t of ``mask[b, i, w]`` is
+       ``iou[b, i, 32 w + t] > iou_threshold``.
+    2. The greedy keep over 32-row slabs: a slab's diagonal word decides
+       which of its rows are kept, then each kept row i, in ascending
+       order, leaves the removed set it saw (``R_i``, initially
+       ``~valid``) in ``seen`` and ORs its words into the set.
+    3. The weighted merge of each kept row i over the boxes j alive at
+       step i: those not in ``R_i``.
+
+    Returns:
+        keep (B, cap) bool, merged (B, cap, P) fp32, and killed_at (B,
+        cap) int32, the kept row that removed each box (``cap`` if none or
+        if the box is invalid): j not in ``R_i`` is ``valid[j]`` and
+        ``killed_at[j] >= i``, which the tests hold it to.
+    """
+    iou = iou.float()
+    scores = scores.float()
+    payload = payload.float()
+    B, cap = scores.shape
+    nwords = (cap + 31) // 32
+    pad = nwords * 32 - cap
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=iou.device)
+
+    def words(bits):  # (..., cap) bool -> (..., nwords) int64 of 32 bits
+        bits = bits.view(*bits.shape[:-1], nwords, 32).long()
+        return (bits * weights).sum(-1)
+
+    mask = words(F.pad(iou > iou_threshold, (0, pad))).tolist()
+    removed = words(F.pad(~valid.bool(), (0, pad), value=True)).tolist()
+    keep = torch.zeros((B, cap), dtype=torch.bool)
+    seen = torch.zeros((B, cap, nwords), dtype=torch.int64)
+    killed_at = torch.full((B, cap), cap, dtype=torch.int32)
+    for b in range(B):
+        rem, m = removed[b], mask[b]
+        for s in range(nwords):
+            diag, kept = rem[s], []
+            for i in range(32 * s, min(32 * s + 32, cap)):
+                if not (diag >> (i - 32 * s)) & 1:
+                    kept.append(i)
+                    diag |= m[i][s]
+            for i in kept:
+                keep[b, i] = True
+                seen[b, i] = torch.tensor(rem)
+                for w in range(nwords):
+                    fresh = m[i][w] & ~rem[w]
+                    rem[w] |= m[i][w]
+                    for t in range(32):
+                        if (fresh >> t) & 1:
+                            killed_at[b, 32 * w + t] = i
+    keep, killed_at = keep.to(iou.device), killed_at.to(iou.device)
+    shifts = torch.arange(32, dtype=torch.int64)
+    in_seen = ((seen[..., None] >> shifts) & 1).view(B, cap, 32 * nwords)[..., :cap]
+    alive = in_seen.to(iou.device) == 0
+    w = torch.where(alive & (iou >= merge_threshold), scores[:, None, :], 0.0)
+    eye = torch.eye(cap, dtype=torch.bool, device=iou.device)
+    w = torch.where(eye, torch.maximum(w, scores[:, None, :]), w)
+    m = (w @ payload) / w.sum(-1).clamp_min(1e-8)[..., None]
+    merged = torch.where(keep[..., None], m, payload)
+    return keep, merged, killed_at
+
+
 def nms_scan(
     iou: torch.Tensor,
     scores: torch.Tensor,
@@ -72,8 +148,8 @@ def nms_scan(
     """Greedy (weighted) NMS scan over a precomputed IoU matrix.
 
     A CPU tensor takes :func:`nms_scan_plain`. A CUDA tensor launches the
-    kernel (one block per image, P == 9, cap <= 4096) or raises.
-    ``nms_scan.launches`` counts the kernel launches.
+    kernel's three phases (P == 9, any B >= 1, cap <= 4096) or raises.
+    ``nms_scan.launches`` counts the calls that launch them.
     """
     if iou.device.type == "cpu":
         return nms_scan_plain(
@@ -93,7 +169,9 @@ def nms_scan(
             f" valid{tuple(valid.shape)} payload{tuple(payload.shape)}"
         )
     if cap > 4096:
-        raise ValueError(f"nms_scan: cap={cap} > 4096 does not fit shared memory")
+        raise ValueError(
+            f"nms_scan: cap={cap} > 4096: the keep warp holds 4096 removed bits"
+        )
     tensors = (iou, scores, valid, payload)
     if any(t.device != iou.device for t in tensors):
         raise ValueError("nms_scan: inputs on different devices")
@@ -103,11 +181,17 @@ def nms_scan(
     payload = payload.float().contiguous()
     keep = torch.empty((B, cap), dtype=torch.bool, device=iou.device)
     merged = torch.empty((B, cap, PAYLOAD), dtype=torch.float32, device=iou.device)
+    # Scratch: the suppression words of 32-row slabs, and the removed set
+    # each kept row saw.
+    nwords = (cap + 31) // 32
+    mask = torch.empty((B, 32 * nwords, nwords), dtype=torch.int32, device=iou.device)
+    seen = torch.empty((B, cap, nwords), dtype=torch.int32, device=iou.device)
     lib = _build.library()
     with torch.cuda.device(iou.device):
         err = lib.rv3d_nms_scan(
             iou.data_ptr(), scores.data_ptr(), valid.data_ptr(),
             payload.data_ptr(), keep.data_ptr(), merged.data_ptr(),
+            mask.data_ptr(), seen.data_ptr(),
             B, cap, PAYLOAD, float(iou_threshold), float(merge_threshold),
             torch.cuda.current_stream().cuda_stream,
         )

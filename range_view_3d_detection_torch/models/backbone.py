@@ -82,6 +82,7 @@ class RangeNet(nn.Module):
         num_neighbors: int = 3,
         num_layers: int = 2,
         projection_kernel_size: int = 1,
+        stem_pallas: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -89,7 +90,8 @@ class RangeNet(nn.Module):
         self.stem_type = stem_type.upper()
         if self.stem_type == "META":
             self.MetaKernel_0 = MetaKernel(
-                in_channels, layers[0], num_neighbors, num_layers, dtype=dtype
+                in_channels, layers[0], num_neighbors, num_layers,
+                use_fused_kernel=stem_pallas, dtype=dtype,
             )
         elif self.stem_type == "BASIC":
             pk = projection_kernel_size

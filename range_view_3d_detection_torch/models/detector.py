@@ -56,6 +56,10 @@ class DetectorConfig:
     final_kernel_size: int = 1
     targets: TargetsConfig = TargetsConfig()
     dtype: str = "bfloat16"
+    # The META eval stem through the fused kernel (K1, fp32 sum of the nine
+    # neighbours), as the JAX ``stem_pallas`` picks its Pallas kernel; False
+    # takes the accumulate path (bf16 terms summed in the compute dtype).
+    stem_pallas: bool = False
 
     @property
     def tasks_dict(self) -> Dict[int, Tuple[str, ...]]:
@@ -98,6 +102,7 @@ class Detector(nn.Module):
                 config.num_neighbors,
                 config.num_stem_layers,
                 config.projection_kernel_size,
+                stem_pallas=config.stem_pallas,
                 dtype=dt,
             )
             self.DetectionHead_0 = DetectionHead(

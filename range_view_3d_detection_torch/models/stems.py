@@ -1,15 +1,18 @@
 """Input stems (counterpart of the JAX ``models/stems.py``): MetaKernel, eval.
 
-The eval MetaKernel goes through the fused stem kernel
-(``kernels/stem.py::meta_kernel_fused``, K1), whose plain twin is the
-JAX accumulate formulation with the Pallas kernel's rounding points.
-After ``quantize_stem`` it goes through the int8 kernel
-(``meta_kernel_fused_i8``, K4) instead; while the model is calibrated
-(``models/quantized.py::calibrate_scales``) it takes the accumulate path,
-which records the absmax of ``hh`` and ``p * feats``, as the JAX package
-does. The stacked train path (batch-statistics BatchNorm over all
-neighbours) and ``RangePartition`` are not ported yet; the BASIC stem is
-a :class:`~range_view_3d_detection_torch.models.blocks.BasicBlock`.
+The eval MetaKernel routes as the JAX package does. With
+``use_fused_kernel`` (the config's ``stem_pallas``) it goes through the
+fused stem kernel (``kernels/stem.py::meta_kernel_fused``, K1), whose
+plain twin is the JAX formulation with the Pallas kernel's rounding
+points; without it, it takes the JAX accumulate path, which sums the
+nine neighbours' terms in the compute dtype. After ``quantize_stem`` it
+goes through the int8 kernel (``meta_kernel_fused_i8``, K4) instead;
+while the model is calibrated (``models/quantized.py::calibrate_scales``)
+it takes the accumulate path, which records the absmax of ``hh`` and
+``p * feats``, as the JAX package does. The stacked train path
+(batch-statistics BatchNorm over all neighbours) and ``RangePartition``
+are not ported yet; the BASIC stem is a
+:class:`~range_view_3d_detection_torch.models.blocks.BasicBlock`.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ class MetaKernel(nn.Module):
         out_channels: int,
         num_neighbors: int = 3,
         num_layers: int = 2,
+        use_fused_kernel: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -63,6 +67,7 @@ class MetaKernel(nn.Module):
         C = out_channels
         self.dtype = dtype
         self.num_layers = num_layers
+        self.use_fused_kernel = use_fused_kernel
         self.BasicBlock_0 = BasicBlock(
             in_channels, C, kernel_size=(1, 1), project=True, dtype=dtype
         )
@@ -146,7 +151,7 @@ class MetaKernel(nn.Module):
 
     def _accumulate(self, g: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
         """The JAX eval accumulate path (``stems.py:353-395``), recording
-        ``stem_hh`` and ``stem_pf`` absmaxes into ``calib_sink``.
+        ``stem_hh`` and ``stem_pf`` absmaxes into ``calib_sink`` when set.
         Returns ``geo`` (B, H, W, C) in the compute dtype."""
         dt = self.dtype
         H, W = g.shape[1:3]
@@ -161,8 +166,9 @@ class MetaKernel(nn.Module):
                 hh = torch.relu(self._pos_bn(x0, 0).to(dt))
                 pos = torch.relu(self._pos_bn(hh @ w1, 1).to(dt))
                 pf = pos * fp[:, dy : dy + H, dx : dx + W]
-                self.calib_sink("stem_hh", hh)
-                self.calib_sink("stem_pf", pf)
+                if self.calib_sink is not None:
+                    self.calib_sink("stem_hh", hh)
+                    self.calib_sink("stem_pf", pf)
                 term = pf @ kernel[3 * dy + dx]
                 geo = term if geo is None else geo + term
         return geo
@@ -193,7 +199,7 @@ class MetaKernel(nn.Module):
                 g, feats, self.i8_w1, self.i8_k, self.i8_a0, self.i8_b0,
                 self.i8_a1, self.i8_b1, self.i8_kdq,
             )
-        else:
+        elif self.use_fused_kernel:
             a0, b0 = self.bn_eval_affine(0)
             a1, b1 = self.bn_eval_affine(1)
             geo = meta_kernel_fused(
@@ -203,6 +209,8 @@ class MetaKernel(nn.Module):
                 self.fusion1_kernel.to(dt),
                 a0, b0, a1, b1,
             )
+        else:
+            geo = self._accumulate(g, feats)
         geo = geo.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         geo = torch.relu(self.fusion1_bn(geo.float()).to(dt))
         for i in range(1, self.num_layers):

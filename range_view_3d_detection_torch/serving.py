@@ -51,6 +51,7 @@ def _flagship_config(tiny: bool = False) -> DetectorConfig:
         classification_head_channels=512,
         regression_head_channels=512,
         dtype="bfloat16",
+        stem_pallas=True,  # the fused eval stem (K1)
     )
 
 

@@ -1,15 +1,24 @@
-"""``chip_smoke.py``'s zero-spill gate reads ptxas's report of every K1 instance.
+"""Parts of ``chip_smoke.py`` that run without a card.
 
-K1 is a template (a 128- and a 256-wide instance), so the gate must see
-each instance's spill line, and fail when the kernel is not in the report
-at all (a build whose log was lost would otherwise pass unchecked).
+- The zero-spill gate reads ptxas's report of every K1 instance. K1 is a
+  template (a 128- and a 256-wide instance), so the gate must see each
+  instance's spill line, and fail when the kernel is not in the report at
+  all (a build whose log was lost would otherwise pass unchecked).
+- The edge-case IoU matrices on which it holds K2 against its twin have
+  the property each is named for, and the kernel's decomposition
+  (``nms_scan_bitmask_plain``) agrees with the plain scan on them.
 """
 
 from __future__ import annotations
 
 import pytest
+import torch
 
 import chip_smoke
+from range_view_3d_detection_torch.kernels.nms import (
+    nms_scan_bitmask_plain,
+    nms_scan_plain,
+)
 
 LOG = """\
 ptxas info    : Compiling entry function '_Z7k3_convv' for 'sm_90a'
@@ -35,3 +44,26 @@ def test_ptxas_spills_reads_every_instance():
 def test_ptxas_spills_fails_without_the_kernel():
     with pytest.raises(RuntimeError, match="not in the ptxas log"):
         chip_smoke.ptxas_spills("", "meta_kernel_fused_wgmma")
+
+
+@pytest.mark.parametrize("case", chip_smoke.NMS_EDGE_CASES)
+def test_nms_edge_cases(case):
+    gen = torch.Generator().manual_seed(1)
+    iou, scores, valid, payload = chip_smoke.nms_edge_case(case, 2, 100, gen, "cpu")
+    diag = iou.diagonal(dim1=1, dim2=2)
+    if case == "zero_diagonal":
+        assert (diag == 0).sum() >= 2 * 25 and (iou.sum(-1) == 0).sum() >= 2 * 12
+    elif case == "asymmetric":
+        assert not torch.equal(iou, iou.transpose(1, 2))
+    elif case == "invalid_middle":
+        assert not valid[:, 25:50].any()
+    elif case == "all_suppressed":
+        assert (iou == 1).all()
+    elif case == "duplicated":
+        assert (scores[:, 1:] == scores[:, :-1]).sum() >= 2 * 40
+    for merge in (0.5, 1.01):
+        kw = dict(iou_threshold=0.3, merge_threshold=merge)
+        keep, merged, _ = nms_scan_bitmask_plain(iou, scores, valid, payload, **kw)
+        keep_p, merged_p = nms_scan_plain(iou, scores, valid, payload, **kw)
+        assert torch.equal(keep, keep_p)
+        torch.testing.assert_close(merged, merged_p, atol=1e-5, rtol=0)

@@ -3,6 +3,11 @@
 - ``iou_rotated_bev`` against the JAX ``ops.iou``: atol 1e-5.
 - The plain scan against the JAX Pallas scan in interpret mode on the
   same IoU matrix: ``keep`` equal, ``merged`` within 1e-5.
+- The kernel's three phases in torch ops (``nms_scan_bitmask_plain``)
+  against the plain scan and the JAX Pallas scan in interpret mode, on
+  edge cases (WEIGHTED and HARD, cap 64 and the ragged 100): ``keep``
+  equal, ``killed_at`` equal to the first kept row above the threshold,
+  ``merged`` within 1e-5.
 - The port's batched multi-class NMS against the JAX ``multiclass_nms``
   (lax block scan and Pallas interpret) for WEIGHTED, HARD, duplicated
   boxes (exact ties), a post-NMS cap and cap > n: ``keep`` equal, kept
@@ -16,7 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
+from range_view_3d_detection_torch.kernels.nms import (
+    nms_scan,
+    nms_scan_bitmask_plain,
+    nms_scan_plain,
+)
 from range_view_3d_detection_torch.ops import iou as tiou
 from range_view_3d_detection_torch.ops.nms import (
     batched_multiclass_nms,
@@ -94,6 +103,94 @@ def test_plain_scan_matches_pallas_interpret(merge_threshold):
         *(torch.from_numpy(a[None]) for a in (iou, scores, valid, payload)), **kw
     )
     assert torch.equal(keep_p, keep) and torch.equal(merged_p, merged)
+
+
+def _scan_inputs(case, cap, seed):
+    """Two images of sorted scores, validity, payload and an IoU matrix
+    for one edge case of the scan, made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    images = []
+    for b in range(2):
+        boxes, scores, _ = _random_boxes(cap, seed=seed * 10 + b, spread=4.0)
+        if case == "duplicated":  # each box twice, same score: exact ties
+            half = cap // 2
+            boxes[half:] = boxes[: cap - half]
+            scores[half:] = scores[: cap - half]
+        order = np.argsort(-scores, kind="stable")
+        boxes, scores = boxes[order], scores[order]
+        bev = boxes[:, [0, 1, 3, 4, 6]]
+        iou = np.array(jiou.iou_rotated_bev(jnp.asarray(bev), jnp.asarray(bev)))
+        valid = scores >= 0.1
+        if case == "zero_diagonal":
+            # Boxes that never kill (themselves included), as the class
+            # offset's fp32 fragility makes them: kept, they stay alive
+            # and join later clusters.
+            idx = rng.choice(cap - 1, cap // 4, replace=False)
+            iou[idx, idx] = 0.0
+            for j in idx[: cap // 8]:
+                iou[j] = 0.0
+                iou[rng.integers(j + 1, cap), j] = 0.8
+        elif case == "asymmetric":  # the diagonal too, zeros included
+            iou = rng.uniform(0.0, 1.0, (cap, cap)).astype(np.float32)
+            iou *= rng.uniform(size=(cap, cap)) < 0.08
+        elif case == "invalid_middle":
+            valid[cap // 4 : cap // 2] = False
+            valid[rng.choice(cap, cap // 8, replace=False)] = False
+        elif case == "all_suppressed":
+            iou = np.ones((cap, cap), np.float32)
+        payload = np.concatenate(
+            [boxes[:, :6], np.sin(boxes[:, 6:]), np.cos(boxes[:, 6:]), scores[:, None]],
+            axis=-1,
+        ).astype(np.float32)
+        images.append((iou, scores, valid, payload))
+    return [np.stack(a) for a in zip(*images)]
+
+
+def _first_killer(iou, valid, keep, threshold):
+    """killed_at as defined: the first kept row whose IoU with box j
+    exceeds the threshold, ``cap`` if none or if j is invalid."""
+    cap = len(valid)
+    out = np.full(cap, cap)
+    for j in np.flatnonzero(valid):
+        rows = np.flatnonzero(keep & (iou[:, j] > threshold))
+        if len(rows):
+            out[j] = rows[0]
+    return out
+
+
+SCAN_CASES = ["random", "zero_diagonal", "asymmetric", "invalid_middle",
+              "all_suppressed", "duplicated"]
+
+
+@pytest.mark.parametrize("cap", [64, 100])
+@pytest.mark.parametrize("merge_threshold", [0.5, 1.01], ids=["weighted", "hard"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_bitmask_decomposition_matches_scan(case, merge_threshold, cap):
+    arrays = _scan_inputs(case, cap, seed=SCAN_CASES.index(case) + 20)
+    iou, scores, valid, payload = arrays
+    kw = dict(iou_threshold=0.3, merge_threshold=merge_threshold)
+    keep, merged, killed_at = nms_scan_bitmask_plain(
+        *(torch.from_numpy(a) for a in arrays), **kw
+    )
+    keep_p, merged_p = nms_scan_plain(*(torch.from_numpy(a) for a in arrays), **kw)
+    assert torch.equal(keep, keep_p)
+    np.testing.assert_allclose(merged.numpy(), merged_p.numpy(), atol=1e-5)
+    for b in range(2):
+        want_keep, want_merged = nms_scan_pallas(
+            iou[b], scores[b], valid[b], payload[b], interpret=True, **kw
+        )
+        np.testing.assert_array_equal(keep[b].numpy(), np.asarray(want_keep))
+        np.testing.assert_allclose(merged[b].numpy(), np.asarray(want_merged), atol=1e-5)
+        k = keep[b].numpy()
+        np.testing.assert_array_equal(
+            killed_at[b].numpy(), _first_killer(iou[b], valid[b], k, 0.3)
+        )
+        assert (k == (valid[b] & (killed_at[b].numpy() >= np.arange(cap)))).all()
+    n_keep = int(keep.sum())
+    if case == "all_suppressed":
+        assert n_keep == 2  # the first valid box of each image
+    else:
+        assert 0 < n_keep < int(valid.sum())  # something was suppressed
 
 
 def _duplicated(n, seed):

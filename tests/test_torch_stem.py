@@ -6,18 +6,23 @@
 - The port's ``MetaKernel`` against the flax eval accumulate path with
   transplanted weights and randomised BatchNorm statistics.
 - H = 1 cases, where both vertical edges hit the one row.
+- In bf16, the ``stem_pallas`` switch: without it the port's stem is the
+  flax accumulate path, with it the fused kernel's formulation, held
+  against the flax Pallas path (tolerances in that test's docstring).
 
-Tolerance: atol = rtol = 1e-4 (fp32 sums in different orders).
+Tolerance (fp32): atol = rtol = 1e-4 (fp32 sums in different orders).
 """
 
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from range_view_3d_detection_torch.kernels import stem as tstem
+from range_view_3d_detection_torch.models import stems as tstems
 from range_view_3d_detection_torch.models.stems import MetaKernel
 from range_view_3d_detection_torch.transplant import load_flax_variables
 from range_view_3d_detection_tpu.kernels.stem_pallas import meta_kernel_fused
@@ -77,6 +82,72 @@ def test_meta_kernel_matches_flax_accumulate(H):
     with torch.no_grad():
         got = nhwc(tx(nchw(feats), torch.from_numpy(cart)))
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("stem_pallas", [False, True], ids=["accumulate", "fused"])
+def test_meta_kernel_bf16_follows_stem_pallas(stem_pallas, monkeypatch):
+    """bf16 stem, C = 32, with and without ``stem_pallas``.
+
+    The flax side takes jnp arrays: numpy inputs would make flax run the
+    bf16 ``cart @ pos_0_conv_kernel`` product in numpy's bf16 arithmetic,
+    which rounds after every multiply-add.
+
+    - Without the switch the port takes the accumulate path and matches
+      the flax accumulate path: at most 1% of the elements differ, by at
+      most one bf16 ulp of max|ref| (2^-8 relative); on the CPU they are
+      equal. Before the switch existed the port always took the fused
+      formulation, which sums the nine neighbours in fp32: it differs from
+      the accumulate path in over 10% of the elements (asserted below).
+    - With it the port calls the fused kernel's wrapper (its plain twin on
+      the CPU) and is held to the flax Pallas path in interpret mode:
+      max|diff| <= 2^-5 * max|ref| and a relative RMS <= 2^-6. The two
+      round the intermediate ``p`` to bf16 at the same point, but an fp32
+      difference of one ulp before a bf16 rounding flips it by a bf16 ulp
+      (2^-8 relative), and the flips pass through fusion1_bn and fusion_1.
+    """
+    B, H, W, Cin, C = 2, 5, 16, 5, 32
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(B, H, W, Cin)).astype(np.float32)
+    cart = rng.normal(scale=10.0, size=(B, H, W, 3)).astype(np.float32)
+    v = jstems.MetaKernel(C, dtype=jnp.bfloat16).init(
+        jax.random.PRNGKey(0), feats, cart, train=False
+    )
+    params, stats = randomize_bn(v["params"], v["batch_stats"], seed=5)
+    variables = jax.tree_util.tree_map(
+        jnp.asarray, {"params": params, "batch_stats": stats}
+    )
+
+    def flax_stem(use_pallas_kernel):
+        jx = jstems.MetaKernel(C, use_pallas_kernel=use_pallas_kernel, dtype=jnp.bfloat16)
+        out = jx.apply(variables, jnp.asarray(feats), jnp.asarray(cart), train=False)
+        return np.asarray(out.astype(jnp.float32)), jstems.LAST_STEM_PATH
+
+    want_acc, path = flax_stem(False)
+    assert path == "accumulate"
+    calls = []
+
+    def fused(*args):
+        calls.append(1)
+        return tstem.meta_kernel_fused(*args)
+
+    monkeypatch.setattr(tstems, "meta_kernel_fused", fused)
+    tx = MetaKernel(Cin, C, use_fused_kernel=stem_pallas, dtype=torch.bfloat16)
+    tx = load_flax_variables(tx.eval(), params, stats)
+    with torch.no_grad():
+        got = nhwc(tx(nchw(feats), torch.from_numpy(cart)).float())
+    ref = float(np.abs(want_acc).max())
+    differ = np.mean(got != want_acc)
+    assert len(calls) == int(stem_pallas)
+    if not stem_pallas:
+        assert differ <= 0.01, differ
+        np.testing.assert_allclose(got, want_acc, atol=2.0**-8 * ref, rtol=0)
+        return
+    assert differ > 0.1, differ  # the fused formulation, not the accumulate path
+    want, path = flax_stem(True)
+    assert path == "pallas_fp"
+    ref = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, atol=2.0**-5 * ref, rtol=0)
+    assert np.sqrt(np.mean((got - want) ** 2) / np.mean(want**2)) <= 2.0**-6
 
 
 def test_meta_kernel_refuses_train_mode():
