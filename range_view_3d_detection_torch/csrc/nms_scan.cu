@@ -125,7 +125,7 @@ __global__ void __launch_bounds__(32)
   uint8_t* keep_b = keep + (size_t)b * cap;
   uint32_t* seen_b = seen + (size_t)b * cap * nwords;
 
-  auto issue = [&](int s) {
+  auto prefetch = [&](int s) {
     if (s < nwords) {
       const uint32_t* src = mask_b + (size_t)s * slab_words;
       uint32_t* dst = slab_s + (s % kStages) * slab_words;
@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(32)
     }
     cp_async_commit();  // an empty group keeps the group count uniform
   };
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int s = 0; s < kStages - 1; ++s) prefetch(s);
 
   // Removed set: ~valid, and every bit past cap (rows past cap never keep);
   // word w = 32 k + l is rem[k] of lane l.
@@ -151,7 +151,7 @@ __global__ void __launch_bounds__(32)
   }
 
   for (int s = 0; s < nwords; ++s) {
-    issue(s + kStages - 1);  // refills the buffer slab s - 1 left
+    prefetch(s + kStages - 1);  // refills the buffer slab s - 1 left
     cp_async_wait<kStages - 1>();
     __syncwarp();  // every lane's copies of slab s are in
     const uint32_t* slab = slab_s + (s % kStages) * slab_words;
