@@ -16,7 +16,8 @@
 // 8.4 MB at B=2, cap=1024, read once in 2.5 us at 3.35 TB/s. The greedy
 // keep is a chain of dependent steps, each needing the set the earlier
 // steps removed; at one shared-memory round trip (about 30 cycles) a live
-// step, the 742 live steps of the longer flagship image take about 11 us.
+// step, the 742 live steps of the longer flagship image take about 11 us
+// (a model of the chain's floor, not a measurement).
 // The chain runs through comparisons only; the weighted merge is the only
 // arithmetic, and it can run once the chain is known.
 //
@@ -305,12 +306,10 @@ extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)kStages * 32 * nwords * sizeof(uint32_t);
-  static size_t smem_allowed = 48 * 1024;  // raised once, to the largest cap
-  if (smem > smem_allowed) {
+  if (smem > 48 * 1024) {  // set on every call: the attribute is per device
     e = cudaFuncSetAttribute(nms_keep_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    smem_allowed = smem;
   }
   nms_keep_kernel<<<B, 32, smem, st>>>((const uint32_t*)mask, (const uint8_t*)valid,
                                        (uint8_t*)keep, (uint32_t*)seen, cap, nwords);

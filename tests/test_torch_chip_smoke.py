@@ -6,7 +6,9 @@
   all (a build whose log was lost would otherwise pass unchecked).
 - The edge-case IoU matrices on which it holds K2 against its twin have
   the property each is named for, and the kernel's decomposition
-  (``nms_scan_bitmask_plain``) agrees with the plain scan on them.
+  (``nms_scan_bitmask_plain``) agrees with the plain scan on them, at
+  cap 100 and at caps that are not a multiple of 4; its misaligned copies
+  start 4 bytes past a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -61,9 +63,34 @@ def test_nms_edge_cases(case):
         assert (iou == 1).all()
     elif case == "duplicated":
         assert (scores[:, 1:] == scores[:, :-1]).sum() >= 2 * 40
+    _decomposition_matches_plain(iou, scores, valid, payload)
+
+
+def _decomposition_matches_plain(*inputs):
     for merge in (0.5, 1.01):
         kw = dict(iou_threshold=0.3, merge_threshold=merge)
-        keep, merged, _ = nms_scan_bitmask_plain(iou, scores, valid, payload, **kw)
-        keep_p, merged_p = nms_scan_plain(iou, scores, valid, payload, **kw)
+        keep, merged, _ = nms_scan_bitmask_plain(*inputs, **kw)
+        keep_p, merged_p = nms_scan_plain(*inputs, **kw)
         assert torch.equal(keep, keep_p)
         torch.testing.assert_close(merged, merged_p, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("case", chip_smoke.NMS_EDGE_CASES)
+def test_nms_edge_cases_cap_37(case):
+    """The edge cases at a cap that is not a multiple of 4, which phase 4
+    holds on the card's scalar kernel instances."""
+    gen = torch.Generator().manual_seed(2)
+    _decomposition_matches_plain(*chip_smoke.nms_edge_case(case, 2, 37, gen, "cpu"))
+
+
+@pytest.mark.parametrize("cap", [1, 37])
+def test_nms_case_ragged_caps(cap):
+    gen = torch.Generator().manual_seed(3)
+    _decomposition_matches_plain(*chip_smoke.nms_case(3, cap, gen, "cpu"))
+
+
+def test_misaligned_copy():
+    t = torch.arange(24.0).view(2, 3, 4)
+    got = chip_smoke.misaligned(t)
+    assert torch.equal(got, t) and got.is_contiguous()
+    assert got.data_ptr() % 16 == 4
