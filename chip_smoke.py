@@ -8,7 +8,8 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into ``build/``;
    ptxas's register and spill lines (kept beside the library, so a reused
-   build is checked too), and zero spills in both instances of K1;
+   build is checked too), and zero spills in both instances of K1 and of
+   K4;
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
@@ -26,11 +27,13 @@ Phases, each of which raises (non-zero exit) on failure:
    1024, and with the IoU and scores 4 bytes off a 16-byte boundary at
    cap 1024: ``keep`` identical, ``merged`` within 1e-4; cap 4097 and a
    payload of 8 are refused;
-5. main path: ``Predictor`` on the full rv-av2 flagship config (B=2,
-   64x1808, 26 classes, 512-channel towers, bf16, random seeded weights)
-   answers 4 requests; both kernels must launch, outputs must be finite
-   with detections kept, and the NMS must agree with the plain scan on the
-   same proposals;
+5. main path: ATen's CUDA ``addcmul``, on which the BatchNorm epilogue
+   rests, must be one fused multiply-add (equal to a correctly rounded
+   fp64 reference on 4M values); ``Predictor`` on the full rv-av2 flagship
+   config (B=2, 64x1808, 26 classes, 512-channel towers, bf16, random
+   seeded weights) answers 4 requests; both kernels must launch, outputs
+   must be finite with detections kept, and the NMS must agree with the
+   plain scan on the same proposals;
 6. timings (CUDA events around eager launches, warm-up, median) of each
    kernel, its plain twin and its bound (K1 and K2 also by CUDA-graph
    replay; K1 with its L2 weight bytes a call, and at the Waymo stem
@@ -38,8 +41,10 @@ Phases, each of which raises (non-zero exit) on failure:
    not in the kernels line, and the device time of each of its three
    kernels), ms per request of the main path, its forward and
    decode + NMS device times, decode + NMS split by stage (CUDA events)
-   and by op (torch.profiler), and a torch.profiler table of one
-   request's device time by kernel;
+   and by op (torch.profiler), every BatchNorm epilogue of a request in
+   flax's order beside the parent's ``BatchNorm2d`` form (eager and graph
+   replay, summed), and a torch.profiler table of one request's device
+   time by kernel;
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
    1 and 2, bf16 and fp32 output, in both operand forms
    (int8, and bf16/fp32 activations with ``in_scale`` on rounding ties and
@@ -63,8 +68,13 @@ Phases, each of which raises (non-zero exit) on failure:
    tower shape for context, and how many ``div``/``round``/``clamp``/
    ``copy_`` ops one request runs on each path;
 10. the int8 path with ``stem_int8=True``: K4 must launch and K1 not; K4
-   against its twin on the captured flagship inputs and at (1, 3, 37,
-   256): max|diff| <= 1e-4 * max|ref|; K4's time, bound and twin's time;
+   against its twin on the captured flagship inputs, a ragged crop of
+   them, the Waymo stem (2, 64, 2656, 128), (2, 32, 256, 32), (1, 3, 37,
+   96), (1, 3, 37, 160) and on edge cases that bind every clamp and
+   rounding tie (``k4_edge_case``) at C = 256 and 128: max|diff| <= 1e-4 *
+   max|ref|, the count of differing elements printed (expected 0: the
+   kernel's arithmetic is its twin's); a C it does not take (48, 288)
+   raises; K4's time (eager and graph replay), bound and twin's time;
 11. ms per request of both int8 paths and a profiler table of one request.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
@@ -199,12 +209,159 @@ def stem_inputs(B, H, W, C, gen, device):
     )
 
 
+def k4_inputs(B, H, W, C, gen, device):
+    """Random K4 operands at the scales the calibrated stem gives them:
+    ``hq`` spans 0-127 and ``p * feats`` about +-50 before the clamp."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    def u(lo, hi, *shape):
+        return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
+
+    bf16 = torch.bfloat16
+    return dict(
+        g=rn(B, H, W, C).to(device, bf16), feats=rn(B, H, W, C).to(device, bf16),
+        w1_i8=i8(C, C).to(device), k_i8=i8(9, C, C).to(device),
+        a0=u(15, 45, C).to(device), b0=(rn(C) * 30).to(device),
+        a1=u(5e-4, 1.5e-3, C).to(device), b1=rn(C).to(device),
+        kdq=u(5e-4, 1.5e-3, 9, C).to(device),
+    )
+
+
+def k4_edge_case(B, H, W, C, gen, device):
+    """K4 operands on which every clamp and rounding tie binds: ``hq``
+    saturates at 127, ``pq`` clamps at +127 and -127, and both ``rint``
+    steps meet exact .5 ties (half to even). Integral ``g``, unit or
+    halved affine scales, half-integral biases and power-of-two ``feats``
+    and ``kdq`` keep every product exact, so a multiply and an add fused
+    into one rounding (as XLA may fuse them) give the same result."""
+    import torch
+
+    def pick(values, *shape):
+        v = torch.tensor(values, dtype=torch.float32)
+        return v[torch.randint(len(values), shape, generator=gen)]
+
+    g = torch.randint(-160, 161, (B, H, W, C), generator=gen).float()
+    feats = pick((1.0, -1.0, 0.5, -0.5, 2.0, -2.0, 0.25), B, H, W, C)
+    # Two +-1 taps a column of W1, so |z| <= 254 and p * feats spans the clamp.
+    w1 = torch.zeros(C, C, dtype=torch.int8)
+    cols = torch.arange(C)
+    for _ in range(2):
+        w1[torch.randint(C, (C,), generator=gen), cols] += pick((1.0, -1.0), C).to(torch.int8)
+    bf16 = torch.bfloat16
+    return dict(
+        g=g.to(device, bf16), feats=feats.to(device, bf16), w1_i8=w1.to(device),
+        k_i8=torch.randint(-127, 128, (9, C, C), generator=gen, dtype=torch.int8).to(device),
+        a0=torch.ones(C, device=device), b0=pick((0.5, -0.5, 0.25, 0.0), C).to(device),
+        a1=pick((1.0, 0.5), C).to(device), b1=pick((0.5, -0.5, 0.0), C).to(device),
+        kdq=pick((2.0**-10, 2.0**-12), 9, C).to(device),
+    )
+
+
+def check_addcmul_fma(device, gen, n: int = 1 << 22) -> None:
+    """ATen's ``addcmul(b, d, m)`` on the card is one fused multiply-add:
+    equal to ``b + d m`` rounded once to fp32, on ``n`` values where two
+    roundings (``d * m + b``) differ. The reference: the product is exact
+    in fp64; the fp64 sum's own error comes from TwoSum, and it settles
+    the one case in which rounding the fp64 sum to fp32 is not the same
+    as rounding the exact sum: an fp64 sum exactly halfway between two
+    fp32 values."""
+    import torch
+
+    d, m, b = (torch.randn(n, generator=gen).to(device) * s for s in (3.0, 1.0, 2.0))
+    got = torch.addcmul(b, d, m)
+    p, bd = d.double() * m.double(), b.double()
+    s = p + bd
+    bv = s - p
+    err = (p - (s - bv)) + (bd - bv)
+    r = s.float()
+    toward = torch.where(s > r.double(), torch.inf, -torch.inf).float()
+    other = torch.nextafter(r, toward)
+    tie = (s == (r.double() + other.double()) / 2) & (err != 0)
+    want = torch.where(tie, torch.where(err > 0, torch.maximum(r, other),
+                                        torch.minimum(r, other)), r)
+    n_diff = int((got != want).sum())
+    n_two = int((d * m + b != want).sum())
+    check(n_diff == 0, f"addcmul is not one fused multiply-add: {n_diff} of {n} differ")
+    check(n_two > 0, "the fused multiply-add check cannot tell fused from unfused")
+    say(f"BN epilogue: CUDA addcmul equals the fused multiply-add on {n} values "
+        f"({int(tie.sum())} fp64 ties settled by TwoSum); a separate multiply and add "
+        f"differ in {n_two}")
+
+
+def bn_epilogue_times(model, tensors, smi) -> None:
+    """Device time of every eval BatchNorm epilogue of one request, one
+    input of each distinct shape timed and counted: this tree's (flax's
+    order: ``sub``, ``addcmul`` into the compute dtype, in-place ReLU)
+    beside the parent's form (``BatchNorm2d`` on an fp32 copy, a cast, a
+    ReLU), by CUDA events around eager launches and by CUDA-graph replay,
+    summed over the request; and how many outputs the two forms round
+    apart."""
+    import torch
+    import torch.nn.functional as F
+
+    from range_view_3d_detection_torch.models.blocks import BatchNorm
+
+    shapes = {}
+    forward = BatchNorm.forward
+
+    def capture(self, y, dtype=torch.float32, act=False):
+        key = (tuple(y.shape), y.dtype, dtype, act)
+        entry = shapes.setdefault(key, dict(args=(self, y.clone(), dtype, act), n=0))
+        entry["n"] += 1
+        return forward(self, y, dtype, act)
+
+    def parent_form(bn, y, dtype, act):
+        out = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight,
+                           bn.bias, False, 0.0, bn.eps).to(dtype)
+        return torch.relu(out) if act else out
+
+    BatchNorm.forward = capture
+    try:
+        with torch.inference_mode():
+            model(*tensors)
+    finally:
+        BatchNorm.forward = forward
+    sums = dict.fromkeys(("flax", "flax_graph", "parent", "parent_graph"), 0.0)
+    n_calls = n_out = n_diff = 0
+    with torch.inference_mode():
+        for e in shapes.values():
+            args, n = e["args"], e["n"]
+            sums["flax"] += n * cuda_ms(lambda: forward(*args), reps=10)
+            sums["parent"] += n * cuda_ms(lambda: parent_form(*args), reps=10)
+            sums["flax_graph"] += n * graph_ms(lambda: forward(*args))
+            sums["parent_graph"] += n * graph_ms(lambda: parent_form(*args))
+            got, old = forward(*args), parent_form(*args)
+            n_calls += n
+            n_out += n * got.numel()
+            n_diff += n * int((got != old).sum())
+    say(f"BN epilogue of one request ({n_calls} calls, {len(shapes)} shapes): flax's "
+        f"order {sums['flax']:.3f} ms eager, {sums['flax_graph']:.3f} ms graph replay; "
+        f"the parent's BatchNorm2d form {sums['parent']:.3f} ms eager, "
+        f"{sums['parent_graph']:.3f} ms graph replay; {n_diff} of {n_out} outputs "
+        f"rounded apart, on {smi}")
+
+
 def k1_cost(B, H, W, C):
     """(flop, bytes) of one K1 call: two C x C GEMMs per neighbour and
     pixel; g and feats read once, the weights and affines, fp32 out."""
     flops = 2 * B * H * W * 9 * 2 * C * C
     nbytes = 2 * (2 * B * H * W * C) + 2 * 10 * C * C + 16 * C + 4 * B * H * W * C
     return flops, nbytes
+
+
+def k4_cost(B, H, W, C):
+    """(operations, rate, bytes) of one K4 call: two C x C int8 GEMMs per
+    neighbour and pixel at the int8 peak; g and feats (bf16) read once, the
+    int8 weights, the affines and kdq, fp32 out."""
+    ops = 2 * B * H * W * 9 * 2 * C * C
+    nbytes = 2 * (2 * B * H * W * C) + 10 * C * C + 4 * 13 * C + 4 * B * H * W * C
+    return ops, H100_INT8_OPS, nbytes
 
 
 def nms_case(B, cap, gen, device, duplicated=False):
@@ -717,30 +874,51 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
           f"stem_int8=True: K4 must run and K1 not: {launches}")
     k4_launches = launches["K4"]
     k4_args = k4_cap["args"]
-    C = k4_args[0].shape[-1]
+    names = ("g", "feats", "w1_i8", "k_i8", "a0", "b0", "a1", "b1", "kdq")
+    k4_flagship = dict(zip(names, k4_args))
     # A small ragged crop of the same inputs: edges and a partial tile.
-    small = [a[:1, :3, :37].contiguous() for a in k4_args[:2]] + k4_args[2:]
+    crop = dict(k4_flagship, g=k4_args[0][:1, :3, :37].contiguous(),
+                feats=k4_args[1][:1, :3, :37].contiguous())
+    gen_k4 = torch.Generator().manual_seed(SEED + 4)
+    waymo = (2, 64, 2656, 128)
+    k4_waymo = k4_inputs(*waymo, gen_k4, device)
+    cases = [("flagship (captured)", k4_flagship), ("crop", crop), ("Waymo stem", k4_waymo)]
+    cases += [(f"{shape}", k4_inputs(*shape, gen_k4, device))
+              for shape in ((2, 32, 256, 32), (1, 3, 37, 96), (1, 3, 37, 160))]
+    cases += [(f"edge case {shape}", k4_edge_case(*shape, gen_k4, device))
+              for shape in ((2, 4, 100, 256), (1, 3, 70, 128))]
     k4_err = 0.0
-    for tag, args in (("flagship (captured)", k4_args), ("crop", small)):
-        got = meta_kernel_fused_i8(*args)
-        want = meta_kernel_fused_i8_plain(*args)
+    for tag, args in cases:
+        got = meta_kernel_fused_i8(**args)
+        want = meta_kernel_fused_i8_plain(**args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         ref = want.abs().max().item()
         n_diff = int((got != want).sum())
         check(bool(torch.isfinite(got).all()), f"K4 non-finite at {tag}")
         check(err <= 1e-4 * ref, f"K4 {tag}: max|diff| {err} > 1e-4 * {ref}")
-        say(f"K4 {tag} {tuple(args[0].shape)}: max|diff| {err:.4g} (max|ref| "
+        say(f"K4 {tag} {tuple(args['g'].shape)}: max|diff| {err:.4g} (max|ref| "
             f"{ref:.4g}), {n_diff} of {got.numel()} elements differ; ok")
         k4_err = max(k4_err, err)
+    for bad in (48, 288):
+        try:
+            meta_kernel_fused_i8(**k4_inputs(1, 1, 64, bad, gen_k4, device))
+        except RuntimeError as e:
+            say(f"K4 C={bad}: refused ({e})")
+        else:
+            check(False, f"K4 C={bad}: the kernel accepted it")
     k4_ms = cuda_ms(lambda: meta_kernel_fused_i8(*k4_args), reps=10)
+    k4_graph_ms = graph_ms(lambda: meta_kernel_fused_i8(*k4_args))
     k4_plain_ms = cuda_ms(lambda: meta_kernel_fused_i8_plain(*k4_args), reps=2, warmup=1)
-    Bk, Hk, Wk = k4_args[0].shape[:3]
-    k4_ops = 2 * Bk * Hk * Wk * 9 * 2 * C * C
-    k4_bytes = 2 * (2 * Bk * Hk * Wk * C) + 10 * C * C + 4 * 13 * C + 4 * Bk * Hk * Wk * C
-    k4_bound, k4_by = bound_ms(k4_ops, H100_INT8_OPS, k4_bytes)
-    say(f"K4 flagship: kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, "
-        f"bound {k4_bound:.3f} ms ({k4_by}) on {smi}")
+    k4_waymo_ms = cuda_ms(lambda: meta_kernel_fused_i8(**k4_waymo), reps=10)
+    k4_waymo_graph_ms = graph_ms(lambda: meta_kernel_fused_i8(**k4_waymo))
+    k4_bound, k4_by = bound_ms(*k4_cost(*k4_args[0].shape))
+    waymo_bound = bound_ms(*k4_cost(*waymo))[0]
+    say(f"K4 flagship: kernel {k4_ms:.4f} ms eager ({100 * k4_bound / k4_ms:.1f}% of "
+        f"bound), {k4_graph_ms:.4f} ms graph replay ({100 * k4_bound / k4_graph_ms:.1f}%), "
+        f"plain {k4_plain_ms:.3f} ms, bound {k4_bound:.4f} ms ({k4_by}); Waymo stem "
+        f"{waymo}: {k4_waymo_ms:.4f} ms eager, {k4_waymo_graph_ms:.4f} ms graph replay, "
+        f"bound {waymo_bound:.4f} ms on {smi}")
 
     # 11. Summary of the int8 paths.
     say(f"int8 path: K1 stem {int8_ms:.3f} ms/request ({2e3 / int8_ms:.2f} frames/s), "
@@ -760,8 +938,8 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
             "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused_i8.cu",
             "replaces": "range_view_3d_detection_tpu/kernels/stem_pallas.py:176",
             "launches": k4_launches, "max_abs_err": k4_err,
-            "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-            "bound_by": k4_by, "library_ms": None,
+            "ms": k4_ms, "graph_ms": k4_graph_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
         },
     ]
 
@@ -806,10 +984,11 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"  ptxas: {line.strip()}")
-    k1_spills = ptxas_spills(lib.ptxas_log, "meta_kernel_fused_wgmma")
-    check(len(k1_spills) == 2, f"K1 instances in the ptxas log: {k1_spills}")
-    check(not any(k1_spills.values()), f"K1 spills: {k1_spills}")
-    say(f"K1 (meta_kernel_fused_wgmma): {len(k1_spills)} instances, 0 bytes spilled")
+    for tag, kernel in (("K1", "meta_kernel_fused_wgmma"), ("K4", "meta_kernel_fused_i8_wgmma")):
+        spills = ptxas_spills(lib.ptxas_log, kernel)
+        check(len(spills) == 2, f"{tag} instances in the ptxas log: {spills}")
+        check(not any(spills.values()), f"{tag} spills: {spills}")
+        say(f"{tag} ({kernel}): {len(spills)} instances, 0 bytes spilled")
 
     # 3. K1 against its plain twin: the flagship shape, a small odd one, a
     # single row with a ragged last tile, exact tiles; the Waymo stem
@@ -883,7 +1062,9 @@ def main() -> int:
         else:
             check(False, f"K2 {tag}: the wrapper accepted it")
 
-    # 5. Main path: the flagship Predictor answers requests.
+    # 5. Main path: the flagship Predictor answers requests; its BatchNorm
+    # epilogue rests on addcmul being one fused multiply-add.
+    check_addcmul_fma(device, torch.Generator().manual_seed(SEED + 3))
     cfg = serving._flagship_config()
     dec = DecoderConfig()
     predictor = serving.Predictor(cfg, dec, device=device, generator=gen)
@@ -1004,6 +1185,8 @@ def main() -> int:
         out = model(*tensors)
         dec_ms = cuda_ms(lambda: decode(out, dec, cfg.tasks_dict, use_nms=True), reps=5)
         decode_split(out, dec, cfg, smi)
+    bn_epilogue_times(model, tensors, smi)
+    with torch.inference_mode():
         profile_request(predictor, requests[1])
     say(f"main path: {ms_per_request:.3f} ms/request (B=2), "
         f"{2 * 1e3 / ms_per_request:.2f} frames/s; forward {fwd_ms:.3f} ms, "

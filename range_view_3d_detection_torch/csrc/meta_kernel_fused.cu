@@ -76,7 +76,7 @@ namespace {
 constexpr int kMaxC = 256;
 constexpr int kTileP = 64;       // pixels per block: one m64 tile
 constexpr int kStages = 4;
-constexpr int kAtomBytes = kTileP * 128;     // one k-block of hh: 64 rows x 128 B
+constexpr int kAtomBytes = kSw128AtomBytes;  // one k-block of hh: 64 rows x 128 B
 constexpr int kConsumerThreads = 256;
 // + one producer warpgroup: one thread of its first warp issues the
 // weight loads, its other three warps build hh. 384 threads start at 168
@@ -96,37 +96,13 @@ template <int kCp>
 constexpr int kSmemBytes = kStages * 64 * kCp * 2 + 2 * (kCp / 64) * kAtomBytes +
                            4 * kCp * 4 + 2 * (kStages + 2) * 8 + 1024;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Byte offset of element (row m, channel k) of a 64-row K-major tile in
-// 128-byte-swizzle layout: k-block k / 64 is an 8 KB atom of 64 rows of
-// 128 bytes, and the 16-byte chunk index is XORed with m % 8, as TMA's
-// SWIZZLE_128B writes it.
-__device__ __forceinline__ int sw128(int m, int k) {
-  return (k >> 6) * kAtomBytes + m * 128 + ((((k >> 3) & 7) ^ (m & 7)) << 4) +
-         (k & 7) * 2;
-}
-
-// wgmma descriptor: K-major, 128-byte swizzle, 8-row groups 1024 bytes
-// apart (SBO); the leading offset is unused for K-major swizzled tiles.
-// A k16 step inside the 128-byte row advances the start address by 32
-// bytes (the atom is 1024-byte aligned, so the base offset is 0).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
 __device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+  named_barrier_sync<kConsumerThreads>(1);
 }
 
 // d (+)= A @ B for one k16 step, N = 128 (Cp = 256) or 64 (Cp = 128) by the
@@ -305,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f),
                   fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f));
             }
-            *reinterpret_cast<uint4*>(dst + sw128(p, ch)) = make_uint4(o[0], o[1], o[2], o[3]);
+            *reinterpret_cast<uint4*>(dst + sw128(p, 2 * ch)) = make_uint4(o[0], o[1], o[2], o[3]);
           }
         }
         fence_proxy_async();
@@ -427,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               round_bf16(fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r], s1.x), t1.x), 0.f));
           const float pb = round_bf16(
               fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r + 1], s1.y), t1.y), 0.f));
-          *reinterpret_cast<uint32_t*>(hh_b + sw128(m, n)) =
+          *reinterpret_cast<uint32_t*>(hh_b + sw128(m, 2 * n)) =
               pack_bf16(__fmul_rn(pa, bf16_lo(fs[j][r])), __fmul_rn(pb, bf16_hi(fs[j][r])));
         }
       }
@@ -455,28 +431,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A 3-D bf16 tensor map over `mats` [C][C] matrices, boxes of 64 k x
-// `rows` n x 1 matrix in the 128-byte swizzle. Elements outside a matrix
-// (k or n >= C) arrive as zeros.
-bool weight_map(CUtensorMap* map, const void* base, int C, int rows, int mats) {
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)C, (cuuint64_t)mats};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)C * C * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                                const_cast<void*>(base), dims, strides, box,
-                                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_128B,
-                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int kCp>
 int launch(const void* g, const void* feats, const void* w1t, const void* kt,
            const void* a0, const void* b0, const void* a1, const void* b1, void* out,
            int B, int H, int W, int C, void* stream) {
   CUtensorMap w1map, kmap;
-  if (!weight_map(&w1map, w1t, C, kCp, 1) || !weight_map(&kmap, kt, C, kCp, 9))
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!stem_weight_map(&w1map, kBf16, 2, w1t, C, kCp, 1) ||
+      !stem_weight_map(&kmap, kBf16, 2, kt, C, kCp, 9))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = kSmemBytes<kCp>;
   static const cudaError_t attr = cudaFuncSetAttribute(

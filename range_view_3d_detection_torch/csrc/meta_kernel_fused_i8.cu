@@ -1,4 +1,4 @@
-// Fused eval MetaKernel stem on int8 operands (K4) for Hopper.
+// Fused eval MetaKernel stem on int8 operands (K4) for Hopper (sm_90a).
 //
 // Replaces range_view_3d_detection_tpu/kernels/stem_pallas.py::
 // meta_kernel_fused_i8 (_stem_kernel_i8), the int8 twin of K1
@@ -16,7 +16,8 @@
 // (models/stems.py), as the JAX package does. Every product and sum of
 // the affines is rounded on its own (__fmul_rn/__fadd_rn: no FMA
 // contraction), rint rounds half to even, and |z|, |pq @ K_n| stay below
-// 2^24 at C = 256, so float() is exact.
+// 2^24 at C = 256, so float() is exact: the kernel equals its plain twin
+// (kernels/stem.py::meta_kernel_fused_i8_plain) bit for bit.
 //
 // Bound on the H100: two C x C int8 GEMMs per neighbour and pixel, 5.46e11
 // operations at B=2, 64x1808, C=256, i.e. 0.28 ms at 1979 TOP/s; the bytes
@@ -24,233 +25,464 @@
 // 0.14 ms. The quantize/round/convert work per element is fp32 on the
 // CUDA cores and not in that bound.
 //
-// Design: K1's. One block owns 32 pixels of one row and all C output
-// channels (a warp per 32 channels), loops over the 9 neighbours with the
-// fp32 accumulator in registers; per neighbour it builds hq in shared
-// memory, each warp computes its z slice with mma.sync m16n8k32 s8
-// (int32), quantizes pq in registers and stores it to shared memory as the
-// A operand of the second product, whose int32 sum is dequantized into the
-// accumulator. Weights are passed transposed ([n][k], 0.6 MB) and each B
-// fragment is two 32-bit loads from L2. No wgmma, TMA or pipelining yet.
+// Design: K1's (see its header), in int8.
+// - C is any multiple of 32 up to 256, through a template over a padded
+//   width Cp of 128 (C <= 128) or 256: the weight boxes, the hq/pq tile and
+//   the accumulators are Cp wide, and channels C..Cp-1 are zeros (the TMA
+//   fills the weights outside the C x C matrices with zeros; hq and pq
+//   there are 0 with zero affines; they are not stored).
+// - A block owns 64 pixels of one row and all Cp output channels and loops
+//   over the 9 neighbours. Two consumer warpgroups split the output
+//   channels: warpgroup j owns columns [j Cp/2, (j + 1) Cp/2) of z, of the
+//   per-neighbour product d = pq @ K_n and of the accumulator (wgmma
+//   m64nNk32 s8 x s8 -> s32 with N = Cp/2, A and B from shared memory,
+//   both K-major as s8 requires). z and d share Cp/4 int32 registers a
+//   thread (z dies in the epilogue; each GEMM starts with scale-d = 0),
+//   beside Cp/4 fp32 of the accumulator.
+// - The weights arrive by TMA as W1^T and K_n^T ([n][k] int8), in boxes of
+//   128 k x Cp n (128-byte swizzle: the K-major layout a wgmma descriptor
+//   reads; a k32 step is 32 bytes, as K1's bf16 k16 step), through a
+//   4-stage mbarrier ring fed by one thread of the producer warpgroup. A
+//   neighbour is 2 Cp / 128 boxes (W1^T, then K_n^T), half of K1's, so
+//   the L2 weight stream halves.
+// - hq is built by the producer warpgroup's other three warps, one
+//   neighbour ahead, into one of two 64 x Cp int8 buffers (mbarriers
+//   hq_full / hq_empty). Per neighbour the consumers run GEMM1 (z = hq @
+//   W1), the BN1/ReLU/x fs/quantize epilogue, which writes pq over hq once
+//   both warpgroups' GEMM1 has retired, and GEMM2 (d = pq @ K_n over the
+//   full K = Cp), which frees the buffer; then acc += float(d) * kdq[n].
+//   Named barriers over the 256 consumer threads join the steps; generic
+//   stores are made visible to wgmma with fence.proxy.async.
+// - Shared memory at Cp = 256: 4 boxes of ring (128 KB), 2 hq/pq tiles
+//   (32 KB), the BN affines and kdq (13 KB); one block an SM.
+// - Host side: the two weight tensor maps are encoded per launch
+//   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTileP = 32;  // pixels per block: two 16-row mma tiles
-constexpr int kPad = 16;    // int8 padding per shared-memory row (banks)
+constexpr int kMaxC = 256;
+constexpr int kTileP = 64;                // pixels per block: one m64 tile
+constexpr int kStages = 4;
+constexpr int kKBlock = 128;              // int8 channels of one 128-byte swizzle row
+constexpr int kAtomBytes = kSw128AtomBytes;  // one k-block of hq: 64 rows x 128 B
+constexpr int kConsumerThreads = 256;
+// + one producer warpgroup: one thread of its first warp issues the
+// weight loads, its other three warps build hq. K1's register split
+// (80 / 208): the launch holds 64,512 registers, and a split above that
+// makes setmaxnreg.inc wait forever.
+constexpr int kThreads = kConsumerThreads + 128;
+constexpr int kBuilders = 96;
+constexpr int kProducerRegs = 80;
+constexpr int kConsumerRegs = 208;
 
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
+// Shared memory of the Cp-wide instance: ring, two hq/pq tiles, the four
+// BN affines and the nine kdq rows, the mbarriers, and room to align the
+// ring to 1024 bytes.
+template <int kCp>
+constexpr int kSmemBytes = kStages * kKBlock * kCp + 2 * (kCp / kKBlock) * kAtomBytes +
+                           13 * kCp * 4 + 2 * (kStages + 2) * 8 + 1024;
+
+// The low byte of rint(v) for an integral-valued |v| <= 127 (cvt.rni).
+__device__ __forceinline__ uint32_t i8_bits(float v) {
+  return static_cast<uint32_t>(__float2int_rn(v)) & 0xffu;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  named_barrier_sync<kConsumerThreads>(1);
+}
+
+// d = A @ B (scale_d == 0) or d += A @ B for one k32 step, N = 128 (Cp =
+// 256) or 64 (Cp = 128) by the size of the accumulator.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                         int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+template <int kCp>
+__global__ void __launch_bounds__(kThreads, 1)
+    meta_kernel_fused_i8_wgmma(const __grid_constant__ CUtensorMap w1map,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __nv_bfloat16* __restrict__ g,
+                               const __nv_bfloat16* __restrict__ f,
+                               const float* __restrict__ a0, const float* __restrict__ b0,
+                               const float* __restrict__ a1, const float* __restrict__ b1,
+                               const float* __restrict__ kdq, float* __restrict__ out,
+                               int H, int W, int C) {
+  constexpr int kHalfN = kCp / 2;              // output channels per consumer warpgroup
+  constexpr int kKB = kCp / kKBlock;           // 128-channel k-blocks
+  constexpr int kBoxBytes = kKBlock * kCp;     // one weight box: 128 k x Cp n
+  constexpr int kHqBytes = kKB * kAtomBytes;   // one hq/pq tile, two of them
+  constexpr int kBoxesPerNb = 2 * kKB;         // W1^T, then K_n^T
+  constexpr int kJ = kHalfN / 8;               // 8-column groups of a warpgroup
+  // Builders: kCp / 8 threads of 8 channels cover a pixel; the 96 threads
+  // cover kPixGroups pixels at a time.
+  constexpr int kPixGroups = kBuilders / (kCp / 8);
+  constexpr int kPixSteps = (kTileP + kPixGroups - 1) / kPixGroups;
 
-__device__ __forceinline__ float2 ld_bf16x2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ int8_t to_i8(float integral) {
-  return (int8_t)__float2int_rn(integral);
-}
-
-// acc[mt][nt] = A[kTileP x C] (shared, int8, row stride lda) @ B[C x C] for
-// this warp's columns [n0, n0 + 32); B is given transposed, bt[n * C + k].
-__device__ __forceinline__ void warp_gemm_s8(int (&acc)[2][4][4],
-                                             const int8_t* a_s, int lda,
-                                             const int8_t* __restrict__ bt,
-                                             int C, int n0, int lane) {
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0;
-  for (int k0 = 0; k0 < C; k0 += 32) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int8_t* r0 = a_s + (mt * 16 + gid) * lda + k0 + tig * 4;
-      const int8_t* r1 = r0 + 8 * lda;
-      a[mt][0] = ld_u32(r0);
-      a[mt][1] = ld_u32(r1);
-      a[mt][2] = ld_u32(r0 + 16);
-      a[mt][3] = ld_u32(r1 + 16);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int8_t* bp = bt + (size_t)(n0 + nt * 8 + gid) * C + k0 + tig * 4;
-      uint32_t b[2];
-      b[0] = __ldg(reinterpret_cast<const unsigned int*>(bp));
-      b[1] = __ldg(reinterpret_cast<const unsigned int*>(bp + 16));
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_s8_16832(acc[mt][nt], a[mt], b);
-    }
-  }
-}
-
-__global__ void meta_kernel_fused_i8_kernel(
-    const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f,
-    const int8_t* __restrict__ w1t, const int8_t* __restrict__ kt,
-    const float* __restrict__ a0, const float* __restrict__ b0,
-    const float* __restrict__ a1, const float* __restrict__ b1,
-    const float* __restrict__ kdq, float* __restrict__ out, int H, int W,
-    int C) {
-  extern __shared__ __align__(16) int8_t smem_i8[];
-  const int lda = C + kPad;
-  int8_t* hq_s = smem_i8;
-  int8_t* pq_s = hq_s + kTileP * lda;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  uint8_t* hq = smem + kStages * kBoxBytes;
+  float* a1_s = reinterpret_cast<float*>(hq + 2 * kHqBytes);
+  float* b1_s = a1_s + kCp;
+  float* a0_s = b1_s + kCp;
+  float* b0_s = a0_s + kCp;
+  float* kdq_s = b0_s + kCp;  // [9][kCp]
+  uint64_t* full = reinterpret_cast<uint64_t*>(kdq_s + 9 * kCp);
+  uint64_t* empty = full + kStages;
+  uint64_t* hq_full = empty + kStages;  // hq buffer b holds neighbour nb, nb % 2 == b
+  uint64_t* hq_empty = hq_full + 2;
 
   const int w0 = blockIdx.x * kTileP;
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int n0 = (tid >> 5) * 32;
-  const int half_c = C / 2;
-  const size_t img = (size_t)b * H;
+  const size_t img = (size_t)blockIdx.z * H;
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
-
-  for (int nb = 0; nb < 9; ++nb) {
-    const int dy = nb / 3;
-    const int dx = nb - dy * 3;
-    const int hs = h + dy - 1;
-    const bool row_ok = hs >= 0 && hs < H;
-
-    // A. hq = min(rint(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 127).
-    for (int idx = tid; idx < kTileP * half_c; idx += blockDim.x) {
-      const int p = idx / half_c;
-      const int c = (idx - p * half_c) * 2;
-      const int w = w0 + p;
-      const int ws = w + dx - 1;
-      float2 gc = make_float2(0.f, 0.f);
-      float2 gs = make_float2(0.f, 0.f);
-      if (w < W) {
-        gc = ld_bf16x2(g + ((img + h) * W + w) * C + c);
-        if (row_ok && ws >= 0 && ws < W)
-          gs = ld_bf16x2(g + ((img + hs) * W + ws) * C + c);
-      }
-      const float x0a = round_bf16(__fsub_rn(gs.x, gc.x));
-      const float x0b = round_bf16(__fsub_rn(gs.y, gc.y));
-      const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, a0[c]), b0[c]), 0.f);
-      const float hb =
-          fmaxf(__fadd_rn(__fmul_rn(x0b, a0[c + 1]), b0[c + 1]), 0.f);
-      char2 q;
-      q.x = to_i8(fminf(rintf(ha), 127.f));
-      q.y = to_i8(fminf(rintf(hb), 127.f));
-      *reinterpret_cast<char2*>(hq_s + p * lda + c) = q;
+  for (int i = threadIdx.x; i < kCp; i += kThreads) {
+    const bool real = i < C;  // padded channels get zero affines
+    a0_s[i] = real ? a0[i] : 0.f;
+    b0_s[i] = real ? b0[i] : 0.f;
+    a1_s[i] = real ? a1[i] : 0.f;
+    b1_s[i] = real ? b1[i] : 0.f;
+  }
+  for (int i = threadIdx.x; i < 9 * kCp; i += kThreads) {
+    const int nb = i / kCp, c = i - nb * kCp;
+    kdq_s[i] = c < C ? kdq[nb * C + c] : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);                         // the TMA's bytes
+      mbar_init(&empty[s], kConsumerThreads / 32);    // each consumer warp
     }
-    __syncthreads();
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&hq_full[b], kBuilders / 32);         // each builder warp
+      mbar_init(&hq_empty[b], kConsumerThreads / 32);  // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // B. z = hq @ W1 (int32), p = relu(a1 * z + b1), pq = clip(rint(p * fs)).
-    int z[2][4][4];
-    warp_gemm_s8(z, hq_s, lda, w1t, C, n0, lane);
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---------------- producer: one thread streams the weight boxes, three
+    // warps build hq one neighbour ahead of the consumers.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= kConsumerThreads + 32) {
+      // This thread's 8 channels [ch, ch + 8), for pixels p0 + kPixGroups i;
+      // BN0's affine for them is read from shared memory as 16-byte loads.
+      const int bt = threadIdx.x - kConsumerThreads - 32;
+      const int ch = (bt % (kCp / 8)) * 8;
+      const int p0 = bt / (kCp / 8);
+      const bool ch_ok = ch < C;
+      for (int nb = 0; nb < 9; ++nb) {
+        const int buf = nb & 1;
+        if (nb >= 2) mbar_wait(&hq_empty[buf], ((nb >> 1) - 1) & 1);
+        uint8_t* dst = hq + buf * kHqBytes;
+        const int dy = nb / 3;
+        const int dx = nb - dy * 3;
+        const int hs = h + dy - 1;
+        const bool row_ok = hs >= 0 && hs < H;
+        // This thread's channels of pixel p: gc_row[p C], shifted gs_row[p C].
+        const __nv_bfloat16* gc_row = g + ((img + h) * W + w0) * C + ch;
+        const __nv_bfloat16* gs_row = g + ((img + hs) * W + w0 + dx - 1) * C + ch;
+        // hq = min(rint(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 127), 8
+        // bytes a thread and pixel, 4 pixels' loads in flight; rows past W
+        // get finite values and are not stored.
+        for (int i0 = 0; i0 < kPixSteps; i0 += 4) {
+          uint4 gc[4], gs[4];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = n0 + nt * 8 + tig * 2;
-      const float s0 = a1[c], s1 = a1[c + 1];
-      const float t0 = b1[c], t1 = b1[c + 1];
+          for (int u = 0; u < 4; ++u) {
+            const int p = p0 + kPixGroups * (i0 + u);
+            const int w = w0 + p;
+            const int ws = w + dx - 1;
+            gc[u] = make_uint4(0, 0, 0, 0);
+            gs[u] = make_uint4(0, 0, 0, 0);
+            if (p < kTileP && w < W && ch_ok) {
+              gc[u] = __ldg(reinterpret_cast<const uint4*>(gc_row + p * C));
+              if (row_ok && ws >= 0 && ws < W)
+                gs[u] = __ldg(reinterpret_cast<const uint4*>(gs_row + p * C));
+            }
+          }
+          float sa0[8], sb0[8];
+          *reinterpret_cast<float4*>(sa0) = *reinterpret_cast<const float4*>(a0_s + ch);
+          *reinterpret_cast<float4*>(sa0 + 4) = *reinterpret_cast<const float4*>(a0_s + ch + 4);
+          *reinterpret_cast<float4*>(sb0) = *reinterpret_cast<const float4*>(b0_s + ch);
+          *reinterpret_cast<float4*>(sb0 + 4) = *reinterpret_cast<const float4*>(b0_s + ch + 4);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+          for (int u = 0; u < 4; ++u) {
+            const int p = p0 + kPixGroups * (i0 + u);
+            if (p >= kTileP) continue;
+            const uint32_t cw[4] = {gc[u].x, gc[u].y, gc[u].z, gc[u].w};
+            const uint32_t sw[4] = {gs[u].x, gs[u].y, gs[u].z, gs[u].w};
+            uint32_t o[2] = {0u, 0u};
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int p = mt * 16 + gid + r * 8;
-          const int w = w0 + p;
-          const int ws = w + dx - 1;
-          float2 fs = make_float2(0.f, 0.f);
-          if (w < W && row_ok && ws >= 0 && ws < W)
-            fs = ld_bf16x2(f + ((img + hs) * W + ws) * C + c);
-          const float pa = fmaxf(
-              __fadd_rn(__fmul_rn(__int2float_rn(z[mt][nt][2 * r]), s0), t0),
-              0.f);
-          const float pb = fmaxf(
-              __fadd_rn(__fmul_rn(__int2float_rn(z[mt][nt][2 * r + 1]), s1),
-                        t1),
-              0.f);
-          char2 q;
-          q.x = to_i8(fminf(fmaxf(rintf(__fmul_rn(pa, fs.x)), -127.f), 127.f));
-          q.y = to_i8(fminf(fmaxf(rintf(__fmul_rn(pb, fs.y)), -127.f), 127.f));
-          *reinterpret_cast<char2*>(pq_s + p * lda + c) = q;
+            for (int q = 0; q < 4; ++q) {
+              const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
+              const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
+              const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f);
+              const float hb =
+                  fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f);
+              const uint32_t two = i8_bits(fminf(ha, 127.f)) | (i8_bits(fminf(hb, 127.f)) << 8);
+              o[q >> 1] |= two << (16 * (q & 1));
+            }
+            *reinterpret_cast<uint2*>(dst + sw128(p, ch)) = make_uint2(o[0], o[1]);
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(&hq_full[buf]);
+      }
+    } else if (threadIdx.x == kConsumerThreads) {
+      for (int i = 0; i < 9 * kBoxesPerNb; ++i) {
+        const int s = i % kStages;
+        const int lap = i / kStages;
+        if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+        mbar_arrive_tx(&full[s], kBoxBytes);
+        const int nb = i / kBoxesPerNb;
+        const int r = i % kBoxesPerNb;
+        const int k0 = (r % kKB) * kKBlock;
+        if (r < kKB) {
+          tma_load_3d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0, 0);
+        } else {
+          tma_load_3d(ring + s * kBoxBytes, &kmap, &full[s], k0, 0, nb);
         }
       }
     }
-    __syncthreads();
+  } else {
+    // ---------------- consumers: warpgroup wg owns output columns
+    // [kHalfN wg, kHalfN (wg + 1)).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int wq = t / 32;
+    const int gid = lane >> 2, tig = lane & 3;
+    const uint32_t ring_u32 = smem_u32(ring);
+    const uint32_t hq_u32 = smem_u32(hq);
 
-    // C. acc += float(pq @ K_n) * kdq[n].
-    int d[2][4][4];
-    warp_gemm_s8(d, pq_s, lda, kt + (size_t)nb * C * C, C, n0, lane);
+    float acc[kHalfN / 2];
+    int zd[kHalfN / 2];  // z, then d = pq @ K_n
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = n0 + nt * 8 + tig * 2;
-      const float q0 = kdq[nb * C + c], q1 = kdq[nb * C + c + 1];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          acc[mt][nt][r] = __fadd_rn(
-              acc[mt][nt][r],
-              __fmul_rn(__int2float_rn(d[mt][nt][r]), (r & 1) ? q1 : q0));
+    for (int i = 0; i < kHalfN / 2; ++i) {
+      acc[i] = 0.f;
+      zd[i] = 0;
     }
-  }
 
+    int box = 0;  // weight boxes consumed so far
+    // d = A @ B over K = Cp: A is the hq/pq tile at a_u32, B the next kKB
+    // boxes. The first k32 step overwrites d (scale-d = 0).
+    auto gemm = [&](int (&d)[kHalfN / 2], uint32_t a_u32) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+      for (int i = 0; i < kHalfN / 2; ++i) fence_operand(d[i]);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int kb = 0; kb < kKB; ++kb) {
+        const int s = box % kStages;
+        mbar_wait(&full[s], (box / kStages) & 1);
+        const uint64_t da = desc_sw128(a_u32 + kb * kAtomBytes);
+        const uint64_t db = desc_sw128(ring_u32 + s * kBoxBytes + wg * kHalfN * 128);
+#pragma unroll
+        for (int k32 = 0; k32 < 4; ++k32)
+          wgmma_s8(d, da + 2 * k32, db + 2 * k32, kb | k32);  // +32 bytes
+        wgmma_commit();
+        if (kb > 0) {
+          wgmma_wait<1>();
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+        }
+        ++box;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kHalfN / 2; ++i) fence_operand(d[i]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+    };
+
+    for (int nb = 0; nb < 9; ++nb) {
+      const int dy = nb / 3;
+      const int dx = nb - dy * 3;
+      const int hs = h + dy - 1;
+      const bool row_ok = hs >= 0 && hs < H;
+
+      const int buf = nb & 1;
+      uint8_t* hq_b = hq + buf * kHqBytes;
+      const uint32_t hq_b_u32 = hq_u32 + buf * kHqBytes;
+
+      // The shifted feats at this thread's accumulator rows and columns,
+      // in flight while hq is awaited and GEMM1 runs.
+      uint32_t fs[kJ][2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int p = mt * 16 + gid + r * 8;
-        const int w = w0 + p;
-        if (w < W) {
-          const int c = n0 + nt * 8 + tig * 2;
-          *reinterpret_cast<float2*>(out + ((img + h) * W + w) * C + c) =
-              make_float2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+        const int w = w0 + wq * 16 + gid + 8 * r;
+        const int ws = w + dx - 1;
+        const bool ok = w < W && row_ok && ws >= 0 && ws < W;
+        const __nv_bfloat16* fp = f + ((img + hs) * W + ws) * C + wg * kHalfN + tig * 2;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const bool col_ok = wg * kHalfN + j * 8 < C;
+          fs[j][r] = ok && col_ok ? __ldg(reinterpret_cast<const unsigned int*>(fp + j * 8)) : 0u;
         }
       }
+
+      // 1. z = hq @ W1 (int32), this warpgroup's columns, once the builders
+      // have filled hq's buffer.
+      mbar_wait(&hq_full[buf], (nb >> 1) & 1);
+      gemm(zd, hq_b_u32);
+      consumer_sync();  // both warpgroups' GEMM1 has read hq
+
+      // 2. pq = clip(rint(relu(a1 * z + b1) * fs), +-127) over hq, in its
+      // layout.
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int n = wg * kHalfN + j * 8 + tig * 2;
+        const float2 s1 = *reinterpret_cast<const float2*>(a1_s + n);
+        const float2 t1 = *reinterpret_cast<const float2*>(b1_s + n);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = wq * 16 + gid + 8 * r;
+          const float pa = fmaxf(
+              __fadd_rn(__fmul_rn(__int2float_rn(zd[4 * j + 2 * r]), s1.x), t1.x), 0.f);
+          const float pb = fmaxf(
+              __fadd_rn(__fmul_rn(__int2float_rn(zd[4 * j + 2 * r + 1]), s1.y), t1.y), 0.f);
+          const float qa = fminf(fmaxf(rintf(__fmul_rn(pa, bf16_lo(fs[j][r]))), -127.f), 127.f);
+          const float qb = fminf(fmaxf(rintf(__fmul_rn(pb, bf16_hi(fs[j][r]))), -127.f), 127.f);
+          *reinterpret_cast<uint16_t*>(hq_b + sw128(m, n)) =
+              static_cast<uint16_t>(i8_bits(qa) | (i8_bits(qb) << 8));
+        }
+      }
+      fence_proxy_async();
+      consumer_sync();
+
+      // 3. d = pq @ K_n over the full K = Cp; then the buffer is free, and
+      // acc += float(d) * kdq[n].
+      gemm(zd, hq_b_u32);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&hq_empty[buf]);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float2 q = *reinterpret_cast<const float2*>(
+            kdq_s + nb * kCp + wg * kHalfN + j * 8 + tig * 2);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& ea = acc[4 * j + 2 * r];
+          float& eb = acc[4 * j + 2 * r + 1];
+          ea = __fadd_rn(ea, __fmul_rn(__int2float_rn(zd[4 * j + 2 * r]), q.x));
+          eb = __fadd_rn(eb, __fmul_rn(__int2float_rn(zd[4 * j + 2 * r + 1]), q.y));
+        }
+      }
+    }
+
+    // Store this thread's accumulator rows and its columns below C.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int w = w0 + wq * 16 + gid + 8 * r;
+      if (w >= W) continue;
+      float* op = out + ((img + h) * W + w) * C + wg * kHalfN + tig * 2;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        if (wg * kHalfN + j * 8 < C)
+          *reinterpret_cast<float2*>(op + j * 8) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int kCp>
+int launch(const void* g, const void* feats, const void* w1t, const void* kt,
+           const void* a0, const void* b0, const void* a1, const void* b1,
+           const void* kdq, void* out, int B, int H, int W, int C, void* stream) {
+  CUtensorMap w1map, kmap;
+  constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!stem_weight_map(&w1map, kU8, 1, w1t, C, kCp, 1) ||
+      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp, 9))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = kSmemBytes<kCp>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      meta_kernel_fused_i8_wgmma<kCp>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((W + kTileP - 1) / kTileP, H, B);
+  meta_kernel_fused_i8_wgmma<kCp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
+      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
+      (const float*)kdq, (float*)out, H, W, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // g, feats: (B, H, W, C) bf16; w1t: (C, C) int8 = W1^T; kt: (9, C, C) int8
 // with kt[n] = K_n^T; a0, b0, a1, b1: (C,) fp32; kdq: (9, C) fp32;
-// out: (B, H, W, C) fp32. C must be a multiple of 32 and at most 256.
+// out: (B, H, W, C) fp32. C must be a multiple of 32 up to 256 (C <= 128
+// runs the 128-wide instance, the rest the 256-wide one); w1t and kt
+// 16-byte aligned.
 extern "C" int rv3d_meta_kernel_fused_i8(
     const void* g, const void* feats, const void* w1t, const void* kt,
     const void* a0, const void* b0, const void* a1, const void* b1,
     const void* kdq, void* out, int B, int H, int W, int C, void* stream) {
-  if (C % 32 != 0 || C <= 0 || C > 256 || B <= 0 || H <= 0 || W <= 0 ||
-      H > 65535 || B > 65535)
+  if (C <= 0 || C % 32 || C > kMaxC || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+      B > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 2u * kTileP * (C + kPad);
-  const dim3 grid((W + kTileP - 1) / kTileP, H, B);
-  meta_kernel_fused_i8_kernel<<<grid, C, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
-      (const int8_t*)w1t, (const int8_t*)kt, (const float*)a0,
-      (const float*)b0, (const float*)a1, (const float*)b1,
-      (const float*)kdq, (float*)out, H, W, C);
-  return (int)cudaGetLastError();
+  return C <= 128
+             ? launch<128>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream)
+             : launch<256>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream);
 }

@@ -195,11 +195,12 @@ def meta_kernel_fused_i8(
 ) -> torch.Tensor:
     """int8 fused stem (see :func:`meta_kernel_fused_i8_plain`).
 
-    A CPU tensor takes the plain twin. A CUDA tensor launches the kernel
-    (bf16 ``g``/``feats``, int8 weights, C a multiple of 32 up to 256) or
-    raises. Weights stored as transposed views of their [n][k] layout
-    (``w1_i8 = w1t.t()``) pass without a copy.
-    ``meta_kernel_fused_i8.launches`` counts the kernel launches.
+    A CPU tensor takes the plain twin, at any C. A CUDA tensor launches the
+    kernel (bf16 ``g``/``feats``, int8 weights, C a multiple of 32 up to
+    256, as K1) or raises; the kernel's entry point refuses any other C.
+    Weights stored as transposed views of their [n][k] layout (``w1_i8 =
+    w1t.t()``, as ``MetaKernel.quantize_stem`` keeps them) pass without a
+    copy. ``meta_kernel_fused_i8.launches`` counts the kernel launches.
     """
     if g.device.type == "cpu":
         return meta_kernel_fused_i8_plain(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq)
@@ -210,8 +211,6 @@ def meta_kernel_fused_i8(
         raise TypeError(f"meta_kernel_fused_i8: the kernel takes bf16, got {g.dtype}")
     if w1_i8.dtype != torch.int8 or k_i8.dtype != torch.int8:
         raise TypeError("meta_kernel_fused_i8: int8 weights expected")
-    if C % 32 or C > 256:
-        raise ValueError(f"meta_kernel_fused_i8: C={C} must be a multiple of 32, <= 256")
     if feats.shape != g.shape or w1_i8.shape != (C, C) or k_i8.shape != (9, C, C):
         raise ValueError(
             f"meta_kernel_fused_i8: shapes g{tuple(g.shape)} feats"
@@ -224,6 +223,8 @@ def meta_kernel_fused_i8(
         raise ValueError("meta_kernel_fused_i8: inputs on different devices")
     g = g.contiguous()
     feats = feats.to(torch.bfloat16).contiguous()
+    # [n][k]: the kernel's TMA boxes are K-major (s8 wgmma takes K-major A
+    # and B).
     w1t = w1_i8.t().contiguous()
     kt = k_i8.transpose(1, 2).contiguous()
     a0, b0, a1, b1, kdq = (v.float().contiguous() for v in (a0, b0, a1, b1, kdq))

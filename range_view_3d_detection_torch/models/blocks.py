@@ -3,8 +3,9 @@
 Modules take NCHW tensors (``torch.channels_last`` memory keeps the
 channel-last layout of the public functions without copies). Parameters
 are fp32; each conv casts its input and weight to the compute ``dtype``
-(the flax ``dtype``/``param_dtype`` split). BatchNorm runs in fp32 on the
-conv output and casts back to the compute dtype.
+(the flax ``dtype``/``param_dtype`` split). The eval BatchNorm runs in fp32
+on the conv output in flax's rounding order and casts to the compute dtype
+once (:class:`BatchNorm`).
 
 Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``,
 ``ConvNormAct_1``, ...) so ``transplant.py`` maps a flax variable path to
@@ -40,9 +41,52 @@ def _pair(v: IntPair) -> Tuple[int, int]:
     return int(v), int(v)
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)``: torch momentum 0.1."""
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` (torch momentum 0.1)
+    on NCHW, with the fp32 result cast to a compute dtype and an optional
+    ReLU: ``bn(y, dtype, act)``.
+
+    Eval computes ``fma(y - mean, mul, bias)`` with ``mul = rsqrt(var +
+    eps) * scale``, which is what jitted XLA emits for flax's ``(y - mean)
+    * mul + bias``; ``y - mean`` promotes a bf16 ``y`` to fp32, and the
+    fp32 result rounds to ``dtype`` once. Three passes over the tensor: the
+    subtraction, ``addcmul`` into ``dtype`` and an in-place ReLU. Train
+    mode is ``BatchNorm2d``'s own forward (the train path is not ported).
+    The parameter and buffer names are ``BatchNorm2d``'s.
+    """
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def eval_mul(self) -> torch.Tensor:
+        """fp32 ``rsqrt(var + eps) * scale``, the rsqrt rounded once from fp64.
+
+        Cached until ``weight`` or ``running_var`` is written in place
+        (their version counters) or moved (their storage).
+        """
+        w, v = self.weight, self.running_var
+        key = (w._version, v._version, w.data_ptr(), v.data_ptr())
+        cached = self.__dict__.get("_eval_mul")
+        if cached is None or cached[0] != key:
+            with torch.no_grad():
+                mul = torch.rsqrt((v + self.eps).double()).float() * w
+            cached = self.__dict__["_eval_mul"] = (key, mul)
+        return cached[1]
+
+    def forward(
+        self, y: torch.Tensor, dtype: torch.dtype = torch.float32, act: bool = False
+    ) -> torch.Tensor:
+        if self.training:
+            out = super().forward(y.float()).to(dtype)
+        else:
+            d = torch.sub(y, self.running_mean[:, None, None])
+            bias = self.bias.detach()[:, None, None]
+            mul = self.eval_mul()[:, None, None]
+            if d.requires_grad:  # autograd takes no out=
+                out = torch.addcmul(bias, d, mul).to(dtype)
+            else:
+                out = torch.addcmul(bias, d, mul, out=torch.empty_like(d, dtype=dtype))
+        return out.relu_() if act else out
 
 
 class ConvNormAct(nn.Module):
@@ -78,7 +122,7 @@ class ConvNormAct(nn.Module):
             padding=((kh - 1) // 2, (kw - 1) // 2), bias=use_bias,
         )
         if norm:
-            self.BatchNorm_0 = batch_norm(features)
+            self.BatchNorm_0 = BatchNorm(features)
         self.int8: Int8Conv | None = None
 
     @property
@@ -109,10 +153,8 @@ class ConvNormAct(nn.Module):
                 x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding
             )
         if self.norm:
-            y = self.BatchNorm_0(y.float()).to(dt)
-        if self.act:
-            y = torch.relu(y)
-        return y
+            return self.BatchNorm_0(y, dt, self.act)
+        return torch.relu(y) if self.act else y
 
 
 def phase_merged_kernel(kernel: torch.Tensor, sw: int) -> torch.Tensor:
@@ -300,12 +342,11 @@ class AggregationBlock(nn.Module):
         self.TorchConvTranspose_0 = TorchConvTranspose(
             in_channels, features, kernel_size, strides, padding, dtype=dtype
         )
-        self.BatchNorm_0 = batch_norm(features)
+        self.BatchNorm_0 = BatchNorm(features)
         self.ResidualBlock_0 = ResidualBlock(
             features, features, num_blocks, dtype=dtype
         )
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-        y = self.BatchNorm_0(self.TorchConvTranspose_0(x2).float())
-        y = x1 + torch.relu(y.to(self.dtype))
-        return self.ResidualBlock_0(y)
+        y = self.BatchNorm_0(self.TorchConvTranspose_0(x2), self.dtype, act=True)
+        return self.ResidualBlock_0(x1 + y)

@@ -27,8 +27,8 @@ from range_view_3d_detection_torch.kernels.stem import (
 )
 from range_view_3d_detection_torch.models.blocks import (
     BasicBlock,
+    BatchNorm,
     ConvNormAct,
-    batch_norm,
 )
 from range_view_3d_detection_torch.models.quantized import (
     INT8_MAX,
@@ -87,7 +87,7 @@ class MetaKernel(nn.Module):
         self.fusion1_kernel = nn.Parameter(
             torch.empty(num_neighbors**2, C, C)
         )
-        self.fusion1_bn = batch_norm(C)
+        self.fusion1_bn = BatchNorm(C)
         for i in range(1, num_layers):
             self.add_module(
                 f"fusion_{i}", ConvNormAct(C, C, (1, 1), dtype=dtype)
@@ -212,7 +212,7 @@ class MetaKernel(nn.Module):
         else:
             geo = self._accumulate(g, feats)
         geo = geo.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        geo = torch.relu(self.fusion1_bn(geo.float()).to(dt))
+        geo = self.fusion1_bn(geo, dt, act=True)
         for i in range(1, self.num_layers):
             geo = getattr(self, f"fusion_{i}")(geo)
         return geo

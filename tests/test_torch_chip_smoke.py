@@ -9,14 +9,26 @@
   (``nms_scan_bitmask_plain``) agrees with the plain scan on them, at
   cap 100 and at caps that are not a multiple of 4; its misaligned copies
   start 4 bytes past a 16-byte boundary.
+- The K4 edge case (``k4_edge_case``) binds what it is named for: ``hq``
+  saturates at 127, ``pq`` clamps at +127 and -127, and both ``rint``
+  steps meet .5 ties that round down and up; on it K4's plain twin equals
+  the JAX Pallas kernel in interpret mode bit for bit, so the card's check
+  of K4 against the twin rests on a case known to be right.
+- The BN epilogue's fused multiply-add reference (``check_addcmul_fma``)
+  accepts a fused ``addcmul`` and refuses a multiply and an add rounded
+  apart.
 """
 
 from __future__ import annotations
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from range_view_3d_detection_torch.kernels.stem import meta_kernel_fused_i8_plain
+from range_view_3d_detection_tpu.kernels.stem_pallas import meta_kernel_fused_i8
 from range_view_3d_detection_torch.kernels.nms import (
     nms_scan_bitmask_plain,
     nms_scan_plain,
@@ -94,3 +106,51 @@ def test_misaligned_copy():
     got = chip_smoke.misaligned(t)
     assert torch.equal(got, t) and got.is_contiguous()
     assert got.data_ptr() % 16 == 4
+
+
+def _k4_before_rounding(x):
+    """Per neighbour, what the twin rounds: ``h = x0 a0 + b0`` (hq's rint
+    and clamp) and ``p * fs`` (pq's)."""
+    g, feats = x["g"], x["feats"]
+    H, W = g.shape[1:3]
+    gp = torch.nn.functional.pad(g, (0, 0, 1, 1, 1, 1))
+    fp = torch.nn.functional.pad(feats, (0, 0, 1, 1, 1, 1))
+    hs, pfs = [], []
+    for dy in range(3):
+        for dx in range(3):
+            x0 = (gp[:, dy : dy + H, dx : dx + W] - g).float()
+            h = x0 * x["a0"] + x["b0"]
+            hq = torch.clamp(torch.round(torch.relu(h)), max=127.0)
+            z = (hq.double() @ x["w1_i8"].double()).float()
+            p = torch.relu(z * x["a1"] + x["b1"])
+            hs.append(h)
+            pfs.append(p * fp[:, dy : dy + H, dx : dx + W].float())
+    return torch.stack(hs), torch.stack(pfs)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 37, 32), (2, 3, 20, 64)])
+def test_k4_edge_case_twin_equals_pallas_interpret(shape):
+    gen = torch.Generator().manual_seed(4)
+    x = chip_smoke.k4_edge_case(*shape, gen, "cpu")
+    h, pf = _k4_before_rounding(x)
+    half = lambda v: v - v.floor() == 0.5  # noqa: E731
+    assert (h > 127).any()  # hq saturates
+    tie_h = half(h) & (h > 0) & (h < 127)
+    assert (tie_h & (h.floor() % 2 == 0)).any() and (tie_h & (h.floor() % 2 == 1)).any()
+    assert (pf > 127).any() and (pf < -127).any()  # pq clamps both ways
+    tie_p = half(pf) & (pf.abs() < 127)
+    assert (tie_p & (pf.floor() % 2 == 0)).any() and (tie_p & (pf.floor() % 2 == 1)).any()
+    jx = {k: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16) if v.dtype == torch.bfloat16
+          else jnp.asarray(v.numpy()) for k, v in x.items()}
+    want = np.asarray(meta_kernel_fused_i8(**jx, interpret=True))
+    got = meta_kernel_fused_i8_plain(**x)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_addcmul_fma_reference(monkeypatch):
+    gen = torch.Generator().manual_seed(5)
+    chip_smoke.check_addcmul_fma("cpu", gen, n=1 << 16)  # CPU addcmul is fused too
+    monkeypatch.setattr(torch, "addcmul", lambda b, d, m: d * m + b)
+    with pytest.raises(RuntimeError, match="not one fused multiply-add"):
+        chip_smoke.check_addcmul_fma("cpu", gen, n=1 << 16)

@@ -228,13 +228,18 @@ def test_served_path_tiny_bf16(stem_pallas):
 
     Head outputs (the bf16 head convs cast to fp32): max|diff| <= 2^-5 *
     max|ref| and a relative RMS <= 2^-6. The convolutions agree in bf16
-    element for element, but the port's BatchNorm (``BatchNorm2d``) and
-    flax's evaluate the same fp32 affine in another order, so about half
-    of the fp32 BN outputs differ by an ulp, and a few of those lie on a
-    bf16 rounding boundary and flip one bf16 ulp (2^-8 relative); the
-    flips spread through the later layers. Seen at seed 0: logits within
-    0.0625 of max|ref| 11.4, relative RMS 2.8e-3 (accumulate) and 4.3e-3
-    (fused).
+    element for element, and the port's BatchNorm computes flax's fp32
+    affine in jitted XLA's order (one fused multiply-add); what is left is
+    the BN factor ``rsqrt(var + eps) * scale``, which the port rounds
+    correctly and XLA's CPU ``rsqrt`` does not (in some channels the two
+    factors differ by an ulp). A one-ulp fp32 difference there that lies on
+    a bf16 rounding boundary flips one bf16 ulp (2^-8 relative), and the
+    flips spread through the later layers; the fused stem adds its own
+    (the Pallas kernel and K1's twin round the neighbour terms apart).
+    Seen at seed 0: logits within 0.0625 of max|ref| 11.4 on both paths;
+    accumulate: 124 of 2048 logits and 110 of 8192 regressands differ,
+    relative RMS 2.2e-3 (with ``BatchNorm2d``'s ``x * a + b``: 491, 1816
+    and 2.7e-3); fused: 1059 and 4205 differ, relative RMS 4.3e-3.
 
     ``keep``: slot for slot it differs. bf16 logits carry 8 significant
     bits, so many proposals share a score exactly, and a one-ulp flip
