@@ -41,21 +41,30 @@
 //   beside Cp/4 fp32 of the accumulator.
 // - The weights arrive by TMA as W1^T and K_n^T ([n][k] int8), in boxes of
 //   128 k x Cp n (128-byte swizzle: the K-major layout a wgmma descriptor
-//   reads; a k32 step is 32 bytes, as K1's bf16 k16 step), through a
-//   4-stage mbarrier ring fed by one thread of the producer warpgroup. A
+//   reads; a k32 step is 32 bytes, as K1's bf16 k16 step), through an
+//   mbarrier ring fed by one thread of the producer warpgroup. A
 //   neighbour is 2 Cp / 128 boxes (W1^T, then K_n^T), half of K1's, so
 //   the L2 weight stream halves.
 // - hq is built by the producer warpgroup's other three warps, one
 //   neighbour ahead, into one of two 64 x Cp int8 buffers (mbarriers
-//   hq_full / hq_empty). Per neighbour the consumers run GEMM1 (z = hq @
-//   W1), the BN1/ReLU/x fs/quantize epilogue, which writes pq over hq once
-//   both warpgroups' GEMM1 has retired, and GEMM2 (d = pq @ K_n over the
-//   full K = Cp), which frees the buffer; then acc += float(d) * kdq[n].
+//   hq_full / hq_empty). K1's builders are bound by the latency of their
+//   g loads (chip_probe_k1.py), so here the builders read g from two rows
+//   staged in shared memory by TMA: row h (the centre pixels, and the
+//   shifted ones of dy = 1) for the whole block, and row h - 1, replaced
+//   by row h + 1 once the builders are past neighbour 2 (mbarriers g_full,
+//   g_edge_free). A row is the tile's 64 pixels and one halo pixel on each
+//   side, from a 4-D tensor map whose out-of-image boxes arrive as zeros,
+//   so the builders need no bounds checks.
+// - Per neighbour the consumers run GEMM1 (z = hq @ W1), the BN1/ReLU/x
+//   fs/quantize epilogue, which writes pq over hq once both warpgroups'
+//   GEMM1 has retired, and GEMM2 (d = pq @ K_n over the full K = Cp),
+//   which frees the buffer; then acc += float(d) * kdq[n].
 //   Named barriers over the 256 consumer threads join the steps; generic
 //   stores are made visible to wgmma with fence.proxy.async.
-// - Shared memory at Cp = 256: 4 boxes of ring (128 KB), 2 hq/pq tiles
-//   (32 KB), the BN affines and kdq (13 KB); one block an SM.
-// - Host side: the two weight tensor maps are encoded per launch
+// - Shared memory at Cp = 256: 3 boxes of ring (96 KB), 2 hq/pq tiles
+//   (32 KB), 2 g rows (66 KB), the BN affines and kdq (13 KB); one block
+//   an SM. At Cp = 128 the ring has 4 boxes.
+// - Host side: the two weight tensor maps and g's are encoded per launch
 //   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
 
 #include <cuda.h>
@@ -69,7 +78,7 @@ namespace {
 
 constexpr int kMaxC = 256;
 constexpr int kTileP = 64;                // pixels per block: one m64 tile
-constexpr int kStages = 4;
+constexpr int kRowPix = kTileP + 2;       // a staged g row: the tile and its two halo pixels
 constexpr int kKBlock = 128;              // int8 channels of one 128-byte swizzle row
 constexpr int kAtomBytes = kSw128AtomBytes;  // one k-block of hq: 64 rows x 128 B
 constexpr int kConsumerThreads = 256;
@@ -82,12 +91,20 @@ constexpr int kBuilders = 96;
 constexpr int kProducerRegs = 80;
 constexpr int kConsumerRegs = 208;
 
-// Shared memory of the Cp-wide instance: ring, two hq/pq tiles, the four
-// BN affines and the nine kdq rows, the mbarriers, and room to align the
-// ring to 1024 bytes.
+// Weight ring stages of the Cp-wide instance: 3 at Cp = 256 leaves room
+// for the two staged g rows.
 template <int kCp>
-constexpr int kSmemBytes = kStages * kKBlock * kCp + 2 * (kCp / kKBlock) * kAtomBytes +
-                           13 * kCp * 4 + 2 * (kStages + 2) * 8 + 1024;
+constexpr int kStagesFor = kCp == 256 ? 3 : 4;
+// One staged g row, [kRowPix][C] bf16, in 1 KB units.
+template <int kCp>
+constexpr int kRowBytes = (kRowPix * kCp * 2 + 1023) / 1024 * 1024;
+// Shared memory of the Cp-wide instance: ring, two hq/pq tiles, two g
+// rows, the four BN affines and the nine kdq rows, the mbarriers, and
+// room to align the ring to 1024 bytes.
+template <int kCp>
+constexpr int kSmemBytes = kStagesFor<kCp> * kKBlock * kCp + 2 * (kCp / kKBlock) * kAtomBytes +
+                           2 * kRowBytes<kCp> + 13 * kCp * 4 +
+                           (2 * kStagesFor<kCp> + 7) * 8 + 1024;
 
 // The low byte of rint(v) for an integral-valued |v| <= 127 (cvt.rni).
 __device__ __forceinline__ uint32_t i8_bits(float v) {
@@ -163,12 +180,13 @@ template <int kCp>
 __global__ void __launch_bounds__(kThreads, 1)
     meta_kernel_fused_i8_wgmma(const __grid_constant__ CUtensorMap w1map,
                                const __grid_constant__ CUtensorMap kmap,
-                               const __nv_bfloat16* __restrict__ g,
+                               const __grid_constant__ CUtensorMap gmap,
                                const __nv_bfloat16* __restrict__ f,
                                const float* __restrict__ a0, const float* __restrict__ b0,
                                const float* __restrict__ a1, const float* __restrict__ b1,
                                const float* __restrict__ kdq, float* __restrict__ out,
                                int H, int W, int C) {
+  constexpr int kStages = kStagesFor<kCp>;
   constexpr int kHalfN = kCp / 2;              // output channels per consumer warpgroup
   constexpr int kKB = kCp / kKBlock;           // 128-channel k-blocks
   constexpr int kBoxBytes = kKBlock * kCp;     // one weight box: 128 k x Cp n
@@ -184,7 +202,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* ring = smem;
   uint8_t* hq = smem + kStages * kBoxBytes;
-  float* a1_s = reinterpret_cast<float*>(hq + 2 * kHqBytes);
+  uint8_t* g_mid = hq + 2 * kHqBytes;              // g row h, then the other row:
+  uint8_t* g_edge = g_mid + kRowBytes<kCp>;        // h - 1, then h + 1
+  float* a1_s = reinterpret_cast<float*>(g_edge + kRowBytes<kCp>);
   float* b1_s = a1_s + kCp;
   float* a0_s = b1_s + kCp;
   float* b0_s = a0_s + kCp;
@@ -193,10 +213,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty = full + kStages;
   uint64_t* hq_full = empty + kStages;  // hq buffer b holds neighbour nb, nb % 2 == b
   uint64_t* hq_empty = hq_full + 2;
+  uint64_t* g_full = hq_empty + 2;  // [0]: row h; [1]: row h - 1 (phase 0), h + 1 (phase 1)
+  uint64_t* g_edge_free = g_full + 2;
 
   const int w0 = blockIdx.x * kTileP;
   const int h = blockIdx.y;
-  const size_t img = (size_t)blockIdx.z * H;
+  const int b = blockIdx.z;
+  const size_t img = (size_t)b * H;
 
   for (int i = threadIdx.x; i < kCp; i += kThreads) {
     const bool real = i < C;  // padded channels get zero affines
@@ -214,10 +237,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&full[s], 1);                         // the TMA's bytes
       mbar_init(&empty[s], kConsumerThreads / 32);    // each consumer warp
     }
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(&hq_full[b], kBuilders / 32);         // each builder warp
-      mbar_init(&hq_empty[b], kConsumerThreads / 32);  // each consumer warp
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&hq_full[i], kBuilders / 32);         // each builder warp
+      mbar_init(&hq_empty[i], kConsumerThreads / 32);  // each consumer warp
+      mbar_init(&g_full[i], 1);                       // the TMA's bytes
     }
+    mbar_init(g_edge_free, kBuilders / 32);           // each builder warp
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -227,72 +252,78 @@ __global__ void __launch_bounds__(kThreads, 1)
     // warps build hq one neighbour ahead of the consumers.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x >= kConsumerThreads + 32) {
-      // This thread's 8 channels [ch, ch + 8), for pixels p0 + kPixGroups i;
-      // BN0's affine for them is read from shared memory as 16-byte loads.
+      // This thread's 8 channels [ch, ch + 8), for pixels p0 + kPixGroups i,
+      // read from the staged g rows, where pixel w0 - 1 + i is row entry i
+      // and pixels outside the image are zeros (the TMA's fill).
       const int bt = threadIdx.x - kConsumerThreads - 32;
       const int ch = (bt % (kCp / 8)) * 8;
       const int p0 = bt / (kCp / 8);
       const bool ch_ok = ch < C;
+      float sa0[8], sb0[8];
+      *reinterpret_cast<float4*>(sa0) = *reinterpret_cast<const float4*>(a0_s + ch);
+      *reinterpret_cast<float4*>(sa0 + 4) = *reinterpret_cast<const float4*>(a0_s + ch + 4);
+      *reinterpret_cast<float4*>(sb0) = *reinterpret_cast<const float4*>(b0_s + ch);
+      *reinterpret_cast<float4*>(sb0 + 4) = *reinterpret_cast<const float4*>(b0_s + ch + 4);
+      const __nv_bfloat16* gc_row = reinterpret_cast<const __nv_bfloat16*>(g_mid) + C + ch;
+      mbar_wait(&g_full[0], 0);
       for (int nb = 0; nb < 9; ++nb) {
         const int buf = nb & 1;
         if (nb >= 2) mbar_wait(&hq_empty[buf], ((nb >> 1) - 1) & 1);
         uint8_t* dst = hq + buf * kHqBytes;
         const int dy = nb / 3;
         const int dx = nb - dy * 3;
-        const int hs = h + dy - 1;
-        const bool row_ok = hs >= 0 && hs < H;
+        if (nb == 0 || nb == 6) mbar_wait(&g_full[1], nb == 6);
         // This thread's channels of pixel p: gc_row[p C], shifted gs_row[p C].
-        const __nv_bfloat16* gc_row = g + ((img + h) * W + w0) * C + ch;
-        const __nv_bfloat16* gs_row = g + ((img + hs) * W + w0 + dx - 1) * C + ch;
+        const __nv_bfloat16* gs_row =
+            reinterpret_cast<const __nv_bfloat16*>(dy == 1 ? g_mid : g_edge) + dx * C + ch;
         // hq = min(rint(relu(a0 * bf16(g(p + d) - g(p)) + b0)), 127), 8
-        // bytes a thread and pixel, 4 pixels' loads in flight; rows past W
-        // get finite values and are not stored.
-        for (int i0 = 0; i0 < kPixSteps; i0 += 4) {
-          uint4 gc[4], gs[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int p = p0 + kPixGroups * (i0 + u);
-            const int w = w0 + p;
-            const int ws = w + dx - 1;
-            gc[u] = make_uint4(0, 0, 0, 0);
-            gs[u] = make_uint4(0, 0, 0, 0);
-            if (p < kTileP && w < W && ch_ok) {
-              gc[u] = __ldg(reinterpret_cast<const uint4*>(gc_row + p * C));
-              if (row_ok && ws >= 0 && ws < W)
-                gs[u] = __ldg(reinterpret_cast<const uint4*>(gs_row + p * C));
-            }
+        // bytes a thread and pixel; rows past W get finite values and are
+        // not stored.
+#pragma unroll 2
+        for (int i = 0; i < kPixSteps; ++i) {
+          const int p = p0 + kPixGroups * i;
+          if (p >= kTileP) break;
+          uint4 gc = make_uint4(0, 0, 0, 0), gs = make_uint4(0, 0, 0, 0);
+          if (ch_ok) {
+            gc = *reinterpret_cast<const uint4*>(gc_row + p * C);
+            gs = *reinterpret_cast<const uint4*>(gs_row + p * C);
           }
-          float sa0[8], sb0[8];
-          *reinterpret_cast<float4*>(sa0) = *reinterpret_cast<const float4*>(a0_s + ch);
-          *reinterpret_cast<float4*>(sa0 + 4) = *reinterpret_cast<const float4*>(a0_s + ch + 4);
-          *reinterpret_cast<float4*>(sb0) = *reinterpret_cast<const float4*>(b0_s + ch);
-          *reinterpret_cast<float4*>(sb0 + 4) = *reinterpret_cast<const float4*>(b0_s + ch + 4);
+          const uint32_t cw[4] = {gc.x, gc.y, gc.z, gc.w};
+          const uint32_t sw[4] = {gs.x, gs.y, gs.z, gs.w};
+          uint32_t o[2] = {0u, 0u};
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int p = p0 + kPixGroups * (i0 + u);
-            if (p >= kTileP) continue;
-            const uint32_t cw[4] = {gc[u].x, gc[u].y, gc[u].z, gc[u].w};
-            const uint32_t sw[4] = {gs[u].x, gs[u].y, gs[u].z, gs[u].w};
-            uint32_t o[2] = {0u, 0u};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
-              const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
-              const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f);
-              const float hb =
-                  fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f);
-              const uint32_t two = i8_bits(fminf(ha, 127.f)) | (i8_bits(fminf(hb, 127.f)) << 8);
-              o[q >> 1] |= two << (16 * (q & 1));
-            }
-            *reinterpret_cast<uint2*>(dst + sw128(p, ch)) = make_uint2(o[0], o[1]);
+          for (int q = 0; q < 4; ++q) {
+            const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
+            const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
+            const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f);
+            const float hb =
+                fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f);
+            const uint32_t two = i8_bits(fminf(ha, 127.f)) | (i8_bits(fminf(hb, 127.f)) << 8);
+            o[q >> 1] |= two << (16 * (q & 1));
           }
+          *reinterpret_cast<uint2*>(dst + sw128(p, ch)) = make_uint2(o[0], o[1]);
         }
         fence_proxy_async();
         __syncwarp();
-        if ((threadIdx.x & 31) == 0) mbar_arrive(&hq_full[buf]);
+        if ((threadIdx.x & 31) == 0) {
+          mbar_arrive(&hq_full[buf]);
+          if (nb == 2) mbar_arrive(g_edge_free);  // row h - 1 is read
+        }
       }
     } else if (threadIdx.x == kConsumerThreads) {
+      // g rows h and h - 1 (row entry i is pixel w0 - 1 + i), then h + 1
+      // once the builders are past neighbour 2.
+      const int row_bytes = kRowPix * C * 2;
+      mbar_arrive_tx(&g_full[0], row_bytes);
+      tma_load_4d(g_mid, &gmap, &g_full[0], 0, w0 - 1, h, b);
+      mbar_arrive_tx(&g_full[1], row_bytes);
+      tma_load_4d(g_edge, &gmap, &g_full[1], 0, w0 - 1, h - 1, b);
       for (int i = 0; i < 9 * kBoxesPerNb; ++i) {
+        if (i == 4 * kBoxesPerNb) {
+          mbar_wait(g_edge_free, 0);
+          mbar_arrive_tx(&g_full[1], row_bytes);
+          tma_load_4d(g_edge, &gmap, &g_full[1], 0, w0 - 1, h + 1, b);
+        }
         const int s = i % kStages;
         const int lap = i / kStages;
         if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
@@ -447,14 +478,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// A 4-D bf16 tensor map over g (B, H, W, C), boxes of one row of kRowPix
+// pixels x C channels, unswizzled; pixels outside the image arrive as zeros.
+bool row_map(CUtensorMap* map, const void* g, int B, int H, int W, int C) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C, kRowPix, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                const_cast<void*>(g), dims, strides, box, elem_strides,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int kCp>
 int launch(const void* g, const void* feats, const void* w1t, const void* kt,
            const void* a0, const void* b0, const void* a1, const void* b1,
            const void* kdq, void* out, int B, int H, int W, int C, void* stream) {
-  CUtensorMap w1map, kmap;
+  CUtensorMap w1map, kmap, gmap;
   constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   if (!stem_weight_map(&w1map, kU8, 1, w1t, C, kCp, 1) ||
-      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp, 9))
+      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp, 9) || !row_map(&gmap, g, B, H, W, C))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = kSmemBytes<kCp>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -462,7 +508,7 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((W + kTileP - 1) / kTileP, H, B);
   meta_kernel_fused_i8_wgmma<kCp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      w1map, kmap, (const __nv_bfloat16*)g, (const __nv_bfloat16*)feats,
+      w1map, kmap, gmap, (const __nv_bfloat16*)feats,
       (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
       (const float*)kdq, (float*)out, H, W, C);
   return (int)cudaGetLastError();
