@@ -39,12 +39,14 @@
 //   both K-major as s8 requires). z and d share Cp/4 int32 registers a
 //   thread (z dies in the epilogue; each GEMM starts with scale-d = 0),
 //   beside Cp/4 fp32 of the accumulator.
-// - The weights arrive by TMA as W1^T and K_n^T ([n][k] int8), in boxes of
-//   128 k x Cp n (128-byte swizzle: the K-major layout a wgmma descriptor
-//   reads; a k32 step is 32 bytes, as K1's bf16 k16 step), through an
-//   mbarrier ring fed by one thread of the producer warpgroup. A
-//   neighbour is 2 Cp / 128 boxes (W1^T, then K_n^T), half of K1's, so
-//   the L2 weight stream halves.
+// - The weights arrive by TMA as W1^T and K_n^T ([n][k] int8) in the
+//   128-byte swizzle, the K-major layout a wgmma descriptor reads (a k32
+//   step is 32 bytes, as K1's bf16 k16 step). W1^T is the same for every
+//   neighbour and stays in shared memory (Cp x Cp bytes, loaded once);
+//   K_n^T streams through an mbarrier ring fed by one thread of the
+//   producer warpgroup in boxes of 128 k x Cp/2 n, one warpgroup's
+//   columns each, so a warpgroup waits only for its own boxes. The L2
+//   weight stream is a quarter of K1's (int8, and no W1 per neighbour).
 // - hq is built by the producer warpgroup's other three warps, one
 //   neighbour ahead, into one of two 64 x Cp int8 buffers (mbarriers
 //   hq_full / hq_empty). K1's builders are bound by the latency of their
@@ -61,9 +63,9 @@
 //   which frees the buffer; then acc += float(d) * kdq[n].
 //   Named barriers over the 256 consumer threads join the steps; generic
 //   stores are made visible to wgmma with fence.proxy.async.
-// - Shared memory at Cp = 256: 3 boxes of ring (96 KB), 2 hq/pq tiles
-//   (32 KB), 2 g rows (66 KB), the BN affines and kdq (13 KB); one block
-//   an SM. At Cp = 128 the ring has 4 boxes.
+// - Shared memory at Cp = 256: W1^T (64 KB), 3 boxes of ring (48 KB), 2
+//   hq/pq tiles (32 KB), 2 g rows (66 KB), the BN affines and kdq (13 KB):
+//   224 KB, one block an SM. At Cp = 128 the ring has 6 boxes.
 // - Host side: the two weight tensor maps and g's are encoded per launch
 //   (cuTensorMapEncodeTiled, libcuda) and passed as __grid_constant__.
 
@@ -91,20 +93,20 @@ constexpr int kBuilders = 96;
 constexpr int kProducerRegs = 80;
 constexpr int kConsumerRegs = 208;
 
-// Weight ring stages of the Cp-wide instance: 3 at Cp = 256 leaves room
-// for the two staged g rows.
+// K_n ring stages of the Cp-wide instance (boxes of 128 k x Cp/2 n): 3 at
+// Cp = 256 fit beside the resident W1 and the two staged g rows.
 template <int kCp>
-constexpr int kStagesFor = kCp == 256 ? 3 : 4;
+constexpr int kStagesFor = kCp == 256 ? 3 : 6;
 // One staged g row, [kRowPix][C] bf16, in 1 KB units.
 template <int kCp>
 constexpr int kRowBytes = (kRowPix * kCp * 2 + 1023) / 1024 * 1024;
-// Shared memory of the Cp-wide instance: ring, two hq/pq tiles, two g
-// rows, the four BN affines and the nine kdq rows, the mbarriers, and
-// room to align the ring to 1024 bytes.
+// Shared memory of the Cp-wide instance: W1, the K_n ring, two hq/pq
+// tiles, two g rows, the four BN affines and the nine kdq rows, the
+// mbarriers, and room to align W1 to 1024 bytes.
 template <int kCp>
-constexpr int kSmemBytes = kStagesFor<kCp> * kKBlock * kCp + 2 * (kCp / kKBlock) * kAtomBytes +
-                           2 * kRowBytes<kCp> + 13 * kCp * 4 +
-                           (2 * kStagesFor<kCp> + 7) * 8 + 1024;
+constexpr int kSmemBytes = kCp * kCp + kStagesFor<kCp> * kKBlock * kCp / 2 +
+                           2 * (kCp / kKBlock) * kAtomBytes + 2 * kRowBytes<kCp> +
+                           13 * kCp * 4 + (2 * kStagesFor<kCp> + 8) * 8 + 1024;
 
 // The low byte of rint(v) for an integral-valued |v| <= 127 (cvt.rni).
 __device__ __forceinline__ uint32_t i8_bits(float v) {
@@ -189,9 +191,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kStages = kStagesFor<kCp>;
   constexpr int kHalfN = kCp / 2;              // output channels per consumer warpgroup
   constexpr int kKB = kCp / kKBlock;           // 128-channel k-blocks
-  constexpr int kBoxBytes = kKBlock * kCp;     // one weight box: 128 k x Cp n
+  constexpr int kW1Box = kKBlock * kCp;        // W1^T, k-block kb: 128 k x Cp n
+  constexpr int kBoxBytes = kKBlock * kHalfN;  // a K_n^T box: 128 k x Cp/2 n
   constexpr int kHqBytes = kKB * kAtomBytes;   // one hq/pq tile, two of them
-  constexpr int kBoxesPerNb = 2 * kKB;         // W1^T, then K_n^T
+  constexpr int kBoxesPerNb = 2 * kKB;         // (kb, warpgroup) of K_n^T
   constexpr int kJ = kHalfN / 8;               // 8-column groups of a warpgroup
   // Builders: kCp / 8 threads of 8 channels cover a pixel; the 96 threads
   // cover kPixGroups pixels at a time.
@@ -200,8 +203,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* ring = smem;
-  uint8_t* hq = smem + kStages * kBoxBytes;
+  uint8_t* w1_s = smem;
+  uint8_t* ring = w1_s + kKB * kW1Box;
+  uint8_t* hq = ring + kStages * kBoxBytes;
   uint8_t* g_mid = hq + 2 * kHqBytes;              // g row h, then the other row:
   uint8_t* g_edge = g_mid + kRowBytes<kCp>;        // h - 1, then h + 1
   float* a1_s = reinterpret_cast<float*>(g_edge + kRowBytes<kCp>);
@@ -215,6 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* hq_empty = hq_full + 2;
   uint64_t* g_full = hq_empty + 2;  // [0]: row h; [1]: row h - 1 (phase 0), h + 1 (phase 1)
   uint64_t* g_edge_free = g_full + 2;
+  uint64_t* w1_full = g_edge_free + 1;
 
   const int w0 = blockIdx.x * kTileP;
   const int h = blockIdx.y;
@@ -235,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);                         // the TMA's bytes
-      mbar_init(&empty[s], kConsumerThreads / 32);    // each consumer warp
+      mbar_init(&empty[s], 4);                        // the warps of one warpgroup
     }
     for (int i = 0; i < 2; ++i) {
       mbar_init(&hq_full[i], kBuilders / 32);         // each builder warp
@@ -243,6 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&g_full[i], 1);                       // the TMA's bytes
     }
     mbar_init(g_edge_free, kBuilders / 32);           // each builder warp
+    mbar_init(w1_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -311,8 +317,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     } else if (threadIdx.x == kConsumerThreads) {
-      // g rows h and h - 1 (row entry i is pixel w0 - 1 + i), then h + 1
-      // once the builders are past neighbour 2.
+      // W1^T once; g rows h and h - 1 (row entry i is pixel w0 - 1 + i),
+      // then h + 1 once the builders are past neighbour 2; K_n^T box by box,
+      // box i = (kKB nb + kb) 2 + wg for warpgroup wg's columns.
+      mbar_arrive_tx(w1_full, kKB * kW1Box);
+      for (int kb = 0; kb < kKB; ++kb)
+        tma_load_3d(w1_s + kb * kW1Box, &w1map, w1_full, kb * kKBlock, 0, 0);
       const int row_bytes = kRowPix * C * 2;
       mbar_arrive_tx(&g_full[0], row_bytes);
       tma_load_4d(g_mid, &gmap, &g_full[0], 0, w0 - 1, h, b);
@@ -330,12 +340,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive_tx(&full[s], kBoxBytes);
         const int nb = i / kBoxesPerNb;
         const int r = i % kBoxesPerNb;
-        const int k0 = (r % kKB) * kKBlock;
-        if (r < kKB) {
-          tma_load_3d(ring + s * kBoxBytes, &w1map, &full[s], k0, 0, 0);
-        } else {
-          tma_load_3d(ring + s * kBoxBytes, &kmap, &full[s], k0, 0, nb);
-        }
+        tma_load_3d(ring + s * kBoxBytes, &kmap, &full[s], (r >> 1) * kKBlock,
+                    (r & 1) * kHalfN, nb);
       }
     }
   } else {
@@ -358,37 +364,45 @@ __global__ void __launch_bounds__(kThreads, 1)
       zd[i] = 0;
     }
 
-    int box = 0;  // weight boxes consumed so far
-    // d = A @ B over K = Cp: A is the hq/pq tile at a_u32, B the next kKB
-    // boxes. The first k32 step overwrites d (scale-d = 0).
-    auto gemm = [&](int (&d)[kHalfN / 2], uint32_t a_u32) {
+    const uint32_t w1_u32 = smem_u32(w1_s) + wg * kHalfN * 128;
+    // d = A @ B over K = Cp, A the hq/pq tile at a_u32: B is W1^T (resident)
+    // for neighbour nb < 0, else this warpgroup's boxes of K_nb^T, each
+    // released once the wgmma group that read it has retired. The first
+    // k32 step overwrites d (scale-d = 0).
+    auto gemm = [&](int (&d)[kHalfN / 2], uint32_t a_u32, int nb) {
 #pragma unroll
       for (int i = 0; i < kHalfN / 2; ++i) fence_operand(d[i]);
       wgmma_fence();
 #pragma unroll
       for (int kb = 0; kb < kKB; ++kb) {
-        const int s = box % kStages;
-        mbar_wait(&full[s], (box / kStages) & 1);
+        const int box = (nb * kKB + kb) * 2 + wg;
+        uint32_t b_u32 = w1_u32 + kb * kW1Box;
+        if (nb >= 0) {
+          mbar_wait(&full[box % kStages], (box / kStages) & 1);
+          b_u32 = ring_u32 + (box % kStages) * kBoxBytes;
+        }
         const uint64_t da = desc_sw128(a_u32 + kb * kAtomBytes);
-        const uint64_t db = desc_sw128(ring_u32 + s * kBoxBytes + wg * kHalfN * 128);
+        const uint64_t db = desc_sw128(b_u32);
 #pragma unroll
         for (int k32 = 0; k32 < 4; ++k32)
           wgmma_s8(d, da + 2 * k32, db + 2 * k32, kb | k32);  // +32 bytes
         wgmma_commit();
-        if (kb > 0) {
+        if (kb > 0 && nb >= 0) {
           wgmma_wait<1>();
           __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+          if (lane == 0) mbar_arrive(&empty[(box - 2) % kStages]);
         }
-        ++box;
       }
       wgmma_wait<0>();
 #pragma unroll
       for (int i = 0; i < kHalfN / 2; ++i) fence_operand(d[i]);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[(box - 1) % kStages]);
+      if (nb >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[((nb * kKB + kKB - 1) * 2 + wg) % kStages]);
+      }
     };
 
+    mbar_wait(w1_full, 0);
     for (int nb = 0; nb < 9; ++nb) {
       const int dy = nb / 3;
       const int dx = nb - dy * 3;
@@ -418,7 +432,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // 1. z = hq @ W1 (int32), this warpgroup's columns, once the builders
       // have filled hq's buffer.
       mbar_wait(&hq_full[buf], (nb >> 1) & 1);
-      gemm(zd, hq_b_u32);
+      gemm(zd, hq_b_u32, -1);
       consumer_sync();  // both warpgroups' GEMM1 has read hq
 
       // 2. pq = clip(rint(relu(a1 * z + b1) * fs), +-127) over hq, in its
@@ -446,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // 3. d = pq @ K_n over the full K = Cp; then the buffer is free, and
       // acc += float(d) * kdq[n].
-      gemm(zd, hq_b_u32);
+      gemm(zd, hq_b_u32, nb);
       __syncwarp();
       if (lane == 0) mbar_arrive(&hq_empty[buf]);
 #pragma unroll
@@ -500,7 +514,7 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   CUtensorMap w1map, kmap, gmap;
   constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   if (!stem_weight_map(&w1map, kU8, 1, w1t, C, kCp, 1) ||
-      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp, 9) || !row_map(&gmap, g, B, H, W, C))
+      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp / 2, 9) || !row_map(&gmap, g, B, H, W, C))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = kSmemBytes<kCp>;
   static const cudaError_t attr = cudaFuncSetAttribute(
