@@ -63,6 +63,10 @@
 //   which frees the buffer; then acc += float(d) * kdq[n].
 //   Named barriers over the 256 consumer threads join the steps; generic
 //   stores are made visible to wgmma with fence.proxy.async.
+// - No conversion instructions (16 a clock an SM, the slowest pipe, and
+//   the builders and the epilogue convert every element two or three
+//   times): bf16 rounding, int -> float and rint to int8 are exact ALU
+//   forms (round_bf16_alu, small_int_to_float, rint_i8_bits).
 // - Shared memory at Cp = 256: W1^T (64 KB), 3 boxes of ring (48 KB), 2
 //   hq/pq tiles (32 KB), 2 g rows (66 KB), the BN affines and kdq (13 KB):
 //   224 KB, one block an SM. At Cp = 128 the ring has 6 boxes.
@@ -108,9 +112,28 @@ constexpr int kSmemBytes = kCp * kCp + kStagesFor<kCp> * kKBlock * kCp / 2 +
                            2 * (kCp / kKBlock) * kAtomBytes + 2 * kRowBytes<kCp> +
                            13 * kCp * 4 + (2 * kStagesFor<kCp> + 8) * 8 + 1024;
 
-// The low byte of rint(v) for an integral-valued |v| <= 127 (cvt.rni).
-__device__ __forceinline__ uint32_t i8_bits(float v) {
-  return static_cast<uint32_t>(__float2int_rn(v)) & 0xffu;
+// The conversions between float, int and bf16 run on the SM's slowest
+// pipe (16 a clock), and the builders and the epilogue convert every
+// element two or three times, so they take these exact ALU forms.
+constexpr float kRound = 12582912.f;  // 1.5 * 2^23
+
+// v + 1.5 * 2^23 for |v| <= 127: the sum rounds v to an integer, half to
+// even, and its low byte is that integer as an int8 (two's complement).
+__device__ __forceinline__ uint32_t rint_i8_bits(float v) {
+  return __float_as_uint(__fadd_rn(v, kRound));
+}
+// float(i), exactly, for |i| < 2^22 (|z|, |d| <= 256 * 127 * 128 here).
+__device__ __forceinline__ float small_int_to_float(int i) {
+  return __fsub_rn(__int_as_float(i + 0x4B400000), kRound);
+}
+// x rounded to bf16 precision, to nearest even, for finite x.
+__device__ __forceinline__ float round_bf16_alu(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+// The low bytes of a and b in bytes 0 and 1.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x0040);
 }
 
 __device__ __forceinline__ void consumer_sync() {
@@ -296,18 +319,18 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
           const uint32_t cw[4] = {gc.x, gc.y, gc.z, gc.w};
           const uint32_t sw[4] = {gs.x, gs.y, gs.z, gs.w};
-          uint32_t o[2] = {0u, 0u};
+          uint32_t two[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            const float x0a = round_bf16(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
-            const float x0b = round_bf16(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
+            const float x0a = round_bf16_alu(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
+            const float x0b = round_bf16_alu(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
             const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f);
             const float hb =
                 fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f);
-            const uint32_t two = i8_bits(fminf(ha, 127.f)) | (i8_bits(fminf(hb, 127.f)) << 8);
-            o[q >> 1] |= two << (16 * (q & 1));
+            two[q] = low_bytes(rint_i8_bits(fminf(ha, 127.f)), rint_i8_bits(fminf(hb, 127.f)));
           }
-          *reinterpret_cast<uint2*>(dst + sw128(p, ch)) = make_uint2(o[0], o[1]);
+          *reinterpret_cast<uint2*>(dst + sw128(p, ch)) = make_uint2(
+              __byte_perm(two[0], two[1], 0x5410), __byte_perm(two[2], two[3], 0x5410));
         }
         fence_proxy_async();
         __syncwarp();
@@ -446,13 +469,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int r = 0; r < 2; ++r) {
           const int m = wq * 16 + gid + 8 * r;
           const float pa = fmaxf(
-              __fadd_rn(__fmul_rn(__int2float_rn(zd[4 * j + 2 * r]), s1.x), t1.x), 0.f);
+              __fadd_rn(__fmul_rn(small_int_to_float(zd[4 * j + 2 * r]), s1.x), t1.x), 0.f);
           const float pb = fmaxf(
-              __fadd_rn(__fmul_rn(__int2float_rn(zd[4 * j + 2 * r + 1]), s1.y), t1.y), 0.f);
-          const float qa = fminf(fmaxf(rintf(__fmul_rn(pa, bf16_lo(fs[j][r]))), -127.f), 127.f);
-          const float qb = fminf(fmaxf(rintf(__fmul_rn(pb, bf16_hi(fs[j][r]))), -127.f), 127.f);
+              __fadd_rn(__fmul_rn(small_int_to_float(zd[4 * j + 2 * r + 1]), s1.y), t1.y), 0.f);
+          const float qa = fminf(fmaxf(__fmul_rn(pa, bf16_lo(fs[j][r])), -127.f), 127.f);
+          const float qb = fminf(fmaxf(__fmul_rn(pb, bf16_hi(fs[j][r])), -127.f), 127.f);
           *reinterpret_cast<uint16_t*>(hq_b + sw128(m, n)) =
-              static_cast<uint16_t>(i8_bits(qa) | (i8_bits(qb) << 8));
+              static_cast<uint16_t>(low_bytes(rint_i8_bits(qa), rint_i8_bits(qb)));
         }
       }
       fence_proxy_async();
@@ -471,8 +494,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int r = 0; r < 2; ++r) {
           float& ea = acc[4 * j + 2 * r];
           float& eb = acc[4 * j + 2 * r + 1];
-          ea = __fadd_rn(ea, __fmul_rn(__int2float_rn(zd[4 * j + 2 * r]), q.x));
-          eb = __fadd_rn(eb, __fmul_rn(__int2float_rn(zd[4 * j + 2 * r + 1]), q.y));
+          ea = __fadd_rn(ea, __fmul_rn(small_int_to_float(zd[4 * j + 2 * r]), q.x));
+          eb = __fadd_rn(eb, __fmul_rn(small_int_to_float(zd[4 * j + 2 * r + 1]), q.y));
         }
       }
     }
