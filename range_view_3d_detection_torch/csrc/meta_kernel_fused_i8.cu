@@ -425,16 +425,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     };
 
-    // The shifted feats of neighbour nb at this thread's accumulator rows
-    // and columns. Neighbour nb + 1's are loaded as soon as nb's epilogue
-    // has used them, so they are in flight through GEMM2, the dequant, the
-    // wait for hq and GEMM1.
-    uint32_t fs[kJ][2];
-    auto load_fs = [&](int nb) {
+    mbar_wait(w1_full, 0);
+    for (int nb = 0; nb < 9; ++nb) {
       const int dy = nb / 3;
       const int dx = nb - dy * 3;
       const int hs = h + dy - 1;
       const bool row_ok = hs >= 0 && hs < H;
+
+      const int buf = nb & 1;
+      uint8_t* hq_b = hq + buf * kHqBytes;
+      const uint32_t hq_b_u32 = hq_u32 + buf * kHqBytes;
+
+      // The shifted feats at this thread's accumulator rows and columns,
+      // in flight while hq is awaited and GEMM1 runs.
+      uint32_t fs[kJ][2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int w = w0 + wq * 16 + gid + 8 * r;
@@ -447,14 +451,6 @@ __global__ void __launch_bounds__(kThreads, 1)
           fs[j][r] = ok && col_ok ? __ldg(reinterpret_cast<const unsigned int*>(fp + j * 8)) : 0u;
         }
       }
-    };
-
-    load_fs(0);
-    mbar_wait(w1_full, 0);
-    for (int nb = 0; nb < 9; ++nb) {
-      const int buf = nb & 1;
-      uint8_t* hq_b = hq + buf * kHqBytes;
-      const uint32_t hq_b_u32 = hq_u32 + buf * kHqBytes;
 
       // 1. z = hq @ W1 (int32), this warpgroup's columns, once the builders
       // have filled hq's buffer.
@@ -482,7 +478,6 @@ __global__ void __launch_bounds__(kThreads, 1)
               static_cast<uint16_t>(low_bytes(rint_i8_bits(qa), rint_i8_bits(qb)));
         }
       }
-      if (nb < 8) load_fs(nb + 1);
       fence_proxy_async();
       consumer_sync();
 
