@@ -42,7 +42,7 @@ Phases, each of which raises (non-zero exit) on failure:
    kernels), ms per request of the main path, its forward and
    decode + NMS device times, decode + NMS split by stage (CUDA events)
    and by op (torch.profiler), every BatchNorm epilogue of a request in
-   flax's order beside the parent's ``BatchNorm2d`` form (eager and graph
+   flax's order beside ``BatchNorm2d``'s own form (eager and graph
    replay, summed), and a torch.profiler table of one request's device
    time by kernel;
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
@@ -74,8 +74,9 @@ Phases, each of which raises (non-zero exit) on failure:
    rounding tie (``k4_edge_case``) at C = 256 and 128: max|diff| <= 1e-4 *
    max|ref|, the count of differing elements printed (expected 0: the
    kernel's arithmetic is its twin's); a C it does not take (48, 288)
-   raises; K4's time (eager and graph replay), bound and twin's time;
-11. ms per request of both int8 paths and a profiler table of one request.
+   raises; K4's time (eager and graph replay), bound and twin's time,
+   and a profiler table of one request with the K4 stem;
+11. ms per request of both int8 paths.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -298,8 +299,8 @@ def bn_epilogue_times(model, tensors, smi) -> None:
     """Device time of every eval BatchNorm epilogue of one request, one
     input of each distinct shape timed and counted: this tree's (flax's
     order: ``sub``, ``addcmul`` into the compute dtype, in-place ReLU)
-    beside the parent's form (``BatchNorm2d`` on an fp32 copy, a cast, a
-    ReLU), by CUDA events around eager launches and by CUDA-graph replay,
+    beside ``BatchNorm2d``'s own form (its ``x * a + b`` on an fp32 copy,
+    a cast, a ReLU), by CUDA events around eager launches and by CUDA-graph replay,
     summed over the request; and how many outputs the two forms round
     apart."""
     import torch
@@ -316,7 +317,7 @@ def bn_epilogue_times(model, tensors, smi) -> None:
         entry["n"] += 1
         return forward(self, y, dtype, act)
 
-    def parent_form(bn, y, dtype, act):
+    def batchnorm2d_form(bn, y, dtype, act):
         out = F.batch_norm(y.float(), bn.running_mean, bn.running_var, bn.weight,
                            bn.bias, False, 0.0, bn.eps).to(dtype)
         return torch.relu(out) if act else out
@@ -327,23 +328,23 @@ def bn_epilogue_times(model, tensors, smi) -> None:
             model(*tensors)
     finally:
         BatchNorm.forward = forward
-    sums = dict.fromkeys(("flax", "flax_graph", "parent", "parent_graph"), 0.0)
+    sums = dict.fromkeys(("flax", "flax_graph", "bn2d", "bn2d_graph"), 0.0)
     n_calls = n_out = n_diff = 0
     with torch.inference_mode():
         for e in shapes.values():
             args, n = e["args"], e["n"]
             sums["flax"] += n * cuda_ms(lambda: forward(*args), reps=10)
-            sums["parent"] += n * cuda_ms(lambda: parent_form(*args), reps=10)
+            sums["bn2d"] += n * cuda_ms(lambda: batchnorm2d_form(*args), reps=10)
             sums["flax_graph"] += n * graph_ms(lambda: forward(*args))
-            sums["parent_graph"] += n * graph_ms(lambda: parent_form(*args))
-            got, old = forward(*args), parent_form(*args)
+            sums["bn2d_graph"] += n * graph_ms(lambda: batchnorm2d_form(*args))
+            got, old = forward(*args), batchnorm2d_form(*args)
             n_calls += n
             n_out += n * got.numel()
             n_diff += n * int((got != old).sum())
     say(f"BN epilogue of one request ({n_calls} calls, {len(shapes)} shapes): flax's "
         f"order {sums['flax']:.3f} ms eager, {sums['flax_graph']:.3f} ms graph replay; "
-        f"the parent's BatchNorm2d form {sums['parent']:.3f} ms eager, "
-        f"{sums['parent_graph']:.3f} ms graph replay; {n_diff} of {n_out} outputs "
+        f"BatchNorm2d's form {sums['bn2d']:.3f} ms eager, "
+        f"{sums['bn2d_graph']:.3f} ms graph replay; {n_diff} of {n_out} outputs "
         f"rounded apart, on {smi}")
 
 
@@ -919,6 +920,9 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
         f"plain {k4_plain_ms:.3f} ms, bound {k4_bound:.4f} ms ({k4_by}); Waymo stem "
         f"{waymo}: {k4_waymo_ms:.4f} ms eager, {k4_waymo_graph_ms:.4f} ms graph replay, "
         f"bound {waymo_bound:.4f} ms on {smi}")
+
+    with torch.inference_mode():
+        profile_request(predictor, requests[1])
 
     # 11. Summary of the int8 paths.
     say(f"int8 path: K1 stem {int8_ms:.3f} ms/request ({2e3 / int8_ms:.2f} frames/s), "
