@@ -1,7 +1,8 @@
 """Rules of the PyTorch port, checked on the CPU.
 
-- Every port module, ``chip_smoke.py`` and ``chip_probe_k1.py`` import with JAX and the JAX
-  package made unimportable.
+- Every port module, ``chip_smoke.py``, ``chip_probe_k1.py`` and
+  ``chip_probe_k4.py`` import with JAX and the JAX package made
+  unimportable.
 - Entry points default to the card: on a host without a CUDA device,
   ``Predictor`` with its default device and ``python chip_smoke.py`` fail
   loudly instead of running on the CPU.
@@ -57,7 +58,7 @@ def test_port_imports_without_jax():
             f"sys.path.insert(0, {str(REPO)!r})",
             f"for name in {modules!r}:",
             "    importlib.import_module(name)",
-            "import chip_smoke, chip_probe_k1",
+            "import chip_smoke, chip_probe_k1, chip_probe_k4",
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'range_view_3d_detection_tpu') "
             "and sys.modules[m] is not None]",
