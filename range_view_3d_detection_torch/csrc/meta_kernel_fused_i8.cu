@@ -65,8 +65,9 @@
 //   stores are made visible to wgmma with fence.proxy.async.
 // - No conversion instructions (16 a clock an SM, the slowest pipe, and
 //   the builders and the epilogue convert every element two or three
-//   times): bf16 rounding, int -> float and rint to int8 are exact ALU
-//   forms (round_bf16_alu, small_int_to_float, rint_i8_bits).
+//   times): x0 is one bf16x2 subtraction a pair, int -> float and rint to
+//   int8 are exact ALU forms (bf16x2_sub, small_int_to_float,
+//   rint_i8_bits).
 // - Shared memory at Cp = 256: W1^T (64 KB), 3 boxes of ring (48 KB), 2
 //   hq/pq tiles (32 KB), 2 g rows (66 KB), the BN affines and kdq (13 KB):
 //   224 KB, one block an SM. At Cp = 128 the ring has 6 boxes.
@@ -126,10 +127,15 @@ __device__ __forceinline__ uint32_t rint_i8_bits(float v) {
 __device__ __forceinline__ float small_int_to_float(int i) {
   return __fsub_rn(__int_as_float(i + 0x4B400000), kRound);
 }
-// x rounded to bf16 precision, to nearest even, for finite x.
-__device__ __forceinline__ float round_bf16_alu(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+// bf16(a - b) for both halves of two bf16 pairs, in one bf16x2
+// subtraction. It rounds once, the twin (and XLA) twice (fp32, then
+// bf16), and the two agree: where the fp32 difference is inexact, |b| <
+// 2^-16 |a| (or the reverse), and both land on a (or -b), far from a bf16
+// rounding boundary.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
 }
 // The low bytes of a and b in bytes 0 and 1.
 __device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b) {
@@ -322,8 +328,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           uint32_t two[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            const float x0a = round_bf16_alu(__fsub_rn(bf16_lo(sw[q]), bf16_lo(cw[q])));
-            const float x0b = round_bf16_alu(__fsub_rn(bf16_hi(sw[q]), bf16_hi(cw[q])));
+            const uint32_t x0 = bf16x2_sub(sw[q], cw[q]);
+            const float x0a = bf16_lo(x0);
+            const float x0b = bf16_hi(x0);
             const float ha = fmaxf(__fadd_rn(__fmul_rn(x0a, sa0[2 * q]), sb0[2 * q]), 0.f);
             const float hb =
                 fmaxf(__fadd_rn(__fmul_rn(x0b, sa0[2 * q + 1]), sb0[2 * q + 1]), 0.f);
