@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA GPU and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one CUDA GPU and
+check its kernels.
 
     python3 chip_smoke.py
 
@@ -76,7 +77,26 @@ Phases, each of which raises (non-zero exit) on failure:
    kernel's arithmetic is its twin's); a C it does not take (48, 288)
    raises; K4's time (eager and graph replay), bound and twin's time,
    and a profiler table of one request with the K4 stem;
-11. ms per request of both int8 paths.
+11. ms per request of both int8 paths;
+12. training, card against CPU: one train step (``training.state.
+    make_train_step``) at the flagship's channel widths and depth in fp32
+    (TF32 off) on ``_dryrun_batch`` at (2, 4, 64), on the card and on the
+    CPU from the same weights: loss and every metric within 1e-4
+    relative, running statistics within 1e-5, parameters after the AdamW
+    step within the sign-flip bound, gradients gated against the CPU's
+    own sensitivity to a 1e-7 input change (``train_card_vs_cpu``);
+13. six train steps of the full flagship (bf16, ``stem_pallas``, 256 box
+    slots, B=2 64x1808, 64 seeded boxes an image, constant learning
+    rate 1e-3): finite losses and ``grad_norm`` > 0 each step, every
+    parameter leaf and every running statistic changed; peak memory;
+14. the eval and val steps on the trained state: K1 and K2 launch, K1
+    against its twin on the trained affines (phase 3's tolerance), the
+    NMS against the plain scan, finite outputs and val losses;
+15. a checkpoint of the trained state saved and restored on the card,
+    equal bit for bit;
+16. timings: ms a train step (CUDA events, 2 warm-up, median of 7) split
+    into targets, forward, loss, backward and optimizer; ms an eval
+    step; a torch.profiler table of one step by kernel.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -948,6 +968,308 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     ]
 
 
+def flagship_train_batch(cfg, B, H, W, seed, n_boxes=64):
+    """A flagship training batch: ``_sample_inputs`` and ``n_boxes`` valid
+    boxes of ``cfg.max_boxes`` slots an image, centred on seeded valid
+    returns, l, w, h in [0.5, 6] m, yaw in [-pi, pi), categories seeded."""
+    import numpy as np
+
+    from range_view_3d_detection_torch import serving
+
+    rng = np.random.default_rng(seed)
+    feats, cart, mask = serving._sample_inputs(B, H, W, cfg.in_channels, seed=seed)
+    K = cfg.max_boxes
+    boxes = np.zeros((B, K, 7), np.float32)
+    valid = np.zeros((B, K), bool)
+    for b in range(B):
+        ys, xs = np.nonzero(mask[b])
+        pick = rng.choice(len(ys), n_boxes, replace=False)
+        boxes[b, :n_boxes, :3] = cart[b, ys[pick], xs[pick]]
+        boxes[b, :n_boxes, 3:6] = rng.uniform(0.5, 6.0, (n_boxes, 3))
+        boxes[b, :n_boxes, 6] = rng.uniform(-np.pi, np.pi, n_boxes)
+        valid[b, :n_boxes] = True
+    n_cats = len(cfg.tasks_dict[0])
+    return {
+        "features": feats, "cart": cart, "mask": mask, "boxes": boxes,
+        "box_valid": valid, "box_task": np.zeros((B, K), np.int32),
+        "box_offset": rng.integers(0, n_cats, (B, K)).astype(np.int32),
+    }
+
+
+def running_stats(model) -> dict:
+    """Every BatchNorm running statistic of ``model``, by name."""
+    ends = ("running_mean", "running_var", "_bn_mean", "_bn_var")
+    return {n: b for n, b in model.named_buffers() if n.endswith(ends)}
+
+
+def train_card_vs_cpu(cfg, device) -> None:
+    """Phase 12: one train step at the flagship's channel widths and depth
+    in fp32 on (2, 4, 64), on the card and on the CPU from the same
+    weights.
+
+    Gates: the loss and every metric (``grad_norm`` among them) within
+    1e-4 relative; running statistics within 1e-5 of each leaf's max;
+    parameters within 1e-5 of each leaf's max plus twice the step's
+    learning rate (AdamW's first step is about lr * sign(g), so an element
+    whose gradient is within the devices' rounding of 0 can move either
+    way), 98% of the elements within 1e-5 of the max plus 1% of lr.
+    Gradient leaves: this randomly initialised model amplifies rounding
+    (a 1e-7 relative change of the input features moves some leaves of
+    the CPU's own gradient by about 1% of their max), so a leaf is not
+    held to 1e-3 of its max; instead the median leaf must be within 2e-3
+    of its max, and the worst within 1e-3 plus twice the worst move of
+    the CPU's gradient under that input change (a third step, on the CPU).
+    """
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.training import optim, state as state_lib
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = serving._dryrun_batch(cfg32, 2, 4, 64, cfg32.in_channels)
+    noisy = dict(batch)
+    rng = np.random.default_rng(SEED + 14)
+    noisy["features"] = batch["features"] * (
+        1 + 1e-7 * rng.standard_normal(batch["features"].shape)
+    ).astype(np.float32)
+    tx, schedule = optim.make_optimizer(1e-3, 10)
+    lr = schedule(0)
+    runs = []
+    for dev, b in (("cpu", batch), (device, batch), ("cpu", noisy)):
+        st = state_lib.create_state(
+            cfg32, tx, device=dev, generator=torch.Generator().manual_seed(SEED + 10)
+        )
+        grads = []
+        st, metrics = state_lib.make_train_step(cfg32)(st, b, grads_out=grads)
+        runs.append((st, metrics, grads))
+    (cpu, m_cpu, g_cpu), (card, m_card, g_card), (_, _, g_noise) = runs
+    worst_metric = 0.0
+    for k, v in m_cpu.items():
+        want, got = float(v), float(m_card[k])
+        check(abs(got - want) <= 1e-4 * abs(want), f"train card vs CPU: {k} {got} != {want}")
+        worst_metric = max(worst_metric, abs(got - want) / max(abs(want), 1e-30))
+    e_card, e_noise = [], []
+    for a, b, c in zip(g_card, g_cpu, g_noise):
+        scale = max(b.abs().max().item(), 1e-30)
+        e_card.append((a.cpu() - b).abs().max().item() / scale)
+        e_noise.append((c - b).abs().max().item() / scale)
+    med = statistics.median(e_card)
+    check(med <= 2e-3, f"train card vs CPU: median gradient leaf off by {med:.3g} of its max")
+    check(max(e_card) <= 1e-3 + 2 * max(e_noise),
+          f"train card vs CPU: a gradient leaf off by {max(e_card):.3g} of its max, "
+          f"the CPU's own under input noise {max(e_noise):.3g}")
+    worst_stat = 0.0
+    card_stats = running_stats(card.model)
+    for n, b in running_stats(cpu.model).items():
+        err = (card_stats[n].cpu() - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        check(err <= 1e-5, f"train card vs CPU: running statistic {n} off by {err:.3g}")
+        worst_stat = max(worst_stat, err)
+    within = total = 0
+    worst_param = 0.0
+    card_params = dict(card.model.named_parameters())
+    for n, p in cpu.model.named_parameters():
+        d = (card_params[n].detach().cpu() - p.detach()).abs()
+        scale = p.detach().abs().max().item()
+        check(d.max().item() <= 1e-5 * scale + 2 * lr,
+              f"train card vs CPU: parameter {n} off by {d.max().item():.3g}")
+        within += int((d <= 1e-5 * scale + 1e-2 * lr).sum())
+        total += d.numel()
+        worst_param = max(worst_param, d.max().item() / lr)
+    check(within >= 0.98 * total, f"train card vs CPU: {within} of {total} parameters close")
+    say(f"train card vs CPU (flagship widths and depth, fp32, (2, 4, 64)): loss "
+        f"{float(m_card['loss']):.7f} vs {float(m_cpu['loss']):.7f}, grad_norm "
+        f"{float(m_card['grad_norm']):.6f} vs {float(m_cpu['grad_norm']):.6f}; worst metric "
+        f"{worst_metric:.3g} relative; gradient leaves off by {statistics.median(e_card):.3g} "
+        f"of their max in the median, {max(e_card):.3g} at worst (the CPU's own under 1e-7 "
+        f"input noise: {statistics.median(e_noise):.3g}, {max(e_noise):.3g}); running "
+        f"statistics {worst_stat:.3g}; parameters {worst_param:.3g} lr at worst, {within} "
+        f"of {total} within 1e-5 of the max + 0.01 lr; ok")
+
+
+def trained_stem_args(model, batch) -> dict:
+    """K1's operands as the trained model's eval stem builds them."""
+    import torch
+
+    stem = model.RangeNet_0.MetaKernel_0
+    dt = stem.dtype
+    with torch.inference_mode():
+        f = batch["features"].permute(0, 3, 1, 2).to(dt)
+        feats = stem.BasicBlock_0(f).permute(0, 2, 3, 1)
+        g = batch["cart"].to(dt) @ stem.pos_0_conv_kernel.to(dt)
+        a0, b0 = stem.bn_eval_affine(0)
+        a1, b1 = stem.bn_eval_affine(1)
+        return dict(g=g, feats=feats, w1=stem.pos_1_conv_kernel.to(dt),
+                    k=stem.fusion1_kernel.to(dt), a0=a0, b0=b0, a1=a1, b1=b1)
+
+
+def profile_train_step(step, state, batch) -> None:
+    """Print the device time of one train step by kernel (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(
+        e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA
+    ) / 1e3
+    say(events.table(sort_by="self_device_time_total", row_limit=30))
+    say(f"profile: train step wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%)")
+
+
+def training_phases(device, smi) -> None:
+    """Phases 12-16: the training step (see the module docstring)."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import (
+        meta_kernel_fused,
+        meta_kernel_fused_plain,
+    )
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+    from range_view_3d_detection_torch.training import optim, state as state_lib
+    from range_view_3d_detection_torch.training.checkpoints import CheckpointManager
+
+    cfg = serving._flagship_config()
+    # 12. The step on the card against the step on the CPU.
+    train_card_vs_cpu(cfg, device)
+
+    # 13. Six flagship steps: bf16, K1's config, 256 box slots, B=2 64x1808.
+    batch = state_lib.batch_to_device(
+        flagship_train_batch(cfg, 2, 64, 1808, seed=SEED + 11), device
+    )
+    tx, _ = optim.make_optimizer(1e-3, 10, debug=True)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    st = state_lib.create_state(cfg, tx, device=device, generator=gen)
+    params0 = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in running_stats(st.model).items()}
+    step = state_lib.make_train_step(cfg)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(6):
+        st, metrics = step(st, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        say(f"train step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.4f}, "
+            f"classification {float(metrics['classification_loss']):.6f}, "
+            f"regression {float(metrics['regression_loss']):.6f}, "
+            f"foreground pixels {float(metrics['total_fg']):.0f}, "
+            f"objects {float(metrics['total_objects']):.0f}")
+        check(math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0,
+              f"train step {i + 1}: loss {loss}, grad_norm {gnorm}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    still = [n for n, p in st.model.named_parameters() if torch.equal(p.detach(), params0[n])]
+    check(not still, f"parameters unchanged after 6 steps: {still[:5]}")
+    still = [n for n, b in running_stats(st.model).items() if torch.equal(b, stats0[n])]
+    check(not still, f"running statistics unchanged after 6 steps: {still[:5]}")
+    say(f"train: 6 flagship steps (bf16, B=2, 64x1808, 64 boxes of 256 an image); all "
+        f"{len(params0)} parameter leaves and {len(stats0)} running statistics changed; "
+        f"peak memory {peak_gb:.2f} GiB (allocated before the steps {base_gb:.2f} GiB) "
+        f"on {smi}")
+
+    # 14. Eval and val steps on the trained state: K1 and K2 launch, K1 agrees
+    # with its twin on the trained affines, the NMS with the plain scan.
+    dec = DecoderConfig()
+    eval_step = state_lib.make_eval_step(cfg, dec)
+    val_step = state_lib.make_val_step(cfg, dec)
+    meta_kernel_fused.launches = 0
+    nms_scan.launches = 0
+    result = eval_step(st, batch)
+    val_result, val_metrics = val_step(st, batch)
+    torch.cuda.synchronize()
+    launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches}
+    check(launches["K1"] > 0 and launches["K2"] > 0, f"eval/val launches {launches}")
+    for r in (result, val_result):
+        for t in (r.cuboids, r.scores):
+            check(bool(torch.isfinite(t[r.keep]).all()), "eval: non-finite detections")
+    bad = [k for k, v in val_metrics.items() if not math.isfinite(float(v))]
+    check(not bad, f"val metrics not finite: {bad}")
+    x = trained_stem_args(st.model, batch)
+    with torch.inference_mode():
+        got, want = meta_kernel_fused(**x), meta_kernel_fused_plain(**x)
+    torch.cuda.synchronize()
+    k1_err, k1_ref = (got - want).abs().max().item(), want.abs().max().item()
+    check(k1_err <= 2e-2 * k1_ref, f"K1 trained affines: max|diff| {k1_err} > 2e-2 * {k1_ref}")
+    request = (batch["features"], batch["cart"], batch["mask"])
+    nms_err = check_nms_against_plain(st.model, request, cfg, dec, device)
+    dec_all = DecoderConfig(min_confidence=0.0)
+    nms_err_all = check_nms_against_plain(st.model, request, cfg, dec_all, device)
+    say(f"eval/val on the trained state: launches {launches}, kept "
+        f"{[int(k) for k in result.keep.sum(-1)]}, val/loss "
+        f"{float(val_metrics['val/loss']):.6f}; K1 on the trained affines max|diff| "
+        f"{k1_err:.4g} (max|ref| {k1_ref:.4g}); NMS == plain scan (min_confidence "
+        f"{dec.min_confidence}: {nms_err:.3g}; 0.0: {nms_err_all:.3g}); ok")
+
+    # 15. Checkpoint round trip on the card, bit for bit.
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=2)
+        t0 = time.perf_counter()
+        mgr.save(st.step, st, {"config": "flagship", "steps": st.step})
+        save_s = time.perf_counter() - t0
+        other = state_lib.create_state(cfg, tx, device=device,
+                                       generator=torch.Generator().manual_seed(SEED + 13))
+        t0 = time.perf_counter()
+        restored, config = mgr.restore(other)
+        restore_s = time.perf_counter() - t0
+        size_mb = sum(f.stat().st_size for f in Path(tmp).iterdir()) / 2**20
+    want_sd, got_sd = st.model.state_dict(), restored.model.state_dict()
+    check(sorted(want_sd) == sorted(got_sd), "checkpoint: model keys differ")
+    check(all(torch.equal(want_sd[k], got_sd[k]) for k in want_sd),
+          "checkpoint: a model tensor differs")
+    want_opt, got_opt = st.opt.adamw.state_dict()["state"], restored.opt.adamw.state_dict()["state"]
+    check(sorted(want_opt) == sorted(got_opt) and all(
+        torch.equal(v.cpu(), got_opt[i][k].cpu()) for i, s in want_opt.items() for k, v in s.items()
+    ), "checkpoint: an optimizer tensor differs")
+    check(restored.step == st.step and restored.opt.updates == st.opt.updates
+          and config["steps"] == st.step, "checkpoint: step counts differ")
+    say(f"checkpoint: {size_mb:.1f} MiB, saved in {save_s:.2f} s, restored in "
+        f"{restore_s:.2f} s, equal bit for bit; ok")
+    del other, restored
+
+    # 16. Timings: ms a train step (2 warm-up, median of 7) split by part,
+    # ms an eval step, a profile of one step.
+    parts = ("targets", "forward", "loss", "backward", "optimizer")
+    runs = []
+    for i in range(9):
+        start = torch.cuda.Event(enable_timing=True)
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        start.record()
+        st, _ = step(st, batch, mark=mark)
+        if i >= 2:
+            runs.append((start, events))
+    torch.cuda.synchronize()
+    total = statistics.median(s.elapsed_time(e["optimizer"]) for s, e in runs)
+    split = {}
+    for j, part in enumerate(parts):
+        split[part] = statistics.median(
+            (s if j == 0 else e[parts[j - 1]]).elapsed_time(e[part]) for s, e in runs
+        )
+    eval_ms = cuda_ms(lambda: eval_step(st, batch), reps=5)
+    profile_train_step(step, st, batch)
+    say(f"train step: {total:.3f} ms (CUDA events, median of {len(runs)} after 2 warm-up) = "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" ms; eval step {eval_ms:.3f} ms; peak memory {peak_gb:.2f} GiB; B=2 64x1808 "
+        f"bf16 on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -1198,6 +1520,9 @@ def main() -> int:
         f"total {time.perf_counter() - t_start:.0f} s")
     kernels += int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec,
                            device, gen, smi)
+    del predictor, model, results, bf16_results, bf16_heads, out, made, k1_in, k1_waymo, k2_in
+    torch.cuda.empty_cache()
+    training_phases(device, smi)
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -41,6 +41,17 @@ def _pair(v: IntPair) -> Tuple[int, int]:
     return int(v), int(v)
 
 
+def refuse_quantized_training(module: nn.Module) -> None:
+    """Raise if ``module`` runs int8 operands in train mode with gradients
+    on: training the quantized model (QAT) is not ported (ROADMAP Queue 1
+    item 5)."""
+    if module.training and torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{type(module).__name__}: training a quantized model (QAT) is not "
+            "ported; see ROADMAP.md Queue 1"
+        )
+
+
 class BatchNorm(nn.BatchNorm2d):
     """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` (torch momentum 0.1)
     on NCHW, with the fp32 result cast to a compute dtype and an optional
@@ -50,8 +61,13 @@ class BatchNorm(nn.BatchNorm2d):
     eps) * scale``, which is what jitted XLA emits for flax's ``(y - mean)
     * mul + bias``; ``y - mean`` promotes a bf16 ``y`` to fp32, and the
     fp32 result rounds to ``dtype`` once. Three passes over the tensor: the
-    subtraction, ``addcmul`` into ``dtype`` and an in-place ReLU. Train
-    mode is ``BatchNorm2d``'s own forward (the train path is not ported).
+    subtraction, ``addcmul`` into ``dtype`` and an in-place ReLU.
+
+    Train mode is flax's (``use_fast_variance``): the batch mean and
+    ``max(0, E[y^2] - mean^2)`` in fp32 over (N, H, W), normalised in the
+    eval form's order, ``addcmul(bias, y - mean, rsqrt(var + eps) *
+    scale)``; the running statistics become ``0.9 r + 0.1 batch`` with the
+    biased variance, written in place under ``no_grad``.
     The parameter and buffer names are ``BatchNorm2d``'s.
     """
 
@@ -77,15 +93,24 @@ class BatchNorm(nn.BatchNorm2d):
         self, y: torch.Tensor, dtype: torch.dtype = torch.float32, act: bool = False
     ) -> torch.Tensor:
         if self.training:
-            out = super().forward(y.float()).to(dtype)
+            yf = y.float()
+            mean = yf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((yf * yf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            out = torch.addcmul(
+                self.bias[:, None, None], yf - mean[:, None, None], mul[:, None, None]
+            ).to(dtype)
+            return torch.relu(out) if act else out
+        d = torch.sub(y, self.running_mean[:, None, None])
+        bias = self.bias.detach()[:, None, None]
+        mul = self.eval_mul()[:, None, None]
+        if d.requires_grad:  # autograd takes no out=
+            out = torch.addcmul(bias, d, mul).to(dtype)
         else:
-            d = torch.sub(y, self.running_mean[:, None, None])
-            bias = self.bias.detach()[:, None, None]
-            mul = self.eval_mul()[:, None, None]
-            if d.requires_grad:  # autograd takes no out=
-                out = torch.addcmul(bias, d, mul).to(dtype)
-            else:
-                out = torch.addcmul(bias, d, mul, out=torch.empty_like(d, dtype=dtype))
+            out = torch.addcmul(bias, d, mul, out=torch.empty_like(d, dtype=dtype))
         return out.relu_() if act else out
 
 
@@ -145,13 +170,19 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if self.int8 is not None:
+            refuse_quantized_training(self)
             y = self.int8(x)
         else:
             conv = self.Conv_0
             bias = None if conv.bias is None else conv.bias.to(dt)
-            y = F.conv2d(
-                x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding
-            )
+            stride = conv.stride
+            if conv.kernel_size == (1, 1) and stride != (1, 1) and x.device.type == "cpu":
+                # A strided 1x1 conv is the 1x1 conv of the strided view.
+                # PyTorch's CPU weight gradient of the strided form corrupts
+                # the heap in channels_last memory at narrow widths (C = W =
+                # 8, torch 2.13); the view's does not.
+                x, stride = x[:, :, :: stride[0], :: stride[1]], (1, 1)
+            y = F.conv2d(x.to(dt), conv.weight.to(dt), bias, stride, conv.padding)
         if self.norm:
             return self.BatchNorm_0(y, dt, self.act)
         return torch.relu(y) if self.act else y
@@ -256,6 +287,7 @@ class TorchConvTranspose(nn.ConvTranspose2d):
             return F.conv_transpose2d(
                 x.to(dt), self.weight.to(dt), None, self.stride, self.padding
             )
+        refuse_quantized_training(self)
         # K3 quantizes the NHWC view of the activation as it stages it.
         y = conv3x3_i8_fused(
             x.to(dt).permute(0, 2, 3, 1), self.int8_taps, self.int8_dq,

@@ -1,8 +1,14 @@
-"""The range-view detector's eval forward (counterpart of the JAX
-``models/detector.py``; targets and the training loss are not ported yet).
+"""The range-view detector: forward pass, targets and training loss
+(counterpart of the JAX ``models/detector.py``).
 
 Batch layout (channel-last, as in the JAX package):
-    features (B, H, W, C), cart (B, H, W, 3), mask (B, H, W) bool.
+    features   (B, H, W, C)   input channels
+    cart       (B, H, W, 3)   per-pixel Cartesian returns
+    mask       (B, H, W)      bool validity
+    boxes      (B, K, 7)      padded cuboids (x, y, z, l, w, h, yaw)
+    box_valid  (B, K)         bool
+    box_task   (B, K)         int32 task id
+    box_offset (B, K)         int32 category offset within the task
 """
 
 from __future__ import annotations
@@ -21,23 +27,34 @@ from range_view_3d_detection_torch.models.heads import (
     DetectionHead,
 )
 from range_view_3d_detection_torch.models.stems import MetaKernel
+from range_view_3d_detection_torch.ops import assignment, losses
+from range_view_3d_detection_torch.ops import targets as targets_ops
 
 
 @dataclasses.dataclass(frozen=True)
 class TargetsConfig:
-    """The part of the JAX ``TargetsConfig`` the eval forward reads."""
+    """The JAX ``TargetsConfig`` (``conf/model/range_view.yaml``
+    ``targets_config``)."""
 
+    enable_azimuth_invariant_targets: bool = True
     fpn_assignment_method: str | None = None
     range_partitions: Tuple[Tuple[int, Tuple[float, float]], ...] = (
         (1, (0.0, float("inf"))),
     )
+    point_intervals: Tuple[Tuple[int, Tuple[float, float]], ...] = ()
+    affinity_fn: str = "GAUSSIAN"
+    sigma: float = 0.75
+    normalize_affinities: bool = False
+    k: float = float("inf")
 
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """Static configuration of the detector: the fields of the JAX
-    ``DetectorConfig`` that the eval forward reads (the loss, target and
-    rematerialisation fields come with the training slice)."""
+    """Static configuration of the detector (the JAX ``DetectorConfig``).
+
+    ``remat`` is accepted so that a JAX configuration carries over, but
+    ``remat=True`` raises: rematerialisation is not ported (ROADMAP).
+    """
 
     tasks: Tuple[Tuple[int, Tuple[str, ...]], ...]
     in_channels: int = 5
@@ -54,8 +71,17 @@ class DetectorConfig:
     num_classification_blocks: int = 4
     num_regression_blocks: int = 4
     final_kernel_size: int = 1
+    classification_weight: float = 1.0
+    regression_weight: float = 1.0
+    coding_weights: Tuple[float, ...] = (1.0,) * 8
+    additive_smoothing: float = 1.0
+    vfl_alpha: float = 0.75
+    vfl_gamma: float = 2.0
     targets: TargetsConfig = TargetsConfig()
+    max_boxes: int = 256
     dtype: str = "bfloat16"
+    remat: bool = False
+    remat_scope: Tuple[str, ...] = ("stem", "stages", "heads", "loss")
     # The META eval stem through the fused kernel (K1, fp32 sum of the nine
     # neighbours), as the JAX ``stem_pallas`` picks its Pallas kernel; False
     # takes the accumulate path (bf16 terms summed in the compute dtype).
@@ -75,12 +101,14 @@ class DetectorConfig:
 
 
 class Detector(nn.Module):
-    """Backbone + multi-scale detection head, eval forward.
+    """Backbone + multi-scale detection head.
 
     Built on ``device`` (``"cuda"`` unless the caller asks for the CPU)
     with weights drawn from ``generator`` (a CPU ``torch.Generator``, so a
     seed gives the same weights on every device); load trained or
-    transplanted weights with ``load_state_dict``.
+    transplanted weights with ``load_state_dict``. It starts in eval
+    mode; ``train()`` gives the train forward (batch-statistics
+    BatchNorm, the stem's stacked path).
     """
 
     def __init__(
@@ -90,6 +118,11 @@ class Detector(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        if config.remat:
+            raise NotImplementedError(
+                "DetectorConfig.remat: rematerialisation is not ported "
+                "(ROADMAP.md Queue 1, after the Trainer)"
+            )
         self.config = config
         dt = config.compute_dtype
         ms_channels = out_channels(config.layers)
@@ -125,8 +158,6 @@ class Detector(nn.Module):
     def forward(
         self, features: torch.Tensor, cart: torch.Tensor, mask: torch.Tensor
     ) -> Dict[str, Any]:
-        if self.training:
-            raise NotImplementedError("the detector's train forward is not ported")
         # (B, H, W, C) -> NCHW view with channels_last strides: no copy.
         multiscale = self.RangeNet_0(features.permute(0, 3, 1, 2), cart)
         head = self.DetectionHead_0(multiscale)
@@ -151,12 +182,169 @@ def strided_views(
     return strided
 
 
+def compute_batch_targets(
+    batch: Dict[str, torch.Tensor], cfg: DetectorConfig
+) -> Dict[int, Dict[int, targets_ops.StrideTargets]]:
+    """Geometric targets of a batch (independent of the parameters)."""
+    tc = cfg.targets
+    return targets_ops.compute_targets(
+        batch["cart"],
+        batch["mask"],
+        batch["boxes"],
+        batch["box_valid"],
+        batch["box_task"],
+        batch["box_offset"],
+        tasks=cfg.tasks_dict,
+        fpn_strides=cfg.fpn_strides,
+        azimuth_invariant=tc.enable_azimuth_invariant_targets,
+        fpn_assignment_method=tc.fpn_assignment_method,
+        range_partitions=dict(tc.range_partitions),
+        point_intervals=dict(tc.point_intervals),
+    )
+
+
+_AGG_KEYS = (
+    "classification_loss",
+    "foreground_loss",
+    "background_loss",
+    "regression_loss",
+    "coordinate_loss",
+    "dimension_loss",
+    "rotation_loss",
+)
+
+
+def detection_loss(
+    outputs: Dict[str, Any],
+    batch: Dict[str, torch.Tensor],
+    cfg: DetectorConfig,
+    tgts: Dict[int, Dict[int, targets_ops.StrideTargets]] | None = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total training loss and its metrics, as the JAX ``detection_loss``.
+
+    Classification is normalised by the foreground count (plus the
+    additive smoothing) over every stride and task; regression by the
+    count of resolved objects, each pixel weighted by ``1 / (points_per_obj
+    + smoothing)``.
+    """
+    tasks = cfg.tasks_dict
+    strides = cfg.fpn_strides
+    tc = cfg.targets
+    if tgts is None:
+        tgts = compute_batch_targets(batch, cfg)
+    device = batch["cart"].device
+
+    total_objects = torch.zeros((), dtype=torch.float32, device=device)
+    for stride in strides:
+        for task_id in tasks:
+            total_objects = total_objects + tgts[stride][task_id].num_objects.sum()
+    total_objects = torch.clamp_min(total_objects, 1.0)
+
+    cls_targets: Dict[int, Dict[int, assignment.ClassificationTargets]] = {}
+    total_fg = torch.full((), cfg.additive_smoothing, dtype=torch.float32, device=device)
+    for stride in strides:
+        cart_s = outputs["strided"][stride]["cart"]
+        mask_s = outputs["strided"][stride]["mask"]
+        cls_targets[stride] = {}
+        for task_id, cats in tasks.items():
+            t = tgts[stride][task_id]
+            ct = assignment.compute_classification_targets(
+                outputs["head"][stride][task_id]["regressands"],
+                t.regression_targets,
+                t.labels,
+                t.winner_index,
+                cart_s,
+                mask_s,
+                num_categories=len(cats),
+                affinity_fn=tc.affinity_fn,
+                sigma=tc.sigma,
+                k=tc.k,
+                normalize_affinities=tc.normalize_affinities,
+                azimuth_invariant=tc.enable_azimuth_invariant_targets,
+                max_boxes=cfg.max_boxes,
+            )
+            cls_targets[stride][task_id] = ct
+            total_fg = total_fg + ct.foreground_mask.sum()
+
+    coding_w = torch.tensor(cfg.coding_weights, dtype=torch.float32, device=device)
+    num_coding = coding_w.shape[0]
+    metrics: Dict[str, torch.Tensor] = {}
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    agg = dict.fromkeys(_AGG_KEYS, 0.0)
+    for stride in strides:
+        mask_s = outputs["strided"][stride]["mask"].float()
+        s_cls = s_reg = 0.0
+        for task_id in tasks:
+            out = outputs["head"][stride][task_id]
+            t = tgts[stride][task_id]
+            ct = cls_targets[stride][task_id]
+
+            vfl = (
+                losses.varifocal_loss(
+                    out["logits"], ct.affinities, alpha=cfg.vfl_alpha, gamma=cfg.vfl_gamma
+                )
+                * cfg.classification_weight
+                * mask_s[..., None]
+            ) / total_fg
+            fg = ct.foreground_mask.float()[..., None]
+            bg = ct.background_mask.float()[..., None]
+            cls_loss = vfl.sum()
+            fg_loss = (vfl * fg).sum()
+            bg_loss = (vfl * bg).sum()
+
+            per_obj_norm = 1.0 / (t.points_per_obj.float() + cfg.additive_smoothing)
+            reg_elem = (
+                losses.l1_loss(out["regressands"], t.regression_targets)
+                * cfg.regression_weight
+                * ct.regression_weights.float()[..., None]
+                * per_obj_norm[..., None]
+                * mask_s[..., None]
+                * coding_w
+                / num_coding
+            ) / total_objects
+            coord = reg_elem[..., 0:3].sum()
+            dim = reg_elem[..., 3:6].sum()
+            rot = reg_elem[..., 6:8].sum()
+            reg_loss = coord + dim + rot
+
+            total = total + (cls_loss + reg_loss)
+            s_cls = s_cls + cls_loss
+            s_reg = s_reg + reg_loss
+            for key, value in zip(
+                _AGG_KEYS, (cls_loss, fg_loss, bg_loss, reg_loss, coord, dim, rot)
+            ):
+                agg[key] = agg[key] + value
+        metrics[f"classification_loss/s{stride}"] = torch.as_tensor(s_cls)
+        metrics[f"regression_loss/s{stride}"] = torch.as_tensor(s_reg)
+
+    metrics.update({k: torch.as_tensor(v) for k, v in agg.items()})
+    metrics["loss"] = total
+    metrics["total_fg"] = total_fg
+    metrics["total_objects"] = total_objects
+    return total, metrics
+
+
+# Standard deviation of a unit normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: a normal truncated at two standard deviations,
+    scaled so that the sample's standard deviation is ``1 / sqrt(fan_in)``
+    (sigma = ``1 / sqrt(fan_in) / 0.87962566``), drawn on the CPU."""
+    sigma = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+    w = torch.empty(t.shape)
+    nn.init.trunc_normal_(w, 0.0, sigma, -2.0 * sigma, 2.0 * sigma, generator=generator)
+    t.copy_(w)
+
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Fresh weights in the JAX package's init scheme, drawn on the CPU
-    from ``generator``: lecun-normal convs and stem kernels, identity
-    BatchNorms, normal(0.01) head convs, the focal-prior bias on each
-    classification head's final conv."""
+    from ``generator``: lecun-normal (truncated) convs and stem kernels,
+    identity BatchNorms, normal(0.01) head convs, the focal-prior bias on
+    each classification head's final conv."""
 
     def normal_(t: torch.Tensor, std: float) -> None:
         t.copy_(torch.randn(t.shape, generator=generator) * std)
@@ -165,20 +353,20 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
         elif isinstance(m, nn.ConvTranspose2d):
-            normal_(m.weight, 1.0 / math.sqrt(m.weight[:, 0].numel()))
+            lecun_normal_(m.weight, m.weight[:, 0].numel(), generator)
         elif isinstance(m, nn.Conv2d):
-            normal_(m.weight, 1.0 / math.sqrt(m.weight[0].numel()))
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, MetaKernel):
             for i in range(m.num_layers):
                 w = getattr(m, f"pos_{i}_conv_kernel")
-                normal_(w, 1.0 / math.sqrt(w.shape[0]))
+                lecun_normal_(w, w.shape[0], generator)
                 getattr(m, f"pos_{i}_bn_scale").fill_(1.0)
                 getattr(m, f"pos_{i}_bn_bias").zero_()
                 getattr(m, f"pos_{i}_bn_mean").zero_()
                 getattr(m, f"pos_{i}_bn_var").fill_(1.0)
-            normal_(m.fusion1_kernel, 1.0 / math.sqrt(m.fusion1_kernel.shape[1]))
+            lecun_normal_(m.fusion1_kernel, m.fusion1_kernel.shape[1], generator)
     prior = -math.log((1.0 - FOCAL_PRIOR_PROB) / FOCAL_PRIOR_PROB)
     for name, m in model.named_modules():
         if isinstance(m, DenseHead):

@@ -9,9 +9,13 @@ nine neighbours' terms in the compute dtype. After ``quantize_stem`` it
 goes through the int8 kernel (``meta_kernel_fused_i8``, K4) instead;
 while the model is calibrated (``models/quantized.py::calibrate_scales``)
 it takes the accumulate path, which records the absmax of ``hh`` and
-``p * feats``, as the JAX package does. The stacked train path
-(batch-statistics BatchNorm over all neighbours) and ``RangePartition``
-are not ported yet; the BASIC stem is a
+``p * feats``, as the JAX package does.
+
+In train mode (and in eval with ``inference_accumulate=False``) it takes
+the JAX stacked path: the nine neighbours ride the batch axis through the
+positional MLP, whose BatchNorms pool over (B*9, H, W) in train mode, and
+``geo`` is one einsum over the stacked neighbours. ``RangePartition`` is
+not ported yet; the BASIC stem is a
 :class:`~range_view_3d_detection_torch.models.blocks.BasicBlock`.
 """
 
@@ -29,6 +33,7 @@ from range_view_3d_detection_torch.models.blocks import (
     BasicBlock,
     BatchNorm,
     ConvNormAct,
+    refuse_quantized_training,
 )
 from range_view_3d_detection_torch.models.quantized import (
     INT8_MAX,
@@ -37,11 +42,26 @@ from range_view_3d_detection_torch.models.quantized import (
 )
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
 _I8_BUFFERS = ("i8_w1", "i8_k", "i8_a0", "i8_b0", "i8_a1", "i8_b1", "i8_kdq")
 
 
+def extract_neighbors(x: torch.Tensor, num_neighbors: int) -> torch.Tensor:
+    """``(B, H, W, C)`` -> ``(B, n*n, H, W, C)`` zero-padded neighbourhoods,
+    row-major over (dy, dx), so the centre sits at ``n*n // 2``."""
+    pad = num_neighbors // 2
+    H, W = x.shape[1:3]
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    views = [
+        xp[:, dy : dy + H, dx : dx + W]
+        for dy in range(num_neighbors)
+        for dx in range(num_neighbors)
+    ]
+    return torch.stack(views, dim=1)
+
+
 class MetaKernel(nn.Module):
-    """RangeDet-style meta-kernel stem, eval path.
+    """RangeDet-style meta-kernel stem.
 
     Parameters keep the flax layout: the pos-MLP kernels are (I, O) matmul
     weights with explicit BatchNorm tensors (``pos_{i}_bn_scale/bias``
@@ -56,6 +76,7 @@ class MetaKernel(nn.Module):
         num_neighbors: int = 3,
         num_layers: int = 2,
         use_fused_kernel: bool = False,
+        inference_accumulate: bool = True,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -68,6 +89,7 @@ class MetaKernel(nn.Module):
         self.dtype = dtype
         self.num_layers = num_layers
         self.use_fused_kernel = use_fused_kernel
+        self.inference_accumulate = inference_accumulate
         self.BasicBlock_0 = BasicBlock(
             in_channels, C, kernel_size=(1, 1), project=True, dtype=dtype
         )
@@ -142,12 +164,44 @@ class MetaKernel(nn.Module):
         self.i8_kdq = s_pf * k_s
 
     def _pos_bn(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """Eval BN_i in the JAX accumulate path's form, fp32."""
+        """BN_i of the positional MLP in the JAX form, fp32, channel-last.
+
+        In train mode it normalises with the batch statistics over every
+        axis but the last, ``E[x^2] - m^2`` unclamped as in the JAX stem,
+        and moves the running statistics to ``0.9 r + 0.1 batch``.
+        """
         scale = getattr(self, f"pos_{i}_bn_scale")
         bias = getattr(self, f"pos_{i}_bn_bias")
         mean = getattr(self, f"pos_{i}_bn_mean")
         var = getattr(self, f"pos_{i}_bn_var")
-        return (x.float() - mean) * torch.rsqrt(var + BN_EPS) * scale + bias
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            m = xf.mean(dim=axes)
+            v = (xf * xf).mean(dim=axes) - m * m
+            with torch.no_grad():
+                mean.copy_(BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * m)
+                var.copy_(BN_MOMENTUM * var + (1 - BN_MOMENTUM) * v)
+            mean, var = m, v
+        return (xf - mean) * torch.rsqrt(var + BN_EPS) * scale + bias
+
+    def _stacked(self, feats: torch.Tensor, cart: torch.Tensor) -> torch.Tensor:
+        """The JAX stacked path (``stems.py:232-262``): ``geo`` (B, H, W, C)
+        in the compute dtype. The neighbours fold into the batch for the
+        positional MLP; a neighbour outside the image has coordinates 0."""
+        dt = self.dtype
+        B, H, W, C = feats.shape
+        cart = cart.to(dt)
+        neighbors = extract_neighbors(feats, 3)  # (B, 9, H, W, C)
+        rel = extract_neighbors(cart, 3) - cart[:, None]  # (B, 9, H, W, 3)
+        pos = rel.reshape(B * 9, H, W, 3) @ self.pos_0_conv_kernel.to(dt)
+        pos = torch.relu(self._pos_bn(pos, 0).to(dt))
+        pos = pos @ self.pos_1_conv_kernel.to(dt)
+        pos = torch.relu(self._pos_bn(pos, 1).to(dt))
+        pos = pos.reshape(B, 9, H, W, C)
+        return torch.einsum(
+            "bnhwc,nco->bhwo", pos * neighbors, self.fusion1_kernel.to(dt)
+        )
 
     def _accumulate(self, g: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
         """The JAX eval accumulate path (``stems.py:353-395``), recording
@@ -173,6 +227,29 @@ class MetaKernel(nn.Module):
                 geo = term if geo is None else geo + term
         return geo
 
+    def _eval_geo(self, feats: torch.Tensor, cart: torch.Tensor) -> torch.Tensor:
+        """``geo`` of the eval paths: the accumulate path while calibrating,
+        K4 after ``quantize_stem``, K1 with ``use_fused_kernel``, else the
+        accumulate path."""
+        dt = self.dtype
+        # conv0 is linear and bias-free: pos0(rel_n) = shift_n(g) - g.
+        g = cart.to(dt) @ self.pos_0_conv_kernel.to(dt)
+        if self.calib_sink is not None:
+            return self._accumulate(g, feats)
+        if self.i8_w1 is not None:
+            return meta_kernel_fused_i8(
+                g, feats, self.i8_w1, self.i8_k, self.i8_a0, self.i8_b0,
+                self.i8_a1, self.i8_b1, self.i8_kdq,
+            )
+        if self.use_fused_kernel:
+            a0, b0 = self.bn_eval_affine(0)
+            a1, b1 = self.bn_eval_affine(1)
+            return meta_kernel_fused(
+                g, feats, self.pos_1_conv_kernel.to(dt), self.fusion1_kernel.to(dt),
+                a0, b0, a1, b1,
+            )
+        return self._accumulate(g, feats)
+
     def bn_eval_affine(self, i: int):
         """(a, b) fp32 with eval BN_i(x) == a * x + b."""
         scale = getattr(self, f"pos_{i}_bn_scale")
@@ -184,33 +261,14 @@ class MetaKernel(nn.Module):
 
     def forward(self, features: torch.Tensor, cart: torch.Tensor) -> torch.Tensor:
         """``features`` NCHW, ``cart`` (B, H, W, 3) -> NCHW stem output."""
-        if self.training:
-            raise NotImplementedError(
-                "MetaKernel's train path (stacked neighbours) is not ported"
-            )
         dt = self.dtype
+        if self.stem_scales is not None or self.calib_sink is not None:
+            refuse_quantized_training(self)
         feats = self.BasicBlock_0(features).permute(0, 2, 3, 1)  # NHWC
-        # conv0 is linear and bias-free: pos0(rel_n) = shift_n(g) - g.
-        g = cart.to(dt) @ self.pos_0_conv_kernel.to(dt)
-        if self.calib_sink is not None:
-            geo = self._accumulate(g, feats)
-        elif self.i8_w1 is not None:
-            geo = meta_kernel_fused_i8(
-                g, feats, self.i8_w1, self.i8_k, self.i8_a0, self.i8_b0,
-                self.i8_a1, self.i8_b1, self.i8_kdq,
-            )
-        elif self.use_fused_kernel:
-            a0, b0 = self.bn_eval_affine(0)
-            a1, b1 = self.bn_eval_affine(1)
-            geo = meta_kernel_fused(
-                g,
-                feats,
-                self.pos_1_conv_kernel.to(dt),
-                self.fusion1_kernel.to(dt),
-                a0, b0, a1, b1,
-            )
+        if self.training or not self.inference_accumulate:
+            geo = self._stacked(feats, cart)
         else:
-            geo = self._accumulate(g, feats)
+            geo = self._eval_geo(feats, cart)
         geo = geo.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         geo = self.fusion1_bn(geo, dt, act=True)
         for i in range(1, self.num_layers):

@@ -1,4 +1,5 @@
-"""Rotated-BEV IoU (counterpart of the JAX ``ops/iou.py``), plain fp32 ops.
+"""Rotated-BEV IoU (counterpart of the JAX ``ops/iou.py``), plain fp32 ops:
+the pairwise matrix NMS takes and the aligned IoU the BEV affinity takes.
 
 Order-free clipping: the boundary of the intersection of two rotated
 rectangles is the parts of A's edges inside B plus the parts of B's edges
@@ -89,5 +90,20 @@ def iou_rotated_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tenso
     area_a = boxes_a[..., 2] * boxes_a[..., 3]
     area_b = boxes_b[..., 2] * boxes_b[..., 3]
     union = area_a[..., :, None] + area_b[..., None, :] - inter
+    iou = inter / union.clamp_min(_EPS)
+    return torch.nan_to_num(iou).clamp(0.0, 1.0)
+
+
+def _bev5(cuboids: torch.Tensor) -> torch.Tensor:
+    """``(..., 7+)`` cuboids -> ``(..., 5)`` BEV boxes (x, y, l, w, yaw)."""
+    return cuboids[..., [0, 1, 3, 4, 6]]
+
+
+def iou_rotated_bev_aligned(cuboids_a: torch.Tensor, cuboids_b: torch.Tensor) -> torch.Tensor:
+    """Elementwise (aligned) rotated-BEV IoU of cuboid pairs ``(..., 7)``."""
+    a = _bev5(cuboids_a)
+    b = _bev5(cuboids_b)
+    inter = rotated_rect_intersection_area(a, b)
+    union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
     iou = inter / union.clamp_min(_EPS)
     return torch.nan_to_num(iou).clamp(0.0, 1.0)

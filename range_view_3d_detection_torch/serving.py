@@ -1,14 +1,16 @@
-"""Serving entry point: the flagship configuration, sample inputs, and a
-``Predictor`` that answers requests with forward -> decode -> NMS, in the
-compute dtype or, after ``Predictor.quantize``, on the int8 PTQ path.
+"""Serving entry point: the flagship configuration, sample inputs, a
+training batch, and a ``Predictor`` that answers requests with forward
+-> decode -> NMS, in the compute dtype or, after ``Predictor.quantize``,
+on the int8 PTQ path.
 
-``_flagship_config`` and ``_sample_inputs`` are the port's own copies of
-the JAX package's ``__graft_entry__.py`` helpers (numpy only).
+``_flagship_config``, ``_sample_inputs`` and ``_dryrun_batch`` are the
+port's own copies of the JAX package's ``__graft_entry__.py`` helpers
+(numpy only).
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ def _flagship_config(tiny: bool = False) -> DetectorConfig:
             regression_head_channels=8,
             num_classification_blocks=1,
             num_regression_blocks=1,
+            max_boxes=8,
             dtype="float32",
         )
     cats = tuple(f"C{i}" for i in range(26))
@@ -50,6 +53,7 @@ def _flagship_config(tiny: bool = False) -> DetectorConfig:
         fpn_kernel_sizes=((1, (3, 3)),),
         classification_head_channels=512,
         regression_head_channels=512,
+        max_boxes=256,
         dtype="bfloat16",
         stem_pallas=True,  # the fused eval stem (K1)
     )
@@ -76,6 +80,28 @@ def _sample_inputs(
     )
     mask = r > 6.0
     return feats, cart, mask
+
+
+def _dryrun_batch(
+    cfg: DetectorConfig, B: int, H: int, W: int, C: int, seed: int = 1
+) -> Dict[str, np.ndarray]:
+    """A training batch: ``_sample_inputs`` plus two 4 m boxes an image at
+    the return of pixel (H/2, W/8), in ``cfg.max_boxes`` padded slots."""
+    rng = np.random.default_rng(seed)
+    feats, cart, mask = _sample_inputs(B, H, W, C, seed=seed)
+    K = cfg.max_boxes
+    boxes = np.zeros((B, K, 7), np.float32)
+    boxes[:, :2, :3] = cart[:, H // 2, W // 8][:, None, :]
+    boxes[:, :2, 3:6] = 4.0
+    return {
+        "features": feats,
+        "cart": cart,
+        "mask": mask,
+        "boxes": boxes,
+        "box_valid": np.asarray([[True, True] + [False] * (K - 2)] * B),
+        "box_task": np.zeros((B, K), np.int32),
+        "box_offset": rng.integers(0, 2, (B, K)).astype(np.int32),
+    }
 
 
 class Predictor:

@@ -1,0 +1,162 @@
+"""Train state and the train, eval and val steps (counterpart of the JAX
+``training/state.py``).
+
+The JAX steps are pure jitted functions over an immutable ``TrainState``;
+here the state holds the model (parameters and BatchNorm statistics) and
+its optimizer, and a step updates them in place and returns the state.
+Steps take a batch of numpy arrays or tensors in the layout of
+``models/detector.py`` and move it to the model's device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Mapping, Tuple
+
+import torch
+
+from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
+from range_view_3d_detection_torch.models.detector import (
+    Detector,
+    DetectorConfig,
+    compute_batch_targets,
+    detection_loss,
+)
+from range_view_3d_detection_torch.training.optim import (
+    Optimizer,
+    OptimizerSpec,
+    global_norm,
+)
+
+_BATCH_DTYPES = {
+    "features": torch.float32,
+    "cart": torch.float32,
+    "mask": torch.bool,
+    "boxes": torch.float32,
+    "box_valid": torch.bool,
+    "box_task": torch.int32,
+    "box_offset": torch.int32,
+}
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: Detector
+    opt: Optimizer
+
+
+def create_state(
+    config: DetectorConfig,
+    tx: OptimizerSpec,
+    *,
+    device: str | torch.device = "cuda",
+    generator: torch.Generator | None = None,
+) -> TrainState:
+    """A fresh state on ``device`` (``"cuda"`` unless the caller asks for
+    the CPU), weights drawn from ``generator``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "create_state: no CUDA device on this host; pass device='cpu' "
+            "to train on the CPU"
+        )
+    model = Detector(config, device=device, generator=generator)
+    return TrainState(step=0, model=model, opt=tx.init(model.parameters()))
+
+
+def batch_to_device(
+    batch: Mapping[str, Any], device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as tensors of the layout's dtypes on ``device``."""
+    return {
+        k: torch.as_tensor(v, dtype=_BATCH_DTYPES[k], device=device)
+        for k, v in batch.items()
+        if k in _BATCH_DTYPES
+    }
+
+
+def _device(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
+
+
+def make_train_step(config: DetectorConfig, *, quant_tree: Any = None):
+    """The train step: ``train_step(state, batch) -> (state, metrics)``.
+
+    Targets are computed without gradients before the forward; the loss
+    is differentiated by autograd, and ``state.opt`` applies the update
+    (or accumulates). ``metrics`` holds every key of ``detection_loss``
+    and ``grad_norm``, the micro-batch gradients' global norm, as 0-d
+    tensors on the device. ``mark``, when given, is called with
+    "targets", "forward", "loss", "backward" and "optimizer" as each part
+    ends (``chip_smoke.py`` records a CUDA event there); ``grads_out``, a
+    list, receives the micro-batch gradients in ``state.opt.params`` order.
+
+    ``quant_tree`` (the JAX step's QAT forward) raises: QAT is not ported
+    (ROADMAP Queue 1). The optimizer lives in the state, so the step takes
+    no ``tx``; the JAX ``state_shardings`` (multi-device) is not taken.
+    """
+    if quant_tree is not None:
+        raise NotImplementedError(
+            "make_train_step(quant_tree=...): QAT is not ported; see ROADMAP.md Queue 1"
+        )
+
+    def train_step(
+        state: TrainState,
+        batch: Mapping[str, Any],
+        mark: Callable[[str], None] | None = None,
+        grads_out: List[torch.Tensor] | None = None,
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        mark = mark or (lambda name: None)
+        model = state.model.train()
+        b = batch_to_device(batch, _device(state))
+        with torch.no_grad():
+            tgts = compute_batch_targets(b, config)
+        mark("targets")
+        outputs = model(b["features"], b["cart"], b["mask"])
+        mark("forward")
+        loss, metrics = detection_loss(outputs, b, config, tgts=tgts)
+        mark("loss")
+        grads = torch.autograd.grad(loss, state.opt.params)
+        mark("backward")
+        metrics["grad_norm"] = global_norm(grads)
+        if grads_out is not None:
+            grads_out.extend(grads)
+        state.opt.apply(grads)
+        mark("optimizer")
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_eval_step(
+    config: DetectorConfig, decoder_config: DecoderConfig, *, use_nms: bool = True
+):
+    """Eval forward (running BatchNorm statistics) + decode (+ NMS)."""
+
+    def eval_step(state: TrainState, batch: Mapping[str, Any]):
+        model = state.model.eval()
+        with torch.inference_mode():
+            b = batch_to_device(batch, _device(state))
+            outputs = model(b["features"], b["cart"], b["mask"])
+            return decode(outputs, decoder_config, config.tasks_dict, use_nms=use_nms)
+
+    return eval_step
+
+
+def make_val_step(
+    config: DetectorConfig, decoder_config: DecoderConfig, *, use_nms: bool = True
+):
+    """Eval forward, its loss metrics (``val/`` keys) and the decode."""
+
+    def val_step(state: TrainState, batch: Mapping[str, Any]):
+        model = state.model.eval()
+        with torch.inference_mode():
+            b = batch_to_device(batch, _device(state))
+            outputs = model(b["features"], b["cart"], b["mask"])
+            _, metrics = detection_loss(outputs, b, config)
+            result = decode(outputs, decoder_config, config.tasks_dict, use_nms=use_nms)
+        return result, {f"val/{k}": v for k, v in metrics.items()}
+
+    return val_step

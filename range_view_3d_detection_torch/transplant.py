@@ -14,6 +14,13 @@ Conversions:
 
 Inputs are nested mappings of array-likes (numpy), as
 ``jax.device_get(variables)`` gives them; nothing here imports JAX.
+
+The optimizer's state carries over too (:func:`load_optax_state`,
+:func:`optax_state_of`): optax ``adamw``'s ``mu``/``nu`` (params-shaped
+trees, converted as the params are) and ``count``, and ``MultiSteps``'
+``acc_grads``, ``mini_step`` and ``gradient_step``, into the port's
+``training.optim.Optimizer`` and back. Gradients compare in the flax
+layout through :func:`state_dict_to_flax` of ``{name: grad}``.
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ def state_dict_to_flax(
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        x = t.detach().cpu().float().numpy()
+        x = t.detach().cpu().float().numpy().copy()  # not a view of the tensor
         if leaf in inverse_stats:
             put(stats, mods, inverse_stats[leaf], x)
         elif leaf.endswith(("_bn_mean", "_bn_var")):
@@ -101,3 +108,65 @@ def load_flax_variables(
     """Load flax variables into ``module`` (strict: every key must match)."""
     module.load_state_dict(flax_to_state_dict(params, batch_stats), strict=True)
     return module
+
+
+def _params_tree_to_tensors(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return flax_to_state_dict(tree, {})
+
+
+def load_optax_state(
+    model: nn.Module,
+    opt: Any,
+    *,
+    mu: Mapping[str, Any],
+    nu: Mapping[str, Any],
+    count: int,
+    acc_grads: Mapping[str, Any] | None = None,
+    mini_step: int = 0,
+    gradient_step: int | None = None,
+) -> None:
+    """Set ``opt`` (the port's ``Optimizer`` over ``model``'s parameters)
+    to an optax state: AdamW's moments and count, and with accumulation
+    the running mean of the micro-gradients and its position.
+    ``gradient_step`` (applied updates, the schedule's count) defaults to
+    ``count``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    mu_t, nu_t = _params_tree_to_tensors(mu), _params_tree_to_tensors(nu)
+    for p in opt.params:
+        name = names[id(p)]
+        opt.adamw.state[p] = {
+            "step": torch.tensor(float(count)),
+            # Copies: the tensors would otherwise share the callers' arrays.
+            "exp_avg": mu_t[name].to(p.device, copy=True),
+            "exp_avg_sq": nu_t[name].to(p.device, copy=True),
+        }
+    opt.updates = int(count if gradient_step is None else gradient_step)
+    opt.mini_step = int(mini_step)
+    if acc_grads is not None:
+        acc_t = _params_tree_to_tensors(acc_grads)
+        for a, p in zip(opt.acc, opt.params):
+            a.copy_(acc_t[names[id(p)]])
+
+
+def optax_state_of(model: nn.Module, opt: Any) -> Dict[str, Any]:
+    """The inverse of :func:`load_optax_state`: ``mu``, ``nu`` (flax
+    params-shaped numpy trees), ``count``, ``gradient_step``,
+    ``mini_step`` and ``acc_grads`` (None without accumulation)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def tree(tensors):
+        return state_dict_to_flax(
+            {names[id(p)]: t for p, t in zip(opt.params, tensors)}
+        )[0]
+
+    states = [opt.adamw.state.get(p, {}) for p in opt.params]
+    zeros = [torch.zeros_like(p) for p in opt.params]
+    count = int(states[0]["step"]) if states[0] else 0
+    return {
+        "mu": tree([s.get("exp_avg", z) for s, z in zip(states, zeros)]),
+        "nu": tree([s.get("exp_avg_sq", z) for s, z in zip(states, zeros)]),
+        "count": count,
+        "gradient_step": opt.updates,
+        "mini_step": opt.mini_step,
+        "acc_grads": None if opt.acc is None else tree(opt.acc),
+    }

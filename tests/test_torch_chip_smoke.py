@@ -17,6 +17,9 @@
 - The BN epilogue's fused multiply-add reference (``check_addcmul_fma``)
   accepts a fused ``addcmul`` and refuses a multiply and an add rounded
   apart.
+- The training phases' batch (``flagship_train_batch``) has what it is
+  named for, and the card-against-CPU step check (``train_card_vs_cpu``)
+  passes when both sides are the CPU (tiny config).
 """
 
 from __future__ import annotations
@@ -154,3 +157,26 @@ def test_addcmul_fma_reference(monkeypatch):
     monkeypatch.setattr(torch, "addcmul", lambda b, d, m: d * m + b)
     with pytest.raises(RuntimeError, match="not one fused multiply-add"):
         chip_smoke.check_addcmul_fma("cpu", gen, n=1 << 16)
+
+
+def test_flagship_train_batch():
+    from range_view_3d_detection_torch import serving
+
+    cfg = serving._flagship_config()
+    b = chip_smoke.flagship_train_batch(cfg, 2, 8, 256, seed=3, n_boxes=64)
+    assert b["boxes"].shape == (2, 256, 7) and b["box_valid"].sum(-1).tolist() == [64, 64]
+    valid = b["boxes"][b["box_valid"]]
+    assert (valid[:, 3:6] >= 0.5).all() and (valid[:, 3:6] <= 6.0).all()
+    assert (np.abs(valid[:, 6]) <= np.pi).all()
+    assert b["box_offset"].min() >= 0 and b["box_offset"].max() < 26
+    for i in range(2):  # each centre is the return of a valid pixel
+        ctr = b["boxes"][i, :64, None, :3]
+        hit = (b["cart"][i][b["mask"][i]][None] == ctr).all(-1).any(-1)
+        assert hit.all()
+
+
+def test_train_card_vs_cpu_on_the_cpu(capsys):
+    from range_view_3d_detection_torch import serving
+
+    chip_smoke.train_card_vs_cpu(serving._flagship_config(tiny=True), "cpu")
+    assert "train card vs CPU" in capsys.readouterr().out

@@ -1,8 +1,10 @@
 """Rules of the PyTorch port, checked on the CPU.
 
 - Every port module, ``chip_smoke.py``, ``chip_probe_k1.py`` and
-  ``chip_probe_k4.py`` import with JAX and the JAX package made
-  unimportable.
+  ``chip_probe_k4.py`` import with JAX, flax, optax, orbax and the JAX
+  package made unimportable, and the training modules are among them.
+- What the port does not do raises instead of running something else:
+  ``make_train_step(quant_tree=...)`` (QAT) and ``remat=True``.
 - Entry points default to the card: on a host without a CUDA device,
   ``Predictor`` with its default device and ``python chip_smoke.py`` fail
   loudly instead of running on the CPU.
@@ -50,17 +52,21 @@ def test_port_imports_without_jax():
     assert "range_view_3d_detection_torch.kernels.stem" in modules
     assert "range_view_3d_detection_torch.kernels.conv" in modules
     assert "range_view_3d_detection_torch.models.quantized" in modules
+    for name in ("geometry", "targets", "assignment", "losses"):
+        assert f"range_view_3d_detection_torch.ops.{name}" in modules
+    for name in ("optim", "state", "checkpoints"):
+        assert f"range_view_3d_detection_torch.training.{name}" in modules
     code = "\n".join(
         [
             "import importlib, sys",
-            "sys.modules['jax'] = None",
-            "sys.modules['range_view_3d_detection_tpu'] = None",
+            "for banned in ('jax', 'flax', 'optax', 'orbax', 'range_view_3d_detection_tpu'):",
+            "    sys.modules[banned] = None",
             f"sys.path.insert(0, {str(REPO)!r})",
             f"for name in {modules!r}:",
             "    importlib.import_module(name)",
             "import chip_smoke, chip_probe_k1, chip_probe_k4",
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'range_view_3d_detection_tpu') "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'range_view_3d_detection_tpu') "
             "and sys.modules[m] is not None]",
             "assert not bad, bad",
             "print('ok')",
@@ -143,3 +149,16 @@ def test_jax_quant_tree_round_trips_through_the_port():
     for path, leaf in want.items():
         assert got[path].dtype == np.float32
         np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
+
+
+def test_unported_training_options_raise():
+    import dataclasses
+
+    from range_view_3d_detection_torch.models.detector import Detector as TDetector
+    from range_view_3d_detection_torch.training import state as tstate
+
+    cfg = serving._flagship_config(tiny=True)
+    with pytest.raises(NotImplementedError, match="QAT"):
+        tstate.make_train_step(cfg, quant_tree={"RangeNet_0": {}})
+    with pytest.raises(NotImplementedError, match="remat"):
+        TDetector(dataclasses.replace(cfg, remat=True), device="cpu")

@@ -151,5 +151,9 @@ def test_meta_kernel_bf16_follows_stem_pallas(stem_pallas, monkeypatch):
 
 
 def test_meta_kernel_refuses_train_mode():
+    """Train mode runs the stacked path (``test_torch_train_step.py``);
+    what it refuses is training a quantized stem (QAT is not ported)."""
+    stem = MetaKernel(5, 8)
+    stem.quantize_stem(1.0, 1.0, use_kernel=False)
     with pytest.raises(NotImplementedError):
-        MetaKernel(5, 8).train()(torch.zeros(1, 5, 2, 4), torch.zeros(1, 2, 4, 3))
+        stem.train()(torch.zeros(1, 5, 2, 4), torch.zeros(1, 2, 4, 3))
