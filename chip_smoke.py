@@ -96,7 +96,27 @@ Phases, each of which raises (non-zero exit) on failure:
     equal bit for bit;
 16. timings: ms a train step (CUDA events, 2 warm-up, median of 7) split
     into targets, forward, loss, backward and optimizer; ms an eval
-    step; a torch.profiler table of one step by kernel.
+    step; a torch.profiler table of one step by kernel;
+17. the Trainer at the flagship: ``generate_dataset`` writes a 64x1800
+    AV2-layout corpus with rv-av2's 26 categories (one train log of 8
+    sweeps, one val log of 4, 24 boxes a sweep) into a temporary
+    directory; ``compose("conf", "rv-av2")`` with the root there, one
+    epoch, B=2 (the one cut: baseline.yaml's B=4 needs remat to fit) and
+    ``train_log_freq`` 2, augmentations on; ``Trainer.fit`` takes 4 steps:
+    finite losses, step 4, its checkpoint restored bit for bit,
+    ``metrics.jsonl`` and the 4 PNGs decode; ``validate()`` must launch
+    K1 and K2 and write one shard per val sweep, read back; the
+    evaluator's ``AVERAGE_METRICS`` finite. Printed: wall ms per step
+    (steps 2-4) beside its device ms (CUDA events), the loader's host ms
+    a batch by stage, ms a validate batch, the evaluator's seconds, peak
+    memory. The launch counts are reset before the fit and read after
+    validate (``trainer_launches`` in the kernels line);
+18. the AV2 debug overfit (``overfit.run("av2", 40)``: the corpus and
+    overrides of ``scripts/debug-overfit.sh``): the mean loss of the last
+    10 steps at most half the first step's, a finite mAP (the gate's
+    source: ``OVERFIT_EPOCHS``); then the int8 PTQ predictor of the same
+    weights (full scope, calibrated on the train batches) must launch K3
+    and K2, and its mAP is printed beside the bf16 one (not gated).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -1270,6 +1290,260 @@ def training_phases(device, smi) -> None:
         f"bf16 on {smi}")
 
 
+def timed_trainer(trainer) -> dict:
+    """Wrap ``trainer``'s step (CUDA events around it, a synchronize after
+    it, the host clock at its end) and its image logging (host clock), so
+    that a step's wall time, less the image logging inside it, splits into
+    device time and the data path's stall. Returns the record lists."""
+    import torch
+
+    rec = {"device_ms": [], "end_s": [], "images_s": [], "losses": []}
+    step, log_images = trainer.train_step, trainer._log_images
+
+    def timed_step(state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        rec["end_s"].append(time.perf_counter())
+        rec["device_ms"].append(start.elapsed_time(end))
+        rec["losses"].append(float(metrics["loss"]))
+        return state, metrics
+
+    def timed_images(*args):
+        t0 = time.perf_counter()
+        log_images(*args)
+        rec["images_s"].append((len(rec["end_s"]), time.perf_counter() - t0))
+
+    trainer.train_step, trainer._log_images = timed_step, timed_images
+    return rec
+
+
+def loader_split(trainer) -> dict:
+    """Host ms a flagship train batch spends in each stage of the data
+    path, serially (the loader's threads hide it behind the step): Feather
+    decode of the sweeps, the rest of ``load_sweep``, the rest of an item
+    (annotations, augmentations, padding), ``collate``, and the copy to
+    the card through pinned memory."""
+    import torch
+
+    from range_view_3d_detection_torch.data.dataset import collate
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    ds, B = trainer.train_ds, trainer.batch_size
+    t = {"feather": 0.0, "load_sweep": 0.0, "item": 0.0, "collate": 0.0, "h2d": 0.0}
+    n_batches = len(ds) // B
+    for b in range(n_batches):
+        items = []
+        for i in range(b * B, (b + 1) * B):
+            log_id, ts = ds.index[i]
+            t0 = time.perf_counter()
+            read_feather(ds.sweep_path(log_id, ts))
+            t1 = time.perf_counter()
+            ds.load_sweep(log_id, ts)
+            t2 = time.perf_counter()
+            items.append(ds[i])
+            t3 = time.perf_counter()
+            t["feather"] += t1 - t0
+            t["load_sweep"] += (t2 - t1) - (t1 - t0)
+            t["item"] += (t3 - t2) - (t2 - t1)
+        t0 = time.perf_counter()
+        batch = collate(items)
+        t1 = time.perf_counter()
+        trainer._to_device(batch)
+        torch.cuda.synchronize()
+        t["collate"] += t1 - t0
+        t["h2d"] += time.perf_counter() - t1
+    return {k: v * 1e3 / n_batches for k, v in t.items()}
+
+
+def trainer_phase(device, smi) -> dict:
+    """Phase 17: the Trainer at the flagship (see the module docstring).
+    Returns the launches of K1 and K2 in its fit and validate."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from range_view_3d_detection_torch.data.synthetic import generate_dataset
+    from range_view_3d_detection_torch.evaluation.av2_eval import evaluate_predictions
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import meta_kernel_fused
+    from range_view_3d_detection_torch.training import state as state_lib
+    from range_view_3d_detection_torch.training.loop import Trainer
+    from range_view_3d_detection_torch.utils.config import compose
+    from range_view_3d_detection_torch.utils.feather import read_feather
+    from range_view_3d_detection_torch.utils.rendering import read_png
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-trainer-"))
+    categories = compose(REPO / "conf", "rv-av2")["model"]["tasks"][0]
+    check(len(categories) == 26, f"rv-av2 has {len(categories)} categories")
+    t0 = time.perf_counter()
+    for split, sweeps, seed in (("train", 8, SEED + 17), ("val", 4, SEED + 18)):
+        generate_dataset(work / "sensor", splits={split: 1}, sweeps_per_log=sweeps,
+                         height=64, width=1800, categories=categories, num_boxes=24,
+                         num_bg_points=60000, seed=seed)
+    gen_s = time.perf_counter() - t0
+    cfg = compose(REPO / "conf", "rv-av2", [
+        f"++dataset.root_dir={work / 'sensor'}", f"++run_dir={work / 'run'}",
+        "++trainer.max_epochs=1", "++model.batch_size=2", "++model.train_log_freq=2",
+    ])
+    trainer = Trainer(cfg)  # the card: the default device
+    check(trainer.device.type == "cuda" and trainer.ckpt is not None,
+          f"trainer on {trainer.device}, checkpoints {trainer.ckpt}")
+    check(trainer.train_ds.cfg.augmentations == cfg["model"]["augmentations_config"]
+          and bool(cfg["model"]["augmentations_config"]), "flagship augmentations off")
+    rec = timed_trainer(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    meta_kernel_fused.launches = 0
+    nms_scan.launches = 0
+    t_fit = time.perf_counter()
+    state = trainer.fit()
+    fit_s = time.perf_counter() - t_fit
+    check(state.step == 4 and len(rec["losses"]) == 4, f"trainer: step {state.step}")
+    check(all(math.isfinite(x) for x in rec["losses"]), f"trainer losses {rec['losses']}")
+    # Wall time of steps 2-4, each less the image logging that ran in it.
+    images = dict(rec["images_s"])
+    walls = [(rec["end_s"][k] - rec["end_s"][k - 1] - images.get(k, 0.0)) * 1e3
+             for k in (1, 2, 3)]
+    device_ms = rec["device_ms"][1:]
+    fit_launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches}
+
+    # Checkpoint written by the fit, restored bit for bit.
+    check(trainer.ckpt.latest_step() == 4, f"checkpoints {trainer.ckpt.steps()}")
+    fresh = state_lib.create_state(trainer.det_cfg, trainer.tx, device=device,
+                                   generator=torch.Generator().manual_seed(SEED + 19))
+    restored, saved_cfg = trainer.ckpt.restore(fresh)
+    want, got = state.model.state_dict(), restored.model.state_dict()
+    check(sorted(want) == sorted(got) and all(torch.equal(want[k], got[k]) for k in want),
+          "trainer checkpoint: a model tensor differs")
+    check(restored.step == 4 and saved_cfg["run_dir"] == cfg["run_dir"],
+          "trainer checkpoint: step or config differs")
+    del fresh, restored
+
+    # Logs and images.
+    run = Path(cfg["run_dir"])
+    lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    check(any(x.get("step") == 1 and "loss" in x for x in lines), "metrics.jsonl: no step 1")
+    shapes = []
+    for kind in ("bev", "range"):
+        pngs = sorted((run / "images").glob(f"{kind}_*.png"))
+        check([p.name for p in pngs] == [f"{kind}_{k:07d}.png" for k in (2, 4)],
+              f"images: {[p.name for p in pngs]}")
+        for p in pngs:
+            img = read_png(p)
+            check(img.ndim == 3 and img.shape[2] == 3 and img.size > 0, f"{p.name}: {img.shape}")
+            shapes.append(img.shape[:2])
+
+    # Validate: K1 and K2 launch, one shard per val sweep, read back.
+    meta_kernel_fused.launches = 0
+    nms_scan.launches = 0
+    t0 = time.perf_counter()
+    pred_dir = trainer.validate()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    val_launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches}
+    check(val_launches["K1"] > 0 and val_launches["K2"] > 0, f"validate launches {val_launches}")
+    shards = sorted(pred_dir.glob("*.feather"))
+    check(len(shards) == len(trainer.val_ds) == 4, f"{len(shards)} shards")
+    # Four steps from random weights: the eval-mode model's boxes may hold
+    # inf or nan (running statistics still near their initial values);
+    # they are counted, not gated.
+    kept, nonfinite = 0, {}
+    for f in shards:
+        cols = read_feather(f)
+        check(set(cols) >= {"tx_m", "score", "category", "log_id", "timestamp_ns"},
+              f"{f.name}: columns {sorted(cols)}")
+        check(set(cols["log_id"]) <= {f.stem.rsplit("_", 1)[0]},
+              f"{f.name}: log_id {set(cols['log_id'])}")
+        kept += len(cols["score"])
+        for c in ("tx_m", "length_m", "qw", "score"):
+            nonfinite[c] = nonfinite.get(c, 0) + int((~np.isfinite(cols[c])).sum())
+    val_loss = [x["val/loss"] for x in (json.loads(y) for y in (run / "metrics.jsonl")
+                .read_text().splitlines()) if "val/loss" in x]
+    check(len(val_loss) == 1, f"val losses logged: {val_loss}")
+    t0 = time.perf_counter()
+    metrics = evaluate_predictions(pred_dir, work / "sensor" / "val", trainer.categories)
+    eval_s = time.perf_counter() - t0
+    avg = metrics["AVERAGE_METRICS"]
+    check(all(math.isfinite(v) for v in avg.values()), f"AVERAGE_METRICS {avg}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    split = loader_split(trainer)
+    n_val_batches = len(trainer.val_loader)
+    say(f"trainer (phase 17): rv-av2 at B=2 64x1800 (padded 1808), 26 classes, augmentations "
+        f"on; corpus of 8 + 4 sweeps, 24 boxes a sweep, written in {gen_s:.1f} s; "
+        f"losses {[round(x, 4) for x in rec['losses']]}; checkpoint of step 4 restored bit "
+        f"for bit; {len(shapes)} PNGs decode {sorted(set(shapes))}; fit {fit_s:.2f} s "
+        f"(launches {fit_launches}), validate {val_s * 1e3 / n_val_batches:.1f} ms a batch "
+        f"({n_val_batches} batches, launches {val_launches}, {len(shards)} shards, {kept} "
+        f"boxes, non-finite {nonfinite}, val/loss {val_loss}), evaluator {eval_s:.3f} s, AVERAGE_METRICS "
+        + ", ".join(f"{k} {v:.4f}" for k, v in avg.items())
+        + f"; peak memory {peak_gb:.2f} GiB on {smi}")
+    say(f"trainer step wall ms (steps 2-4, image logging taken out) "
+        f"{[round(w, 3) for w in walls]}, mean {statistics.mean(walls):.3f}; device ms "
+        f"(CUDA events) {[round(d, 3) for d in device_ms]}, mean "
+        f"{statistics.mean(device_ms):.3f}; stall (wall - device) "
+        f"{statistics.mean(walls) - statistics.mean(device_ms):.3f} ms; image logging "
+        f"{[round(t * 1e3, 1) for _, t in rec['images_s']]} ms")
+    say("loader host ms a batch (B=2, serial; the loader's 2 threads run it beside the "
+        "step): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"; total {sum(split.values()):.2f} ms; phase {time.perf_counter() - t_phase:.0f} s")
+    return {"fit": fit_launches, "validate": val_launches}
+
+
+# Phase 18's gate, from the JAX package's own run of the same overfit on
+# the CPU (``python tests/test_torch_trainer.py overfit av2 40 DIR``: the
+# corpus and overrides of scripts/debug-overfit.sh, bf16, 40 epochs of one
+# step): loss 0.7652 at step 1, 0.3643 at step 10, 0.3421 at 20, 0.2936 at
+# 30, 0.3031 at 40; the mean of the last 10 steps 0.2984 (0.39 of the
+# first); mAP 0.9916. At 100 epochs it rises again to a last-10 mean of
+# 0.402 (mAP 0.9938): the constant debug rate overshoots, so the gate is
+# taken at 40.
+OVERFIT_EPOCHS = 40
+
+
+def overfit_phase(device, smi) -> dict:
+    """Phase 18: the AV2 debug overfit, then the int8 accuracy cost on its
+    weights. Returns the K3 launches of the int8 scoring."""
+    import tempfile
+
+    import torch
+
+    from range_view_3d_detection_torch import overfit
+    from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-overfit-"))
+    out = overfit.run("av2", OVERFIT_EPOCHS, work)
+    train_s = time.perf_counter() - t0
+    losses, trainer = out["losses"], out["trainer"]
+    last10 = statistics.mean(losses[-10:])
+    check(len(losses) == OVERFIT_EPOCHS, f"overfit ran {len(losses)} steps")
+    check(last10 <= 0.5 * losses[0], f"overfit: last-10 mean loss {last10} > half of "
+          f"the first {losses[0]}")
+    check(math.isfinite(out["mAP"]), f"overfit mAP {out['mAP']}")
+    # The int8 PTQ predictor on the trained weights, scored the same way.
+    conv3x3_i8_fused.launches = 0
+    nms_scan.launches = 0
+    predictor = overfit.int8_predictor(trainer)
+    pred_dir = overfit.write_predictor_shards(trainer, predictor, work / "int8_predictions")
+    torch.cuda.synchronize()
+    launches = {"K3": conv3x3_i8_fused.launches, "K2": nms_scan.launches}
+    check(launches["K3"] > 0 and launches["K2"] > 0, f"int8 scoring launches {launches}")
+    int8 = overfit.score(trainer, pred_dir)
+    say(f"overfit (phase 18): rv-synthetic on scripts/debug-overfit.sh's corpus, "
+        f"{OVERFIT_EPOCHS} steps in {train_s:.1f} s (with validate and evaluation); loss "
+        f"{losses[0]:.4f} at step 1, last-10 mean {last10:.4f} "
+        f"({last10 / losses[0]:.3f} of it), every 10th {[round(x, 4) for x in losses[::10]]}; "
+        f"bf16 mAP {out['mAP']:.4f}, int8 (PTQ, full scope, calibrated on the train batches) "
+        f"mAP {int8['mAP']:.4f}, int8 launches {launches} (synthetic data) on {smi}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1523,6 +1797,18 @@ def main() -> int:
     del predictor, model, results, bf16_results, bf16_heads, out, made, k1_in, k1_waymo, k2_in
     torch.cuda.empty_cache()
     training_phases(device, smi)
+    torch.cuda.empty_cache()
+    trainer_launches = trainer_phase(device, smi)
+    int8_launches = overfit_phase(device, smi)
+    # This slice's path (phases 17-18), its launches beside the served path's.
+    trainer_path = {
+        "meta_kernel_fused": sum(v["K1"] for v in trainer_launches.values()),
+        "nms_scan": sum(v["K2"] for v in trainer_launches.values()),
+        "conv3x3_i8_fused": int8_launches["K3"],
+        "meta_kernel_fused_i8": 0,
+    }
+    for k in kernels:
+        k["trainer_launches"] = trainer_path[k["name"]]
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
-"""PyTorch/CUDA port of the range-view 3D detector (serving path).
+"""PyTorch/CUDA port of the range-view 3D detector: serving, training
+and the training loop (``train``, ``evaluate`` and ``overfit`` entry
+points).
 
 Mirrors ``range_view_3d_detection_tpu``'s layout (``models/``, ``ops/``,
-``kernels/``) and imports nothing from it: the JAX package is the
+``kernels/``, ``training/``, ``data/``, ``evaluation/``, ``utils/``) and
+imports nothing from it: the JAX package is the
 reference the port is tested against, not a dependency. Public functions
 keep the JAX package's channel-last layout; modules run NCHW tensors in
 ``torch.channels_last`` memory internally.

@@ -160,3 +160,27 @@ def make_val_step(
         return result, {f"val/{k}": v for k, v in metrics.items()}
 
     return val_step
+
+
+def make_scoremap_step(config: DetectorConfig):
+    """Per-stride range-image panels for training visualisation: the
+    max-class score map of each task and the strided validity mask, of
+    image 0 only, as fp32 (H, W/stride) tensors (the JAX
+    ``make_scoremap_step``)."""
+
+    def scoremap_step(state: TrainState, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        model = state.model.eval()
+        with torch.inference_mode():
+            b = batch_to_device(batch, _device(state))
+            outputs = model(b["features"], b["cart"], b["mask"])
+            maps: Dict[str, torch.Tensor] = {}
+            for stride in sorted(outputs["head"]):
+                for tid in sorted(outputs["head"][stride]):
+                    logits = outputs["head"][stride][tid]["logits"]
+                    maps[f"stride{stride}/task{tid}/score"] = (
+                        torch.sigmoid(logits[0].float()).amax(dim=-1)
+                    )
+                maps[f"stride{stride}/mask"] = outputs["strided"][stride]["mask"][0].float()
+        return maps
+
+    return scoremap_step

@@ -1,0 +1,447 @@
+"""Feather (Arrow IPC file) reading and writing in numpy and the standard
+library (counterpart of the JAX ``utils/feather.py``, which uses pyarrow).
+
+A Feather file is an Arrow IPC file: the magic ``ARROW1``, a schema
+message, record batches and a footer that indexes them, with the
+metadata of each as a flatbuffer. This module decodes and builds those
+flatbuffers by hand for the columns the converters, the synthetic
+generator and the prediction shards hold: bool, int8-64, uint8-64,
+float32/64 and utf8 strings (int32 offsets). Numeric columns come back as
+numpy arrays of their type, strings as an object array of ``str`` (what
+pyarrow's ``to_numpy(zero_copy_only=False)`` gives). A compressed buffer
+(LZ4 or ZSTD), a dictionary-encoded, nested, large-string or other
+column, or a column with nulls raises and names what it met.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+MAGIC = b"ARROW1"
+_V5 = 4  # MetadataVersion.V5
+_SCHEMA, _RECORD_BATCH = 1, 3  # MessageHeader union
+_NULL, _INT, _FLOAT, _UTF8, _BOOL = 1, 2, 3, 5, 6  # Type union
+_TYPE_NAMES = {
+    0: "NONE", 1: "Null", 2: "Int", 3: "FloatingPoint", 4: "Binary", 5: "Utf8",
+    6: "Bool", 7: "Decimal", 8: "Date", 9: "Time", 10: "Timestamp",
+    11: "Interval", 12: "List", 13: "Struct", 14: "Union",
+    15: "FixedSizeBinary", 16: "FixedSizeList", 17: "Map", 18: "Duration",
+    19: "LargeBinary", 20: "LargeUtf8", 21: "LargeList", 22: "RunEndEncoded",
+    23: "BinaryView", 24: "Utf8View", 25: "ListView", 26: "LargeListView",
+}
+_CODECS = {0: "LZ4_FRAME", 1: "ZSTD"}
+_FLOAT_DTYPES = {1: np.float32, 2: np.float64}  # Precision SINGLE, DOUBLE
+
+
+class FeatherError(ValueError):
+    """A Feather file this reader does not take, or a malformed one."""
+
+
+# -- flatbuffer decoding ------------------------------------------------------
+
+
+class _Table:
+    """A flatbuffer table at ``pos`` of ``buf``; fields by their id."""
+
+    def __init__(self, buf: memoryview, pos: int):
+        self.buf, self.pos = buf, pos
+        self.vt = pos - struct.unpack_from("<i", buf, pos)[0]
+        self.vt_size = struct.unpack_from("<H", buf, self.vt)[0]
+
+    def _off(self, field: int) -> int:
+        at = 4 + 2 * field
+        return struct.unpack_from("<H", self.buf, self.vt + at)[0] if at < self.vt_size else 0
+
+    def scalar(self, field: int, fmt: str, default):
+        off = self._off(field)
+        return struct.unpack_from("<" + fmt, self.buf, self.pos + off)[0] if off else default
+
+    def _target(self, field: int) -> Optional[int]:
+        off = self._off(field)
+        if not off:
+            return None
+        at = self.pos + off
+        return at + struct.unpack_from("<I", self.buf, at)[0]
+
+    def table(self, field: int) -> Optional["_Table"]:
+        t = self._target(field)
+        return None if t is None else _Table(self.buf, t)
+
+    def string(self, field: int) -> Optional[str]:
+        t = self._target(field)
+        if t is None:
+            return None
+        n = struct.unpack_from("<I", self.buf, t)[0]
+        return bytes(self.buf[t + 4 : t + 4 + n]).decode("utf-8")
+
+    def vector_len(self, field: int) -> int:
+        t = self._target(field)
+        return 0 if t is None else struct.unpack_from("<I", self.buf, t)[0]
+
+    def tables(self, field: int) -> List["_Table"]:
+        t = self._target(field)
+        if t is None:
+            return []
+        n = struct.unpack_from("<I", self.buf, t)[0]
+        out = []
+        for i in range(n):
+            at = t + 4 + 4 * i
+            out.append(_Table(self.buf, at + struct.unpack_from("<I", self.buf, at)[0]))
+        return out
+
+    def structs(self, field: int, fmt: str) -> List[Tuple]:
+        t = self._target(field)
+        if t is None:
+            return []
+        n = struct.unpack_from("<I", self.buf, t)[0]
+        size = struct.calcsize("<" + fmt)
+        return [struct.unpack_from("<" + fmt, self.buf, t + 4 + i * size) for i in range(n)]
+
+
+def _root(buf: memoryview) -> _Table:
+    return _Table(buf, struct.unpack_from("<I", buf, 0)[0])
+
+
+# -- reading -------------------------------------------------------------------
+
+
+def _field_spec(field: _Table) -> Tuple[str, str, Any]:
+    """(name, kind, numpy dtype or None) of a schema ``Field``."""
+    name = field.string(0) or ""
+    type_id = field.scalar(2, "B", 0)
+    what = _TYPE_NAMES.get(type_id, f"type {type_id}")
+    if field.table(4) is not None:
+        raise FeatherError(f"column {name!r}: dictionary-encoded {what} is not supported")
+    if field.vector_len(5):
+        raise FeatherError(f"column {name!r}: nested type {what} is not supported")
+    t = field.table(3)
+    if type_id == _INT:
+        bits, signed = t.scalar(0, "i", 0), bool(t.scalar(1, "B", 0))
+        return name, "fixed", np.dtype(f"{'i' if signed else 'u'}{bits // 8}").newbyteorder("<")
+    if type_id == _FLOAT:
+        precision = t.scalar(0, "h", 0)
+        if precision not in _FLOAT_DTYPES:
+            raise FeatherError(f"column {name!r}: float precision {precision} is not supported")
+        return name, "fixed", np.dtype(_FLOAT_DTYPES[precision]).newbyteorder("<")
+    if type_id == _BOOL:
+        return name, "bool", None
+    if type_id == _UTF8:
+        return name, "utf8", None
+    if type_id == _NULL:
+        return name, "null", None
+    raise FeatherError(f"column {name!r}: Arrow type {what} is not supported")
+
+
+def _decode_utf8(offsets: np.ndarray, data: bytes) -> np.ndarray:
+    out = np.empty(len(offsets) - 1, dtype=object)
+    text = data.decode("utf-8")
+    if len(text) == len(data):  # ASCII: byte offsets are character offsets
+        for i in range(len(out)):
+            out[i] = text[offsets[i] : offsets[i + 1]]
+    else:
+        for i in range(len(out)):
+            out[i] = data[offsets[i] : offsets[i + 1]].decode("utf-8")
+    return out
+
+
+def _read_batch(
+    raw: memoryview, block: Tuple[int, int, int], specs: List[Tuple[str, str, Any]]
+) -> List[np.ndarray]:
+    offset, meta_len, body_len = block
+    start = offset + 8 if struct.unpack_from("<I", raw, offset)[0] == 0xFFFFFFFF else offset + 4
+    msg = _root(raw[start : offset + meta_len])
+    if msg.scalar(1, "B", 0) != _RECORD_BATCH:
+        raise FeatherError("footer block is not a record batch")
+    rb = msg.table(2)
+    comp = rb.table(3)
+    if comp is not None:
+        codec = comp.scalar(0, "b", 0)
+        raise FeatherError(
+            f"compressed record batch ({_CODECS.get(codec, f'codec {codec}')}) is not supported"
+        )
+    nodes = rb.structs(1, "qq")
+    buffers = rb.structs(2, "qq")
+    body = offset + meta_len
+    cols, bi = [], 0
+
+    def buf(i: int) -> memoryview:
+        off, n = buffers[i]
+        return raw[body + off : body + off + n]
+
+    for ci, (name, kind, dtype) in enumerate(specs):
+        n, nulls = nodes[ci]
+        if kind == "null":
+            if n:
+                raise FeatherError(f"column {name!r}: {n} nulls (null type) are not supported")
+            cols.append(np.empty(0, dtype=object))
+            continue
+        if nulls:
+            raise FeatherError(f"column {name!r}: {nulls} nulls are not supported")
+        if kind == "fixed":
+            cols.append(np.frombuffer(buf(bi + 1), dtype=dtype, count=n).astype(dtype.newbyteorder("=")))
+            bi += 2
+        elif kind == "bool":
+            bits = np.frombuffer(buf(bi + 1), dtype=np.uint8)
+            cols.append(np.unpackbits(bits, count=n, bitorder="little").astype(bool))
+            bi += 2
+        else:  # utf8
+            offs = np.frombuffer(buf(bi + 1), dtype="<i4", count=n + 1) if n else np.zeros(1, np.int32)
+            cols.append(_decode_utf8(offs, bytes(buf(bi + 2))))
+            bi += 3
+    return cols
+
+
+def read_feather(
+    path: str | Path, columns: Optional[Sequence[str]] = None
+) -> Dict[str, np.ndarray]:
+    """Read a Feather (Arrow IPC) file into a dict of numpy columns,
+    ``columns`` only (in that order) when given."""
+    data = Path(path).read_bytes()
+    raw = memoryview(data)
+    if len(data) < 18 or data[:6] != MAGIC or data[-6:] != MAGIC:
+        raise FeatherError(f"{path}: not an Arrow IPC file (Feather V2)")
+    footer_len = struct.unpack_from("<i", raw, len(data) - 10)[0]
+    footer = _root(raw[len(data) - 10 - footer_len : len(data) - 10])
+    schema = footer.table(1)
+    if schema.scalar(0, "h", 0) != 0:
+        raise FeatherError(f"{path}: big-endian files are not supported")
+    if footer.vector_len(2):
+        raise FeatherError(f"{path}: dictionary batches are not supported")
+    specs = [_field_spec(f) for f in schema.tables(1)]
+    parts: List[List[np.ndarray]] = [[] for _ in specs]
+    for block in footer.structs(3, "qi4xq"):
+        for ci, col in enumerate(_read_batch(raw, block, specs)):
+            parts[ci].append(col)
+    out: Dict[str, np.ndarray] = {}
+    for (name, kind, dtype), p in zip(specs, parts):
+        if p:
+            out[name] = np.concatenate(p) if len(p) > 1 else p[0]
+        else:
+            empty = {"bool": bool, "fixed": dtype}.get(kind, object)
+            out[name] = np.empty(0, dtype=empty)
+    if columns:
+        missing = [c for c in columns if c not in out]
+        if missing:
+            raise KeyError(f"{path}: no column(s) {missing}")
+        out = {c: out[c] for c in columns}
+    return out
+
+
+# -- flatbuffer building ------------------------------------------------------
+
+
+class _Builder:
+    """Builds a flatbuffer front to back: each object is written before
+    the objects it points to, so every ``uoffset`` points forward."""
+
+    def __init__(self):
+        self.buf = bytearray()
+
+    def _align(self, n: int) -> None:
+        self.buf += b"\0" * (-len(self.buf) % n)
+
+    def table(self, fields: Sequence[Optional[Tuple[str, Any]]]) -> int:
+        """Write a table; ``fields[i]`` is ``(fmt, value)`` for a scalar
+        (``struct`` format letter) or ``("ref", writer)`` for an offset to
+        an object that ``writer()`` writes and returns the position of."""
+        layout, size = [], 4
+        for fid, f in enumerate(fields):
+            if f is None:
+                continue
+            width = 4 if f[0] == "ref" else struct.calcsize("<" + f[0])
+            size += -size % width
+            layout.append((fid, f, size))
+            size += width
+        size += -size % 8
+        vt = [4 + 2 * len(fields), size] + [0] * len(fields)
+        for fid, _, at in layout:
+            vt[2 + fid] = at
+        self._align(2)
+        vt_pos = len(self.buf)
+        self.buf += struct.pack(f"<{len(vt)}H", *vt)
+        self._align(8)
+        pos = len(self.buf)
+        self.buf += b"\0" * size
+        struct.pack_into("<i", self.buf, pos, pos - vt_pos)
+        for fid, (fmt, value), at in layout:
+            if fmt != "ref":
+                struct.pack_into("<" + fmt, self.buf, pos + at, value)
+        for fid, (fmt, value), at in layout:
+            if fmt == "ref":
+                target = value()
+                struct.pack_into("<I", self.buf, pos + at, target - (pos + at))
+        return pos
+
+    def string(self, s: str) -> int:
+        b = s.encode("utf-8")
+        self._align(4)
+        pos = len(self.buf)
+        self.buf += struct.pack("<I", len(b)) + b + b"\0"
+        return pos
+
+    def structs(self, fmt: str, items: Sequence[Tuple]) -> int:
+        self.buf += b"\0" * (-(len(self.buf) + 4) % 8)
+        pos = len(self.buf)
+        self.buf += struct.pack("<I", len(items))
+        for it in items:
+            self.buf += struct.pack("<" + fmt, *it)
+        return pos
+
+    def tables(self, writers: Sequence[Callable[[], int]]) -> int:
+        self._align(4)
+        pos = len(self.buf)
+        self.buf += struct.pack("<I", len(writers)) + b"\0" * (4 * len(writers))
+        for i, w in enumerate(writers):
+            at = pos + 4 + 4 * i
+            struct.pack_into("<I", self.buf, at, w() - at)
+        return pos
+
+    def finish(self, root: Callable[["_Builder"], int]) -> bytes:
+        self.buf += b"\0" * 8  # root uoffset, padded so tables stay 8-aligned
+        struct.pack_into("<I", self.buf, 0, root(self))
+        self._align(8)
+        return bytes(self.buf)
+
+
+# -- writing -------------------------------------------------------------------
+
+
+def _column_kind(name: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    if v.ndim != 1:
+        raise FeatherError(f"column {name!r}: {v.ndim}-d arrays are not supported")
+    if v.dtype == bool:
+        return "bool", v
+    if v.dtype.kind in "iu" or v.dtype in (np.float32, np.float64):
+        return "fixed", v.astype(v.dtype.newbyteorder("<"))
+    if v.dtype.kind == "U" or (v.dtype == object and all(isinstance(x, str) for x in v)):
+        return "utf8", v
+    raise FeatherError(f"column {name!r}: numpy dtype {v.dtype} is not supported")
+
+
+def _type_fields(kind: str, v: np.ndarray):
+    """(Type union id, writer of the type table)."""
+    if kind == "bool":
+        return _BOOL, []
+    if kind == "utf8":
+        return _UTF8, []
+    if v.dtype.kind == "f":
+        return _FLOAT, [("h", 1 if v.dtype.itemsize == 4 else 2)]
+    return _INT, [("i", 8 * v.dtype.itemsize), ("B", int(v.dtype.kind == "i"))]
+
+
+def _schema_writer(b: _Builder, cols: List[Tuple[str, str, np.ndarray]]) -> Callable[[], int]:
+    def field(name, kind, v):
+        type_id, type_fields = _type_fields(kind, v)
+        return lambda: b.table([
+            ("ref", lambda: b.string(name)),
+            ("B", 1),  # nullable, as pyarrow writes
+            ("B", type_id),
+            ("ref", lambda: b.table(type_fields)),
+            None,
+            ("ref", lambda: b.tables([])),  # children
+        ])
+
+    return lambda: b.table([
+        ("h", 0),  # little endian
+        ("ref", lambda: b.tables([field(*c) for c in cols])),
+    ])
+
+
+def _message(header_type: int, header: Callable[[_Builder], Callable[[], int]], body_len: int) -> bytes:
+    """An encapsulated message: continuation, metadata length, the
+    flatbuffer ``Message``, padded to 8 bytes."""
+    b = _Builder()
+    fb = b.finish(lambda b: b.table([
+        ("h", _V5),
+        ("B", header_type),
+        ("ref", header(b)),
+        ("q", body_len),
+    ]))
+    return struct.pack("<Ii", 0xFFFFFFFF, len(fb)) + fb
+
+
+def _body(cols: List[Tuple[str, str, np.ndarray]]):
+    """(body bytes, FieldNodes, Buffers) of one record batch."""
+    chunks: List[bytes] = []
+    buffers: List[Tuple[int, int]] = []
+    pos = 0
+
+    def add(data: bytes) -> None:
+        nonlocal pos
+        buffers.append((pos, len(data)))
+        pad = -len(data) % 8
+        chunks.append(data + b"\0" * pad)
+        pos += len(data) + pad
+
+    nodes = []
+    for name, kind, v in cols:
+        nodes.append((len(v), 0))
+        add(b"")  # no validity bitmap: no nulls
+        if kind == "fixed":
+            add(v.tobytes())
+        elif kind == "bool":
+            add(np.packbits(v, bitorder="little").tobytes())
+        else:
+            encoded = [str(s).encode("utf-8") for s in v]
+            offsets = np.zeros(len(encoded) + 1, "<i4")
+            if encoded:
+                lengths = np.fromiter((len(e) for e in encoded), np.int64, len(encoded))
+                total = np.cumsum(lengths)
+                if total[-1] > np.iinfo(np.int32).max:
+                    raise FeatherError(f"column {name!r}: over 2 GiB of text needs large_string")
+                offsets[1:] = total
+            add(offsets.tobytes())
+            add(b"".join(encoded))
+    return b"".join(chunks), nodes, buffers
+
+
+def write_feather(path: str | Path, columns: Dict[str, np.ndarray]) -> None:
+    """Write a dict of equal-length 1-d numpy columns as an uncompressed
+    Feather (Arrow IPC) file of one record batch.
+
+    The write is atomic (temporary file, then ``os.replace``), as the JAX
+    ``write_feather``'s is."""
+    path = Path(path)
+    cols = []
+    for name, v in columns.items():
+        kind, arr = _column_kind(name, np.asarray(v))
+        cols.append((str(name), kind, arr))
+    lengths = {len(a) for _, _, a in cols}
+    if len(lengths) > 1:
+        raise FeatherError(f"columns of unequal lengths {sorted(lengths)}")
+    n = lengths.pop() if lengths else 0
+
+    schema_msg = _message(_SCHEMA, lambda b: _schema_writer(b, cols), 0)
+    body, nodes, buffers = _body(cols)
+    batch_msg = _message(
+        _RECORD_BATCH,
+        lambda b: lambda: b.table([
+            ("q", n),
+            ("ref", lambda: b.structs("qq", nodes)),
+            ("ref", lambda: b.structs("qq", buffers)),
+        ]),
+        len(body),
+    )
+    head = MAGIC + b"\0\0"
+    batch_at = len(head) + len(schema_msg)
+    eos = struct.pack("<Ii", 0xFFFFFFFF, 0)
+    fb = _Builder()
+    footer = fb.finish(lambda b: b.table([
+        ("h", _V5),
+        ("ref", _schema_writer(b, cols)),
+        ("ref", lambda: b.structs("qi4xq", [])),
+        ("ref", lambda: b.structs("qi4xq", [(batch_at, len(batch_msg), len(body))])),
+    ]))
+    data = b"".join([
+        head, schema_msg, batch_msg, body, eos, footer,
+        struct.pack("<i", len(footer)), MAGIC,
+    ])
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)

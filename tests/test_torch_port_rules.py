@@ -1,13 +1,18 @@
 """Rules of the PyTorch port, checked on the CPU.
 
 - Every port module, ``chip_smoke.py``, ``chip_probe_k1.py`` and
-  ``chip_probe_k4.py`` import with JAX, flax, optax, orbax and the JAX
-  package made unimportable, and the training modules are among them.
+  ``chip_probe_k4.py`` import with JAX, flax, optax, orbax, the JAX
+  package, pyarrow, PyYAML, matplotlib, polars and tensorboard made
+  unimportable (none of the last five is on the machine with the card),
+  and the training, data, evaluation and utility modules are among them;
+  in that process ``rv-av2`` composes, a Feather file round-trips, a
+  PNG is drawn and decoded, and the ``tensorboard`` logger backend
+  raises.
 - What the port does not do raises instead of running something else:
   ``make_train_step(quant_tree=...)`` (QAT) and ``remat=True``.
 - Entry points default to the card: on a host without a CUDA device,
-  ``Predictor`` with its default device and ``python chip_smoke.py`` fail
-  loudly instead of running on the CPU.
+  ``Predictor`` and ``Trainer`` with their default device and ``python
+  chip_smoke.py`` fail loudly instead of running on the CPU.
 - The flax -> torch transplant round-trips every leaf of the tiny
   config's variables, and loads strictly into the port's Detector; a JAX
   quant tree round-trips through the scales of the quantized port model.
@@ -54,20 +59,45 @@ def test_port_imports_without_jax():
     assert "range_view_3d_detection_torch.models.quantized" in modules
     for name in ("geometry", "targets", "assignment", "losses"):
         assert f"range_view_3d_detection_torch.ops.{name}" in modules
-    for name in ("optim", "state", "checkpoints"):
+    for name in ("optim", "state", "checkpoints", "builders", "loop"):
         assert f"range_view_3d_detection_torch.training.{name}" in modules
+    for name in ("data.dataset", "data.augmentations", "data.synthetic",
+                 "evaluation.av2_eval", "evaluation.waymo_eval", "evaluation.iou_np",
+                 "evaluation.roi", "utils.config", "utils.yaml_subset", "utils.feather",
+                 "utils.logging", "utils.rendering", "train", "evaluate", "overfit"):
+        assert f"range_view_3d_detection_torch.{name}" in modules
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "range_view_3d_detection_tpu",
+              "pyarrow", "yaml", "matplotlib", "polars", "tensorboard")
     code = "\n".join(
         [
-            "import importlib, sys",
-            "for banned in ('jax', 'flax', 'optax', 'orbax', 'range_view_3d_detection_tpu'):",
+            "import importlib, sys, tempfile",
+            "from pathlib import Path",
+            f"for banned in {banned!r}:",
             "    sys.modules[banned] = None",
             f"sys.path.insert(0, {str(REPO)!r})",
             f"for name in {modules!r}:",
             "    importlib.import_module(name)",
             "import chip_smoke, chip_probe_k1, chip_probe_k4",
+            "import numpy as np",
+            "from range_view_3d_detection_torch.utils import config, feather, rendering",
+            f"cfg = config.compose({str(REPO / 'conf')!r}, 'rv-av2')",
+            "assert cfg['model']['_backbone']['stem_pallas'] is True",
+            "d = Path(tempfile.mkdtemp())",
+            "cols = {'x': np.arange(3.0), 'c': np.asarray(['a', 'b', 'c'])}",
+            "feather.write_feather(d / 'a.feather', cols)",
+            "back = feather.read_feather(d / 'a.feather')",
+            "assert list(back['c']) == ['a', 'b', 'c'] and back['x'].tolist() == [0, 1, 2]",
+            "img = rendering.draw_bev(np.zeros((4, 2)), np.ones((1, 7)), np.ones((1, 7)),",
+            "                         out_path=d / 'bev.png')",
+            "assert (rendering.read_png(d / 'bev.png') == img).all()",
+            "from range_view_3d_detection_torch.utils.logging import MetricsLogger",
+            "try:",
+            "    MetricsLogger(d, backend='tensorboard')",
+            "    raise AssertionError('tensorboard backend without tensorboard')",
+            "except RuntimeError as exc:",
+            "    assert 'tensorboard' in str(exc)",
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'range_view_3d_detection_tpu') "
-            "and sys.modules[m] is not None]",
+            f"{banned!r} and sys.modules[m] is not None]",
             "assert not bad, bad",
             "print('ok')",
         ]
@@ -84,6 +114,13 @@ def test_entry_points_refuse_a_host_without_gpu(tmp_path):
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serving.Predictor(serving._flagship_config(tiny=True))
+    from range_view_3d_detection_torch.training.loop import Trainer
+    from range_view_3d_detection_torch.utils.config import compose
+
+    cfg = compose(REPO / "conf", "rv-synthetic", [f"++run_dir={tmp_path / 'run'}",
+                                                  f"++dataset.root_dir={tmp_path}"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
     smoke = subprocess.run(
         [sys.executable, str(REPO / "chip_smoke.py")],
         capture_output=True, text=True, timeout=120, cwd=REPO,

@@ -137,15 +137,17 @@ def jax_loss_fn(model, cfg):
     return jax.jit(jax.value_and_grad(fn, has_aux=True))
 
 
-def make_setup(dtype, spread=False):
+def make_setup(dtype, spread=False, seed=0):
+    """The tiny config's weights, statistics and batch; ``seed`` 0 is the
+    draw every test uses (``bf16_gradient_study`` takes others)."""
     jcfg = dataclasses.replace(graft._flagship_config(tiny=True), dtype=dtype)
     tcfg = dataclasses.replace(serving._flagship_config(tiny=True), dtype=dtype)
-    batch = serving._dryrun_batch(tcfg, 2, 8, 64, 5)
+    batch = serving._dryrun_batch(tcfg, 2, 8, 64, 5, seed=1 + seed)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     model = Detector(jcfg)
-    v = model.init(jax.random.PRNGKey(0), jb["features"][:1], jb["cart"][:1],
+    v = model.init(jax.random.PRNGKey(seed), jb["features"][:1], jb["cart"][:1],
                    jb["mask"][:1], train=False)
-    params, stats = randomize_bn(v["params"], v["batch_stats"], seed=1)
+    params, stats = randomize_bn(v["params"], v["batch_stats"], seed=1 + seed)
     out = model.apply({"params": params, "batch_stats": stats}, jb["features"],
                       jb["cart"], jb["mask"], train=False)
     if spread:
@@ -470,3 +472,57 @@ def test_eval_factor_sees_training_writes():
     fresh = torch.rsqrt((bn.running_var + bn.eps).double()).float() * bn.weight
     assert not torch.equal(bn.eval_mul(), before)
     assert torch.equal(bn.eval_mul(), fresh.detach())
+
+
+# -- the bf16 gradient study (not a test) ------------------------------------
+
+
+def _grads(dtype, seed):
+    """(JAX gradients, port gradients) as flat leaves, one tiny step."""
+    s = make_setup(dtype, seed=seed)
+    j = jax.tree_util.tree_map(jnp.asarray, (s["params"], s["stats"]))
+    _, jgrads = jax_loss_fn(s["model"], s["jcfg"])(*j, s["jb"])
+    model = port_state(s).model.train()
+    b = tstate.batch_to_device(s["batch"], CPU)
+    with torch.no_grad():
+        tg = tdet.compute_batch_targets(b, s["tcfg"])
+    out = model(b["features"], b["cart"], b["mask"])
+    tloss, _ = tdet.detection_loss(out, b, s["tcfg"], tgts=tg)
+    return leaves(jgrads), leaves(port_grads(model, tloss))
+
+
+def bf16_gradient_study(seeds, deepest="ResidualBlock_4"):
+    """For each seed, how far each package's bf16 gradients lie from its
+    own fp32 gradients (relative RMS), pooled over the leaves of the
+    deepest backbone stage, and the ratio port / JAX; also the median
+    per-leaf ratio over every leaf. Prints one line a seed."""
+    rows = []
+    for seed in seeds:
+        j32, p32 = _grads("float32", seed)
+        j16, p16 = _grads("bfloat16", seed)
+        deep = [k for k in j32 if deepest in k]
+
+        def pooled(x, ref):
+            num = sum(float(np.sum((x[k] - ref[k]) ** 2)) for k in deep)
+            return np.sqrt(num / sum(float(np.sum(ref[k] ** 2)) for k in deep))
+
+        def rel(x, ref, k):
+            return np.sqrt(np.mean((x[k] - ref[k]) ** 2) / np.mean(ref[k] ** 2))
+
+        dj, dp = pooled(j16, j32), pooled(p16, p32)
+        per_leaf = [rel(p16, p32, k) / rel(j16, j32, k) for k in j32
+                    if np.any(j16[k] != j32[k])]
+        rows.append((seed, dp / dj))
+        print(f"seed {seed}: deepest stage ({len(deep)} leaves) JAX {dj:.4f} "
+              f"port {dp:.4f} ratio {dp / dj:.3f}; median leaf ratio "
+              f"{np.median(per_leaf):.3f}, max {np.max(per_leaf):.3f}", flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_train_step.py [n_seeds]: the bf16 gradient
+    # study on the CPU (JAX pinned to the CPU as tests/conftest.py does).
+    import sys
+
+    jax.config.update("jax_platforms", "cpu")
+    bf16_gradient_study(range(int(sys.argv[1]) if len(sys.argv) > 1 else 8))
