@@ -116,7 +116,35 @@ Phases, each of which raises (non-zero exit) on failure:
     10 steps at most half the first step's, a finite mAP (the gate's
     source: ``OVERFIT_EPOCHS``); then the int8 PTQ predictor of the same
     weights (full scope, calibrated on the train batches) must launch K3
-    and K2, and its mAP is printed beside the bf16 one (not gated).
+    and K2, and its mAP is printed beside the bf16 one (not gated);
+19. projection on the card (``ops/projection.py::rasterize_points``):
+    B=2 clouds of 131,072 points (``export._sample_points``) at AV2's
+    64x1800, padded to 1808 (circular), at Waymo's 64x2650 (its features
+    and ``view``, tanh intensity, constant padding) and at AV2 x_stride 4
+    (464 columns), each held against the port's own CPU run of the same
+    points: every point's range equal, and a pixel may differ only where
+    a point's azimuth column differs between card and CPU (the card's
+    ``atan2``; Waymo's tanh plane may also differ by 4 ulps); the counts
+    printed; the projection's time (CUDA events, median);
+20. artifacts on the card: the phase-5 model, exported right after phase 5
+    (bf16, and int8 calibrated on request 0, full scope), loaded with
+    ``export.load_artifact``: the bf16 artifact serves the 4 requests
+    (K1 and K2 launch, finite, detections kept, NMS equal to the plain
+    scan; kept-box agreement and head relative RMS against phase 5's
+    predictor printed, not gated); the int8 artifact's loaded quant tree
+    is the written one byte for byte and it launches K3, K1 and K2 and not
+    K4; loaded under ``RV3D_STEM_INT8=1`` it launches K4 and not K1;
+21. raw points to detections at flagship width: the bf16 artifact behind
+    ``export.make_points_predict`` serves 4 requests of B=2 x 131,072
+    points (sensor width 1800, served at 64x1808): K1 and K2 launch,
+    finite, detections kept, equal to the predictor on the same clouds
+    rasterized on the card by hand (keep and categories equal, values
+    within 1e-6); ``latency_bench`` (50 requests: p50/p90/p99) and
+    ``stream_bench`` (20 iterations) on range images in bf16 and int8 and
+    on points in bf16; projection's share of a points request; and the
+    export CLI as a user types it, in a subprocess (``--synthetic --out
+    D``, then ``--load D --points --latency --iters 50``), its JSON line
+    parsed.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -128,9 +156,11 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1544,6 +1574,317 @@ def overfit_phase(device, smi) -> dict:
     return launches
 
 
+# Phase 19's clouds: AV2's sensor (64 lasers, 1800 columns, padded to
+# 1808), two clouds of 131,072 points a request.
+POINTS_B, POINTS_N = 2, 131072
+# Waymo's intensity plane is tanh-squashed: the card's tanhf and the CPU's
+# are different approximations, held within this many ulps.
+TANH_ULPS = 4
+
+
+def av2_dataset_meta() -> dict:
+    """The rv-av2 serving facts an artifact of the flagship records."""
+    return {"dataset_name": "av2", "height": 64, "sensor_width": 1800, "x_stride": 1,
+            "padding_mode": "circular",
+            "feature_names": ["intensity", "range", "x", "y", "z"]}
+
+
+def ulp_distance(a, b):
+    """Elementwise distance in float32 ulps (same-sign finite values)."""
+    import torch
+
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    return (ia - ib).abs()
+
+
+def unexplained_pixels(got, want, moved, *, feature_names, ulp_names, pad, x_stride,
+                       width) -> tuple:
+    """Compare two rasterizations ``(feats, cart, mask)`` (CPU tensors, the
+    padded and strided images) of the same clouds. A pixel may differ only
+    where a point changed its azimuth column between the two runs:
+    ``moved`` is the set of (cloud, row, sensor column) pixels such points
+    fall in, on either side. Planes named in ``ulp_names`` may also differ
+    by up to ``TANH_ULPS`` ulps anywhere. Returns (pixels that differ,
+    pixels that differ unexplained)."""
+    import torch
+
+    feats, cart, mask = got
+    wfeats, wcart, wmask = want
+    keep = [i for i, n in enumerate(feature_names) if n not in ulp_names]
+    diff = (feats[..., keep] != wfeats[..., keep]).any(-1)
+    for i, n in enumerate(feature_names):
+        if n in ulp_names:
+            diff |= ulp_distance(feats[..., i], wfeats[..., i]) > TANH_ULPS
+    diff |= (cart != wcart).any(-1) | (mask != wmask)
+    where = torch.nonzero(diff).tolist()
+    bad = [(b, r, c) for b, r, c in where
+           if (b, r, (c * x_stride - pad) % width) not in moved]
+    return len(where), len(bad)
+
+
+def check_projection(tag, clouds, kw, device, ulp_names=()) -> dict:
+    """Phase 19's check at one configuration: ``rasterize_points`` on the
+    card against the port's own CPU run of the same clouds. The range of
+    every point must be equal (fma and one fp64 square root on both); a
+    pixel may differ only where a point's azimuth column differs (the
+    card's atan2); prints the counts."""
+    import torch
+
+    from range_view_3d_detection_torch.ops.projection import (
+        range_view_coordinates_t,
+        rasterize_points,
+    )
+
+    xyz, laser, extras = clouds
+    cpu_in = (torch.from_numpy(xyz), torch.from_numpy(laser),
+              {k: torch.from_numpy(v) for k, v in extras.items()})
+    dev_in = (cpu_in[0].to(device), cpu_in[1].to(device),
+              {k: v.to(device) for k, v in cpu_in[2].items()})
+    with torch.inference_mode():
+        got = [t.cpu() for t in rasterize_points(*dev_in, **kw)]
+        want = rasterize_points(*cpu_in, **kw)
+        coords = dict(height=kw["height"], width=kw["width"])
+        _, col_d, rng_d = range_view_coordinates_t(dev_in[0], dev_in[1], **coords)
+        row, col_c, rng_c = range_view_coordinates_t(cpu_in[0], cpu_in[1], **coords)
+    check(torch.equal(rng_d.cpu(), rng_c), f"projection {tag}: ranges differ card/CPU")
+    moved_pts = torch.nonzero(col_d.cpu() != col_c).tolist()
+    moved = set()
+    for b, i in moved_pts:
+        moved.add((b, int(row[b, i]), int(col_c[b, i])))
+        moved.add((b, int(row[b, i]), int(col_d[b, i])))
+    n_diff, n_bad = unexplained_pixels(
+        got, want, moved, feature_names=kw["feature_names"], ulp_names=ulp_names,
+        pad=kw["pad"], x_stride=kw["x_stride"], width=kw["width"])
+    shapes = [tuple(t.shape) for t in got]
+    check(shapes == [tuple(t.shape) for t in want], f"projection {tag}: shapes {shapes}")
+    check(all(bool(torch.isfinite(t).all()) for t in got[:2]), f"projection {tag}: "
+          "non-finite values")
+    check(n_bad == 0, f"projection {tag}: {n_bad} of {n_diff} differing pixels have no "
+          "point whose column moved")
+    occupied = int(got[2].sum())
+    say(f"projection {tag}: {shapes[0]} features, {occupied} pixels occupied, card vs "
+        f"CPU: ranges equal, {len(moved_pts)} points changed column, {n_diff} pixels "
+        f"differ (all at those points), mask identical: {torch.equal(got[2], want[2])}")
+    return {"moved": len(moved_pts), "diff": n_diff}
+
+
+def host(result):
+    """A result (a named tuple of tensors) with every field on the host."""
+    return result._replace(**{k: getattr(result, k).cpu() for k in result._fields})
+
+
+def kernel_counts() -> dict:
+    """The launch counters of the four kernel wrappers."""
+    from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import (
+        meta_kernel_fused,
+        meta_kernel_fused_i8,
+    )
+
+    return {"meta_kernel_fused": meta_kernel_fused, "nms_scan": nms_scan,
+            "conv3x3_i8_fused": conv3x3_i8_fused, "meta_kernel_fused_i8": meta_kernel_fused_i8}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counts().items()}
+
+
+def export_phase5(model, cfg, dec, requests, art_dir: Path) -> None:
+    """Phase 20's artifacts, written from the phase-5 model before the
+    int8 phases fold it: bf16, and int8 calibrated on request 0."""
+    from range_view_3d_detection_torch.export import export_artifact
+
+    t0 = time.perf_counter()
+    export_artifact(model, cfg, dec, art_dir / "bf16", dataset_meta=av2_dataset_meta())
+    export_artifact(model, cfg, dec, art_dir / "int8", quantize_batches=[requests[0]],
+                    dataset_meta=av2_dataset_meta())
+    say(f"export (phase 20): bf16 and int8 artifacts of the phase-5 model in "
+        f"{time.perf_counter() - t0:.1f} s, variables.msgpack "
+        f"{(art_dir / 'bf16' / 'variables.msgpack').stat().st_size / 2**20:.1f} MiB")
+
+
+def serve_artifact(predictor, requests, cfg, dec, device, tag) -> tuple:
+    """Serve ``requests`` (after one warm-up request) with the counters
+    reset just before; the results (finite, detections kept, NMS equal to
+    the plain scan) and launches."""
+    import torch
+
+    predictor(*requests[0])  # cuDNN plans
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = [predictor(*r) for r in requests]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(requests)
+    launches = read_counts()
+    kept = check_results(results)
+    nms_err = check_nms_against_plain(predictor.model, requests[0], cfg, dec, device)
+    say(f"artifact {tag}: {len(requests)} requests, launches {launches}, kept {kept}, "
+        f"NMS == plain scan (cuboids max|diff| {nms_err:.3g}), {ms:.2f} ms/request")
+    return results, launches
+
+
+def serving_phases(art_dir: Path, requests, bf16_results, bf16_heads, cfg, dec, device,
+                   smi) -> dict:
+    """Phases 19-21 (see the module docstring). Returns each kernel's
+    launches on the artifact (phase 20) and points (phase 21) paths."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from range_view_3d_detection_torch.data.dataset import (
+        AV2_FEATURES,
+        WAYMO_FEATURES,
+        width_padding,
+    )
+    from range_view_3d_detection_torch.export import (
+        _sample_points,
+        latency_bench,
+        load_artifact,
+        make_points_predict,
+        stream_bench,
+    )
+    from range_view_3d_detection_torch.models.quantized import quant_tree_of
+    from range_view_3d_detection_torch.ops.projection import rasterize_points
+    from range_view_3d_detection_torch.utils.msgpack import msgpack_serialize
+
+    t_phase = time.perf_counter()
+    # 19. Projection on the card, against the port's CPU run.
+    xyz, laser, inten = _sample_points(POINTS_B, POINTS_N, 64, 1800, seed=0)
+    av2 = (xyz, laser, {"intensity": inten})
+    av2_kw = dict(height=64, width=1800, feature_names=AV2_FEATURES, dataset_name="av2",
+                  x_stride=1, pad=width_padding(1800, 1), padding_mode="circular")
+    check_projection("AV2 64x1800 -> 1808", av2, av2_kw, device)
+    wxyz, wlaser, winten = _sample_points(POINTS_B, POINTS_N, 64, 2650, seed=1)
+    elong = np.random.default_rng(2).uniform(0, 2, wlaser.shape).astype(np.float32)
+    waymo_names = WAYMO_FEATURES + ("view",)
+    check_projection(
+        "Waymo 64x2650 (view, tanh, constant padding)",
+        (wxyz, wlaser, {"elongation": elong, "intensity": winten * 3}),
+        dict(height=64, width=2650, feature_names=waymo_names, dataset_name="waymo",
+             x_stride=1, pad=width_padding(2650, 1), padding_mode="constant"),
+        device, ulp_names=("intensity",))
+    check_projection("AV2 x_stride 4 -> 464", av2,
+                     dict(av2_kw, x_stride=4, pad=width_padding(1800, 4)), device)
+    dev_args = (torch.from_numpy(xyz).to(device), torch.from_numpy(laser).to(device),
+                {"intensity": torch.from_numpy(inten).to(device)})
+    with torch.inference_mode():
+        proj_ms = cuda_ms(lambda: rasterize_points(*dev_args, **av2_kw), reps=20, warmup=3)
+    say(f"projection (phase 19): {proj_ms:.4f} ms for B={POINTS_B} x {POINTS_N} points "
+        f"at 64x1800 -> 1808 (CUDA events, median of 20) on {smi}")
+
+    # 20. Artifacts on the card.
+    bf16, _, _ = load_artifact(art_dir / "bf16", device=device)
+    check(bf16.bn_folded and bf16.quant_tree is None, "bf16 artifact: not folded fp")
+    results, artifact_bf16 = serve_artifact(bf16, requests, cfg, dec, device, "bf16")
+    check(artifact_bf16["meta_kernel_fused"] > 0 and artifact_bf16["nms_scan"] > 0,
+          f"bf16 artifact launches {artifact_bf16}")
+    with torch.inference_mode():
+        heads = bf16.model(*(torch.as_tensor(a, device=device) for a in requests[0]))
+        heads = heads["head"][1][0]
+    say(f"artifact bf16 vs phase 5's predictor: kept-box agreement "
+        f"{kept_match([host(r) for r in results], bf16_results):.4f}, "
+        + ", ".join(f"{k} relative RMS {rel_rms(heads[k].cpu(), bf16_heads[k]):.3g}"
+                    for k in ("logits", "regressands")) + " (folded BatchNorm, not gated)")
+    int8, _, _ = load_artifact(art_dir / "int8", device=device)
+    written = (art_dir / "int8" / "quant.msgpack").read_bytes()
+    check(msgpack_serialize(int8.quant_tree) == written
+          and msgpack_serialize(quant_tree_of(int8.model)) == written,
+          "int8 artifact: the loaded quant tree is not the written one")
+    _, artifact_int8 = serve_artifact(int8, requests, cfg, dec, device, "int8 (K1 stem)")
+    check(artifact_int8["conv3x3_i8_fused"] > 0 and artifact_int8["meta_kernel_fused"] > 0
+          and artifact_int8["nms_scan"] > 0 and artifact_int8["meta_kernel_fused_i8"] == 0,
+          f"int8 artifact launches {artifact_int8}")
+    os.environ["RV3D_STEM_INT8"] = "1"
+    try:
+        int8_k4, _, _ = load_artifact(art_dir / "int8", device=device)
+    finally:
+        del os.environ["RV3D_STEM_INT8"]
+    _, artifact_k4 = serve_artifact(int8_k4, requests, cfg, dec, device,
+                                    "int8 (K4 stem, RV3D_STEM_INT8=1)")
+    check(artifact_k4["meta_kernel_fused_i8"] > 0 and artifact_k4["meta_kernel_fused"] == 0,
+          f"int8 artifact K4 launches {artifact_k4}")
+    del int8_k4
+
+    # 21. Raw points to detections at flagship width.
+    points, extra = make_points_predict(bf16, sensor_width=1800, height=64,
+                                        feature_names=AV2_FEATURES)
+    clouds = [_sample_points(POINTS_B, POINTS_N, 64, 1800, seed=s) for s in range(4)]
+    points(*clouds[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    point_results = [points(*c) for c in clouds]
+    torch.cuda.synchronize()
+    points_ms = (time.perf_counter() - t0) * 1e3 / len(clouds)
+    points_launches = read_counts()
+    check(points_launches["meta_kernel_fused"] > 0 and points_launches["nms_scan"] > 0,
+          f"points launches {points_launches}")
+    kept = check_results(point_results)
+    by_hand = bf16(*points.rasterize(*clouds[0]))
+    check(torch.equal(point_results[0].keep, by_hand.keep)
+          and torch.equal(point_results[0].categories, by_hand.categories),
+          "points predict: keep or categories differ from rasterize-then-predict")
+    pts_err = max((getattr(point_results[0], k) - getattr(by_hand, k)).abs().max().item()
+                  for k in ("cuboids", "scores"))
+    check(pts_err <= 1e-6, f"points predict vs rasterize-then-predict: max|diff| {pts_err}")
+    say(f"points (phase 21): {len(clouds)} requests of B={POINTS_B} x {POINTS_N} points, "
+        f"launches {points_launches}, kept {kept}, equal to rasterize-then-predict "
+        f"(max|diff| {pts_err:.3g}), {points_ms:.2f} ms/request")
+
+    def make_points(seed):
+        return _sample_points(POINTS_B, POINTS_N, 64, 1800, seed=seed)
+
+    bench_kw = dict(batch=2, H=64, W=1808, C=cfg.in_channels)
+    benches = {}
+    for tag, fn, make in (("range images, bf16", bf16, None),
+                          ("range images, int8", int8, None),
+                          ("points, bf16", points, make_points)):
+        say(f"latency_bench ({tag}, 50 requests) on {smi}:")
+        lat = latency_bench(fn, iters=50, make_batch=make, **bench_kw)
+        say(f"stream_bench ({tag}, 20 iterations) on {smi}:")
+        fps = stream_bench(fn, iters=20, make_batch=make, **bench_kw)
+        benches[tag] = (lat, fps)
+    proj_share = proj_ms / benches["points, bf16"][0]["latency_ms_p50"]
+    say(f"points request: projection {proj_ms:.3f} ms of p50 "
+        f"{benches['points, bf16'][0]['latency_ms_p50']} ms ({100 * proj_share:.1f}%) "
+        f"on {smi}")
+    del bf16, int8, points
+    torch.cuda.empty_cache()
+
+    # The CLI as a user types it.
+    cli = [sys.executable, "-m", "range_view_3d_detection_torch.export"]
+    out = art_dir / "cli"
+    t0 = time.perf_counter()
+    for args in (["--synthetic", "--out", str(out)],
+                 ["--load", str(out), "--points", "--latency", "--iters", "50"]):
+        proc = subprocess.run(cli + args, capture_output=True, text=True, cwd=REPO,
+                              timeout=600)
+        check(proc.returncode == 0, f"export CLI {args}: rc {proc.returncode}\n"
+              f"{proc.stderr[-2000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(stats["iters"] == 50 and stats["device"] == torch.cuda.get_device_name(0)
+          and 0 < stats["latency_ms_min"] <= stats["latency_ms_p50"]
+          <= stats["latency_ms_p90"] <= stats["latency_ms_p99"],
+          f"export CLI latency line {stats}")
+    say(f"export CLI (--synthetic, then --load --points --latency --iters 50) in "
+        f"{time.perf_counter() - t0:.1f} s: {json.dumps(stats)} on {smi}")
+    say(f"serving phases 19-21: {time.perf_counter() - t_phase:.0f} s")
+    return {
+        name: {"artifact": artifact_bf16[name] + artifact_int8[name] + artifact_k4[name],
+               "points": points_launches[name]}
+        for name in artifact_bf16
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1717,6 +2058,12 @@ def main() -> int:
     with torch.inference_mode():
         bf16_heads = model(*(torch.as_tensor(a, device=device) for a in requests[0]))
         bf16_heads = {k: v for k, v in bf16_heads["head"][1][0].items()}
+    # Phase 20 serves this model from artifacts: write them before the int8
+    # phases fold it, and keep the requests' results on the host.
+    art_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-artifacts-"))
+    export_phase5(model, cfg, dec, requests, art_dir)
+    phase5_results = [host(r) for r in results]
+    phase5_heads = {k: v.cpu() for k, v in bf16_heads.items()}
 
     # 6. Timings at the main path's shapes.
     k1_ms = cuda_ms(lambda: meta_kernel_fused(**k1_in), reps=10)
@@ -1800,6 +2147,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     trainer_launches = trainer_phase(device, smi)
     int8_launches = overfit_phase(device, smi)
+    torch.cuda.empty_cache()
+    try:
+        serving_launches = serving_phases(art_dir, requests, phase5_results, phase5_heads,
+                                          cfg, dec, device, smi)
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
     # This slice's path (phases 17-18), its launches beside the served path's.
     trainer_path = {
         "meta_kernel_fused": sum(v["K1"] for v in trainer_launches.values()),
@@ -1809,6 +2162,8 @@ def main() -> int:
     }
     for k in kernels:
         k["trainer_launches"] = trainer_path[k["name"]]
+        k["artifact_launches"] = serving_launches[k["name"]]["artifact"]
+        k["points_launches"] = serving_launches[k["name"]]["points"]
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -118,11 +118,14 @@ class RangeViewDataset:
         self.index = self._build_index()
         self._filter_train_index()
         self.epoch = 0  # set by the loader; varies augmentation draws
+        self._db = None
         if cfg.enable_database and cfg.split_name == "train":
-            raise NotImplementedError(
-                "enable_database: the GT-paste sampler (data/database.py) is "
-                "not ported; see ROADMAP.md Queue 1"
+            from range_view_3d_detection_torch.data.database import (
+                DatabaseSampler,
             )
+
+            db_dir = cfg.db_dir or str(Path(cfg.root_dir).parent / "db")
+            self._db = DatabaseSampler(db_dir)
         if cfg.use_repeat_factor_sampling and cfg.split_name == "train":
             self.index = self._repeat_factor_sample(self.index)
         self.index = self.index[:: max(cfg.subsampling_rate, 1)]
@@ -376,6 +379,27 @@ class RangeViewDataset:
                 range_feature_index=(
                     names.index("range") if "range" in names else None
                 ),
+            )
+
+        if self._db is not None and self.cfg.db_config:
+
+            def _normalize_crop(cols: Dict[str, np.ndarray]):
+                # Match load_sweep's per-dataset feature normalization.
+                out = dict(cols)
+                if self.cfg.dataset_name == "waymo" and "intensity" in out:
+                    out["intensity"] = np.tanh(out["intensity"])
+                if "timedelta_ns" in out:
+                    out["timedelta_ns"] = out["timedelta_ns"] * 1e-9
+                return out
+
+            sweep, boxes, box_cats = self._db.sample(
+                sweep,
+                boxes,
+                box_cats,
+                self.cfg.db_config,
+                rng,
+                feature_columns=self.cfg.range_view.feature_column_names,
+                feature_transform=_normalize_crop,
             )
 
         box_task, box_offset, order = self._tasks_offsets(box_cats)

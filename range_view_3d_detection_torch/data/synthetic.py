@@ -1,6 +1,5 @@
 """Synthetic range-view dataset generator (the port's copy of the JAX
-``data/synthetic.py``, with its own copy of the z-buffer it projects
-through, ``ops/projection.py::z_buffer_numpy`` there).
+``data/synthetic.py``).
 
 Writes the exact on-disk layout produced by the reference converters
 (``converters/av2/export.py:31-163``):
@@ -22,47 +21,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
+from range_view_3d_detection_torch.ops.projection import z_buffer_numpy
 from range_view_3d_detection_torch.utils.feather import write_feather
-
-MIN_DISTANCE = 1.0  # reference z_buffer min_distance
-
-
-def z_buffer_numpy(
-    row: np.ndarray,
-    col: np.ndarray,
-    distances: np.ndarray,
-    values: np.ndarray,
-    *,
-    height: int,
-    width: int,
-    min_distance: float = MIN_DISTANCE,
-) -> np.ndarray:
-    """Nearest-return-wins rasterization (host side).
-
-    Args:
-        row/col: (N,) pixel coordinates.
-        distances: (N,) ranges used for the depth test.
-        values: (N, C) per-point features to scatter.
-
-    Returns:
-        (H, W, C) image; empty pixels are zero.
-    """
-    keep = distances >= min_distance
-    row, col, distances, values = (
-        row[keep],
-        col[keep],
-        distances[keep],
-        values[keep],
-    )
-    flat = row * width + col
-    # Sort by (pixel, distance); the first hit per pixel is the nearest.
-    order = np.lexsort((distances, flat))
-    flat_sorted = flat[order]
-    first = np.ones(len(flat_sorted), dtype=bool)
-    first[1:] = flat_sorted[1:] != flat_sorted[:-1]
-    img = np.zeros((height * width, values.shape[1]), dtype=values.dtype)
-    img[flat_sorted[first]] = values[order][first]
-    return img.reshape(height, width, values.shape[1])
 
 
 def _yaw_to_quat_np(yaw):

@@ -82,6 +82,86 @@ def rotated_rect_intersection_area(
     return area.clamp_min(0.0)
 
 
+def _points_in_rect(pts: torch.Tensor, rect: torch.Tensor) -> torch.Tensor:
+    """``pts (..., N, 2)`` inside rotated rect ``(..., 5)`` -> ``(..., N)`` bool."""
+    x, y, l, w, yaw = rect.unbind(-1)
+    cos, sin = torch.cos(yaw), torch.sin(yaw)
+    dx = pts[..., 0] - x[..., None]
+    dy = pts[..., 1] - y[..., None]
+    px = cos[..., None] * dx + sin[..., None] * dy
+    py = -sin[..., None] * dx + cos[..., None] * dy
+    eps = 1e-5
+    return (px.abs() <= l[..., None] * 0.5 + eps) & (py.abs() <= w[..., None] * 0.5 + eps)
+
+
+def _edge_intersections(ca: torch.Tensor, cb: torch.Tensor):
+    """The 16 intersection points of two quads' edges: points ``(..., 16,
+    2)`` and valid ``(..., 16)``, from corners ``(..., 4, 2)``."""
+    a1 = ca[..., :, None, :]
+    a2 = torch.roll(ca, -1, dims=-2)[..., :, None, :]
+    b1 = cb[..., None, :, :]
+    b2 = torch.roll(cb, -1, dims=-2)[..., None, :, :]
+    d1 = a2 - a1
+    d2 = b2 - b1
+    denom = d1[..., 0] * d2[..., 1] - d1[..., 1] * d2[..., 0]
+    rel = b1 - a1
+    safe = torch.where(denom.abs() > _EPS, denom, torch.ones_like(denom))
+    t = (rel[..., 0] * d2[..., 1] - rel[..., 1] * d2[..., 0]) / safe
+    u = (rel[..., 0] * d1[..., 1] - rel[..., 1] * d1[..., 0]) / safe
+    valid = (
+        (denom.abs() > _EPS)
+        & (t >= -1e-6) & (t <= 1.0 + 1e-6)
+        & (u >= -1e-6) & (u <= 1.0 + 1e-6)
+    )
+    pts = a1 + t[..., None] * d1
+    shape = pts.shape[:-3] + (16, 2)
+    return pts.reshape(shape), valid.reshape(shape[:-1])
+
+
+def _rotated_rect_intersection_area_sorted(
+    boxes_a: torch.Tensor, boxes_b: torch.Tensor
+) -> torch.Tensor:
+    """Candidate-point + angle-sort formulation of
+    :func:`rotated_rect_intersection_area` (the JAX package keeps it as a
+    reference for tests): A's corners in B, B's corners in A and the 16
+    edge crossings, sorted by angle about their centroid with the bitonic
+    network (``ops/sorting.py``), then the shoelace formula."""
+    from range_view_3d_detection_torch.ops.sorting import sort_with_payload
+
+    ca = box_corners_bev(boxes_a)
+    cb = box_corners_bev(boxes_b)
+    a_in_b = _points_in_rect(ca, boxes_b)
+    b_in_a = _points_in_rect(cb, boxes_a)
+    inter_pts, inter_valid = _edge_intersections(ca, cb)
+
+    batch = torch.broadcast_shapes(ca.shape[:-2], cb.shape[:-2])
+    pts = torch.cat(
+        [ca.expand(batch + (4, 2)), cb.expand(batch + (4, 2)), inter_pts], dim=-2
+    )
+    valid = torch.cat(
+        [a_in_b.expand(batch + (4,)), b_in_a.expand(batch + (4,)), inter_valid], dim=-1
+    )
+    count = valid.sum(dim=-1, keepdim=True)
+    vf = valid[..., None].to(pts.dtype)
+    centroid = (pts * vf).sum(dim=-2, keepdim=True) / count[..., None].clamp_min(1).to(
+        pts.dtype
+    )
+    rel = pts - centroid
+    angle = torch.atan2(rel[..., 1], rel[..., 0])
+    angle = torch.where(valid, angle, torch.full_like(angle, 1e9))  # invalid last
+    _, sorted_pts = sort_with_payload(angle, pts)  # padded to 32
+
+    # Trailing (invalid) slots repeat the first point, so the cyclic
+    # shoelace closes and degenerate edges add 0.
+    idx = torch.arange(sorted_pts.shape[-2], device=pts.device)
+    keep = (idx < count)[..., None]
+    poly = torch.where(keep, sorted_pts, sorted_pts[..., 0:1, :])
+    nxt = torch.roll(poly, -1, dims=-2)
+    area2 = (poly[..., 0] * nxt[..., 1] - nxt[..., 0] * poly[..., 1]).sum(dim=-1)
+    area = 0.5 * area2.abs()
+    return torch.where(count[..., 0] >= 3, area, torch.zeros_like(area))
+
+
 def iou_rotated_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """Pairwise rotated-BEV IoU: ``(..., N, 5)`` x ``(..., M, 5)`` -> ``(..., N, M)``."""
     a = boxes_a[..., :, None, :]

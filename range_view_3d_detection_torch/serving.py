@@ -15,7 +15,7 @@ from typing import Any, Dict, Iterable, Mapping, Tuple
 import numpy as np
 import torch
 
-from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
+from range_view_3d_detection_torch.models.decoder import DecoderConfig, Proposals, decode
 from range_view_3d_detection_torch.models.detector import Detector, DetectorConfig
 from range_view_3d_detection_torch.models.quantized import (
     calibrate_scales,
@@ -105,11 +105,14 @@ def _dryrun_batch(
 
 
 class Predictor:
-    """Serves detections: ``predictor(feats, cart, mask) -> NMSResult``.
+    """Serves detections: ``predictor(feats, cart, mask) -> NMSResult``
+    (the decoder's ``Proposals`` before NMS when ``use_nms`` is False).
 
     Runs on ``device`` (``"cuda"`` unless the caller asks for the CPU; a
     host without a CUDA device raises). Weights come from ``generator``
-    or are loaded afterwards into ``predictor.model``.
+    or are loaded afterwards into ``predictor.model``; ``bn_folded`` says
+    that their BatchNorm statistics are already folded into the affines
+    (a loaded artifact's are), so :meth:`quantize` does not fold again.
     """
 
     def __init__(
@@ -130,6 +133,7 @@ class Predictor:
         self.model = Detector(cfg, device=self.device, generator=generator)
         self.quant_tree: Mapping[str, Any] | None = None
         self.bn_folded = False
+        self.use_nms = True
 
     def quantize(
         self,
@@ -160,10 +164,10 @@ class Predictor:
         quantize_model(self.model, self.quant_tree, stem_int8=stem_int8)
         return self
 
-    def __call__(self, feats, cart, mask) -> NMSResult:
+    def __call__(self, feats, cart, mask) -> NMSResult | Proposals:
         with torch.inference_mode():
             feats = torch.as_tensor(feats, dtype=torch.float32, device=self.device)
             cart = torch.as_tensor(cart, dtype=torch.float32, device=self.device)
             mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
             out = self.model(feats, cart, mask)
-            return decode(out, self.decoder_cfg, self.cfg.tasks_dict, use_nms=True)
+            return decode(out, self.decoder_cfg, self.cfg.tasks_dict, use_nms=self.use_nms)

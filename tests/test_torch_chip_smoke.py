@@ -180,3 +180,54 @@ def test_train_card_vs_cpu_on_the_cpu(capsys):
 
     chip_smoke.train_card_vs_cpu(serving._flagship_config(tiny=True), "cpu")
     assert "train card vs CPU" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_projection_gate_explains_moved_columns(stride):
+    """Phase 19's gate: a pixel may differ between two rasterizations only
+    where a point changed column. One winning point turned by one column
+    changes pixels that the moved set explains, and nothing else does;
+    a tanh plane may differ by a few ulps, and only a plane so named."""
+    from range_view_3d_detection_torch.data.dataset import AV2_FEATURES, width_padding
+    from range_view_3d_detection_torch.export import _sample_points
+    from range_view_3d_detection_torch.ops.projection import (
+        range_view_coordinates_t,
+        rasterize_points,
+    )
+
+    H, W = 8, 56
+    xyz, laser, inten = _sample_points(1, 600, H, W, seed=5)
+    kw = dict(height=H, width=W, feature_names=AV2_FEATURES, x_stride=stride,
+              pad=width_padding(W, stride), padding_mode="circular")
+    args = [torch.from_numpy(laser), {"intensity": torch.from_numpy(inten)}]
+    want = rasterize_points(torch.from_numpy(xyz), *args, **kw)
+    row, col, _ = range_view_coordinates_t(torch.from_numpy(xyz[0]),
+                                           torch.from_numpy(laser[0]), height=H, width=W)
+    gate = dict(feature_names=AV2_FEATURES, pad=kw["pad"], x_stride=stride, width=W)
+    a = stride * 2 * np.pi / W  # turned by `stride` columns: still in a kept one
+    for i in range(20):  # the first point whose move shows in the image
+        moved_xyz = xyz.copy()
+        x, y = xyz[0, i, 0], xyz[0, i, 1]
+        moved_xyz[0, i, :2] = [x * np.cos(a) - y * np.sin(a), x * np.sin(a) + y * np.cos(a)]
+        got = rasterize_points(torch.from_numpy(moved_xyz), *args, **kw)
+        _, col2, _ = range_view_coordinates_t(torch.from_numpy(moved_xyz[0]),
+                                              torch.from_numpy(laser[0]), height=H,
+                                              width=W)
+        assert int(col2[i]) != int(col[i])
+        moved = {(0, int(row[i]), int(col[i])), (0, int(row[i]), int(col2[i]))}
+        n_diff, n_bad = chip_smoke.unexplained_pixels(got, want, moved, ulp_names=(),
+                                                      **gate)
+        if n_diff:
+            break
+    assert n_diff > 0 and n_bad == 0
+    assert chip_smoke.unexplained_pixels(got, want, set(), ulp_names=(), **gate)[1] > 0
+    # A few ulps in the intensity plane pass only where it is named.
+    i = AV2_FEATURES.index("intensity")
+    nudged = want[0].clone()
+    bits = nudged[..., i].contiguous().view(torch.int32)
+    nudged[..., i] = torch.where(want[2], bits + chip_smoke.TANH_ULPS, bits).view(
+        torch.float32)
+    near = (nudged, want[1], want[2])
+    assert chip_smoke.unexplained_pixels(near, want, set(), ulp_names=("intensity",),
+                                         **gate) == (0, 0)
+    assert chip_smoke.unexplained_pixels(near, want, set(), ulp_names=(), **gate)[1] > 0

@@ -9,7 +9,8 @@
 - ``DataLoader`` batches come in the same order: shuffled, with
   drop-last, without it (wrap-padded last batch), and for a dataset
   smaller than one batch.
-- ``enable_database`` raises (the GT-paste sampler is not ported).
+- ``enable_database`` without a built database raises, as in JAX (the
+  sampler itself: ``tests/test_torch_database.py``).
 """
 
 from __future__ import annotations
@@ -133,6 +134,11 @@ def test_loader_batch_order_equals_jax(roots, case):
 
 
 def test_database_raises(roots):
-    tcfg, _ = configs(roots["port"], "train", enable_database=True)
-    with pytest.raises(NotImplementedError, match="database"):
+    """``enable_database`` without a built database (``<root>/../db``)
+    raises in both packages; with one, ``tests/test_torch_database.py``
+    holds the pasted items."""
+    tcfg, jcfg = configs(roots["port"], "train", enable_database=True)
+    with pytest.raises(FileNotFoundError, match="db.feather"):
         td.RangeViewDataset(tcfg)
+    with pytest.raises(OSError):
+        jd.RangeViewDataset(jcfg)

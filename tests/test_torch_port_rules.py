@@ -2,12 +2,13 @@
 
 - Every port module, ``chip_smoke.py``, ``chip_probe_k1.py`` and
   ``chip_probe_k4.py`` import with JAX, flax, optax, orbax, the JAX
-  package, pyarrow, PyYAML, matplotlib, polars and tensorboard made
-  unimportable (none of the last five is on the machine with the card),
-  and the training, data, evaluation and utility modules are among them;
-  in that process ``rv-av2`` composes, a Feather file round-trips, a
-  PNG is drawn and decoded, and the ``tensorboard`` logger backend
-  raises.
+  package, ``tools/``, pyarrow, PyYAML, matplotlib, polars, tensorboard,
+  msgpack and ml_dtypes made unimportable (none of the last seven is on
+  the machine with the card), and the training, data, evaluation,
+  utility, projection, export and predict modules are among them; in
+  that process ``rv-av2`` composes, a Feather file and a msgpack tree
+  round-trip, a PNG is drawn and decoded, and the ``tensorboard`` logger
+  backend raises.
 - What the port does not do raises instead of running something else:
   ``make_train_step(quant_tree=...)`` (QAT) and ``remat=True``.
 - Entry points default to the card: on a host without a CUDA device,
@@ -64,10 +65,13 @@ def test_port_imports_without_jax():
     for name in ("data.dataset", "data.augmentations", "data.synthetic",
                  "evaluation.av2_eval", "evaluation.waymo_eval", "evaluation.iou_np",
                  "evaluation.roi", "utils.config", "utils.yaml_subset", "utils.feather",
-                 "utils.logging", "utils.rendering", "train", "evaluate", "overfit"):
+                 "utils.logging", "utils.rendering", "train", "evaluate", "overfit",
+                 "ops.projection", "ops.index", "ops.sorting", "utils.msgpack",
+                 "data.database", "export", "predict"):
         assert f"range_view_3d_detection_torch.{name}" in modules
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "range_view_3d_detection_tpu",
-              "pyarrow", "yaml", "matplotlib", "polars", "tensorboard")
+              "pyarrow", "yaml", "matplotlib", "polars", "tensorboard", "msgpack",
+              "ml_dtypes", "tools")
     code = "\n".join(
         [
             "import importlib, sys, tempfile",
@@ -90,6 +94,10 @@ def test_port_imports_without_jax():
             "img = rendering.draw_bev(np.zeros((4, 2)), np.ones((1, 7)), np.ones((1, 7)),",
             "                         out_path=d / 'bev.png')",
             "assert (rendering.read_png(d / 'bev.png') == img).all()",
+            "from range_view_3d_detection_torch.utils import msgpack",
+            "tree = {'b': np.arange(3, dtype=np.int8), 'a': {'s': np.float32(2.5)}}",
+            "back = msgpack.msgpack_restore(msgpack.msgpack_serialize(tree))",
+            "assert back['b'].tolist() == [0, 1, 2] and back['a']['s'] == 2.5",
             "from range_view_3d_detection_torch.utils.logging import MetricsLogger",
             "try:",
             "    MetricsLogger(d, backend='tensorboard')",
