@@ -4,13 +4,16 @@ check its kernels.
 
     python3 chip_smoke.py
 
+(``python -m torch.distributed.run ... chip_smoke.py train-rank ARGS`` is
+phase 23's rank process, which the script starts itself.)
+
 Phases, each of which raises (non-zero exit) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into ``build/``;
    ptxas's register and spill lines (kept beside the library, so a reused
    build is checked too), and zero spills in both instances of K1 and of
-   K4;
+   K4 and in the six of K3;
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
@@ -98,11 +101,12 @@ Phases, each of which raises (non-zero exit) on failure:
     into targets, forward, loss, backward and optimizer; ms an eval
     step; a torch.profiler table of one step by kernel;
 17. the Trainer at the flagship: ``generate_dataset`` writes a 64x1800
-    AV2-layout corpus with rv-av2's 26 categories (one train log of 8
+    AV2-layout corpus with rv-av2's 26 categories (one train log of 16
     sweeps, one val log of 4, 24 boxes a sweep) into a temporary
     directory; ``compose("conf", "rv-av2")`` with the root there, one
-    epoch, B=2 (the one cut: baseline.yaml's B=4 needs remat to fit) and
-    ``train_log_freq`` 2, augmentations on; ``Trainer.fit`` takes 4 steps:
+    epoch, baseline.yaml's B=4 with ``model.remat=true`` (every group of
+    ``remat_scope``) and ``train_log_freq`` 2, augmentations on;
+    ``Trainer.fit`` takes 4 steps:
     finite losses, step 4, its checkpoint restored bit for bit,
     ``metrics.jsonl`` and the 4 PNGs decode; ``validate()`` must launch
     K1 and K2 and write one shard per val sweep, read back; the
@@ -144,7 +148,39 @@ Phases, each of which raises (non-zero exit) on failure:
     on points in bf16; projection's share of a points request; and the
     export CLI as a user types it, in a subprocess (``--synthetic --out
     D``, then ``--load D --points --latency --iters 50``), its JSON line
-    parsed.
+    parsed;
+22. remat: the flagship train step (bf16, B=2 64x1808, 64 boxes an
+    image) without remat and with every group of ``remat_scope``, from the
+    same weights: the loss and the running statistics equal bit for bit,
+    the gradients within ``train_card_vs_cpu``'s form of tolerance (the
+    median leaf within 2e-3 of its max, the worst within 1e-3 plus twice
+    the card's own run-to-run move); then each of B=2 without remat, B=2
+    with it and B=4 with it: ms a step (CUDA events, 2 warm-up, median of
+    5) split into targets, forward, loss, backward and optimizer, and
+    peak memory, which must stay inside the card's;
+23. distributed: in this process, the phase-22 step as rank 0 of a NCCL
+    group of one (``parallel/mesh.py``'s collectives all run) against the
+    same step without a group: loss and running statistics equal bit for
+    bit, gradients as in phase 22; then ``python -m torch.distributed.run
+    --nproc_per_node=<cards>`` over the port's ``train`` entry point at
+    rv-av2 on the phase-17 corpus, B=4 a rank, remat on,
+    ``trainer.zero1=true``, one epoch (fit, validate, evaluation), each
+    rank instrumented by ``chip_smoke.py train-rank``: world size,
+    backend, step ms (CUDA events), the device ms of a step's SyncBN
+    all-reduces (torch.profiler: the ``mesh.global_moments`` ranges and
+    their ``_AllReduceBackward``) beside all of its NCCL kernels, peak
+    memory, and K1 and K2 launches; the subprocess failing fails the
+    script. World size 1 on a one-card machine proves the NCCL path and
+    the launcher, not scaling;
+24. QAT: phase 18's trained model, with the scales phase 18 calibrated
+    (fold, calibrate on the train batches, full scope), fine-tuned under
+    QAT (``make_train_step(quant_tree=...)``) for ``QAT_STEPS`` steps at
+    1e-4 (``tools/quant_accuracy.py``'s ``--qat-lr``), then served int8
+    with those scales (K3, K2 launch) and scored: fp, PTQ and QAT mAP
+    printed; one K3 conv of the fine-tuned model, on its captured input:
+    the QAT forward (``qat_conv``, fp32 with TF32 off) equals the int8
+    serving value (K3) within 2e-5 of max|ref| (fp32 sums in another
+    order), printed beside the same conv with TF32 on.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -1291,30 +1327,10 @@ def training_phases(device, smi) -> None:
 
     # 16. Timings: ms a train step (2 warm-up, median of 7) split by part,
     # ms an eval step, a profile of one step.
-    parts = ("targets", "forward", "loss", "backward", "optimizer")
-    runs = []
-    for i in range(9):
-        start = torch.cuda.Event(enable_timing=True)
-        events = {}
-
-        def mark(name):
-            events[name] = torch.cuda.Event(enable_timing=True)
-            events[name].record()
-
-        start.record()
-        st, _ = step(st, batch, mark=mark)
-        if i >= 2:
-            runs.append((start, events))
-    torch.cuda.synchronize()
-    total = statistics.median(s.elapsed_time(e["optimizer"]) for s, e in runs)
-    split = {}
-    for j, part in enumerate(parts):
-        split[part] = statistics.median(
-            (s if j == 0 else e[parts[j - 1]]).elapsed_time(e[part]) for s, e in runs
-        )
+    total, split, st = step_split(step, st, batch, n=9)
     eval_ms = cuda_ms(lambda: eval_step(st, batch), reps=5)
     profile_train_step(step, st, batch)
-    say(f"train step: {total:.3f} ms (CUDA events, median of {len(runs)} after 2 warm-up) = "
+    say(f"train step: {total:.3f} ms (CUDA events, median of 7 after 2 warm-up) = "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f" ms; eval step {eval_ms:.3f} ms; peak memory {peak_gb:.2f} GiB; B=2 64x1808 "
         f"bf16 on {smi}")
@@ -1388,15 +1404,26 @@ def loader_split(trainer) -> dict:
     return {k: v * 1e3 / n_batches for k, v in t.items()}
 
 
+def write_av2_corpus(root: Path, train_sweeps: int, categories) -> None:
+    """Phase 17's corpus: one train log of ``train_sweeps`` and one val log
+    of 4 sweeps at 64x1800 in the AV2 layout, 24 boxes a sweep."""
+    from range_view_3d_detection_torch.data.synthetic import generate_dataset
+
+    for split, sweeps, seed in (("train", train_sweeps, SEED + 17), ("val", 4, SEED + 18)):
+        generate_dataset(root, splits={split: 1}, sweeps_per_log=sweeps, height=64,
+                         width=1800, categories=categories, num_boxes=24,
+                         num_bg_points=60000, seed=seed)
+
+
 def trainer_phase(device, smi) -> dict:
     """Phase 17: the Trainer at the flagship (see the module docstring).
-    Returns the launches of K1 and K2 in its fit and validate."""
+    Returns the launches of K1 and K2 in its fit and validate, and its
+    work directory, whose corpus phase 23 trains on."""
     import tempfile
 
     import numpy as np
     import torch
 
-    from range_view_3d_detection_torch.data.synthetic import generate_dataset
     from range_view_3d_detection_torch.evaluation.av2_eval import evaluate_predictions
     from range_view_3d_detection_torch.kernels.nms import nms_scan
     from range_view_3d_detection_torch.kernels.stem import meta_kernel_fused
@@ -1411,18 +1438,18 @@ def trainer_phase(device, smi) -> dict:
     categories = compose(REPO / "conf", "rv-av2")["model"]["tasks"][0]
     check(len(categories) == 26, f"rv-av2 has {len(categories)} categories")
     t0 = time.perf_counter()
-    for split, sweeps, seed in (("train", 8, SEED + 17), ("val", 4, SEED + 18)):
-        generate_dataset(work / "sensor", splits={split: 1}, sweeps_per_log=sweeps,
-                         height=64, width=1800, categories=categories, num_boxes=24,
-                         num_bg_points=60000, seed=seed)
+    write_av2_corpus(work / "sensor", 16, categories)
     gen_s = time.perf_counter() - t0
     cfg = compose(REPO / "conf", "rv-av2", [
         f"++dataset.root_dir={work / 'sensor'}", f"++run_dir={work / 'run'}",
-        "++trainer.max_epochs=1", "++model.batch_size=2", "++model.train_log_freq=2",
+        "++trainer.max_epochs=1", "++model.batch_size=4", "++model.remat=true",
+        "++model.train_log_freq=2",
     ])
     trainer = Trainer(cfg)  # the card: the default device
     check(trainer.device.type == "cuda" and trainer.ckpt is not None,
           f"trainer on {trainer.device}, checkpoints {trainer.ckpt}")
+    check(trainer.det_cfg.remat and trainer.batch_size == 4 and trainer.world == 1,
+          f"trainer remat {trainer.det_cfg.remat}, batch {trainer.batch_size}")
     check(trainer.train_ds.cfg.augmentations == cfg["model"]["augmentations_config"]
           and bool(cfg["model"]["augmentations_config"]), "flagship augmentations off")
     rec = timed_trainer(trainer)
@@ -1503,8 +1530,8 @@ def trainer_phase(device, smi) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     split = loader_split(trainer)
     n_val_batches = len(trainer.val_loader)
-    say(f"trainer (phase 17): rv-av2 at B=2 64x1800 (padded 1808), 26 classes, augmentations "
-        f"on; corpus of 8 + 4 sweeps, 24 boxes a sweep, written in {gen_s:.1f} s; "
+    say(f"trainer (phase 17): rv-av2 at B=4 with remat, 64x1800 (padded 1808), 26 classes, "
+        f"augmentations on; corpus of 16 + 4 sweeps, 24 boxes a sweep, written in {gen_s:.1f} s; "
         f"losses {[round(x, 4) for x in rec['losses']]}; checkpoint of step 4 restored bit "
         f"for bit; {len(shapes)} PNGs decode {sorted(set(shapes))}; fit {fit_s:.2f} s "
         f"(launches {fit_launches}), validate {val_s * 1e3 / n_val_batches:.1f} ms a batch "
@@ -1518,10 +1545,11 @@ def trainer_phase(device, smi) -> dict:
         f"{statistics.mean(device_ms):.3f}; stall (wall - device) "
         f"{statistics.mean(walls) - statistics.mean(device_ms):.3f} ms; image logging "
         f"{[round(t * 1e3, 1) for _, t in rec['images_s']]} ms")
-    say("loader host ms a batch (B=2, serial; the loader's 2 threads run it beside the "
+    say("loader host ms a batch (B=4, serial; the loader's 2 threads run it beside the "
         "step): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
         + f"; total {sum(split.values()):.2f} ms; phase {time.perf_counter() - t_phase:.0f} s")
-    return {"fit": fit_launches, "validate": val_launches}
+    del trainer, state
+    return {"fit": fit_launches, "validate": val_launches}, work
 
 
 # Phase 18's gate, from the JAX package's own run of the same overfit on
@@ -1571,6 +1599,104 @@ def overfit_phase(device, smi) -> dict:
         f"({last10 / losses[0]:.3f} of it), every 10th {[round(x, 4) for x in losses[::10]]}; "
         f"bf16 mAP {out['mAP']:.4f}, int8 (PTQ, full scope, calibrated on the train batches) "
         f"mAP {int8['mAP']:.4f}, int8 launches {launches} (synthetic data) on {smi}")
+    qat_launches = qat_phase(trainer, predictor, work, out["mAP"], int8["mAP"], smi)
+    return launches, qat_launches
+
+
+# Phase 24: QAT fine-tuning steps and rate (``tools/quant_accuracy.py``'s
+# ``--qat-lr``; optax's ``adamw`` default weight decay of 1e-4, the clip at 35).
+QAT_STEPS = 300
+QAT_LR = 1e-4
+
+
+def qat_phase(trainer, ptq, work: Path, fp_map: float, ptq_map: float, smi) -> dict:
+    """Phase 24 (see the module docstring). Returns the K3 and K2 launches
+    of the QAT model's int8 scoring."""
+    import torch
+    import torch.nn.functional as F
+
+    from range_view_3d_detection_torch import overfit
+    from range_view_3d_detection_torch.models.blocks import ConvNormAct
+    from range_view_3d_detection_torch.models.quantized import Int8Conv, qat_conv, quant_tree_of
+    from range_view_3d_detection_torch.serving import Predictor
+    from range_view_3d_detection_torch.training import optim, state as state_lib
+
+    t_phase = time.perf_counter()
+    device = trainer.device
+    qtree = quant_tree_of(ptq.model)  # phase 18's scales, the ones served
+    tx, _ = optim.make_optimizer(QAT_LR, QAT_STEPS, weight_decay=1e-4, grad_clip_norm=35.0,
+                                 debug=True)
+    st = state_lib.create_state(trainer.det_cfg, tx, device=device)
+    st.model.load_state_dict(trainer.state.model.state_dict())
+    step = state_lib.make_train_step(trainer.det_cfg, quant_tree=qtree)
+    losses = []
+    while len(losses) < QAT_STEPS:
+        for batch in trainer.train_loader:
+            st, metrics = step(st, batch)
+            losses.append(float(metrics["loss"]))
+            if len(losses) == QAT_STEPS:
+                break
+    check(all(math.isfinite(x) for x in losses), "QAT: a loss is not finite")
+    train_s = time.perf_counter() - t_phase
+    check(all(getattr(m, "qat_scale", None) is None for m in st.model.modules()),
+          "QAT: a block stayed in QAT after the steps")
+
+    # One K3 conv of the fine-tuned model on its captured input: the QAT
+    # forward against the int8 serving value.
+    name = "RangeNet_0.RangeBackbone_0.ResidualBlock_1.BasicBlock_0.ConvNormAct_0"
+    block = st.model.get_submodule(name)
+    check(isinstance(block, ConvNormAct), f"{name} is {type(block).__name__}")
+    node = qtree
+    for part in name.split("."):
+        node = node[part]
+    s = torch.tensor(float(node["in_scale"]), device=device)
+    seen = []
+    handle = block.register_forward_pre_hook(lambda m, args: seen.append(args[0].detach()))
+    first = next(iter(trainer.val_loader))
+    with torch.inference_mode():
+        st.model.eval()(*(torch.as_tensor(first[k], device=device)
+                          for k in ("features", "cart", "mask")))
+    handle.remove()
+    x, conv = seen[0].clone(), block.Conv_0
+    kw = dict(stride=conv.stride, padding=conv.padding)
+    with torch.no_grad():
+        want = Int8Conv(conv, s, torch.float32)(x)
+        got = qat_conv(F.conv2d, x, conv.weight, None, s, 0, **kw)
+        cudnn = torch.backends.cudnn
+        allow = cudnn.allow_tf32
+        cudnn.allow_tf32 = True
+        try:
+            w = conv.weight.float()
+            w_s = w.abs().amax(dim=(1, 2, 3), keepdim=True).div(127.0).clamp_min(1e-12)
+            tf32 = F.conv2d(torch.clamp(torch.round(x.float() / s), -127, 127) * s,
+                            torch.clamp(torch.round(w / w_s), -127, 127) * w_s, None, **kw)
+        finally:
+            cudnn.allow_tf32 = allow
+    torch.cuda.synchronize()
+    ref = want.abs().max().item()
+    err, err_tf32 = (got - want).abs().max().item(), (tf32 - want).abs().max().item()
+    check(err <= 2e-5 * ref, f"QAT conv vs int8 serving: max|diff| {err} > 2e-5 * {ref}")
+
+    # The fine-tuned weights served int8 with the same scales, scored.
+    reset_counts()
+    qat = Predictor(trainer.det_cfg, trainer.dec_cfg, device=device)
+    qat.model.load_state_dict(st.model.state_dict())
+    qat.quantize(quant_tree=qtree, scope="full")
+    pred_dir = overfit.write_predictor_shards(trainer, qat, work / "qat_predictions")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {"conv3x3_i8_fused": counts["conv3x3_i8_fused"], "nms_scan": counts["nms_scan"]}
+    check(launches["conv3x3_i8_fused"] > 0 and launches["nms_scan"] > 0,
+          f"QAT int8 scoring launches {launches}")
+    qat_map = overfit.score(trainer, pred_dir)["mAP"]
+    check(math.isfinite(qat_map), f"QAT mAP {qat_map}")
+    say(f"QAT (phase 24): {QAT_STEPS} steps at {QAT_LR} from phase 18's model and scales in "
+        f"{train_s:.1f} s, loss {losses[0]:.4f} -> last-10 mean "
+        f"{statistics.mean(losses[-10:]):.4f}; mAP fp {fp_map:.4f}, int8 PTQ {ptq_map:.4f}, "
+        f"int8 QAT {qat_map:.4f}; int8 launches {launches}; {name} on its captured input "
+        f"{tuple(x.shape)}: QAT forward vs int8 serving max|diff| {err:.3g} (max|ref| "
+        f"{ref:.4g}), with TF32 on {err_tf32:.3g}; phase {time.perf_counter() - t_phase:.0f} s "
+        f"on {smi}")
     return launches
 
 
@@ -1885,6 +2011,316 @@ def serving_phases(art_dir: Path, requests, bf16_results, bf16_heads, cfg, dec, 
     }
 
 
+def one_step(cfg, batch, device, seed):
+    """One train step of a fresh state from ``seed``'s weights: (loss,
+    gradients, running statistics, metrics)."""
+    import torch
+
+    from range_view_3d_detection_torch.training import optim, state as state_lib
+
+    tx, _ = optim.make_optimizer(1e-3, 10, debug=True)
+    st = state_lib.create_state(cfg, tx, device=device,
+                                generator=torch.Generator().manual_seed(seed))
+    grads = []
+    st, metrics = state_lib.make_train_step(cfg)(st, batch, grads_out=grads)
+    stats = {n: b.clone() for n, b in running_stats(st.model).items()}
+    del st
+    return float(metrics["loss"]), grads, stats, metrics
+
+
+def same_step(tag, got, want, noise) -> str:
+    """Phases 22 and 23's gate on two runs of ``one_step``: the loss and
+    the running statistics equal bit for bit; the gradients in
+    ``train_card_vs_cpu``'s form (the median leaf within 2e-3 of its max,
+    the worst within 1e-3 plus twice ``noise``'s, a repeated run's, move).
+    Returns the summary."""
+    import statistics
+
+    import torch
+
+    check(got[0] == want[0], f"{tag}: loss {got[0]!r} != {want[0]!r}")
+    for n, b in want[2].items():
+        check(torch.equal(got[2][n], b), f"{tag}: running statistic {n} differs")
+    err, err_noise = [], []
+    for a, b, c in zip(got[1], want[1], noise[1]):
+        scale = max(b.abs().max().item(), 1e-30)
+        err.append((a - b).abs().max().item() / scale)
+        err_noise.append((c - b).abs().max().item() / scale)
+    med = statistics.median(err)
+    check(med <= 2e-3, f"{tag}: median gradient leaf off by {med:.3g} of its max")
+    check(max(err) <= 1e-3 + 2 * max(err_noise),
+          f"{tag}: a gradient leaf off by {max(err):.3g} of its max, a repeated run "
+          f"{max(err_noise):.3g}")
+    return (f"loss {got[0]:.7f} equal, {len(want[2])} running statistics equal, gradient "
+            f"leaves off by {med:.3g} of their max in the median, {max(err):.3g} at worst "
+            f"(a repeated run: {max(err_noise):.3g})")
+
+
+def step_split(step, st, batch, n: int, warmup: int = 2) -> tuple:
+    """``n`` steps of ``st``: the median ms a step after ``warmup`` (CUDA
+    events) and its split into targets, forward, loss, backward and
+    optimizer. Returns (total, split, state)."""
+    import torch
+
+    parts = ("targets", "forward", "loss", "backward", "optimizer")
+    runs = []
+    for i in range(n):
+        start, events = torch.cuda.Event(enable_timing=True), {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        start.record()
+        st, metrics = step(st, batch, mark=mark)
+        check(math.isfinite(float(metrics["loss"])), f"timed step: loss {metrics['loss']}")
+        if i >= warmup:
+            runs.append((start, events))
+    torch.cuda.synchronize()
+    total = statistics.median(s.elapsed_time(e["optimizer"]) for s, e in runs)
+    split = {
+        part: statistics.median(
+            (s if j == 0 else e[parts[j - 1]]).elapsed_time(e[part]) for s, e in runs)
+        for j, part in enumerate(parts)
+    }
+    return total, split, st
+
+
+def timed_steps(cfg, batch, device, seed) -> tuple:
+    """ms a train step (2 warm-up, the median of 5) split by part, and
+    peak GiB, from a fresh state."""
+    import torch
+
+    from range_view_3d_detection_torch.training import optim, state as state_lib
+
+    tx, _ = optim.make_optimizer(1e-3, 10, debug=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = state_lib.create_state(cfg, tx, device=device,
+                                generator=torch.Generator().manual_seed(seed))
+    total, split, st = step_split(state_lib.make_train_step(cfg), st, batch, n=7)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del st
+    return total, split, peak_gb
+
+
+def remat_phase(device, smi) -> None:
+    """Phase 22: remat (``DetectorConfig.remat``) on the flagship step."""
+    import dataclasses
+
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.training import state as state_lib
+
+    t_phase = time.perf_counter()
+    cfg = serving._flagship_config()
+    remat = dataclasses.replace(cfg, remat=True)
+    check(remat.remat_scope == ("stem", "stages", "heads", "loss"),
+          f"remat scope {remat.remat_scope}")
+    batch2 = state_lib.batch_to_device(
+        flagship_train_batch(cfg, 2, 64, 1808, seed=SEED + 22), device)
+    plain = one_step(cfg, batch2, device, SEED + 23)
+    again = one_step(cfg, batch2, device, SEED + 23)
+    got = one_step(remat, batch2, device, SEED + 23)
+    say(f"remat (phase 22) B=2, full scope against no remat: "
+        f"{same_step('remat B=2', got, plain, again)}; ok")
+    del plain, again, got
+    total_mem = torch.cuda.get_device_properties(device).total_memory / 2**30
+    batch4 = state_lib.batch_to_device(
+        flagship_train_batch(cfg, 4, 64, 1808, seed=SEED + 24), device)
+    for tag, c, b in (("B=2 no remat", cfg, batch2), ("B=2 remat", remat, batch2),
+                      ("B=4 remat", remat, batch4)):
+        total, split, peak_gb = timed_steps(c, b, device, SEED + 23)
+        check(peak_gb < total_mem, f"{tag}: peak {peak_gb:.2f} GiB of {total_mem:.2f}")
+        say(f"remat (phase 22) {tag}: {total:.3f} ms a step (CUDA events, median of 5 after "
+            f"2 warm-up) = " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" ms; peak {peak_gb:.2f} GiB of {total_mem:.2f}; bf16 64x1808 on {smi}")
+    say(f"remat phase: {time.perf_counter() - t_phase:.0f} s")
+
+
+def distributed_phase(device, smi, corpus_work: Path) -> dict:
+    """Phase 23: the NCCL path (see the module docstring). Returns the
+    kernels' launches in rank 0's fit, validate and evaluation."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.parallel import mesh
+    from range_view_3d_detection_torch.training import state as state_lib
+
+    t_phase = time.perf_counter()
+    cfg = serving._flagship_config()
+    batch = state_lib.batch_to_device(
+        flagship_train_batch(cfg, 2, 64, 1808, seed=SEED + 22), device)
+    plain = one_step(cfg, batch, device, SEED + 23)
+    again = one_step(cfg, batch, device, SEED + 23)
+    init = Path(tempfile.mkdtemp(prefix="chip-smoke-nccl-")) / "init"
+    got_device = mesh.initialize_distributed(device, init_method=f"file://{init}", rank=0,
+                                             world_size=1)
+    try:
+        check(mesh.active() and dist.get_backend() == "nccl" and got_device == device,
+              f"NCCL group: backend {dist.get_backend()}, device {got_device}")
+        grouped = one_step(cfg, batch, device, SEED + 23)
+    finally:
+        dist.destroy_process_group()
+    check(not mesh.active(), "the NCCL group outlived its phase")
+    say(f"distributed (phase 23): the flagship step as rank 0 of a NCCL group of 1 against "
+        f"no group: {same_step('NCCL world 1', grouped, plain, again)}; ok")
+    del plain, again, grouped, batch
+    torch.cuda.empty_cache()
+
+    n = torch.cuda.device_count()
+    ranks, wall_s = launch_ranks(n, corpus_work / "sensor", corpus_work / "run-distributed")
+    check(ranks[0]["launches"]["meta_kernel_fused"] > 0
+          and ranks[0]["launches"]["nms_scan"] > 0,
+          f"distributed validate launches {ranks[0]['launches']}")
+    say(f"distributed (phase 23): python -m torch.distributed.run --nproc_per_node={n} over "
+        f"the train entry point, world size {n} on one machine (proves the NCCL path and "
+        f"the launcher, not scaling); subprocess {wall_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.0f} s on {smi}")
+    return ranks[0]["launches"]
+
+
+def launch_ranks(n: int, corpus: Path, run_dir: Path) -> tuple:
+    """``python -m torch.distributed.run --nproc_per_node=n`` over the
+    train entry point (each rank ``chip_smoke.py train-rank``) at rv-av2
+    on ``corpus``, B=4 a rank, remat, ZeRO-1, one epoch; fails unless it
+    exits 0 with a finite report from every rank. Prints and returns the
+    reports (by rank) and the launcher's wall seconds."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", str(REPO / "chip_smoke.py"), "train-rank",
+           "experiment=rv-av2", f"++dataset.root_dir={corpus}", f"++run_dir={run_dir}",
+           "++trainer.max_epochs=1", "++model.batch_size=4", "++model.remat=true",
+           "++trainer.zero1=true", "++model.train_log_freq=0"]
+    t0 = time.perf_counter()
+    # Its own process group, so that a timeout ends the launcher's ranks too.
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=str(REPO), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        say(out[-6000:])
+        say(err[-6000:])
+    check(proc.returncode == 0, f"distributed train: exit {proc.returncode}")
+    ranks = [json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+             if line.startswith("chip_smoke_rank ")]
+    check(len(ranks) == n, f"distributed train: {len(ranks)} rank reports of {n}")
+    ranks.sort(key=lambda r: r["rank"])
+    for r in ranks:
+        check(r["world"] == n and r["backend"] == "nccl" and r["steps"] > 0
+              and all(math.isfinite(x) for x in r["losses"]), f"rank report {r}")
+        say(f"distributed rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']}): "
+            f"{r['steps']} steps at B=4 a rank, remat, ZeRO-1; losses "
+            f"{[round(x, 4) for x in r['losses']]}; step ms (CUDA events; steps "
+            f"{[k for k in range(1, r['steps'] + 1) if k != PROFILED_STEP]}) "
+            f"{[round(x, 3) for x in r['step_ms']]}; profiled step {r['profiled_ms']:.3f} ms: "
+            f"SyncBN all-reduces {r['syncbn_ms']:.3f} ms device time (forward ranges "
+            f"{r['syncbn_fwd_ms']:.3f}, backward {r['syncbn_bwd_ms']:.3f}; {r['syncbn_calls']} "
+            f"ranges), every NCCL kernel {r['nccl_ms']:.3f} ms in {r['nccl_kernels']} "
+            f"launches; peak {r['peak_gb']:.2f} GiB; launches {r['launches']}; AP "
+            f"{r.get('ap')}")
+    return ranks, wall_s
+
+
+# Phase 23's rank: the step it profiles (after two warm-up steps).
+PROFILED_STEP = 3
+
+
+def train_rank(argv) -> int:
+    """Phase 23's rank process: ``train.main(argv)`` with the Trainer's
+    step timed (CUDA events) and its third step profiled; prints one
+    ``chip_smoke_rank {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(REPO))
+    from range_view_3d_detection_torch import train
+    from range_view_3d_detection_torch.parallel import mesh
+    from range_view_3d_detection_torch.training import loop
+
+    rec = {"step_ms": [], "losses": []}
+    init = loop.Trainer.__init__
+
+    def instrumented(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        rec.update(world=mesh.world(), rank=mesh.rank(), device=str(self.device),
+                   backend=dist.get_backend() if mesh.active() else None)
+        step = self.train_step
+
+        def timed(state, batch):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if len(rec["losses"]) + 1 == PROFILED_STEP:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    start.record()
+                    state, metrics = step(state, batch)
+                    end.record()
+                    torch.cuda.synchronize()
+                rec["profiled_ms"] = start.elapsed_time(end)
+                syncbn_profile(prof, rec, DeviceType)
+            else:
+                start.record()
+                state, metrics = step(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                rec["step_ms"].append(start.elapsed_time(end))
+            rec["losses"].append(float(metrics["loss"]))
+            return state, metrics
+
+        self.train_step = timed
+
+    loop.Trainer.__init__ = instrumented
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = train.main(argv)
+    rec.update(steps=len(rec["losses"]), launches=read_counts(),
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if metrics:
+        rec["ap"] = metrics["AVERAGE_METRICS"]["AP"]
+    rec.setdefault("profiled_ms", float("nan"))
+    for k in ("syncbn_ms", "syncbn_fwd_ms", "syncbn_bwd_ms", "nccl_ms"):
+        rec.setdefault(k, float("nan"))
+    rec.setdefault("syncbn_calls", 0)
+    rec.setdefault("nccl_kernels", 0)
+    print("chip_smoke_rank " + json.dumps(rec), flush=True)
+    return 0
+
+
+def syncbn_profile(prof, rec, DeviceType) -> None:
+    """The device time of one step's SyncBN all-reduces: the
+    ``mesh.global_moments`` ranges (the moments' concatenation, the
+    all-reduce and the division, the recompute's among them) and autograd's
+    ``_AllReduceBackward`` nodes; beside it every NCCL kernel's."""
+
+    def device_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    events = prof.events()
+    # The host-side ranges only: a profiler may mirror a range on the
+    # device's timeline under the same name.
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    fwd = [e for e in host if e.name == "mesh.global_moments"]
+    bwd = [e for e in host if e.name.startswith("autograd::engine::evaluate_function")
+           and e.name.endswith("_AllReduceBackward")]
+    nccl = [e for e in events if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()]
+    rec["syncbn_fwd_ms"] = sum(device_us(e) for e in fwd) / 1e3
+    rec["syncbn_bwd_ms"] = sum(device_us(e) for e in bwd) / 1e3
+    rec["syncbn_ms"] = rec["syncbn_fwd_ms"] + rec["syncbn_bwd_ms"]
+    rec["syncbn_calls"] = len(fwd) + len(bwd)
+    rec["nccl_ms"] = sum(e.time_range.elapsed_us() for e in nccl) / 1e3
+    rec["nccl_kernels"] = len(nccl)
+
+
 def main() -> int:
     import torch
 
@@ -1925,9 +2361,11 @@ def main() -> int:
     for line in lib.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             say(f"  ptxas: {line.strip()}")
-    for tag, kernel in (("K1", "meta_kernel_fused_wgmma"), ("K4", "meta_kernel_fused_i8_wgmma")):
+    for tag, kernel, n in (("K1", "meta_kernel_fused_wgmma", 2),
+                           ("K4", "meta_kernel_fused_i8_wgmma", 2),
+                           ("K3", "conv3x3_i8_wgmma", 6)):
         spills = ptxas_spills(lib.ptxas_log, kernel)
-        check(len(spills) == 2, f"{tag} instances in the ptxas log: {spills}")
+        check(len(spills) == n, f"{tag} instances in the ptxas log: {spills}")
         check(not any(spills.values()), f"{tag} spills: {spills}")
         say(f"{tag} ({kernel}): {len(spills)} instances, 0 bytes spilled")
 
@@ -2145,15 +2583,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     training_phases(device, smi)
     torch.cuda.empty_cache()
-    trainer_launches = trainer_phase(device, smi)
-    int8_launches = overfit_phase(device, smi)
+    remat_phase(device, smi)
+    torch.cuda.empty_cache()
+    trainer_launches, trainer_work = trainer_phase(device, smi)
+    torch.cuda.empty_cache()
+    distributed_launches = distributed_phase(device, smi, trainer_work)
+    int8_launches, qat_launches = overfit_phase(device, smi)
     torch.cuda.empty_cache()
     try:
         serving_launches = serving_phases(art_dir, requests, phase5_results, phase5_heads,
                                           cfg, dec, device, smi)
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
-    # This slice's path (phases 17-18), its launches beside the served path's.
+    # The training paths (phases 17-18 and, since the remat and
+    # distributed slice, 23-24), their launches beside the served path's:
+    # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
+    # scoring of the PTQ (18) and QAT-fine-tuned (24) overfit models.
     trainer_path = {
         "meta_kernel_fused": sum(v["K1"] for v in trainer_launches.values()),
         "nms_scan": sum(v["K2"] for v in trainer_launches.values()),
@@ -2162,6 +2607,8 @@ def main() -> int:
     }
     for k in kernels:
         k["trainer_launches"] = trainer_path[k["name"]]
+        k["distributed_launches"] = distributed_launches.get(k["name"], 0)
+        k["qat_launches"] = qat_launches.get(k["name"], 0)
         k["artifact_launches"] = serving_launches[k["name"]]["artifact"]
         k["points_launches"] = serving_launches[k["name"]]["points"]
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
@@ -2172,4 +2619,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["train-rank"]:
+        sys.exit(train_rank(sys.argv[2:]))
     sys.exit(main())

@@ -272,8 +272,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kCols = S::kCols, kStages = S::kStages;
   constexpr int kItems = S::kInRows * kCols * 2;  // 16-byte halves per stage
   // 16-byte halves per producer batch (16 registers of data), two batches
-  // in flight.
-  constexpr int kUnroll = 4 / sizeof(InT);
+  // in flight; int8 input at stride 1 takes two halves (8 registers): with
+  // four it spilled in the 80-register producers (ptxas: 4 bytes stored, 8
+  // loaded), and with two at stride 2 it spilled 16 bytes, so that
+  // instance keeps four.
+  constexpr int kUnroll = sizeof(InT) == 1 && kStride == 1 ? 2 : 4 / sizeof(InT);
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);

@@ -474,7 +474,9 @@ class DataLoader:
     (``conf/model/baseline.yaml:24``); here, as in the JAX package, a
     thread pool decodes sweeps (numpy's copies and reshapes release the
     GIL) and a small prefetch queue keeps batches ahead of the device
-    step. One process loads the whole batch: the port trains on one card.
+    step. Under data parallelism each process (rank ``process_index`` of
+    ``process_count``) loads its shard of every epoch: ``batch_size`` is
+    the per-process batch.
     """
 
     def __init__(
@@ -487,20 +489,26 @@ class DataLoader:
         seed: int = 0,
         num_workers: int = 2,
         prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # per-process batch size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        if n == 0:
+        n_total = len(self.dataset)
+        if n_total == 0:
             return 0
+        # Per-process shard size after the wrap padding in _batch_indices.
+        n = -(-n_total // self.process_count)
         if self.drop_last:
             # Never 0 batches for a non-empty dataset: datasets smaller
             # than one batch wrap-pad to a single full batch (see
@@ -518,6 +526,7 @@ class DataLoader:
             rng.shuffle(order)
         self.dataset.epoch = self.epoch  # fresh augmentation draws per epoch
         self.epoch += 1
+        order = self._process_shard(order)
         if self.drop_last and 0 < len(order) < self.batch_size:
             # Fewer sweeps than one static-shape batch: wrap-pad to ONE
             # full batch instead of yielding zero batches (see __len__).
@@ -534,6 +543,27 @@ class DataLoader:
                 idx = np.concatenate([idx, pad])
             batches.append(idx)
         return batches
+
+    def _process_shard(self, order: np.ndarray) -> np.ndarray:
+        """This process's strided shard of the (identically shuffled)
+        global order, the DistributedSampler rule: the order wrap-padded
+        to a multiple of ``process_count`` first, so every process yields
+        the same number of batches (each train step is a collective, and a
+        process short of a batch would leave the others waiting in it)."""
+        if self.process_count > 1:
+            rem = len(order) % self.process_count
+            if rem:
+                order = np.concatenate([order, order[: self.process_count - rem]])
+            order = order[self.process_index :: self.process_count]
+        return order
+
+    def owned_indices(self) -> np.ndarray:
+        """The dataset indices this process holds in an unshuffled epoch
+        without the wrap padding: every index belongs to exactly one
+        process (the single writer of its prediction shard)."""
+        n, W = len(self.dataset), self.process_count
+        positions = np.arange(-(-n // W) * W)[self.process_index :: W]
+        return positions[positions < n]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._batch_indices()

@@ -1,7 +1,12 @@
 """Width-strided DLA-style range backbone (counterpart of the JAX
 ``models/backbone.py``): five residual stages strided only along width,
 four transposed-conv aggregation nodes, multi-scale output
-``{1: concat(stem, agg3), 2: agg2a, 4: agg2, 16: res3}`` (NCHW)."""
+``{1: concat(stem, agg3), 2: agg2a, 4: agg2, 16: res3}`` (NCHW).
+
+Remat, as the JAX ``nn.remat`` wraps them: ``RangeBackbone(remat=True)``
+checkpoints each residual stage and each aggregation node,
+``RangeNet(remat_stem=True)`` the stem. The modules and their names do
+not change, so the ``state_dict`` is the same with remat on or off."""
 
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from range_view_3d_detection_torch.models.blocks import (
     AggregationBlock,
     BasicBlock,
     ResidualBlock,
+    checkpoint,
 )
 from range_view_3d_detection_torch.models.stems import MetaKernel
 
@@ -30,9 +36,11 @@ class RangeBackbone(nn.Module):
         self,
         layers: Sequence[int],
         stage_blocks: Sequence[int] = (2, 3, 3, 5, 5),
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.remat = remat
         ch, nb = list(layers), list(stage_blocks)
         ins = [ch[0]] + ch[:4]
         for i in range(5):
@@ -56,16 +64,20 @@ class RangeBackbone(nn.Module):
                 AggregationBlock(cin, cout, k, s, p, n, dtype=dtype),
             )
 
+    def _run(self, module: torch.nn.Module, *args: torch.Tensor) -> torch.Tensor:
+        return checkpoint(module, *args) if self.remat and self.training else module(*args)
+
     def forward(self, features: torch.Tensor) -> Dict[int, torch.Tensor]:
-        res1 = self.ResidualBlock_0(features)
-        res2a = self.ResidualBlock_1(res1)
-        res2 = self.ResidualBlock_2(res2a)
-        res3a = self.ResidualBlock_3(res2)
-        res3 = self.ResidualBlock_4(res3a)
-        agg2 = self.AggregationBlock_0(res2, res3)
-        agg1 = self.AggregationBlock_1(res1, res2)
-        agg2a = self.AggregationBlock_2(res2a, agg2)
-        agg3 = self.AggregationBlock_3(agg1, agg2a)
+        run = self._run
+        res1 = run(self.ResidualBlock_0, features)
+        res2a = run(self.ResidualBlock_1, res1)
+        res2 = run(self.ResidualBlock_2, res2a)
+        res3a = run(self.ResidualBlock_3, res2)
+        res3 = run(self.ResidualBlock_4, res3a)
+        agg2 = run(self.AggregationBlock_0, res2, res3)
+        agg1 = run(self.AggregationBlock_1, res1, res2)
+        agg2a = run(self.AggregationBlock_2, res2a, agg2)
+        agg3 = run(self.AggregationBlock_3, agg1, agg2a)
         agg3 = torch.cat([features, agg3], dim=1)
         return {1: agg3, 2: agg2a, 4: agg2, 16: res3}
 
@@ -83,10 +95,13 @@ class RangeNet(nn.Module):
         num_layers: int = 2,
         projection_kernel_size: int = 1,
         stem_pallas: bool = False,
+        remat_stem: bool = False,
+        remat_stages: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.dtype = dtype
+        self.remat_stem = remat_stem
         self.stem_type = stem_type.upper()
         if self.stem_type == "META":
             self.MetaKernel_0 = MetaKernel(
@@ -100,7 +115,9 @@ class RangeNet(nn.Module):
             )
         else:
             raise NotImplementedError(f"stem_type={stem_type} is not ported")
-        self.RangeBackbone_0 = RangeBackbone(layers, stage_blocks, dtype=dtype)
+        self.RangeBackbone_0 = RangeBackbone(
+            layers, stage_blocks, remat=remat_stages, dtype=dtype
+        )
 
     def forward(
         self, features: torch.Tensor, cart: torch.Tensor
@@ -108,7 +125,11 @@ class RangeNet(nn.Module):
         """``features`` NCHW, ``cart`` (B, H, W, 3)."""
         features = features.to(self.dtype)
         if self.stem_type == "META":
-            stem = self.MetaKernel_0(features, cart)
+            stem_args = (self.MetaKernel_0, features, cart)
         else:
-            stem = self.BasicBlock_0(features)
+            stem_args = (self.BasicBlock_0, features)
+        if self.remat_stem and self.training:
+            stem = checkpoint(*stem_args)
+        else:
+            stem = stem_args[0](*stem_args[1:])
         return self.RangeBackbone_0(stem)

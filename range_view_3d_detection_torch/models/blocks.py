@@ -13,24 +13,38 @@ a ``state_dict`` key one to one.
 
 Int8 serving (``models/quantized.py``): ``quantize(in_scale)`` switches a
 BN-bearing ``ConvNormAct`` or a ``TorchConvTranspose`` to int8 operands
-with int32 accumulation (``quantize(None)`` switches it back); both
-record their input absmax while the model is calibrated.
+with int32 accumulation (``quantize(None)`` switches it back; as in the
+JAX blocks, a ``ConvNormAct`` in train mode runs its fp conv, the
+transposed conv does not look at the mode); both record their input
+absmax while the model is calibrated. QAT: ``qat_scale`` (set
+by ``quantized.qat``) runs the same blocks on STE fake-quantized fp32
+operands, in train or eval mode.
+
+Remat (``checkpoint``): a block run under ``torch.utils.checkpoint``
+recomputes its forward during the backward; the recompute writes no
+BatchNorm running statistics (``recomputing``), so a step updates them
+once, as flax's functional ``batch_stats`` do. Under a process group
+(``parallel/mesh.py``) the train-mode statistics are the global batch's.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import contextvars
+from typing import Callable, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
 from range_view_3d_detection_torch.models.quantized import (
     Int8Conv,
+    qat_conv,
     quantize_to_int8,
     weight_scale_per_channel,
 )
+from range_view_3d_detection_torch.parallel import mesh
 
 IntPair = Union[int, Sequence[int]]
 
@@ -41,15 +55,44 @@ def _pair(v: IntPair) -> Tuple[int, int]:
     return int(v), int(v)
 
 
-def refuse_quantized_training(module: nn.Module) -> None:
-    """Raise if ``module`` runs int8 operands in train mode with gradients
-    on: training the quantized model (QAT) is not ported (ROADMAP Queue 1
-    item 5)."""
-    if module.training and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{type(module).__name__}: training a quantized model (QAT) is not "
-            "ported; see ROADMAP.md Queue 1"
-        )
+_RECOMPUTING = contextvars.ContextVar("recomputing", default=False)
+
+
+def recomputing() -> bool:
+    """Whether the forward running now is a checkpoint's recompute."""
+    return _RECOMPUTING.get()
+
+
+def checkpoint(fn: Callable, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    activations inside are dropped after the forward and recomputed in
+    the backward (the JAX ``nn.remat(..., prevent_cse=False)``). Every
+    call after the first is a recompute, during which
+    :func:`recomputing` is true. Outside a differentiated train forward it
+    is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        token = _RECOMPUTING.set(True)
+        try:
+            return fn(*a)
+        finally:
+            _RECOMPUTING.reset(token)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False
+    )
+
+
+def batch_moments(yf: torch.Tensor, dims: Tuple[int, ...]):
+    """Per-channel ``E[y]`` and ``E[y^2]`` of fp32 ``yf`` over ``dims``,
+    the global batch's under a process group."""
+    return mesh.global_moments(yf.mean(dim=dims), (yf * yf).mean(dim=dims))
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -64,11 +107,12 @@ class BatchNorm(nn.BatchNorm2d):
     subtraction, ``addcmul`` into ``dtype`` and an in-place ReLU.
 
     Train mode is flax's (``use_fast_variance``): the batch mean and
-    ``max(0, E[y^2] - mean^2)`` in fp32 over (N, H, W), normalised in the
-    eval form's order, ``addcmul(bias, y - mean, rsqrt(var + eps) *
-    scale)``; the running statistics become ``0.9 r + 0.1 batch`` with the
-    biased variance, written in place under ``no_grad``.
-    The parameter and buffer names are ``BatchNorm2d``'s.
+    ``max(0, E[y^2] - mean^2)`` in fp32 over (N, H, W) (over every rank's
+    rows under a process group), normalised in the eval form's order,
+    ``addcmul(bias, y - mean, rsqrt(var + eps) * scale)``; the running
+    statistics become ``0.9 r + 0.1 batch`` with the biased variance,
+    written in place under ``no_grad``, except in a checkpoint's
+    recompute. The parameter and buffer names are ``BatchNorm2d``'s.
     """
 
     def __init__(self, features: int):
@@ -94,11 +138,12 @@ class BatchNorm(nn.BatchNorm2d):
     ) -> torch.Tensor:
         if self.training:
             yf = y.float()
-            mean = yf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((yf * yf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
-                self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
+            mean, sq_mean = batch_moments(yf, (0, 2, 3))
+            var = torch.clamp_min(sq_mean - mean * mean, 0.0)
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.copy_(0.9 * self.running_mean + 0.1 * mean)
+                    self.running_var.copy_(0.9 * self.running_var + 0.1 * var)
             mul = torch.rsqrt(var + self.eps) * self.weight
             out = torch.addcmul(
                 self.bias[:, None, None], yf - mean[:, None, None], mul[:, None, None]
@@ -149,6 +194,7 @@ class ConvNormAct(nn.Module):
         if norm:
             self.BatchNorm_0 = BatchNorm(features)
         self.int8: Int8Conv | None = None
+        self.qat_scale: torch.Tensor | None = None
 
     @property
     def calibrates_input(self) -> bool:
@@ -167,14 +213,16 @@ class ConvNormAct(nn.Module):
             self.Conv_0, in_scale, self.dtype
         )
 
+    def set_qat(self, in_scale: torch.Tensor | None) -> None:
+        """Run ``Conv_0`` on fake-quantized operands (None: off)."""
+        self.qat_scale = in_scale if self.norm else None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        if self.int8 is not None:
-            refuse_quantized_training(self)
+        if self.int8 is not None and self.qat_scale is None and not self.training:
             y = self.int8(x)
         else:
             conv = self.Conv_0
-            bias = None if conv.bias is None else conv.bias.to(dt)
             stride = conv.stride
             if conv.kernel_size == (1, 1) and stride != (1, 1) and x.device.type == "cpu":
                 # A strided 1x1 conv is the 1x1 conv of the strided view.
@@ -182,7 +230,14 @@ class ConvNormAct(nn.Module):
                 # the heap in channels_last memory at narrow widths (C = W =
                 # 8, torch 2.13); the view's does not.
                 x, stride = x[:, :, :: stride[0], :: stride[1]], (1, 1)
-            y = F.conv2d(x.to(dt), conv.weight.to(dt), bias, stride, conv.padding)
+            if self.qat_scale is not None:
+                y = qat_conv(
+                    F.conv2d, x, conv.weight, conv.bias, self.qat_scale, 0,
+                    stride=stride, padding=conv.padding,
+                ).to(dt)
+            else:
+                bias = None if conv.bias is None else conv.bias.to(dt)
+                y = F.conv2d(x.to(dt), conv.weight.to(dt), bias, stride, conv.padding)
         if self.norm:
             return self.BatchNorm_0(y, dt, self.act)
         return torch.relu(y) if self.act else y
@@ -248,6 +303,11 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         self.dtype = dtype
         for name in ("int8_scale", "int8_taps", "int8_dq"):
             self.register_buffer(name, None, persistent=False)
+        self.qat_scale: torch.Tensor | None = None
+
+    def set_qat(self, in_scale: torch.Tensor | None) -> None:
+        """Run on fake-quantized operands (None: off)."""
+        self.qat_scale = in_scale
 
     calibrates_input = True
 
@@ -283,11 +343,16 @@ class TorchConvTranspose(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.qat_scale is not None:
+            # The weight is (Cin, Cout, kh, kw): output channels on axis 1.
+            return qat_conv(
+                F.conv_transpose2d, x, self.weight, None, self.qat_scale, 1,
+                stride=self.stride, padding=self.padding,
+            ).to(dt)
         if self.int8_scale is None:
             return F.conv_transpose2d(
                 x.to(dt), self.weight.to(dt), None, self.stride, self.padding
             )
-        refuse_quantized_training(self)
         # K3 quantizes the NHWC view of the activation as it stages it.
         y = conv3x3_i8_fused(
             x.to(dt).permute(0, 2, 3, 1), self.int8_taps, self.int8_dq,

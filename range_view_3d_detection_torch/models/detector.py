@@ -29,6 +29,7 @@ from range_view_3d_detection_torch.models.heads import (
 from range_view_3d_detection_torch.models.stems import MetaKernel
 from range_view_3d_detection_torch.ops import assignment, losses
 from range_view_3d_detection_torch.ops import targets as targets_ops
+from range_view_3d_detection_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +53,10 @@ class TargetsConfig:
 class DetectorConfig:
     """Static configuration of the detector (the JAX ``DetectorConfig``).
 
-    ``remat`` is accepted so that a JAX configuration carries over, but
-    ``remat=True`` raises: rematerialisation is not ported (ROADMAP).
+    ``remat`` checkpoints the groups named in ``remat_scope`` during
+    training: ``stem``, ``stages`` (each residual stage and aggregation
+    node), ``heads`` (each tower) and ``loss`` (``training/state.py``). It
+    trades a recompute for activation memory and changes no value.
     """
 
     tasks: Tuple[Tuple[int, Tuple[str, ...]], ...]
@@ -118,13 +121,9 @@ class Detector(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if config.remat:
-            raise NotImplementedError(
-                "DetectorConfig.remat: rematerialisation is not ported "
-                "(ROADMAP.md Queue 1, after the Trainer)"
-            )
         self.config = config
         dt = config.compute_dtype
+        scope = set(config.remat_scope) if config.remat else set()
         ms_channels = out_channels(config.layers)
         with torch.device("meta"):
             self.RangeNet_0 = RangeNet(
@@ -136,6 +135,8 @@ class Detector(nn.Module):
                 config.num_stem_layers,
                 config.projection_kernel_size,
                 stem_pallas=config.stem_pallas,
+                remat_stem="stem" in scope,
+                remat_stages="stages" in scope,
                 dtype=dt,
             )
             self.DetectionHead_0 = DetectionHead(
@@ -147,6 +148,7 @@ class Detector(nn.Module):
                 config.num_classification_blocks,
                 config.num_regression_blocks,
                 config.final_kernel_size,
+                remat="heads" in scope,
                 dtype=dt,
             )
         self.to_empty(device=device)
@@ -225,7 +227,10 @@ def detection_loss(
     Classification is normalised by the foreground count (plus the
     additive smoothing) over every stride and task; regression by the
     count of resolved objects, each pixel weighted by ``1 / (points_per_obj
-    + smoothing)``.
+    + smoothing)``. Under a process group both counts are the global
+    batch's (the smoothing added once), so each rank's loss is its rows'
+    share of the global loss, and the global loss is their sum
+    (:func:`global_metrics`).
     """
     tasks = cfg.tasks_dict
     strides = cfg.fpn_strides
@@ -234,14 +239,13 @@ def detection_loss(
         tgts = compute_batch_targets(batch, cfg)
     device = batch["cart"].device
 
-    total_objects = torch.zeros((), dtype=torch.float32, device=device)
+    n_objects = torch.zeros((), dtype=torch.float32, device=device)
     for stride in strides:
         for task_id in tasks:
-            total_objects = total_objects + tgts[stride][task_id].num_objects.sum()
-    total_objects = torch.clamp_min(total_objects, 1.0)
+            n_objects = n_objects + tgts[stride][task_id].num_objects.sum()
 
     cls_targets: Dict[int, Dict[int, assignment.ClassificationTargets]] = {}
-    total_fg = torch.full((), cfg.additive_smoothing, dtype=torch.float32, device=device)
+    n_fg = torch.zeros((), dtype=torch.float32, device=device)
     for stride in strides:
         cart_s = outputs["strided"][stride]["cart"]
         mask_s = outputs["strided"][stride]["mask"]
@@ -264,7 +268,11 @@ def detection_loss(
                 max_boxes=cfg.max_boxes,
             )
             cls_targets[stride][task_id] = ct
-            total_fg = total_fg + ct.foreground_mask.sum()
+            n_fg = n_fg + ct.foreground_mask.sum()
+    # Integer counts: exact in fp32 in any order of summation.
+    n_objects, n_fg = mesh.all_sum(torch.stack([n_objects, n_fg]))
+    total_objects = torch.clamp_min(n_objects, 1.0)
+    total_fg = cfg.additive_smoothing + n_fg
 
     coding_w = torch.tensor(cfg.coding_weights, dtype=torch.float32, device=device)
     num_coding = coding_w.shape[0]
@@ -322,6 +330,22 @@ def detection_loss(
     metrics["total_fg"] = total_fg
     metrics["total_objects"] = total_objects
     return total, metrics
+
+
+_GLOBAL_KEYS = ("total_fg", "total_objects")
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``detection_loss``'s metrics of the global batch, detached: each
+    rank's loss terms summed over the ranks in one all-reduce (the counts
+    are global already); the metrics themselves without a process group."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if not mesh.active():
+        return metrics
+    keys = [k for k in metrics if k not in _GLOBAL_KEYS]
+    summed = mesh.all_sum(torch.stack([metrics[k].float() for k in keys]))
+    metrics.update(zip(keys, summed.unbind()))
+    return metrics
 
 
 # Standard deviation of a unit normal truncated to [-2, 2].

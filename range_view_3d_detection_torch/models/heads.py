@@ -7,7 +7,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from range_view_3d_detection_torch.models.blocks import ConvNormAct
+from range_view_3d_detection_torch.models.blocks import ConvNormAct, checkpoint
 
 FOCAL_PRIOR_PROB = 0.01
 
@@ -53,7 +53,8 @@ class DetectionHead(nn.Module):
     """Per-(FPN stride, task) classification + regression towers.
 
     Returns ``{stride: {task_id: {"logits": (B, H, Ws, C_t),
-    "regressands": (B, H, Ws, 8)}}}`` channel-last fp32.
+    "regressands": (B, H, Ws, 8)}}}`` channel-last fp32. With ``remat``
+    each tower is checkpointed in train mode (the JAX ``nn.remat(DenseHead)``).
     """
 
     def __init__(
@@ -67,9 +68,11 @@ class DetectionHead(nn.Module):
         num_regression_blocks: int = 4,
         final_kernel_size: int = 1,
         num_regressands: int = 8,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.remat = remat
         self.head_keys = []
         fk = (final_kernel_size,) * 2
         for stride, cin in fpn_in_channels.items():
@@ -95,12 +98,17 @@ class DetectionHead(nn.Module):
         self, multiscale: Dict[int, torch.Tensor]
     ) -> Dict[int, Dict[int, Dict[str, torch.Tensor]]]:
         out: Dict[int, Dict[int, Dict[str, torch.Tensor]]] = {}
+        remat = self.remat and self.training
         for stride, task_id in self.head_keys:
             feats = multiscale[stride]
             cls = getattr(self, f"cls_s{stride}_t{task_id}")
             reg = getattr(self, f"reg_s{stride}_t{task_id}")
+            if remat:
+                logits, regressands = checkpoint(cls, feats), checkpoint(reg, feats)
+            else:
+                logits, regressands = cls(feats), reg(feats)
             out.setdefault(stride, {})[task_id] = {
-                "logits": cls(feats).permute(0, 2, 3, 1),
-                "regressands": reg(feats).permute(0, 2, 3, 1),
+                "logits": logits.permute(0, 2, 3, 1),
+                "regressands": regressands.permute(0, 2, 3, 1),
             }
         return out

@@ -19,6 +19,13 @@ collection (``RangeNet_0/.../ConvNormAct_0/in_scale``,
 unchanged. Weights are quantized once, in :func:`quantize_model`, into
 non-persistent buffers: the ``state_dict`` keeps its fp layout.
 
+QAT (the JAX ``fake_quant``/``QATConv`` and the "qat" context):
+:func:`qat` sets each scale-bearing block's ``qat_scale`` from a quant
+tree for the length of a train step, and the block then runs
+:func:`qat_conv`, an fp32 conv of STE fake-quantized operands whose
+forward is the int8 serving value up to fp32 rounding. The MetaKernel
+stem has no QAT branch, as in JAX.
+
 Routing is by shape only: a 3x3 conv with height stride 1 and width
 stride 1 or 2 runs the int8 conv kernel (K3, ``kernels/conv.py``), which
 takes the activation and ``in_scale`` and quantizes while it stages the
@@ -30,7 +37,8 @@ JAX package leaves it to XLA.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Iterable, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +60,68 @@ def weight_scale_per_channel(w: torch.Tensor, out_dim: int = 0) -> torch.Tensor:
     w = w.float()
     dims = tuple(d for d in range(w.dim()) if d != out_dim)
     return torch.clamp(w.abs().amax(dim=dims) / INT8_MAX, min=1e-12)
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through estimator: the forward
+    value is ``clip(round(x / scale), ±127) * scale`` (``torch.round`` is
+    half to even, as ``jnp.round``), the gradient passes unchanged."""
+    q = torch.clamp(torch.round(x / scale), -INT8_MAX, INT8_MAX) * scale
+    return x + (q - x).detach()
+
+
+def qat_conv(
+    conv: Callable, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+    in_scale: torch.Tensor, out_dim: int, **kw,
+) -> torch.Tensor:
+    """``conv`` (``F.conv2d`` or ``F.conv_transpose2d``) in fp32 on the
+    fake-quantized input (the frozen per-tensor ``in_scale``) and weight
+    (per output channel ``out_dim`` from the live weight, gradient
+    stopped), plus the fp32 bias: the JAX ``QATConv``. The result is fp32.
+
+    TF32 is off for this conv's forward only: ``round(x / s) * s`` carries
+    a full fp32 mantissa, which TF32's 10-bit operands would round, so
+    the forward would no longer be the int8 serving value.
+    """
+    w = weight.float()
+    w_scale = weight_scale_per_channel(w.detach(), out_dim)
+    shape = [1] * w.dim()
+    shape[out_dim] = -1
+    w_fq = fake_quant(w, w_scale.reshape(shape))
+    x_fq = fake_quant(x.float(), in_scale)
+    b = None if bias is None else bias.float()
+    if x.device.type != "cuda":
+        return conv(x_fq, w_fq, b, **kw)
+    cudnn = torch.backends.cudnn
+    allow_tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        return conv(x_fq, w_fq, b, **kw)
+    finally:
+        cudnn.allow_tf32 = allow_tf32
+
+
+@contextlib.contextmanager
+def qat(model: nn.Module, quant_tree: Mapping[str, Any] | None) -> Iterator[None]:
+    """Run ``model`` under QAT for the length of the block: every block
+    whose scope in ``quant_tree`` (JAX layout) carries an ``in_scale``
+    takes it as its frozen activation scale; the stem's scales are not
+    used (the JAX stem has no QAT branch). ``None`` is a no-op."""
+    if quant_tree is None:
+        yield
+        return
+    device = next(model.parameters()).device
+    blocks = []
+    for mods, leaf, value in _scale_leaves(quant_tree):
+        if leaf == "in_scale":
+            module = model.get_submodule(".".join(mods))
+            module.set_qat(torch.tensor(value, dtype=torch.float32, device=device))
+            blocks.append(module)
+    try:
+        yield
+    finally:
+        for module in blocks:
+            module.set_qat(None)
 
 
 def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,8 @@ from range_view_3d_detection_torch.models.blocks import (
     BasicBlock,
     BatchNorm,
     ConvNormAct,
-    refuse_quantized_training,
+    batch_moments,
+    recomputing,
 )
 from range_view_3d_detection_torch.models.quantized import (
     INT8_MAX,
@@ -167,8 +168,11 @@ class MetaKernel(nn.Module):
         """BN_i of the positional MLP in the JAX form, fp32, channel-last.
 
         In train mode it normalises with the batch statistics over every
-        axis but the last, ``E[x^2] - m^2`` unclamped as in the JAX stem,
-        and moves the running statistics to ``0.9 r + 0.1 batch``.
+        axis but the last (every rank's rows under a process group),
+        ``E[x^2] - m^2`` unclamped as in the JAX stem, and moves the
+        running statistics to ``0.9 r + 0.1 batch`` (not in a checkpoint's
+        recompute). The int8 and calibration paths are eval-only: train
+        mode takes the stacked path whatever the stem's scales.
         """
         scale = getattr(self, f"pos_{i}_bn_scale")
         bias = getattr(self, f"pos_{i}_bn_bias")
@@ -176,12 +180,12 @@ class MetaKernel(nn.Module):
         var = getattr(self, f"pos_{i}_bn_var")
         xf = x.float()
         if self.training:
-            axes = tuple(range(x.ndim - 1))
-            m = xf.mean(dim=axes)
-            v = (xf * xf).mean(dim=axes) - m * m
-            with torch.no_grad():
-                mean.copy_(BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * m)
-                var.copy_(BN_MOMENTUM * var + (1 - BN_MOMENTUM) * v)
+            m, sq = batch_moments(xf, tuple(range(x.ndim - 1)))
+            v = sq - m * m
+            if not recomputing():
+                with torch.no_grad():
+                    mean.copy_(BN_MOMENTUM * mean + (1 - BN_MOMENTUM) * m)
+                    var.copy_(BN_MOMENTUM * var + (1 - BN_MOMENTUM) * v)
             mean, var = m, v
         return (xf - mean) * torch.rsqrt(var + BN_EPS) * scale + bias
 
@@ -262,8 +266,6 @@ class MetaKernel(nn.Module):
     def forward(self, features: torch.Tensor, cart: torch.Tensor) -> torch.Tensor:
         """``features`` NCHW, ``cart`` (B, H, W, 3) -> NCHW stem output."""
         dt = self.dtype
-        if self.stem_scales is not None or self.calib_sink is not None:
-            refuse_quantized_training(self)
         feats = self.BasicBlock_0(features).permute(0, 2, 3, 1)  # NHWC
         if self.training or not self.inference_accumulate:
             geo = self._stacked(feats, cart)

@@ -7,6 +7,14 @@ of the checkout holding this package), builds the ``Trainer``, fits,
 validates (writing prediction shards), evaluates them and writes
 ``metrics.feather`` beside them. It trains on the card unless
 ``++trainer.device=cpu`` asks for the CPU.
+
+Data-parallel over the cards of one machine (one process a card, NCCL):
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m range_view_3d_detection_torch.train experiment=rv-av2
+
+Each rank trains on its shard of the data, validates its shard, and rank
+0 evaluates the shards once every rank has written them.
 """
 
 from __future__ import annotations
@@ -72,22 +80,32 @@ def main(argv: List[str]) -> Dict[str, Dict[str, float]]:
             "usage: python -m range_view_3d_detection_torch.train "
             "experiment=<name> [++key=value ...]"
         )
+    import torch.distributed
+
+    from range_view_3d_detection_torch.parallel import mesh
     from range_view_3d_detection_torch.training.loop import Trainer
 
     cfg = compose(CONF_DIR, experiment, overrides)
     trainer = Trainer(cfg)
-    logger.info(
-        "experiment=%s device=%s train_sweeps=%d val_sweeps=%d batch=%d",
-        experiment, trainer.device, len(trainer.train_ds), len(trainer.val_ds),
-        trainer.batch_size,
-    )
-    trainer.fit()
-    pred_dir = trainer.validate()
-    logger.info("predictions written to %s", pred_dir)
-    metrics = evaluate_run(trainer, pred_dir)
-    for k, v in metrics.items():
-        logger.info("metric %s = %s", k, v)
-    return metrics
+    try:
+        logger.info(
+            "experiment=%s device=%s rank=%d world=%d train_sweeps=%d val_sweeps=%d "
+            "batch=%d (global %d)",
+            experiment, trainer.device, trainer.rank, trainer.world, len(trainer.train_ds),
+            len(trainer.val_ds), trainer.batch_size, trainer.global_batch,
+        )
+        trainer.fit()
+        pred_dir = trainer.validate()
+        logger.info("predictions written to %s", pred_dir)
+        if not trainer.is_main:
+            return {}
+        metrics = evaluate_run(trainer, pred_dir)
+        for k, v in metrics.items():
+            logger.info("metric %s = %s", k, v)
+        return metrics
+    finally:
+        if mesh.active():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

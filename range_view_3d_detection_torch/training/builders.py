@@ -102,8 +102,7 @@ def build_detector_config(cfg: Dict[str, Any]) -> DetectorConfig:
         targets=targets,
         max_boxes=int(m.get("max_boxes", 256)),
         dtype="bfloat16" if str(m.get("precision", "bfloat16")).startswith("bf") else "float32",
-        # Carried over; remat=True raises where the detector is built
-        # (rematerialisation is not ported).
+        # Checkpointed groups during training (models/detector.py).
         remat=bool(m.get("remat", False)),
         remat_scope=tuple(
             str(s)

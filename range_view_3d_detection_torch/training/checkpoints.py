@@ -8,6 +8,10 @@ accumulator), the step, and the config as a JSON string. It is read back
 with ``weights_only=True``: tensors and plain containers only. Saves are
 synchronous and atomic (written to a temporary file, then renamed); the
 newest ``keep`` are kept.
+
+Under a process group every rank calls ``save`` (a ZeRO-1 optimizer
+gathers its moments there, a collective) and rank 0 writes; the file is
+the one a single device writes, so a run resumes at any world size.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from range_view_3d_detection_torch.parallel import mesh
 from range_view_3d_detection_torch.training.state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -46,11 +51,13 @@ class CheckpointManager:
             "optimizer": state.opt.state_dict(),
             "config": json.dumps(config),
         }
-        tmp = self.directory / f".step_{step}.pt.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
-        for old in self.steps()[: -self.keep]:
-            self._path(old).unlink()
+        if mesh.rank() == 0:
+            tmp = self.directory / f".step_{step}.pt.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self._path(step))
+            for old in self.steps()[: -self.keep]:
+                self._path(old).unlink()
+        mesh.barrier()
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()

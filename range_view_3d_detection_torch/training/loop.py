@@ -1,5 +1,5 @@
 """Training loop: data -> train step -> validation -> prediction shards
-(counterpart of the JAX ``training/loop.py``), on one device.
+(counterpart of the JAX ``training/loop.py``).
 
 Capability parity with the orchestration half of the reference
 (``scripts/train.py:34-113`` + ``Detector.training_step/validation_step/
@@ -8,11 +8,20 @@ port's train step; prediction shards are written as Feather per
 (log_id, timestamp), as the reference and the JAX package write them,
 then evaluated on the host.
 
-The JAX Trainer's mesh, batch sharding and cross-process reductions have
-no counterpart here: the port trains on one device (``cuda`` unless the
-caller or ``trainer.device`` asks for the CPU), and ``trainer.devices``
-other than 1 (or ``auto`` on a host with several cards) and
-``trainer.zero1=true`` raise (multi-GPU is ROADMAP Queue 1 item 6).
+Data parallelism (the JAX Trainer's ``data`` mesh): launched under
+``python -m torch.distributed.run --nproc_per_node=N``, each process is
+one rank on ``cuda:LOCAL_RANK`` (NCCL), or on the CPU (gloo) when
+``trainer.device`` asks for it. ``trainer.devices: auto`` is the launched
+world size, and an integer must equal it. Each rank loads its shard of
+the data (``batch_size`` rows a step, so the global batch is
+``batch_size x world``), and the step reduces over the global batch
+(``parallel/mesh.py``); ``trainer.zero1`` shards the AdamW moments.
+Logging, image logging, the checkpoint file and evaluation are rank 0's;
+every rank validates and writes the shards of the sweeps it holds, the
+val losses are summed over the ranks, and a preemption signal on any
+rank stops every rank at the same step. Without a launcher the Trainer
+runs on one device (``cuda`` unless the caller or ``trainer.device`` asks
+for the CPU).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 from range_view_3d_detection_torch.data.dataset import DataLoader, RangeViewDataset
 from range_view_3d_detection_torch.models.decoder import DecoderConfig
 from range_view_3d_detection_torch.models.detector import DetectorConfig
+from range_view_3d_detection_torch.parallel import mesh
 from range_view_3d_detection_torch.training import optim
 from range_view_3d_detection_torch.training.builders import (
     build_dataset_config,
@@ -93,12 +103,12 @@ def flatten_detections(result, uuids, categories) -> Dict[str, np.ndarray]:
     return {k: np.concatenate(v) if v else np.asarray([]) for k, v in cols.items()}
 
 
-def write_prediction_shards(result, uuids, categories, dst: Path) -> None:
+def write_prediction_shards(result, uuids, categories, dst: Path, only=None) -> None:
     """One Feather shard of ``result``'s kept detections per (log_id,
-    timestamp) of the batch, ``dst/<log_id>_<timestamp>.feather``
-    (``detector.py:366-380``)."""
+    timestamp) of the batch (of those in ``only`` when given),
+    ``dst/<log_id>_<timestamp>.feather`` (``detector.py:366-380``)."""
     cols = flatten_detections(result, uuids, categories)
-    for log_id, ts in uuids:
+    for log_id, ts in uuids if only is None else only:
         m = (cols["log_id"] == log_id) & (cols["timestamp_ns"] == ts)
         shard = {k: (v[m] if len(v) else v) for k, v in cols.items()}
         shard["category"] = shard["category"].astype(str)
@@ -120,24 +130,27 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 class Trainer:
     """End-to-end trainer over a composed config dict, on ``device``
-    (``trainer.device`` in the config, else ``cuda``)."""
+    (``trainer.device`` in the config, else ``cuda``), as one rank of the
+    process group when launched as one."""
 
     def __init__(self, cfg: Dict[str, Any], *, device: str | torch.device | None = None):
         self.cfg = cfg
         tcfg = cfg["trainer"]
-        self.device = resolve_device(device or tcfg.get("device", "cuda"))
+        self.device = mesh.initialize_distributed(
+            resolve_device(device or tcfg.get("device", "cuda"))
+        )
+        self.world, self.rank = mesh.world(), mesh.rank()
         devices = tcfg.get("devices", "auto")
-        n_cards = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if (devices == "auto" and n_cards > 1) or (devices != "auto" and int(devices) != 1):
-            raise NotImplementedError(
-                f"trainer.devices={devices}: the port trains on one device; "
-                "multi-GPU is ROADMAP.md Queue 1 item 6"
+        if devices != "auto" and int(devices) != self.world:
+            raise ValueError(
+                f"trainer.devices={devices}, but {self.world} process(es) were "
+                "launched: run under `python -m torch.distributed.run "
+                f"--nproc_per_node={devices}` or set trainer.devices=auto"
             )
-        if bool(tcfg.get("zero1", False)):
-            raise NotImplementedError(
-                "trainer.zero1=true: optimizer sharding is multi-GPU, ROADMAP.md "
-                "Queue 1 item 6"
-            )
+        self.zero1 = bool(tcfg.get("zero1", False))
+        # Rank gating (the reference gates artifacts and evaluation on
+        # global rank 0, detector.py:426); collectives run on every rank.
+        self.is_main = self.rank == 0
         self.det_cfg: DetectorConfig = build_detector_config(cfg)
         self.dec_cfg: DecoderConfig = build_decoder_config(cfg)
 
@@ -145,15 +158,18 @@ class Trainer:
         run_dir.mkdir(parents=True, exist_ok=True)
         self.run_dir = run_dir
         self.logger = MetricsLogger(
-            run_dir, backend=tcfg.get("logger", {}).get("backend", "jsonl")
+            run_dir, backend=tcfg.get("logger", {}).get("backend", "jsonl"),
+            enabled=self.is_main,
         )
 
-        self.batch_size = int(cfg["model"]["batch_size"])
+        self.batch_size = int(cfg["model"]["batch_size"])  # per rank
+        self.global_batch = self.batch_size * self.world
         self.train_ds = RangeViewDataset(build_dataset_config(cfg, "train"))
         self.val_ds = RangeViewDataset(build_dataset_config(cfg, "val"))
-        self.train_loader = DataLoader(self.train_ds, self.batch_size, shuffle=True)
+        shard = dict(process_index=self.rank, process_count=self.world)
+        self.train_loader = DataLoader(self.train_ds, self.batch_size, shuffle=True, **shard)
         self.val_loader = DataLoader(
-            self.val_ds, self.batch_size, shuffle=False, drop_last=False
+            self.val_ds, self.batch_size, shuffle=False, drop_last=False, **shard
         )
 
         self.max_epochs = int(tcfg.get("max_epochs", 20))
@@ -170,11 +186,12 @@ class Trainer:
             total_steps,
             weight_decay=float(m["_optimizer"].get("weight_decay", 0.01)),
             grad_clip_norm=float(tcfg.get("gradient_clip_val", 35.0)),
-            num_devices=1,
+            num_devices=self.world,
             batch_size=self.batch_size,
             use_linear_lr_scaling=bool(m.get("use_linear_lr_scaling", False)),
             debug=debug,
             accumulate_steps=self.accum_steps,
+            zero1=self.zero1,
         )
         self.train_step = make_train_step(self.det_cfg)
         self.eval_step = make_eval_step(self.det_cfg, self.dec_cfg)
@@ -207,10 +224,13 @@ class Trainer:
         )
         self.state: Optional[TrainState] = None
         self._val_step = None
+        # Names of the prediction shards this rank wrote in its last validate.
+        self.last_shards: list = []
 
         # Persist hyperparameters (save_hyperparameters parity,
         # detector.py:143-158): flattened config at step 0 + full JSON.
-        (run_dir / "config.json").write_text(json.dumps(cfg, default=str))
+        if self.is_main:
+            (run_dir / "config.json").write_text(json.dumps(cfg, default=str))
         self.logger.log({k: v for k, v in flatten(cfg).items() if _is_number(v)}, 0)
 
     def _init_state(self) -> TrainState:
@@ -302,10 +322,16 @@ class Trainer:
                         m["lr"] = self.schedule(max(step // self.accum_steps - 1, 0))
                         m["wall_time"] = time.time() - t0
                         self.logger.log(m, step)
-                    if self.train_log_freq and step % self.train_log_freq == 0:
+                    if self.is_main and self.train_log_freq and step % self.train_log_freq == 0:
                         self._log_images(device_batch, batch, step)
                     if self.ckpt_every_n_steps and step % self.ckpt_every_n_steps == 0:
                         _save(step)
+                    if mesh.active():
+                        # Every rank stops at the step where any rank saw
+                        # the signal.
+                        self._preempt_requested = mesh.any_rank(
+                            self._preempt_requested, self.device
+                        )
                     if self._preempt_requested:
                         _save(step)
                         logger.warning(
@@ -368,7 +394,11 @@ class Trainer:
         optionally log averaged validation losses (``validation_step`` +
         shard write, detector.py:316-390). ``write_shards=False`` is the
         mid-run cadence mode: losses are computed and logged, no Feather
-        IO."""
+        IO. Every rank runs it on its shard of the split and writes the
+        shards of the sweeps it holds (``DataLoader.owned_indices``: one
+        writer a sweep, none for the wrap padding); the val losses are the
+        global batches' (``make_val_step``), averaged as the JAX Trainer
+        averages them; it returns when every rank is done."""
         assert self.state is not None, "call fit() or restore first"
         dst = Path(dst_dir or (self.run_dir / "predictions"))
         if write_shards:
@@ -378,6 +408,8 @@ class Trainer:
         val_step = self._val_step if compute_losses else None
         val_metric_sums: Dict[str, float] = {}
         num_val_batches = 0
+        owned = {self.val_ds.index[int(i)] for i in self.val_loader.owned_indices()}
+        self.last_shards = []
         for device_batch, batch in self._device_prefetch(self.val_loader):
             if val_step is not None:
                 result, vm = val_step(self.state, device_batch)
@@ -387,10 +419,16 @@ class Trainer:
             else:
                 result = self.eval_step(self.state, device_batch)
             if write_shards:
-                write_prediction_shards(result, batch["uuids"], self.categories, dst)
+                mine = [u for u in batch["uuids"] if tuple(u) in owned]
+                write_prediction_shards(result, batch["uuids"], self.categories, dst, mine)
+                self.last_shards.extend(f"{log_id}_{ts}.feather" for log_id, ts in mine)
         if num_val_batches:
-            self.logger.log(
-                {k: v / num_val_batches for k, v in val_metric_sums.items()},
-                int(self.state.step),
+            # sync_dist=True parity (detector.py:385-389): each batch's
+            # metrics are the global batch's; sums and counts over ranks.
+            totals = mesh.process_sum_scalars(
+                {**val_metric_sums, "_num_batches": float(num_val_batches)}
             )
+            nb = totals.pop("_num_batches")
+            self.logger.log({k: v / nb for k, v in totals.items()}, int(self.state.step))
+        mesh.barrier()
         return dst

@@ -17,7 +17,14 @@ in ``optax.MultiSteps`` to accumulate. Here:
   which equals optax's ``adamw`` up to the order of rounding;
 - accumulation keeps the running mean of the micro-batch gradients, as
   ``MultiSteps`` does, and clips and updates on the k-th; the schedule
-  counts applied updates only.
+  counts applied updates only;
+- ZeRO-1 (``zero1``, the JAX ``zero1_state_sharding``): under a process
+  group each rank keeps the AdamW moments of its share of the parameters
+  (``parallel/mesh.py::zero1_owners``) and updates only those, and the
+  updated parameters are gathered on every rank. AdamW is elementwise,
+  so the parameters equal the replicated optimizer's; ``state_dict``
+  gathers the moments into the replicated layout, so a checkpoint does
+  not depend on the world size or on ``zero1``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Callable, Iterable, List, Sequence
 
 import numpy as np
 import torch
+
+from range_view_3d_detection_torch.parallel import mesh
 
 Schedule = Callable[[int], float]
 
@@ -84,11 +93,13 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[
 class Optimizer:
     """AdamW over ``params`` with the schedule, the clip and accumulation.
 
-    ``apply(grads)`` takes one micro-batch's gradients and returns whether
-    an update was applied. ``updates`` counts applied updates (the
-    schedule's count); ``mini_step`` and ``acc`` are the accumulator's
-    position and running mean (``MultiSteps``' ``mini_step`` and
-    ``acc_grads``).
+    ``apply(grads)`` takes one micro-batch's gradients (the global
+    batch's, the same on every rank) and returns whether an update was
+    applied. ``updates`` counts applied updates (the schedule's count);
+    ``mini_step`` and ``acc`` are the accumulator's position and running
+    mean (``MultiSteps``' ``mini_step`` and ``acc_grads``). With
+    ``zero1`` under a process group, ``owners[i]`` is the rank that
+    updates ``params[i]`` and ``adamw`` holds only this rank's.
     """
 
     def __init__(
@@ -99,13 +110,19 @@ class Optimizer:
         weight_decay: float,
         grad_clip_norm: float,
         accumulate_steps: int,
+        zero1: bool = False,
     ):
         self.params: List[torch.nn.Parameter] = list(params)
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
         self.accumulate_steps = max(accumulate_steps, 1)
+        self.owners: List[int] | None = None
+        owned = self.params
+        if zero1 and mesh.active():
+            self.owners = mesh.zero1_owners([p.numel() for p in self.params], mesh.world())
+            owned = [p for p, o in zip(self.params, self.owners) if o == mesh.rank()]
         self.adamw = torch.optim.AdamW(
-            self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
+            owned, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
             weight_decay=weight_decay,
         )
         self.updates = 0
@@ -133,21 +150,60 @@ class Optimizer:
         self.updates += 1
         for p in self.params:
             p.grad = None
+        if self.owners is not None:
+            mesh.gather_owned(self.params, self.owners)
         if self.acc is not None:
             for a in self.acc:
                 a.zero_()
         return True
 
+    def _adamw_state_dict(self) -> dict:
+        """AdamW's state over every parameter (the replicated layout); under
+        ZeRO-1 the moments are gathered from their owners, a collective
+        every rank enters."""
+        local = self.adamw.state_dict()
+        if self.owners is None:
+            return local
+        group = {**local["param_groups"][0], "params": list(range(len(self.params)))}
+        if not local["state"]:
+            return {"state": {}, "param_groups": [group]}
+        step = next(iter(local["state"].values()))["step"]
+        moments = {key: [] for key in ("exp_avg", "exp_avg_sq")}
+        j = 0  # this rank's index of an owned parameter in ``adamw``
+        for p, o in zip(self.params, self.owners):
+            entry = None
+            if o == mesh.rank():
+                entry, j = local["state"][j], j + 1
+            for key, out in moments.items():
+                out.append(entry[key].clone() if entry else torch.zeros_like(p))
+        for tensors in moments.values():
+            mesh.gather_owned(tensors, self.owners)
+        state = {
+            i: {"step": step.clone(), "exp_avg": m, "exp_avg_sq": v}
+            for i, (m, v) in enumerate(zip(moments["exp_avg"], moments["exp_avg_sq"]))
+        }
+        return {"state": state, "param_groups": [group]}
+
     def state_dict(self) -> dict:
         return {
-            "adamw": self.adamw.state_dict(),
+            "adamw": self._adamw_state_dict(),
             "updates": self.updates,
             "mini_step": self.mini_step,
             "acc": self.acc,
         }
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        adamw = state["adamw"]
+        if self.owners is not None:
+            mine = [i for i, o in enumerate(self.owners) if o == mesh.rank()]
+            saved = adamw["state"]
+            adamw = {
+                "state": {j: saved[i] for j, i in enumerate(mine) if i in saved},
+                "param_groups": [
+                    {**adamw["param_groups"][0], "params": list(range(len(mine)))}
+                ],
+            }
+        self.adamw.load_state_dict(adamw)
         self.updates = int(state["updates"])
         self.mini_step = int(state["mini_step"])
         if self.acc is not None:
@@ -164,11 +220,13 @@ class OptimizerSpec:
     weight_decay: float
     grad_clip_norm: float
     accumulate_steps: int
+    zero1: bool = False
 
     def init(self, params: Iterable[torch.nn.Parameter]) -> Optimizer:
         return Optimizer(
             params, self.schedule, weight_decay=self.weight_decay,
             grad_clip_norm=self.grad_clip_norm, accumulate_steps=self.accumulate_steps,
+            zero1=self.zero1,
         )
 
 
@@ -183,12 +241,15 @@ def make_optimizer(
     use_linear_lr_scaling: bool = False,
     debug: bool = False,
     accumulate_steps: int = 1,
+    zero1: bool = False,
 ) -> tuple[OptimizerSpec, Schedule]:
     """AdamW + OneCycle + clip-by-global-norm, as the JAX ``make_optimizer``.
 
     In debug mode the learning rate is constant. ``total_steps`` counts
     applied updates (micro-batches / ``accumulate_steps``), and the sqrt
-    rule scales by the effective batch ``batch_size * accumulate_steps``.
+    rule scales by the effective batch ``batch_size * accumulate_steps``
+    on each of ``num_devices``. ``zero1`` shards the moments (see
+    :class:`Optimizer`).
     """
     lr = scaled_max_lr(
         max_lr, num_devices, batch_size * max(accumulate_steps, 1),
@@ -198,5 +259,5 @@ def make_optimizer(
         schedule: Schedule = lambda count: lr  # noqa: E731
     else:
         schedule = onecycle_schedule(lr, total_steps)
-    spec = OptimizerSpec(schedule, weight_decay, grad_clip_norm, accumulate_steps)
+    spec = OptimizerSpec(schedule, weight_decay, grad_clip_norm, accumulate_steps, zero1)
     return spec, schedule

@@ -16,12 +16,16 @@ from typing import Any, Callable, Dict, List, Mapping, Tuple
 import torch
 
 from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
+from range_view_3d_detection_torch.models.blocks import checkpoint
 from range_view_3d_detection_torch.models.detector import (
     Detector,
     DetectorConfig,
     compute_batch_targets,
     detection_loss,
+    global_metrics,
 )
+from range_view_3d_detection_torch.models.quantized import qat
+from range_view_3d_detection_torch.parallel import mesh
 from range_view_3d_detection_torch.training.optim import (
     Optimizer,
     OptimizerSpec,
@@ -92,14 +96,24 @@ def make_train_step(config: DetectorConfig, *, quant_tree: Any = None):
     ends (``chip_smoke.py`` records a CUDA event there); ``grads_out``, a
     list, receives the micro-batch gradients in ``state.opt.params`` order.
 
-    ``quant_tree`` (the JAX step's QAT forward) raises: QAT is not ported
-    (ROADMAP Queue 1). The optimizer lives in the state, so the step takes
-    no ``tx``; the JAX ``state_shardings`` (multi-device) is not taken.
+    With ``config.remat`` and "loss" in its scope the loss is checkpointed
+    from the head outputs, the targets staying outside (the JAX
+    ``jax.checkpoint(loss_from_outputs)``). With ``quant_tree`` (a
+    calibrated quant tree, JAX layout) the forward runs under QAT
+    (``models/quantized.py::qat``): frozen activation scales, only the
+    parameters train.
+
+    Under a process group (``parallel/mesh.py``) each rank passes its rows
+    of the global batch: the statistics and loss normalizers are global,
+    the gradients are summed over the ranks before the clip, and the
+    metrics are the global batch's, so every rank takes the JAX step on
+    the global batch. The optimizer lives in the state, so the step takes
+    no ``tx``; ZeRO-1 is the optimizer's (``training/optim.py``).
     """
-    if quant_tree is not None:
-        raise NotImplementedError(
-            "make_train_step(quant_tree=...): QAT is not ported; see ROADMAP.md Queue 1"
-        )
+    loss_fn = detection_loss
+    if config.remat and "loss" in config.remat_scope:
+        def loss_fn(outputs, b, cfg, tgts):
+            return checkpoint(lambda o: detection_loss(o, b, cfg, tgts=tgts), outputs)
 
     def train_step(
         state: TrainState,
@@ -113,19 +127,22 @@ def make_train_step(config: DetectorConfig, *, quant_tree: Any = None):
         with torch.no_grad():
             tgts = compute_batch_targets(b, config)
         mark("targets")
-        outputs = model(b["features"], b["cart"], b["mask"])
-        mark("forward")
-        loss, metrics = detection_loss(outputs, b, config, tgts=tgts)
-        mark("loss")
-        grads = torch.autograd.grad(loss, state.opt.params)
+        with qat(model, quant_tree):
+            outputs = model(b["features"], b["cart"], b["mask"])
+            mark("forward")
+            loss, metrics = loss_fn(outputs, b, config, tgts=tgts)
+            mark("loss")
+            grads = torch.autograd.grad(loss, state.opt.params)
+        grads = mesh.all_reduce_grads(grads)
         mark("backward")
+        metrics = global_metrics(metrics)
         metrics["grad_norm"] = global_norm(grads)
         if grads_out is not None:
             grads_out.extend(grads)
         state.opt.apply(grads)
         mark("optimizer")
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 
@@ -148,7 +165,8 @@ def make_eval_step(
 def make_val_step(
     config: DetectorConfig, decoder_config: DecoderConfig, *, use_nms: bool = True
 ):
-    """Eval forward, its loss metrics (``val/`` keys) and the decode."""
+    """Eval forward, its loss metrics (``val/`` keys; the global batch's
+    under a process group, so every rank runs it) and the decode."""
 
     def val_step(state: TrainState, batch: Mapping[str, Any]):
         model = state.model.eval()
@@ -156,6 +174,7 @@ def make_val_step(
             b = batch_to_device(batch, _device(state))
             outputs = model(b["features"], b["cart"], b["mask"])
             _, metrics = detection_loss(outputs, b, config)
+            metrics = global_metrics(metrics)
             result = decode(outputs, decoder_config, config.tasks_dict, use_nms=use_nms)
         return result, {f"val/{k}": v for k, v in metrics.items()}
 

@@ -45,7 +45,7 @@ from test_torch_blocks import randomize_bn
 torch.set_num_threads(2)
 
 
-def _served_pair(jcfg, tcfg, B, H, W, seed, other_classes_bias=0.0):
+def _served_pair(jcfg, tcfg, B, H, W, seed, other_classes_bias=0.0, return_inputs=False):
     feats, cart, _ = serving._sample_inputs(B, H, W, jcfg.in_channels, seed=seed)
     mask = np.random.default_rng(seed + 1).uniform(size=(B, H, W)) < 0.3
     batch = tuple(jnp.asarray(a) for a in (feats, cart, mask))
@@ -88,6 +88,8 @@ def _served_pair(jcfg, tcfg, B, H, W, seed, other_classes_bias=0.0):
             torch.from_numpy(feats), torch.from_numpy(cart), torch.from_numpy(mask)
         )
     got = predictor(feats, cart, mask)
+    if return_inputs:
+        return out, tout, ref, got, (params, stats), (feats, cart, mask)
     return out, tout, ref, got
 
 

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port, checked on the CPU.
 
-- Every port module, ``chip_smoke.py``, ``chip_probe_k1.py`` and
-  ``chip_probe_k4.py`` import with JAX, flax, optax, orbax, the JAX
+- Every port module, ``chip_smoke.py``, ``chip_probe_k1.py``,
+  ``chip_probe_k4.py`` and ``chip_scaling.py`` import with JAX, flax, optax, orbax, the JAX
   package, ``tools/``, pyarrow, PyYAML, matplotlib, polars, tensorboard,
   msgpack and ml_dtypes made unimportable (none of the last seven is on
   the machine with the card), and the training, data, evaluation,
@@ -9,11 +9,16 @@
   that process ``rv-av2`` composes, a Feather file and a msgpack tree
   round-trip, a PNG is drawn and decoded, and the ``tensorboard`` logger
   backend raises.
-- What the port does not do raises instead of running something else:
-  ``make_train_step(quant_tree=...)`` (QAT) and ``remat=True``.
+- The training options that raised until the port had them, QAT
+  (``make_train_step(quant_tree=...)``) and ``remat=True``, build and
+  step (``test_unported_training_options_raise`` keeps its name; the
+  options are held against JAX in ``test_torch_qat.py`` and
+  ``test_torch_remat.py``); the ``parallel`` package is among the
+  modules that import without JAX.
 - Entry points default to the card: on a host without a CUDA device,
-  ``Predictor`` and ``Trainer`` with their default device and ``python
-  chip_smoke.py`` fail loudly instead of running on the CPU.
+  ``Predictor`` and ``Trainer`` with their default device, ``python
+  chip_smoke.py`` and ``python chip_scaling.py`` fail loudly instead of
+  running on the CPU.
 - The flax -> torch transplant round-trips every leaf of the tiny
   config's variables, and loads strictly into the port's Detector; a JAX
   quant tree round-trips through the scales of the quantized port model.
@@ -58,6 +63,7 @@ def test_port_imports_without_jax():
     assert "range_view_3d_detection_torch.kernels.stem" in modules
     assert "range_view_3d_detection_torch.kernels.conv" in modules
     assert "range_view_3d_detection_torch.models.quantized" in modules
+    assert "range_view_3d_detection_torch.parallel.mesh" in modules
     for name in ("geometry", "targets", "assignment", "losses"):
         assert f"range_view_3d_detection_torch.ops.{name}" in modules
     for name in ("optim", "state", "checkpoints", "builders", "loop"):
@@ -81,7 +87,7 @@ def test_port_imports_without_jax():
             f"sys.path.insert(0, {str(REPO)!r})",
             f"for name in {modules!r}:",
             "    importlib.import_module(name)",
-            "import chip_smoke, chip_probe_k1, chip_probe_k4",
+            "import chip_smoke, chip_probe_k1, chip_probe_k4, chip_scaling",
             "import numpy as np",
             "from range_view_3d_detection_torch.utils import config, feather, rendering",
             f"cfg = config.compose({str(REPO / 'conf')!r}, 'rv-av2')",
@@ -143,6 +149,11 @@ def test_entry_points_refuse_a_host_without_gpu(tmp_path):
         cwd=tmp_path,
     )
     assert alone.returncode != 0 and '"ok": true' not in alone.stdout
+    scaling = subprocess.run(
+        [sys.executable, str(REPO / "chip_scaling.py")],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert scaling.returncode != 0 and "two or more CUDA devices" in scaling.stderr
 
 
 def test_transplant_round_trips_tiny_tree():
@@ -197,13 +208,18 @@ def test_jax_quant_tree_round_trips_through_the_port():
 
 
 def test_unported_training_options_raise():
+    """Once refused, now ported: a QAT step and a remat step build and
+    step to finite losses."""
     import dataclasses
 
-    from range_view_3d_detection_torch.models.detector import Detector as TDetector
+    from range_view_3d_detection_torch.training import optim as toptim
     from range_view_3d_detection_torch.training import state as tstate
 
     cfg = serving._flagship_config(tiny=True)
-    with pytest.raises(NotImplementedError, match="QAT"):
-        tstate.make_train_step(cfg, quant_tree={"RangeNet_0": {}})
-    with pytest.raises(NotImplementedError, match="remat"):
-        TDetector(dataclasses.replace(cfg, remat=True), device="cpu")
+    batch = serving._dryrun_batch(cfg, 2, 8, 64, 5, seed=1)
+    qtree = {"RangeNet_0": {"RangeBackbone_0": {"ResidualBlock_0": {"BasicBlock_0": {
+        "ConvNormAct_0": {"in_scale": np.float32(0.05)}}}}}}
+    for c, tree in ((cfg, qtree), (dataclasses.replace(cfg, remat=True), None)):
+        st = tstate.create_state(c, toptim.make_optimizer(1e-3, 20)[0], device="cpu")
+        st, m = tstate.make_train_step(c, quant_tree=tree)(st, batch)
+        assert st.step == 1 and bool(torch.isfinite(m["loss"]))

@@ -151,9 +151,16 @@ def test_meta_kernel_bf16_follows_stem_pallas(stem_pallas, monkeypatch):
 
 
 def test_meta_kernel_refuses_train_mode():
-    """Train mode runs the stacked path (``test_torch_train_step.py``);
-    what it refuses is training a quantized stem (QAT is not ported)."""
-    stem = MetaKernel(5, 8)
+    """Train mode runs the stacked path (``test_torch_train_step.py``),
+    also on a quantized stem: the stem's int8 path is eval-only and has
+    no QAT branch, as in the JAX stem, so a quantized stem trains as the
+    fp one does (until QAT was ported this raised)."""
+    gen = torch.Generator().manual_seed(0)
+    x, cart = torch.randn(2, 5, 3, 6, generator=gen), torch.randn(2, 3, 6, 3, generator=gen)
+    plain, stem = MetaKernel(5, 8), MetaKernel(5, 8)
+    with torch.no_grad():
+        for p in plain.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+    stem.load_state_dict(plain.state_dict())
     stem.quantize_stem(1.0, 1.0, use_kernel=False)
-    with pytest.raises(NotImplementedError):
-        stem.train()(torch.zeros(1, 5, 2, 4), torch.zeros(1, 2, 4, 3))
+    assert torch.equal(stem.train()(x, cart), plain.train()(x, cart))

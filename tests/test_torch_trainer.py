@@ -31,8 +31,11 @@ Held:
   much);
 - resume: a second Trainer on the run directory continues the step count
   from the last checkpoint;
-- ``trainer.devices=2``, ``trainer.zero1=true`` and a CUDA device on a
-  host without one raise;
+- ``trainer.devices=2`` in a process that is not a rank of a 2-rank
+  group raises; ``trainer.zero1=true`` at world size 1 trains the
+  replicated run's parameters bit for bit (both cases of
+  ``test_multi_device_options_raise``, whose name is kept); a CUDA device
+  on a host without one raises;
 - the PNGs written every ``train_log_freq`` steps decode.
 
 ``python tests/test_torch_trainer.py overfit av2 EPOCHS WORK_DIR`` runs
@@ -236,8 +239,21 @@ def test_resume_continues_the_step_count(corpus, tmp_path):
 def test_multi_device_options_raise(corpus, tmp_path, override, what):
     cfg = tconfig.compose(REPO / "conf", "rv-synthetic",
                           tiny_overrides(corpus, tmp_path / "run") + [override])
-    with pytest.raises(NotImplementedError, match=what):
-        tloop.Trainer(cfg, device="cpu")
+    if what == "trainer.devices":
+        with pytest.raises(ValueError, match=what):
+            tloop.Trainer(cfg, device="cpu")
+        return
+    # zero1 without a process group: the replicated optimizer, same numbers.
+    plain = tloop.Trainer(tconfig.compose(REPO / "conf", "rv-synthetic",
+                                          tiny_overrides(corpus, tmp_path / "plain")),
+                          device="cpu")
+    zero1 = tloop.Trainer(cfg, device="cpu")
+    assert zero1.zero1 and zero1.world == 1
+    for t in (plain, zero1):
+        t.fit()
+    assert zero1.state.opt.owners is None
+    for k, v in plain.state.model.state_dict().items():
+        assert torch.equal(zero1.state.model.state_dict()[k], v), k
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks a host without a card")
