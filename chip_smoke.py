@@ -5,7 +5,9 @@ check its kernels.
     python3 chip_smoke.py
 
 (``python -m torch.distributed.run ... chip_smoke.py train-rank ARGS`` is
-phase 23's rank process, which the script starts itself.)
+phase 23's rank process and ``... chip_smoke.py width-rank ARGS`` the
+width-sharded serving rank of phase 25 and ``chip_scaling.py width``;
+the script starts them itself.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -181,6 +183,38 @@ Phases, each of which raises (non-zero exit) on failure:
     the QAT forward (``qat_conv``, fp32 with TF32 off) equals the int8
     serving value (K3) within 2e-5 of max|ref| (fp32 sums in another
     order), printed beside the same conv with TF32 on.
+
+25. width sharding (``parallel/spatial.py``) at world size = the card
+    count: on one card, in this process, a NCCL group of one serves the
+    phase-20 bf16 artifact through ``export.load_artifact_width_sharded``
+    on a B=1 64x1792 request (1792 = 16 x 112: AV2's padded 1808 = 16 x 113
+    cannot be split in two, which ``spatial.check_width`` must refuse),
+    with ``circular`` False and True: K2 launches and K1 does not (the
+    stem takes its accumulate path under width sharding), finite
+    detections kept; the heads' relative RMS against the unsharded
+    forward on the same accumulate stem at most 1e-2 (zero-padded seam),
+    and printed against the K1 stem's forward with the kept-box
+    agreements, the halo exchanges a request and ms a request beside
+    ``load_artifact``'s. One card has no neighbour: this checks the hooks,
+    not the exchange (the CPU tests hold 2 and 4 gloo ranks against JAX;
+    ``chip_scaling.py width N`` times N cards). On more cards the same
+    request is served by ``torch.distributed.run`` over ``chip_smoke.py
+    width-rank``;
+26. the chunk loop: ``export.make_chunked_predict`` of the bf16 artifact's
+    predictor over the 4 requests of phase 5 stacked (4 x B=2): the CUDA
+    graph's replay equals 4 eager calls bit for bit, twice; K1 and K2
+    launch while it is captured; ``stream_bench`` frames/s and peak memory
+    at chunk 0 and chunk 4;
+27. AOT: ``export.export_aot`` of the bf16 and the int8 artifacts at
+    (2, 64, 1808), ``load_aot`` of each: its outputs on the 4 requests
+    equal ``load_artifact``'s bit for bit, K1 and K2 (and K3 for int8)
+    launch through the ``rv3d::`` ops, ms a request beside
+    ``load_artifact``'s; and the bf16 program loaded and served in a
+    subprocess that imports only the kernels package, equal bit for bit;
+28. the RANGE_PARTITION stem: the flagship config with
+    ``stem_type=RANGE_PARTITION`` (bf16, seeded weights) on the card
+    against the same model on the CPU at B=1 8x256: heads within phase
+    3's 2e-2 x max|ref|; its B=2 64x1808 forward finite and timed.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -2321,6 +2355,453 @@ def syncbn_profile(prof, rec, DeviceType) -> None:
     rec["nccl_kernels"] = len(nccl)
 
 
+# Phases 25-28: width sharding, the chunk loop, AOT, the RangePartition stem.
+# The width-sharded request is 64 x 1792 (a multiple of 16 x 4): AV2's padded
+# 1808 = 16 x 113 shards only one way (ROADMAP.md Queue 3).
+WIDTH_W = 1792
+
+
+def width_phase(art: Path, device, smi) -> dict:
+    """Phase 25 (see the module docstring). Returns the launches of the
+    width-sharded requests."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.export import load_artifact, load_artifact_width_sharded
+    from range_view_3d_detection_torch.parallel import mesh, spatial
+
+    t_phase = time.perf_counter()
+    try:
+        spatial.check_width(1808, 2, 16)
+    except ValueError as e:
+        say(f"width sharding (phase 25): 1808 at 2 shards refused ({e})")
+    else:
+        check(False, "width sharding accepted 1808 at 2 shards")
+    request = serving._sample_inputs(1, 64, WIDTH_W, 5, seed=SEED + 25)
+    n = torch.cuda.device_count()
+    if n > 1:
+        work = Path(tempfile.mkdtemp(prefix="chip-smoke-width-"))
+        try:
+            np.savez(work / "request.npz", *request)
+            ranks = launch_width_ranks(n, art, work / "request.npz", work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        say(f"width sharding (phase 25): {n} cards, rank reports above, phase "
+            f"{time.perf_counter() - t_phase:.0f} s on {smi}")
+        return ranks[0]["launches"]
+    init = Path(tempfile.mkdtemp(prefix="chip-smoke-width-")) / "init"
+    mesh.initialize_distributed(device, init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        check(spatial.group_size() == 1 and backend == {"cuda": "nccl"}.get(
+            torch.device(device).type, "gloo"), f"width sharding: a {backend} group")
+        plain, _, _ = load_artifact(art, device=device)
+        accumulate, _, _ = load_artifact(art, device=device)
+        accumulate.model.RangeNet_0.MetaKernel_0.use_fused_kernel = False
+        tensors = tuple(torch.as_tensor(a, device=device) for a in request)
+        with torch.inference_mode():
+            heads = {tag: p.model(*tensors)["head"][1][0]
+                     for tag, p in (("K1", plain), ("accumulate", accumulate))}
+        refs = {"K1": plain(*tensors), "accumulate": accumulate(*tensors)}
+        out, launches = {}, None
+        for circular in (False, True):
+            predict, place, _, _ = load_artifact_width_sharded(art, circular=circular,
+                                                               device=device)
+            local = place(*request)
+            predict(*local)  # warm-up (cuDNN plans)
+            torch.cuda.synchronize()
+            reset_counts()
+            spatial.exchange_halo_lr.calls = 0
+            result = predict(*local)
+            torch.cuda.synchronize()
+            got_launches, exchanges = read_counts(), spatial.exchange_halo_lr.calls
+            with torch.inference_mode():
+                got = spatial.gather_width(predict.apply(*local))["head"][1][0]
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                predict(*local)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            check(got_launches["nms_scan"] > 0 and got_launches["meta_kernel_fused"] == 0,
+                  f"width-sharded launches {got_launches}")
+            check(bool(torch.isfinite(result.cuboids[result.keep]).all())
+                  and int(result.keep.sum()) > 0, "width-sharded: no finite detections")
+            rms = {tag: {k: rel_rms(got[k], h[k]) for k in ("logits", "regressands")}
+                   for tag, h in heads.items()}
+            kept = {tag: kept_match([result], [r]) for tag, r in refs.items()}
+            out[circular] = dict(ms=statistics.median(walls), rms=rms, kept=kept,
+                                 exchanges=exchanges, heads=got)
+            if launches is None:
+                launches = got_launches
+            say(f"width sharding (phase 25), world size 1 ({backend}), circular={circular}: "
+                f"B=1 64x{WIDTH_W}, {exchanges} halo exchanges a request (local: one "
+                f"card has no neighbour), launches {got_launches}, kept "
+                f"{int(result.keep.sum())}; heads relative RMS against the unsharded "
+                f"forward: {rms}; kept-box agreement {kept}; "
+                f"{out[circular]['ms']:.3f} ms/request (median of 10) on {smi}")
+        # Zero-padded at world size 1 the sharded forward is the unsharded
+        # one on the same (accumulate) stem: VALID convs of pre-padded shards.
+        worst = max(out[False]["rms"]["accumulate"].values())
+        check(worst <= 1e-2, f"width sharding: heads relative RMS {worst} against the "
+              "unsharded accumulate-stem forward")
+        seam = {k: rel_rms(out[True]["heads"][k], out[False]["heads"][k])
+                for k in ("logits", "regressands")}
+        plain_ms = statistics.median(
+            cuda_sync_wall(lambda: plain(*tensors)) for _ in range(10))
+        say(f"width sharding (phase 25): circular against zero-padded seam, heads "
+            f"relative RMS {seam}; unsharded load_artifact {plain_ms:.3f} ms/request; "
+            f"world size 1 checks the hooks, not the exchange (the CPU tests hold 2 and 4 "
+            f"ranks; chip_scaling.py width N times N cards); phase "
+            f"{time.perf_counter() - t_phase:.0f} s on {smi}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def cuda_sync_wall(fn) -> float:
+    """Host milliseconds of ``fn()`` through a device synchronisation."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def launch_width_ranks(n: int, art: Path, request: Path, out_dir: Path) -> list:
+    """``python -m torch.distributed.run --nproc_per_node=n`` over
+    ``chip_smoke.py width-rank``: the artifact served width-sharded over
+    ``n`` cards (zero-padded seam, TF32 off) on the saved request; returns
+    every rank's report (rank 0 also saves its result and gathered heads
+    under ``out_dir``)."""
+    import os
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", str(REPO / "chip_smoke.py"), "width-rank", str(art),
+           str(request), str(out_dir)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=str(REPO), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    if proc.returncode != 0:
+        say(out[-6000:])
+        say(err[-6000:])
+    check(proc.returncode == 0, f"width-sharded serving on {n} cards: exit {proc.returncode}")
+    ranks = sorted((json.loads(line.split(" ", 1)[1]) for line in out.splitlines()
+                    if line.startswith("chip_smoke_width_rank ")), key=lambda r: r["rank"])
+    check(len(ranks) == n, f"width ranks: {len(ranks)} reports of {n}")
+    for r in ranks:
+        check(r["world"] == n and r["kept"] > 0, f"width rank report {r}")
+        say(f"width rank {r['rank']} of {r['world']}: p50 {r['p50_ms']:.3f} ms, p90 "
+            f"{r['p90_ms']:.3f} ms a request (B=1 {r['height']}x{r['width']}, host wall "
+            f"through a "
+            f"synchronisation, {r['iters']} requests); {r['exchanges']} halo exchanges a "
+            f"request, {r['halo_ms']:.3f} ms of device time in them, every NCCL kernel "
+            f"{r['nccl_ms']:.3f} ms; launches {r['launches']}; kept {r['kept']}")
+    return ranks
+
+
+def width_rank(argv) -> int:
+    """A rank of :func:`launch_width_ranks`: prints one
+    ``chip_smoke_width_rank {json}`` line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(REPO))
+    from range_view_3d_detection_torch.export import load_artifact_width_sharded
+    from range_view_3d_detection_torch.parallel import mesh, spatial
+
+    art, request, out_dir = argv
+    # fp32 artifacts are compared across card counts at fp32 precision.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = mesh.initialize_distributed("cuda")
+    try:
+        predict, place, _, _ = load_artifact_width_sharded(art, circular=False, device=device)
+        req = np.load(request)
+        local = place(*(req[f"arr_{i}"] for i in range(3)))
+        for _ in range(3):
+            predict(*local)
+        torch.cuda.synchronize()
+        reset_counts()
+        spatial.exchange_halo_lr.calls = 0
+        result = predict(*local)
+        torch.cuda.synchronize()
+        rec = dict(rank=mesh.rank(), world=mesh.world(), height=int(req["arr_0"].shape[1]),
+                   width=int(req["arr_0"].shape[2]),
+                   launches=read_counts(), exchanges=spatial.exchange_halo_lr.calls,
+                   kept=int(result.keep.sum()))
+        dist.barrier()
+        walls = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            predict(*local)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        # Nearest rank: ceil(p n) - 1, 0-indexed.
+        rec.update(iters=len(walls), p50_ms=walls[math.ceil(0.5 * len(walls)) - 1],
+                   p90_ms=walls[math.ceil(0.9 * len(walls)) - 1])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            predict(*local)
+            torch.cuda.synchronize()
+
+        def device_us(e):
+            return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+        events = prof.events()
+        halo = [e for e in events
+                if e.device_type == DeviceType.CPU and e.name == "spatial.exchange_halo"]
+        nccl = [e for e in events
+                if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()]
+        rec.update(halo_ms=sum(device_us(e) for e in halo) / 1e3,
+                   nccl_ms=sum(e.time_range.elapsed_us() for e in nccl) / 1e3)
+        with torch.inference_mode():
+            heads = spatial.gather_width(predict.apply(*local))["head"][1][0]
+        if mesh.rank() == 0:
+            torch.save({"result": tuple(t.cpu() for t in result),
+                        "heads": {k: v.float().cpu() for k, v in heads.items()}},
+                       Path(out_dir) / f"width_result_{mesh.world()}.pt")
+        print("chip_smoke_width_rank " + json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def chunk_phase(art: Path, requests, device, smi) -> dict:
+    """Phase 26 (see the module docstring). Returns the launches while
+    the chunk's graph was captured."""
+    import torch
+
+    from range_view_3d_detection_torch.export import (
+        load_artifact,
+        make_chunked_predict,
+        stream_bench,
+    )
+
+    t_phase = time.perf_counter()
+    predict, _, _ = load_artifact(art, device=device)
+    reqs = [tuple(torch.as_tensor(a, device=device) for a in r) for r in requests]
+    eager = [predict(*r) for r in reqs]
+    stacked = [torch.stack([r[j] for r in reqs]) for j in range(3)]
+    torch.cuda.synchronize()
+    reset_counts()
+    run = make_chunked_predict(predict, len(reqs))
+    first = run(*stacked)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    again = run(*stacked)
+    for got in (first, again):
+        for i, want in enumerate(eager):
+            for name, a, b in zip(want._fields, got, want):
+                check(torch.equal(a[i], b), f"chunk loop: request {i} {name} differs from "
+                      "the eager call")
+    check(launches["meta_kernel_fused"] > 0 and launches["nms_scan"] > 0,
+          f"chunk loop launches {launches}")
+    bench = {}
+    B, H, W, C = requests[0][0].shape
+    for chunk, iters in ((0, 20), (len(reqs), 5)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        say(f"stream_bench (chunk {chunk}, {iters} iterations) on {smi}:")
+        fps = stream_bench(predict, batch=B, iters=iters, H=H, W=W, C=C, chunk=chunk)
+        bench[chunk] = (fps, (torch.cuda.max_memory_allocated(device) - base) / 2**30)
+    say(f"chunk loop (phase 26): a chunk of {len(reqs)} B=2 requests as one CUDA-graph "
+        f"replay equals {len(reqs)} eager calls bit for bit (twice); launches while "
+        f"captured {launches}; stream_bench frames/s chunk 0 {bench[0][0]:.2f} (peak "
+        f"{bench[0][1]:.2f} GiB above the weights), chunk {len(reqs)} "
+        f"{bench[len(reqs)][0]:.2f} (peak {bench[len(reqs)][1]:.2f} GiB); phase "
+        f"{time.perf_counter() - t_phase:.0f} s on {smi}")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+AOT_CHILD = """
+import sys, numpy as np, torch
+sys.path.insert(0, {repo!r})
+import range_view_3d_detection_torch.kernels
+r = np.load({req!r})
+program = torch.export.load({path!r})
+device = next(iter(program.state_dict.values())).device
+args = [torch.from_numpy(r[f"arr_{{i}}"]).to(device) for i in range(3)]
+with torch.inference_mode():
+    out = program.module()(*args)
+torch.save(tuple(t.cpu() for t in out), {out!r})
+bad = [m for m in sys.modules if m.startswith(("range_view_3d_detection_torch.models",
+       "range_view_3d_detection_torch.export", "range_view_3d_detection_torch.serving"))]
+assert not bad, bad
+print("aot child ok", range_view_3d_detection_torch.kernels.stem.meta_kernel_fused.launches,
+      range_view_3d_detection_torch.kernels.nms.nms_scan.launches)
+"""
+
+
+def aot_phase(art_dir: Path, requests, device, smi) -> dict:
+    """Phase 27 (see the module docstring). Returns the launches of the
+    AOT programs' requests."""
+    import numpy as np
+    import torch
+
+    from range_view_3d_detection_torch.export import export_aot, load_aot, load_artifact
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(read_counts(), 0)
+    paths, child = {}, None
+    np.savez(art_dir / "request.npz", *requests[0])
+    B, H, W = requests[0][0].shape[:3]
+    try:
+        for tag in ("bf16", "int8"):
+            t0 = time.perf_counter()
+            path = paths[tag] = export_aot(art_dir / tag, batch=B, height=H, width=W,
+                                           device=device)
+            export_s = time.perf_counter() - t0
+            if child is not None:
+                # The bf16 program's child ran beside this export; it ends
+                # before anything here is timed.
+                out, err = child.communicate(timeout=600)
+                check(child.returncode == 0, f"AOT child: rc {child.returncode}\n"
+                      f"{err[-3000:]}")
+                for field, a, b in zip(child_want._fields, torch.load(child_out),
+                                       child_want):
+                    check(torch.equal(a, b.cpu()), f"AOT child: {field} differs")
+                say(f"AOT (phase 27): a process that imports only the kernels package "
+                    f"loads and serves {paths['bf16'].name} (bf16) equal bit for bit "
+                    f"({out.strip()}; {time.perf_counter() - t_child:.1f} s beside the "
+                    f"int8 export)")
+            ref, _, _ = load_artifact(art_dir / tag, device=device)
+            want = [ref(*r) for r in requests]
+            aot = load_aot(path)
+            aot(*requests[0])
+            torch.cuda.synchronize()
+            reset_counts()
+            got = [aot(*r) for r in requests]
+            torch.cuda.synchronize()
+            launches = read_counts()
+            for name in total:
+                total[name] += launches[name]
+            for g, w in zip(got, want):
+                for field, a, b in zip(w._fields, g, w):
+                    check(torch.equal(a, b), f"AOT {tag}: {field} differs from "
+                          "load_artifact's")
+            need = ("meta_kernel_fused", "nms_scan") + (
+                ("conv3x3_i8_fused",) if tag == "int8" else ())
+            check(all(launches[k] > 0 for k in need), f"AOT {tag} launches {launches}")
+            ms_aot = statistics.median(
+                cuda_sync_wall(lambda: aot(*requests[1])) for _ in range(10))
+            ms_ref = statistics.median(
+                cuda_sync_wall(lambda: ref(*requests[1])) for _ in range(10))
+            say(f"AOT (phase 27) {tag}: export_aot {export_s:.1f} s, {path.name} "
+                f"{path.stat().st_size / 2**20:.1f} MiB; load_aot's outputs equal "
+                f"load_artifact's bit for bit on {len(requests)} B={B} requests; launches "
+                f"{launches}; {ms_aot:.3f} ms/request beside load_artifact's {ms_ref:.3f} "
+                f"(median of 10, host wall through a synchronisation) on {smi}")
+            if tag == "bf16":
+                child_out, child_want = art_dir / "aot_child.pt", want[0]
+                code = AOT_CHILD.format(repo=str(REPO), req=str(art_dir / "request.npz"),
+                                        path=str(path), out=str(child_out))
+                t_child = time.perf_counter()
+                child = subprocess.Popen([sys.executable, "-c", code],
+                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                         text=True)
+            del aot, ref
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+    for path in paths.values():
+        path.unlink()
+    torch.cuda.empty_cache()
+    say(f"AOT (phase 27): {time.perf_counter() - t_phase:.0f} s")
+    return total
+
+
+def range_partition_phase(device, smi) -> None:
+    """Phase 28 (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.models.detector import Detector
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(serving._flagship_config(), stem_type="RANGE_PARTITION",
+                              stem_pallas=False)
+    cpu = Detector(cfg, device="cpu", generator=torch.Generator().manual_seed(SEED + 28))
+    card = Detector(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    small = serving._sample_inputs(1, 8, 256, 5, seed=SEED + 28)
+    with torch.inference_mode():
+        want = cpu(*(torch.as_tensor(a) for a in small))["head"][1][0]
+        got = card(*(torch.as_tensor(a, device=device) for a in small))["head"][1][0]
+        errs = {}
+        for k in ("logits", "regressands"):
+            err = (got[k].cpu() - want[k]).abs().max().item()
+            ref = want[k].abs().max().item()
+            check(err <= 2e-2 * ref, f"RANGE_PARTITION {k}: max|diff| {err} > 2e-2 * {ref}")
+            errs[k] = (err, ref)
+        full = tuple(torch.as_tensor(a, device=device)
+                     for a in serving._sample_inputs(2, 64, 1808, 5, seed=SEED + 28))
+        ms = cuda_ms(lambda: card(*full), reps=5)
+        out = card(*full)["head"][1][0]
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+              "RANGE_PARTITION at 2 x 64x1808: non-finite heads")
+    say(f"RANGE_PARTITION stem (phase 28): flagship widths, bf16, card against CPU at "
+        f"B=1 8x256: " + ", ".join(f"{k} max|diff| {e:.4g} (max|ref| {r:.4g})"
+                                   for k, (e, r) in errs.items())
+        + f" within 2e-2 x max|ref|; B=2 64x1808 forward {ms:.3f} ms (CUDA events, median "
+        f"of 5), finite; phase {time.perf_counter() - t_phase:.0f} s on {smi}")
+
+
+def flagship_predictor(cfg, dec, device, gen, request):
+    """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
+    non-trivial BatchNorm statistics, and each head's final conv scaled to
+    a set output spread on ``request``."""
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.models.stems import MetaKernel
+
+    predictor = serving.Predictor(cfg, dec, device=device, generator=gen)
+    model = predictor.model
+    with torch.no_grad():
+        for m in model.modules():  # non-trivial BatchNorm statistics
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) * 1.5 + 0.5)
+            if isinstance(m, MetaKernel):
+                for i in range(m.num_layers):
+                    mean = getattr(m, f"pos_{i}_bn_mean")
+                    mean.copy_(torch.randn(mean.shape, generator=gen) * 0.1)
+                    var = getattr(m, f"pos_{i}_bn_var")
+                    var.copy_(torch.rand(var.shape, generator=gen) * 1.5 + 0.5)
+    # Scale each head's final conv to a set output spread (random deep
+    # weights make the raw spread arbitrary), with the classification bias
+    # at 0 so sigmoid ~ 0.5 and the NMS slots hold overlapping proposals.
+    with torch.inference_mode():
+        first = model(*(torch.as_tensor(a, device=device) for a in request))
+    with torch.no_grad():
+        for name, head in model.DetectionHead_0.named_children():
+            key = "logits" if name.startswith("cls_") else "regressands"
+            spread = 1.0 if key == "logits" else 0.3
+            conv = head.final.Conv_0
+            conv.weight.mul_(spread / first["head"][1][0][key].float().std().item())
+            conv.bias.zero_()
+            if key == "regressands":
+                conv.bias[3:6] = math.log(3.0)
+    return predictor
+
+
 def main() -> int:
     import torch
 
@@ -2337,7 +2818,6 @@ def main() -> int:
         meta_kernel_fused_plain,
     )
     from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
-    from range_view_3d_detection_torch.models.stems import MetaKernel
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2446,34 +2926,9 @@ def main() -> int:
     check_addcmul_fma(device, torch.Generator().manual_seed(SEED + 3))
     cfg = serving._flagship_config()
     dec = DecoderConfig()
-    predictor = serving.Predictor(cfg, dec, device=device, generator=gen)
-    model = predictor.model
-    with torch.no_grad():
-        for m in model.modules():  # non-trivial BatchNorm statistics
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=gen) * 0.1)
-                m.running_var.copy_(torch.rand(m.running_var.shape, generator=gen) * 1.5 + 0.5)
-            if isinstance(m, MetaKernel):
-                for i in range(m.num_layers):
-                    mean = getattr(m, f"pos_{i}_bn_mean")
-                    mean.copy_(torch.randn(mean.shape, generator=gen) * 0.1)
-                    var = getattr(m, f"pos_{i}_bn_var")
-                    var.copy_(torch.rand(var.shape, generator=gen) * 1.5 + 0.5)
     requests = [serving._sample_inputs(2, 64, 1808, 5, seed=s) for s in range(4)]
-    # Scale each head's final conv to a set output spread (random deep
-    # weights make the raw spread arbitrary), with the classification bias
-    # at 0 so sigmoid ~ 0.5 and the NMS slots hold overlapping proposals.
-    with torch.inference_mode():
-        first = model(*(torch.as_tensor(a, device=device) for a in requests[0]))
-    with torch.no_grad():
-        for name, head in model.DetectionHead_0.named_children():
-            key = "logits" if name.startswith("cls_") else "regressands"
-            spread = 1.0 if key == "logits" else 0.3
-            conv = head.final.Conv_0
-            conv.weight.mul_(spread / first["head"][1][0][key].float().std().item())
-            conv.bias.zero_()
-            if key == "regressands":
-                conv.bias[3:6] = math.log(3.0)
+    predictor = flagship_predictor(cfg, dec, device, gen, requests[0])
+    model = predictor.model
     predictor(*requests[0])  # warm-up (cuDNN plans)
     torch.cuda.synchronize()
 
@@ -2593,8 +3048,13 @@ def main() -> int:
     try:
         serving_launches = serving_phases(art_dir, requests, phase5_results, phase5_heads,
                                           cfg, dec, device, smi)
+        torch.cuda.empty_cache()
+        width_launches = width_phase(art_dir / "bf16", device, smi)
+        chunk_launches = chunk_phase(art_dir / "bf16", requests, device, smi)
+        aot_launches = aot_phase(art_dir, requests, device, smi)
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
+    range_partition_phase(device, smi)
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -2611,6 +3071,9 @@ def main() -> int:
         k["qat_launches"] = qat_launches.get(k["name"], 0)
         k["artifact_launches"] = serving_launches[k["name"]]["artifact"]
         k["points_launches"] = serving_launches[k["name"]]["points"]
+        k["width_launches"] = width_launches[k["name"]]
+        k["chunk_launches"] = chunk_launches[k["name"]]
+        k["aot_launches"] = aot_launches[k["name"]]
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -2621,4 +3084,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["train-rank"]:
         sys.exit(train_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["width-rank"]:
+        sys.exit(width_rank(sys.argv[2:]))
     sys.exit(main())

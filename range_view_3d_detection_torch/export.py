@@ -15,13 +15,24 @@ The artifact is a directory that both packages read and write:
 So a model trained by either package serves in the other. A JAX run
 directory (orbax) is not readable here: exchange goes through the
 artifact. The port runs eagerly, so ``tools/export.py``'s compile cache
-has no counterpart.
+has no counterpart; the AOT program (``predict_b{B}.pt2``,
+:func:`export_aot`) is its way to serve without the model code.
+
+Deployment modes beyond one request on one card:
+
+- :func:`load_artifact_width_sharded`: one request split by width over
+  the ranks of a process group (``parallel/spatial.py``), for latency;
+- :func:`make_chunked_predict`: a chunk of requests in one dispatch, a
+  CUDA graph replayed per chunk (``--chunk``);
+- :func:`export_aot` / :func:`load_aot`: ``torch.export`` of the
+  predictor with the four kernels as ``torch.library`` ops (``--aot``).
 
 Usage:
     python -m range_view_3d_detection_torch.export --synthetic --out ART
     python -m range_view_3d_detection_torch.export --run-dir RUN --out ART [--quantize]
     python -m range_view_3d_detection_torch.export --load ART --latency [--points]
-    python -m range_view_3d_detection_torch.export --load ART --bench [--batch N]
+    python -m range_view_3d_detection_torch.export --load ART --bench [--batch N] [--chunk K]
+    python -m range_view_3d_detection_torch.export --load ART --aot --batch 1,2
 
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs the
 plain kernels).
@@ -49,7 +60,7 @@ from range_view_3d_detection_torch.data.dataset import (
     WAYMO_FEATURES,
     width_padding,
 )
-from range_view_3d_detection_torch.models.decoder import DecoderConfig
+from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
 from range_view_3d_detection_torch.models.detector import (
     Detector,
     DetectorConfig,
@@ -57,6 +68,7 @@ from range_view_3d_detection_torch.models.detector import (
 )
 from range_view_3d_detection_torch.models.quantized import calibrate_scales, filter_scope
 from range_view_3d_detection_torch.ops.projection import rasterize_points
+from range_view_3d_detection_torch.parallel import spatial
 from range_view_3d_detection_torch.transplant import (
     load_flax_variables,
     state_dict_to_flax,
@@ -262,13 +274,207 @@ def load_artifact(
     return predict, det_cfg, dec_cfg
 
 
-def load_artifact_width_sharded(*args, **kwargs):
-    """Width-sharded multi-GPU serving is not ported (ROADMAP.md Queue 1,
-    multi-GPU)."""
-    raise NotImplementedError(
-        "load_artifact_width_sharded: multi-GPU width sharding is not ported; "
-        "see ROADMAP.md Queue 1 (multi-GPU)"
+def load_artifact_width_sharded(
+    art_dir: Path,
+    group=None,
+    *,
+    use_nms: bool = True,
+    circular: Optional[bool] = None,
+    device: str | torch.device = "cuda",
+):
+    """Minimum-latency serving: one request's width split over the ranks
+    of ``group`` (None: the default group; without a process group, one
+    shard), the exact per-op halo exchange of ``parallel/spatial.py``,
+    then decode and NMS (K2) on the gathered outputs on every rank.
+
+    Returns ``(predict, place, det_cfg, dec_cfg)``: ``place(feats, cart,
+    mask)`` takes one full request and returns this rank's width shards
+    on ``device`` (it refuses a width whose shards are not a multiple of
+    the model's width stride, 16); ``predict`` takes them and returns the
+    request's ``NMSResult``, the same on every rank (``predict.apply``
+    runs the sharded forward alone). fp only, as the JAX
+    package's: a ``quant.msgpack`` beside the weights is ignored. The
+    stem takes its accumulate path (K1 is device-local). ``circular``
+    wraps the azimuth seam; it defaults to the artifact's recorded
+    padding mode (circular when none is recorded).
+    """
+    art_dir = Path(art_dir)
+    meta = json.loads((art_dir / "meta.json").read_text())
+    det_cfg = _detector_config_from_meta(meta["detector_config"])
+    dec_cfg = _decoder_config_from_meta(meta["decoder_config"])
+    if circular is None:
+        circular = meta.get("dataset", {}).get("padding_mode", "circular") == "circular"
+    device = torch.device(device)
+    variables = msgpack_restore((art_dir / "variables.msgpack").read_bytes())
+    model = serving.Predictor(det_cfg, dec_cfg, device=device).model
+    load_flax_variables(model, variables["params"], variables["batch_stats"])
+    apply = spatial.width_sharded_apply(model, group, circular=circular, train=False)
+    stride = spatial.width_stride(model)
+    n = spatial.group_size(group)
+
+    def predict(feats, cart, mask):
+        with torch.inference_mode():
+            out = spatial.gather_width(apply(feats, cart, mask), group)
+            return decode(out, dec_cfg, det_cfg.tasks_dict, use_nms=use_nms)
+
+    def place(feats, cart, mask):
+        """This rank's width shards of one request, on ``device``."""
+        spatial.check_width(np.shape(feats)[2], n, stride)
+        return tuple(
+            spatial.shard_width(torch.as_tensor(a, dtype=dt, device=device), group)
+            for a, dt in ((feats, torch.float32), (cart, torch.float32), (mask, torch.bool))
+        )
+
+    predict.device, predict.model, predict.apply = device, model, apply
+    return predict, place, det_cfg, dec_cfg
+
+
+# -- the chunk loop -------------------------------------------------------------
+
+
+class ChunkedPredict:
+    """``run_chunk(feats (K, B, H, W, C), cart (K, B, H, W, 3), mask (K, B,
+    H, W))`` -> the ``K`` results stacked on a leading axis (the JAX
+    ``make_chunked_predict``'s ``lax.scan``).
+
+    On the card one call is one CUDA-graph replay: the first call at a
+    shape warms ``predict`` up on a side stream (kernel builds, cuDNN
+    plans, cached BatchNorm factors), then captures ``K`` calls of it
+    over static input buffers; each call copies its inputs into them,
+    replays, and returns copies of the outputs. The graph's private
+    memory pool lets each micro-batch reuse the last one's activations,
+    so activation memory peaks at one micro-batch. On the CPU it is the
+    plain loop. ``predict`` must not synchronise with the host (no
+    ``.item()``, no data-dependent shapes): the served path does not.
+    """
+
+    def __init__(self, predict: Callable, chunk: int):
+        if chunk < 1:
+            raise ValueError(f"make_chunked_predict: chunk={chunk}")
+        self.predict = predict
+        self.chunk = chunk
+        self.device = torch.device(getattr(predict, "device", "cpu"))
+        self.graphs: Dict[tuple, tuple] = {}
+
+    def _capture(self, args):
+        static = [torch.empty_like(a) for a in args]
+        for dst, src in zip(static, args):
+            dst.copy_(src)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.predict(*(t[0] for t in static))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [self.predict(*(t[i] for t in static)) for i in range(self.chunk)]
+            stacked = type(outs[0])(*(torch.stack(x) for x in zip(*outs)))
+        return graph, static, stacked
+
+    def __call__(self, *args):
+        args = [torch.as_tensor(a, device=self.device) for a in args]
+        if any(a.shape[0] != self.chunk for a in args):
+            raise ValueError(
+                f"ChunkedPredict: leading axes {[a.shape[0] for a in args]} != "
+                f"chunk {self.chunk}"
+            )
+        if self.device.type != "cuda":
+            outs = [self.predict(*(a[i] for a in args)) for i in range(self.chunk)]
+            return type(outs[0])(*(torch.stack(x) for x in zip(*outs)))
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(args)
+        graph, static, stacked = self.graphs[key]
+        for dst, src in zip(static, args):
+            dst.copy_(src)
+        graph.replay()
+        return type(stacked)(*(t.clone() for t in stacked))
+
+
+def make_chunked_predict(predict: Callable, chunk: int) -> ChunkedPredict:
+    """Device-resident serving loop: one dispatch runs a whole chunk of
+    ``chunk`` stacked requests (:class:`ChunkedPredict`)."""
+    return ChunkedPredict(predict, chunk)
+
+
+# -- ahead of time --------------------------------------------------------------
+
+
+class PredictProgram(nn.Module):
+    """A ``serving.Predictor``'s forward, decode and NMS as one module, the
+    program :func:`export_aot` hands to ``torch.export``."""
+
+    def __init__(self, predict: serving.Predictor):
+        super().__init__()
+        self.model = predict.model
+        self.decoder_cfg = predict.decoder_cfg
+        self.tasks = predict.cfg.tasks_dict
+        self.use_nms = predict.use_nms
+
+    def forward(self, feats: torch.Tensor, cart: torch.Tensor, mask: torch.Tensor):
+        out = self.model(feats, cart, mask)
+        return decode(out, self.decoder_cfg, self.tasks, use_nms=self.use_nms)
+
+
+def export_aot(
+    art_dir: Path,
+    *,
+    batch: int,
+    height: int,
+    width: int,
+    device: str | torch.device = "cuda",
+) -> Path:
+    """``torch.export`` of the artifact's predictor (weights inside) at
+    ``(batch, height, width)``, saved as ``predict_b{batch}.pt2`` beside
+    the artifact; the int8 path when the artifact ships scales (as
+    :func:`load_artifact` loads it). The four kernels are opaque
+    ``rv3d::`` custom ops in the program, so :func:`load_aot` needs their
+    registrations and nothing of the model. Exported on ``device``; the
+    program serves there."""
+    art_dir = Path(art_dir)
+    predict, det_cfg, _ = load_artifact(art_dir, device=device)
+    dev = predict.device
+    C = det_cfg.in_channels
+    example = (
+        torch.zeros((batch, height, width, C), dtype=torch.float32, device=dev),
+        torch.zeros((batch, height, width, 3), dtype=torch.float32, device=dev),
+        torch.zeros((batch, height, width), dtype=torch.bool, device=dev),
     )
+    program = PredictProgram(predict).eval()
+    with torch.no_grad():
+        exported = torch.export.export(program, example, strict=False)
+    out = art_dir / f"predict_b{batch}.pt2"
+    torch.export.save(exported, out)
+    print(f"AOT artifact written to {out} ({out.stat().st_size // 1024} KiB)")
+    return out
+
+
+def load_aot(path: Path, device: str | torch.device | None = None) -> Callable:
+    """The program :func:`export_aot` wrote, as ``predict(feats, cart,
+    mask) -> NMSResult`` (host arrays or tensors). It needs the kernels'
+    op registrations (``range_view_3d_detection_torch.kernels``) and
+    nothing of the model or its config. ``device`` moves the program
+    (default: where it was exported)."""
+    import range_view_3d_detection_torch.kernels  # noqa: F401  (rv3d:: ops)
+
+    exported = torch.export.load(str(path))
+    if device is not None:
+        from torch.export.passes import move_to_device_pass
+
+        exported = move_to_device_pass(exported, torch.device(device))
+    module = exported.module()
+    dev = next(iter(exported.state_dict.values())).device
+
+    def predict(feats, cart, mask):
+        with torch.inference_mode():
+            return module(
+                torch.as_tensor(feats, dtype=torch.float32, device=dev),
+                torch.as_tensor(cart, dtype=torch.float32, device=dev),
+                torch.as_tensor(mask, dtype=torch.bool, device=dev),
+            )
+
+    predict.device = dev
+    return predict
 
 
 class PointsPredict:
@@ -377,15 +583,41 @@ def stream_bench(
     """Batched-stream throughput: ``iters`` requests back to back over 4
     distinct batches placed on the device beforehand, one host readback
     at the end. Prints one JSON line (``stream_frames_per_sec``,
-    ``ms_per_batch``) and returns the frames a second."""
-    if chunk > 0:
-        raise NotImplementedError(
-            "stream_bench(chunk > 0): the device-resident chunk loop is a CUDA-graph "
-            "mode of the Predictor, ROADMAP.md Queue 1 item 2d"
-        )
+    ``ms_per_batch``) and returns the frames a second.
+
+    ``chunk > 0``: ``chunk`` distinct batches stacked on the device, one
+    :func:`make_chunked_predict` call (a CUDA-graph replay on the card)
+    per iteration, ``batch * chunk * iters`` frames
+    (``ms_per_microbatch``)."""
     if make_batch is None:
         def make_batch(seed):
             return serving._sample_inputs(batch, H, W, C, seed=seed)
+
+    if chunk > 0:
+        device = torch.device(predict.device)
+        parts = [make_batch(i) for i in range(chunk)]
+        stacked = [
+            torch.as_tensor(np.stack([np.asarray(p[j]) for p in parts]), device=device)
+            for j in range(len(parts[0]))
+        ]
+        run_chunk = make_chunked_predict(predict, chunk)
+        _sync(run_chunk(*stacked))  # capture + warm
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(iters):
+            out = run_chunk(*stacked)
+        _sync(out)
+        dt = time.perf_counter() - t0
+        fps = batch * chunk * iters / dt
+        print(json.dumps({
+            "stream_frames_per_sec": round(fps, 2),
+            "batch": batch,
+            "chunk": chunk,
+            "iters": iters,
+            "ms_per_microbatch": round(dt / (iters * chunk) * 1e3, 2),
+            "device": _device_name(predict),
+        }), flush=True)
+        return fps
 
     batches = _device_batches(predict, make_batch)
     for b in batches[:2]:
@@ -517,12 +749,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--bench", action="store_true")
     ap.add_argument("--aot", action="store_true",
-                    help="not ported (torch.export with the kernels as torch.library "
-                    "ops): raises")
-    ap.add_argument("--batch", default="2", help="batch size (a comma list is --aot's)")
+                    help="with --load: torch.export the predictor (the kernels as "
+                    "torch.library ops) to predict_b{B}.pt2 beside the artifact")
+    ap.add_argument("--batch", default="2",
+                    help="batch size; with --aot a comma list exports one program a size")
     ap.add_argument("--chunk", type=int, default=0,
-                    help="micro-batches per dispatch: > 0 is not ported (a CUDA-graph "
-                    "chunk loop): raises")
+                    help="with --bench: micro-batches per dispatch (a CUDA graph "
+                    "replayed per chunk)")
     ap.add_argument("--latency", action="store_true",
                     help="with --load: per-request latency (p50/p90/p99) instead of "
                     "stream throughput")
@@ -589,20 +822,16 @@ def _points_frontend(args, art_dir: Path, predict, det_cfg, batch: int):
 
 def main(argv: Sequence[str] | None = None):
     args = _parser().parse_args(argv)
-    if args.aot:
-        raise NotImplementedError(
-            "--aot: ahead-of-time export (torch.export with the kernels registered "
-            "as torch.library ops) is not ported; see ROADMAP.md Queue 1"
-        )
-    if args.chunk > 0:
-        raise NotImplementedError(
-            "--chunk > 0: the device-resident chunk loop (a CUDA-graph mode of the "
-            "Predictor) is not ported; see ROADMAP.md Queue 1 item 2d"
-        )
     batch = int(str(args.batch).split(",")[0])
 
     if args.load:
         art_dir = Path(args.load)
+        if args.aot:
+            return [
+                export_aot(art_dir, batch=int(b), height=args.height, width=args.width,
+                           device=args.device)
+                for b in str(args.batch).split(",")
+            ]
         predict, det_cfg, _ = load_artifact(
             art_dir, quantized=False if args.fp else "auto", device=args.device
         )
@@ -614,7 +843,7 @@ def main(argv: Sequence[str] | None = None):
         if args.latency:
             return latency_bench(predict, **kw)
         if args.bench:
-            return stream_bench(predict, **kw)
+            return stream_bench(predict, chunk=args.chunk, **kw)
         return None
 
     if args.synthetic:

@@ -12,9 +12,15 @@ Two operand forms: int8 ``x`` (the TPU kernel's), or the bf16/fp32
 activation with its per-tensor ``in_scale``, which the kernel quantizes
 (:func:`quantize_to_int8`) while it stages the input, so no quantized copy
 of the activation is made.
+
+The kernel is the ``torch.library`` custom op ``rv3d::conv3x3_i8``: the
+plain twin on the CPU, the ctypes launch on the card (built at its first
+launch), a fake kernel for ``torch.export`` and CUDA-graph capture.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -106,20 +112,24 @@ def conv3x3_i8_fused(
     (9, Cout, Cin) tensor (the kernel's operand layout); any other layout
     is copied. ``conv3x3_i8_fused.launches`` counts the kernel launches.
     """
-    if x_i8.device.type == "cpu":
-        return conv3x3_i8_fused_plain(
-            x_i8, w_i8, dq, stride_w=stride_w, out_dtype=out_dtype, in_scale=in_scale
-        )
-    if x_i8.device.type != "cuda":
+    scale = None
+    if in_scale is not None:
+        scale = torch.as_tensor(in_scale, dtype=torch.float32, device=x_i8.device)
+    if x_i8.device.type == "cuda":
+        _check_k3(x_i8, w_i8, dq, stride_w, out_dtype, scale)
+    elif x_i8.device.type not in ("cpu", "meta"):
         raise ValueError(f"conv3x3_i8_fused: unsupported device {x_i8.device}")
+    return torch.ops.rv3d.conv3x3_i8(x_i8, w_i8, dq, scale, stride_w, out_dtype)
+
+
+def _check_k3(x_i8, w_i8, dq, stride_w, out_dtype, scale) -> None:
+    """What the CUDA kernel takes (shapes and dtypes only)."""
     B, H, W, Cin = x_i8.shape
-    in_kinds = {torch.bfloat16: 1, torch.float32: 2} if in_scale is not None else {
-        torch.int8: 0
-    }
+    in_kinds = _IN_KINDS if scale is not None else {torch.int8: 0}
     if x_i8.dtype not in in_kinds or w_i8.dtype != torch.int8:
         raise TypeError(
             f"conv3x3_i8_fused: input {x_i8.dtype} (in_scale "
-            f"{'given' if in_scale is not None else 'None'}), weights {w_i8.dtype}"
+            f"{'given' if scale is not None else 'None'}), weights {w_i8.dtype}"
         )
     if w_i8.dim() != 3 or w_i8.shape[:2] != (9, Cin):
         raise ValueError(
@@ -139,24 +149,48 @@ def conv3x3_i8_fused(
         raise ValueError(f"conv3x3_i8_fused: dq shape {tuple(dq.shape)}")
     if w_i8.device != x_i8.device or dq.device != x_i8.device:
         raise ValueError("conv3x3_i8_fused: inputs on different devices")
-    Wo = _out_width(W, stride_w)
-    scale = None
-    if in_scale is not None:
-        scale = torch.as_tensor(in_scale, dtype=torch.float32, device=x_i8.device)
-        if scale.numel() != 1:
-            raise ValueError(f"conv3x3_i8_fused: in_scale shape {tuple(scale.shape)}")
+    if scale is not None and scale.numel() != 1:
+        raise ValueError(f"conv3x3_i8_fused: in_scale shape {tuple(scale.shape)}")
+
+
+_IN_KINDS = {torch.bfloat16: 1, torch.float32: 2}
+
+
+@torch.library.custom_op("rv3d::conv3x3_i8", mutates_args=(), device_types="cpu")
+def _k3_op(
+    x_i8: torch.Tensor, w_i8: torch.Tensor, dq: torch.Tensor,
+    in_scale: Optional[torch.Tensor], stride_w: int, out_dtype: torch.dtype,
+) -> torch.Tensor:
+    return conv3x3_i8_fused_plain(
+        x_i8, w_i8, dq, stride_w=stride_w, out_dtype=out_dtype, in_scale=in_scale
+    )
+
+
+@_k3_op.register_fake
+def _(x_i8, w_i8, dq, in_scale, stride_w, out_dtype):
+    B, H, W, _ = x_i8.shape
+    return x_i8.new_empty((B, H, _out_width(W, stride_w), w_i8.shape[2]), dtype=out_dtype)
+
+
+@_k3_op.register_kernel("cuda")
+def _k3_cuda(x_i8, w_i8, dq, in_scale, stride_w, out_dtype):
+    B, H, W, Cin = x_i8.shape
+    Cout = w_i8.shape[2]
+    in_kind = _IN_KINDS[x_i8.dtype] if in_scale is not None else 0
     x_i8 = x_i8.contiguous()
     wt = w_i8.transpose(1, 2).contiguous()  # (9, Cout, Cin): [n][k]
     dq = dq.float().contiguous()
     if x_i8.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("conv3x3_i8_fused: operands must be 16-byte aligned")
-    out = torch.empty((B, H, Wo, Cout), dtype=out_dtype, device=x_i8.device)
+    out = torch.empty(
+        (B, H, _out_width(W, stride_w), Cout), dtype=out_dtype, device=x_i8.device
+    )
     lib = _build.library()
     with torch.cuda.device(x_i8.device):
         err = lib.rv3d_conv3x3_i8(
             x_i8.data_ptr(), wt.data_ptr(), dq.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            B, H, W, Cin, Cout, stride_w, in_kinds[x_i8.dtype],
+            None if in_scale is None else in_scale.data_ptr(), out.data_ptr(),
+            B, H, W, Cin, Cout, stride_w, in_kind,
             int(out_dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -10,6 +10,10 @@ weighted merge over all SMs. The plain twin is the JAX package's lax
 block scan (``ops/nms.py:177-214``) with the batch dimension written out;
 :func:`nms_scan_bitmask_plain` is the kernel's three phases in torch ops,
 for the tests.
+
+The scan is the ``torch.library`` custom op ``rv3d::nms_scan``: the plain
+twin on the CPU, the three launches on the card (built at the first), a
+fake kernel for ``torch.export`` and CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -151,30 +155,53 @@ def nms_scan(
     kernel's three phases (P == 9, any B >= 1, cap <= 4096) or raises.
     ``nms_scan.launches`` counts the calls that launch them.
     """
-    if iou.device.type == "cpu":
-        return nms_scan_plain(
-            iou, scores, valid, payload,
-            iou_threshold=iou_threshold, merge_threshold=merge_threshold,
-        )
-    if iou.device.type != "cuda":
+    if iou.device.type == "cuda":
+        B, cap = scores.shape
+        if (
+            iou.shape != (B, cap, cap)
+            or valid.shape != (B, cap)
+            or payload.shape != (B, cap, PAYLOAD)
+        ):
+            raise ValueError(
+                f"nms_scan: shapes iou{tuple(iou.shape)} scores{tuple(scores.shape)}"
+                f" valid{tuple(valid.shape)} payload{tuple(payload.shape)}"
+            )
+        if cap > 4096:
+            raise ValueError(
+                f"nms_scan: cap={cap} > 4096: the keep warp holds 4096 removed bits"
+            )
+        tensors = (iou, scores, valid, payload)
+        if any(t.device != iou.device for t in tensors):
+            raise ValueError("nms_scan: inputs on different devices")
+    elif iou.device.type not in ("cpu", "meta"):
         raise ValueError(f"nms_scan: unsupported device {iou.device}")
+    return torch.ops.rv3d.nms_scan(
+        iou, scores, valid, payload, float(iou_threshold), float(merge_threshold)
+    )
+
+
+@torch.library.custom_op("rv3d::nms_scan", mutates_args=(), device_types="cpu")
+def _k2_op(
+    iou: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, payload: torch.Tensor,
+    iou_threshold: float, merge_threshold: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return nms_scan_plain(
+        iou, scores, valid, payload,
+        iou_threshold=iou_threshold, merge_threshold=merge_threshold,
+    )
+
+
+@_k2_op.register_fake
+def _(iou, scores, valid, payload, iou_threshold, merge_threshold):
+    return (
+        valid.new_empty(scores.shape, dtype=torch.bool),
+        payload.new_empty(payload.shape, dtype=torch.float32),
+    )
+
+
+@_k2_op.register_kernel("cuda")
+def _k2_cuda(iou, scores, valid, payload, iou_threshold, merge_threshold):
     B, cap = scores.shape
-    if (
-        iou.shape != (B, cap, cap)
-        or valid.shape != (B, cap)
-        or payload.shape != (B, cap, PAYLOAD)
-    ):
-        raise ValueError(
-            f"nms_scan: shapes iou{tuple(iou.shape)} scores{tuple(scores.shape)}"
-            f" valid{tuple(valid.shape)} payload{tuple(payload.shape)}"
-        )
-    if cap > 4096:
-        raise ValueError(
-            f"nms_scan: cap={cap} > 4096: the keep warp holds 4096 removed bits"
-        )
-    tensors = (iou, scores, valid, payload)
-    if any(t.device != iou.device for t in tensors):
-        raise ValueError("nms_scan: inputs on different devices")
     iou = iou.float().contiguous()
     scores = scores.float().contiguous()
     valid = valid.to(torch.bool).contiguous()

@@ -10,6 +10,13 @@
 Each kernel's header says what bounds it on the H100 (the two 256x256
 GEMMs per neighbour: compute, at B=2 and the flagship 64x1808 image) and
 how its design follows from that.
+
+Both are ``torch.library`` custom ops, ``rv3d::meta_kernel_fused`` and
+``rv3d::meta_kernel_fused_i8``: the CPU kernel is the plain twin, the
+CUDA kernel launches the ctypes entry point (built at its first launch),
+and a fake kernel gives the output's shape and dtype, so ``torch.export``
+and CUDA-graph capture see one opaque op. The wrappers check their
+arguments and call the op.
 """
 
 from __future__ import annotations
@@ -87,30 +94,48 @@ def meta_kernel_fused(
     entry point refuses any other C. ``meta_kernel_fused.launches`` counts
     the kernel launches.
     """
-    if g.device.type == "cpu":
-        return meta_kernel_fused_plain(g, feats, w1, k, a0, b0, a1, b1)
-    if g.device.type != "cuda":
+    if g.device.type == "cuda":
+        B, H, W, C = g.shape
+        if g.dtype != torch.bfloat16:
+            raise TypeError(f"meta_kernel_fused: the kernel takes bf16, got {g.dtype}")
+        if feats.shape != g.shape or w1.shape != (C, C) or k.shape != (9, C, C):
+            raise ValueError(
+                f"meta_kernel_fused: shapes g{tuple(g.shape)} feats"
+                f"{tuple(feats.shape)} w1{tuple(w1.shape)} k{tuple(k.shape)}"
+            )
+        tensors = (g, feats, w1, k, a0, b0, a1, b1)
+        if any(t.device != g.device for t in tensors):
+            raise ValueError("meta_kernel_fused: inputs on different devices")
+        for v in (a0, b0, a1, b1):
+            if v.shape != (C,):
+                raise ValueError(f"meta_kernel_fused: affine shape {tuple(v.shape)}")
+    elif g.device.type not in ("cpu", "meta"):
         raise ValueError(f"meta_kernel_fused: unsupported device {g.device}")
+    return torch.ops.rv3d.meta_kernel_fused(g, feats, w1, k, a0, b0, a1, b1)
+
+
+@torch.library.custom_op("rv3d::meta_kernel_fused", mutates_args=(), device_types="cpu")
+def _k1_op(
+    g: torch.Tensor, feats: torch.Tensor, w1: torch.Tensor, k: torch.Tensor,
+    a0: torch.Tensor, b0: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
+) -> torch.Tensor:
+    return meta_kernel_fused_plain(g, feats, w1, k, a0, b0, a1, b1)
+
+
+@_k1_op.register_fake
+def _(g, feats, w1, k, a0, b0, a1, b1):
+    return g.new_empty(g.shape, dtype=torch.float32)
+
+
+@_k1_op.register_kernel("cuda")
+def _k1_cuda(g, feats, w1, k, a0, b0, a1, b1):
     B, H, W, C = g.shape
-    if g.dtype != torch.bfloat16:
-        raise TypeError(f"meta_kernel_fused: the kernel takes bf16, got {g.dtype}")
-    if feats.shape != g.shape or w1.shape != (C, C) or k.shape != (9, C, C):
-        raise ValueError(
-            f"meta_kernel_fused: shapes g{tuple(g.shape)} feats"
-            f"{tuple(feats.shape)} w1{tuple(w1.shape)} k{tuple(k.shape)}"
-        )
-    tensors = (g, feats, w1, k, a0, b0, a1, b1)
-    if any(t.device != g.device for t in tensors):
-        raise ValueError("meta_kernel_fused: inputs on different devices")
     g = g.contiguous()
     feats = feats.to(torch.bfloat16).contiguous()
     # Transposed weights, [n][k]: the kernel's TMA boxes are K-major.
     w1t = w1.to(torch.bfloat16).t().contiguous()
     kt = k.to(torch.bfloat16).transpose(1, 2).contiguous()
     a0, b0, a1, b1 = (v.float().contiguous() for v in (a0, b0, a1, b1))
-    for v in (a0, b0, a1, b1):
-        if v.shape != (C,):
-            raise ValueError(f"meta_kernel_fused: affine shape {tuple(v.shape)}")
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=g.device)
     lib = _build.library()
     with torch.cuda.device(g.device):
@@ -202,25 +227,47 @@ def meta_kernel_fused_i8(
     w1t.t()``, as ``MetaKernel.quantize_stem`` keeps them) pass without a
     copy. ``meta_kernel_fused_i8.launches`` counts the kernel launches.
     """
-    if g.device.type == "cpu":
-        return meta_kernel_fused_i8_plain(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq)
-    if g.device.type != "cuda":
+    if g.device.type == "cuda":
+        B, H, W, C = g.shape
+        if g.dtype != torch.bfloat16:
+            raise TypeError(f"meta_kernel_fused_i8: the kernel takes bf16, got {g.dtype}")
+        if w1_i8.dtype != torch.int8 or k_i8.dtype != torch.int8:
+            raise TypeError("meta_kernel_fused_i8: int8 weights expected")
+        if feats.shape != g.shape or w1_i8.shape != (C, C) or k_i8.shape != (9, C, C):
+            raise ValueError(
+                f"meta_kernel_fused_i8: shapes g{tuple(g.shape)} feats"
+                f"{tuple(feats.shape)} w1{tuple(w1_i8.shape)} k{tuple(k_i8.shape)}"
+            )
+        if kdq.shape != (9, C):
+            raise ValueError(f"meta_kernel_fused_i8: kdq shape {tuple(kdq.shape)}")
+        tensors = (g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq)
+        if any(t.device != g.device for t in tensors):
+            raise ValueError("meta_kernel_fused_i8: inputs on different devices")
+        for v in (a0, b0, a1, b1):
+            if v.shape != (C,):
+                raise ValueError(f"meta_kernel_fused_i8: affine shape {tuple(v.shape)}")
+    elif g.device.type not in ("cpu", "meta"):
         raise ValueError(f"meta_kernel_fused_i8: unsupported device {g.device}")
+    return torch.ops.rv3d.meta_kernel_fused_i8(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq)
+
+
+@torch.library.custom_op("rv3d::meta_kernel_fused_i8", mutates_args=(), device_types="cpu")
+def _k4_op(
+    g: torch.Tensor, feats: torch.Tensor, w1_i8: torch.Tensor, k_i8: torch.Tensor,
+    a0: torch.Tensor, b0: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
+    kdq: torch.Tensor,
+) -> torch.Tensor:
+    return meta_kernel_fused_i8_plain(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq)
+
+
+@_k4_op.register_fake
+def _(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq):
+    return g.new_empty(g.shape, dtype=torch.float32)
+
+
+@_k4_op.register_kernel("cuda")
+def _k4_cuda(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq):
     B, H, W, C = g.shape
-    if g.dtype != torch.bfloat16:
-        raise TypeError(f"meta_kernel_fused_i8: the kernel takes bf16, got {g.dtype}")
-    if w1_i8.dtype != torch.int8 or k_i8.dtype != torch.int8:
-        raise TypeError("meta_kernel_fused_i8: int8 weights expected")
-    if feats.shape != g.shape or w1_i8.shape != (C, C) or k_i8.shape != (9, C, C):
-        raise ValueError(
-            f"meta_kernel_fused_i8: shapes g{tuple(g.shape)} feats"
-            f"{tuple(feats.shape)} w1{tuple(w1_i8.shape)} k{tuple(k_i8.shape)}"
-        )
-    if kdq.shape != (9, C):
-        raise ValueError(f"meta_kernel_fused_i8: kdq shape {tuple(kdq.shape)}")
-    tensors = (g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq)
-    if any(t.device != g.device for t in tensors):
-        raise ValueError("meta_kernel_fused_i8: inputs on different devices")
     g = g.contiguous()
     feats = feats.to(torch.bfloat16).contiguous()
     # [n][k]: the kernel's TMA boxes are K-major (s8 wgmma takes K-major A
@@ -228,9 +275,6 @@ def meta_kernel_fused_i8(
     w1t = w1_i8.t().contiguous()
     kt = k_i8.transpose(1, 2).contiguous()
     a0, b0, a1, b1, kdq = (v.float().contiguous() for v in (a0, b0, a1, b1, kdq))
-    for v in (a0, b0, a1, b1):
-        if v.shape != (C,):
-            raise ValueError(f"meta_kernel_fused_i8: affine shape {tuple(v.shape)}")
     out = torch.empty((B, H, W, C), dtype=torch.float32, device=g.device)
     lib = _build.library()
     with torch.cuda.device(g.device):

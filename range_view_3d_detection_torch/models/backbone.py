@@ -5,7 +5,8 @@ four transposed-conv aggregation nodes, multi-scale output
 
 Remat, as the JAX ``nn.remat`` wraps them: ``RangeBackbone(remat=True)``
 checkpoints each residual stage and each aggregation node,
-``RangeNet(remat_stem=True)`` the stem. The modules and their names do
+``RangeNet(remat_stem=True)`` the stem (``MetaKernel_0``,
+``RangePartition_0`` or ``BasicBlock_0``). The modules and their names do
 not change, so the ``state_dict`` is the same with remat on or off."""
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from range_view_3d_detection_torch.models.blocks import (
     ResidualBlock,
     checkpoint,
 )
-from range_view_3d_detection_torch.models.stems import MetaKernel
+from range_view_3d_detection_torch.models.stems import MetaKernel, RangePartition
 
 
 def out_channels(layers: Sequence[int]) -> Dict[int, int]:
@@ -43,6 +44,9 @@ class RangeBackbone(nn.Module):
         self.remat = remat
         ch, nb = list(layers), list(stage_blocks)
         ins = [ch[0]] + ch[:4]
+        # The product of the stages' width strides: a width shard must be a
+        # multiple of it (parallel/spatial.py::check_width).
+        self.width_stride = 2**4
         for i in range(5):
             self.add_module(
                 f"ResidualBlock_{i}",
@@ -83,7 +87,7 @@ class RangeBackbone(nn.Module):
 
 
 class RangeNet(nn.Module):
-    """Stem selector (META or BASIC) + backbone."""
+    """Stem selector (META, RANGE_PARTITION or BASIC) + backbone."""
 
     def __init__(
         self,
@@ -108,24 +112,33 @@ class RangeNet(nn.Module):
                 in_channels, layers[0], num_neighbors, num_layers,
                 use_fused_kernel=stem_pallas, dtype=dtype,
             )
+        elif self.stem_type == "RANGE_PARTITION":
+            self.RangePartition_0 = RangePartition(
+                in_channels, layers[0], projection_kernel_size, dtype=dtype
+            )
         elif self.stem_type == "BASIC":
             pk = projection_kernel_size
             self.BasicBlock_0 = BasicBlock(
                 in_channels, layers[0], (pk, pk), project=True, dtype=dtype
             )
         else:
-            raise NotImplementedError(f"stem_type={stem_type} is not ported")
+            raise ValueError(f"unknown stem_type={stem_type}")
         self.RangeBackbone_0 = RangeBackbone(
             layers, stage_blocks, remat=remat_stages, dtype=dtype
         )
 
     def forward(
-        self, features: torch.Tensor, cart: torch.Tensor
+        self, features: torch.Tensor, cart: torch.Tensor, mask: torch.Tensor | None = None
     ) -> Dict[int, torch.Tensor]:
-        """``features`` NCHW, ``cart`` (B, H, W, 3)."""
+        """``features`` NCHW, ``cart`` (B, H, W, 3), ``mask`` (B, H, W) (the
+        RANGE_PARTITION stem's)."""
         features = features.to(self.dtype)
         if self.stem_type == "META":
             stem_args = (self.MetaKernel_0, features, cart)
+        elif self.stem_type == "RANGE_PARTITION":
+            if mask is None:
+                raise ValueError("the RANGE_PARTITION stem takes the mask")
+            stem_args = (self.RangePartition_0, features, cart, mask.to(self.dtype))
         else:
             stem_args = (self.BasicBlock_0, features)
         if self.remat_stem and self.training:

@@ -20,6 +20,15 @@ absmax while the model is calibrated. QAT: ``qat_scale`` (set
 by ``quantized.qat``) runs the same blocks on STE fake-quantized fp32
 operands, in train or eval mode.
 
+Width sharding (``parallel/spatial.py``): under its context a k-wide
+``ConvNormAct`` fetches ``(k-1)//2`` neighbour columns and runs VALID
+over width, and a ``TorchConvTranspose`` fetches the columns its kernel
+footprint reads and slices the exact local output (the phase
+decomposition takes a (1, 1) halo and needs no slice); train-mode
+BatchNorm moments are reduced over the context's group. The int8
+operands are refused there: width-sharded serving is fp only, as in the
+JAX package.
+
 Remat (``checkpoint``): a block run under ``torch.utils.checkpoint``
 recomputes its forward during the backward; the recompute writes no
 BatchNorm running statistics (``recomputing``), so a step updates them
@@ -30,6 +39,7 @@ once, as flax's functional ``batch_stats`` do. Under a process group
 from __future__ import annotations
 
 import contextvars
+import os
 from typing import Callable, Sequence, Tuple, Union
 
 import torch
@@ -44,7 +54,7 @@ from range_view_3d_detection_torch.models.quantized import (
     quantize_to_int8,
     weight_scale_per_channel,
 )
-from range_view_3d_detection_torch.parallel import mesh
+from range_view_3d_detection_torch.parallel import spatial
 
 IntPair = Union[int, Sequence[int]]
 
@@ -91,8 +101,9 @@ def checkpoint(fn: Callable, *args):
 
 def batch_moments(yf: torch.Tensor, dims: Tuple[int, ...]):
     """Per-channel ``E[y]`` and ``E[y^2]`` of fp32 ``yf`` over ``dims``,
-    the global batch's under a process group."""
-    return mesh.global_moments(yf.mean(dim=dims), (yf * yf).mean(dim=dims))
+    the global batch's under a process group (and every width shard's
+    under a train-mode width context)."""
+    return spatial.bn_mean(yf.mean(dim=dims), (yf * yf).mean(dim=dims), spatial.context())
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -122,9 +133,12 @@ class BatchNorm(nn.BatchNorm2d):
         """fp32 ``rsqrt(var + eps) * scale``, the rsqrt rounded once from fp64.
 
         Cached until ``weight`` or ``running_var`` is written in place
-        (their version counters) or moved (their storage).
+        (their version counters) or moved (their storage); computed afresh
+        while ``torch.export`` traces (its tensors have no storage).
         """
         w, v = self.weight, self.running_var
+        if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+            return torch.rsqrt((v + self.eps).double()).float() * w
         key = (w._version, v._version, w.data_ptr(), v.data_ptr())
         cached = self.__dict__.get("_eval_mul")
         if cached is None or cached[0] != key:
@@ -219,10 +233,27 @@ class ConvNormAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        if self.int8 is not None and self.qat_scale is None and not self.training:
+        conv = self.Conv_0
+        padding = conv.padding
+        int8 = self.int8 is not None and self.qat_scale is None and not self.training
+        ctx = spatial.context()
+        kw = conv.kernel_size[1]
+        if ctx is not None and kw > 1:
+            if int8:
+                raise ValueError(
+                    "ConvNormAct: width sharding serves fp only (the int8 conv "
+                    "pads its own width)"
+                )
+            # The width padding comes from the ring neighbours; VALID over
+            # width keeps the output exactly shard-wide.
+            lo = (kw - 1) // 2
+            x = spatial.exchange_halo_lr(
+                x, lo, kw - 1 - lo, ctx.group, w_axis=3, circular=ctx.circular
+            )
+            padding = (padding[0], 0)
+        if int8:
             y = self.int8(x)
         else:
-            conv = self.Conv_0
             stride = conv.stride
             if conv.kernel_size == (1, 1) and stride != (1, 1) and x.device.type == "cpu":
                 # A strided 1x1 conv is the 1x1 conv of the strided view.
@@ -233,11 +264,11 @@ class ConvNormAct(nn.Module):
             if self.qat_scale is not None:
                 y = qat_conv(
                     F.conv2d, x, conv.weight, conv.bias, self.qat_scale, 0,
-                    stride=stride, padding=conv.padding,
+                    stride=stride, padding=padding,
                 ).to(dt)
             else:
                 bias = None if conv.bias is None else conv.bias.to(dt)
-                y = F.conv2d(x.to(dt), conv.weight.to(dt), bias, stride, conv.padding)
+                y = F.conv2d(x.to(dt), conv.weight.to(dt), bias, stride, padding)
         if self.norm:
             return self.BatchNorm_0(y, dt, self.act)
         return torch.relu(y) if self.act else y
@@ -265,6 +296,22 @@ def phase_merged_kernel(kernel: torch.Tensor, sw: int) -> torch.Tensor:
     return merged
 
 
+def phase_shape_ok(kernel_size, stride, padding) -> bool:
+    """Whether a transposed conv has the aggregation nodes' shape, which the
+    phase decomposition (:func:`phase_merged_kernel`) computes exactly:
+    height stride 1, width stride ``sw >= 2``, kernel width ``2*sw``,
+    padding ``sw//2`` and an odd kernel height ``2*ph + 1``."""
+    (kh, kw), (sh, sw), (ph, pw) = kernel_size, stride, padding
+    return sh == 1 and sw >= 2 and kw == 2 * sw and 2 * pw == sw and kh == 2 * ph + 1
+
+
+def phase_deconv_enabled() -> bool:
+    """``RV3D_DECONV_PHASE=1`` (the JAX package's switch) routes the fp
+    transposed convs of the aggregation shape through the phase
+    decomposition."""
+    return os.environ.get("RV3D_DECONV_PHASE", "0") == "1"
+
+
 class TorchConvTranspose(nn.ConvTranspose2d):
     """Transposed conv, counterpart of the JAX ``TorchConvTranspose``.
 
@@ -281,6 +328,15 @@ class TorchConvTranspose(nn.ConvTranspose2d):
     exact, so the result equals the JAX package's ``lhs_dilation``
     lowering. Every aggregation node's shape qualifies (height stride 1,
     kernel ``(3, 2*sw)``, padding ``(1, sw//2)``); another is refused.
+
+    fp with ``RV3D_DECONV_PHASE=1`` (the JAX ``_phase_deconv``): the same
+    merged kernel, in the compute dtype, as a stride-1 conv with a 3-wide
+    window, its ``sw`` phases interleaved. Off by default, as in JAX.
+
+    Under width sharding (``parallel/spatial.py``) it fetches the
+    ``(halo_l, halo_r)`` input columns its footprint reads across the
+    shard's edges, runs on the widened shard and slices the exact local
+    output; the phase form consumes that (1, 1) halo with VALID width.
     """
 
     def __init__(
@@ -324,13 +380,12 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         if in_scale is None:
             return
         (kh, kw), (sh, sw), (ph, pw) = self.kernel_size, self.stride, self.padding
-        if not (sh == 1 and sw >= 2 and kw == 2 * sw and 2 * pw == sw and kh == 3 and ph == 1):
+        if not (phase_shape_ok(self.kernel_size, self.stride, self.padding) and kh == 3):
             raise NotImplementedError(
                 f"TorchConvTranspose int8: no phase decomposition for kernel "
                 f"{(kh, kw)}, stride {(sh, sw)}, padding {(ph, pw)}"
             )
-        # The flax HWIO kernel: (I, O, kh, kw) flipped in space back.
-        w = self.weight.detach().float().flip(2, 3).permute(2, 3, 0, 1)
+        w = self.hwio_kernel().detach().float()
         w_scale = weight_scale_per_channel(w, out_dim=3)
         w_i8 = quantize_to_int8(w, w_scale)
         merged = phase_merged_kernel(w_i8, sw)  # (3, 3, ci, sw*co)
@@ -341,25 +396,66 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         self.int8_taps = taps.transpose(1, 2)  # (9, ci, sw*co), [n][k] memory
         self.int8_dq = (scale * w_scale).repeat(sw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+    def hwio_kernel(self) -> torch.Tensor:
+        """The flax HWIO kernel: ``(I, O, kh, kw)`` flipped in space back."""
+        return self.weight.flip(2, 3).permute(2, 3, 0, 1)
+
+    def _dilated(self, x: torch.Tensor) -> torch.Tensor:
         if self.qat_scale is not None:
             # The weight is (Cin, Cout, kh, kw): output channels on axis 1.
             return qat_conv(
                 F.conv_transpose2d, x, self.weight, None, self.qat_scale, 1,
                 stride=self.stride, padding=self.padding,
-            ).to(dt)
-        if self.int8_scale is None:
-            return F.conv_transpose2d(
-                x.to(dt), self.weight.to(dt), None, self.stride, self.padding
+            ).to(self.dtype)
+        return F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype), None, self.stride, self.padding
+        )
+
+    def _phase(self, x: torch.Tensor, pad_w: int) -> torch.Tensor:
+        """The phase decomposition in the compute dtype: a stride-1 conv of
+        the merged kernel (``pad_w`` zero columns a side, 0 on a halo'd
+        shard), its ``sw*co`` channels interleaved into ``sw`` columns."""
+        dt, sw, ph = self.dtype, self.stride[1], self.padding[0]
+        merged = phase_merged_kernel(self.hwio_kernel().to(dt), sw)  # (kh, 3, ci, sw*co)
+        y = F.conv2d(x.to(dt), merged.permute(3, 2, 0, 1), None, 1, (ph, pad_w))
+        B, sco, H, W = y.shape
+        co = sco // sw
+        y = y.reshape(B, sw, co, H, W).permute(0, 2, 3, 4, 1)
+        return y.reshape(B, co, H, W * sw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        kw, sw, pw = self.kernel_size[1], self.stride[1], self.padding[1]
+        phase = (
+            self.qat_scale is None
+            and phase_deconv_enabled()
+            and phase_shape_ok(self.kernel_size, self.stride, self.padding)
+        )
+        ctx = spatial.context()
+        # Input columns the footprint reads across a shard's edges (exact for
+        # any sw >= 1; sw == 1 is the regular conv's kw-1-pw / pw).
+        halo_l = max(0, (kw - 1 - pw) // sw)
+        halo_r = max(0, (pw + sw - 1) // sw)
+        if ctx is not None and (halo_l or halo_r):
+            if self.int8_scale is not None and self.qat_scale is None:
+                raise ValueError(
+                    "TorchConvTranspose: width sharding serves fp only"
+                )
+            Wl = x.shape[3]
+            x = spatial.exchange_halo_lr(
+                x, halo_l, halo_r, ctx.group, w_axis=3, circular=ctx.circular
             )
+            if phase and halo_l == 1 and halo_r == 1:
+                return self._phase(x, 0)
+            return self._dilated(x).narrow(3, halo_l * sw, Wl * sw)
+        if self.qat_scale is not None or self.int8_scale is None:
+            return self._phase(x, 1) if phase else self._dilated(x)
         # K3 quantizes the NHWC view of the activation as it stages it.
         y = conv3x3_i8_fused(
             x.to(dt).permute(0, 2, 3, 1), self.int8_taps, self.int8_dq,
             stride_w=1, out_dtype=dt, in_scale=self.int8_scale,
         )
         B, H, W, sco = y.shape
-        sw = self.stride[1]
         return y.reshape(B, H, W * sw, sco // sw).permute(0, 3, 1, 2)
 
 

@@ -6,12 +6,13 @@ instead of gathering, so the proposal set has a fixed length per
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from range_view_3d_detection_torch.ops import coding
 from range_view_3d_detection_torch.ops.nms import NMSResult, batched_multiclass_nms
+from range_view_3d_detection_torch.results import Proposals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,12 +31,6 @@ class DecoderConfig:
     min_confidence: float = 0.1
     nms_mode: str = "WEIGHTED"
     nms_cap: int = 1024
-
-
-class Proposals(NamedTuple):
-    cuboids: torch.Tensor  # (B, N, 7)
-    scores: torch.Tensor  # (B, N)
-    categories: torch.Tensor  # (B, N) int32
 
 
 def sample_by_range(

@@ -29,7 +29,7 @@ from range_view_3d_detection_torch.models.heads import (
 from range_view_3d_detection_torch.models.stems import MetaKernel
 from range_view_3d_detection_torch.ops import assignment, losses
 from range_view_3d_detection_torch.ops import targets as targets_ops
-from range_view_3d_detection_torch.parallel import mesh
+from range_view_3d_detection_torch.parallel import mesh, spatial
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +93,10 @@ class DetectorConfig:
     @property
     def tasks_dict(self) -> Dict[int, Tuple[str, ...]]:
         return {int(k): tuple(v) for k, v in self.tasks}
+
+    @property
+    def fpn_dict(self) -> Dict[int, int]:
+        return {int(k): int(v) for k, v in self.fpn}
 
     @property
     def fpn_strides(self) -> Tuple[int, ...]:
@@ -161,7 +165,7 @@ class Detector(nn.Module):
         self, features: torch.Tensor, cart: torch.Tensor, mask: torch.Tensor
     ) -> Dict[str, Any]:
         # (B, H, W, C) -> NCHW view with channels_last strides: no copy.
-        multiscale = self.RangeNet_0(features.permute(0, 3, 1, 2), cart)
+        multiscale = self.RangeNet_0(features.permute(0, 3, 1, 2), cart, mask)
         head = self.DetectionHead_0(multiscale)
         return {"head": head, "strided": strided_views(cart, mask, self.config)}
 
@@ -170,10 +174,18 @@ def strided_views(
     cart: torch.Tensor, mask: torch.Tensor, cfg: DetectorConfig
 ) -> Dict[int, Dict[str, torch.Tensor]]:
     """Width-only column slicing of the geometric inputs per FPN stride,
-    plus the RANGE partition gate on the mask when configured."""
+    plus the RANGE partition gate on the mask when configured. A width
+    shard's slice starts on the global grid only if its width is a
+    multiple of the stride, which is checked."""
     strided: Dict[int, Dict[str, torch.Tensor]] = {}
     rp = dict(cfg.targets.range_partitions)
+    sharded = spatial.context() is not None
     for stride in cfg.fpn_strides:
+        if sharded and cart.shape[2] % stride:
+            raise ValueError(
+                f"strided_views: shard width {cart.shape[2]} is not a multiple of "
+                f"stride {stride}"
+            )
         cart_s = cart[:, :, ::stride]
         mask_s = mask[:, :, ::stride]
         if cfg.targets.fpn_assignment_method == "RANGE":
@@ -340,7 +352,7 @@ def global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     rank's loss terms summed over the ranks in one all-reduce (the counts
     are global already); the metrics themselves without a process group."""
     metrics = {k: v.detach() for k, v in metrics.items()}
-    if not mesh.active():
+    if not mesh.active() or mesh.replicated():
         return metrics
     keys = [k for k in metrics if k not in _GLOBAL_KEYS]
     summed = mesh.all_sum(torch.stack([metrics[k].float() for k in keys]))

@@ -1,6 +1,7 @@
-"""Geometry primitives the targets need (counterpart of the JAX
-``ops/geometry.py``): angle wrapping, cuboid vertices and the
-point-in-cuboid test. fp32, broadcasting over leading dimensions.
+"""Geometry primitives (counterpart of the JAX ``ops/geometry.py``):
+spherical and Cartesian coordinates, yaw-only quaternions, angle
+wrapping, cuboid vertices and the point-in-cuboid test. fp32,
+broadcasting over leading dimensions.
 """
 
 from __future__ import annotations
@@ -21,6 +22,42 @@ _UNIT_VERTS = (
     (-1.0, -1.0, -1.0),
     (-1.0, +1.0, -1.0),
 )
+
+
+def cart_to_sph(xyz: torch.Tensor) -> torch.Tensor:
+    """Cartesian ``(..., 3)`` -> spherical ``(..., 3)``: (azimuth,
+    inclination, radius) with azimuth ``atan2(y, x)``, inclination
+    ``atan2(z, hypot(x, y))`` and radius ``|xyz|``."""
+    x, y, z = xyz.unbind(-1)
+    hxy = torch.hypot(x, y)
+    return torch.stack(
+        [torch.atan2(y, x), torch.atan2(z, hxy), torch.hypot(hxy, z)], dim=-1
+    )
+
+
+def sph_to_cart(sph: torch.Tensor) -> torch.Tensor:
+    """Spherical ``(..., 3)`` (azimuth, inclination, radius) -> Cartesian."""
+    az, incl, r = sph.unbind(-1)
+    rcos = r * torch.cos(incl)
+    return torch.stack(
+        [rcos * torch.cos(az), rcos * torch.sin(az), r * torch.sin(incl)], dim=-1
+    )
+
+
+def yaw_to_quat(yaw: torch.Tensor) -> torch.Tensor:
+    """Yaw ``(...,)`` -> unit quaternion ``(..., 4)`` in wxyz order (a
+    rotation about +z)."""
+    half = yaw * 0.5
+    w, z = torch.cos(half), torch.sin(half)
+    zeros = torch.zeros_like(w)
+    return torch.stack([w, zeros, zeros, z], dim=-1)
+
+
+def quat_to_yaw(quat_wxyz: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion ``(..., 4)`` wxyz -> yaw ``(...,)`` (the zyx
+    Tait-Bryan yaw)."""
+    w, x, y, z = quat_wxyz.unbind(-1)
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
 
 
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:

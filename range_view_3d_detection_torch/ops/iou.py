@@ -187,3 +187,26 @@ def iou_rotated_bev_aligned(cuboids_a: torch.Tensor, cuboids_b: torch.Tensor) ->
     union = a[..., 2] * a[..., 3] + b[..., 2] * b[..., 3] - inter
     iou = inter / union.clamp_min(_EPS)
     return torch.nan_to_num(iou).clamp(0.0, 1.0)
+
+
+def iou_3d_aligned(cuboids_a: torch.Tensor, cuboids_b: torch.Tensor) -> torch.Tensor:
+    """Elementwise 3D IoU of cuboid pairs ``(..., 7)``: the rotated-BEV IoU
+    turned back into a BEV overlap area, times the vertical overlap, over
+    the union of the volumes."""
+    iou_bev = iou_rotated_bev_aligned(cuboids_a, cuboids_b)
+    area_a = cuboids_a[..., 3] * cuboids_a[..., 4]
+    area_b = cuboids_b[..., 3] * cuboids_b[..., 4]
+    overlaps_bev = iou_bev * (area_a + area_b) / (1.0 + iou_bev)
+    top = torch.minimum(
+        cuboids_a[..., 2] + cuboids_a[..., 5] * 0.5,
+        cuboids_b[..., 2] + cuboids_b[..., 5] * 0.5,
+    )
+    btm = torch.maximum(
+        cuboids_a[..., 2] - cuboids_a[..., 5] * 0.5,
+        cuboids_b[..., 2] - cuboids_b[..., 5] * 0.5,
+    )
+    inter_3d = overlaps_bev * (top - btm).clamp_min(0.0)
+    vol_a = area_a * cuboids_a[..., 5]
+    vol_b = area_b * cuboids_b[..., 5]
+    iou = inter_3d / (vol_a + vol_b - inter_3d).clamp_min(_EPS)
+    return torch.nan_to_num(iou).clamp(0.0, 1.0)

@@ -18,16 +18,10 @@ import torch
 
 from range_view_3d_detection_torch.kernels.nms import nms_scan
 from range_view_3d_detection_torch.ops.iou import iou_rotated_bev
+from range_view_3d_detection_torch.results import NMSResult
 
 _CLASS_GRID = 8
 _CLASS_SPACING = 2000.0  # metres; far beyond any real box extent
-
-
-class NMSResult(NamedTuple):
-    cuboids: torch.Tensor  # (B, cap, 7)
-    scores: torch.Tensor  # (B, cap)
-    categories: torch.Tensor  # (B, cap) int32
-    keep: torch.Tensor  # (B, cap) bool
 
 
 def _class_offset_bev(bev: torch.Tensor, categories: torch.Tensor) -> torch.Tensor:
@@ -97,7 +91,11 @@ def nms_inputs(
     top_scores, top_idx = top_scores[:, :cap], top_idx[:, :cap].clamp_max(n - 1)
     boxes = torch.gather(cuboids, 1, top_idx[..., None].expand(B, cap, 7))
     cats = torch.gather(categories, 1, top_idx)
-    bev = _class_offset_bev(boxes[..., [0, 1, 3, 4, 6]], cats)
+    # Slices, not a list index: a list would be copied from the host, which
+    # a CUDA graph's capture refuses.
+    bev = _class_offset_bev(
+        torch.cat([boxes[..., 0:2], boxes[..., 3:5], boxes[..., 6:7]], dim=-1), cats
+    )
     payload = torch.cat(
         [
             boxes[..., :6],

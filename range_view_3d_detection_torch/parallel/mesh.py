@@ -33,13 +33,15 @@ other.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+_REPLICATED = [False]
 
 
 def active() -> bool:
@@ -98,6 +100,25 @@ def initialize_distributed(
     return device
 
 
+@contextlib.contextmanager
+def replicated_batch() -> Iterator[None]:
+    """Inside, every rank holds the whole batch (width sharding at a data
+    axis of size 1, ``parallel/spatial.py``): the batch reductions
+    (:func:`all_sum`, :func:`global_moments` without a group) are the
+    identity, so a loss on gathered outputs counts each image once."""
+    old = _REPLICATED[0]
+    _REPLICATED[0] = True
+    try:
+        yield
+    finally:
+        _REPLICATED[0] = old
+
+
+def replicated() -> bool:
+    """Whether a :func:`replicated_batch` block is running."""
+    return _REPLICATED[0]
+
+
 def barrier() -> None:
     if active():
         dist.barrier()
@@ -105,7 +126,7 @@ def barrier() -> None:
 
 def all_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the ranks (no gradient), as a new tensor."""
-    if not active():
+    if not active() or _REPLICATED[0]:
         return t
     out = t.detach().clone()
     dist.all_reduce(out)
@@ -120,7 +141,7 @@ def any_rank(flag: bool, device: torch.device) -> bool:
 
 
 def global_moments(
-    mean: torch.Tensor, sq_mean: torch.Tensor
+    mean: torch.Tensor, sq_mean: torch.Tensor, group=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The global batch's per-channel ``E[y]`` and ``E[y^2]`` from each
     rank's over its local rows.
@@ -132,8 +153,12 @@ def global_moments(
     sums the gradients over the ranks). The division is by the world
     size, exact at 1 and 2, so a group of one rank gives the single
     device's statistics bit for bit.
+
+    ``group`` (a width group, ``parallel/spatial.py::bn_mean``) reduces
+    over its ranks instead; without it the reduction is over the data
+    axis, the identity under :func:`replicated_batch`.
     """
-    if not active():
+    if not active() or (group is None and _REPLICATED[0]):
         return mean, sq_mean
     from torch.distributed.nn.functional import all_reduce
 
@@ -141,7 +166,10 @@ def global_moments(
     # A profiler range, so that a trace can tell these all-reduces from the
     # gradients' (their backward is autograd's ``_AllReduceBackward``).
     with torch.profiler.record_function("mesh.global_moments"):
-        both = all_reduce(torch.cat([mean.float(), sq_mean.float()])) / world()
+        both = all_reduce(
+            torch.cat([mean.float(), sq_mean.float()]),
+            group=dist.group.WORLD if group is None else group,
+        ) / dist.get_world_size(group)
     return both[:C], both[C:]
 
 

@@ -69,6 +69,30 @@ def create_state(
     return TrainState(step=0, model=model, opt=tx.init(model.parameters()))
 
 
+def make_forward(config: DetectorConfig, *, device: str | torch.device = "cuda"):
+    """The plain eval forward (the JAX ``make_forward``):
+    ``forward(variables, features, cart, mask)`` with flax-layout
+    ``variables`` (``{"params", "batch_stats"}``, numpy) or the port's
+    ``state_dict``, on ``device``; returns the detector's outputs."""
+    from range_view_3d_detection_torch.transplant import flax_to_state_dict
+
+    model = Detector(config, device=device)
+    dev = next(model.parameters()).device
+
+    def forward(variables, features, cart, mask):
+        if "params" in variables:
+            variables = flax_to_state_dict(variables["params"], variables.get("batch_stats", {}))
+        model.load_state_dict(variables, strict=True)
+        with torch.inference_mode():
+            return model(
+                *(torch.as_tensor(a, dtype=dt, device=dev)
+                  for a, dt in ((features, torch.float32), (cart, torch.float32),
+                                (mask, torch.bool)))
+            )
+
+    return forward
+
+
 def batch_to_device(
     batch: Mapping[str, Any], device: torch.device
 ) -> Dict[str, torch.Tensor]:

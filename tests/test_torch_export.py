@@ -17,9 +17,20 @@ NMS has real work (as ``tests/test_torch_quantized.py`` sets it up).
   within 1e-3 m plus 1e-3 relative, scores within 1e-3).
 - The dataset meta round-trips; ``make_points_predict`` equals rasterize
   then predict exactly, and JAX's points predict within the served-path
-  tolerance; the benches print their JSON keys; ``main`` takes every
-  flag of ``tools/export.py`` plus ``--device``, exports and loads, and
-  ``--aot`` and ``--chunk 2`` raise.
+  tolerance; the benches print their JSON keys (the stream bench's chunk
+  loop too); ``main`` takes every flag of ``tools/export.py`` plus
+  ``--device``, exports and loads, ``--aot`` writes a program that serves
+  and ``--bench --chunk 2`` prints its line; ``load_artifact_width_sharded``
+  without a process group (one shard) serves as ``load_artifact``'s fp
+  path does.
+- The deployment modes (as ``tests/test_export.py:161``, ``:199`` and
+  ``:364-405`` hold JAX's): width-sharded serving at 4 gloo ranks
+  (``tests/test_torch_spatial.py``'s harness) keeps exactly the boxes
+  plain serving keeps, the same on every rank; the chunked predict equals
+  the per-call predict bit for bit; the AOT program (``export_aot``, then
+  ``load_aot``) equals ``load_artifact``'s predict bit for bit, fp32
+  and int8 alike, and loads in a process that imports only the
+  kernels package.
 - The bf16 artifact (ROADMAP Queue 3): a bf16 copy of the tiny config,
   one artifact served by both packages' ``load_artifact`` beside each
   package's unfolded forward. The port's folded detections match JAX's
@@ -272,8 +283,11 @@ def test_benches_print_their_keys(tiny, tmp_path, capsys):
     assert stats["latency_ms_min"] <= stats["latency_ms_p50"] <= stats["latency_ms_p99"]
     assert {"stream_frames_per_sec", "batch", "iters", "ms_per_batch"} <= set(lines[1])
     assert lines[1]["stream_frames_per_sec"] == round(fps, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texport.stream_bench(tpredict, chunk=2, **kw)
+    fps = texport.stream_bench(tpredict, chunk=2, **kw)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert {"stream_frames_per_sec", "batch", "chunk", "iters", "ms_per_microbatch",
+            "device"} <= set(line)
+    assert line["chunk"] == 2 and line["stream_frames_per_sec"] == round(fps, 2)
 
 
 # tools/export.py's flags (its main()).
@@ -301,12 +315,110 @@ def test_main_takes_every_flag(tmp_path, capsys):
                            "--sensor-width", "56", "--padding-mode", "constant",
                            "--x-stride", "1"])
     assert "stream_frames_per_sec" in json.loads(capsys.readouterr().out.splitlines()[-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texport.main(common + ["--aot"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texport.main(common + ["--bench", "--chunk", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texport.load_artifact_width_sharded(art, None)
+    (aot,) = texport.main(common + ["--aot"])
+    assert aot == art / "predict_b1.pt2" and callable(texport.load_aot(aot))
+    capsys.readouterr()
+    texport.main(common + ["--bench", "--chunk", "2"])
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["chunk"] == 2 and "ms_per_microbatch" in line
+    # No process group: one width shard, fp (the artifact's int8 scales are
+    # ignored). The flagship's stem takes the accumulate path there (K1 is
+    # device-local) and K1 in plain serving, so the bf16 sums differ; the
+    # tiny config is held to plain serving below.
+    predict, place, det_cfg, dec_cfg = texport.load_artifact_width_sharded(
+        art, None, circular=False, device="cpu")
+    assert det_cfg == serving._flagship_config() and dec_cfg.nms_cap == 64
+    batch = serving._sample_inputs(1, 8, 64, 5, seed=4)
+    got = predict(*place(*batch))
+    want = texport.load_artifact(art, quantized=False, device="cpu")[0](*batch)
+    assert all(a.shape == b.shape and a.dtype == b.dtype for a, b in zip(got, want))
+    assert bool(torch.isfinite(got.cuboids).all())
+
+
+# -- width sharding, the chunk loop, AOT -------------------------------------------
+
+
+def test_width_sharded_serving_matches_plain(tiny, fp_artifacts, tmp_path):
+    """Four gloo ranks each serve a quarter of the request's width; every
+    rank returns plain serving's detections (``keep`` and categories
+    equal, kept boxes within the served-path tolerance)."""
+    from test_torch_spatial import launch
+
+    art = fp_artifacts["dirs"]["port"]
+    torch.save({"art": art, "request": tiny["batch"]}, tmp_path / "inputs.pt")
+    ranks = launch("serve", tmp_path, 4)
+    want, _, _ = texport.load_artifact(art, device="cpu")
+    want = want(*tiny["batch"])
+    assert 0 < want.keep.sum() < want.keep.numel()
+    for rank in ranks:
+        got = type(want)(*rank["result"])
+        assert torch.equal(got.keep, want.keep) and torch.equal(got.categories,
+                                                                 want.categories)
+        keep = want.keep
+        torch.testing.assert_close(got.cuboids[keep], want.cuboids[keep], rtol=1e-4,
+                                   atol=1e-3)
+        torch.testing.assert_close(got.scores[keep], want.scores[keep], rtol=0, atol=1e-5)
+        for a, b in zip(rank["result"], ranks[0]["result"]):
+            assert torch.equal(a, b)
+        assert rank["exchanges"] > 0
+
+
+def test_chunked_predict_matches_per_call(tiny, fp_artifacts):
+    predict, _, _ = texport.load_artifact(fp_artifacts["dirs"]["port"], device="cpu")
+    parts = [serving._sample_inputs(B, H, W, 5, seed=s) for s in range(3)]
+    parts[0] = tiny["batch"]
+    stacked = [np.stack([p[j] for p in parts]) for j in range(3)]
+    got = texport.make_chunked_predict(predict, 3)(*stacked)
+    assert got.keep.shape[0] == 3 and got.keep[0].sum() > 0
+    for i, p in enumerate(parts):
+        for a, b in zip(got, predict(*p)):
+            assert torch.equal(a[i], b)
+    with pytest.raises(ValueError, match="chunk"):
+        texport.make_chunked_predict(predict, 2)(*stacked)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_aot_round_trip(tiny, tmp_path, int8):
+    """``export_aot`` then ``load_aot`` equals ``load_artifact``'s predict
+    bit for bit (the same kernels' plain twins, in the same order), and the
+    program loads and serves in a process that imports only the kernels
+    package."""
+    import subprocess
+    import sys
+
+    art = tmp_path / "art"
+    _write("port", tiny, art, **(dict(quantize_batches=[tiny["batch"]], device="cpu")
+                                 if int8 else {}))
+    path = texport.export_aot(art, batch=B, height=H, width=W, device="cpu")
+    assert path == art / f"predict_b{B}.pt2"
+    want = texport.load_artifact(art, device="cpu")[0](*tiny["batch"])
+    assert want.keep.sum() > 0
+    got = texport.load_aot(path, device="cpu" if int8 else None)(*tiny["batch"])
+    assert type(got).__name__ == "NMSResult"
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if int8:
+        return
+    np.savez(tmp_path / "req.npz", *tiny["batch"])
+    code = "\n".join([
+        "import sys, numpy as np, torch",
+        f"sys.path.insert(0, {str(texport.__file__.rsplit('/', 2)[0])!r})",
+        "import range_view_3d_detection_torch.kernels",
+        f"r = np.load({str(tmp_path / 'req.npz')!r})",
+        "a = [torch.from_numpy(r[f'arr_{i}']) for i in range(3)]",
+        "with torch.inference_mode():",
+        f"    out = torch.export.load({str(path)!r}).module()(*a)",
+        f"torch.save(tuple(out), {str(tmp_path / 'out.pt')!r})",
+        "bad = [m for m in sys.modules if m.startswith(",
+        "       ('range_view_3d_detection_torch.models', 'range_view_3d_detection_torch.export',",
+        "        'range_view_3d_detection_torch.serving', 'jax'))]",
+        "assert not bad, bad",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for a, b in zip(torch.load(tmp_path / "out.pt"), want):
+        assert torch.equal(a, b)
 
 
 # -- the bf16 artifact against the unfolded forward (ROADMAP Queue 3) --------

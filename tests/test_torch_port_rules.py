@@ -8,7 +8,13 @@
   utility, projection, export and predict modules are among them; in
   that process ``rv-av2`` composes, a Feather file and a msgpack tree
   round-trip, a PNG is drawn and decoded, and the ``tensorboard`` logger
-  backend raises.
+  backend raises. Width sharding (``parallel.spatial``) and the result
+  types (``results``) are among the modules.
+- Importing the port registers the four kernels as ``torch.library``
+  custom ops (``rv3d::meta_kernel_fused``, ``rv3d::nms_scan``,
+  ``rv3d::conv3x3_i8``, ``rv3d::meta_kernel_fused_i8``) and builds
+  nothing: the kernels' library is not loaded, and each op runs its plain
+  twin on CPU tensors.
 - The training options that raised until the port had them, QAT
   (``make_train_step(quant_tree=...)``) and ``remat=True``, build and
   step (``test_unported_training_options_raise`` keeps its name; the
@@ -64,6 +70,8 @@ def test_port_imports_without_jax():
     assert "range_view_3d_detection_torch.kernels.conv" in modules
     assert "range_view_3d_detection_torch.models.quantized" in modules
     assert "range_view_3d_detection_torch.parallel.mesh" in modules
+    assert "range_view_3d_detection_torch.parallel.spatial" in modules
+    assert "range_view_3d_detection_torch.results" in modules
     for name in ("geometry", "targets", "assignment", "losses"):
         assert f"range_view_3d_detection_torch.ops.{name}" in modules
     for name in ("optim", "state", "checkpoints", "builders", "loop"):
@@ -88,6 +96,12 @@ def test_port_imports_without_jax():
             f"for name in {modules!r}:",
             "    importlib.import_module(name)",
             "import chip_smoke, chip_probe_k1, chip_probe_k4, chip_scaling",
+            "import torch",
+            "from range_view_3d_detection_torch.kernels import _build",
+            "for op in ('meta_kernel_fused', 'nms_scan', 'conv3x3_i8', "
+            "'meta_kernel_fused_i8'):",
+            "    assert hasattr(torch.ops.rv3d, op), op",
+            "assert _build.library.cache_info().currsize == 0",
             "import numpy as np",
             "from range_view_3d_detection_torch.utils import config, feather, rendering",
             f"cfg = config.compose({str(REPO / 'conf')!r}, 'rv-av2')",
@@ -223,3 +237,35 @@ def test_unported_training_options_raise():
         st = tstate.create_state(c, toptim.make_optimizer(1e-3, 20)[0], device="cpu")
         st, m = tstate.make_train_step(c, quant_tree=tree)(st, batch)
         assert st.step == 1 and bool(torch.isfinite(m["loss"]))
+
+
+def test_custom_ops_run_their_twins_on_the_cpu():
+    """Each ``rv3d::`` op on CPU tensors is its plain twin, without a build."""
+    from range_view_3d_detection_torch.kernels import _build, conv, nms, stem
+
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    g, f = t(1, 3, 5, 32), t(1, 3, 5, 32)
+    w1, k, a = t(32, 32), t(9, 32, 32), t(32)
+    assert torch.equal(torch.ops.rv3d.meta_kernel_fused(g, f, w1, k, a, a, a, a),
+                       stem.meta_kernel_fused_plain(g, f, w1, k, a, a, a, a))
+    w1q, kq = w1.clamp(-1, 1).mul(100).to(torch.int8), k.clamp(-1, 1).mul(100).to(torch.int8)
+    kdq = t(9, 32).abs()
+    assert torch.equal(
+        torch.ops.rv3d.meta_kernel_fused_i8(g, f, w1q, kq, a, a, a, a, kdq),
+        stem.meta_kernel_fused_i8_plain(g, f, w1q, kq, a, a, a, a, kdq))
+    x = t(1, 3, 6, 32)
+    scale = torch.tensor(0.02)
+    got = torch.ops.rv3d.conv3x3_i8(x, kq, kdq[0], scale, 2, torch.bfloat16)
+    want = conv.conv3x3_i8_fused_plain(x, kq, kdq[0], stride_w=2, in_scale=scale)
+    assert torch.equal(got, want) and got.shape == (1, 3, 3, 32)
+    iou = t(2, 37, 37).abs().clamp_max(1)
+    scores, valid, payload = t(2, 37).sort(descending=True)[0], torch.ones(2, 37, dtype=torch.bool), t(2, 37, 9)
+    keep, merged = torch.ops.rv3d.nms_scan(iou, scores, valid, payload, 0.3, 0.5)
+    want = nms.nms_scan_plain(iou, scores, valid, payload, iou_threshold=0.3,
+                              merge_threshold=0.5)
+    assert torch.equal(keep, want[0]) and torch.equal(merged, want[1])
+    assert _build.library.cache_info().currsize == 0
