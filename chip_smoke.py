@@ -5,9 +5,10 @@ check its kernels.
     python3 chip_smoke.py
 
 (``python -m torch.distributed.run ... chip_smoke.py train-rank ARGS`` is
-phase 23's rank process and ``... chip_smoke.py width-rank ARGS`` the
-width-sharded serving rank of phase 25 and ``chip_scaling.py width``;
-the script starts them itself.)
+phase 23's rank process, ``... chip_smoke.py width-rank ARGS`` the
+width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
+``chip_smoke.py convert WORK`` phase 29's conversion process; the script
+starts them itself.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -215,6 +216,29 @@ Phases, each of which raises (non-zero exit) on failure:
     ``stem_type=RANGE_PARTITION`` (bf16, seeded weights) on the card
     against the same model on the CPU at B=1 8x256: heads within phase
     3's 2e-2 x max|ref|; its B=2 64x1808 forward finite and timed.
+29. the offline data path: raw logs at full size written with the
+    port's ``write_feather`` (AV2: a train log of 4 sweeps and a val log of
+    2, each sweep 100,000 points of two 32-beam lasers in AV2's schema,
+    x/y/z ``float16``, ``offset_ns`` over the 100 ms spin, poses at 10 Hz,
+    annotations without ``num_interior_pts``, a map with drivable
+    polygons; an LZ4-compressed copy of the AV2 logs, ``write_feather_lz4``;
+    a nuScenes mini layout; Waymo frames at 64 x 2650), converted by the
+    port's converters in a subprocess (``chip_smoke.py convert``) where
+    JAX, pyarrow, the JAX package, ``converters/`` and ``tools/`` cannot
+    be imported: every AV2 output file equal bit for bit to the same
+    conversion on ``z_buffer_numpy`` and to the conversion of the LZ4
+    copy, boxes counted and flagged, finite columns of the expected
+    shapes; seconds a sweep and points a second.
+    The native LZ4 frame decoder against its pure-Python twin and the
+    original bytes on frames of a sweep's size from the greedy encoder
+    here (``lz4_frame_compress``: linked blocks with matches into the
+    previous block, overlapping matches, raw blocks; and independent
+    blocks with every checksum), and its MB/s. The AV2 corpus converted
+    from the LZ4 copy through the port's ``DataLoader``: ``Trainer.fit``
+    2 steps at B=2 on rv-av2, ``validate`` and the AV2 evaluator (which
+    reads the copied poses and map); one val batch served by the flagship
+    ``Predictor``.
+    K1 and K2 must launch (``converted_launches`` in the kernels line).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -2763,6 +2787,679 @@ def range_partition_phase(device, smi) -> None:
         f"of 5), finite; phase {time.perf_counter() - t_phase:.0f} s on {smi}")
 
 
+# Phase 29: the offline data path. Raw logs at full size, converted by the
+# port's converters in a process where JAX, pyarrow and the JAX package
+# cannot be imported, then trained on, validated and served.
+RAW_AV2_LOGS = {  # split -> (log id, sweeps); the val log is one whose laser
+    # numbers the converter corrects (``log_corrections.LOG_IDS``)
+    "train": ("3f1a2c84-5b6e-3d07-9c21-8e4b7a6d0f13", 4),
+    "val": ("00a6ffc1-6ce9-3bc3-a060-6006e9893a1a", 2),
+}
+RAW_POINTS = 100_000  # a sweep of AV2's two 32-beam lasers
+SWEEP_NS = 100_000_000  # 10 Hz
+BANNED_IN_CONVERSION = ("jax", "jaxlib", "pyarrow", "range_view_3d_detection_tpu",
+                        "converters", "tools")
+_LZ4_MAGIC = 0x184D2204
+
+
+def lz4_block(data: bytes, start: int, end: int, table: dict, window: int,
+              stats: dict) -> bytes:
+    """A greedy LZ4 block of ``data[start:end]``. ``table`` maps 4-byte
+    sequences to their last position (shared across the blocks of a linked
+    frame); a match reaches back no further than ``window`` nor 65,535
+    bytes. ``stats`` counts matches, those that reach into an earlier block
+    and those that overlap their own output (offset < length). The last 5
+    bytes are literals and the last match starts 12 bytes before the end,
+    as the block format asks."""
+    out = bytearray()
+    ip = anchor = start
+    limit = end - 12
+
+    def length_bytes(n: int) -> bytes:
+        return b"\xff" * (n // 255) + bytes([n % 255])
+
+    while ip < limit:
+        key = data[ip : ip + 4]
+        ref = table.get(key)
+        table[key] = ip
+        if ref is None or ref < window or ip - ref > 65535:
+            ip += 1
+            continue
+        n = 4
+        stop = end - 5
+        while ip + n + 16 <= stop and data[ref + n : ref + n + 16] == data[ip + n : ip + n + 16]:
+            n += 16
+        while ip + n < stop and data[ref + n] == data[ip + n]:
+            n += 1
+        lit = ip - anchor
+        token = (min(lit, 15) << 4) | min(n - 4, 15)
+        out.append(token)
+        if lit >= 15:
+            out += length_bytes(lit - 15)
+        out += data[anchor:ip]
+        out += (ip - ref).to_bytes(2, "little")
+        if n - 4 >= 15:
+            out += length_bytes(n - 4 - 15)
+        stats["matches"] += 1
+        stats["into_earlier_block"] += ref < start
+        stats["overlapping"] += ip - ref < n
+        ip += n
+        anchor = ip
+    lit = end - anchor
+    out.append(min(lit, 15) << 4)
+    if lit >= 15:
+        out += length_bytes(lit - 15)
+    out += data[anchor:end]
+    return bytes(out)
+
+
+def lz4_frame_compress(data: bytes, *, block_size: int = 65536, linked: bool = True,
+                       block_checksum: bool = False, content_checksum: bool = False,
+                       content_size: bool = False, stats: dict | None = None) -> bytes:
+    """An LZ4 frame of ``data`` (the test encoder of phase 29: the card's
+    machine has no LZ4 library). Linked blocks by default, as LZ4F and
+    Arrow write them; a block that does not shrink is stored raw."""
+    from range_view_3d_detection_torch.utils.lz4 import xxh32
+
+    stats = stats if stats is not None else {}
+    for k in ("matches", "into_earlier_block", "overlapping", "raw_blocks", "blocks"):
+        stats.setdefault(k, 0)
+    bd = {1 << 16: 4, 1 << 18: 5, 1 << 20: 6, 1 << 22: 7}[block_size] << 4
+    flg = (0x40 | (0 if linked else 0x20) | (0x10 if block_checksum else 0)
+           | (0x08 if content_size else 0) | (0x04 if content_checksum else 0))
+    desc = bytes([flg, bd]) + (len(data).to_bytes(8, "little") if content_size else b"")
+    out = bytearray(_LZ4_MAGIC.to_bytes(4, "little") + desc)
+    out.append((xxh32(desc) >> 8) & 0xFF)
+    table: dict = {}
+    for start in range(0, len(data), block_size):
+        end = min(start + block_size, len(data))
+        if not linked:
+            table = {}
+        block = lz4_block(data, start, end, table, 0 if linked else start, stats)
+        stats["blocks"] += 1
+        if len(block) >= end - start:
+            block = data[start:end]
+            out += (len(block) | 0x80000000).to_bytes(4, "little")
+            stats["raw_blocks"] += 1
+        else:
+            out += len(block).to_bytes(4, "little")
+        out += block
+        if block_checksum:
+            out += xxh32(block).to_bytes(4, "little")
+    out += b"\0\0\0\0"
+    if content_checksum:
+        out += xxh32(data).to_bytes(4, "little")
+    return bytes(out)
+
+
+def write_feather_lz4(path: Path, columns: dict) -> dict:
+    """Write ``columns`` as a Feather file whose record batch is
+    LZ4_FRAME-compressed, as pyarrow writes by default: each non-empty
+    buffer is its uncompressed length (int64) and an LZ4 frame of it
+    (``lz4_frame_compress``), or -1 and the bytes themselves where the frame
+    would not be smaller. Assembled from the port's private flatbuffer
+    writer: its ``write_feather`` writes uncompressed only, as the JAX
+    package's does. Returns the counts of compressed and raw buffers."""
+    import struct
+
+    import numpy as np
+
+    from range_view_3d_detection_torch.utils import feather as f
+
+    cols = [(str(k), *f._column_kind(str(k), np.asarray(v))) for k, v in columns.items()]
+    n = len(cols[0][2]) if cols else 0
+    plain, nodes, plain_buffers = f._body(cols)
+    chunks, buffers, pos, counts = [], [], 0, {"lz4": 0, "raw": 0}
+    for off, size in plain_buffers:
+        data = plain[off : off + size]
+        if size:
+            frame = lz4_frame_compress(data)
+            kind = "lz4" if len(frame) < size else "raw"
+            data = struct.pack("<q", size if kind == "lz4" else -1) + (
+                frame if kind == "lz4" else data)
+            counts[kind] += 1
+        buffers.append((pos, len(data)))
+        chunks.append(data + b"\0" * (-len(data) % 8))
+        pos += len(chunks[-1])
+    body = b"".join(chunks)
+    schema_msg = f._message(f._SCHEMA, lambda b: f._schema_writer(b, cols), 0)
+    batch_msg = f._message(f._RECORD_BATCH, lambda b: lambda: b.table([
+        ("q", n),
+        ("ref", lambda: b.structs("qq", nodes)),
+        ("ref", lambda: b.structs("qq", buffers)),
+        ("ref", lambda: b.table([("b", 0), ("b", 0)])),  # LZ4_FRAME, BUFFER
+    ]), len(body))
+    head = f.MAGIC + b"\0\0"
+    footer = f._Builder().finish(lambda b: b.table([
+        ("h", f._V5),
+        ("ref", f._schema_writer(b, cols)),
+        ("ref", lambda: b.structs("qi4xq", [])),
+        ("ref", lambda: b.structs("qi4xq", [(len(head) + len(schema_msg), len(batch_msg),
+                                             len(body))])),
+    ]))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"".join([head, schema_msg, batch_msg, body,
+                               struct.pack("<Ii", 0xFFFFFFFF, 0), footer,
+                               struct.pack("<i", len(footer)), f.MAGIC]))
+    return counts
+
+
+def lz4_copy(src: Path, dst: Path) -> dict:
+    """Copy a raw log tree with every Feather file rewritten by
+    ``write_feather_lz4``; returns the buffer counts summed."""
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    shutil.copytree(src, dst)
+    counts = {"lz4": 0, "raw": 0}
+    for path in sorted(dst.rglob("*.feather")):
+        for k, v in write_feather_lz4(path, read_feather(path)).items():
+            counts[k] += v
+    return counts
+
+
+def lz4_test_data(sweep: bytes, seed: int) -> bytes:
+    """A sweep's size of bytes that an LZ4 frame must carry every way:
+    a random run repeated across a 64 KB block boundary (linked matches),
+    zeros and a short period (overlapping matches), then a raw sweep."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, 256, 40_000, dtype=np.uint8).tobytes()
+    return b"".join([head, head, bytes(100_000), b"abc" * 20_000, sweep])
+
+
+def _yaw_quat(yaw):
+    import numpy as np
+
+    return np.cos(yaw / 2), np.zeros_like(yaw), np.zeros_like(yaw), np.sin(yaw / 2)
+
+
+def write_raw_av2_log(log_dir: Path, *, sweeps: int, seed: int, categories,
+                      points: int = RAW_POINTS, t0: int = 315_969_904_359_876_000) -> None:
+    """A raw AV2 sensor log in the dataset's own schema, written with the
+    port's ``write_feather``: ``sensors/lidar/<ts>.feather`` (x, y, z
+    float16; intensity, laser_number uint8; offset_ns uint32 over the 100 ms
+    spin) from two 32-beam lasers, ``city_SE3_egovehicle.feather`` at 10 Hz
+    (the ego drives and turns), ``annotations.feather`` without
+    ``num_interior_pts`` (the converter counts it) and a map archive with
+    drivable polygons (the converter computes the ROI flags)."""
+    import numpy as np
+
+    from range_view_3d_detection_torch.converters.av2.row_mappings import ROW_MAPPING_64
+    from range_view_3d_detection_torch.utils.feather import write_feather
+
+    rng = np.random.default_rng(seed)
+    lidar = log_dir / "sensors" / "lidar"
+    # Elevation by image row: laser L lies on row ROW_MAPPING_64[L].
+    elevation = np.deg2rad(15.0 - 40.0 * ROW_MAPPING_64 / 63.0)
+    stamps = t0 + SWEEP_NS * np.arange(sweeps, dtype=np.int64)
+    ann = {k: [] for k in ("timestamp_ns", "track_uuid", "category", "length_m", "width_m",
+                           "height_m", "qw", "qx", "qy", "qz", "tx_m", "ty_m", "tz_m")}
+    n_boxes = 16
+    box_xy = rng.uniform(6, 45, n_boxes) * np.exp(1j * rng.uniform(-np.pi, np.pi, n_boxes))
+    box_dims = np.stack([rng.uniform(3.5, 5.5, n_boxes), rng.uniform(1.7, 2.3, n_boxes),
+                         rng.uniform(1.4, 2.0, n_boxes)], -1)
+    box_yaw = rng.uniform(-np.pi, np.pi, n_boxes)
+    box_cat = rng.choice(list(categories)[:8], n_boxes)
+    tracks = [f"{seed:08x}-{k:04x}-4000-8000-{k:012x}" for k in range(n_boxes)]
+    for ts in stamps:
+        n_box_pts = 150 * n_boxes
+        n_scan = points - n_box_pts
+        laser = rng.integers(0, 64, n_scan)
+        frac = np.sort(rng.uniform(0, 1, n_scan))  # the spin's phase
+        az = np.pi - 2 * np.pi * frac
+        el = elevation[laser] + rng.normal(0, 1e-3, n_scan)
+        rng_m = np.where(el < -0.02, 1.8 / np.tan(np.maximum(-el, 0.02)),
+                         rng.uniform(20, 80, n_scan))
+        rng_m = np.minimum(rng_m, 80.0) * rng.uniform(0.97, 1.0, n_scan)
+        xyz = np.stack([rng_m * np.cos(el) * np.cos(az), rng_m * np.cos(el) * np.sin(az),
+                        rng_m * np.sin(el)], -1)
+        # Returns inside each box, on the laser nearest their elevation.
+        local = rng.uniform(-0.45, 0.45, (n_boxes, 150, 3)) * box_dims[:, None]
+        c, s = np.cos(box_yaw)[:, None], np.sin(box_yaw)[:, None]
+        bx = box_xy.real[:, None] + c * local[..., 0] - s * local[..., 1]
+        by = box_xy.imag[:, None] + s * local[..., 0] + c * local[..., 1]
+        bz = box_dims[:, None, 2] / 2 - 1.0 + local[..., 2]
+        box_pts = np.stack([bx, by, bz], -1).reshape(-1, 3)
+        box_el = np.arctan2(box_pts[:, 2], np.hypot(box_pts[:, 0], box_pts[:, 1]))
+        box_laser = np.abs(box_el[:, None] - elevation[None]).argmin(1)
+        box_frac = (np.pi - np.arctan2(box_pts[:, 1], box_pts[:, 0])) / (2 * np.pi)
+        xyz = np.concatenate([xyz, box_pts])
+        laser = np.concatenate([laser, box_laser])
+        frac = np.clip(np.concatenate([frac, box_frac]), 0, 1)
+        write_feather(lidar / f"{ts}.feather", {
+            "x": xyz[:, 0].astype(np.float16),
+            "y": xyz[:, 1].astype(np.float16),
+            "z": xyz[:, 2].astype(np.float16),
+            "intensity": rng.integers(0, 256, len(xyz)).astype(np.uint8),
+            "laser_number": laser.astype(np.uint8),
+            "offset_ns": (frac * (SWEEP_NS - 1)).astype(np.uint32),
+        })
+        qw, qx, qy, qz = _yaw_quat(box_yaw)
+        for k in range(n_boxes):
+            for key, v in (("timestamp_ns", int(ts)), ("track_uuid", tracks[k]),
+                           ("category", str(box_cat[k])), ("length_m", box_dims[k, 0]),
+                           ("width_m", box_dims[k, 1]), ("height_m", box_dims[k, 2]),
+                           ("qw", qw[k]), ("qx", qx[k]), ("qy", qy[k]), ("qz", qz[k]),
+                           ("tx_m", box_xy[k].real), ("ty_m", box_xy[k].imag),
+                           ("tz_m", box_dims[k, 2] / 2 - 1.0)):
+                ann[key].append(v)
+    write_feather(log_dir / "annotations.feather", {
+        k: np.asarray(v, np.int64 if k == "timestamp_ns" else None) for k, v in ann.items()})
+    pose_ts = np.arange(stamps[0] - 10 * SWEEP_NS, stamps[-1] + 11 * SWEEP_NS, SWEEP_NS,
+                        dtype=np.int64)
+    t = (pose_ts - stamps[0]) * 1e-9
+    qw, qx, qy, qz = _yaw_quat(0.3 + 0.05 * t)
+    write_feather(log_dir / "city_SE3_egovehicle.feather", {
+        "timestamp_ns": pose_ts, "qw": qw, "qx": qx, "qy": qy, "qz": qz,
+        "tx_m": 2500.0 + 10.0 * t, "ty_m": 1200.0 + 3.0 * t, "tz_m": 20.0 + 0.0 * t})
+    road = [(2420.0, 1180.0), (2600.0, 1180.0), (2600.0, 1225.0), (2420.0, 1225.0)]
+    cross = [(2490.0, 1100.0), (2512.0, 1100.0), (2518.0, 1300.0), (2486.0, 1300.0)]
+    archive = {"drivable_areas": {str(i): {"id": i, "area_boundary": [
+        {"x": x, "y": y, "z": 20.0} for x, y in poly]} for i, poly in enumerate((road, cross))},
+        "lane_segments": {}, "pedestrian_crossings": {}}
+    (log_dir / "map").mkdir(parents=True, exist_ok=True)
+    (log_dir / "map" / f"log_map_archive_{log_dir.name}.json").write_text(json.dumps(archive))
+
+
+def write_raw_nuscenes(root: Path, *, seed: int, points: int = 34_000) -> str:
+    """A nuScenes mini layout (the JSON tables and ``.pcd.bin`` sweeps of
+    one scene, two keyframes 0.5 s apart) with nuScenes' 32-beam lidar's
+    point count. Returns the version directory's name."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    version = "v1.0-mini"
+    tables = root / version
+    tables.mkdir(parents=True, exist_ok=True)
+    (root / "samples" / "LIDAR_TOP").mkdir(parents=True, exist_ok=True)
+
+    def dump(name, rows):
+        (tables / f"{name}.json").write_text(json.dumps(rows))
+
+    dump("scene", [{"token": "sc0", "name": "scene-0061", "first_sample_token": "s0",
+                    "last_sample_token": "s1"}])
+    dump("sample", [
+        {"token": "s0", "timestamp": 1_532_402_927_647_951, "next": "s1", "prev": "",
+         "scene_token": "sc0"},
+        {"token": "s1", "timestamp": 1_532_402_928_147_847, "next": "", "prev": "s0",
+         "scene_token": "sc0"}])
+    dump("calibrated_sensor", [{"token": "cs0", "rotation": [0.7071, 0.0, 0.0, 0.7071],
+                                "translation": [0.94, 0.0, 1.84]}])
+    dump("ego_pose", [
+        {"token": "ep0", "rotation": [0.57, -0.01, 0.01, -0.82],
+         "translation": [411.3, 1180.9, 0.0]},
+        {"token": "ep1", "rotation": [0.57, -0.01, 0.01, -0.82],
+         "translation": [410.1, 1183.2, 0.0]}])
+    dump("category", [{"token": "c_car", "name": "vehicle.car"},
+                      {"token": "c_ped", "name": "human.pedestrian.adult"},
+                      {"token": "c_rack", "name": "static_object.bicycle_rack"}])
+    dump("instance", [{"token": f"i{k}", "category_token": c}
+                      for k, c in enumerate(["c_car", "c_car", "c_ped", "c_rack"])])
+    anns = []
+    for s, (tx, ty) in enumerate(((411.3, 1180.9), (410.1, 1183.2))):
+        for k, (dx, dy) in enumerate(((12.0, 3.0), (-8.0, 15.0), (5.0, -6.0), (20.0, 0.0))):
+            anns.append({"token": f"a{s}{k}", "sample_token": f"s{s}", "instance_token": f"i{k}",
+                         "translation": [tx + dx, ty + dy, 0.8],
+                         "size": [1.9, 4.6, 1.7] if k < 2 else [0.7, 0.7, 1.8],
+                         "rotation": [0.92, 0.0, 0.0, 0.39], "num_lidar_pts": 50})
+    dump("sample_annotation", anns)
+    rows = []
+    for s in range(2):
+        ring = rng.integers(0, 32, points)
+        az = rng.uniform(-np.pi, np.pi, points)
+        el = np.deg2rad(10.0 - 40.0 * ring / 31.0)
+        r = np.where(el < -0.05, 1.84 / np.tan(np.maximum(-el, 0.05)), rng.uniform(5, 70, points))
+        r = np.minimum(r, 70.0)
+        pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                        r * np.sin(el), rng.uniform(0, 255, points), ring], -1)
+        name = f"samples/LIDAR_TOP/n015-scene-0061__LIDAR_TOP__{s}.pcd.bin"
+        pts.astype(np.float32).tofile(root / name)
+        rows.append({"token": f"sd{s}", "sample_token": f"s{s}", "ego_pose_token": f"ep{s}",
+                     "calibrated_sensor_token": "cs0", "filename": name,
+                     "is_key_frame": True})
+    dump("sample_data", rows)
+    return version
+
+
+def waymo_frames(n: int, *, seed: int, height: int = 64, width: int = 2650):
+    """Duck-typed Waymo frames (what the SDK's parser yields: frame, range
+    images, TOP pose image) at the TOP lidar's 64 x 2650, with no-label
+    zones, empty pixels, a rolling-shutter pose image and laser labels."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    incl = np.linspace(-0.31, 0.04, height)
+    frames = []
+    for i in range(n):
+        ranges = rng.uniform(2.5, 75.0, (height, width)).astype(np.float32)
+        ranges[rng.uniform(size=(height, width)) < 0.05] = 0.0
+        nlz = np.where(rng.uniform(size=(height, width)) < 0.02, 1.0, -1.0).astype(np.float32)
+        ri = SimpleNamespace(shape=SimpleNamespace(dims=[height, width, 4]), data=np.stack(
+            [ranges, rng.uniform(0, 1.5, (height, width)).astype(np.float32),
+             rng.uniform(0, 0.3, (height, width)).astype(np.float32), nlz], -1).reshape(-1))
+        pose = np.zeros((height, width, 6))
+        pose[..., 2] = 0.8 + 1e-4 * np.arange(width)[None]  # yaw across the spin
+        pose[..., 3] = 1000.0 + 0.01 * i + 1e-5 * np.arange(width)[None]
+        pose[..., 4] = -300.0
+        pose_ri = SimpleNamespace(shape=SimpleNamespace(dims=[height, width, 6]),
+                                  data=pose.reshape(-1))
+        extrinsic = np.eye(4)
+        extrinsic[:3, 3] = [1.43, 0.0, 2.18]
+        frame_pose = np.eye(4)
+        frame_pose[:2, :2] = [[np.cos(0.8), -np.sin(0.8)], [np.sin(0.8), np.cos(0.8)]]
+        frame_pose[:3, 3] = [1000.0 + 0.01 * i, -300.0, 0.0]
+        calib = SimpleNamespace(name=1, extrinsic=SimpleNamespace(
+            transform=extrinsic.reshape(-1).tolist()), beam_inclinations=incl.tolist(),
+            beam_inclination_min=float(incl[0]), beam_inclination_max=float(incl[-1]))
+        labels = [SimpleNamespace(box=SimpleNamespace(
+            center_x=float(x), center_y=float(y), center_z=1.0, length=4.5, width=2.0,
+            height=1.7, heading=float(h)), type=int(t), detection_difficulty_level=int(d))
+            for x, y, h, t, d in zip(rng.uniform(-40, 40, 12), rng.uniform(-40, 40, 12),
+                                     rng.uniform(-np.pi, np.pi, 12), rng.integers(1, 5, 12),
+                                     rng.integers(0, 3, 12))]
+        frames.append((SimpleNamespace(
+            context=SimpleNamespace(laser_calibrations=[calib]),
+            pose=SimpleNamespace(transform=frame_pose.reshape(-1).tolist()),
+            timestamp_micros=1_550_083_467_346_370 + 100_000 * i, laser_labels=labels),
+            {1: [ri]}, pose_ri))
+    return frames
+
+
+def _tree_files(root: Path) -> dict:
+    return {p.relative_to(root): p for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def same_corpus(a: Path, b: Path) -> list:
+    """The files that differ between two converted corpora: Feather files
+    column by column, bit for bit (dtype and bytes), others byte for byte."""
+    import numpy as np
+
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    fa, fb = _tree_files(a), _tree_files(b)
+    bad = [str(p) for p in set(fa) ^ set(fb)]
+    for rel in sorted(set(fa) & set(fb)):
+        if rel.suffix != ".feather":
+            if fa[rel].read_bytes() != fb[rel].read_bytes():
+                bad.append(str(rel))
+            continue
+        ca, cb = read_feather(fa[rel]), read_feather(fb[rel])
+        same = list(ca) == list(cb) and all(
+            ca[k].dtype == cb[k].dtype and (
+                list(ca[k]) == list(cb[k]) if ca[k].dtype == object
+                else np.array_equal(ca[k].view(np.uint8), cb[k].view(np.uint8)))
+            for k in ca)
+        if not same:
+            bad.append(str(rel))
+    return bad
+
+
+def convert_rank(argv) -> int:
+    """Phase 29's conversions, in a process of their own where JAX,
+    pyarrow, the JAX package, ``converters/`` and ``tools/`` cannot be
+    imported: ``chip_smoke.py convert WORK``. Converts WORK/raw_av2 with
+    the native z-buffer and again with ``z_buffer_numpy`` in its place, its
+    LZ4-compressed copy WORK/raw_av2_lz4, WORK/raw_nuscenes, and Waymo
+    frames made here; prints one ``chip_smoke_convert {json}`` line."""
+    import importlib.abc
+
+    class Ban(importlib.abc.MetaPathFinder):
+        # An import hook rather than ``sys.modules[name] = None``: scipy
+        # probes ``sys.modules`` for jax and takes a None entry for the module.
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BANNED_IN_CONVERSION:
+                raise ImportError(f"{name} may not be imported by the conversion")
+
+    sys.meta_path.insert(0, Ban())
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+
+    from range_view_3d_detection_torch.converters.av2 import export as av2_export
+    from range_view_3d_detection_torch.converters.nuscenes import export as nusc_export
+    from range_view_3d_detection_torch.converters.waymo import export as waymo_export
+    from range_view_3d_detection_torch.converters.waymo import metadata as waymo_metadata
+    from range_view_3d_detection_torch.data import native_io
+    from range_view_3d_detection_torch.ops.projection import z_buffer_numpy
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    work = Path(argv[0])
+    out: dict = {}
+    t0 = time.perf_counter()
+    native_io.library()
+    out["build_s"] = time.perf_counter() - t0
+    raw = work / "raw_av2"
+    sweeps = sorted(raw.rglob("sensors/lidar/*.feather"))
+    n_points = sum(len(read_feather(p, ["x"])["x"]) for p in sweeps)
+    t0 = time.perf_counter()
+    av2_export.export_dataset(str(raw), str(work / "av2"), height=64, width=1800)
+    out["av2_s"] = time.perf_counter() - t0
+    av2_export.z_buffer_native = z_buffer_numpy
+    t0 = time.perf_counter()
+    av2_export.export_dataset(str(raw), str(work / "av2_numpy"), height=64, width=1800)
+    out["av2_numpy_s"] = time.perf_counter() - t0
+    out["av2_sweeps"], out["av2_points"] = len(sweeps), n_points
+    out["av2_differ"] = same_corpus(work / "av2", work / "av2_numpy")
+    t0 = time.perf_counter()
+    av2_export.z_buffer_native = native_io.z_buffer_native
+    av2_export.export_dataset(str(work / "raw_av2_lz4"), str(work / "av2_lz4"), height=64,
+                              width=1800)
+    out["av2_lz4_s"] = time.perf_counter() - t0
+    out["av2_lz4_differ"] = same_corpus(work / "av2", work / "av2_lz4")
+    out["av2_files"] = len(_tree_files(work / "av2"))
+    rv = [read_feather(p) for p in sorted((work / "av2").rglob("range_view/*.feather"))]
+    out["av2_valid_pixels"] = [int((c["range"] > 0).sum()) for c in rv]
+    out["av2_roi_share"] = float(np.mean([c["is_within_roi"][c["range"] > 0].mean() for c in rv]))
+    ann = [read_feather(p) for p in sorted((work / "av2").rglob("annotations.feather"))]
+    out["av2_boxes"] = sum(len(a["num_interior_pts"]) for a in ann)
+    out["av2_boxes_with_points"] = sum(int((a["num_interior_pts"] > 0).sum()) for a in ann)
+    out["av2_boxes_in_roi"] = sum(int(a["is_within_roi"].sum()) for a in ann)
+
+    t0 = time.perf_counter()
+    nusc_export.export_dataset(str(work / "raw_nuscenes"), str(work / "nuscenes"),
+                               version="v1.0-mini", height=32, width=1800)
+    out["nuscenes_s"] = time.perf_counter() - t0
+    nusc = [read_feather(p) for p in sorted((work / "nuscenes").rglob("range_view/*.feather"))]
+    out["nuscenes_sweeps"] = len(nusc)
+    out["nuscenes_points"] = int(sum(len(np.fromfile(p, np.float32)) // 5 for p in
+                                     (work / "raw_nuscenes" / "samples").rglob("*.pcd.bin")))
+    out["nuscenes_shapes"] = sorted({len(c["range"]) for c in nusc})
+    out["nuscenes_valid_pixels"] = [int((c["range"] > 0).sum()) for c in nusc]
+
+    frames = waymo_frames(2, seed=SEED + 29)
+    t0 = time.perf_counter()
+    n = waymo_export.export_log(None, work / "waymo" / "train" / "segment-0", frames=frames,
+                                export_cameras=False)
+    out["waymo_s"] = time.perf_counter() - t0
+    sys.argv = ["metadata", "--root-dir", str(work / "waymo"), "--out",
+                str(work / "waymo_metadata.feather")]
+    waymo_metadata.main()
+    meta = read_feather(work / "waymo_metadata.feather")
+    wrv = [read_feather(p) for p in sorted((work / "waymo").rglob("range_view/*.feather"))]
+    out["waymo_sweeps"], out["waymo_pixels"] = n, 64 * 2650 * n
+    out["waymo_shapes"] = sorted({len(c["range"]) for c in wrv})
+    out["waymo_num_pts"] = [int(x) for x in meta["num_pts"]]
+    out["waymo_valid_pixels"] = [int((c["range"] > 0).sum()) for c in wrv]
+    out["finite"] = all(bool(np.isfinite(c[k]).all()) for c in rv + nusc + wrv for k in c
+                        if c[k].dtype.kind == "f")
+    out["banned_imported"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in BANNED_IN_CONVERSION)
+    print("chip_smoke_convert " + json.dumps(out), flush=True)
+    return 0
+
+
+def converted_phase(device, smi) -> dict:
+    """Phase 29 (see the module docstring). Returns the launches of K1 and
+    K2 while the converted corpus trains, validates and serves."""
+    import numpy as np
+    import torch
+
+    from range_view_3d_detection_torch.data import native_io
+    from range_view_3d_detection_torch.evaluation.av2_eval import evaluate_predictions
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import meta_kernel_fused
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.training.loop import Trainer
+    from range_view_3d_detection_torch.utils.config import compose
+    from range_view_3d_detection_torch.utils.lz4 import lz4_frame_decompress_py
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-converted-"))
+    try:
+        categories = compose(REPO / "conf", "rv-av2")["model"]["tasks"][0]
+        t0 = time.perf_counter()
+        for k, (split, (log_id, sweeps)) in enumerate(RAW_AV2_LOGS.items()):
+            write_raw_av2_log(work / "raw_av2" / split / log_id, sweeps=sweeps,
+                              seed=SEED + 290 + k, categories=categories)
+        write_raw_nuscenes(work / "raw_nuscenes", seed=SEED + 292)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lz4_buffers = lz4_copy(work / "raw_av2", work / "raw_av2_lz4")
+        lz4_write_s = time.perf_counter() - t0
+
+        # 1-2. Conversion without JAX or pyarrow; the AV2 corpus against the
+        # same conversion on z_buffer_numpy.
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "convert",
+                               str(work)], capture_output=True, text=True, timeout=600,
+                              cwd=REPO)
+        convert_wall = time.perf_counter() - t0
+        lines = [x for x in proc.stdout.splitlines() if x.startswith("chip_smoke_convert ")]
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"conversion subprocess failed (rc {proc.returncode}):\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        conv = json.loads(lines[0].split(" ", 1)[1])
+        check(not conv["banned_imported"], f"conversion imported {conv['banned_imported']}")
+        check(not conv["av2_differ"], f"AV2 corpus differs from the numpy z-buffer's: "
+              f"{conv['av2_differ']}")
+        check(not conv["av2_lz4_differ"], f"AV2 corpus from LZ4 logs differs: "
+              f"{conv['av2_lz4_differ']}")
+        check(conv["finite"], "a converted column holds non-finite values")
+        check(conv["av2_sweeps"] == 6 and min(conv["av2_valid_pixels"]) > 30_000,
+              f"AV2: {conv['av2_sweeps']} sweeps, valid pixels {conv['av2_valid_pixels']}")
+        check(conv["av2_boxes_with_points"] == conv["av2_boxes"] > 0,
+              f"AV2: {conv['av2_boxes_with_points']} of {conv['av2_boxes']} boxes hold points")
+        check(0 < conv["av2_roi_share"] < 1 and 0 < conv["av2_boxes_in_roi"],
+              f"AV2 ROI: point share {conv['av2_roi_share']}, boxes {conv['av2_boxes_in_roi']}")
+        check(conv["nuscenes_sweeps"] == 2 and conv["nuscenes_shapes"] == [32 * 1800]
+              and min(conv["nuscenes_valid_pixels"]) > 10_000, f"nuScenes: {conv}")
+        check(conv["waymo_sweeps"] == 2 and conv["waymo_shapes"] == [64 * 2650]
+              and conv["waymo_num_pts"] == conv["waymo_valid_pixels"], f"Waymo: {conv}")
+        av2_per_sweep = conv["av2_s"] / conv["av2_sweeps"]
+        say(f"converted (phase 29): raw logs written in {write_s:.1f} s, their LZ4 copy in "
+            f"{lz4_write_s:.1f} s ({lz4_buffers} buffers); conversion process "
+            f"{convert_wall:.1f} s wall without jax, pyarrow or the JAX package (native "
+            f"build {conv['build_s']:.2f} s); AV2 {conv['av2_sweeps']} sweeps of "
+            f"{conv['av2_points'] // conv['av2_sweeps']} points at 64x1800: "
+            f"{av2_per_sweep:.3f} s a sweep, {conv['av2_points'] / conv['av2_s']:.0f} points/s "
+            f"(numpy z-buffer {conv['av2_numpy_s'] / conv['av2_sweeps']:.3f} s a sweep), "
+            f"{conv['av2_files']} files bit-equal to the numpy z-buffer's and to the LZ4 "
+            f"logs' ({conv['av2_lz4_s'] / conv['av2_sweeps']:.3f} s a sweep), valid pixels "
+            f"{conv['av2_valid_pixels']}, ROI share {conv['av2_roi_share']:.3f}, "
+            f"{conv['av2_boxes']} boxes ({conv['av2_boxes_in_roi']} in the ROI); nuScenes "
+            f"{conv['nuscenes_sweeps']} sweeps at 32x1800: {conv['nuscenes_s'] / 2:.3f} s a "
+            f"sweep, {conv['nuscenes_points'] / conv['nuscenes_s']:.0f} points/s; Waymo "
+            f"{conv['waymo_sweeps']} frames at 64x2650: {conv['waymo_s'] / 2:.3f} s a frame, "
+            f"{conv['waymo_pixels'] / conv['waymo_s']:.0f} pixels/s, metadata "
+            f"{conv['waymo_num_pts']} points; on {smi}")
+
+        # 3. The native LZ4 decoder against its twin and the original bytes.
+        sweep = next((work / "raw_av2").rglob("sensors/lidar/*.feather")).read_bytes()
+        data = lz4_test_data(sweep, SEED + 293)
+        lz4_rows = []
+        for tag, kw in (("linked 64 KB blocks", {}),
+                        ("independent 256 KB blocks, checksums, content size",
+                         dict(block_size=1 << 18, linked=False, block_checksum=True,
+                              content_checksum=True, content_size=True))):
+            stats: dict = {}
+            t0 = time.perf_counter()
+            frame = lz4_frame_compress(data, stats=stats, **kw)
+            enc_s = time.perf_counter() - t0
+            got = native_io.lz4_frame_decompress(frame, len(data))
+            t0 = time.perf_counter()
+            twin = lz4_frame_decompress_py(frame, len(data))
+            twin_s = time.perf_counter() - t0
+            check(got == data and twin == data, f"LZ4 ({tag}): decoded bytes differ")
+            if not kw:
+                check(stats["into_earlier_block"] > 0 and stats["overlapping"] > 0
+                      and stats["raw_blocks"] > 0, f"LZ4 frame lacks a case: {stats}")
+            times = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                native_io.lz4_frame_decompress(frame, len(data))
+                times.append(time.perf_counter() - t0)
+            native_s = statistics.median(times)
+            lz4_rows.append(f"{tag}: {len(data)} -> {len(frame)} bytes, {stats}, native "
+                            f"{len(data) / native_s / 1e6:.0f} MB/s (median of 7), twin "
+                            f"{len(data) / twin_s / 1e6:.2f} MB/s, encoder {enc_s:.2f} s")
+        say("LZ4 (phase 29), decoded equal to the twin and the original: "
+            + "; ".join(lz4_rows) + f"; host of {smi}")
+
+        # 4. The AV2 corpus converted from the LZ4 logs trains 2 steps at B=2,
+        # validates and is evaluated (its copied LZ4 poses and the map: ROI
+        # filtering).
+        corpus = work / "av2_lz4"
+        cfg = compose(REPO / "conf", "rv-av2", [
+            f"++dataset.root_dir={corpus}", f"++run_dir={work / 'run'}",
+            "++trainer.max_epochs=1", "++model.batch_size=2", "++model.train_log_freq=0"])
+        trainer = Trainer(cfg)
+        check(trainer.device.type == "cuda" and len(trainer.train_ds) == 4
+              and len(trainer.val_ds) == 2,
+              f"trainer on {trainer.device}, {len(trainer.train_ds)} train sweeps")
+        torch.cuda.synchronize()
+        meta_kernel_fused.launches = 0
+        nms_scan.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        check(state.step == 2, f"converted corpus: step {state.step}")
+        losses = [json.loads(x).get("loss") for x in
+                  (Path(cfg["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        t0 = time.perf_counter()
+        pred_dir = trainer.validate()
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        shards = sorted(pred_dir.glob("*.feather"))
+        check(len(shards) == 2, f"converted corpus: {len(shards)} shards")
+        t0 = time.perf_counter()
+        metrics = evaluate_predictions(pred_dir, corpus / "val", trainer.categories)
+        eval_s = time.perf_counter() - t0
+        avg = metrics["AVERAGE_METRICS"]
+        check(all(math.isfinite(v) for v in avg.values()), f"AVERAGE_METRICS {avg}")
+        batch = next(iter(trainer.val_loader))
+        del trainer, state
+
+        # 5. One batch of the corpus through the flagship Predictor.
+        request = (batch["features"], batch["cart"], batch["mask"])
+        check(request[0].shape == (2, 64, 1808, 5), f"served batch {request[0].shape}")
+        predictor = flagship_predictor(serving._flagship_config(), DecoderConfig(), device,
+                                       torch.Generator().manual_seed(SEED + 294), request)
+        t0 = time.perf_counter()
+        result = predictor(*request)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        kept = check_results([result])
+        launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches}
+        check(launches["K1"] > 0 and launches["K2"] > 0, f"converted launches {launches}")
+        say(f"converted corpus (phase 29, from the LZ4 logs): rv-av2 at B=2, 2 steps in "
+            f"{fit_s:.2f} s (losses "
+            f"{[round(x, 4) for x in losses if x is not None]}), validate {val_s:.2f} s "
+            f"({len(shards)} shards), evaluator {eval_s:.3f} s with the copied poses and map, "
+            f"AVERAGE_METRICS " + ", ".join(f"{k} {v:.4f}" for k, v in avg.items())
+            + f"; one val batch served by the flagship Predictor in {serve_ms:.1f} ms (first "
+            f"call), kept {kept}; launches {launches}; phase "
+            f"{time.perf_counter() - t_phase:.0f} s on {smi}")
+        del predictor
+        return {"meta_kernel_fused": launches["K1"], "nms_scan": launches["K2"],
+                "conv3x3_i8_fused": 0, "meta_kernel_fused_i8": 0}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def flagship_predictor(cfg, dec, device, gen, request):
     """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
     non-trivial BatchNorm statistics, and each head's final conv scaled to
@@ -3055,6 +3752,8 @@ def main() -> int:
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
     range_partition_phase(device, smi)
+    torch.cuda.empty_cache()
+    converted_launches = converted_phase(device, smi)
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -3074,6 +3773,7 @@ def main() -> int:
         k["width_launches"] = width_launches[k["name"]]
         k["chunk_launches"] = chunk_launches[k["name"]]
         k["aot_launches"] = aot_launches[k["name"]]
+        k["converted_launches"] = converted_launches[k["name"]]
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -3086,4 +3786,6 @@ if __name__ == "__main__":
         sys.exit(train_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["width-rank"]:
         sys.exit(width_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["convert"]:
+        sys.exit(convert_rank(sys.argv[2:]))
     sys.exit(main())

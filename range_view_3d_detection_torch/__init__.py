@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of the range-view 3D detector: serving, training
 and the training loop (``train``, ``evaluate`` and ``overfit`` entry
-points).
+points), and the offline converters of raw logs (``converters/``).
 
 Mirrors ``range_view_3d_detection_tpu``'s layout (``models/``, ``ops/``,
 ``kernels/``, ``training/``, ``data/``, ``evaluation/``, ``utils/``) and

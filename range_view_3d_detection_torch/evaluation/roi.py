@@ -14,8 +14,8 @@ archive (``map/log_map_archive_<log>.json``) ships the drivable-area
 boundary polygons in city coordinates; we rasterize them at a fixed
 resolution, binary-dilate by the ROI buffer, and answer point queries by
 raster lookup — the same mechanism as the SDK's ``RasterLayerType.ROI``.
-The polygon fill is an even-odd crossing test in numpy (the converter
-uses matplotlib's, which the port does not depend on).
+The polygon fill is matplotlib's crossing test, in numpy (the JAX
+converter calls matplotlib, which the port does not depend on).
 """
 
 from __future__ import annotations
@@ -32,14 +32,16 @@ RASTER_RESOLUTION_M = 0.3
 
 def points_in_polygon(xy: np.ndarray, poly: np.ndarray) -> np.ndarray:
     """(N,) whether each point lies inside the closed polygon ``poly``
-    ((M, 2) vertices), by the even-odd crossing rule."""
+    ((M, 2) vertices): the crossing test of matplotlib's
+    ``Path.contains_points`` (``_path.h::point_in_path_impl``) with its
+    convention for points on an edge or a vertex, so that the raster equals
+    the JAX converter's cell for cell."""
     inside = np.zeros(len(xy), bool)
     x, y = xy[:, 0], xy[:, 1]
     for (x0, y0), (x1, y1) in zip(poly, np.roll(poly, -1, axis=0)):
-        crosses = (y0 > y) != (y1 > y)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            xc = x0 + (y - y0) * (x1 - x0) / (y1 - y0)
-        inside ^= crosses & (x < xc)
+        above0, above1 = y0 >= y, y1 >= y
+        hit = ((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1)) == above1
+        inside ^= (above0 != above1) & hit
     return inside
 
 

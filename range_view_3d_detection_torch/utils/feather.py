@@ -2,15 +2,26 @@
 library (counterpart of the JAX ``utils/feather.py``, which uses pyarrow).
 
 A Feather file is an Arrow IPC file: the magic ``ARROW1``, a schema
-message, record batches and a footer that indexes them, with the
-metadata of each as a flatbuffer. This module decodes and builds those
-flatbuffers by hand for the columns the converters, the synthetic
-generator and the prediction shards hold: bool, int8-64, uint8-64,
-float32/64 and utf8 strings (int32 offsets). Numeric columns come back as
-numpy arrays of their type, strings as an object array of ``str`` (what
-pyarrow's ``to_numpy(zero_copy_only=False)`` gives). A compressed buffer
-(LZ4 or ZSTD), a dictionary-encoded, nested, large-string or other
-column, or a column with nulls raises and names what it met.
+message, dictionary and record batches and a footer that indexes them,
+with the metadata of each as a flatbuffer. This module decodes and builds
+those flatbuffers by hand for the columns the raw logs, the converters,
+the synthetic generator and the prediction shards hold: bool, int8-64,
+uint8-64, float16/32/64, utf8 and large utf8 strings, and
+dictionary-encoded columns of any of these (int8-64 indices, delta
+dictionaries included). Numeric columns come back as numpy arrays of
+their type (``float16`` stays ``float16``), strings and dictionaries of
+strings as an object array of ``str``: what pyarrow's
+``to_numpy(zero_copy_only=False)`` gives.
+
+Record batches compressed with ``LZ4_FRAME`` (pyarrow's default for
+Feather V2) are read: each non-empty buffer starts with its uncompressed
+length as an int64 (``-1``: the rest is stored raw), followed by an LZ4
+frame that ``data/native_io.py::lz4_frame_decompress`` decodes. ``ZSTD``
+bodies, nested, binary and other columns, and columns with nulls raise and
+name what they met.
+
+The writer writes uncompressed files of one record batch, as the JAX
+writer does.
 """
 
 from __future__ import annotations
@@ -18,14 +29,14 @@ from __future__ import annotations
 import os
 import struct
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 MAGIC = b"ARROW1"
 _V5 = 4  # MetadataVersion.V5
-_SCHEMA, _RECORD_BATCH = 1, 3  # MessageHeader union
-_NULL, _INT, _FLOAT, _UTF8, _BOOL = 1, 2, 3, 5, 6  # Type union
+_SCHEMA, _DICTIONARY_BATCH, _RECORD_BATCH = 1, 2, 3  # MessageHeader union
+_NULL, _INT, _FLOAT, _UTF8, _BOOL, _LARGE_UTF8 = 1, 2, 3, 5, 6, 20  # Type union
 _TYPE_NAMES = {
     0: "NONE", 1: "Null", 2: "Int", 3: "FloatingPoint", 4: "Binary", 5: "Utf8",
     6: "Bool", 7: "Decimal", 8: "Date", 9: "Time", 10: "Timestamp",
@@ -35,7 +46,9 @@ _TYPE_NAMES = {
     23: "BinaryView", 24: "Utf8View", 25: "ListView", 26: "LargeListView",
 }
 _CODECS = {0: "LZ4_FRAME", 1: "ZSTD"}
-_FLOAT_DTYPES = {1: np.float32, 2: np.float64}  # Precision SINGLE, DOUBLE
+_LZ4_FRAME = 0
+_FLOAT_DTYPES = {0: np.float16, 1: np.float32, 2: np.float64}  # Precision HALF..DOUBLE
+_PRECISION = {2: 0, 4: 1, 8: 2}  # itemsize -> Precision
 
 
 class FeatherError(ValueError):
@@ -110,31 +123,57 @@ def _root(buf: memoryview) -> _Table:
 # -- reading -------------------------------------------------------------------
 
 
-def _field_spec(field: _Table) -> Tuple[str, str, Any]:
-    """(name, kind, numpy dtype or None) of a schema ``Field``."""
+class _Spec(NamedTuple):
+    """How to decode one schema ``Field``: its values' kind and dtype, and
+    for a dictionary-encoded field its dictionary id and index dtype."""
+
+    name: str
+    what: str  # the Arrow type, for error messages
+    kind: str  # "fixed", "bool", "utf8", "large_utf8" or "null"
+    dtype: Any
+    dict_id: Optional[int] = None
+    index_dtype: Any = None
+
+
+def _int_dtype(t: _Table) -> np.dtype:
+    bits, signed = t.scalar(0, "i", 0), bool(t.scalar(1, "B", 0))
+    if bits not in (8, 16, 32, 64):
+        raise FeatherError(f"{bits}-bit integers are not supported")
+    return np.dtype(f"{'i' if signed else 'u'}{bits // 8}").newbyteorder("<")
+
+
+def _field_spec(field: _Table) -> _Spec:
+    """The ``_Spec`` of a schema ``Field``."""
     name = field.string(0) or ""
     type_id = field.scalar(2, "B", 0)
     what = _TYPE_NAMES.get(type_id, f"type {type_id}")
-    if field.table(4) is not None:
-        raise FeatherError(f"column {name!r}: dictionary-encoded {what} is not supported")
     if field.vector_len(5):
         raise FeatherError(f"column {name!r}: nested type {what} is not supported")
     t = field.table(3)
     if type_id == _INT:
-        bits, signed = t.scalar(0, "i", 0), bool(t.scalar(1, "B", 0))
-        return name, "fixed", np.dtype(f"{'i' if signed else 'u'}{bits // 8}").newbyteorder("<")
-    if type_id == _FLOAT:
+        spec = _Spec(name, what, "fixed", _int_dtype(t))
+    elif type_id == _FLOAT:
         precision = t.scalar(0, "h", 0)
         if precision not in _FLOAT_DTYPES:
             raise FeatherError(f"column {name!r}: float precision {precision} is not supported")
-        return name, "fixed", np.dtype(_FLOAT_DTYPES[precision]).newbyteorder("<")
-    if type_id == _BOOL:
-        return name, "bool", None
-    if type_id == _UTF8:
-        return name, "utf8", None
-    if type_id == _NULL:
-        return name, "null", None
-    raise FeatherError(f"column {name!r}: Arrow type {what} is not supported")
+        spec = _Spec(name, what, "fixed", np.dtype(_FLOAT_DTYPES[precision]).newbyteorder("<"))
+    elif type_id == _BOOL:
+        spec = _Spec(name, what, "bool", None)
+    elif type_id == _UTF8:
+        spec = _Spec(name, what, "utf8", None)
+    elif type_id == _LARGE_UTF8:
+        spec = _Spec(name, what, "large_utf8", None)
+    elif type_id == _NULL:
+        spec = _Spec(name, what, "null", None)
+    else:
+        raise FeatherError(f"column {name!r}: Arrow type {what} is not supported")
+    enc = field.table(4)  # DictionaryEncoding
+    if enc is None:
+        return spec
+    index = enc.table(1)  # absent: int32
+    index_dtype = _int_dtype(index) if index is not None else np.dtype("<i4")
+    return spec._replace(what=f"dictionary of {what}", dict_id=enc.scalar(0, "q", 0),
+                         index_dtype=index_dtype)
 
 
 def _decode_utf8(offsets: np.ndarray, data: bytes) -> np.ndarray:
@@ -149,50 +188,113 @@ def _decode_utf8(offsets: np.ndarray, data: bytes) -> np.ndarray:
     return out
 
 
-def _read_batch(
-    raw: memoryview, block: Tuple[int, int, int], specs: List[Tuple[str, str, Any]]
-) -> List[np.ndarray]:
-    offset, meta_len, body_len = block
+def _header(raw: memoryview, block: Tuple[int, int, int], header_type: int, what: str) -> _Table:
+    """The header table of the message a footer ``Block`` points to."""
+    offset, meta_len, _ = block
     start = offset + 8 if struct.unpack_from("<I", raw, offset)[0] == 0xFFFFFFFF else offset + 4
     msg = _root(raw[start : offset + meta_len])
-    if msg.scalar(1, "B", 0) != _RECORD_BATCH:
-        raise FeatherError("footer block is not a record batch")
-    rb = msg.table(2)
-    comp = rb.table(3)
-    if comp is not None:
-        codec = comp.scalar(0, "b", 0)
+    if msg.scalar(1, "B", 0) != header_type:
+        raise FeatherError(f"footer block is not a {what}")
+    return msg.table(2)
+
+
+def _body_buffers(raw: memoryview, rb: _Table, body: int) -> Callable[[int], Any]:
+    """Buffer ``i`` of the record batch ``rb`` whose body starts at
+    ``body``, decompressed when the batch is."""
+    buffers = rb.structs(2, "qq")
+    comp = rb.table(3)  # BodyCompression
+    if comp is None:
+        return lambda i: raw[body + buffers[i][0] : body + buffers[i][0] + buffers[i][1]]
+    codec, method = comp.scalar(0, "b", 0), comp.scalar(1, "b", 0)
+    if codec != _LZ4_FRAME:
         raise FeatherError(
             f"compressed record batch ({_CODECS.get(codec, f'codec {codec}')}) is not supported"
         )
-    nodes = rb.structs(1, "qq")
-    buffers = rb.structs(2, "qq")
-    body = offset + meta_len
-    cols, bi = [], 0
+    if method != 0:  # BodyCompressionMethod.BUFFER
+        raise FeatherError(f"body compression method {method} is not supported")
+    from range_view_3d_detection_torch.data.native_io import lz4_frame_decompress
 
-    def buf(i: int) -> memoryview:
+    def buf(i: int):
         off, n = buffers[i]
-        return raw[body + off : body + off + n]
+        if n == 0:  # an empty buffer carries no length prefix
+            return raw[0:0]
+        if n < 8:
+            raise FeatherError(f"compressed buffer of {n} bytes has no length prefix")
+        size = struct.unpack_from("<q", raw, body + off)[0]
+        data = raw[body + off + 8 : body + off + n]
+        if size == -1:  # stored raw
+            return data
+        try:
+            return memoryview(lz4_frame_decompress(data, size))
+        except ValueError as exc:
+            raise FeatherError(f"LZ4_FRAME buffer: {exc}") from exc
 
-    for ci, (name, kind, dtype) in enumerate(specs):
-        n, nulls = nodes[ci]
-        if kind == "null":
-            if n:
-                raise FeatherError(f"column {name!r}: {n} nulls (null type) are not supported")
-            cols.append(np.empty(0, dtype=object))
-            continue
-        if nulls:
-            raise FeatherError(f"column {name!r}: {nulls} nulls are not supported")
-        if kind == "fixed":
-            cols.append(np.frombuffer(buf(bi + 1), dtype=dtype, count=n).astype(dtype.newbyteorder("=")))
-            bi += 2
-        elif kind == "bool":
-            bits = np.frombuffer(buf(bi + 1), dtype=np.uint8)
-            cols.append(np.unpackbits(bits, count=n, bitorder="little").astype(bool))
-            bi += 2
-        else:  # utf8
-            offs = np.frombuffer(buf(bi + 1), dtype="<i4", count=n + 1) if n else np.zeros(1, np.int32)
-            cols.append(_decode_utf8(offs, bytes(buf(bi + 2))))
-            bi += 3
+    return buf
+
+
+def _read_column(spec: _Spec, node: Tuple[int, int], buf: Callable[[int], Any], bi: int):
+    """Decode one column whose buffers start at ``bi``: (array, next ``bi``).
+    A dictionary-encoded column gives its indices."""
+    n, nulls = node
+    if spec.kind == "null":
+        if n:
+            raise FeatherError(f"column {spec.name!r}: {n} nulls (null type) are not supported")
+        return np.empty(0, dtype=object), bi
+    if nulls:
+        raise FeatherError(f"column {spec.name!r} ({spec.what}): {nulls} nulls are not supported")
+    if spec.dict_id is not None:
+        idx = np.frombuffer(buf(bi + 1), dtype=spec.index_dtype, count=n)
+        return idx.astype(spec.index_dtype.newbyteorder("=")), bi + 2
+    if spec.kind == "fixed":
+        col = np.frombuffer(buf(bi + 1), dtype=spec.dtype, count=n)
+        return col.astype(spec.dtype.newbyteorder("=")), bi + 2
+    if spec.kind == "bool":
+        bits = np.frombuffer(buf(bi + 1), dtype=np.uint8)
+        return np.unpackbits(bits, count=n, bitorder="little").astype(bool), bi + 2
+    off_dtype = "<i4" if spec.kind == "utf8" else "<i8"
+    offs = np.frombuffer(buf(bi + 1), dtype=off_dtype, count=n + 1) if n else np.zeros(1, np.int64)
+    return _decode_utf8(offs, bytes(buf(bi + 2))), bi + 3
+
+
+def _read_dictionaries(raw: memoryview, blocks, specs: List[_Spec]) -> Dict[int, np.ndarray]:
+    """The values of every dictionary, deltas appended in file order."""
+    by_id = {s.dict_id: s._replace(dict_id=None) for s in specs if s.dict_id is not None}
+    out: Dict[int, np.ndarray] = {}
+    for block in blocks:
+        db = _header(raw, block, _DICTIONARY_BATCH, "dictionary batch")
+        dict_id, is_delta = db.scalar(0, "q", 0), bool(db.scalar(2, "B", 0))
+        if dict_id not in by_id:
+            raise FeatherError(f"dictionary {dict_id} belongs to no column")
+        rb = db.table(1)
+        nodes = rb.structs(1, "qq")
+        if len(nodes) != 1:
+            raise FeatherError(f"dictionary {dict_id}: {len(nodes)} columns")
+        values, _ = _read_column(by_id[dict_id], nodes[0],
+                                 _body_buffers(raw, rb, block[0] + block[1]), 0)
+        if dict_id in out and not is_delta:
+            raise FeatherError(f"dictionary {dict_id}: a replacement dictionary is not supported")
+        out[dict_id] = np.concatenate([out[dict_id], values]) if dict_id in out else values
+    return out
+
+
+def _read_batch(
+    raw: memoryview, block: Tuple[int, int, int], specs: List[_Spec],
+    dictionaries: Dict[int, np.ndarray],
+) -> List[np.ndarray]:
+    rb = _header(raw, block, _RECORD_BATCH, "record batch")
+    nodes = rb.structs(1, "qq")
+    buf = _body_buffers(raw, rb, block[0] + block[1])
+    cols, bi = [], 0
+    for spec, node in zip(specs, nodes):
+        col, bi = _read_column(spec, node, buf, bi)
+        if spec.dict_id is not None:
+            values = dictionaries.get(spec.dict_id)
+            if values is None:
+                raise FeatherError(f"column {spec.name!r}: dictionary {spec.dict_id} is missing")
+            if len(col) and (col.min() < 0 or col.max() >= len(values)):
+                raise FeatherError(f"column {spec.name!r}: dictionary index out of range")
+            col = values[col]
+        cols.append(col)
     return cols
 
 
@@ -210,20 +312,19 @@ def read_feather(
     schema = footer.table(1)
     if schema.scalar(0, "h", 0) != 0:
         raise FeatherError(f"{path}: big-endian files are not supported")
-    if footer.vector_len(2):
-        raise FeatherError(f"{path}: dictionary batches are not supported")
     specs = [_field_spec(f) for f in schema.tables(1)]
+    dictionaries = _read_dictionaries(raw, footer.structs(2, "qi4xq"), specs)
     parts: List[List[np.ndarray]] = [[] for _ in specs]
     for block in footer.structs(3, "qi4xq"):
-        for ci, col in enumerate(_read_batch(raw, block, specs)):
+        for ci, col in enumerate(_read_batch(raw, block, specs, dictionaries)):
             parts[ci].append(col)
     out: Dict[str, np.ndarray] = {}
-    for (name, kind, dtype), p in zip(specs, parts):
+    for spec, p in zip(specs, parts):
         if p:
-            out[name] = np.concatenate(p) if len(p) > 1 else p[0]
+            out[spec.name] = np.concatenate(p) if len(p) > 1 else p[0]
         else:
-            empty = {"bool": bool, "fixed": dtype}.get(kind, object)
-            out[name] = np.empty(0, dtype=empty)
+            empty = {"bool": bool, "fixed": spec.dtype}.get(spec.kind, object)
+            out[spec.name] = np.empty(0, dtype=np.dtype(empty).newbyteorder("="))
     if columns:
         missing = [c for c in columns if c not in out]
         if missing:
@@ -316,7 +417,7 @@ def _column_kind(name: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
         raise FeatherError(f"column {name!r}: {v.ndim}-d arrays are not supported")
     if v.dtype == bool:
         return "bool", v
-    if v.dtype.kind in "iu" or v.dtype in (np.float32, np.float64):
+    if v.dtype.kind in "iu" or v.dtype in (np.float16, np.float32, np.float64):
         return "fixed", v.astype(v.dtype.newbyteorder("<"))
     if v.dtype.kind == "U" or (v.dtype == object and all(isinstance(x, str) for x in v)):
         return "utf8", v
@@ -330,7 +431,7 @@ def _type_fields(kind: str, v: np.ndarray):
     if kind == "utf8":
         return _UTF8, []
     if v.dtype.kind == "f":
-        return _FLOAT, [("h", 1 if v.dtype.itemsize == 4 else 2)]
+        return _FLOAT, [("h", _PRECISION[v.dtype.itemsize])]
     return _INT, [("i", 8 * v.dtype.itemsize), ("B", int(v.dtype.kind == "i"))]
 
 

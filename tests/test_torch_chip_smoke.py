@@ -20,6 +20,19 @@
 - The training phases' batch (``flagship_train_batch``) has what it is
   named for, and the card-against-CPU step check (``train_card_vs_cpu``)
   passes when both sides are the CPU (tiny config).
+- Phase 29's LZ4 encoder (``lz4_frame_compress``) writes frames that
+  pyarrow decodes to the input bytes, with linked blocks whose matches
+  reach into the previous block, overlapping matches and raw blocks; its
+  raw-log writer (``write_raw_av2_log``) writes AV2's schema (x/y/z
+  ``float16``, intensity and laser_number ``uint8`` over 64 lasers,
+  ``offset_ns`` ``uint32`` within the 100 ms spin, poses at 10 Hz around
+  the sweeps, annotations without ``num_interior_pts``, a map archive);
+  its LZ4 Feather writer (``write_feather_lz4``) writes files pyarrow reads
+  equal to the columns, with compressed and raw (``-1``) buffers; and its
+  conversion process (``chip_smoke.py convert``) runs here on small raw
+  logs, imports none of JAX, pyarrow, the JAX package, ``converters/`` and
+  ``tools/``, and finds the AV2 corpus equal to the one on
+  ``z_buffer_numpy`` and to the one from the LZ4 copy of the logs.
 """
 
 from __future__ import annotations
@@ -231,3 +244,90 @@ def test_projection_gate_explains_moved_columns(stride):
     assert chip_smoke.unexplained_pixels(near, want, set(), ulp_names=("intensity",),
                                          **gate) == (0, 0)
     assert chip_smoke.unexplained_pixels(near, want, set(), ulp_names=(), **gate)[1] > 0
+
+
+@pytest.mark.parametrize("options", [{}, dict(linked=False, block_checksum=True),
+                                     dict(block_size=1 << 18, content_checksum=True,
+                                          content_size=True)])
+def test_lz4_encoder_frames_decode_in_pyarrow(options):
+    import pyarrow as pa
+
+    rng = np.random.default_rng(5)
+    sweep = (rng.normal(size=60_000) * 20).astype(np.float16).tobytes()
+    data = chip_smoke.lz4_test_data(sweep, seed=6)
+    stats = {}
+    frame = chip_smoke.lz4_frame_compress(data, stats=stats, **options)
+    assert pa.decompress(frame, decompressed_size=len(data), codec="lz4",
+                         asbytes=True) == data
+    assert stats["overlapping"] > 0 and stats["raw_blocks"] > 0
+    assert (stats["into_earlier_block"] > 0) == options.get("linked", True)
+
+
+def test_raw_av2_log_has_the_av2_schema(tmp_path):
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    log = tmp_path / "log"
+    chip_smoke.write_raw_av2_log(log, sweeps=3, seed=1, categories=("REGULAR_VEHICLE", "BUS"),
+                                 points=5000)
+    sweeps = sorted((log / "sensors" / "lidar").glob("*.feather"))
+    stamps = [int(p.stem) for p in sweeps]
+    assert len(sweeps) == 3 and np.all(np.diff(stamps) == chip_smoke.SWEEP_NS)
+    for p in sweeps:
+        cols = read_feather(p)
+        assert {k: str(v.dtype) for k, v in cols.items()} == {
+            "x": "float16", "y": "float16", "z": "float16", "intensity": "uint8",
+            "laser_number": "uint8", "offset_ns": "uint32"}
+        assert len(cols["x"]) == 5000 and set(np.unique(cols["laser_number"])) == set(range(64))
+        assert cols["offset_ns"].max() < chip_smoke.SWEEP_NS
+        assert np.isfinite(cols["x"]).all() and np.abs(cols["x"]).max() <= 80
+    poses = read_feather(log / "city_SE3_egovehicle.feather")
+    assert np.all(np.diff(poses["timestamp_ns"]) == chip_smoke.SWEEP_NS)
+    assert poses["timestamp_ns"][0] < stamps[0] and poses["timestamp_ns"][-1] > stamps[-1]
+    ann = read_feather(log / "annotations.feather")
+    assert "num_interior_pts" not in ann and set(ann["timestamp_ns"]) == set(stamps)
+    assert set(ann["category"]) <= {"REGULAR_VEHICLE", "BUS"}
+    assert len(list((log / "map").glob("log_map_archive_*.json"))) == 1
+
+
+def test_convert_rank_on_the_cpu(tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    from range_view_3d_detection_torch.utils.config import compose
+
+    categories = compose(chip_smoke.REPO / "conf", "rv-av2")["model"]["tasks"][0]
+    for k, (split, (log_id, sweeps)) in enumerate(chip_smoke.RAW_AV2_LOGS.items()):
+        chip_smoke.write_raw_av2_log(tmp_path / "raw_av2" / split / log_id, sweeps=sweeps,
+                                     seed=k, categories=categories, points=4000)
+    chip_smoke.write_raw_nuscenes(tmp_path / "raw_nuscenes", seed=2, points=3000)
+    counts = chip_smoke.lz4_copy(tmp_path / "raw_av2", tmp_path / "raw_av2_lz4")
+    assert counts["lz4"] > 0 and counts["raw"] > 0
+    proc = subprocess.run([sys.executable, str(chip_smoke.REPO / "chip_smoke.py"), "convert",
+                           str(tmp_path)], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    line = [x for x in proc.stdout.splitlines() if x.startswith("chip_smoke_convert ")]
+    out = json.loads(line[0].split(" ", 1)[1])
+    assert out["banned_imported"] == [] and out["av2_differ"] == [] and out["finite"]
+    assert out["av2_lz4_differ"] == []
+    assert out["av2_sweeps"] == 6 and out["av2_points"] == 6 * 4000
+    assert out["av2_boxes_with_points"] == out["av2_boxes"] > 0
+    assert out["nuscenes_shapes"] == [32 * 1800] and out["waymo_shapes"] == [64 * 2650]
+    assert out["waymo_num_pts"] == out["waymo_valid_pixels"]
+
+
+def test_write_feather_lz4_reads_in_pyarrow(tmp_path):
+    import pyarrow.ipc as paipc
+
+    rng = np.random.default_rng(7)
+    cols = {"noise": rng.normal(size=30_000),  # does not compress: stored raw
+            "zeros": np.zeros(30_000, np.float32), "h": rng.normal(size=30_000).astype(
+                np.float16), "flag": rng.uniform(size=30_000) < 0.5,
+            "cat": np.asarray([f"c{i % 3}" for i in range(30_000)])}
+    counts = chip_smoke.write_feather_lz4(tmp_path / "c.feather", cols)
+    assert counts["lz4"] > 0 and counts["raw"] > 0
+    table = paipc.open_file(str(tmp_path / "c.feather")).read_all()
+    for k, v in cols.items():
+        got = table.column(k).to_numpy(zero_copy_only=False)
+        assert got.dtype == (object if v.dtype.kind == "U" else v.dtype)
+        assert got.tolist() == v.tolist()

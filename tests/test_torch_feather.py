@@ -8,8 +8,11 @@
   JAX ``read_feather`` gives, dtype included; ``columns=`` selects in
   order.
 - The files of the JAX synthetic generator read equal through both.
-- What the port does not read raises and names it: LZ4 and ZSTD
-  compression, dictionary encoding, nulls, large strings, nested lists.
+- What the port does not read raises and names it: ZSTD compression, a
+  corrupt LZ4 frame, nulls (also in dictionary and large-string columns),
+  nested lists; the writer refuses dtypes Arrow files do not hold here.
+  (LZ4 bodies, ``float16``, large strings and dictionaries read:
+  ``test_torch_feather_codecs.py``.)
 """
 
 from __future__ import annotations
@@ -101,16 +104,23 @@ def _write_pa(path, table, **options):
 
 @pytest.mark.parametrize("codec,name", [("lz4", "LZ4_FRAME"), ("zstd", "ZSTD")])
 def test_compressed_files_raise(tmp_path, codec, name):
+    """ZSTD bodies raise; LZ4 ones read, so the LZ4 case corrupts its frame
+    (the buffer's uncompressed length, just before the frame's magic)."""
     _write_pa(tmp_path / "c.feather", pa.table({"x": pa.array(np.arange(100.0))}),
               compression=codec)
+    if codec == "lz4":
+        data = bytearray((tmp_path / "c.feather").read_bytes())
+        at = data.index(b"\x04\x22\x4d\x18") - 8
+        data[at : at + 8] = (801).to_bytes(8, "little")
+        (tmp_path / "c.feather").write_bytes(bytes(data))
     with pytest.raises(FeatherError, match=name):
         read_feather(tmp_path / "c.feather")
 
 
 @pytest.mark.parametrize("array,what", [
-    (lambda: pa.array(["a", "b", "a"]).dictionary_encode(), "dictionary"),
+    (lambda: pa.array(["a", None, "a"]).dictionary_encode(), "dictionary"),
     (lambda: pa.array([1.0, None, 3.0]), "nulls"),
-    (lambda: pa.array(["a", "b"], type=pa.large_string()), "LargeUtf8"),
+    (lambda: pa.array(["a", None], type=pa.large_string()), "LargeUtf8"),
     (lambda: pa.array([[1], [2, 3]]), "nested"),
 ])
 def test_unsupported_columns_raise(tmp_path, array, what):
@@ -120,7 +130,7 @@ def test_unsupported_columns_raise(tmp_path, array, what):
 
 
 def test_writer_refuses_other_dtypes(tmp_path):
-    with pytest.raises(FeatherError, match="float16"):
-        write_feather(tmp_path / "h.feather", {"x": np.zeros(3, np.float16)})
+    with pytest.raises(FeatherError, match="complex64"):
+        write_feather(tmp_path / "h.feather", {"x": np.zeros(3, np.complex64)})
     with pytest.raises(FeatherError, match="unequal"):
         write_feather(tmp_path / "h.feather", {"x": np.zeros(3), "y": np.zeros(2)})

@@ -2,10 +2,11 @@
 
 - Every port module, ``chip_smoke.py``, ``chip_probe_k1.py``,
   ``chip_probe_k4.py`` and ``chip_scaling.py`` import with JAX, flax, optax, orbax, the JAX
-  package, ``tools/``, pyarrow, PyYAML, matplotlib, polars, tensorboard,
+  package, ``tools/``, ``converters/``, pyarrow, PyYAML, matplotlib, polars, tensorboard,
   msgpack and ml_dtypes made unimportable (none of the last seven is on
   the machine with the card), and the training, data, evaluation,
-  utility, projection, export and predict modules are among them; in
+  utility, projection, export and predict modules, the native library's
+  binding, the LZ4 twin and the converters are among them; in
   that process ``rv-av2`` composes, a Feather file and a msgpack tree
   round-trip, a PNG is drawn and decoded, and the ``tensorboard`` logger
   backend raises. Width sharding (``parallel.spatial``) and the result
@@ -81,11 +82,15 @@ def test_port_imports_without_jax():
                  "evaluation.roi", "utils.config", "utils.yaml_subset", "utils.feather",
                  "utils.logging", "utils.rendering", "train", "evaluate", "overfit",
                  "ops.projection", "ops.index", "ops.sorting", "utils.msgpack",
-                 "data.database", "export", "predict"):
+                 "data.database", "export", "predict", "data.native_io", "utils.lz4",
+                 "converters.av2.row_mappings", "converters.av2.log_corrections",
+                 "converters.av2.export", "converters.nuscenes.export",
+                 "converters.waymo.range_image", "converters.waymo.camera",
+                 "converters.waymo.export", "converters.waymo.metadata"):
         assert f"range_view_3d_detection_torch.{name}" in modules
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "range_view_3d_detection_tpu",
               "pyarrow", "yaml", "matplotlib", "polars", "tensorboard", "msgpack",
-              "ml_dtypes", "tools")
+              "ml_dtypes", "tools", "converters")
     code = "\n".join(
         [
             "import importlib, sys, tempfile",
