@@ -8,7 +8,7 @@ check its kernels.
 phase 23's rank process, ``... chip_smoke.py width-rank ARGS`` the
 width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
 ``chip_smoke.py convert WORK`` phase 29's conversion process; the script
-starts them itself.)
+starts them itself. ``chip_smoke.py tools`` runs phases 30-38 alone.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -239,6 +239,58 @@ Phases, each of which raises (non-zero exit) on failure:
     reads the copied poses and map); one val batch served by the flagship
     ``Predictor``.
     K1 and K2 must launch (``converted_launches`` in the kernels line).
+30. the bench: ``python -m range_view_3d_detection_torch.bench`` in a
+    subprocess as a user runs it, int8 (the default), ``--fp``,
+    ``--points`` and with ``RV3D_STEM_INT8=1``, at the flagship (B=2,
+    64x1808, ``nms_cap`` 1024): each JSON line has frames/s above 0, p50 <=
+    p90, ``eager`` in its mode and the card's ``nvidia-smi`` line; the same
+    four modes through ``bench.main`` in this process, counts reset before
+    and read after: K1, K2 and K3 in int8 and points, K1 and K2 (no K3) in
+    bf16, K4 and not K1 under the int8 stem (``bench_*_launches`` in the
+    kernels line); the bench's int8 pipeline on one request equals a
+    ``Predictor.quantize`` built from the same seeded weights and batch
+    (``keep`` identical, cuboids within 1e-3); a bench whose
+    ``Predictor.quantize`` raises exits non-zero with no JSON line;
+31. ``tools.benchmark``: ``--synthetic`` (rv-synthetic fitted one epoch,
+    the staged report's keys, ``nms_ms >= 0``, metrics; ``--iters 10``),
+    ``--loader`` at 64x1800 (frames/s of the host loader) and ``--train``
+    at B=2 (remat on, its default there) for 4 steps, printed beside
+    phases 16's and 22's ms a step;
+32. ``tools.profile_trace --decode --batch 2``: the top kernels of a
+    request by device time, K1's kernel and K2's three among them by name,
+    the trace's summed device time beside phase 6's forward plus decode;
+    ``tools.profile_forward``'s stage times at B=1;
+33. ``tools.flops --train`` at the flagship, B=1: GFLOP and GB per stage
+    and of a train step, K1's FLOPs equal to ``k1_cost``, and the
+    forward's achieved TFLOP/s from phase 6's forward ms;
+34. ``tools.remat_grid``: ``grid()`` at B=2 with 2 timed steps for 3 of
+    its 8 scopes (off, all, stem+loss: a cut); ``tools.profile_train`` at
+    B=2, 4 steps, remat off and on (a cut from B = 1, 2, 4 and 8 steps);
+35. ``tools.quant_accuracy`` on phase 18's run (its state saved as a
+    checkpoint of the run): the tool's scoring of phase 18's predictions
+    equals phase 18's fp mAP; then calibrated on 2 val batches, fp and int8
+    tables and deltas, once with the K1 stem's config (rv-synthetic's
+    accumulate stem), once with ``RV3D_STEM_INT8=1`` (K4 launches), once
+    with ``--qat-steps 20``; K3 and K2 launch in each; the int8 mAP beside
+    phase 18's PTQ;
+36. ``tools.quant_cert_scale --seeds 1 --epochs 2 --sweeps-per-log 8``
+    (training and scoring in subprocesses) and ``tools.scale_drill
+    --sweeps 100 --logs 2 --dense``, each a cut in depth, printed as such;
+    the launches of phases 31-36 (``tools_launches``): all four kernels;
+37. ``utils.compile_opts``: the pipeline of the tiny config at 32
+    channels in bf16 with the K1 stem (B=1 16x256) under
+    ``RV3D_COMPILER_OPTIONS=max_autotune=False`` (``torch.compile``):
+    ``keep`` equal to eager's and not empty, heads within 2e-2 x max|ref|,
+    K1 and K2 launched by the compiled program (``compile_launches``); the
+    bench's compiled pipeline keep-equal to its eager one; an unknown
+    option raises. The flagship is not compiled (a cut);
+38. ``dryrun.entry()`` once (finite heads), then
+    ``dryrun.dryrun_multichip(<cards>)``: its four phases as NCCL ranks in
+    spawned processes, each reporting OK (none skipped for time).
+
+``python3 chip_smoke.py tools`` runs the build and phases 30-38 alone
+(phase 18's run and phase 6's times made for them; phases 16's and 22's
+step times not measured).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -1270,8 +1322,9 @@ def profile_train_step(step, state, batch) -> None:
         f"({100 * busy_ms / wall_ms:.1f}%)")
 
 
-def training_phases(device, smi) -> None:
-    """Phases 12-16: the training step (see the module docstring)."""
+def training_phases(device, smi) -> float:
+    """Phases 12-16: the training step (see the module docstring). Returns
+    phase 16's ms a step."""
     import statistics
     import tempfile
 
@@ -1392,6 +1445,7 @@ def training_phases(device, smi) -> None:
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f" ms; eval step {eval_ms:.3f} ms; peak memory {peak_gb:.2f} GiB; B=2 64x1808 "
         f"bf16 on {smi}")
+    return total
 
 
 def timed_trainer(trainer) -> dict:
@@ -1621,9 +1675,10 @@ def trainer_phase(device, smi) -> dict:
 OVERFIT_EPOCHS = 40
 
 
-def overfit_phase(device, smi) -> dict:
+def overfit_phase(device, smi) -> tuple:
     """Phase 18: the AV2 debug overfit, then the int8 accuracy cost on its
-    weights. Returns the K3 launches of the int8 scoring."""
+    weights, and phase 24. Returns the K3 launches of the int8 scoring,
+    phase 24's launches, and the trained run for phase 35."""
     import tempfile
 
     import torch
@@ -1658,7 +1713,9 @@ def overfit_phase(device, smi) -> dict:
         f"bf16 mAP {out['mAP']:.4f}, int8 (PTQ, full scope, calibrated on the train batches) "
         f"mAP {int8['mAP']:.4f}, int8 launches {launches} (synthetic data) on {smi}")
     qat_launches = qat_phase(trainer, predictor, work, out["mAP"], int8["mAP"], smi)
-    return launches, qat_launches
+    phase18 = {"trainer": trainer, "work": work, "fp_map": out["mAP"], "ptq_map": int8["mAP"],
+               "pred_dir": trainer.run_dir / "predictions"}
+    return launches, qat_launches, phase18
 
 
 # Phase 24: QAT fine-tuning steps and rate (``tools/quant_accuracy.py``'s
@@ -2162,8 +2219,9 @@ def timed_steps(cfg, batch, device, seed) -> tuple:
     return total, split, peak_gb
 
 
-def remat_phase(device, smi) -> None:
-    """Phase 22: remat (``DetectorConfig.remat``) on the flagship step."""
+def remat_phase(device, smi) -> dict:
+    """Phase 22: remat (``DetectorConfig.remat``) on the flagship step.
+    Returns ms a step by case."""
     import dataclasses
 
     import torch
@@ -2187,14 +2245,17 @@ def remat_phase(device, smi) -> None:
     total_mem = torch.cuda.get_device_properties(device).total_memory / 2**30
     batch4 = state_lib.batch_to_device(
         flagship_train_batch(cfg, 4, 64, 1808, seed=SEED + 24), device)
+    step_ms = {}
     for tag, c, b in (("B=2 no remat", cfg, batch2), ("B=2 remat", remat, batch2),
                       ("B=4 remat", remat, batch4)):
         total, split, peak_gb = timed_steps(c, b, device, SEED + 23)
+        step_ms[tag] = total
         check(peak_gb < total_mem, f"{tag}: peak {peak_gb:.2f} GiB of {total_mem:.2f}")
         say(f"remat (phase 22) {tag}: {total:.3f} ms a step (CUDA events, median of 5 after "
             f"2 warm-up) = " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f" ms; peak {peak_gb:.2f} GiB of {total_mem:.2f}; bf16 64x1808 on {smi}")
     say(f"remat phase: {time.perf_counter() - t_phase:.0f} s")
+    return step_ms
 
 
 def distributed_phase(device, smi, corpus_work: Path) -> dict:
@@ -3460,6 +3521,431 @@ def converted_phase(device, smi) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phases 30-38: the bench and the measurement tools, driven as users run
+# them. Cuts in depth (never in the bench's width) are printed where made.
+BENCH_MODES = (  # (tag, arguments, RV3D_STEM_INT8)
+    ("int8", [], False),
+    ("bf16", ["--fp"], False),
+    ("points", ["--points"], False),
+    ("int8 K4 stem", [], True),
+)
+# The kernels each in-process bench mode must launch (> 0) and not (== 0).
+BENCH_EXPECT = {
+    "int8": ({"meta_kernel_fused", "nms_scan", "conv3x3_i8_fused"}, {"meta_kernel_fused_i8"}),
+    "bf16": ({"meta_kernel_fused", "nms_scan"}, {"conv3x3_i8_fused", "meta_kernel_fused_i8"}),
+    "points": ({"meta_kernel_fused", "nms_scan", "conv3x3_i8_fused"}, {"meta_kernel_fused_i8"}),
+    "int8 K4 stem": ({"meta_kernel_fused_i8", "nms_scan", "conv3x3_i8_fused"},
+                     {"meta_kernel_fused"}),
+}
+TOOLS_ENV = ("RV3D_STEM_INT8", "RV3D_BENCH_POINTS", "RV3D_BENCH_BATCH", "RV3D_COMPILER_OPTIONS")
+
+
+def _env(**extra) -> dict:
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k not in TOOLS_ENV}
+    env.update(extra)
+    return env
+
+
+def _set_stem_int8(on: bool) -> None:
+    import os
+
+    if on:
+        os.environ["RV3D_STEM_INT8"] = "1"
+    else:
+        os.environ.pop("RV3D_STEM_INT8", None)
+
+
+def bench_json(stdout: str) -> dict:
+    """The bench's JSON line: the last line of its output that parses as
+    an object with a ``metric``."""
+    for line in reversed(stdout.strip().splitlines()):
+        if line.startswith("{"):
+            try:
+                obj = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if "metric" in obj:
+                return obj
+    raise RuntimeError(f"chip_smoke: no bench JSON line in {stdout[-2000:]!r}")
+
+
+def check_bench_line(tag: str, line: dict, kind: str, smi: str) -> None:
+    check(line["metric"] == "e2e_frames_per_sec_per_chip" and line["unit"] == "frames/s",
+          f"bench {tag}: {line}")
+    check(line["value"] > 0 and line["p50_ms"] <= line["p90_ms"], f"bench {tag}: {line}")
+    check(kind in line["device"] and line["device"] == smi, f"bench {tag}: device "
+          f"{line['device']!r}, card {kind!r} ({smi})")
+    check(line["batch"] == 2 and "eager" in line["mode"], f"bench {tag}: {line}")
+
+
+def bench_phase(device, kind: str, smi: str) -> dict:
+    """Phase 30 (see the module docstring). Returns the in-process launch
+    counts by mode."""
+    import torch
+
+    from range_view_3d_detection_torch import bench, serving
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+
+    t_phase = time.perf_counter()
+    for tag, args, stem in BENCH_MODES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "range_view_3d_detection_torch.bench", *args],
+            cwd=REPO, capture_output=True, text=True, timeout=600,
+            env=_env(**({"RV3D_STEM_INT8": "1"} if stem else {})),
+        )
+        check(proc.returncode == 0, f"bench {tag} exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        line = bench_json(proc.stdout)
+        check_bench_line(tag, line, kind, smi)
+        say(f"bench (phase 30) python -m range_view_3d_detection_torch.bench {' '.join(args)}"
+            f"{' with RV3D_STEM_INT8=1' if stem else ''}: {json.dumps(line)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    launches = {}
+    for tag, args, stem in BENCH_MODES:
+        _set_stem_int8(stem)
+        try:
+            reset_counts()
+            line = bench.main(args)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            _set_stem_int8(False)
+        check_bench_line(f"{tag} in process", line, kind, smi)
+        need, never = BENCH_EXPECT[tag]
+        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
+              f"bench {tag}: launches {counts}")
+        launches[tag] = counts
+        say(f"bench (phase 30) {tag} in process: {line['value']} frames/s, p50 "
+            f"{line['p50_ms']} ms, p90 {line['p90_ms']} ms, launches {counts}")
+
+    # The bench's int8 pipeline against Predictor.quantize from the same
+    # seeded weights and batch.
+    pipeline, args, _, path = bench.build(2, device=device)
+    cfg = serving._flagship_config()
+    ref = serving.Predictor(cfg, DecoderConfig(), device=device,
+                            generator=torch.Generator().manual_seed(0))
+    ref.quantize([serving._sample_inputs(2, 64, 1808, cfg.in_channels)], scope="full")
+    got, want = pipeline(*args), ref(*args)
+    check(path == "int8" and torch.equal(got.keep, want.keep),
+          f"bench int8 pipeline: keep differs from Predictor.quantize ({path})")
+    err = (got.cuboids - want.cuboids)[want.keep].abs().max().item()
+    say(f"bench (phase 30) int8 pipeline == Predictor.quantize on the same seeded weights "
+        f"and batch: keep equal ({int(want.keep.sum())} kept), cuboids max|diff| {err:.3g}")
+    check(err <= 1e-3, f"bench int8 pipeline: cuboids differ by {err}")
+    del pipeline, ref, got, want
+
+    # A quantization that fails makes the bench fail: no bf16 fallback.
+    code = ("import sys; from range_view_3d_detection_torch import bench, serving\n"
+            "def broken(self, *a, **k):\n    raise RuntimeError('quantization made to fail')\n"
+            "serving.Predictor.quantize = broken\nbench.main([])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=600, env=_env())
+    check(proc.returncode != 0 and '"metric"' not in proc.stdout
+          and "quantization made to fail" in proc.stderr,
+          f"bench with a failing quantization: rc {proc.returncode}, {proc.stdout[-500:]!r}")
+    say(f"bench (phase 30): a failing quantization exits {proc.returncode} with no JSON "
+        f"line; phase {time.perf_counter() - t_phase:.0f} s")
+    return launches
+
+
+def tools_phases(device, kind: str, smi: str, *, fwd_ms: float, dec_ms: float,
+                 step_ms: float, remat_ms: float, phase18: dict) -> dict:
+    """Phases 31-38 (see the module docstring). ``fwd_ms`` and ``dec_ms``
+    are phase 6's device ms of a B=2 request's forward and decode + NMS,
+    ``step_ms`` and ``remat_ms`` phases 16's and 22's ms a B=2 step, and
+    ``phase18`` phase 18's trained run. Returns the launch counts of phases
+    31-36 and of phase 37."""
+    import torch
+
+    from range_view_3d_detection_torch.tools import (
+        benchmark,
+        flops,
+        profile_forward,
+        profile_trace,
+        profile_train,
+        quant_accuracy,
+        quant_cert_scale,
+        remat_grid,
+        scale_drill,
+    )
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-tools-"))
+    try:
+        reset_counts()
+        # 31. The staged benchmark, the loader and the train step.
+        t0 = time.perf_counter()
+        rep = benchmark.main(["--synthetic", "--work", str(work / "bench"), "--iters", "10"])
+        keys = ("backbone_head_ms", "decode_ms", "nms_ms", "e2e_ms", "fps", "projection_ms",
+                "points_e2e_ms", "points_fps", "num_points", "metrics", "device")
+        check(all(k in rep for k in keys) and rep["nms_ms"] >= 0
+              and "AVERAGE_METRICS" in rep["metrics"] and rep["device"] == smi,
+              f"tools.benchmark --synthetic: {sorted(rep)}")
+        say(f"tools.benchmark (phase 31) --synthetic: forward {rep['backbone_head_ms']} ms, "
+            f"decode {rep['decode_ms']} ms, NMS {rep['nms_ms']} ms, e2e {rep['e2e_ms']} ms, "
+            f"points {rep['points_e2e_ms']} ms (projection {rep['projection_ms']} ms), mAP "
+            f"{rep['metrics']['AVERAGE_METRICS']['AP']} ({time.perf_counter() - t0:.1f} s; "
+            f"--iters 10, a cut from 20) on {smi}")
+        t0 = time.perf_counter()
+        rep = benchmark.main(["--loader", "--work", str(work / "loader")])
+        check(rep["frames_timed"] > 0 and rep["frames_timed"] % 3 == 0
+              and rep["shape"] == [64, 1800],
+              f"tools.benchmark --loader: {rep}")
+        say(f"tools.benchmark (phase 31) --loader at 64x1800: {rep['loader_frames_per_sec']} "
+            f"frames/s over {rep['frames_timed']} frames, {rep['workers']} workers "
+            f"({time.perf_counter() - t0:.1f} s, the card machine's host CPU)")
+        rep = benchmark.main(["--train", "--batch", "2", "--iters", "4"])
+        check(math.isfinite(rep["loss"]) and rep["remat"], f"tools.benchmark --train: {rep}")
+        say(f"tools.benchmark (phase 31) --train B=2 (remat, the default at B=2), 4 iters: "
+            f"{rep['train_step_ms']} ms a step, {rep['train_frames_per_sec_per_chip']} "
+            f"frames/s; phase 16 {step_ms:.3f} ms without remat, phase 22 {remat_ms:.3f} ms "
+            f"with it (CUDA events) on {smi}")
+
+        # 32. Traces and stage times.
+        t0 = time.perf_counter()
+        summary = profile_trace.main(["--decode", "--batch", "2", "--out",
+                                      str(work / "trace"), "--top", "15"])
+        names = list(summary["by_name"])
+        k1 = [n for n in names if "meta_kernel_fused" in n]
+        k2 = [n for n in names if any(k in n for k in ("nms_mask", "nms_keep", "nms_merge"))]
+        check(k1 and len(k2) == 3, f"profile_trace: K1 {k1}, K2 {k2} among {names[:40]}")
+        say(f"tools.profile_trace (phase 32) B=2 forward + decode + NMS: device time "
+            f"{summary['total_ms']:.3f} ms over {summary['events']} events (phase 6: forward "
+            f"{fwd_ms:.3f} + decode/NMS {dec_ms:.3f} = {fwd_ms + dec_ms:.3f} ms, CUDA events); "
+            f"K1 {k1}, K2 {k2} ({time.perf_counter() - t0:.1f} s) on {smi}")
+        stages = profile_forward.main([])
+        check(all(math.isfinite(stages[k]) and stages[k] > 0
+                  for k in ("stem_ms", "backbone_ms", "heads_ms", "full_forward_ms")),
+              f"profile_forward: {stages}")
+        say(f"tools.profile_forward (phase 32) B=1: {json.dumps(stages)}")
+
+        # 33. FLOPs and bytes per stage.
+        t0 = time.perf_counter()
+        rep = flops.main(["--train"])
+        want_k1 = k1_cost(1, 64, 1808, 256)[0]
+        got_k1 = rep["kernel_gflop"].get("meta_kernel_fused", 0.0) * 1e9
+        check(abs(got_k1 - want_k1) <= 1e-6 * want_k1, f"flops: K1 {got_k1} != {want_k1}")
+        rows = {k: v for k, v in rep.items() if isinstance(v, dict) and "gflop" in v}
+        check(all(math.isfinite(v["gflop"]) and v["gbytes"] > 0 for v in rows.values())
+              and "train_step" in rows, f"flops rows {rows}")
+        fwd_tflops = 2 * rows["forward"]["gflop"] / fwd_ms  # B=2 from B=1's count
+        say(f"tools.flops (phase 33) B=1 64x1808: " + "; ".join(
+            f"{k} {v['gflop']} GFLOP {v['gbytes']} GB" for k, v in rows.items())
+            + f"; K1 {got_k1 / 1e9:.3f} GFLOP == k1_cost; forward achieved "
+            f"{fwd_tflops:.2f} TFLOP/s (2 x {rows['forward']['gflop']} GFLOP in phase 6's "
+            f"{fwd_ms:.3f} ms at B=2) on {smi}; speed of light: {rep['speed_of_light']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # 34. Remat grid (3 of its 8 scopes, 2 iters: a cut) and profile_train.
+        t0 = time.perf_counter()
+        grid = remat_grid.grid((None, remat_grid.SCOPES[1], ("stem", "loss")), 2, 2, device)
+        check(len(grid) == 3 and all("ms_per_step" in r or "infeasible" in r for r in grid),
+              f"remat_grid: {grid}")
+        say(f"tools.remat_grid (phase 34) B=2, 2 iters, scopes off / all / stem+loss (3 of "
+            f"8: a cut): {json.dumps(grid)} ({time.perf_counter() - t0:.1f} s) on {smi}")
+        rows = profile_train.main(["--batches", "2", "--iters", "4"])
+        check(len(rows) == 2 and all("ms_per_step" in r for r in rows),
+              f"profile_train: {rows}")
+        say(f"tools.profile_train (phase 34) B=2 only, 4 iters (a cut from B=1,2,4 x 8): "
+            f"{json.dumps(rows)}")
+
+        torch.cuda.synchronize()
+        before = read_counts()
+        # 35. quant_accuracy on phase 18's run.
+        quant_counts = quant_phase(phase18, work, smi)
+
+        # 36. quant_cert_scale and scale_drill, cut in depth.
+        reset_counts()
+        t0 = time.perf_counter()
+        agg = quant_cert_scale.main(["--seeds", "1", "--epochs", "2", "--sweeps-per-log", "8",
+                                     "--work", str(work / "cert")])
+        check(agg["seeds"] == 1 and math.isfinite(agg["ptq_cds_delta_mean"]),
+              f"quant_cert_scale: {agg}")
+        say(f"tools.quant_cert_scale (phase 36) --seeds 1 --epochs 2 --sweeps-per-log 8 (cut "
+            f"from 3 seeds x 40 epochs x 24 sweeps): {agg['num_val_gts']} val boxes, PTQ AP "
+            f"delta {agg['ptq_ap_delta_mean']:.4f}, CDS delta {agg['ptq_cds_delta_mean']:.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        walls = scale_drill.main(["--sweeps", "100", "--logs", "2", "--dense",
+                                  "--work", str(work / "drill")])
+        check(walls["sweeps"] == 100 and walls["loader_frames"] == 100
+              and walls["num_dets"] > 0, f"scale_drill: {walls}")
+        say(f"tools.scale_drill (phase 36) --sweeps 100 --logs 2 --dense (cut from 1000 x "
+            f"10): {json.dumps(walls)} ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.synchronize()
+        tools_counts = {k: v + before[k] + quant_counts[k] for k, v in read_counts().items()}
+        check(tools_counts["meta_kernel_fused"] > 0 and tools_counts["nms_scan"] > 0
+              and tools_counts["conv3x3_i8_fused"] > 0
+              and tools_counts["meta_kernel_fused_i8"] > 0, f"tools launches {tools_counts}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    compile_counts = compile_phase(device, smi)
+    dryrun_phase(device, smi)
+    return {"tools": tools_counts, "compile": compile_counts}
+
+
+def quant_phase(phase18: dict, work: Path, smi: str) -> dict:
+    """Phase 35: ``tools.quant_accuracy`` on phase 18's trained run.
+    Returns the launch counts of its three runs together."""
+    import torch
+
+    from range_view_3d_detection_torch.tools import quant_accuracy
+    from range_view_3d_detection_torch.training.checkpoints import CheckpointManager
+
+    t0 = time.perf_counter()
+    trainer = phase18["trainer"]
+    CheckpointManager(trainer.run_dir / "checkpoints").save(
+        trainer.state.step, trainer.state, trainer.cfg)
+    fp_same = quant_accuracy.score(phase18["pred_dir"], trainer.cfg, trainer.categories)
+    fp_same = fp_same["AVERAGE_METRICS"]["AP"]
+    check(fp_same == phase18["fp_map"], f"quant_accuracy's scoring of phase 18's "
+          f"predictions: {fp_same} != {phase18['fp_map']}")
+    base = ["--run-dir", str(trainer.run_dir), "--calib-batches", "2"]
+    total = dict.fromkeys(read_counts(), 0)
+    for tag, extra, stem in (("PTQ", [], False), ("PTQ, K4 stem", [], True),
+                             ("QAT 20 steps", ["--qat-steps", "20"], False)):
+        _set_stem_int8(stem)
+        try:
+            reset_counts()
+            out = quant_accuracy.main(base + ["--out", str(work / f"quant_{len(tag)}")] + extra)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            _set_stem_int8(False)
+        total = {k: v + counts[k] for k, v in total.items()}
+        # The int8 stem runs K4; else the stem is K1 only where the config
+        # sets stem_pallas (rv-synthetic does not: the accumulate stem).
+        stems = {"meta_kernel_fused_i8": stem,
+                 "meta_kernel_fused": not stem and trainer.det_cfg.stem_pallas}
+        check(counts["conv3x3_i8_fused"] > 0 and counts["nms_scan"] > 0
+              and all((counts[k] > 0) == want for k, want in stems.items()),
+              f"quant_accuracy {tag}: launches {counts}")
+        check(all(math.isfinite(out[f"mean_ap_{n}"]) for n in ("fp", "int8")),
+              f"quant_accuracy {tag}: {out}")
+        qat = (f", int8 QAT {out['mean_ap_int8_qat']:.4f} (not deterministic on a card: "
+               f"cuDNN's bf16 backward)" if "mean_ap_int8_qat" in out else "")
+        say(f"tools.quant_accuracy (phase 35) {tag}: mAP fp {out['mean_ap_fp']:.4f} "
+            f"(artifact, BatchNorm folded), int8 {out['mean_ap_int8']:.4f}{qat}; AP delta "
+            f"{out['mean_ap_delta']:.4f}, CDS delta {out['mean_cds_delta']:.4f}; phase 18: "
+            f"fp {phase18['fp_map']:.4f} (the tool's scoring of its predictions: "
+            f"{fp_same:.4f}), PTQ {phase18['ptq_map']:.4f}; launches {counts} on {smi}")
+    say(f"tools.quant_accuracy (phase 35): {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def compile_config():
+    """Phase 37's model: the tiny config at 32 channels in bf16 with the K1
+    stem (K1 takes bf16 and C a multiple of 32)."""
+    import dataclasses
+
+    from range_view_3d_detection_torch import serving
+
+    return dataclasses.replace(serving._flagship_config(tiny=True), layers=(32,) * 5,
+                               dtype="bfloat16", stem_pallas=True)
+
+
+def compile_phase(device, smi) -> dict:
+    """Phase 37: the pipeline under ``RV3D_COMPILER_OPTIONS``."""
+    import os
+
+    import torch
+
+    from range_view_3d_detection_torch import bench, serving
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
+    from range_view_3d_detection_torch.utils import compile_opts
+
+    t0 = time.perf_counter()
+    cfg = compile_config()
+    dec = DecoderConfig(nms_cap=256, min_confidence=0.0)
+    predictor = serving.Predictor(cfg, dec, device=device,
+                                  generator=torch.Generator().manual_seed(SEED + 37))
+    model = predictor.model
+    args = tuple(torch.as_tensor(a, device=device) for a in serving._sample_inputs(1, 16, 256, 5))
+
+    def pipeline(feats, cart, mask):
+        with torch.no_grad():
+            out = model(feats, cart, mask)
+            return out["head"][1][0], decode(out, dec, cfg.tasks_dict, use_nms=True)
+
+    heads, want = pipeline(*args)
+    option = "max_autotune=False"
+    os.environ[compile_opts.ENV_VAR] = option
+    try:
+        compiled = compile_opts.jit_env_options(pipeline)
+        check(compiled is not pipeline, "jit_env_options ignored the options")
+        t1 = time.perf_counter()
+        compiled(*args)
+        compile_s = time.perf_counter() - t1
+        reset_counts()
+        got_heads, got = compiled(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        os.environ[compile_opts.ENV_VAR] = "no_such_option=1"
+        try:
+            compile_opts.jit_env_options(pipeline)(*args)
+        except RuntimeError as e:
+            refused = str(e).split(",")[0]
+        else:
+            check(False, "an unknown compiler option was accepted")
+    finally:
+        os.environ.pop(compile_opts.ENV_VAR, None)
+    check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
+          f"compiled pipeline launches {counts}")
+    check(torch.equal(got.keep, want.keep) and bool(want.keep.any()),
+          f"compiled pipeline: keep differs from eager or is empty ({int(want.keep.sum())})")
+    errs = {}
+    for key in ("logits", "regressands"):
+        ref = heads[key].float()
+        err = (got_heads[key].float() - ref).abs().max().item()
+        check(err <= 2e-2 * ref.abs().max().item(), f"compiled {key}: max|diff| {err}")
+        errs[key] = err
+    # The bench's own compiled path on the same config.
+    os.environ[compile_opts.ENV_VAR] = option
+    try:
+        bench_kw = dict(fp=True, device=device, cfg=cfg, height=16, width=256,
+                        state_dict=model.state_dict())
+        served, bench_args, _, _ = bench.build(1, **bench_kw)
+    finally:
+        os.environ.pop(compile_opts.ENV_VAR, None)
+    eager, _, _, _ = bench.build(1, **bench_kw)
+    got_b, want_b = served(*bench_args), eager(*bench_args)
+    check(torch.equal(got_b.keep, want_b.keep), "the bench compiled: keep differs from eager")
+    say(f"compile (phase 37) RV3D_COMPILER_OPTIONS={option}, the tiny config at 32 channels "
+        f"bf16 with K1, B=1 16x256 (the flagship not compiled: a cut): compiled in "
+        f"{compile_s:.1f} s, keep equal to eager ({int(want.keep.sum())} kept), heads "
+        f"max|diff| {errs}, launches {counts}; the bench's compiled pipeline keep equal to "
+        f"its eager one; an unknown option raises ({refused}); phase "
+        f"{time.perf_counter() - t0:.0f} s on {smi}")
+    return counts
+
+
+def dryrun_phase(device, smi) -> None:
+    """Phase 38: ``dryrun.entry()`` and ``dryrun_multichip`` over NCCL."""
+    import torch
+
+    from range_view_3d_detection_torch import dryrun
+
+    t0 = time.perf_counter()
+    model, inputs = dryrun.entry()
+    with torch.inference_mode():
+        out = model(*inputs)
+    head = out["head"][1][0]
+    check(all(bool(torch.isfinite(v).all()) for v in head.values()), "entry(): non-finite")
+    del model, inputs, out, head
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    results = dryrun.dryrun_multichip(n)
+    check(all(r["status"] == "ok" for r in results.values()) and len(results) == 4,
+          f"dryrun_multichip({n}): {results}")
+    say(f"dryrun (phase 38): entry() finite; dryrun_multichip({n}) over NCCL: "
+        + "; ".join(f"{k} {v['result']}" for k, v in results.items())
+        + f" ({time.perf_counter() - t0:.0f} s) on {smi}")
+
+
 def flagship_predictor(cfg, dec, device, gen, request):
     """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
     non-trivial BatchNorm statistics, and each head's final conv scaled to
@@ -3733,14 +4219,14 @@ def main() -> int:
                            device, gen, smi)
     del predictor, model, results, bf16_results, bf16_heads, out, made, k1_in, k1_waymo, k2_in
     torch.cuda.empty_cache()
-    training_phases(device, smi)
+    step_ms = training_phases(device, smi)
     torch.cuda.empty_cache()
-    remat_phase(device, smi)
+    remat_ms = remat_phase(device, smi)
     torch.cuda.empty_cache()
     trainer_launches, trainer_work = trainer_phase(device, smi)
     torch.cuda.empty_cache()
     distributed_launches = distributed_phase(device, smi, trainer_work)
-    int8_launches, qat_launches = overfit_phase(device, smi)
+    int8_launches, qat_launches, phase18 = overfit_phase(device, smi)
     torch.cuda.empty_cache()
     try:
         serving_launches = serving_phases(art_dir, requests, phase5_results, phase5_heads,
@@ -3754,6 +4240,12 @@ def main() -> int:
     range_partition_phase(device, smi)
     torch.cuda.empty_cache()
     converted_launches = converted_phase(device, smi)
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(device, kind, smi)
+    torch.cuda.empty_cache()
+    tool_launches = tools_phases(device, kind, smi, fwd_ms=fwd_ms, dec_ms=dec_ms,
+                                 step_ms=step_ms, remat_ms=remat_ms["B=2 remat"],
+                                 phase18=phase18)
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -3774,6 +4266,10 @@ def main() -> int:
         k["chunk_launches"] = chunk_launches[k["name"]]
         k["aot_launches"] = aot_launches[k["name"]]
         k["converted_launches"] = converted_launches[k["name"]]
+        for tag, counts in bench_launches.items():
+            k[f"bench_{tag.replace(' ', '_')}_launches"] = counts[k["name"]]
+        k["tools_launches"] = tool_launches["tools"][k["name"]]
+        k["compile_launches"] = tool_launches["compile"][k["name"]]
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -3781,7 +4277,74 @@ def main() -> int:
     return 0
 
 
+def phase18_light(device, smi) -> dict:
+    """Phase 18's run without phase 24 (for ``chip_smoke.py tools``)."""
+    from range_view_3d_detection_torch import overfit
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-overfit-"))
+    out = overfit.run("av2", OVERFIT_EPOCHS, work)
+    trainer = out["trainer"]
+    predictor = overfit.int8_predictor(trainer)
+    int8 = overfit.score(trainer, overfit.write_predictor_shards(
+        trainer, predictor, work / "int8_predictions"))
+    say(f"overfit (phase 18, for the tools): bf16 mAP {out['mAP']:.4f}, int8 mAP "
+        f"{int8['mAP']:.4f} on {smi}")
+    return {"trainer": trainer, "work": work, "fp_map": out["mAP"], "ptq_map": int8["mAP"],
+            "pred_dir": trainer.run_dir / "predictions"}
+
+
+def tools_main() -> int:
+    """``chip_smoke.py tools``: the build, then phases 30-38 alone (phase 18's
+    run and phase 6's forward and decode times made here; phases 16's and
+    22's step times not measured)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.kernels import _build
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
+    lib = _build.library()
+    say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
+    cfg, dec = serving._flagship_config(), DecoderConfig()
+    request = serving._sample_inputs(2, 64, 1808, 5)
+    predictor = flagship_predictor(cfg, dec, device, torch.Generator().manual_seed(SEED),
+                                   request)
+    tensors = [torch.as_tensor(a, device=device) for a in request]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: predictor.model(*tensors), reps=5)
+        out = predictor.model(*tensors)
+        dec_ms = cuda_ms(lambda: decode(out, dec, cfg.tasks_dict, use_nms=True), reps=5)
+    del predictor, out
+    torch.cuda.empty_cache()
+    phase18 = phase18_light(device, smi)
+    bench_launches = bench_phase(device, kind, smi)
+    torch.cuda.empty_cache()
+    tool_launches = tools_phases(device, kind, smi, fwd_ms=fwd_ms, dec_ms=dec_ms,
+                                 step_ms=math.nan, remat_ms=math.nan, phase18=phase18)
+    say(json.dumps({"bench": bench_launches, **tool_launches}))
+    say(f"chip_smoke tools: total {time.perf_counter() - t_start:.0f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["tools"]:
+        sys.exit(tools_main())
     if sys.argv[1:2] == ["train-rank"]:
         sys.exit(train_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["width-rank"]:

@@ -53,6 +53,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from range_view_3d_detection_torch import serving
 from range_view_3d_detection_torch.data.dataset import (
@@ -550,9 +551,10 @@ def _sample_points(B, n, H, W_sensor, seed=0):
 
 
 def _sync(result) -> float:
-    """Read the first leaf of a result back to the host: a request ends
-    when its detections are on the host, not when its launches return."""
-    leaf = result[0] if isinstance(result, tuple) else result
+    """Read the first tensor of a result (any nest of tuples, lists and
+    dicts) back to the host: a request ends when its detections are on the
+    host, not when its launches return."""
+    leaf = next(x for x in pytree.tree_leaves(result) if isinstance(x, torch.Tensor))
     return float(leaf.float().sum())
 
 

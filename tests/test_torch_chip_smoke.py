@@ -331,3 +331,56 @@ def test_write_feather_lz4_reads_in_pyarrow(tmp_path):
         got = table.column(k).to_numpy(zero_copy_only=False)
         assert got.dtype == (object if v.dtype.kind == "U" else v.dtype)
         assert got.tolist() == v.tolist()
+
+
+# -- phases 30-38: the bench and the measurement tools --------------------------
+
+
+def _bench_line(**kw):
+    line = {"metric": "e2e_frames_per_sec_per_chip", "value": 29.1, "unit": "frames/s",
+            "path": "int8", "inputs": "range images", "mode": "int8 eager",
+            "p50_ms": 69.9, "p90_ms": 71.6, "batch": 2,
+            "device": "NVIDIA H100 80GB HBM3, 700.00 W"}
+    line.update(kw)
+    return line
+
+
+def test_bench_json_is_the_last_metric_line():
+    import json
+
+    first = json.dumps({"latency_ms_p50": 1.0})
+    out = "\n".join(["log", first, json.dumps(_bench_line()), "{not json"])
+    assert chip_smoke.bench_json(out) == _bench_line()
+    with pytest.raises(RuntimeError, match="no bench JSON line"):
+        chip_smoke.bench_json(first)
+
+
+def test_check_bench_line_gates():
+    kind, smi = "NVIDIA H100 80GB HBM3", "NVIDIA H100 80GB HBM3, 700.00 W"
+    chip_smoke.check_bench_line("int8", _bench_line(), kind, smi)
+    for bad in (dict(value=0.0), dict(p50_ms=80.0), dict(device="cpu"),
+                dict(metric="frames"), dict(mode="int8 torch.compile(x=1)"), dict(batch=1)):
+        with pytest.raises(RuntimeError):
+            chip_smoke.check_bench_line("int8", _bench_line(**bad), kind, smi)
+
+
+def test_bench_modes_and_their_kernels():
+    """Every bench mode says which kernels must and must not launch, and
+    the two sets name the four wrappers' counters."""
+    from range_view_3d_detection_torch import bench
+
+    names = {"meta_kernel_fused", "nms_scan", "conv3x3_i8_fused", "meta_kernel_fused_i8"}
+    assert [m[0] for m in chip_smoke.BENCH_MODES] == list(chip_smoke.BENCH_EXPECT)
+    for tag, args, stem in chip_smoke.BENCH_MODES:
+        need, never = chip_smoke.BENCH_EXPECT[tag]
+        assert need | never <= names and not need & never and "nms_scan" in need
+        assert ("meta_kernel_fused_i8" in need) == stem
+        parsed = bench.main(args + ["--dry-parse"])
+        assert parsed == 0.0
+
+
+def test_compile_config_takes_k1():
+    """Phase 37's model is one K1 takes: bf16, C a multiple of 32, the
+    fused stem on."""
+    cfg = chip_smoke.compile_config()
+    assert cfg.dtype == "bfloat16" and cfg.stem_pallas and cfg.layers[0] % 32 == 0

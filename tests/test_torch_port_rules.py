@@ -9,8 +9,10 @@
   binding, the LZ4 twin and the converters are among them; in
   that process ``rv-av2`` composes, a Feather file and a msgpack tree
   round-trip, a PNG is drawn and decoded, and the ``tensorboard`` logger
-  backend raises. Width sharding (``parallel.spatial``) and the result
-  types (``results``) are among the modules.
+  backend raises. Width sharding (``parallel.spatial``), the result
+  types (``results``), the bench, the dry run, the compiler-options and
+  W&B utilities and every measurement tool (``tools.*``) are among the
+  modules.
 - Importing the port registers the four kernels as ``torch.library``
   custom ops (``rv3d::meta_kernel_fused``, ``rv3d::nms_scan``,
   ``rv3d::conv3x3_i8``, ``rv3d::meta_kernel_fused_i8``) and builds
@@ -24,8 +26,9 @@
   modules that import without JAX.
 - Entry points default to the card: on a host without a CUDA device,
   ``Predictor`` and ``Trainer`` with their default device, ``python
-  chip_smoke.py`` and ``python chip_scaling.py`` fail loudly instead of
-  running on the CPU.
+  chip_smoke.py``, ``python chip_scaling.py`` and ``python -m
+  range_view_3d_detection_torch.bench`` fail loudly (the bench naming
+  the missing device) instead of running on the CPU.
 - The flax -> torch transplant round-trips every leaf of the tiny
   config's variables, and loads strictly into the port's Detector; a JAX
   quant tree round-trips through the scales of the quantized port model.
@@ -86,7 +89,11 @@ def test_port_imports_without_jax():
                  "converters.av2.row_mappings", "converters.av2.log_corrections",
                  "converters.av2.export", "converters.nuscenes.export",
                  "converters.waymo.range_image", "converters.waymo.camera",
-                 "converters.waymo.export", "converters.waymo.metadata"):
+                 "converters.waymo.export", "converters.waymo.metadata", "bench", "dryrun",
+                 "utils.compile_opts", "utils.wandb", "tools", "tools.benchmark",
+                 "tools.profile_trace", "tools.profile_forward", "tools.profile_train",
+                 "tools.remat_grid", "tools.flops", "tools.quant_accuracy",
+                 "tools.quant_cert_scale", "tools.scale_drill"):
         assert f"range_view_3d_detection_torch.{name}" in modules
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "range_view_3d_detection_tpu",
               "pyarrow", "yaml", "matplotlib", "polars", "tensorboard", "msgpack",
@@ -173,6 +180,12 @@ def test_entry_points_refuse_a_host_without_gpu(tmp_path):
         capture_output=True, text=True, timeout=120, cwd=REPO,
     )
     assert scaling.returncode != 0 and "two or more CUDA devices" in scaling.stderr
+    bench = subprocess.run(
+        [sys.executable, "-m", "range_view_3d_detection_torch.bench"],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+    )
+    assert bench.returncode != 0 and "no CUDA device" in bench.stderr
+    assert '"metric"' not in bench.stdout
 
 
 def test_transplant_round_trips_tiny_tree():
