@@ -8,7 +8,7 @@ check its kernels.
 phase 23's rank process, ``... chip_smoke.py width-rank ARGS`` the
 width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
 ``chip_smoke.py convert WORK`` phase 29's conversion process; the script
-starts them itself. ``chip_smoke.py tools`` runs phases 30-38 alone.)
+starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
@@ -32,8 +32,8 @@ Phases, each of which raises (non-zero exit) on failure:
    matrices (zeros on the diagonal, asymmetric, invalid boxes in the
    middle, every box suppressed, duplicated boxes) at cap 37, 100 and
    1024, and with the IoU and scores 4 bytes off a 16-byte boundary at
-   cap 1024: ``keep`` identical, ``merged`` within 1e-4; cap 4097 and a
-   payload of 8 are refused;
+   cap 1024: ``keep`` identical, ``merged`` within 1e-4; a payload of 8
+   is refused (caps past 4096: phase 39);
 5. main path: ATen's CUDA ``addcmul``, on which the BatchNorm epilogue
    rests, must be one fused multiply-add (equal to a correctly rounded
    fp64 reference on 4M values); ``Predictor`` on the full rv-av2 flagship
@@ -286,9 +286,38 @@ Phases, each of which raises (non-zero exit) on failure:
     option raises. The flagship is not compiled (a cut);
 38. ``dryrun.entry()`` once (finite heads), then
     ``dryrun.dryrun_multichip(<cards>)``: its four phases as NCCL ranks in
-    spawned processes, each reporting OK (none skipped for time).
+    spawned processes, each reporting OK (none skipped for time);
+39. K2 past cap 4096 (the shared-memory keep): against its twin, WEIGHTED
+    and HARD (``keep`` equal, ``merged`` within 1e-4), at B 1 and 2 x cap
+    4097, 4160, 8192 and 9216 (B 1: the B 2 case's first image, held to the
+    same twin run, which scans each image apart) and at B 1 x cap 16384
+    (WEIGHTED: ``keep`` does not depend on the mode, and the twin takes
+    seconds a call there), the IoU matrices built in row blocks; the JAX package's dense scene
+    (``tests/test_nms_cap.py::_dense_scene``'s draws) through
+    ``batched_multiclass_nms`` at cap 9216, its kept set equal to the plain
+    scan on the same IoU matrix; K2's time at cap 9216, B=2 (eager and
+    graph replay, the device time of its three kernels) beside its byte
+    bound, chain floor (a model) and the twin's time (its WEIGHTED call in
+    the B 2 check), and the device time
+    of its three kernels (taken in phase 6: late in the process the
+    profiler records no kernels) (``anycap_launches`` in the kernels line
+    counts the checks' launches);
+40. phase 38's dry-run phase 3 trained on the JAX ``(data, model)``
+    layout (``dryrun.mesh_layout``: (1, 1) on one card);
+41. Feather with ZSTD bodies on a machine without pyarrow: the fixture
+    that pyarrow wrote at levels 1 and 19 (``FEATHER_ZSTD``, base64) read by
+    ``utils/feather.py``, every column equal to its digest taken here
+    (nulls as NaN and None); every ZSTD frame of it decoded by the native
+    library equal to the pure-Python twin; MB/s of both;
+42. the hardware tools as subprocesses, each exiting 0:
+    ``tools.validate_nms`` in WEIGHTED and HARD at caps 1024, 2048, 4096 and
+    9216 (N = 9216 proposals; K2 against the plain scan; the two modes side
+    by side, so their times are not clean), ``tools.conv_ab --reps 3`` (K3
+    against ``_int_mm``'s lowering, bit for bit, then per shape and per
+    request) and ``tools.fold_bench --stage res3`` with and without
+    ``--int8``, each alone (``hw_tools_launches``: their launches).
 
-``python3 chip_smoke.py tools`` runs the build and phases 30-38 alone
+``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
 step times not measured).
 
@@ -586,7 +615,7 @@ def nms_case(B, cap, gen, device, duplicated=False):
     image at a time; ``duplicated``: each box twice with the same score."""
     import torch
 
-    from range_view_3d_detection_torch.ops.iou import iou_rotated_bev
+    from range_view_3d_detection_torch.ops.nms import iou_matrix
 
     def u(lo, hi, *shape):
         return torch.rand(shape, generator=gen) * (hi - lo) + lo
@@ -610,7 +639,8 @@ def nms_case(B, cap, gen, device, duplicated=False):
          scores[..., None]], dim=-1,
     )
     bev = boxes[..., [0, 1, 3, 4, 6]]
-    iou = torch.stack([iou_rotated_bev(bev[b], bev[b]) for b in range(B)])
+    # One image at a time; past cap 4096 in row blocks (equal bit for bit).
+    iou = torch.cat([iou_matrix(bev[b : b + 1]) for b in range(B)])
     return iou, scores, scores >= 0.1, payload
 
 
@@ -651,15 +681,18 @@ def misaligned(t):
     return out
 
 
-def check_k2(tag, inputs) -> float:
-    """K2 against its plain twin, WEIGHTED and HARD: ``keep`` identical,
-    ``merged`` within 1e-4. Returns max|merged diff|."""
+K2_MODES = (("WEIGHTED", 0.5), ("HARD", 1.01))
+
+
+def check_k2(tag, inputs, modes=K2_MODES) -> float:
+    """K2 against its plain twin in ``modes`` (WEIGHTED and HARD):
+    ``keep`` identical, ``merged`` within 1e-4. Returns max|merged diff|."""
     import torch
 
     from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
 
     worst, kept = 0.0, []
-    for mode, merge in (("WEIGHTED", 0.5), ("HARD", 1.01)):
+    for mode, merge in modes:
         kw = dict(iou_threshold=0.3, merge_threshold=merge)
         keep, merged = nms_scan(*inputs, **kw)
         keep_p, merged_p = nms_scan_plain(*inputs, **kw)
@@ -670,8 +703,9 @@ def check_k2(tag, inputs) -> float:
         check(err <= 1e-4, f"K2 {tag} {mode}: merged max|diff| {err} > 1e-4")
         worst = max(worst, err)
         kept.append(int(keep.sum()))
-    say(f"K2 {tag}: keep identical (kept {kept[0]} WEIGHTED, {kept[1]} HARD of "
-        f"{int(inputs[2].sum())} valid), merged max|diff| {worst:.3g} ok")
+    say(f"K2 {tag}: keep identical (kept "
+        + ", ".join(f"{n} {mode}" for n, (mode, _) in zip(kept, modes))
+        + f" of {int(inputs[2].sum())} valid), merged max|diff| {worst:.3g} ok")
     return worst
 
 
@@ -683,10 +717,15 @@ def kernel_device_us(fn, names, calls: int = 5) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    # A first, untraced step warms the profiler: in a process that has
+    # profiled before, a session's first kernels can go unrecorded.
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     found = dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         for n in names:
@@ -3784,8 +3823,8 @@ def tools_phases(device, kind: str, smi: str, *, fwd_ms: float, dec_ms: float,
         shutil.rmtree(work, ignore_errors=True)
 
     compile_counts = compile_phase(device, smi)
-    dryrun_phase(device, smi)
-    return {"tools": tools_counts, "compile": compile_counts}
+    dryrun = dryrun_phase(device, smi)
+    return {"tools": tools_counts, "compile": compile_counts, "dryrun": dryrun}
 
 
 def quant_phase(phase18: dict, work: Path, smi: str) -> dict:
@@ -3923,8 +3962,9 @@ def compile_phase(device, smi) -> dict:
     return counts
 
 
-def dryrun_phase(device, smi) -> None:
-    """Phase 38: ``dryrun.entry()`` and ``dryrun_multichip`` over NCCL."""
+def dryrun_phase(device, smi) -> dict:
+    """Phase 38: ``dryrun.entry()`` and ``dryrun_multichip`` over NCCL;
+    returns its results (phase 40 reads phase 3's)."""
     import torch
 
     from range_view_3d_detection_torch import dryrun
@@ -3944,6 +3984,507 @@ def dryrun_phase(device, smi) -> None:
     say(f"dryrun (phase 38): entry() finite; dryrun_multichip({n}) over NCCL: "
         + "; ".join(f"{k} {v['result']}" for k, v in results.items())
         + f" ({time.perf_counter() - t0:.0f} s) on {smi}")
+    return results
+
+
+# Phase 39: K2 past the register keep's cap 4096.
+NMS_BIG_CAPS = (4097, 4160, 8192, 9216)
+# Phase 41: a Feather file pyarrow 25.0.0 wrote with ZSTD bodies at level 1
+# (two record batches) and 19 (one), from the same 200-row table: float32
+# with nulls, uint8 with nulls, int16, bool with nulls, a dictionary of
+# strings with null indices, strings with nulls, binary with nulls, int64
+# (tests/test_torch_feather_zstd.py writes it again and holds the port's
+# reading of these bytes to pyarrow's). The card's machine has no pyarrow.
+FEATHER_ZSTD = {
+    1: (
+        "QVJST1cxAAD/////AAIAABAAAAAAAAoADAAGAAUACAAKAAAAAAEEAAQAAAAQ////BAAAAAgAAACsAQAAZAEA"
+        "ACgBAAD4AAAAqAAAAGwAAABAAAAABAAAAIT+//8AAAECEAAAACAAAAAEAAAAAAAAAAwAAAB0aW1lc3RhbXBf"
+        "bnMAAAAA+P7//wAAAAFAAAAAvP7//wAAAQQQAAAAGAAAAAQAAAAAAAAABAAAAGJsb2IAAAAAVP///+T+//8A"
+        "AAEFEAAAABgAAAAEAAAAAAAAAAYAAABsb2dfaWQAAHz///8QABgACAAGAAcADAAQABQAEAAAAAAAAQUUAAAA"
+        "PAAAACQAAAAEAAAAAAAAAAgAAABjYXRlZ29yeQAAAAAIAAgAAAAEAAgAAAAEAAAAoP///wAAAAEgAAAA2P//"
+        "/2j///8AAAEGEAAAABwAAAAEAAAAAAAAAAUAAAB2YWxpZAAAAAQABAAEAAAAlP///wAAAQIQAAAAIAAAAAQA"
+        "AAAAAAAABQAAAGxhc2VyAAAACAAMAAgABwAIAAAAAAAAARAAAADM////AAABAhAAAAAgAAAABAAAAAAAAAAJ"
+        "AAAAaW50ZW5zaXR5AAYACAAEAAYAAAAIAAAAEAAUAAgABgAHAAwAAAAQABAAAAAAAAEDEAAAABgAAAAEAAAA"
+        "AAAAAAEAAAB4AAYACAAGAAYAAAAAAAEA/////8AAAAAUAAAAAAAAAAwAGAAGAAUACAAMAAwAAAAAAgQAGAAA"
+        "AGAAAAAAAAAAAAAAAAgACAAAAAQACAAAABAAAAAMAB4AEAAEAAgADAAMAAAAYAAAACQAAAAYAAAAAwAAAAAA"
+        "AAAAAAAAAAAGAAgABwAGAAAAAAAAAQMAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAhAAAAAAAAACgAAAAA"
+        "AAAAMQAAAAAAAAAAAAAAAQAAAAMAAAAAAAAAAAAAAAAAAAAQAAAAAAAAACi1L/0gEIEAAAAAAAAPAAAAGQAA"
+        "ACAAAAAAAAAAAAAAIAAAAAAAAAAotS/9ICABAQBSRUdVTEFSX1ZFSElDTEVQRURFU1RSSUFOQk9MTEFSRAAA"
+        "AAAAAAD/////EAIAABQAAAAAAAAADAAYAAYABQAIAAwADAAAAAADBAAcAAAAkAcAAAAAAAAAAAAADAAeABAA"
+        "BAAIAAwADAAAAFABAAAkAAAAGAAAAGQAAAAAAAAAAAAAAAAABgAIAAcABgAAAAAAAAESAAAAAAAAAAAAAAAq"
+        "AAAAAAAAADAAAAAAAAAAgAEAAAAAAACwAQAAAAAAACoAAAAAAAAA4AEAAAAAAAB5AAAAAAAAAGACAAAAAAAA"
+        "AAAAAAAAAABgAgAAAAAAAGQAAAAAAAAAyAIAAAAAAAAqAAAAAAAAAPgCAAAAAAAAKgAAAAAAAAAoAwAAAAAA"
+        "ACoAAAAAAAAAWAMAAAAAAABKAAAAAAAAAKgDAAAAAAAAKgAAAAAAAADYAwAAAAAAAOQAAAAAAAAAwAQAAAAA"
+        "AAAqAAAAAAAAAPAEAAAAAAAAKgAAAAAAAAAgBQAAAAAAAKkAAAAAAAAA0AUAAAAAAABeAAAAAAAAADAGAAAA"
+        "AAAAAAAAAAAAAAAwBgAAAAAAAGABAAAAAAAAAAAAAAgAAABkAAAAAAAAAAkAAAAAAAAAZAAAAAAAAAAEAAAA"
+        "AAAAAGQAAAAAAAAAAAAAAAAAAABkAAAAAAAAAAgAAAAAAAAAZAAAAAAAAAAJAAAAAAAAAGQAAAAAAAAAFAAA"
+        "AAAAAABkAAAAAAAAABgAAAAAAAAAZAAAAAAAAAAAAAAAAAAAABkAAAAAAAAAKLUv/SAZyQAA97///763///r"
+        "//v//+//+9//3///v////wAAAAAAAJABAAAAAAAAKLUv/WCQAHULAMbXVz8gc5o1TtPcCxD/CcK87sc9rUr2"
+        "fN4I4wHevq6hFLcQGHVkBwBoSDAjThpJAqYvEY+mQOG5Tp75mDOsMccalAFIAEQARQASXmwukcYDWOIYqG0P"
+        "H3snrI4wNQ+Q8gNTs/Wxa9jmGUi4rkcGnmQgdMJZYrep0yIQXQSi3Y4VT6cyNV0ODjNEsW5GnTqUbQaX8L5V"
+        "puYb3rcJxeYscRXSuI46vSIDT6HYPzLhPqjthtjoWsLqgtTplLAyCatRWCKOS7sGtf1d2iwy4SMy4Ru87wI2"
+        "OoO4tD9I4wJO50xYbYHDXOHS7pCBl0jjHE5nDpd2A2r7gY12QLEnWOIhOMwmMnAaUu7CRqNAdBs2OoYlLoPD"
+        "XMumTmKbAVdm4A0BoQtgxXMFXNolcLkY8L47QrHLoE6X2uaFII03wcdeBVJeBHW60/vmUadbQPQUNhoGCbfn"
+        "cvnEpi4iA78g5SNhNQVOJwQEAtMuTl7ki+0zzRkAAAAAAAAAKLUv/SAZyQAA///v/////7//7//v///9///v"
+        "v/+f/////wAAAAAAAGgAAAAAAAAAKLUv/SBoQQMA1wVNw85maYU4u2DgnEii3zO8B5BuoaRA5y2cGR6Zw/6a"
+        "81eotPkq0WQg2kpv8tJzrGlpbxE+vbaW7hFCURYRN3PLhiXd/xMbvJlre4EvBI6Xecho74wCsSoOAg7AUUza"
+        "L28kMkoj3/oAAAAAAAAAyAAAAAAAAAAotS/9IMidAgACSBIIEPhsBh+rTAF7eXd1c3FvbWtpZ2VjYV9dW1lX"
+        "VVNRT01LSUdFQ0E/PTs5NzUzMS8tKyknJSMhHx0bGRcVExEPDQsJBwUDAb8DAQCAGqBGCgAAAAAZAAAAAAAA"
+        "ACi1L/0gGckAAP3+ff//vf//9/v//+/37/p++/ev/W////cAAAAAAAAZAAAAAAAAACi1L/0gGckAAC3/J05/"
+        "fH33v3Oenv691p/t/X599t/+890AAAAAAAAZAAAAAAAAACi1L/0gGckAAP/3df+/////97//++23f+XZ/+1/"
+        "7/9v/98AAAAAAACQAQAAAAAAACi1L/1gkADFAQCQAAAAAAEAAAACAAICAAEAAgIBEgCAAASAQDrwAVYgIA+s"
+        "AC8A4oANYGMwIOAB7EAIQMALAwNAAgAAAAAAABkAAAAAAAAAKLUv/SAZyQAAX3/67X+6//P/s/f39W9+1+m/"
+        "fV//v+3/7wAAAAAAAJQBAAAAAAAAKLUv/WCUAJUGAMaRKy8wVTKMAVhpvTxWjJjJwlp2Uw+PFSNmsrCW3dTD"
+        "Y8WImSycSNwyL1vMncFsTNsyBRwAHQAeAFVQbnKSixzkHhwax7jFKS5xiDswJNzgAwf46QMK7+ARvICHeiWk"
+        "G51ICOg+57nOcW5zmssc5i4sB/fyWt7KS3knr+SNvJD38Trexst4FxVv4kW8h9fwAq/qVS28EF4FL4FXaple"
+        "0jt6RW/oBb2fnrfzct5NzZuJGQ8AQV6CMYL8QdYFDAwwBWQJsigwD2QdZAb5BswAWTxzTAAAAABAAgAAAAAA"
+        "ACi1L/1gQAHFAACIbG9nLTAwMDFsb2ctMDAxbG8BACxUFSMAAAAAAAAZAAAAAAAAACi1L/0gGckAANLbv6ut"
+        "792Tv////nYv/1330PPWn/6+238AAAAAAACUAQAAAAAAACi1L/1glAC9BACSShcYQL0bDjyy0W677bbbzhht"
+        "A9tgiUqm2dcUf3/f6Z477jdb7bTZZY8d9rrrrbNWVz111Omml04aXRQ66ON5h/PNNZljfrFUKJNLIpDHHQ3G"
+        "F1c8gTjcUDjhgwsCgAMcAMA8yAzkF+QP5A/kD+QPMg2qAseAeyBKECVwAtyByIB7wAlwF0QFjgXugWPAvcA9"
+        "cGwXBQawAAAAAAAAAMAAAAAAAAAAKLUv/SDAbQIAogUJhREREW1LcguAP/8Lkk1/S+mfXJL8tklC25LcBAAt"
+        "JSkJMEkmDwBaSQABbIy7Rh42DOw8gAbacKMGB1QhIEK0EIef0EZU4lzeFBQAACADAAAAAAAAKLUv/WAgAnUK"
+        "AIQTABAJpSGMYgQA8f6q0vSws+q2lOC8ddbCVszIN8LOGLjU+a3a2qPgu5nmnI/sfYXyXnv4P3H+IGcEIgFd"
+        "CuJSEMNIFqQ+HIU0ImYqKEcgLigWNAkMOuoBQMv3RaztS43jUW7ZV0/PXTDFYxG7afKwb9OmdbSce5WSgXaI"
+        "h1d+jTh0kxlqmfpfn9tVpbxLq51BsX43t18tvUAjwyEZyQIPz+ME1cT62qXw4Ibm5mfc7EjS8inI+Aq+/uuz"
+        "BCPMqQqtnxCOlRZvixxQgSIxdygSbS7zYjTUWDq1TkCWREZ3OkxYMFI5JlgaHF77EWTcB2q9/W+e83V/6Xtg"
+        "34FB1Yciy40DwZPktpnFrJ+moqWHmKtojrFJhLcqer0LcMPsZcnNW8+uUdWPR9twPeFRM+cyKe0TH/MjjGIE"
+        "YqgQ/OwZ4NcQED97W+CqA4P5lAL/////EAIAABQAAAAAAAAADAAYAAYABQAIAAwADAAAAAADBAAcAAAA+AYA"
+        "AAAAAAAAAAAADAAeABAABAAIAAwADAAAAFABAAAkAAAAGAAAAGQAAAAAAAAAAAAAAAAABgAIAAcABgAAAAAA"
+        "AAESAAAAAAAAAAAAAAAeAAAAAAAAACAAAAAAAAAAdQEAAAAAAACYAQAAAAAAAB4AAAAAAAAAuAEAAAAAAAB1"
+        "AAAAAAAAADACAAAAAAAAAAAAAAAAAAAwAgAAAAAAAGQAAAAAAAAAmAIAAAAAAAAeAAAAAAAAALgCAAAAAAAA"
+        "HgAAAAAAAADYAgAAAAAAAB4AAAAAAAAA+AIAAAAAAABMAAAAAAAAAEgDAAAAAAAAHgAAAAAAAABoAwAAAAAA"
+        "AOUAAAAAAAAAUAQAAAAAAAAgAAAAAAAAAHAEAAAAAAAAHgAAAAAAAACQBAAAAAAAAKUAAAAAAAAAOAUAAAAA"
+        "AABWAAAAAAAAAJAFAAAAAAAAAAAAAAAAAACQBQAAAAAAAGIBAAAAAAAAAAAAAAgAAABkAAAAAAAAAAUAAAAA"
+        "AAAAZAAAAAAAAAAFAAAAAAAAAGQAAAAAAAAAAAAAAAAAAABkAAAAAAAAAA8AAAAAAAAAZAAAAAAAAAARAAAA"
+        "AAAAAGQAAAAAAAAAEgAAAAAAAABkAAAAAAAAABoAAAAAAAAAZAAAAAAAAAAAAAAAAAAAAA0AAAAAAAAAKLUv"
+        "/SANaQAA//6///3//f//+///DwAAkAEAAAAAAAAotS/9YJAAHQsAdhZSPUBNqzH8gu7ciAO+snAcxO+WfPQ2"
+        "fy77lg6VeegNWTeXKT+NipE1pWFPGJVyfXSitAPRnN4N6iEnbKL/QXdAAEIAQwCUXgGlh8juGFj2A6I9g+15"
+        "5gq/gLvXzPIQSg9p4Cfc+o2QwjWo8RHAyjMk688V3kBVHXKcX0jWMWR3yabjEHsJovUHe3EJsjMJ7toEpU4h"
+        "WZ84jk/cahVXeALUeAqWIbCXY8jOLWr0iPc9wCzNwvsejgbcfWaWACj9RAOPIdpItKcBmy3ReqOBA2o0IgTZ"
+        "WcO0ecOtzuCxYQmztIOHwxwkyxg2HfZwhc641Q9q5AvU6A5YZgjctQY1usIVWuN9nmRnC9w1iIeo8c8sE1g8"
+        "bqkqjONcM8sXuPXPLC+gqp7xvkfT9gjL/EF2l3D3Fcn6RAO9Asv8QY2nTNsjV3hHA42CuxYxBQgAR8WmqTmz"
+        "D9Xio6K9MXgMZ0Dzb4R5BgAAAA0AAAAAAAAAKLUv/SANaQAA/9/////++//5////DwAAZAAAAAAAAAAotS/9"
+        "IGQhAwBKI9/6Lm5J/8CY27Juz/aJtfA6NRfUyMqs/XRt3J+fHzONCfrh7cFsLj0qhHmR9Ft0GV7kA5iUu97f"
+        "/i/xxgPZoQ5xBVj1aKu3cf5s//qGyerPhFkskjd+aJOOB5WJ+LmUhfHPAAAAyAAAAAAAAAAotS/9IMidAgAC"
+        "SBIIEPhsBh+rTAFDQT89Ozk3NTMxLy0rKSclIyEfHRsZFxUTEQ8NCwkHBQMBv/fy7urm4t7a1tLOysbCvrq2"
+        "sq6qpqKempaSjooCAQCAGqBGCgAAAAANAAAAAAAAACi1L/0gDWkAAH7/ru+3f//a//b/fw8AAA0AAAAAAAAA"
+        "KLUv/SANaQAA32v92d7v12f/7T/fDQAADQAAAAAAAAAotS/9IA1pAAB++1ee/d/+9/7/9v8NAACQAQAAAAAA"
+        "ACi1L/1gkADVAQCQAAAAAAIAAQICAAEBAQIBAAAAEwCAAArywArwAsB5gAKwAJAHKAADEA+8AGAEXID6AApA"
+        "wEu/AygCAAAAAA0AAAAAAAAAKLUv/SANaQAA/+Z3nf7b9/X/2/7/DgAAlAEAAAAAAAAotS/9YJQAnQYAxlEr"
+        "LUBXYRgDRMFov8dotsowmq0yjGarDKPZKsNotsowml2mCFBQZORm8n723smWKRwAHQAgAFlUUG5yEpGD3OMc"
+        "1ziGxSki7vCFI7zgAl8d9QEv4RkMPICXeqYrId2I6EIHus95rnOc25xGBuYuB3dT82Zi3streSsv5Z28kjfy"
+        "Qt7H63gbL+NdVEi8h8cQr4kXxKtB4XXwIngFvFSv01t6Se/oFb2hF/R+Xs/byRkQAAkyBFmDrAtkAJkFGQQZ"
+        "gPwCMgFZAHMgX5BPkBkwOmfuCQAAAD4CAAAAAAAAKLUv/WA+AXUAADhsb2ctMDAxAQA0VBUjDQAAAAAAAAAo"
+        "tS/9IA1pAAD38t91Dz1v/envu/0HAACUAQAAAAAAACi1L/1glACdBAAyChcbQNtm2rvXCloNW/5eSKJF4WYF"
+        "rYaNXYcin0wBf3+vnTa77LHDXne1zlqpnjrqdNNLJ41EoYP+uadzzkbzDOZyS+WUTySPHPK4o8H44orEET/c"
+        "UDjhA0HggI77dhoAIH9gNDAKMgNZBuZBZiALwHyQFWQG8gNZgEyD7oB2gFGQGcgyMB/kA+aCrCCzXX4DaAMA"
+        "AACbAAAAAAAAACi1L/0gmy0CACJFCIURIRF/ApK829a2SpL3UyTpB0lukwCgLbn/JMC2fdp2Uw0AN0V0XuBV"
+        "6pyN6BRq1YTOC1SRW1XOSzughC11QrSdUAAAIAMAAAAAAAAotS/9YCAChQoAlBMA9BT5I4xiBADVCv+2AAUk"
+        "l/YKeOwQWeIWOtgcG84i/MMo3bkuvq80n6U6gJtAYZFGQodMI31SBHNY5Whexl5kp1RqiEpwaUB2SjZ8KyyC"
+        "DCKI7ReOzg2UrwOakPmfce+lUuWrM9uxFNG39ca91rzDt7LJmKjPeZ7VWpTbO4rhHIDn/XXt3mvzv2H5oFf/"
+        "gU0FJWJDC0M5ESQvFwUlHeYaI8cQKagGL4n8NGryOkvoQCzeRg3UTO7JUs+/WLC1XpGrZHKhalOXcDSNdhWD"
+        "fPZ4gtduiLhkjplalHpQmltGoDw8ph0yrP4nst8duMATvqEJxIL/yWP1z0Tr1SXh2wbX4efM58jC7am484qu"
+        "+Wuk/0yaBSYtkAsOhhHvexfQcR2xZyOSXSlzUy9USTU1PzsWNUH3KkcmjGIEYqgQ/OwZ4NcQED8zQ1cHXR2W"
+        "EykFAAAAAAAA/////wAAAAAQAAAADAAUAAYACAAMABAADAAAAAAABABkAAAAQAAAAAQAAAACAAAAOAMAAAAA"
+        "AAAYAgAAAAAAAJAHAAAAAAAA4AwAAAAAAAAYAgAAAAAAAPgGAAAAAAAAAAAAAAEAAAAQAgAAAAAAAMgAAAAA"
+        "AAAAYAAAAAAAAAAAAAAAEP///wQAAAAIAAAArAEAAGQBAAAoAQAA+AAAAKgAAABsAAAAQAAAAAQAAACE/v//"
+        "AAABAhAAAAAgAAAABAAAAAAAAAAMAAAAdGltZXN0YW1wX25zAAAAAPj+//8AAAABQAAAALz+//8AAAEEEAAA"
+        "ABgAAAAEAAAAAAAAAAQAAABibG9iAAAAAFT////k/v//AAABBRAAAAAYAAAABAAAAAAAAAAGAAAAbG9nX2lk"
+        "AAB8////EAAYAAgABgAHAAwAEAAUABAAAAAAAAEFFAAAADwAAAAkAAAABAAAAAAAAAAIAAAAY2F0ZWdvcnkA"
+        "AAAACAAIAAAABAAIAAAABAAAAKD///8AAAABIAAAANj///9o////AAABBhAAAAAcAAAABAAAAAAAAAAFAAAA"
+        "dmFsaWQAAAAEAAQABAAAAJT///8AAAECEAAAACAAAAAEAAAAAAAAAAUAAABsYXNlcgAAAAgADAAIAAcACAAA"
+        "AAAAAAEQAAAAzP///wAAAQIQAAAAIAAAAAQAAAAAAAAACQAAAGludGVuc2l0eQAGAAgABAAGAAAACAAAABAA"
+        "FAAIAAYABwAMAAAAEAAQAAAAAAABAxAAAAAYAAAABAAAAAAAAAABAAAAeAAGAAgABgAGAAAAAAABAGACAABB"
+        "UlJPVzE="
+    ),
+    19: (
+        "QVJST1cxAAD/////AAIAABAAAAAAAAoADAAGAAUACAAKAAAAAAEEAAQAAAAQ////BAAAAAgAAACsAQAAZAEA"
+        "ACgBAAD4AAAAqAAAAGwAAABAAAAABAAAAIT+//8AAAECEAAAACAAAAAEAAAAAAAAAAwAAAB0aW1lc3RhbXBf"
+        "bnMAAAAA+P7//wAAAAFAAAAAvP7//wAAAQQQAAAAGAAAAAQAAAAAAAAABAAAAGJsb2IAAAAAVP///+T+//8A"
+        "AAEFEAAAABgAAAAEAAAAAAAAAAYAAABsb2dfaWQAAHz///8QABgACAAGAAcADAAQABQAEAAAAAAAAQUUAAAA"
+        "PAAAACQAAAAEAAAAAAAAAAgAAABjYXRlZ29yeQAAAAAIAAgAAAAEAAgAAAAEAAAAoP///wAAAAEgAAAA2P//"
+        "/2j///8AAAEGEAAAABwAAAAEAAAAAAAAAAUAAAB2YWxpZAAAAAQABAAEAAAAlP///wAAAQIQAAAAIAAAAAQA"
+        "AAAAAAAABQAAAGxhc2VyAAAACAAMAAgABwAIAAAAAAAAARAAAADM////AAABAhAAAAAgAAAABAAAAAAAAAAJ"
+        "AAAAaW50ZW5zaXR5AAYACAAEAAYAAAAIAAAAEAAUAAgABgAHAAwAAAAQABAAAAAAAAEDEAAAABgAAAAEAAAA"
+        "AAAAAAEAAAB4AAYACAAGAAYAAAAAAAEA/////8AAAAAUAAAAAAAAAAwAGAAGAAUACAAMAAwAAAAAAgQAGAAA"
+        "AGAAAAAAAAAAAAAAAAgACAAAAAQACAAAABAAAAAMAB4AEAAEAAgADAAMAAAAYAAAACQAAAAYAAAAAwAAAAAA"
+        "AAAAAAAAAAAGAAgABwAGAAAAAAAAAQMAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAhAAAAAAAAACgAAAAA"
+        "AAAAMQAAAAAAAAAAAAAAAQAAAAMAAAAAAAAAAAAAAAAAAAAQAAAAAAAAACi1L/0gEIEAAAAAAAAPAAAAGQAA"
+        "ACAAAAAAAAAAAAAAIAAAAAAAAAAotS/9ICABAQBSRUdVTEFSX1ZFSElDTEVQRURFU1RSSUFOQk9MTEFSRAAA"
+        "AAAAAAD/////EAIAABQAAAAAAAAADAAYAAYABQAIAAwADAAAAAADBAAcAAAA+AkAAAAAAAAAAAAADAAeABAA"
+        "BAAIAAwADAAAAFABAAAkAAAAGAAAAMgAAAAAAAAAAAAAAAAABgAIAAcABgAAAAAAAAESAAAAAAAAAAAAAAAq"
+        "AAAAAAAAADAAAAAAAAAARAIAAAAAAAB4AgAAAAAAACMAAAAAAAAAoAIAAAAAAADZAAAAAAAAAIADAAAAAAAA"
+        "AAAAAAAAAACAAwAAAAAAAGUAAAAAAAAA6AMAAAAAAAAqAAAAAAAAABgEAAAAAAAAKgAAAAAAAABIBAAAAAAA"
+        "ACoAAAAAAAAAeAQAAAAAAABAAAAAAAAAALgEAAAAAAAAKgAAAAAAAADoBAAAAAAAAO4AAAAAAAAA2AUAAAAA"
+        "AAAkAAAAAAAAAAAGAAAAAAAAKgAAAAAAAAAwBgAAAAAAAMAAAAAAAAAA8AYAAAAAAABuAAAAAAAAAGAHAAAA"
+        "AAAAAAAAAAAAAABgBwAAAAAAAJUCAAAAAAAAAAAAAAgAAADIAAAAAAAAAA4AAAAAAAAAyAAAAAAAAAAJAAAA"
+        "AAAAAMgAAAAAAAAAAAAAAAAAAADIAAAAAAAAABcAAAAAAAAAyAAAAAAAAAAaAAAAAAAAAMgAAAAAAAAAJgAA"
+        "AAAAAADIAAAAAAAAADIAAAAAAAAAyAAAAAAAAAAAAAAAAAAAABkAAAAAAAAAKLUv/SAZyQAA97///763///r"
+        "//v//+//+9//3///v////wAAAAAAACADAAAAAAAAKLUv/WAgApURAPQVFK7Hvylcz79xPQrAUrjev3sU7r/D"
+        "9ei/PQoXwClcj7/sUbi+Ctejvtej8L+4HmXAFK5nwIXrUcB7FC7AAAAgTsBI4ZqBwK5HYcDsURjA9ih8wI/C"
+        "VcAfhSvAzcxswOF6lLTApHDN0d2ousoHwUjhAsEfhQvBrkfx9MBxPcrA16Ow36y4utzunJfAXI8CwVK4zsjb"
+        "x7vQoI5YSktBfcCamZmAXV56OYyNWRpgkKLAMzPDwLgexau37xTBKVwvwQAAOMGF6zHB9ihMwRSuRz/BcT0a"
+        "wc3MLDMzI8GkcB3Bw/UQwQrXC8HXowADBSACGMFmZhbB4XoUIjvB7FE4UsFcj0IYA8H2KCzBj8IlJCcZwZqZ"
+        "IRgzKSEICyQtexT8DAT/wBsJEPTiCOrAMzPTwI/CxciLkVUoLFQ4NXkihGouPGKoD3BxseUABMGuR/j5Cikp"
+        "JA4UEsEewbgeHcHsURjBgIyoocgShCKjUpYDMIYYxsw8wD1DAIdfTT+ORdzpUN/BVKc4BA7qabbmL3n+jGRj"
+        "jzg+tv9tf+DIq/Jj0JVM+Y+/X4+fw9/+6RgrVB75xCuDe96LfWNOyL0X+xN10CUHZeOP+8iaeBdu93mU2r6n"
+        "0b9/tWaTNhiv85yVtHzvO7qycF/JCa/83LFHb2f3qNL030/ACSEy1zedTNt9/LV9yILxJ7yZvYusfv6PYfik"
+        "tofZdyMXe/PfXL/YNt9p/zyd+vrNI8dO8sjZ1LW03gq7qAEAAAAAGQAAAAAAAAAotS/9IBmVAACSgQMH4A81"
+        "5wg4J4/RWzWvAwAAAAAAAMgAAAAAAAAAKLUv/SDIQQYA1wVNw85maYU4u2DgnEii3zO8B5BuoaRA5y2cGR6Z"
+        "w/6a81eotPkq0WQg2kpv8tJzrGlpbxE+vbaW7hFCURYRN3PLhiXd/xMbvJlre4EvBI6Xecho74wCsSoOAg7A"
+        "UUzaL28kMkoj3/oubkn/wJjbsm7P9om18Do1F9TIyqz9dG3cn58fM40J+uHtwWwuPSqEeZH0W3QZXuQDmJS7"
+        "3t/+L/HGA9mhDnEFWPVoq7dx/mz/+obJ6s+EWSySN35ok44HlYn4uZSF8c8AAAAAAAAAkAEAAAAAAAAotS/9"
+        "YJAAnQIAAkgSCBD4bAYfq0wBe3l3dXNxb21raWdlY2FfXVtZV1VTUU9NS0lHRUNBPz07OTc1MzEvLSspJyUj"
+        "IR8dGxkXFRMRDw0LCQcFAwG/AwEAgIaBaqQAAAAZAAAAAAAAACi1L/0gGckAAP3+ff//vf//9/v//+/37/p+"
+        "+/ev/W////cAAAAAAAAZAAAAAAAAACi1L/0gGckAAC3/J05/fH33v3Oenv691p/t/X599t/+890AAAAAAAAZ"
+        "AAAAAAAAACi1L/0gGckAAP/3df+/////97//++23f+XZ/+1/7/9v/98AAAAAAAAgAwAAAAAAACi1L/1gIAJ1"
+        "AQCigQGBIbv/73wNAA4H1D6l4NcScjDp2Fwmc2uB8PI9pEpeafQNJ0yF350MOV6SGQAAAAAAAAAotS/9IBnJ"
+        "AABff/rtf7r/8/+z9/f1b37X6b99X/+/7f/vAAAAAAAAJAMAAAAAAAAotS/9YCQC5QYANAsABw4VHCMqMTg/"
+        "Rk1UW2JpcHd+hYyTmqGor7a9xMvS2eDn7vX8AwEAAAoRGB8mLTQ7QklQV15lbHN6gYiPlp2kq7K5wMfO1dzj"
+        "6vH4/wYCDRQbIikwNz5FTFNaYWhvdn2Ei5KZoKeutbzDytHY3+bt9PsCAwAACRAXHiUsMzpBSE9WXWRrcnmA"
+        "h46VnKOqsbi/xs3U2+Lp8Pf+BQQAAAwTGiEoLzY9REtSWWBnBAAAbgQAAICeqBD4rAHgD6CTnAN4UDJXB0Nx"
+        "bdm5WEgcY8v4al2SLoPSogWuHAAAbgQAAAAAAAAotS/9YG4DlQAAQGxvZy0wMDAxAgA0QCVYqCpGAAAAABkA"
+        "AAAAAAAAKLUv/SAZyQAA0tu/q63v3ZO////+di//XffQ89af/r7bfwAAAAAAACQDAAAAAAAAKLUv/WAkAnUF"
+        "AAQIAAEFBggLDxASFhcZHCAhJCgqLi8xNTc7PD5BQkRHSEpOT1FUWFlbXmJjZWhsbW9ydnd5fICBg4eIio2R"
+        "k5aXmZ2eoKSmqa2usLO3ubzAwcTIys3R09ba3eHi5enq7fHy9Pf7/QEBAgQHCw0QFBUYHB4hIiQnKywuMQEA"
+        "ADEBAAB3qBDwB+APMYZEjZz22DNyvw5aq+F8xGCqDjLMUu7FnNJENr/1ZIcXU+dCATEBAAAAAAAAKLUv/WAx"
+        "AOUCAFIGCoUhERHb8P+3lZSgbUn+wCQppS25pG03AUArSUkmyW1S/sklCYDvtiETIBAo4XIHvQNdCXhl2Aas"
+        "ZdBGw0LgIhDfwHuAUQloJ2DcVR62AvjNUJ1/24XLcNgDAABABgAAAAAAACi1L/1gQAUdFAB0JgAQCaUhjGIE"
+        "APH+qtL0sLPqtpTgvHXWwlbMyDfCzhi41Pmt2tqj4LuZ5pyP7H2F8l57+D9x/iBnBCIBXQriUhDDSBakPhyF"
+        "NCJmKihHIC4oFjQJDDrqAUDL90Ws7UuN41Fu2VdPz10wxWMRu2nysG/TpnW0nHuVkoF2iIdXfo04dJMZapn6"
+        "X5/bVaW8S6udQbF+N7dfLb1AI8MhGckCD8/jBNXE+tql8OCG5uZn3OxI0vIpyPgKvv7rswQjzKkKrZ8QjpUW"
+        "b4scUIEiMXcoEm0u82I01Fg6tU5AlkRGdzpMWDBSOSZYGhxe+xFk3Adqvf1vnvN1f+l7YN+BQdWHIsuNA8GT"
+        "5LaZxayfpqKlh5iraI6xSYS3Knq9C3DD7GXJzVvPrlHVj0fbcD3hUTPnMintEx/z9BT51Qr/tgAFJJf2Cnjs"
+        "EFniFjrYHBvOIvzDKN25Lr6vNJ+lOoCbQGGRRkKHTCN9UgRzWOVoXsZeZKdUaohKcGlAdko2fCssggwiiO0X"
+        "js4NlK8DmpD5n3HvpVLlqzPbsRTRt/XGvda8w7eyyZioz3me1VqU2zuK4RyA5/117d5r879h+aBX/4FNBSVi"
+        "QwtDOREkLxcFJR3mGiPHECmoBi+J/DRq8jpL6EAs3kYN1EzuyVLPv1iwtV6Rq2RyoWpTl3A0jXYVg3z2eILX"
+        "boi4ZI6ZWpR6UJpbRqA8PKYdMqz+J7LfHbjAE76hCcSC/8lj9c9E69Ul4dsG1+HnzOfIwu2puPOKrvlrpP9M"
+        "mgUmLZALDoYR73sX0HEdsWcjkl0pc1MvVEk1NT87FjVB9ypHJoxiBIDGqBD87BngDxAQPzNDVwddHXh14KoD"
+        "gz6lAAAA/////wAAAAAQAAAADAAUAAYACAAMABAADAAAAAAABABMAAAAKAAAAAQAAAABAAAAOAMAAAAAAAAY"
+        "AgAAAAAAAPgJAAAAAAAAAAAAAAEAAAAQAgAAAAAAAMgAAAAAAAAAYAAAAAAAAAAAAAAAEP///wQAAAAIAAAA"
+        "rAEAAGQBAAAoAQAA+AAAAKgAAABsAAAAQAAAAAQAAACE/v//AAABAhAAAAAgAAAABAAAAAAAAAAMAAAAdGlt"
+        "ZXN0YW1wX25zAAAAAPj+//8AAAABQAAAALz+//8AAAEEEAAAABgAAAAEAAAAAAAAAAQAAABibG9iAAAAAFT/"
+        "///k/v//AAABBRAAAAAYAAAABAAAAAAAAAAGAAAAbG9nX2lkAAB8////EAAYAAgABgAHAAwAEAAUABAAAAAA"
+        "AAEFFAAAADwAAAAkAAAABAAAAAAAAAAIAAAAY2F0ZWdvcnkAAAAACAAIAAAABAAIAAAABAAAAKD///8AAAAB"
+        "IAAAANj///9o////AAABBhAAAAAcAAAABAAAAAAAAAAFAAAAdmFsaWQAAAAEAAQABAAAAJT///8AAAECEAAA"
+        "ACAAAAAEAAAAAAAAAAUAAABsYXNlcgAAAAgADAAIAAcACAAAAAAAAAEQAAAAzP///wAAAQIQAAAAIAAAAAQA"
+        "AAAAAAAACQAAAGludGVuc2l0eQAGAAgABAAGAAAACAAAABAAFAAIAAYABwAMAAAAEAAQAAAAAAABAxAAAAAY"
+        "AAAABAAAAAAAAAABAAAAeAAGAAgABgAGAAAAAAABAEgCAABBUlJPVzE="
+    ),
+}
+# Each column's digest (``column_digest``) as the port reads the file here.
+FEATHER_ZSTD_SUMS = {'x': '054158437561ca86', 'intensity': '01403d27cfae5db0', 'laser': '0da04764cc72d0f7', 'valid': 'd0e36b44d3204645', 'category': '6fdf4bd904a863b6', 'log_id': 'd3c63451f186760c', 'blob': '66353daac939817b', 'timestamp_ns': '143f02936dd72183'}
+
+
+def column_digest(v) -> str:
+    """A column's first 16 hex digits of sha256: of ``repr(list(v))`` for an
+    object array, of its dtype name and bytes (NaN bits included) else."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if v.dtype == object:
+        h.update(repr(list(v)).encode())
+    else:
+        h.update(str(v.dtype).encode() + v.tobytes())
+    return h.hexdigest()[:16]
+
+
+def dense_scene(seed=0, n_gt=250, dup_per_gt=12, n_junk=6000):
+    """The JAX package's dense NMS scene (``tests/test_nms_cap.py::
+    _dense_scene``, its draws in order): 250 ground-truth cars on a 10 m
+    grid, 12 correlated proposals each, 6000 junk boxes scoring 0.1-0.35.
+    Returns (cuboids (N, 7) fp32, scores (N,) fp32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_gt)))
+    gx, gy = np.meshgrid(np.arange(side) * 10.0, np.arange(side) * 10.0)
+    centers = np.stack([gx.ravel(), gy.ravel()], -1)[:n_gt] - side * 5.0
+    yaw = rng.uniform(-np.pi, np.pi, n_gt)
+    u = rng.uniform(0, 1, (n_gt, dup_per_gt))
+    px = centers[:, 0, None] + rng.normal(0, 1, (n_gt, dup_per_gt)) * (0.1 + 0.8 * u)
+    py = centers[:, 1, None] + rng.normal(0, 1, (n_gt, dup_per_gt)) * (0.1 + 0.8 * u)
+    pyaw = yaw[:, None] + rng.normal(0, 0.1, (n_gt, dup_per_gt))
+    pscore = np.clip(0.95 - 0.6 * u + rng.normal(0, 0.05, (n_gt, dup_per_gt)), 0.12, 0.99)
+    jx = rng.uniform(centers[:, 0].min(), centers[:, 0].max(), n_junk)
+    jy = rng.uniform(centers[:, 1].min(), centers[:, 1].max(), n_junk)
+    jyaw = rng.uniform(-np.pi, np.pi, n_junk)
+    jscore = rng.uniform(0.1, 0.35, n_junk)
+    n = n_gt * dup_per_gt + n_junk
+    cuboids = np.zeros((n, 7), np.float32)
+    cuboids[:, 0] = np.concatenate([px.ravel(), jx])
+    cuboids[:, 1] = np.concatenate([py.ravel(), jy])
+    cuboids[:, 3] = 4.0
+    cuboids[:, 4] = 2.0
+    cuboids[:, 5] = 1.5
+    cuboids[:, 6] = np.concatenate([pyaw.ravel(), jyaw])
+    scores = np.concatenate([pscore.ravel(), jscore]).astype(np.float32)
+    return cuboids, scores
+
+
+def check_k2_b12(cap, inputs) -> tuple:
+    """K2 at B=2 and on image 0 alone (B=1) against one run of its twin at
+    B=2, which scans each image apart, WEIGHTED and HARD: ``keep``
+    identical, ``merged`` within 1e-4. Returns max|merged diff| and the
+    WEIGHTED twin's milliseconds (CUDA events, that one call)."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
+
+    one = tuple(t[:1].contiguous() for t in inputs)
+    worst, kept, plain_ms = 0.0, {}, {}
+    for mode, merge in K2_MODES:
+        kw = dict(iou_threshold=0.3, merge_threshold=merge)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        keep_p, merged_p = nms_scan_plain(*inputs, **kw)
+        end.record()
+        end.synchronize()
+        plain_ms[mode] = start.elapsed_time(end)
+        for B, args in ((2, inputs), (1, one)):
+            keep, merged = nms_scan(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(keep, keep_p[:B]), f"K2 B {B} cap {cap} {mode}: keep differs "
+                  f"from the twin in {int((keep != keep_p[:B]).sum())} slots")
+            err = (merged - merged_p[:B]).abs().max().item()
+            check(err <= 1e-4, f"K2 B {B} cap {cap} {mode}: merged max|diff| {err} > 1e-4")
+            worst = max(worst, err)
+            kept[(B, mode)] = int(keep.sum())
+    say(f"K2 B 2 and B 1 cap {cap}: keep identical (kept {kept[(2, 'WEIGHTED')]} and "
+        f"{kept[(1, 'WEIGHTED')]} WEIGHTED, {kept[(2, 'HARD')]} and {kept[(1, 'HARD')]} HARD "
+        f"of {int(inputs[2].sum())} and {int(one[2].sum())} valid), merged max|diff| "
+        f"{worst:.3g} ok")
+    return worst, plain_ms["WEIGHTED"]
+
+
+K2_BIG_KERNELS = ("nms_mask_kernel", "nms_keep_big_kernel", "nms_merge_kernel")
+
+
+def k2_big_phases(device) -> dict:
+    """Device microseconds of each of K2's three kernels at cap 9216, B=2
+    (a case of its own generator)."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+
+    case = nms_case(2, 9216, torch.Generator().manual_seed(SEED + 6), device)
+    split = kernel_device_us(lambda: nms_scan(*case, iou_threshold=0.3, merge_threshold=0.5),
+                             K2_BIG_KERNELS)
+    del case
+    torch.cuda.empty_cache()
+    return split
+
+
+def nms_any_cap_phase(device, smi, split=None) -> tuple:
+    """Phase 39 (see the module docstring). ``split``: K2's device time by
+    kernel at cap 9216 (phase 6 takes it; measured here without it).
+    Returns (the launch counts of its checks, K2's cap-9216 numbers for the
+    kernels line)."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
+    from range_view_3d_detection_torch.ops.nms import batched_multiclass_nms, nms_inputs
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 39)
+    reset_counts()
+    worst, timed = 0.0, None
+    for cap in NMS_BIG_CAPS:
+        case = nms_case(2, cap, gen, device)
+        err, twin_ms = check_k2_b12(cap, case)
+        worst = max(worst, err)
+        if cap == 9216:
+            timed, plain_ms = case, twin_ms
+        del case
+    # One mode at cap 16384: the twin takes seconds a call there, and
+    # ``keep`` does not depend on the mode.
+    worst = max(worst, check_k2("B 1 cap 16384", nms_case(1, 16384, gen, device),
+                                K2_MODES[:1]))
+    torch.cuda.empty_cache()
+    cuboids, scores = dense_scene()
+    cub = torch.as_tensor(cuboids, device=device)[None]
+    sc = torch.as_tensor(scores, device=device)[None]
+    cats = torch.zeros_like(sc, dtype=torch.int32)
+    res = batched_multiclass_nms(cub, sc, cats, cap=9216)
+    inputs = nms_inputs(cub, sc, cats, cap=9216)
+    keep_p, _ = nms_scan_plain(inputs.iou, inputs.scores, inputs.valid, inputs.payload,
+                               iou_threshold=0.3, merge_threshold=inputs.merge_threshold)
+    torch.cuda.synchronize()
+    check(torch.equal(res.keep, keep_p), f"dense scene at cap 9216: K2 keeps "
+          f"{int(res.keep.sum())}, the plain scan {int(keep_p.sum())}")
+    say(f"K2 (phase 39) the JAX dense scene ({cuboids.shape[0]} proposals, "
+        f"{int((sc >= 0.1).sum())} above min_confidence) through batched_multiclass_nms at "
+        f"cap 9216 ({inputs.scores.shape[1]} slots): kept {int(res.keep.sum())}, equal to the "
+        f"plain scan on the same IoU matrix")
+    counts = read_counts()
+    kw = dict(iou_threshold=0.3, merge_threshold=0.5)
+    B, cap = timed[1].shape
+    ms = cuda_ms(lambda: nms_scan(*timed, **kw), reps=10)
+    g_ms = graph_ms(lambda: nms_scan(*timed, **kw))
+    live_per_image = nms_scan(*timed, **kw)[0].sum(-1)
+    live = int(live_per_image.sum())
+    flops = live * cap * 2 * (1 + 9) * 2
+    nbytes = B * cap * cap * 4 + B * cap * (4 + 1 + 9 * 4) + B * cap * (1 + 9 * 4)
+    bound, by = bound_ms(flops, H100_FP32_FLOPS, nbytes)
+    chain = int(live_per_image.max()) * SMEM_STEP_S * 1e3
+    phases = split if split is not None else kernel_device_us(
+        lambda: nms_scan(*timed, **kw), K2_BIG_KERNELS)
+    say(f"K2 (phase 39) cap {cap} B {B}: kernel {ms:.4f} ms eager "
+        f"({100 * bound / ms:.1f}% of bound), {g_ms:.4f} ms graph replay; device us by "
+        f"phase{' (phase 6)' if split is not None else ''}: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+        + f"; plain {plain_ms:.1f} ms, bound {bound:.4f} ms ({by}: the IoU matrix "
+        f"{B * cap * cap * 4 / 1e6:.1f} MB), chain floor (model) {chain:.4f} ms "
+        f"({int(live_per_image.max())} live steps in the longer image); caps "
+        f"{', '.join(map(str, NMS_BIG_CAPS))} at B 1-2 and 16384 at B 1 (WEIGHTED) equal to "
+        f"the twin (merged max|diff| {worst:.3g}); {time.perf_counter() - t0:.0f} s on {smi}")
+    del timed, inputs, res
+    torch.cuda.empty_cache()
+    return counts, {"ms_cap_9216": ms, "graph_ms_cap_9216": g_ms,
+                    "plain_ms_cap_9216": plain_ms, "bound_ms_cap_9216": bound}
+
+
+def mesh_phase(dryrun_results: dict, smi) -> None:
+    """Phase 40: phase 38's dry run trained its phase 3 on the JAX layout."""
+    import torch
+
+    from range_view_3d_detection_torch import dryrun
+
+    n = torch.cuda.device_count()
+    r = dryrun_results["phase3"]
+    check(r["status"] == "ok" and math.isfinite(r["result"]), f"dry run phase 3: {r}")
+    say(f"mesh (phase 40): dryrun_multichip({n}) phase 3 trained on the (data, model) = "
+        f"{dryrun.mesh_layout(n)} mesh over NCCL (phase 38): loss {r['result']:.4f} on {smi}")
+
+
+def feather_zstd_phase(smi) -> None:
+    """Phase 41 (see the module docstring)."""
+    import base64
+
+    from range_view_3d_detection_torch.data import native_io
+    from range_view_3d_detection_torch.utils import feather, zstd
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-zstd-"))
+    decode = native_io.zstd_frame_decompress
+    frames = []
+
+    def recording(data, size):
+        frames.append((bytes(data), size))
+        return decode(data, size)
+
+    try:
+        for level, parts in FEATHER_ZSTD.items():
+            data = base64.b64decode("".join(parts))
+            path = work / f"zstd{level}.feather"
+            path.write_bytes(data)
+            native_io.zstd_frame_decompress = recording
+            try:
+                cols = feather.read_feather(path)
+            finally:
+                native_io.zstd_frame_decompress = decode
+            sums = {k: column_digest(v) for k, v in cols.items()}
+            check(sums == FEATHER_ZSTD_SUMS, f"ZSTD Feather level {level}: {sums}")
+            say(f"Feather (phase 41) ZSTD level {level}, {len(data)} bytes: {len(cols)} "
+                f"columns of {len(next(iter(cols.values())))} rows equal to pyarrow's "
+                f"(digests), nulls as NaN and None")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out_bytes = sum(size for _, size in frames)
+    for data, size in frames:
+        check(bytes(decode(data, size)) == zstd.zstd_frame_decompress_py(data),
+              "native ZSTD differs from its twin")
+    passes = 200
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        for data, size in frames:
+            decode(data, size)
+    native_s = (time.perf_counter() - t0) / passes
+    t0 = time.perf_counter()
+    for data, _ in frames:
+        zstd.zstd_frame_decompress_py(data)
+    twin_s = time.perf_counter() - t0
+    say(f"Feather (phase 41): {len(frames)} ZSTD frames ({out_bytes} bytes out), native == "
+        f"twin; native {out_bytes / native_s / 1e6:.1f} MB/s, twin "
+        f"{out_bytes / twin_s / 1e6:.2f} MB/s (host CPU of {smi})")
+
+
+HW_TOOLS = (
+    ("validate_nms", ("--mode", "WEIGHTED", "--caps", "1024,2048,4096,9216")),
+    ("validate_nms", ("--mode", "HARD", "--caps", "1024,2048,4096,9216")),
+    ("conv_ab", ("--reps", "3")),
+    ("fold_bench", ("--stage", "res3")),
+    ("fold_bench", ("--stage", "res3", "--int8")),
+)
+
+
+def tool_json(stdout: str, tool: str) -> dict:
+    """A tool's JSON line: the last that parses with ``"tool": tool``."""
+    for line in reversed(stdout.strip().splitlines()):
+        if line.startswith("{"):
+            try:
+                obj = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if obj.get("tool") == tool:
+                return obj
+    raise RuntimeError(f"chip_smoke: no {tool} JSON line in {stdout[-2000:]!r}")
+
+
+def hw_tools_phase(smi) -> dict:
+    """Phase 42 (see the module docstring). Returns the tools' launches.
+    The two validate_nms runs go side by side (their times are not clean:
+    phase 39 times K2 alone); the others run alone."""
+    total = {k: 0 for k in kernel_counts()}
+    groups = [HW_TOOLS[:2]] + [(run,) for run in HW_TOOLS[2:]]
+    done = []
+    for group in groups:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", f"range_view_3d_detection_torch.tools.{name}", *args],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env())
+            for name, args in group]
+        try:
+            outs = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        done += [(name, args, p.returncode, out, err, wall)
+                 for (name, args), p, (out, err) in zip(group, procs, outs)]
+    for name, args, rc, stdout, stderr, wall in done:
+        check(rc == 0, f"tools.{name} {' '.join(args)} exited {rc}: {stdout[-2000:]} "
+              f"{stderr[-3000:]}")
+        line = tool_json(stdout, name)
+        for k, v in line["launches"].items():
+            total[k] += v
+        check(line["device"] == smi, f"tools.{name}: device {line['device']!r}")
+        for text in stdout.strip().splitlines():
+            if not text.startswith("{"):
+                say(f"tools.{name} (phase 42): {text}")
+        say(f"tools.{name} (phase 42) {' '.join(args)}: exit 0, launches {line['launches']} "
+            f"({wall:.1f} s)")
+        if name == "conv_ab":
+            say(f"tools.conv_ab (phase 42) JSON: {json.dumps(line)}")
+    check(total["nms_scan"] > 0 and total["conv3x3_i8_fused"] > 0, f"tools launches {total}")
+    return total
+
+
+def slice_phases(device, smi, dryrun_results: dict, k2_split=None) -> dict:
+    """Phases 39-42 (``k2_split``: phase 6's K2 split at cap 9216).
+    Returns the launch counts of 39 and 42, and K2's cap-9216 numbers."""
+    import torch
+
+    t0 = time.perf_counter()
+    anycap, k2_big = nms_any_cap_phase(device, smi, k2_split)
+    mesh_phase(dryrun_results, smi)
+    feather_zstd_phase(smi)
+    torch.cuda.empty_cache()
+    tools = hw_tools_phase(smi)
+    say(f"phases 39-42: {time.perf_counter() - t0:.0f} s")
+    return {"anycap": anycap, "hw_tools": tools, "k2_big": k2_big}
 
 
 def flagship_predictor(cfg, dec, device, gen, request):
@@ -4089,20 +4630,14 @@ def main() -> int:
               "K2: the misaligned views are 16-byte aligned")
         k2_err = max(k2_err, check_k2(f"{tag}, IoU and scores misaligned",
                                       (iou_k2, scores_k2, valid_k2, payload_k2)))
+    # Caps past 4096 are phase 39's.
     small = nms_case(1, 100, gen_k2, device)
-    for tag, args in (
-        ("cap 4097", (torch.zeros(1, 4097, 4097, device=device),
-                      torch.zeros(1, 4097, device=device),
-                      torch.ones(1, 4097, dtype=torch.bool, device=device),
-                      torch.zeros(1, 4097, 9, device=device))),
-        ("P = 8", (*small[:3], small[3][..., :8])),
-    ):
-        try:
-            nms_scan(*args, iou_threshold=0.3, merge_threshold=0.5)
-        except ValueError as e:
-            say(f"K2 {tag}: refused ({e})")
-        else:
-            check(False, f"K2 {tag}: the wrapper accepted it")
+    try:
+        nms_scan(*small[:3], small[3][..., :8], iou_threshold=0.3, merge_threshold=0.5)
+    except ValueError as e:
+        say(f"K2 P = 8: refused ({e})")
+    else:
+        check(False, "K2 P = 8: the wrapper accepted it")
 
     # 5. Main path: the flagship Predictor answers requests; its BatchNorm
     # epilogue rests on addcmul being one fused multiply-add.
@@ -4165,6 +4700,9 @@ def main() -> int:
     k2_chain_ms = int(live_per_image.max()) * SMEM_STEP_S * 1e3
     k2_phases = kernel_device_us(lambda: nms_scan(*k2_in, **nms_kw),
                                  ("nms_mask_kernel", "nms_keep_kernel", "nms_merge_kernel"))
+    # Phase 39's split of K2 at cap 9216, taken here: late in the process
+    # the profiler records no kernels.
+    k2_big_split = k2_big_phases(device)
     # Every 64-pixel tile streams W1 and the nine K_n through L2 once per
     # neighbour: 9 x 2 C x C bf16.
     k1_l2 = math.ceil(W / 64) * H * B * 9 * 2 * C * C * 2
@@ -4246,6 +4784,8 @@ def main() -> int:
     tool_launches = tools_phases(device, kind, smi, fwd_ms=fwd_ms, dec_ms=dec_ms,
                                  step_ms=step_ms, remat_ms=remat_ms["B=2 remat"],
                                  phase18=phase18)
+    torch.cuda.empty_cache()
+    slice_counts = slice_phases(device, smi, tool_launches["dryrun"], k2_big_split)
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -4270,6 +4810,10 @@ def main() -> int:
             k[f"bench_{tag.replace(' ', '_')}_launches"] = counts[k["name"]]
         k["tools_launches"] = tool_launches["tools"][k["name"]]
         k["compile_launches"] = tool_launches["compile"][k["name"]]
+        k["anycap_launches"] = slice_counts["anycap"][k["name"]]
+        k["hw_tools_launches"] = slice_counts["hw_tools"][k["name"]]
+        if k["name"] == "nms_scan":
+            k.update(slice_counts["k2_big"])
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -4294,7 +4838,7 @@ def phase18_light(device, smi) -> dict:
 
 
 def tools_main() -> int:
-    """``chip_smoke.py tools``: the build, then phases 30-38 alone (phase 18's
+    """``chip_smoke.py tools``: the build, then phases 30-42 alone (phase 18's
     run and phase 6's forward and decode times made here; phases 16's and
     22's step times not measured)."""
     import torch
@@ -4337,7 +4881,9 @@ def tools_main() -> int:
     torch.cuda.empty_cache()
     tool_launches = tools_phases(device, kind, smi, fwd_ms=fwd_ms, dec_ms=dec_ms,
                                  step_ms=math.nan, remat_ms=math.nan, phase18=phase18)
-    say(json.dumps({"bench": bench_launches, **tool_launches}))
+    torch.cuda.empty_cache()
+    slice_counts = slice_phases(device, smi, tool_launches.pop("dryrun"))
+    say(json.dumps({"bench": bench_launches, **tool_launches, **slice_counts}))
     say(f"chip_smoke tools: total {time.perf_counter() - t_start:.0f} s")
     return 0
 

@@ -41,6 +41,16 @@
 //    itself) made this phase 89 us at B=2, cap=1024 on an H100 80GB HBM3
 //    at 700 W; as it is, it takes about 52 us there, five times the chain
 //    floor, and the single warp's time is not split further (PERF.md).
+//    Past cap 4096 the set no longer fits a warp's registers (4 words a
+//    lane), and a slab of full rows no longer fits the ring (kStages x
+//    32 x W words: 147 KB at cap 9216, 262 KB at 16384, past the 227 KB a
+//    block may hold). nms_keep_big_kernel, four warps an image, keeps the
+//    set in shared memory (W words: 1.2 KB at cap 9216, 8 KB at 65,536)
+//    and streams each slab in column chunks of at most 256 words, the
+//    chunk that holds the slab's diagonal word first: the diagonal decides
+//    the slab's kept rows, and the other chunks' words then take the same
+//    ORs in any order. Its mask rows are padded to L = W rounded up to 4
+//    words, so every chunk row starts on a 16-byte boundary.
 // 3. nms_merge_kernel, over all SMs: one warp per row. A kept row reads
 //    its IoU row (16-byte loads where cap % 4 == 0) and its R_i once and
 //    forms the 10 fp32 sums of w_ij (wsum and the 9 payload dot
@@ -54,11 +64,14 @@ namespace {
 
 constexpr int kP = 9;             // payload: x, y, z, l, w, h, sin, cos, score
 constexpr int kR = kP + 1;        // merge sums: wsum + payload
-constexpr int kMaxCap = 4096;
-constexpr int kMaxWordsPerLane = kMaxCap / 32 / 32;  // removed-set words a lane
+constexpr int kRegCap = 4096;     // the register keep warp's largest cap
+constexpr int kMaxWordsPerLane = kRegCap / 32 / 32;  // removed-set words a lane
 constexpr int kStages = 4;        // mask slabs in flight in phase 2
 constexpr int kRowsPerBlock = 8;  // phases 1 and 3: one warp per row
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBigThreads = 128;  // the shared-memory keep: four warps an image
+constexpr int kChunkWords = 256;  // its slab chunks' largest width in words
+constexpr size_t kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -73,18 +86,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Phase 1: mask[b, i, w] bit t = iou[b, i, 32 w + t] > iou_thr.
+// Phase 1: mask[b, i, w] bit t = iou[b, i, 32 w + t] > iou_thr; rows of
+// ld >= nwords words.
 template <bool kVec>
 __global__ void nms_mask_kernel(const float* __restrict__ iou,
                                 uint32_t* __restrict__ mask, int rows,
-                                int cap, int nwords, float iou_thr) {
+                                int cap, int nwords, int ld, float iou_thr) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warp
   const int b = row / cap;
   const int i = row - b * cap;
   const float* src = iou + (size_t)row * cap;
-  uint32_t* dst = mask + ((size_t)b * 32 * nwords + i) * nwords;
+  uint32_t* dst = mask + ((size_t)b * 32 * nwords + i) * ld;
   if (kVec) {
     // 128 columns an iteration; cap % 4 == 0, so a float4 is all in or out.
 #pragma unroll 4
@@ -203,6 +217,111 @@ __global__ void __launch_bounds__(32)
   cp_async_wait<0>();
 }
 
+// Phase 2 past cap 4096: the removed set in shared memory, each 32-row
+// slab in nchunks column chunks of cw words (the diagonal's chunk first),
+// kBigThreads threads an image, word w of a chunk to thread w % 128.
+__global__ void __launch_bounds__(kBigThreads)
+    nms_keep_big_kernel(const uint32_t* __restrict__ mask,
+                        const uint8_t* __restrict__ valid,
+                        uint8_t* __restrict__ keep, uint32_t* __restrict__ seen,
+                        int cap, int nwords, int ld, int cw, int nchunks) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* ring = smem;                          // kStages x (32, cw)
+  uint32_t* rem = smem + (size_t)kStages * 32 * cw;  // nwords
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const uint32_t* mask_b = mask + (size_t)b * 32 * nwords * ld;
+  const uint8_t* valid_b = valid + (size_t)b * cap;
+  uint8_t* keep_b = keep + (size_t)b * cap;
+  uint32_t* seen_b = seen + (size_t)b * cap * nwords;
+  const int steps = nwords * nchunks;  // step t: slab t / nchunks, its chunk j
+  auto chunk_of = [&](int t) {
+    const int s = t / nchunks;
+    return (s / cw + t - s * nchunks) % nchunks;
+  };
+
+  auto prefetch = [&](int t) {
+    if (t < steps) {
+      const int s = t / nchunks;
+      const int w0 = chunk_of(t) * cw;
+      const int q4 = min(cw, ld - w0) / 4;  // 16-byte pieces a row
+      const uint32_t* src = mask_b + (size_t)32 * s * ld + w0;
+      uint32_t* dst = ring + (size_t)(t % kStages) * 32 * cw;
+      for (int q = tid; q < 32 * q4; q += kBigThreads) {
+        const int r = q / q4;
+        const int c4 = 4 * (q - r * q4);
+        cp_async16(dst + r * cw + c4, src + (size_t)r * ld + c4);
+      }
+    }
+    cp_async_commit();  // an empty group keeps the group count uniform
+  };
+
+  // Removed set: ~valid, and every bit past cap.
+  for (int w = tid >> 5; w < nwords; w += kBigThreads / 32) {
+    const int j = 32 * w + lane;
+    const uint32_t dead = __ballot_sync(kFull, j >= cap || valid_b[j] == 0);
+    if (lane == 0) rem[w] = dead;
+  }
+  for (int t = 0; t < kStages - 1; ++t) prefetch(t);
+
+  uint32_t kept = 0;
+  for (int t = 0; t < steps; ++t) {
+    const int s = t / nchunks;
+    const int j = t - s * nchunks;
+    const int c = chunk_of(t);
+    prefetch(t + kStages - 1);  // refills the buffer step t - 1 left
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // every thread's copies of step t are in; rem is current
+    const uint32_t* chunk = ring + (size_t)(t % kStages) * 32 * cw;
+    if (j == 0) {
+      // The diagonal's chunk: the greedy chain over the slab's 32 rows.
+      uint32_t diag = rem[s];
+      kept = 0;
+      if (diag != kFull) {
+        const int col = s - c * cw;
+        uint32_t d[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) d[r] = chunk[r * cw + col];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const uint32_t live = ~diag & (1u << r);
+          kept |= live;
+          diag |= live ? d[r] : 0u;
+        }
+      }
+      __syncthreads();  // rem[s] read by every thread before its owner ORs
+    }
+    if (kept) {
+      // The kept rows, in ascending order, into this chunk's words of the
+      // set; each first leaves the set it saw in seen.
+      const int w0 = c * cw;
+      const int width = min(cw, nwords - w0);
+      for (int k = tid; k < width; k += kBigThreads) {
+        const int w = w0 + k;
+        uint32_t m[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) m[r] = chunk[r * cw + k];
+        uint32_t r_k = rem[w];
+        uint32_t* seen_w = seen_b + (size_t)32 * s * nwords + w;
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const bool take = (kept >> r) & 1u;  // the same in every thread
+          if (take) seen_w[(size_t)r * nwords] = r_k;
+          r_k |= take ? m[r] : 0u;
+        }
+        rem[w] = r_k;
+      }
+    }
+    if (j == nchunks - 1 && tid < 32) {
+      const int row = 32 * s + tid;
+      if (row < cap) keep_b[row] = (uint8_t)((kept >> tid) & 1u);
+    }
+    __syncthreads();  // step t's buffer read before it is refilled
+  }
+  cp_async_wait<0>();
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -280,17 +399,31 @@ __global__ void nms_merge_kernel(const float* __restrict__ iou,
 
 // iou: (B, cap, cap) fp32; scores: (B, cap) fp32; valid: (B, cap) bool
 // (one byte each); payload: (B, cap, P) fp32 with P == 9; keep: (B, cap)
-// bool out; merged: (B, cap, P) fp32 out; mask: (B, 32 W, W) and seen:
-// (B, cap, W) uint32 scratch, W = ceil(cap / 32). cap <= 4096. Three
-// launches on `stream`; returns the cudaError_t of the first that fails.
+// bool out; merged: (B, cap, P) fp32 out; mask: (B, 32 W, L) and seen:
+// (B, cap, W) uint32 scratch, W = ceil(cap / 32); the caller sizes the
+// mask's rows, ld words each, and this checks them: ld = W for cap <= 4096
+// (the register keep reads rows of W words), a multiple of 4 at least W
+// past it (the big keep copies 16-byte pieces). Any cap whose scratch
+// fits. Three launches on `stream`; returns the cudaError_t of the first
+// that fails.
 extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
                              const void* valid, const void* payload,
                              void* keep, void* merged, void* mask, void* seen,
-                             int B, int cap, int P, float iou_thr,
+                             int B, int cap, int ld, int P, float iou_thr,
                              float merge_thr, void* stream) {
-  if (P != kP || B <= 0 || cap <= 0 || cap > kMaxCap)
-    return (int)cudaErrorInvalidValue;
+  if (P != kP || B <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
   const int nwords = (cap + 31) / 32;
+  const bool big = cap > kRegCap;
+  if (big ? (ld < nwords || ld % 4 != 0) : ld != nwords)
+    return (int)cudaErrorInvalidValue;
+  // The big keep's chunks: at most kChunkWords words, each a multiple of 4.
+  int nchunks = (ld + kChunkWords - 1) / kChunkWords;
+  const int cw = ((ld + nchunks - 1) / nchunks + 3) / 4 * 4;
+  nchunks = (ld + cw - 1) / cw;
+  const size_t smem = big ? ((size_t)kStages * 32 * cw + nwords) * sizeof(uint32_t)
+                          : (size_t)kStages * 32 * nwords * sizeof(uint32_t);
+  if (smem > kMaxSmem || (size_t)B * cap > (size_t)INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   const int rows = B * cap;
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   cudaStream_t st = (cudaStream_t)stream;
@@ -298,21 +431,31 @@ extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
                    ((uintptr_t)scores & 15) == 0;
   if (vec) {
     nms_mask_kernel<true><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, iou_thr);
+        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, ld, iou_thr);
   } else {
     nms_mask_kernel<false><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, iou_thr);
+        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, ld, iou_thr);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)kStages * 32 * nwords * sizeof(uint32_t);
-  if (smem > 48 * 1024) {  // set on every call: the attribute is per device
-    e = cudaFuncSetAttribute(nms_keep_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (big) {
+    if (smem > 48 * 1024) {  // set on every call: the attribute is per device
+      e = cudaFuncSetAttribute(nms_keep_big_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    nms_keep_big_kernel<<<B, kBigThreads, smem, st>>>(
+        (const uint32_t*)mask, (const uint8_t*)valid, (uint8_t*)keep,
+        (uint32_t*)seen, cap, nwords, ld, cw, nchunks);
+  } else {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(nms_keep_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    nms_keep_kernel<<<B, 32, smem, st>>>((const uint32_t*)mask, (const uint8_t*)valid,
+                                         (uint8_t*)keep, (uint32_t*)seen, cap, nwords);
   }
-  nms_keep_kernel<<<B, 32, smem, st>>>((const uint32_t*)mask, (const uint8_t*)valid,
-                                       (uint8_t*)keep, (uint32_t*)seen, cap, nwords);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   auto merge = vec ? nms_merge_kernel<true> : nms_merge_kernel<false>;

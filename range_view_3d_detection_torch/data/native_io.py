@@ -3,9 +3,9 @@ the JAX ``data/native_io.py``).
 
 ``native/rangeview_io.cpp`` (the nearest-return z-buffer and the
 column-to-image fuse, the port's copy of the JAX package's
-``native/rangeview_io.cpp``) and ``native/lz4_frame.cpp`` (an LZ4 frame
-decoder, for Feather files whose record batches are LZ4-compressed) are
-built with ``g++ -O3 -fPIC -shared`` at first use into ``build/``
+``native/rangeview_io.cpp``), ``native/lz4_frame.cpp`` and
+``native/zstd_frame.cpp`` (LZ4 and ZSTD frame decoders, for Feather files
+whose record batches are compressed) are built with ``g++ -O3 -fPIC -shared`` at first use into ``build/``
 at the repository root, as ``kernels/_build.py`` builds the CUDA kernels:
 the library's name carries a hash of the sources, the flags and the
 compiler's version, so an edited source or another compiler rebuilds and
@@ -16,8 +16,9 @@ import.
 
 There is no fallback: where the JAX module serves numpy when its library
 is missing, a failed build here raises with the compiler's output. The
-plain twins are ``ops/projection.py::z_buffer_numpy`` and
-``utils/lz4.py::lz4_frame_decompress_py``, which the tests hold these
+plain twins are ``ops/projection.py::z_buffer_numpy``,
+``utils/lz4.py::lz4_frame_decompress_py`` and
+``utils/zstd.py::zstd_frame_decompress_py``, which the tests hold these
 against.
 """
 
@@ -35,7 +36,7 @@ import numpy as np
 
 SOURCES = tuple(
     Path(__file__).resolve().parents[1] / "native" / name
-    for name in ("rangeview_io.cpp", "lz4_frame.cpp")
+    for name in ("rangeview_io.cpp", "lz4_frame.cpp", "zstd_frame.cpp")
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # No -fopenmp: the g++ beside the card has no libgomp. Only
@@ -77,6 +78,10 @@ def library() -> ctypes.CDLL:
     lib.lz4_frame_decompress.restype = i64
     lib.lz4_frame_error.argtypes = [i64]
     lib.lz4_frame_error.restype = ctypes.c_char_p
+    lib.zstd_frame_decompress.argtypes = [vp, i64, vp, i64]
+    lib.zstd_frame_decompress.restype = i64
+    lib.zstd_frame_error.argtypes = [i64]
+    lib.zstd_frame_error.restype = ctypes.c_char_p
     lib.path = str(lib_path)
     return lib
 
@@ -151,22 +156,36 @@ def columns_to_image_native(
     return out.reshape(height, width, n_cols), mask.reshape(height, width) > 0
 
 
+def _decompress(codec: str, decode, error, data, uncompressed_size: int) -> bytearray:
+    if uncompressed_size < 0:
+        raise ValueError(f"{codec} frame: expected size {uncompressed_size}")
+    src = np.frombuffer(data, np.uint8)
+    out = bytearray(max(int(uncompressed_size), 1))
+    dst = (ctypes.c_char * len(out)).from_buffer(out)
+    got = decode(_ptr(src), len(src), ctypes.addressof(dst), int(uncompressed_size))
+    del dst  # release the export of ``out``
+    if got < 0:
+        raise ValueError(f"{codec} frame: {error(got).decode()}")
+    if got != uncompressed_size:
+        raise ValueError(f"{codec} frame: decoded {got} bytes, expected {uncompressed_size}")
+    del out[uncompressed_size:]
+    return out
+
+
 def lz4_frame_decompress(data, uncompressed_size: int) -> bytearray:
     """Decode the LZ4 frame(s) in ``data`` (bytes-like), which must hold
     exactly ``uncompressed_size`` bytes; raises ``ValueError`` naming what
     is wrong with a corrupt, truncated or unsupported frame."""
     lib = library()
-    if uncompressed_size < 0:
-        raise ValueError(f"LZ4 frame: expected size {uncompressed_size}")
-    src = np.frombuffer(data, np.uint8)
-    out = bytearray(max(int(uncompressed_size), 1))
-    dst = (ctypes.c_char * len(out)).from_buffer(out)
-    got = lib.lz4_frame_decompress(_ptr(src), len(src), ctypes.addressof(dst),
-                                   int(uncompressed_size))
-    del dst  # release the export of ``out``
-    if got < 0:
-        raise ValueError(f"LZ4 frame: {lib.lz4_frame_error(got).decode()}")
-    if got != uncompressed_size:
-        raise ValueError(f"LZ4 frame: decoded {got} bytes, expected {uncompressed_size}")
-    del out[uncompressed_size:]
-    return out
+    return _decompress("LZ4", lib.lz4_frame_decompress, lib.lz4_frame_error, data,
+                       uncompressed_size)
+
+
+def zstd_frame_decompress(data, uncompressed_size: int) -> bytearray:
+    """Decode the ZSTD frame(s) in ``data`` (bytes-like), which must hold
+    exactly ``uncompressed_size`` bytes; raises ``ValueError`` naming what
+    is wrong with a corrupt, truncated or unsupported frame (one that
+    needs a dictionary among them)."""
+    lib = library()
+    return _decompress("ZSTD", lib.zstd_frame_decompress, lib.zstd_frame_error, data,
+                       uncompressed_size)

@@ -14,7 +14,10 @@ processes that meet at ``tcp://localhost:<free port>`` (NCCL on
    ``RV3D_DRYRUN_FULL=1``): train step, eval step (K1 and K2 on a card) and
    a checkpoint saved and restored;
 3. one width-sharded train step (``parallel/spatial.py``) of the tiny
-   config, the request's width split over the ranks (a data axis of 1);
+   config on the JAX dry run's ``(data, model) = (n/4, 4)`` mesh
+   (``mesh.make_mesh``; ``num_model`` 2 where n is not a multiple of 4, 1
+   at n = 1): ``num_data`` requests of 8 x 64 ``num_model``, each split
+   over its row of ranks;
 4. raw-points serving, the clouds split over the ranks.
 
 The whole run is held to ``RV3D_DRYRUN_BUDGET_S`` (default 420 s): a phase
@@ -130,28 +133,48 @@ def _phase2_flagship_shapes(n: int, *, weights=None, device="cpu", work=None) ->
     return {"loss": loss, "eval_keep": int(keep), "shape": [B, H, W]}
 
 
+def mesh_layout(n: int) -> tuple:
+    """Phase 3's ``(num_data, num_model)`` at ``n`` ranks: the JAX dry
+    run's (``num_model = 4 if n % 4 == 0 else 2``), and (1, 1) at one."""
+    num_model = 1 if n == 1 else 4 if n % 4 == 0 else 2
+    return max(1, n // num_model), num_model
+
+
 def _phase3_width_sharded(n: int, *, weights=None, device="cpu", work=None) -> float:
     """One width-sharded train step (loss and gradients) of the tiny config
-    on one B=1 8 x 64n request split over the ranks."""
+    on the ``(data, model)`` mesh of :func:`mesh_layout`: ``num_data``
+    requests of 8 x 64 ``num_model``, request d split over row d's ranks;
+    BatchNorm moments over the whole mesh, the loss's normalizers over
+    the data axis, the gradients summed over the mesh. Returns the global
+    batch's loss (nan on a rank outside the mesh)."""
     from range_view_3d_detection_torch.models.detector import Detector, detection_loss
     from range_view_3d_detection_torch.parallel import spatial
     from range_view_3d_detection_torch.training.state import batch_to_device
 
+    num_data, num_model = mesh_layout(n)
+    m = mesh.make_mesh(num_data, num_model)
+    if m.data_index < 0:
+        return float("nan")
     cfg = serving._flagship_config(tiny=True)
-    batch = batch_to_device(serving._dryrun_batch(cfg, 1, 8, 64 * n, 5, seed=3), device)
+    batch = serving._dryrun_batch(cfg, num_data, 8, 64 * num_model, 5, seed=3)
+    d = m.data_index
+    batch = batch_to_device({k: v[d:d + 1] for k, v in batch.items()}, device)
     model = Detector(cfg, device=device, generator=torch.Generator().manual_seed(0))
     if weights is not None:
         model.load_state_dict(weights, strict=True)
-    local = [spatial.shard_width(batch[k]) for k in ("features", "cart", "mask")]
-    out = spatial.gather_width(spatial.width_sharded_apply(model, train=True)(*local))
-    with mesh.replicated_batch():
+    local = [spatial.shard_width(batch[k], m.width) for k in ("features", "cart", "mask")]
+    out = spatial.gather_width(spatial.width_sharded_apply(model, m, train=True)(*local),
+                               m.width)
+    with mesh.replicated_batch(m.data):
         loss, _ = detection_loss(out, batch, cfg)
+        total = mesh.all_sum(loss.detach())
     grads = mesh.all_reduce_grads(
-        [g.contiguous() for g in torch.autograd.grad(loss, list(model.parameters()))])
+        [g.contiguous() for g in torch.autograd.grad(loss, list(model.parameters()))],
+        m.group)
     gnorm = float(sum(float((g.float() * g.float()).sum()) for g in grads))
     if not (np.isfinite(gnorm) and gnorm > 0.0):
         raise RuntimeError(f"phase 3: gradient norm {gnorm}")
-    return float(loss.detach())
+    return float(total)
 
 
 def _phase4_points_serving(n: int, *, weights=None, device="cpu", work=None) -> int:
@@ -278,7 +301,8 @@ def dryrun_multichip(n_devices: int, *, device: str = "cuda", weights=None) -> d
          lambda r: f"loss={r:.4f}", budget_s),
         ("phase2", "flagship channel widths, train+eval+ckpt", "_phase2_flagship_shapes",
          fmt2, 0.65 * budget_s),
-        ("phase3", "width-sharded train", "_phase3_width_sharded",
+        ("phase3", "width-sharded train on a {}x{} (data, model) mesh".format(
+            *mesh_layout(n_devices)), "_phase3_width_sharded",
          lambda r: f"loss={r:.4f}", budget_s),
         ("phase4", "data-sharded points->NMS serving", "_phase4_points_serving",
          lambda r: f"keep={r}", budget_s),

@@ -5,7 +5,8 @@ nms_scan_pallas`` (``_nms_scan_kernel``). The kernel is
 ``csrc/nms_scan.cu``; its header says what bounds it on the H100 (the
 IoU bytes take 2.5 us at B=2, cap=1024; the greedy keep is a chain of
 dependent steps) and how its three phases follow from that: suppression
-bitmasks over all SMs, the greedy keep in one warp per image, the
+bitmasks over all SMs, the greedy keep in one warp per image (past cap
+4096 in a block per image, the removed set in shared memory), the
 weighted merge over all SMs. The plain twin is the JAX package's lax
 block scan (``ops/nms.py:177-214``) with the batch dimension written out;
 :func:`nms_scan_bitmask_plain` is the kernel's three phases in torch ops,
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from range_view_3d_detection_torch.kernels import _build
 
 PAYLOAD = 9  # x, y, z, l, w, h, sin(yaw), cos(yaw), score
+REGISTER_CAP = 4096  # the largest cap whose removed set the keep warp holds in registers
 
 
 def nms_scan_plain(
@@ -140,6 +142,17 @@ def nms_scan_bitmask_plain(
     return keep, merged, killed_at
 
 
+def mask_shape(B: int, cap: int) -> Tuple[int, int, int]:
+    """The kernel's scratch of suppression words: (B, 32 W, L), W =
+    ceil(cap / 32) words a row, L = W up to cap 4096 (the register keep)
+    and W rounded up to a multiple of 4 past it (the shared-memory keep
+    copies column chunks of rows that start on 16-byte boundaries). The
+    kernel takes L from here and refuses one that breaks this rule."""
+    nwords = (cap + 31) // 32
+    ld = nwords if cap <= REGISTER_CAP else (nwords + 3) // 4 * 4
+    return B, 32 * nwords, ld
+
+
 def nms_scan(
     iou: torch.Tensor,
     scores: torch.Tensor,
@@ -152,8 +165,10 @@ def nms_scan(
     """Greedy (weighted) NMS scan over a precomputed IoU matrix.
 
     A CPU tensor takes :func:`nms_scan_plain`. A CUDA tensor launches the
-    kernel's three phases (P == 9, any B >= 1, cap <= 4096) or raises.
-    ``nms_scan.launches`` counts the calls that launch them.
+    kernel's three phases (P == 9, any B >= 1, any cap: past 4096 the keep
+    runs from shared memory) or raises. What bounds the cap is the (B,
+    cap, cap) IoU matrix's allocation. ``nms_scan.launches`` counts the
+    calls that launch them.
     """
     if iou.device.type == "cuda":
         B, cap = scores.shape
@@ -165,10 +180,6 @@ def nms_scan(
             raise ValueError(
                 f"nms_scan: shapes iou{tuple(iou.shape)} scores{tuple(scores.shape)}"
                 f" valid{tuple(valid.shape)} payload{tuple(payload.shape)}"
-            )
-        if cap > 4096:
-            raise ValueError(
-                f"nms_scan: cap={cap} > 4096: the keep warp holds 4096 removed bits"
             )
         tensors = (iou, scores, valid, payload)
         if any(t.device != iou.device for t in tensors):
@@ -208,18 +219,16 @@ def _k2_cuda(iou, scores, valid, payload, iou_threshold, merge_threshold):
     payload = payload.float().contiguous()
     keep = torch.empty((B, cap), dtype=torch.bool, device=iou.device)
     merged = torch.empty((B, cap, PAYLOAD), dtype=torch.float32, device=iou.device)
-    # Scratch: the suppression words of 32-row slabs, and the removed set
-    # each kept row saw.
-    nwords = (cap + 31) // 32
-    mask = torch.empty((B, 32 * nwords, nwords), dtype=torch.int32, device=iou.device)
-    seen = torch.empty((B, cap, nwords), dtype=torch.int32, device=iou.device)
+    _, rows, ld = mask_shape(B, cap)
+    mask = torch.empty((B, rows, ld), dtype=torch.int32, device=iou.device)
+    seen = torch.empty((B, cap, rows // 32), dtype=torch.int32, device=iou.device)
     lib = _build.library()
     with torch.cuda.device(iou.device):
         err = lib.rv3d_nms_scan(
             iou.data_ptr(), scores.data_ptr(), valid.data_ptr(),
             payload.data_ptr(), keep.data_ptr(), merged.data_ptr(),
             mask.data_ptr(), seen.data_ptr(),
-            B, cap, PAYLOAD, float(iou_threshold), float(merge_threshold),
+            B, cap, ld, PAYLOAD, float(iou_threshold), float(merge_threshold),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "rv3d_nms_scan")

@@ -264,6 +264,26 @@ def calibrate_scales(
     with ``stem_hh_scale``/``stem_pf_scale`` beside the stem's blocks.
     """
     device = next(model.parameters()).device
+
+    def run() -> int:
+        n_batches = 0
+        for feats, cart, mask in batches:
+            model(
+                torch.as_tensor(feats, dtype=torch.float32, device=device),
+                torch.as_tensor(cart, dtype=torch.float32, device=device),
+                torch.as_tensor(mask, dtype=torch.bool, device=device),
+            )
+            n_batches += 1
+        return n_batches
+
+    return calibrate_module(model, run)
+
+
+@torch.no_grad()
+def calibrate_module(model: nn.Module, run: Callable[[], int]) -> Dict[str, Any]:
+    """:func:`calibrate_scales` for any module: the absmaxes its quantizable
+    blocks see while ``run()`` calls it (``run`` returns how many batches
+    it ran; none raises), as a quant tree rooted at ``model``."""
     absmax: Dict[Tuple[str, str], torch.Tensor] = {}
 
     def record(scope: str, key: str, value: torch.Tensor) -> None:
@@ -282,15 +302,8 @@ def calibrate_scales(
         if hasattr(m, "calib_sink"):
             m.calib_sink = lambda key, v, _n=name: record(_n, key, v)
             sinks.append(m)
-    n_batches = 0
     try:
-        for feats, cart, mask in batches:
-            model(
-                torch.as_tensor(feats, dtype=torch.float32, device=device),
-                torch.as_tensor(cart, dtype=torch.float32, device=device),
-                torch.as_tensor(mask, dtype=torch.bool, device=device),
-            )
-            n_batches += 1
+        n_batches = run()
     finally:
         for h in handles:
             h.remove()

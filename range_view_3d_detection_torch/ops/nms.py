@@ -22,6 +22,10 @@ from range_view_3d_detection_torch.results import NMSResult
 
 _CLASS_GRID = 8
 _CLASS_SPACING = 2000.0  # metres; far beyond any real box extent
+# ``iou_rotated_bev``'s largest intermediates, (..., rows, cap, 4, 4, 2)
+# fp32, hold 128 bytes a pair; a row block keeps each under about 1 GB.
+_PAIR_BYTES = 128
+_BLOCK_BYTES = 1 << 30
 
 
 def _class_offset_bev(bev: torch.Tensor, categories: torch.Tensor) -> torch.Tensor:
@@ -51,6 +55,35 @@ def _apply_post_nms_cap(
     return keep & (rank < num_post_nms)
 
 
+def block_rows(B: int, cap: int) -> int:
+    """Rows of a block of the IoU matrix whose intermediates stay under
+    about 1 GB."""
+    return max(1, _BLOCK_BYTES // (_PAIR_BYTES * B * cap))
+
+
+def blocked_iou(bev: torch.Tensor, rows: int) -> torch.Tensor:
+    """The (B, cap, cap) rotated IoU of ``bev`` (B, cap, 5) with itself,
+    ``rows`` rows at a time (the JAX ``_block_iou``): the same formula in
+    the same op order as :func:`iou_rotated_bev` on the whole matrix, so
+    each row equals it bit for bit. One block is the whole matrix."""
+    B, cap, _ = bev.shape
+    if rows >= cap:
+        return iou_rotated_bev(bev, bev)
+    out = bev.new_empty((B, cap, cap))
+    for r0 in range(0, cap, rows):
+        out[:, r0 : r0 + rows] = iou_rotated_bev(bev[:, r0 : r0 + rows], bev)
+    return out
+
+
+def iou_matrix(bev: torch.Tensor) -> torch.Tensor:
+    """The scan's IoU matrix in row blocks of :func:`block_rows` (whole at
+    the served cap 1024 and B=2; at cap 9216 and B=2 whole, its (B, cap,
+    cap, 4, 4) intermediates would each take 10.9 GB), as the JAX package
+    builds it past cap 4096 (``ops/nms.py:56-58``)."""
+    B, cap, _ = bev.shape
+    return blocked_iou(bev, block_rows(B, cap))
+
+
 class NMSInputs(NamedTuple):
     """What the greedy scan consumes, in descending score order."""
 
@@ -77,7 +110,8 @@ def nms_inputs(
     """Top-``cap`` selection, class offsets, payload and IoU matrix.
 
     ``cap`` is rounded up to a multiple of ``block`` as the JAX block scan
-    does; past ``N`` the slots are padding (score -1, invalid).
+    does; past ``N`` the slots are padding (score -1, invalid). Any cap:
+    the IoU matrix is built in row blocks (:func:`iou_matrix`).
     """
     B, n = scores.shape
     cap = min(cap, n)
@@ -107,7 +141,7 @@ def nms_inputs(
     )
     weighted = mode.upper() == "WEIGHTED"
     return NMSInputs(
-        iou=iou_rotated_bev(bev, bev),
+        iou=iou_matrix(bev),
         scores=top_scores,
         valid=top_scores >= min_confidence,
         payload=payload,

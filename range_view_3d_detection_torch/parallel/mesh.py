@@ -17,14 +17,18 @@ reductions explicit with the collectives here:
   for host scalars (the val losses);
 - :func:`zero1_owners` and :func:`gather_owned`, ZeRO-1: each rank
   updates the AdamW moments of its share of the parameters, and the
-  updated parameters are gathered on every rank.
+  updated parameters are gathered on every rank;
+- :func:`make_mesh`, the JAX ``(data, model)`` mesh as process groups: a
+  rank's width group (its row) and data group (its column), for
+  width-sharded training over several requests at once
+  (``parallel/spatial.py``).
 
 Without a process group every function is the identity, so a process
 that was not launched as a rank runs the single-device step unchanged.
-The JAX ``make_mesh``, ``shard_batch`` and ``fetch_local`` have no
-counterpart beyond the loader's per-rank slice
-(``data/dataset.py::DataLoader``'s ``process_index``/``process_count``):
-each rank's tensors are already its local rows of the global batch.
+The JAX ``shard_batch`` and ``fetch_local`` have no counterpart beyond
+the loader's per-rank slice (``data/dataset.py::DataLoader``'s
+``process_index``/``process_count``): each rank's tensors are already its
+local rows of the global batch.
 
 The backend follows the device the caller names: ``nccl`` for CUDA
 (``cuda:LOCAL_RANK``), ``gloo`` for the CPU. Neither falls back to the
@@ -34,14 +38,18 @@ other.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
-_REPLICATED = [False]
+_WORLD = "world"
+# The group the batch reductions run over: the world, a data group
+# (inside ``replicated_batch(data_group)``), or None (a data axis of one).
+_BATCH: list = [_WORLD]
 
 
 def active() -> bool:
@@ -101,22 +109,79 @@ def initialize_distributed(
 
 
 @contextlib.contextmanager
-def replicated_batch() -> Iterator[None]:
-    """Inside, every rank holds the whole batch (width sharding at a data
-    axis of size 1, ``parallel/spatial.py``): the batch reductions
-    (:func:`all_sum`, :func:`global_moments` without a group) are the
-    identity, so a loss on gathered outputs counts each image once."""
-    old = _REPLICATED[0]
-    _REPLICATED[0] = True
+def replicated_batch(data_group=None) -> Iterator[None]:
+    """Inside, the ranks of a width group hold the same rows (width
+    sharding, ``parallel/spatial.py``): the batch reductions
+    (:func:`all_sum`, :func:`global_moments` without a group) run over
+    ``data_group``, the ranks that hold the other rows of the global batch
+    (:class:`Mesh`'s ``data``), and are the identity without one (a data
+    axis of size 1), so a loss on gathered outputs counts each image
+    once."""
+    old = _BATCH[0]
+    _BATCH[0] = data_group
     try:
         yield
     finally:
-        _REPLICATED[0] = old
+        _BATCH[0] = old
 
 
 def replicated() -> bool:
-    """Whether a :func:`replicated_batch` block is running."""
-    return _REPLICATED[0]
+    """Whether the batch reductions are the identity: a
+    :func:`replicated_batch` block without a data group is running."""
+    return _BATCH[0] is None
+
+
+def _batch_group():
+    return dist.group.WORLD if _BATCH[0] is _WORLD else _BATCH[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in a ``(data, model)`` layout of the ranks.
+
+    ``width``: the ranks of its row (the same data index), over which one
+    request's width is split; ``data``: the ranks of its column (the same
+    model index), which hold the other rows of the global batch;
+    ``group``: every rank of the mesh, over which train-mode BatchNorm
+    reduces its moments (the JAX ``bn_axes = ("data", "model")``). A rank
+    outside the mesh has indices -1. Without a process group every group
+    is None (a mesh of one).
+    """
+
+    num_data: int
+    num_model: int
+    data_index: int
+    model_index: int
+    width: Any = None
+    data: Any = None
+    group: Any = None
+
+
+def make_mesh(num_data: Optional[int] = None, num_model: int = 1) -> Mesh:
+    """The JAX ``make_mesh(num_data, num_model)`` over the ranks: they are
+    laid out as ``reshape(num_data, num_model)``, so rank = d *
+    num_model + m, and the first ``num_data * num_model`` ranks make the
+    mesh. Every rank must call this (it creates every row's and every
+    column's group, in the same order on each rank). Without a process
+    group only (1, 1) is possible, and every group is None."""
+    n = world()
+    if num_data is None:
+        num_data = max(1, n // num_model)
+    needed = num_data * num_model
+    if needed > n or num_data < 1 or num_model < 1:
+        raise ValueError(f"mesh ({num_data} data x {num_model} model) needs {needed} "
+                         f"ranks; have {n}")
+    if not active():
+        return Mesh(1, 1, 0, 0)
+    rows = [dist.new_group(list(range(d * num_model, (d + 1) * num_model)))
+            for d in range(num_data)]
+    cols = [dist.new_group(list(range(m, needed, num_model))) for m in range(num_model)]
+    whole = dist.group.WORLD if needed == n else dist.new_group(list(range(needed)))
+    r = rank()
+    if r >= needed:
+        return Mesh(num_data, num_model, -1, -1)
+    d, m = divmod(r, num_model)
+    return Mesh(num_data, num_model, d, m, width=rows[d], data=cols[m], group=whole)
 
 
 def barrier() -> None:
@@ -126,10 +191,10 @@ def barrier() -> None:
 
 def all_sum(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the ranks (no gradient), as a new tensor."""
-    if not active() or _REPLICATED[0]:
+    if not active() or replicated():
         return t
     out = t.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=_batch_group())
     return out
 
 
@@ -154,31 +219,34 @@ def global_moments(
     size, exact at 1 and 2, so a group of one rank gives the single
     device's statistics bit for bit.
 
-    ``group`` (a width group, ``parallel/spatial.py::bn_mean``) reduces
-    over its ranks instead; without it the reduction is over the data
-    axis, the identity under :func:`replicated_batch`.
+    ``group`` (a width group or a mesh's, ``parallel/spatial.py::
+    bn_mean``) reduces over its ranks instead; without it the reduction is
+    over the data axis: the world, or :func:`replicated_batch`'s data
+    group (the identity without one).
     """
-    if not active() or (group is None and _REPLICATED[0]):
+    if not active() or (group is None and replicated()):
         return mean, sq_mean
+    if group is None:
+        group = _batch_group()
     from torch.distributed.nn.functional import all_reduce
 
     C = mean.shape[0]
     # A profiler range, so that a trace can tell these all-reduces from the
     # gradients' (their backward is autograd's ``_AllReduceBackward``).
     with torch.profiler.record_function("mesh.global_moments"):
-        both = all_reduce(
-            torch.cat([mean.float(), sq_mean.float()]),
-            group=dist.group.WORLD if group is None else group,
-        ) / dist.get_world_size(group)
+        both = all_reduce(torch.cat([mean.float(), sq_mean.float()]), group=group)
+        both = both / dist.get_world_size(group)
     return both[:C], both[C:]
 
 
-def all_reduce_grads(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Gradients summed over the ranks, in one all-reduce of a flat buffer."""
+def all_reduce_grads(grads: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """Gradients summed over the ranks (of ``group``: a :class:`Mesh`'s
+    ``group`` for width-sharded training on a mesh), in one all-reduce of
+    a flat buffer."""
     if not active():
         return list(grads)
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     out, offset = [], 0
     for g in grads:
         out.append(flat[offset : offset + g.numel()].view_as(g))

@@ -3,7 +3,9 @@
 
 One request's range image is split along its width over the ranks of a
 process group (one process a card, as ``mesh.py`` runs data parallelism;
-at serving the data axis has size 1 and the width group is the world).
+at serving the data axis has size 1 and the width group is the world; in
+training, ``mesh.make_mesh(num_data, num_model)`` lays the ranks out as
+JAX's ``(data, model)`` mesh, each row a width group).
 Every width-affecting op exchanges exactly the halo it needs, at its own
 resolution, so the sharded network computes the global one:
 
@@ -55,13 +57,15 @@ class WidthShardingContext:
 
     ``group``: the width group (None: the default group, or no group at
     all in a process that joined none). ``bn_reduce``: train-mode
-    BatchNorm moments are reduced over the group (the JAX ``bn_axes``,
-    whose data axis has size 1 here); False is eval-only use.
+    BatchNorm moments are reduced over ``bn_group`` (the JAX ``bn_axes``:
+    a mesh's group of data x width ranks), or over the width group when
+    it is None (a data axis of size 1); False is eval-only use.
     """
 
     group: Any = None
     circular: bool = False
     bn_reduce: bool = False
+    bn_group: Any = None
 
 
 _CTX: Optional[WidthShardingContext] = None
@@ -72,11 +76,12 @@ def context() -> Optional[WidthShardingContext]:
 
 
 @contextmanager
-def width_sharding(group=None, *, circular: bool = False, bn_reduce: bool = False):
+def width_sharding(group=None, *, circular: bool = False, bn_reduce: bool = False,
+                   bn_group=None):
     """Activate width-sharded op behaviour for the code run inside."""
     global _CTX
     old = _CTX
-    _CTX = WidthShardingContext(group, circular, bn_reduce)
+    _CTX = WidthShardingContext(group, circular, bn_reduce, bn_group)
     try:
         yield _CTX
     finally:
@@ -244,10 +249,12 @@ def bn_mean(
     mean: torch.Tensor, sq_mean: torch.Tensor, ctx: Optional[WidthShardingContext]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train-mode BatchNorm moments ``E[y]`` and ``E[y^2]`` over the
-    context's width group when it reduces them; else over the data axis
+    context's BatchNorm group (its mesh's data x width ranks, or its width
+    group) when it reduces them; else over the data axis
     (``mesh.global_moments``, the identity without a process group)."""
     if ctx is not None and ctx.bn_reduce:
-        return mesh.global_moments(mean, sq_mean, group=_group(ctx.group))
+        group = ctx.bn_group if ctx.bn_group is not None else ctx.group
+        return mesh.global_moments(mean, sq_mean, group=_group(group))
     return mesh.global_moments(mean, sq_mean)
 
 
@@ -320,12 +327,13 @@ def width_sharded_forward(
     *,
     circular: bool = False,
     bn_reduce: bool = False,
+    bn_group=None,
 ) -> Dict[str, Any]:
     """One width-sharded forward: ``apply_fn(features, cart, mask)`` on
     this rank's shards (:func:`shard_width`) under the width context.
     Returns this rank's shard of the outputs (:func:`gather_width` puts
     them together)."""
-    with width_sharding(group, circular=circular, bn_reduce=bn_reduce):
+    with width_sharding(group, circular=circular, bn_reduce=bn_reduce, bn_group=bn_group):
         return apply_fn(features, cart, mask)
 
 
@@ -349,16 +357,27 @@ def width_sharded_apply(
     width-sharded over ``group`` on this rank's shards and returns this
     rank's shard of its outputs.
 
+    ``group`` is a width group (or None: the world), or a
+    ``mesh.Mesh``: then the request is split over its ``width`` group,
+    each data index holding its own rows of the global batch (the JAX
+    ``(data, model)`` mesh).
+
     Train mode (``model.train()``) reduces every BatchNorm's moments over
-    the group, so each rank's running statistics move identically (the
-    JAX package's replicated ``batch_stats``); compute the loss on
-    :func:`gather_width`'s outputs, the same on every rank, under
-    ``mesh.replicated_batch()`` (its normalizers count the whole batch
-    once), and sum the parameter gradients over the group
-    (``mesh.all_reduce_grads``): each rank's backward holds its shard's
-    share. The up-front check refuses a shard width that is not a
-    multiple of the model's width stride.
+    the width group, or over the mesh's ``group`` of data x width ranks
+    (the JAX ``bn_axes = ("data", "model")``), so each rank's running
+    statistics move identically (the JAX package's replicated
+    ``batch_stats``). Compute the loss on :func:`gather_width`'s outputs,
+    the same on every rank of a width group, under
+    ``mesh.replicated_batch(mesh.data)`` (``replicated_batch()`` at a data
+    axis of one): its normalizers count the global batch once. Then sum
+    the parameter gradients over the mesh (``mesh.all_reduce_grads(grads,
+    mesh.group)``, or over the width group): each rank's backward holds
+    its shard's share of its rows' loss. The up-front check refuses a
+    shard width that is not a multiple of the model's width stride.
     """
+    bn_group = None
+    if isinstance(group, mesh.Mesh):
+        group, bn_group = group.width, group.group
     stride = width_stride(model)
     n = group_size(group)
 
@@ -366,7 +385,8 @@ def width_sharded_apply(
         check_width(features.shape[2] * n, n, stride)
         model.train(train)
         return width_sharded_forward(
-            model, group, features, cart, mask, circular=circular, bn_reduce=train
+            model, group, features, cart, mask, circular=circular, bn_reduce=train,
+            bn_group=bn_group,
         )
 
     return sharded

@@ -6,19 +6,25 @@ message, dictionary and record batches and a footer that indexes them,
 with the metadata of each as a flatbuffer. This module decodes and builds
 those flatbuffers by hand for the columns the raw logs, the converters,
 the synthetic generator and the prediction shards hold: bool, int8-64,
-uint8-64, float16/32/64, utf8 and large utf8 strings, and
-dictionary-encoded columns of any of these (int8-64 indices, delta
-dictionaries included). Numeric columns come back as numpy arrays of
-their type (``float16`` stays ``float16``), strings and dictionaries of
-strings as an object array of ``str``: what pyarrow's
-``to_numpy(zero_copy_only=False)`` gives.
+uint8-64, float16/32/64, utf8 and large utf8 strings, binary and large
+binary, the null type, and dictionary-encoded columns of any of these
+(int8-64 indices, delta dictionaries included). Results are what
+pyarrow's ``to_numpy(zero_copy_only=False)`` gives: numeric columns come
+back as numpy arrays of their type (``float16`` stays ``float16``),
+strings and dictionaries of strings as an object array of ``str``, binary
+columns as one of ``bytes``. A column with nulls (a validity bitmap) keeps
+a float dtype with NaN at each null, turns integers into float64 with
+NaN, and bool, string and binary columns into object arrays with
+``None``; a dictionary column's null index gives the same (the index
+buffer under a null slot is not read).
 
 Record batches compressed with ``LZ4_FRAME`` (pyarrow's default for
-Feather V2) are read: each non-empty buffer starts with its uncompressed
-length as an int64 (``-1``: the rest is stored raw), followed by an LZ4
-frame that ``data/native_io.py::lz4_frame_decompress`` decodes. ``ZSTD``
-bodies, nested, binary and other columns, and columns with nulls raise and
-name what they met.
+Feather V2) or ``ZSTD`` are read: each non-empty buffer starts with its
+uncompressed length as an int64 (``-1``: the rest is stored raw),
+followed by a frame that ``data/native_io.py::lz4_frame_decompress`` or
+``zstd_frame_decompress`` decodes. Nested and other columns raise and
+name what they met; so does a replacement dictionary, which the IPC file
+format forbids.
 
 The writer writes uncompressed files of one record batch, as the JAX
 writer does.
@@ -36,7 +42,8 @@ import numpy as np
 MAGIC = b"ARROW1"
 _V5 = 4  # MetadataVersion.V5
 _SCHEMA, _DICTIONARY_BATCH, _RECORD_BATCH = 1, 2, 3  # MessageHeader union
-_NULL, _INT, _FLOAT, _UTF8, _BOOL, _LARGE_UTF8 = 1, 2, 3, 5, 6, 20  # Type union
+_NULL, _INT, _FLOAT, _BINARY, _UTF8, _BOOL = 1, 2, 3, 4, 5, 6  # Type union
+_LARGE_BINARY, _LARGE_UTF8 = 19, 20
 _TYPE_NAMES = {
     0: "NONE", 1: "Null", 2: "Int", 3: "FloatingPoint", 4: "Binary", 5: "Utf8",
     6: "Bool", 7: "Decimal", 8: "Date", 9: "Time", 10: "Timestamp",
@@ -46,7 +53,6 @@ _TYPE_NAMES = {
     23: "BinaryView", 24: "Utf8View", 25: "ListView", 26: "LargeListView",
 }
 _CODECS = {0: "LZ4_FRAME", 1: "ZSTD"}
-_LZ4_FRAME = 0
 _FLOAT_DTYPES = {0: np.float16, 1: np.float32, 2: np.float64}  # Precision HALF..DOUBLE
 _PRECISION = {2: 0, 4: 1, 8: 2}  # itemsize -> Precision
 
@@ -129,7 +135,7 @@ class _Spec(NamedTuple):
 
     name: str
     what: str  # the Arrow type, for error messages
-    kind: str  # "fixed", "bool", "utf8", "large_utf8" or "null"
+    kind: str  # "fixed", "bool", "utf8", "large_utf8", "binary", "large_binary" or "null"
     dtype: Any
     dict_id: Optional[int] = None
     index_dtype: Any = None
@@ -163,6 +169,10 @@ def _field_spec(field: _Table) -> _Spec:
         spec = _Spec(name, what, "utf8", None)
     elif type_id == _LARGE_UTF8:
         spec = _Spec(name, what, "large_utf8", None)
+    elif type_id == _BINARY:
+        spec = _Spec(name, what, "binary", None)
+    elif type_id == _LARGE_BINARY:
+        spec = _Spec(name, what, "large_binary", None)
     elif type_id == _NULL:
         spec = _Spec(name, what, "null", None)
     else:
@@ -188,6 +198,33 @@ def _decode_utf8(offsets: np.ndarray, data: bytes) -> np.ndarray:
     return out
 
 
+def _decode_binary(offsets: np.ndarray, data: bytes) -> np.ndarray:
+    out = np.empty(len(offsets) - 1, dtype=object)
+    for i in range(len(out)):
+        out[i] = data[offsets[i] : offsets[i + 1]]
+    return out
+
+
+def _with_nulls(values: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """``values`` with a null at each slot ``valid`` clears, as pyarrow's
+    ``to_numpy(zero_copy_only=False)`` gives them: NaN in a float array,
+    integers as float64 with NaN, ``None`` in an object array (bool,
+    strings, bytes)."""
+    if values.dtype == np.float16:  # pyarrow's half NaN is 0x7fff
+        out = values.copy()
+        out.view(np.uint16)[~valid] = 0x7FFF
+    elif values.dtype.kind == "f":
+        out = values.copy()
+        out[~valid] = np.nan
+    elif values.dtype.kind in "iu":
+        out = values.astype(np.float64)
+        out[~valid] = np.nan
+    else:
+        out = values.astype(object)
+        out[~valid] = None
+    return out
+
+
 def _header(raw: memoryview, block: Tuple[int, int, int], header_type: int, what: str) -> _Table:
     """The header table of the message a footer ``Block`` points to."""
     offset, meta_len, _ = block
@@ -206,13 +243,15 @@ def _body_buffers(raw: memoryview, rb: _Table, body: int) -> Callable[[int], Any
     if comp is None:
         return lambda i: raw[body + buffers[i][0] : body + buffers[i][0] + buffers[i][1]]
     codec, method = comp.scalar(0, "b", 0), comp.scalar(1, "b", 0)
-    if codec != _LZ4_FRAME:
-        raise FeatherError(
-            f"compressed record batch ({_CODECS.get(codec, f'codec {codec}')}) is not supported"
-        )
+    if codec not in _CODECS:
+        raise FeatherError(f"compressed record batch (codec {codec}) is not supported")
     if method != 0:  # BodyCompressionMethod.BUFFER
         raise FeatherError(f"body compression method {method} is not supported")
-    from range_view_3d_detection_torch.data.native_io import lz4_frame_decompress
+    from range_view_3d_detection_torch.data import native_io
+
+    name = _CODECS[codec]
+    decompress = (native_io.lz4_frame_decompress if name == "LZ4_FRAME"
+                  else native_io.zstd_frame_decompress)
 
     def buf(i: int):
         off, n = buffers[i]
@@ -225,35 +264,42 @@ def _body_buffers(raw: memoryview, rb: _Table, body: int) -> Callable[[int], Any
         if size == -1:  # stored raw
             return data
         try:
-            return memoryview(lz4_frame_decompress(data, size))
+            return memoryview(decompress(data, size))
         except ValueError as exc:
-            raise FeatherError(f"LZ4_FRAME buffer: {exc}") from exc
+            raise FeatherError(f"{name} buffer: {exc}") from exc
 
     return buf
 
 
 def _read_column(spec: _Spec, node: Tuple[int, int], buf: Callable[[int], Any], bi: int):
-    """Decode one column whose buffers start at ``bi``: (array, next ``bi``).
-    A dictionary-encoded column gives its indices."""
+    """Decode one column whose buffers start at ``bi``: (array, validity
+    or None when the column has no nulls, next ``bi``). A
+    dictionary-encoded column gives its indices (0 under a null)."""
     n, nulls = node
-    if spec.kind == "null":
-        if n:
-            raise FeatherError(f"column {spec.name!r}: {n} nulls (null type) are not supported")
-        return np.empty(0, dtype=object), bi
+    if spec.kind == "null":  # no buffers
+        return np.full(n, None, dtype=object), None, bi
+    valid = None
     if nulls:
-        raise FeatherError(f"column {spec.name!r} ({spec.what}): {nulls} nulls are not supported")
+        bits = np.frombuffer(buf(bi), dtype=np.uint8)
+        if len(bits) * 8 < n:
+            raise FeatherError(f"column {spec.name!r}: validity bitmap of {len(bits)} bytes")
+        valid = np.unpackbits(bits, count=n, bitorder="little").astype(bool)
     if spec.dict_id is not None:
         idx = np.frombuffer(buf(bi + 1), dtype=spec.index_dtype, count=n)
-        return idx.astype(spec.index_dtype.newbyteorder("=")), bi + 2
+        idx = idx.astype(spec.index_dtype.newbyteorder("="))
+        if valid is not None:
+            idx = np.where(valid, idx, 0)
+        return idx, valid, bi + 2
     if spec.kind == "fixed":
         col = np.frombuffer(buf(bi + 1), dtype=spec.dtype, count=n)
-        return col.astype(spec.dtype.newbyteorder("=")), bi + 2
+        return col.astype(spec.dtype.newbyteorder("=")), valid, bi + 2
     if spec.kind == "bool":
         bits = np.frombuffer(buf(bi + 1), dtype=np.uint8)
-        return np.unpackbits(bits, count=n, bitorder="little").astype(bool), bi + 2
-    off_dtype = "<i4" if spec.kind == "utf8" else "<i8"
+        return np.unpackbits(bits, count=n, bitorder="little").astype(bool), valid, bi + 2
+    off_dtype = "<i4" if spec.kind in ("utf8", "binary") else "<i8"
     offs = np.frombuffer(buf(bi + 1), dtype=off_dtype, count=n + 1) if n else np.zeros(1, np.int64)
-    return _decode_utf8(offs, bytes(buf(bi + 2))), bi + 3
+    decode = _decode_utf8 if spec.kind in ("utf8", "large_utf8") else _decode_binary
+    return decode(offs, bytes(buf(bi + 2))), valid, bi + 3
 
 
 def _read_dictionaries(raw: memoryview, blocks, specs: List[_Spec]) -> Dict[int, np.ndarray]:
@@ -269,10 +315,13 @@ def _read_dictionaries(raw: memoryview, blocks, specs: List[_Spec]) -> Dict[int,
         nodes = rb.structs(1, "qq")
         if len(nodes) != 1:
             raise FeatherError(f"dictionary {dict_id}: {len(nodes)} columns")
-        values, _ = _read_column(by_id[dict_id], nodes[0],
-                                 _body_buffers(raw, rb, block[0] + block[1]), 0)
+        values, valid, _ = _read_column(by_id[dict_id], nodes[0],
+                                        _body_buffers(raw, rb, block[0] + block[1]), 0)
+        if valid is not None:
+            values = _with_nulls(values, valid)
         if dict_id in out and not is_delta:
-            raise FeatherError(f"dictionary {dict_id}: a replacement dictionary is not supported")
+            raise FeatherError(f"dictionary {dict_id}: a replacement dictionary (the IPC "
+                               "file format forbids them)")
         out[dict_id] = np.concatenate([out[dict_id], values]) if dict_id in out else values
     return out
 
@@ -280,21 +329,23 @@ def _read_dictionaries(raw: memoryview, blocks, specs: List[_Spec]) -> Dict[int,
 def _read_batch(
     raw: memoryview, block: Tuple[int, int, int], specs: List[_Spec],
     dictionaries: Dict[int, np.ndarray],
-) -> List[np.ndarray]:
+) -> List[Tuple[np.ndarray, Optional[np.ndarray]]]:
+    """Each column of one record batch: (values, validity or None)."""
     rb = _header(raw, block, _RECORD_BATCH, "record batch")
     nodes = rb.structs(1, "qq")
     buf = _body_buffers(raw, rb, block[0] + block[1])
     cols, bi = [], 0
     for spec, node in zip(specs, nodes):
-        col, bi = _read_column(spec, node, buf, bi)
+        col, valid, bi = _read_column(spec, node, buf, bi)
         if spec.dict_id is not None:
             values = dictionaries.get(spec.dict_id)
             if values is None:
                 raise FeatherError(f"column {spec.name!r}: dictionary {spec.dict_id} is missing")
-            if len(col) and (col.min() < 0 or col.max() >= len(values)):
+            live = col if valid is None else col[valid]
+            if len(live) and (live.min() < 0 or live.max() >= len(values)):
                 raise FeatherError(f"column {spec.name!r}: dictionary index out of range")
-            col = values[col]
-        cols.append(col)
+            col = values[col] if len(values) else np.zeros(len(col), values.dtype)
+        cols.append((col, valid))
     return cols
 
 
@@ -314,13 +365,18 @@ def read_feather(
         raise FeatherError(f"{path}: big-endian files are not supported")
     specs = [_field_spec(f) for f in schema.tables(1)]
     dictionaries = _read_dictionaries(raw, footer.structs(2, "qi4xq"), specs)
-    parts: List[List[np.ndarray]] = [[] for _ in specs]
+    parts: List[list] = [[] for _ in specs]
     for block in footer.structs(3, "qi4xq"):
         for ci, col in enumerate(_read_batch(raw, block, specs, dictionaries)):
             parts[ci].append(col)
     out: Dict[str, np.ndarray] = {}
     for spec, p in zip(specs, parts):
         if p:
+            # One null anywhere in the column sets the form of all of it.
+            if any(valid is not None for _, valid in p):
+                p = [_with_nulls(v, np.ones(len(v), bool) if m is None else m) for v, m in p]
+            else:
+                p = [v for v, _ in p]
             out[spec.name] = np.concatenate(p) if len(p) > 1 else p[0]
         else:
             empty = {"bool": bool, "fixed": spec.dtype}.get(spec.kind, object)

@@ -8,11 +8,13 @@
   JAX ``read_feather`` gives, dtype included; ``columns=`` selects in
   order.
 - The files of the JAX synthetic generator read equal through both.
-- What the port does not read raises and names it: ZSTD compression, a
-  corrupt LZ4 frame, nulls (also in dictionary and large-string columns),
-  nested lists; the writer refuses dtypes Arrow files do not hold here.
-  (LZ4 bodies, ``float16``, large strings and dictionaries read:
-  ``test_torch_feather_codecs.py``.)
+- What the port does not read raises and names it: a corrupt LZ4 or ZSTD
+  frame, nested lists; the writer refuses dtypes Arrow files do not hold
+  here. Nulls (also in dictionary and large-string columns) read as
+  pyarrow's ``to_numpy`` gives them (they raised until the reader took
+  validity bitmaps). (LZ4 and ZSTD bodies, ``float16``, large strings,
+  binary and dictionaries read: ``test_torch_feather_codecs.py``,
+  ``test_torch_feather_zstd.py``.)
 """
 
 from __future__ import annotations
@@ -104,15 +106,15 @@ def _write_pa(path, table, **options):
 
 @pytest.mark.parametrize("codec,name", [("lz4", "LZ4_FRAME"), ("zstd", "ZSTD")])
 def test_compressed_files_raise(tmp_path, codec, name):
-    """ZSTD bodies raise; LZ4 ones read, so the LZ4 case corrupts its frame
-    (the buffer's uncompressed length, just before the frame's magic)."""
+    """A corrupt frame raises and names its codec: the buffer's
+    uncompressed length, just before the frame's magic, is made wrong."""
     _write_pa(tmp_path / "c.feather", pa.table({"x": pa.array(np.arange(100.0))}),
               compression=codec)
-    if codec == "lz4":
-        data = bytearray((tmp_path / "c.feather").read_bytes())
-        at = data.index(b"\x04\x22\x4d\x18") - 8
-        data[at : at + 8] = (801).to_bytes(8, "little")
-        (tmp_path / "c.feather").write_bytes(bytes(data))
+    magic = b"\x04\x22\x4d\x18" if codec == "lz4" else b"\x28\xb5\x2f\xfd"
+    data = bytearray((tmp_path / "c.feather").read_bytes())
+    at = data.index(magic) - 8
+    data[at : at + 8] = (801).to_bytes(8, "little")
+    (tmp_path / "c.feather").write_bytes(bytes(data))
     with pytest.raises(FeatherError, match=name):
         read_feather(tmp_path / "c.feather")
 
@@ -124,9 +126,21 @@ def test_compressed_files_raise(tmp_path, codec, name):
     (lambda: pa.array([[1], [2, 3]]), "nested"),
 ])
 def test_unsupported_columns_raise(tmp_path, array, what):
+    """Nested columns raise and name it; the null-bearing ones, which
+    raised until the reader took validity bitmaps, read as pyarrow's
+    ``to_numpy`` gives them (the name is kept)."""
     _write_pa(tmp_path / "u.feather", pa.table({"x": array()}))
-    with pytest.raises(FeatherError, match=what):
-        read_feather(tmp_path / "u.feather")
+    if what == "nested":
+        with pytest.raises(FeatherError, match=what):
+            read_feather(tmp_path / "u.feather")
+        return
+    got = read_feather(tmp_path / "u.feather")["x"]
+    want = array().to_numpy(zero_copy_only=False)
+    assert got.dtype == want.dtype
+    if want.dtype == object:
+        assert list(got) == list(want)
+    else:
+        assert np.array_equal(got, want, equal_nan=True)
 
 
 def test_writer_refuses_other_dtypes(tmp_path):

@@ -11,8 +11,10 @@
   round-trip, a PNG is drawn and decoded, and the ``tensorboard`` logger
   backend raises. Width sharding (``parallel.spatial``), the result
   types (``results``), the bench, the dry run, the compiler-options and
-  W&B utilities and every measurement tool (``tools.*``) are among the
-  modules.
+  W&B utilities and every measurement tool (``tools.*``, the hardware
+  tools ``validate_nms``, ``conv_ab`` and ``fold_bench`` among them) and
+  the ZSTD twin (``utils.zstd``) are among the modules; zstandard and
+  xxhash, which only the tests use, are unimportable too.
 - Importing the port registers the four kernels as ``torch.library``
   custom ops (``rv3d::meta_kernel_fused``, ``rv3d::nms_scan``,
   ``rv3d::conv3x3_i8``, ``rv3d::meta_kernel_fused_i8``) and builds
@@ -93,11 +95,12 @@ def test_port_imports_without_jax():
                  "utils.compile_opts", "utils.wandb", "tools", "tools.benchmark",
                  "tools.profile_trace", "tools.profile_forward", "tools.profile_train",
                  "tools.remat_grid", "tools.flops", "tools.quant_accuracy",
-                 "tools.quant_cert_scale", "tools.scale_drill"):
+                 "tools.quant_cert_scale", "tools.scale_drill", "tools.validate_nms",
+                 "tools.conv_ab", "tools.fold_bench", "utils.zstd"):
         assert f"range_view_3d_detection_torch.{name}" in modules
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "range_view_3d_detection_tpu",
               "pyarrow", "yaml", "matplotlib", "polars", "tensorboard", "msgpack",
-              "ml_dtypes", "tools", "converters")
+              "ml_dtypes", "tools", "converters", "zstandard", "xxhash")
     code = "\n".join(
         [
             "import importlib, sys, tempfile",

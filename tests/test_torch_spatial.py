@@ -67,15 +67,17 @@ BLOCKS = (
 STEMS = ("BASIC", "META", "RANGE_PARTITION")
 
 
-def launch(mode: str, work: Path, world: int, timeout: float = 240.0) -> list:
-    """Run ``world`` gloo ranks of ``mode`` over ``work/inputs.pt``; returns
-    each rank's saved output."""
+def launch(mode: str, work: Path, world: int, timeout: float = 240.0,
+           script: str = __file__) -> list:
+    """Run ``world`` gloo ranks of ``mode`` over ``work/inputs.pt`` (each
+    ``python SCRIPT MODE RANK WORLD DIR``); returns each rank's saved
+    output."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "GLOO_SOCKET_IFNAME": "lo",
            "OMP_NUM_THREADS": "1"}
     env.pop("RV3D_DECONV_PHASE", None)
     procs = [
         subprocess.Popen(
-            [sys.executable, __file__, mode, str(r), str(world), str(work)],
+            [sys.executable, script, mode, str(r), str(world), str(work)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )
         for r in range(world)
