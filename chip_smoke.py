@@ -315,11 +315,25 @@ Phases, each of which raises (non-zero exit) on failure:
     by side, so their times are not clean), ``tools.conv_ab --reps 3`` (K3
     against ``_int_mm``'s lowering, bit for bit, then per shape and per
     request) and ``tools.fold_bench --stage res3`` with and without
-    ``--int8``, each alone (``hw_tools_launches``: their launches).
+    ``--int8``, each alone (``hw_tools_launches``: their launches);
+43. every conv shape the JAX blocks serve: the served int8 flagship
+    request still makes 62 K3 launches and no general-route call; the
+    flagship with (4, 4) head towers (``fpn_kernel_sizes ((1, (4, 4)),)``)
+    served at B=2, 64x1808 in bf16 (the towers' asymmetric pad) and, after
+    ``Predictor.quantize`` (full scope), in int8 (the 8 tower convs on the
+    general int8 route, the other 54 convs on K3), each 4 requests by p50
+    with the general route's ms a request (CUDA events) and its share;
+    the general route on the card against its CPU twin (fp64 product), bit
+    for bit: a (4, 4) head-tower conv, a biased 5x5, a height-stride-2
+    3x3 (and a 2x4 image, M < 17), a (5, 8)/(1, 4)/(2, 2) transposed conv
+    with bias; an int8 3x3 ``ConvNormAct`` and an aggregation transposed
+    conv under a one-rank width context equal to their runs without it
+    (``conv_shapes_launches``: the kernels' launches in its requests).
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
-step times not measured).
+step times not measured); ``python3 chip_smoke.py conv-shapes`` the build
+and phase 43.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -4487,6 +4501,213 @@ def slice_phases(device, smi, dryrun_results: dict, k2_split=None) -> dict:
     return {"anycap": anycap, "hw_tools": tools, "k2_big": k2_big}
 
 
+def twin_equal(tag, module, x) -> None:
+    """``module(x)`` on the card equals its CPU twin's (a copy of the module
+    on the CPU, whose int8 product is fp64), bit for bit."""
+    import copy
+
+    import torch
+
+    with torch.inference_mode():
+        got = module(x)
+        want = copy.deepcopy(module).cpu()(x.cpu())
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got.cpu(), want),
+          f"{tag}: card != CPU twin ({int((got.cpu() != want).sum())} elements differ)")
+    say(f"conv shapes (phase 43) {tag}: {tuple(x.shape)} -> {tuple(got.shape)} "
+        f"{got.dtype}, equal to the CPU twin bit for bit")
+
+
+def general_route_checks(model, device, gen) -> None:
+    """Phase 43's checks of the general int8 route on the card: small
+    shapes against the CPU twin, and the width context of one rank against
+    the run without it."""
+    import torch
+
+    from range_view_3d_detection_torch.models import blocks
+    from range_view_3d_detection_torch.parallel import spatial
+
+    def act(*shape):
+        return torch.randn(shape, generator=gen).to(
+            device, torch.bfloat16, memory_format=torch.channels_last)
+
+    def random_int8(m, x):
+        """``m`` on the card with seeded weights, quantized for ``x``."""
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+        m = m.to(device).eval()
+        m.quantize(float(x.float().abs().max()) / 127.0 * 0.8)
+        return m
+
+    tower = model.DetectionHead_0.cls_s1_t0.ConvNormAct_0
+    check(tower.int8.route == "general", f"the (4, 4) head tower's route is "
+          f"{tower.int8.route}")
+    cin, cout = tower.Conv_0.in_channels, tower.Conv_0.out_channels
+    twin_equal(f"(4, 4) head-tower conv {cin} -> {cout}", tower.int8, act(2, cin, 8, 64))
+    x = act(2, 32, 8, 40)
+    biased = random_int8(blocks.ConvNormAct(32, 48, (5, 5), use_bias=True,
+                                          dtype=torch.bfloat16), x)
+    twin_equal("5x5 conv with bias", biased.int8, x)
+    s21 = random_int8(blocks.ConvNormAct(32, 48, (3, 3), (2, 1), dtype=torch.bfloat16), x)
+    check(s21.int8.route == "general", "the height-stride-2 conv took K3")
+    twin_equal("3x3 conv, height stride 2", s21.int8, x)
+    twin_equal("3x3 conv, height stride 2, a 2x4 image (M = 4 < 17)", s21.int8,
+               act(1, 32, 2, 4))
+    deconv = random_int8(blocks.TorchConvTranspose(32, 24, (5, 8), (1, 4), (2, 2),
+                                                 dtype=torch.bfloat16, use_bias=True), x)
+    check(deconv.int8_taps is None, "the (5, 8) deconv took the phase route")
+    twin_equal("(5, 8)/(1, 4)/(2, 2) deconv with bias", deconv, x)
+    # A one-rank width context: zero halos, so the sharded forms (the
+    # general route on the halo'd input) equal the served ones (K3).
+    conv = next(m for m in model.modules() if isinstance(m, blocks.ConvNormAct)
+                and m.int8 is not None and m.int8.route == "k3")
+    agg = next(m for m in model.modules() if isinstance(m, blocks.TorchConvTranspose))
+    check(agg.int8_taps is not None, "the aggregation deconv is not on K3")
+    for tag, m, cin in (("3x3 ConvNormAct", conv, conv.Conv_0.in_channels),
+                        ("aggregation deconv", agg, agg.in_channels)):
+        xw = act(2, cin, 16, 256)
+        with torch.inference_mode():
+            want = m(xw)
+            with spatial.width_sharding():
+                got = m(xw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{tag}: the width context changed "
+              f"{int((got != want).sum())} elements")
+        say(f"conv shapes (phase 43) {tag} {tuple(xw.shape)} under a one-rank width "
+            f"context (general int8 route): equal to the K3 run bit for bit")
+
+
+def general_route_profile(tower, x, smi) -> None:
+    """One (4, 4) head-tower conv on the general int8 route at the flagship
+    shape: its time (CUDA events), its bound and its device time by kernel
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: tower(x), reps=5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tower(x)
+            torch.cuda.synchronize()
+    B, cin, H, W = x.shape
+    (kh, kw), cout = tower.kernel_size, tower.cout
+    ops = 2 * B * H * W * kh * kw * cin * cout
+    nbytes = x.numel() * x.element_size() + kh * kw * cin * cout + 8 * cout + 4 \
+        + B * H * W * cout * 2
+    bound, by = bound_ms(ops, H100_INT8_OPS, nbytes)
+    events = prof.key_averages()
+    say(events.table(sort_by="self_device_time_total", row_limit=12))
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    say(f"conv shapes (phase 43) general int8 route, one (4, 4) tower conv "
+        f"{cin} -> {cout} at {tuple(x.shape)}: {ms:.3f} ms (CUDA events; device busy "
+        f"{busy:.3f} ms in the profile), bound {bound:.3f} ms ({by}, "
+        f"{100 * bound / ms:.1f}%), im2col {B * H * W * kh * kw * cin / 1e9:.2f} GB "
+        f"on {smi}")
+
+
+def conv_shapes_phase(device, smi) -> dict:
+    """Phase 43: the flagship with (4, 4) head towers in bf16 and int8, the
+    general int8 route against its CPU twin and under the width context,
+    and the served shapes' 62 K3 launches a request. Returns the kernels'
+    launches in the (4, 4) requests."""
+    import dataclasses
+
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.models import blocks, quantized
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 43)
+    dec = DecoderConfig()
+    requests = [serving._sample_inputs(2, 64, 1808, 5, seed=s) for s in range(4)]
+    general = dict(calls=0, events=[])
+    plain_general = quantized.int8_conv_nhwc
+
+    def timed_general(*args, **kw):
+        """``int8_conv_nhwc``, timed where it runs the general route (any
+        shape but the unpadded 1x1 convs' single product)."""
+        if tuple(args[3]) == (1, 1) and "dilation" not in kw:
+            return plain_general(*args, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = plain_general(*args, **kw)
+        end.record()
+        general["calls"] += 1
+        general["events"].append((start, end))
+        return out
+
+    def serve(predictor, tag):
+        predictor(*requests[0])  # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        reset_counts()
+        general.update(calls=0, events=[])
+        blocks.int8_conv_nhwc = quantized.int8_conv_nhwc = timed_general
+        results, times = [], []
+        try:
+            for r in requests:
+                t = time.perf_counter()
+                results.append(predictor(*r))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+        finally:
+            blocks.int8_conv_nhwc = quantized.int8_conv_nhwc = plain_general
+        counts = read_counts()
+        kept = check_results(results)
+        p50 = statistics.median(times)
+        general_ms = sum(a.elapsed_time(b) for a, b in general["events"]) / len(requests)
+        say(f"conv shapes (phase 43) {tag}: {len(requests)} requests, p50 {p50:.3f} ms "
+            f"(min {min(times):.3f}, max {max(times):.3f}), {2e3 / p50:.2f} frames/s, "
+            f"launches {counts}, general int8 route {general['calls'] // len(requests)} "
+            f"calls a request, {general_ms:.3f} ms a request (CUDA events, "
+            f"{100 * general_ms / p50:.1f}% of p50); kept {kept} on {smi}")
+        return counts, general["calls"] // len(requests)
+
+    # The served shapes: the flagship's int8 request keeps K3 on every conv.
+    base = serving._flagship_config()
+    predictor = flagship_predictor(base, dec, device, gen, requests[0])
+    predictor.quantize([requests[0]], scope="full")
+    launches, n_general = serve(predictor, "served flagship (3x3 towers) int8")
+    k3 = launches["conv3x3_i8_fused"] / len(requests)
+    check(k3 == 62 and n_general == 0, f"a served int8 request made {k3} K3 launches "
+          f"and {n_general} general-route calls, not 62 and 0")
+    del predictor
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(base, fpn_kernel_sizes=((1, (4, 4)),))
+    predictor = flagship_predictor(cfg, dec, device, gen, requests[0])
+    counts, n_general = serve(predictor, "flagship (4, 4) towers bf16")
+    check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
+          f"a kernel of the bf16 path did not run: {counts}")
+    check(n_general == 0 and counts["conv3x3_i8_fused"] == 0,
+          f"the bf16 path ran int8 convs: {counts}, general {n_general}")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    predictor.quantize([requests[0]], scope="full")
+    counts, n_general = serve(predictor, "flagship (4, 4) towers int8")
+    n_towers = sum(isinstance(m, quantized.Int8Conv) and m.route == "general"
+                   for m in predictor.model.modules())
+    check(n_towers == 8 and n_general == 8, f"general route: {n_towers} convs, "
+          f"{n_general} calls a request (want the 8 head-tower convs)")
+    per_request = counts["conv3x3_i8_fused"] / len(requests)
+    check(per_request == 62 - 8 and counts["meta_kernel_fused"] > 0
+          and counts["nms_scan"] > 0 and counts["meta_kernel_fused_i8"] == 0,
+          f"int8 (4, 4) request launches {counts}: want K3 at 62 - 8 a request")
+    launches = {k: launches[k] + counts[k] for k in launches}
+    general_route_checks(predictor.model, device, gen)
+    tower = predictor.model.DetectionHead_0.cls_s1_t0.ConvNormAct_0
+    general_route_profile(tower.int8, torch.randn(
+        (2, tower.Conv_0.in_channels, 64, 1808), generator=gen).to(
+        device, torch.bfloat16, memory_format=torch.channels_last), smi)
+    del predictor
+    torch.cuda.empty_cache()
+    say(f"phase 43: {time.perf_counter() - t0:.0f} s")
+    return launches
+
+
 def flagship_predictor(cfg, dec, device, gen, request):
     """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
     non-trivial BatchNorm statistics, and each head's final conv scaled to
@@ -4786,6 +5007,8 @@ def main() -> int:
                                  phase18=phase18)
     torch.cuda.empty_cache()
     slice_counts = slice_phases(device, smi, tool_launches["dryrun"], k2_big_split)
+    torch.cuda.empty_cache()
+    conv_shapes_launches = conv_shapes_phase(device, smi)
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -4812,6 +5035,7 @@ def main() -> int:
         k["compile_launches"] = tool_launches["compile"][k["name"]]
         k["anycap_launches"] = slice_counts["anycap"][k["name"]]
         k["hw_tools_launches"] = slice_counts["hw_tools"][k["name"]]
+        k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
         if k["name"] == "nms_scan":
             k.update(slice_counts["k2_big"])
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
@@ -4888,9 +5112,40 @@ def tools_main() -> int:
     return 0
 
 
+def conv_shapes_main() -> int:
+    """``chip_smoke.py conv-shapes``: the build, then phase 43 alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from range_view_3d_detection_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    say(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; {smi}")
+    lib = _build.library()
+    say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
+    say(json.dumps({"conv_shapes_launches": conv_shapes_phase(device, smi)}))
+    say(f"chip_smoke conv-shapes: total {time.perf_counter() - t_start:.0f} s")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["tools"]:
         sys.exit(tools_main())
+    if sys.argv[1:2] == ["conv-shapes"]:
+        sys.exit(conv_shapes_main())
     if sys.argv[1:2] == ["train-rank"]:
         sys.exit(train_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["width-rank"]:

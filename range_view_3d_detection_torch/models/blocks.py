@@ -21,13 +21,16 @@ by ``quantized.qat``) runs the same blocks on STE fake-quantized fp32
 operands, in train or eval mode.
 
 Width sharding (``parallel/spatial.py``): under its context a k-wide
-``ConvNormAct`` fetches ``(k-1)//2`` neighbour columns and runs VALID
-over width, and a ``TorchConvTranspose`` fetches the columns its kernel
-footprint reads and slices the exact local output (the phase
-decomposition takes a (1, 1) halo and needs no slice); train-mode
-BatchNorm moments are reduced over the context's group. The int8
-operands are refused there: width-sharded serving is fp only, as in the
-JAX package.
+``ConvNormAct`` fetches ``(k-1)//2`` columns from its left neighbour and
+``k-1-(k-1)//2`` from its right one and runs VALID over width, and a
+``TorchConvTranspose`` fetches the columns its kernel footprint reads and
+slices the exact local output (the fp phase decomposition takes a (1, 1)
+halo and needs no slice); train-mode BatchNorm moments are reduced over
+the context's group. The int8 operands run there too, as in the JAX
+blocks: on the halo'd shard through the general int8 route
+(``quantized.int8_conv_nhwc``), with a width padding of 0. (The
+width-sharded artifact loader, ``export.load_artifact_width_sharded``,
+is fp only, as the JAX package's is.)
 
 Remat (``checkpoint``): a block run under ``torch.utils.checkpoint``
 recomputes its forward during the backward; the recompute writes no
@@ -50,8 +53,10 @@ from torch import nn
 from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
 from range_view_3d_detection_torch.models.quantized import (
     Int8Conv,
+    int8_conv_nhwc,
     qat_conv,
     quantize_to_int8,
+    weight_rows_i8,
     weight_scale_per_channel,
 )
 from range_view_3d_detection_torch.parallel import spatial
@@ -173,13 +178,22 @@ class BatchNorm(nn.BatchNorm2d):
         return out.relu_() if act else out
 
 
+def torch_padding(k: int) -> Tuple[int, int]:
+    """Torch-style 'same' padding of a k-wide kernel: a fixed ``k-1`` in
+    all, ``(k-1)//2`` low and the rest high, independent of the stride."""
+    return (k - 1) // 2, k - 1 - (k - 1) // 2
+
+
 class ConvNormAct(nn.Module):
     """Conv + BatchNorm + ReLU with torch-style padding.
 
-    The padding is a fixed ``(k-1)//2`` on each side, independent of the
-    stride, as in the JAX block (``blocks.py:305-314``). Kernel sizes are
-    odd (every configuration's are); an even one, which the JAX block pads
-    asymmetrically, is refused.
+    The padding (:func:`torch_padding`) is a fixed ``k-1`` per dimension,
+    ``(k-1)//2`` low and the rest high, independent of the stride, as in
+    the JAX block (``blocks.py:303-314``). An odd kernel's is symmetric and
+    ``Conv_0`` (``nn.Conv2d``) pads it itself; an even kernel's input is
+    padded with ``F.pad`` and ``Conv_0`` pads 0, on every branch (fp, QAT,
+    int8; ``fake_quant(0) == 0``, so padding before the fake-quant is
+    exact).
     """
 
     def __init__(
@@ -195,15 +209,15 @@ class ConvNormAct(nn.Module):
     ):
         super().__init__()
         kh, kw = _pair(kernel_size)
-        if kh % 2 == 0 or kw % 2 == 0:
-            raise ValueError(f"ConvNormAct: even kernel size {(kh, kw)}")
+        self.padding = (torch_padding(kh), torch_padding(kw))
+        symmetric = kh % 2 == 1 and kw % 2 == 1
         self.norm = norm
         self.act = act
         self.dtype = dtype
         use_bias = (not norm) if use_bias is None else use_bias
         self.Conv_0 = nn.Conv2d(
             in_channels, features, (kh, kw), stride=_pair(strides),
-            padding=((kh - 1) // 2, (kw - 1) // 2), bias=use_bias,
+            padding=((kh - 1) // 2, (kw - 1) // 2) if symmetric else 0, bias=use_bias,
         )
         if norm:
             self.BatchNorm_0 = BatchNorm(features)
@@ -224,7 +238,7 @@ class ConvNormAct(nn.Module):
     def quantize(self, in_scale: float | None) -> None:
         """Run ``Conv_0`` on int8 operands with ``in_scale`` (None: fp)."""
         self.int8 = None if in_scale is None else Int8Conv(
-            self.Conv_0, in_scale, self.dtype
+            self.Conv_0, in_scale, self.dtype, self.padding
         )
 
     def set_qat(self, in_scale: torch.Tensor | None) -> None:
@@ -234,26 +248,23 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         conv = self.Conv_0
-        padding = conv.padding
         int8 = self.int8 is not None and self.qat_scale is None and not self.training
+        (pt, pb), (pl, pr) = self.padding
         ctx = spatial.context()
-        kw = conv.kernel_size[1]
-        if ctx is not None and kw > 1:
-            if int8:
-                raise ValueError(
-                    "ConvNormAct: width sharding serves fp only (the int8 conv "
-                    "pads its own width)"
-                )
+        if ctx is not None and conv.kernel_size[1] > 1:
             # The width padding comes from the ring neighbours; VALID over
             # width keeps the output exactly shard-wide.
-            lo = (kw - 1) // 2
             x = spatial.exchange_halo_lr(
-                x, lo, kw - 1 - lo, ctx.group, w_axis=3, circular=ctx.circular
+                x, pl, pr, ctx.group, w_axis=3, circular=ctx.circular
             )
-            padding = (padding[0], 0)
+            pl = pr = 0
         if int8:
-            y = self.int8(x)
+            y = self.int8(x, ((pt, pb), (pl, pr)))
         else:
+            if pt == pb and pl == pr:
+                padding = (pt, pl)
+            else:
+                x, padding = F.pad(x, (pl, pr, pt, pb)), (0, 0)
             stride = conv.stride
             if conv.kernel_size == (1, 1) and stride != (1, 1) and x.device.type == "cpu":
                 # A strided 1x1 conv is the 1x1 conv of the strided view.
@@ -318,16 +329,28 @@ class TorchConvTranspose(nn.ConvTranspose2d):
     The JAX module cross-correlates the stride-dilated input with its
     stored HWIO kernel; ``ConvTranspose2d`` does the same with the kernel
     flipped in space, and its output size ``(in-1)*s + k - 2p`` matches.
-    ``transplant.py`` flips the kernel.
+    ``transplant.py`` flips the kernel. ``use_bias`` (default False, as in
+    JAX) adds the bias in the compute dtype after the conv (and after the
+    int8 dequantize).
 
-    Int8 (after ``quantize``): the int8 weights are merged into the phase
-    decomposition's stride-1 3x3 kernel with ``sw * co`` outputs, which
-    the int8 conv kernel (K3) runs on the activation and ``in_scale``,
-    quantizing as it stages the input; its output ``(B, H, W, sw*co)``
-    interleaves into ``(B, H, W*sw, co)`` as a view. Integer sums are
-    exact, so the result equals the JAX package's ``lhs_dilation``
-    lowering. Every aggregation node's shape qualifies (height stride 1,
-    kernel ``(3, 2*sw)``, padding ``(1, sw//2)``); another is refused.
+    Int8 (after ``quantize``): the input is quantized per tensor and the
+    weight per output channel, the int32 sum dequantized as ``(acc.float()
+    * in_scale * w_scale).to(dtype)``, as the JAX package's
+    ``lhs_dilation`` lowering on int8 operands does; integer sums are
+    exact, so both routes below equal it bit for bit.
+
+    - The aggregation nodes' shape (height stride 1, kernel ``(2*ph+1,
+      2*sw)`` with ``kh == 3``, padding ``(ph, sw//2)``): the int8 weights
+      are merged into the phase decomposition's stride-1 3x3 kernel with
+      ``sw * co`` outputs, which the int8 conv kernel (K3) runs on the
+      activation and ``in_scale``, quantizing as it stages the input; its
+      output ``(B, H, W, sw*co)`` interleaves into ``(B, H, W*sw, co)`` as
+      a view.
+    - Any other shape: the general int8 route (``quantized.
+      int8_conv_nhwc``) on the zero-inserted input with the flipped HWIO
+      kernel, padding ``kh-1-ph``, ``kw-1-pw`` a side (a negative one
+      crops) and stride 1 (symmetric int8 holds the inserted zeros
+      exactly).
 
     fp with ``RV3D_DECONV_PHASE=1`` (the JAX ``_phase_deconv``): the same
     merged kernel, in the compute dtype, as a stride-1 conv with a 3-wide
@@ -336,7 +359,8 @@ class TorchConvTranspose(nn.ConvTranspose2d):
     Under width sharding (``parallel/spatial.py``) it fetches the
     ``(halo_l, halo_r)`` input columns its footprint reads across the
     shard's edges, runs on the widened shard and slices the exact local
-    output; the phase form consumes that (1, 1) halo with VALID width.
+    output; the fp phase form consumes that (1, 1) halo with VALID width.
+    The int8 operands take the general route there, every shape.
     """
 
     def __init__(
@@ -347,6 +371,7 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         strides: IntPair,
         padding: IntPair,
         dtype: torch.dtype = torch.float32,
+        use_bias: bool = False,
     ):
         super().__init__(
             in_channels,
@@ -354,10 +379,10 @@ class TorchConvTranspose(nn.ConvTranspose2d):
             _pair(kernel_size),
             stride=_pair(strides),
             padding=_pair(padding),
-            bias=False,
+            bias=use_bias,
         )
         self.dtype = dtype
-        for name in ("int8_scale", "int8_taps", "int8_dq"):
+        for name in ("int8_scale", "int8_taps", "int8_dq", "int8_rows"):
             self.register_buffer(name, None, persistent=False)
         self.qat_scale: torch.Tensor | None = None
 
@@ -376,25 +401,25 @@ class TorchConvTranspose(nn.ConvTranspose2d):
     @torch.no_grad()
     def quantize(self, in_scale: float | None) -> None:
         """Run on int8 operands with ``in_scale`` (None: fp)."""
-        self.int8_scale = None
+        self.int8_scale = self.int8_taps = self.int8_dq = self.int8_rows = None
         if in_scale is None:
             return
-        (kh, kw), (sh, sw), (ph, pw) = self.kernel_size, self.stride, self.padding
-        if not (phase_shape_ok(self.kernel_size, self.stride, self.padding) and kh == 3):
-            raise NotImplementedError(
-                f"TorchConvTranspose int8: no phase decomposition for kernel "
-                f"{(kh, kw)}, stride {(sh, sw)}, padding {(ph, pw)}"
-            )
         w = self.hwio_kernel().detach().float()
         w_scale = weight_scale_per_channel(w, out_dim=3)
         w_i8 = quantize_to_int8(w, w_scale)
-        merged = phase_merged_kernel(w_i8, sw)  # (3, 3, ci, sw*co)
-        ci, sco = merged.shape[2:]
-        taps = merged.reshape(9, ci, sco).transpose(1, 2).contiguous()
         scale = torch.as_tensor(in_scale, dtype=torch.float32, device=w.device)
         self.int8_scale = scale.reshape(())
-        self.int8_taps = taps.transpose(1, 2)  # (9, ci, sw*co), [n][k] memory
-        self.int8_dq = (scale * w_scale).repeat(sw)
+        self.int8_dq = scale * w_scale
+        self.int8_rows = weight_rows_i8(w_i8)
+        sw = self.stride[1]
+        if self.kernel_size[0] == 3 and phase_shape_ok(
+            self.kernel_size, self.stride, self.padding
+        ):
+            merged = phase_merged_kernel(w_i8, sw)  # (3, 3, ci, sw*co)
+            ci, sco = merged.shape[2:]
+            taps = merged.reshape(9, ci, sco).transpose(1, 2).contiguous()
+            self.int8_taps = taps.transpose(1, 2)  # (9, ci, sw*co), [n][k] memory
+            self.int8_dq = self.int8_dq.repeat(sw)  # the sw phases' outputs
 
     def hwio_kernel(self) -> torch.Tensor:
         """The flax HWIO kernel: ``(I, O, kh, kw)`` flipped in space back."""
@@ -407,6 +432,16 @@ class TorchConvTranspose(nn.ConvTranspose2d):
                 F.conv_transpose2d, x, self.weight, None, self.qat_scale, 1,
                 stride=self.stride, padding=self.padding,
             ).to(self.dtype)
+        if self.int8_scale is not None:
+            (kh, kw), (ph, pw) = self.kernel_size, self.padding
+            y = int8_conv_nhwc(
+                quantize_to_int8(x.to(self.dtype), self.int8_scale).permute(0, 2, 3, 1),
+                self.int8_rows, self.out_channels, (kh, kw), (1, 1),
+                ((kh - 1 - ph,) * 2, (kw - 1 - pw,) * 2),
+                self.int8_dq[: self.out_channels], None,
+                self.dtype, dilation=self.stride,
+            )
+            return y.permute(0, 3, 1, 2)
         return F.conv_transpose2d(
             x.to(self.dtype), self.weight.to(self.dtype), None, self.stride, self.padding
         )
@@ -423,11 +458,22 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         y = y.reshape(B, sw, co, H, W).permute(0, 2, 3, 4, 1)
         return y.reshape(B, co, H, W * sw)
 
+    def _k3_phase(self, x: torch.Tensor) -> torch.Tensor:
+        """The int8 phase decomposition on K3, which quantizes the NHWC
+        view of the activation as it stages it."""
+        dt, sw = self.dtype, self.stride[1]
+        y = conv3x3_i8_fused(
+            x.to(dt).permute(0, 2, 3, 1), self.int8_taps, self.int8_dq,
+            stride_w=1, out_dtype=dt, in_scale=self.int8_scale,
+        )
+        B, H, W, sco = y.shape
+        return y.reshape(B, H, W * sw, sco // sw).permute(0, 3, 1, 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
         kw, sw, pw = self.kernel_size[1], self.stride[1], self.padding[1]
+        fp = self.qat_scale is not None or self.int8_scale is None
         phase = (
-            self.qat_scale is None
+            fp
             and phase_deconv_enabled()
             and phase_shape_ok(self.kernel_size, self.stride, self.padding)
         )
@@ -437,26 +483,23 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         halo_l = max(0, (kw - 1 - pw) // sw)
         halo_r = max(0, (pw + sw - 1) // sw)
         if ctx is not None and (halo_l or halo_r):
-            if self.int8_scale is not None and self.qat_scale is None:
-                raise ValueError(
-                    "TorchConvTranspose: width sharding serves fp only"
-                )
             Wl = x.shape[3]
             x = spatial.exchange_halo_lr(
                 x, halo_l, halo_r, ctx.group, w_axis=3, circular=ctx.circular
             )
             if phase and halo_l == 1 and halo_r == 1:
-                return self._phase(x, 0)
-            return self._dilated(x).narrow(3, halo_l * sw, Wl * sw)
-        if self.qat_scale is not None or self.int8_scale is None:
-            return self._phase(x, 1) if phase else self._dilated(x)
-        # K3 quantizes the NHWC view of the activation as it stages it.
-        y = conv3x3_i8_fused(
-            x.to(dt).permute(0, 2, 3, 1), self.int8_taps, self.int8_dq,
-            stride_w=1, out_dtype=dt, in_scale=self.int8_scale,
-        )
-        B, H, W, sco = y.shape
-        return y.reshape(B, H, W * sw, sco // sw).permute(0, 3, 1, 2)
+                y = self._phase(x, 0)
+            else:
+                y = self._dilated(x).narrow(3, halo_l * sw, Wl * sw)
+        elif phase:
+            y = self._phase(x, 1)
+        elif fp or self.int8_taps is None:
+            y = self._dilated(x)
+        else:
+            y = self._k3_phase(x)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
 
 
 class BasicBlock(nn.Module):

@@ -26,13 +26,18 @@ tree for the length of a train step, and the block then runs
 forward is the int8 serving value up to fp32 rounding. The MetaKernel
 stem has no QAT branch, as in JAX.
 
-Routing is by shape only: a 3x3 conv with height stride 1 and width
-stride 1 or 2 runs the int8 conv kernel (K3, ``kernels/conv.py``), which
-takes the activation and ``in_scale`` and quantizes while it stages the
-input (``quantize_to_int8``, the JAX package's formula); a 1x1 conv
+Routing is by shape only (:class:`Int8Conv`): a 3x3 'same' conv with
+height stride 1, width stride 1 or 2 and no bias runs the int8 conv
+kernel (K3, ``kernels/conv.py``), which takes the activation and
+``in_scale`` and quantizes while it stages the input
+(``quantize_to_int8``, the JAX package's formula); an unpadded 1x1 conv
 quantizes in torch ops and is a plain int8 matrix product
-(``torch._int_mm`` on the card, an exact fp64 product on the CPU), as the
-JAX package leaves it to XLA.
+(``torch._int_mm`` on the card, an exact fp64 product on the CPU); every
+other shape (any kernel, stride, padding, bias, and the zero-inserted
+input of a transposed conv) is that product over an int8 im2col
+(:func:`int8_conv_nhwc`). The JAX package leaves all but K3's shapes to
+XLA's ``conv_general_dilated``; integer sums are exact, so each route
+equals it bit for bit.
 """
 
 from __future__ import annotations
@@ -133,8 +138,89 @@ def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     converted to fp32 once, rounding to nearest.
     """
     if a.device.type == "cuda":
-        return torch._int_mm(a, w_nk.t()).float()
+        m = a.shape[0]
+        if m <= 16:  # _int_mm takes M > 16
+            a = F.pad(a, (0, 0, 0, 17 - m))
+        return torch._int_mm(a, w_nk.t())[:m].float()
     return (a.double() @ w_nk.double().t()).float()
+
+
+# Bytes of int8 im2col a block of output rows may take (the rest of a
+# request's activations fit beside it on the card).
+IM2COL_BYTES = 1 << 29
+
+
+def weight_rows_i8(w_hwio: torch.Tensor) -> torch.Tensor:
+    """(kh, kw, ci, co) int8 -> the (co, kh*kw*ci) rows of
+    :func:`int8_conv_nhwc`, ci zero-padded to a multiple of 8 and co to a
+    multiple of 8 (``_int_mm``'s K and N)."""
+    kh, kw, ci, co = w_hwio.shape
+    w = F.pad(w_hwio, (0, -co % 8, 0, -ci % 8))  # (kh, kw, ci8, co8)
+    return w.permute(3, 0, 1, 2).reshape(w.shape[3], -1).contiguous()
+
+
+def _dilate_pad(xq: torch.Tensor, dilation, padding, cpad: int) -> torch.Tensor:
+    """NHWC ``xq`` with ``dilation - 1`` zeros between pixels (the
+    transposed conv's input dilation), ``padding`` ((top, bottom), (left,
+    right)) zeros around (a negative one crops) and ``cpad`` zero
+    channels: XLA's ``lhs_dilation`` and ``padding`` on int8 operands."""
+    (dh, dw), ((pt, pb), (pl, pr)) = dilation, padding
+    if (dh, dw) == (1, 1) and min(pt, pb, pl, pr) >= 0:
+        return F.pad(xq, (0, cpad, pl, pr, pt, pb)) if cpad or pt or pb or pl or pr else xq
+    B, H, W, C = xq.shape
+    Hd, Wd = (H - 1) * dh + 1, (W - 1) * dw + 1
+    top, left = max(pt, 0), max(pl, 0)
+    xp = xq.new_zeros((B, top + Hd + max(pb, 0), left + Wd + max(pr, 0), C + cpad))
+    xp[:, top : top + Hd : dh, left : left + Wd : dw, :C] = xq
+    return xp[:, max(-pt, 0) : xp.shape[1] - max(-pb, 0),
+              max(-pl, 0) : xp.shape[2] - max(-pr, 0)]
+
+
+def int8_conv_nhwc(
+    xq: torch.Tensor, w_rows: torch.Tensor, cout: int, kernel, stride, padding,
+    dq: torch.Tensor, bias: torch.Tensor | None, out_dtype: torch.dtype,
+    dilation=(1, 1),
+) -> torch.Tensor:
+    """int8 conv of any shape as int8 matrix products: XLA's
+    ``conv_general_dilated(xq, w, stride, padding, lhs_dilation=dilation,
+    preferred_element_type=int32)``, dequantized with ``acc.float() * dq``,
+    plus the fp32 ``bias``, cast to ``out_dtype`` (the JAX ``Int8Conv``'s
+    order).
+
+    ``xq`` (B, H, W, C) int8; ``w_rows`` from :func:`weight_rows_i8`. The
+    im2col of the dilated, padded input has columns in (dy, dx, c) order,
+    the weight rows'; it is copied from one strided view a block of output
+    rows (at most :data:`IM2COL_BYTES` of it at a time), 8 channels to an
+    int64 word (C is padded to a multiple of 8), and multiplied by
+    :func:`int8_matmul`. Returns (B, Ho, Wo, cout).
+    """
+    (kh, kw), (sh, sw) = kernel, stride
+    xp = _dilate_pad(xq, dilation, padding, w_rows.shape[1] // (kh * kw) - xq.shape[3])
+    B, Hp, Wp, C = xp.shape
+    Ho, Wo = (Hp - kh) // sh + 1, (Wp - kw) // sw + 1
+    words = xp.contiguous().view(torch.int64)  # (B, Hp, Wp, C // 8)
+    s = words.stride()
+    rows = max(1, min(Ho, IM2COL_BYTES // (B * Wo * kh * kw * C)))
+    out = None
+    for r0 in range(0, Ho, rows):
+        n = min(rows, Ho - r0)
+        cols = words[:, r0 * sh :].as_strided(
+            (B, n, Wo, kh, kw, C // 8), (s[0], sh * s[1], sw * s[2], s[1], s[2], s[3])
+        )
+        a = cols.reshape(B * n * Wo, kh * kw * C // 8).contiguous()
+        if a.stride(1) != 1:  # one word a row: its stride may be any
+            a = a.as_strided(a.shape, (a.shape[1], 1))
+        a = a.view(torch.int8)
+        y = int8_matmul(a, w_rows)[:, :cout] * dq
+        if bias is not None:
+            y = y + bias
+        y = y.to(out_dtype).reshape(B, n, Wo, cout)
+        if n == Ho:
+            return y
+        if out is None:
+            out = y.new_empty((B, Ho, Wo, cout))
+        out[:, r0 : r0 + n] = y
+    return out
 
 
 class Int8Conv(nn.Module):
@@ -146,14 +232,27 @@ class Int8Conv(nn.Module):
     with ``acc.float() * (in_scale * w_scale)``, the bias (if any) added in
     fp32, and the result cast to ``dtype``. All tensors are non-persistent
     buffers.
+
+    ``padding`` ((top, bottom), (left, right)) defaults to the conv's own
+    symmetric padding; the block passes its asymmetric one for an even
+    kernel. ``route`` names what the conv runs: ``"k3"`` (K3: a 3x3 conv
+    padded 1 a side, height stride 1, width stride 1 or 2, no bias),
+    ``"matmul"`` (an unpadded 1x1 conv, one product of the strided view)
+    or ``"general"`` (any other shape, :func:`int8_conv_nhwc`). A call
+    with another padding (a width-sharded shard's, padded 0 in width)
+    takes the general route.
     """
 
-    def __init__(self, conv: nn.Conv2d, in_scale, dtype: torch.dtype):
+    def __init__(self, conv: nn.Conv2d, in_scale, dtype: torch.dtype, padding=None):
         super().__init__()
         kh, kw = conv.kernel_size
         sh, sw = conv.stride
         self.dtype = dtype
+        self.kernel_size = (kh, kw)
         self.stride = (sh, sw)
+        if padding is None:
+            padding = tuple((p, p) for p in conv.padding)
+        self.padding = tuple(tuple(int(v) for v in p) for p in padding)
         w = conv.weight.detach().float()
         w_scale = weight_scale_per_channel(w)
         w_i8 = quantize_to_int8(w, w_scale[:, None, None, None])
@@ -162,7 +261,13 @@ class Int8Conv(nn.Module):
         self.register_buffer("dq", in_scale * w_scale, persistent=False)
         bias = None if conv.bias is None else conv.bias.detach().float()
         self.register_buffer("bias", bias, persistent=False)
-        if (kh, kw) == (3, 3) and sh == 1 and sw in (1, 2) and bias is None:
+        self.cout = w.shape[0]
+        self.register_buffer(
+            "w_rows", weight_rows_i8(w_i8.permute(2, 3, 1, 0)), persistent=False
+        )
+        if (kh, kw) == (3, 3) and sh == 1 and sw in (1, 2) and bias is None and (
+            self.padding == ((1, 1), (1, 1))
+        ):
             self.route = "k3"
             # (9, Cin, Cout) taps, dy-major, viewed from (9, Cout, Cin)
             # memory: the kernel's [n][k] operand layout, so the wrapper's
@@ -171,24 +276,15 @@ class Int8Conv(nn.Module):
             self.register_buffer(
                 "w_taps", taps.contiguous().transpose(1, 2), persistent=False
             )
-        elif (kh, kw) == (1, 1) and conv.padding == (0, 0):
+        elif (kh, kw) == (1, 1) and self.padding == ((0, 0), (0, 0)):
             self.route = "matmul"
-            cout, cin = w.shape[:2]
-            pad_k, pad_n = -cin % 8, -cout % 8
-            self.register_buffer(
-                "w_nk", F.pad(w_i8[:, :, 0, 0], (0, pad_k, 0, pad_n)),
-                persistent=False,
-            )
-            self.cout = cout
         else:
-            raise NotImplementedError(
-                f"Int8Conv: no int8 route for kernel {(kh, kw)}, stride "
-                f"{(sh, sw)}, padding {conv.padding}, bias {bias is not None}"
-            )
+            self.route = "general"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
         """``x`` NCHW (channels_last memory) -> NCHW in ``dtype``."""
-        if self.route == "k3":
+        padding = self.padding if padding is None else padding
+        if self.route == "k3" and padding == self.padding:
             # K3 quantizes the NHWC view as it stages it: no int8 copy.
             y = conv3x3_i8_fused(
                 x.permute(0, 2, 3, 1), self.w_taps, self.dq,
@@ -196,14 +292,11 @@ class Int8Conv(nn.Module):
             )
             return y.permute(0, 3, 1, 2)
         xq = quantize_to_int8(x, self.in_scale).permute(0, 2, 3, 1)  # NHWC
-        sh, sw = self.stride
-        xq = xq[:, ::sh, ::sw]
-        B, H, W, cin = xq.shape
-        a = F.pad(xq, (0, self.w_nk.shape[1] - cin)).reshape(B * H * W, -1)
-        y = int8_matmul(a, self.w_nk)[:, : self.cout] * self.dq
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(self.dtype).reshape(B, H, W, self.cout).permute(0, 3, 1, 2)
+        y = int8_conv_nhwc(
+            xq, self.w_rows, self.cout, self.kernel_size, self.stride, padding,
+            self.dq, self.bias, self.dtype,
+        )
+        return y.permute(0, 3, 1, 2)
 
 
 # ---------------------------------------------------------------------------

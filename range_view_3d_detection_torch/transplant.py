@@ -6,7 +6,9 @@ Conversions:
 
 - conv kernels HWIO -> OIHW;
 - transposed-conv kernels (cross-correlation over the dilated input)
-  flipped in space -> ``ConvTranspose2d``'s (I, O, kh, kw);
+  flipped in space -> ``ConvTranspose2d``'s (I, O, kh, kw); a transposed
+  conv's ``bias`` (``use_bias=True``), like a conv's, keeps name and
+  layout;
 - BatchNorm ``scale``/``bias`` and ``mean``/``var`` -> ``weight``/``bias``
   and ``running_mean``/``running_var`` (+ ``num_batches_tracked``);
 - the MetaKernel's explicit tensors (``pos_{i}_conv_kernel`` (I, O),

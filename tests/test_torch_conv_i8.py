@@ -175,9 +175,29 @@ def test_int8_deconv_matches_flax_dilated(kernel, stride, pad, monkeypatch):
 
 
 def test_int8_deconv_refuses_other_shapes():
-    tx = tb.TorchConvTranspose(6, 5, (3, 3), (1, 2), (1, 1))
-    with pytest.raises(NotImplementedError):
-        tx.quantize(0.1)
+    """A shape without the phase decomposition is no longer refused, as the
+    JAX block refuses none: it takes the general int8 route (no K3 phase
+    taps, no K3 launch) and equals the JAX ``lhs_dilation`` lowering."""
+    cin, cout, kernel, stride, pad = 6, 5, (3, 3), (1, 2), (1, 1)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 4, 10, cin)).astype(np.float32)
+    in_scale = np.float32(np.abs(x).max() / 127.0)
+    jx = jb.TorchConvTranspose(features=cout, kernel_size=kernel, strides=stride,
+                               padding=pad)
+    params = jx.init(jax.random.PRNGKey(1), x)["params"]
+    with jq.quantization("int8"):
+        want = np.asarray(jx.apply({"params": params, "quant": {"in_scale": in_scale}}, x))
+    tx = tb.TorchConvTranspose(cin, cout, kernel, stride, pad)
+    with torch.no_grad():
+        tx.weight.copy_(torch.from_numpy(np.ascontiguousarray(
+            np.asarray(params["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))))
+    tx.quantize(float(in_scale))
+    assert tx.int8_taps is None
+    launches = tconv.conv3x3_i8_fused.launches
+    with torch.no_grad():
+        got = nhwc(tx(nchw(x)))
+    assert tconv.conv3x3_i8_fused.launches == launches
+    np.testing.assert_array_equal(got, want)
 
 
 # (shape, cout, stride_w): odd W and H, stride 2 at even and odd W.

@@ -24,6 +24,12 @@ Held, at 2 ranks:
   eval, ``circular=False``: within ``atol=2e-5`` of JAX's global forward
   (the JAX package's own sharded-vs-global tolerance), the strided views
   equal;
+- int8 operands (JAX's global forward under ``quantization("int8")``):
+  ``ConvNormAct`` 3x3 at width stride 1 and 2 and (4, 4), whose int8
+  conv output is exact (the block within ``atol=2e-5``: its BatchNorm is
+  fp), the aggregation transposed conv (3, 8)/(1, 4)/(1, 2), exact, and
+  the tiny META detector with BatchNorms folded and one quant tree
+  calibrated by JAX, within ``atol=2e-5`` (its stem is fp);
 - the train-mode apply (META): the loss on the gathered outputs under
   ``mesh.replicated_batch()`` within 1e-5 relative of JAX's global
   ``detection_loss``, the gradients summed over the ranks within
@@ -63,6 +69,11 @@ BLOCKS = (
     ("deconv", dict(kernel=(3, 2), strides=(1, 2), padding=(1, 0))),
     ("agg", dict(phase=False)),
     ("agg", dict(phase=True)),
+    # int8 operands: the conv output (and the transposed conv's) exact.
+    ("conv", dict(strides=(1, 1), int8=True)),
+    ("conv", dict(strides=(1, 2), int8=True)),
+    ("conv", dict(kernel=(4, 4), strides=(1, 1), int8=True)),
+    ("deconv", dict(kernel=(3, 8), strides=(1, 4), padding=(1, 2), int8=True)),
 )
 STEMS = ("BASIC", "META", "RANGE_PARTITION")
 
@@ -133,7 +144,7 @@ def _port_block(kind, kw, state):
     )
 
     if kind == "conv":
-        m = ConvNormAct(3, 8, (3, 3), kw["strides"])
+        m = ConvNormAct(3, 8, kw.get("kernel", (3, 3)), kw["strides"])
     elif kind == "deconv":
         m = TorchConvTranspose(8, 6, kw["kernel"], kw["strides"], kw["padding"])
     else:
@@ -148,6 +159,11 @@ def _block_cases(inputs) -> dict:
         for i, (kind, kw) in enumerate(BLOCKS):
             case = inputs["blocks"][i]
             m = _port_block(kind, kw, case["state"])
+            conv_out = []
+            if kw.get("int8"):
+                m.quantize(case["in_scale"])
+                if kind == "conv":
+                    m.int8.register_forward_hook(lambda mod, a, y: conv_out.append(y))
             xs = [spatial.shard_width(torch.from_numpy(a)).permute(0, 3, 1, 2)
                   for a in case["x"]]
             if kw.get("phase"):
@@ -156,6 +172,8 @@ def _block_cases(inputs) -> dict:
                 out[i] = m(*xs).permute(0, 2, 3, 1)
             finally:
                 os.environ.pop("RV3D_DECONV_PHASE", None)
+            if conv_out:
+                out[(i, "conv")] = conv_out[0].permute(0, 2, 3, 1)
     return out
 
 
@@ -178,6 +196,18 @@ def _detector_cases(inputs) -> dict:
             res = apply(*local)
         out[stem] = {"head": res["head"], "strided": res["strided"]}
     return out
+
+
+def _int8_detector_case(inputs) -> dict:
+    from range_view_3d_detection_torch.models.quantized import quantize_model
+
+    cfg, state, qtree = inputs["int8_detector"]
+    model = quantize_model(_detector(cfg, state), qtree)
+    batch = [torch.from_numpy(inputs["batch"][k]) for k in ("features", "cart", "mask")]
+    with torch.no_grad():
+        res = spatial.width_sharded_apply(model, circular=False)(
+            *[spatial.shard_width(t) for t in batch])
+    return {"int8 META": {"head": res["head"], "strided": res["strided"]}}
 
 
 def _train_case(inputs) -> dict:
@@ -213,7 +243,8 @@ def _serve_case(inputs) -> dict:
 
 MODES = {
     "eval2": lambda i: dict(halo=_halo_cases(i), blocks=_block_cases(i),
-                            detectors=_detector_cases(i), train=_train_case(i)),
+                            detectors={**_detector_cases(i), **_int8_detector_case(i)},
+                            train=_train_case(i)),
     "eval4": lambda i: dict(halo=_halo_cases(i), detectors=_detector_cases(i)),
     "serve": _serve_case,
 }
@@ -271,7 +302,8 @@ def _jax_block(kind, kw):
     )
 
     if kind == "conv":
-        return ConvNormAct(8, kernel_size=(3, 3), strides=kw["strides"]), [(1, 4, W, 3)]
+        return (ConvNormAct(8, kernel_size=kw.get("kernel", (3, 3)), strides=kw["strides"]),
+                [(1, 4, W, 3)])
     if kind == "deconv":
         return (TorchConvTranspose(features=6, kernel_size=kw["kernel"],
                                    strides=kw["strides"], padding=kw["padding"]),
@@ -281,9 +313,14 @@ def _jax_block(kind, kw):
 
 
 def _block_references() -> list:
+    """Each block's global forward in JAX (int8 ones under
+    ``quantization("int8")``, with the conv's output beside the block's)."""
+    import contextlib
+
     import jax
 
     from range_view_3d_detection_torch import transplant
+    from range_view_3d_detection_tpu.models import quantized as jq
     from test_torch_blocks import numpy_tree, randomize_bn
 
     rng = np.random.default_rng(1)
@@ -302,13 +339,24 @@ def _block_references() -> list:
         else:
             state = transplant.flax_to_state_dict(params, stats)
         variables = {"params": params, **({"batch_stats": stats} if stats else {})}
+        case = dict(x=xs, state=state)
+        quant = contextlib.nullcontext()
+        if kw.get("int8"):
+            # 0.8 of the input's absmax: the clamp binds too.
+            case["in_scale"] = float(np.float32(0.8 * np.abs(xs[-1]).max() / 127.0))
+            variables["quant"] = {"in_scale": np.float32(case["in_scale"])}
+            quant = jq.quantization("int8")
         if kw.get("phase"):
             os.environ["RV3D_DECONV_PHASE"] = "1"
         try:
-            ref = np.asarray(blk.apply(variables, *xs))
+            with quant:
+                ref, inter = blk.apply(variables, *xs, capture_intermediates=True)
         finally:
             os.environ.pop("RV3D_DECONV_PHASE", None)
-        cases.append(dict(x=xs, state=state, ref=ref))
+        case["ref"] = np.asarray(ref)
+        if kw.get("int8") and kind == "conv":
+            case["ref_conv"] = np.asarray(inter["intermediates"]["Conv_0"]["__call__"][0])
+        cases.append(case)
     return cases
 
 
@@ -333,6 +381,33 @@ def _detector_references(batch, stems=STEMS) -> dict:
                          state=transplant.flax_to_state_dict(params, stats),
                          ref=jax.tree_util.tree_map(np.asarray, ref))
     return out
+
+
+def _int8_detector_reference(batch) -> dict:
+    """The tiny META detector's global int8 forward in JAX: BatchNorms
+    folded, one quant tree calibrated by JAX on the batch."""
+    import jax
+
+    from range_view_3d_detection_torch import transplant
+    from range_view_3d_detection_tpu.models import quantized as jq
+    from range_view_3d_detection_tpu.models.detector import Detector
+    from test_model import tiny_config
+    from test_torch_blocks import numpy_tree, randomize_bn
+    from tools.export import fold_batch_norms
+
+    jcfg = tiny_config(stem_type="META")
+    model = Detector(jcfg)
+    args = (batch["features"], batch["cart"], batch["mask"])
+    v = model.init(jax.random.PRNGKey(0), *args, train=False)
+    params, stats = randomize_bn(v["params"], v["batch_stats"], seed=3)
+    folded = numpy_tree(fold_batch_norms({"params": params, "batch_stats": stats}))
+    qtree = jax.tree_util.tree_map(np.asarray, jq.calibrate_scales(model, folded, [args]))
+    with jq.quantization("int8"):
+        ref = jax.jit(lambda v, *a: model.apply(v, *a, train=False))(
+            {**folded, "quant": qtree}, *args)
+    return {"int8 META": dict(
+        cfg=port_config(jcfg), qtree=qtree, ref=jax.tree_util.tree_map(np.asarray, ref),
+        state=transplant.flax_to_state_dict(folded["params"], folded["batch_stats"]))}
 
 
 def _check_detectors(ranks, refs) -> None:
@@ -369,7 +444,7 @@ def two_ranks(tmp_path_factory):
     work = tmp_path_factory.mktemp("width2")
     batch = _tiny_batch()
     blocks = _block_references()
-    dets = _detector_references(batch)
+    dets = {**_detector_references(batch), **_int8_detector_reference(batch)}
     # The train step: JAX's global forward, loss and gradients (its test's).
     jcfg = tiny_config(stem_type="META")
     model = Detector(jcfg)
@@ -386,8 +461,11 @@ def two_ranks(tmp_path_factory):
     (jloss, jstats), jgrads = jax.jit(jax.value_and_grad(loss_global, has_aux=True))(
         jax.tree_util.tree_map(jnp.asarray, params))
     inputs = dict(
-        _halo_inputs(2), blocks=[{k: c[k] for k in ("x", "state")} for c in blocks],
-        detectors={s: (d["cfg"], d["state"]) for s, d in dets.items()},
+        _halo_inputs(2),
+        blocks=[{k: c[k] for k in ("x", "state", "in_scale") if k in c} for c in blocks],
+        detectors={s: (d["cfg"], d["state"]) for s, d in dets.items() if s in STEMS},
+        int8_detector=(dets["int8 META"]["cfg"], dets["int8 META"]["state"],
+                       dets["int8 META"]["qtree"]),
         batch=batch,
         train=(port_config(jcfg), transplant.flax_to_state_dict(params, stats)),
     )
@@ -405,8 +483,17 @@ def test_halo_exchange_matches_roll(two_ranks):
 @pytest.mark.parametrize("i", range(len(BLOCKS)),
                          ids=[f"{k}-{'-'.join(map(str, v.values()))}" for k, v in BLOCKS])
 def test_width_sharded_block_exact(two_ranks, i):
-    got = unshard([r["blocks"][i] for r in two_ranks["ranks"]])
-    np.testing.assert_allclose(got, two_ranks["blocks"][i]["ref"], atol=2e-5)
+    ranks, ref = two_ranks["ranks"], two_ranks["blocks"][i]
+    got = unshard([r["blocks"][i] for r in ranks])
+    if BLOCKS[i][1].get("int8"):
+        # The int8 conv's integer sums are exact: its output (the
+        # transposed conv's, or the ConvNormAct's conv before the fp
+        # BatchNorm) equals JAX's global int8 forward.
+        want = ref["ref"] if BLOCKS[i][0] == "deconv" else ref["ref_conv"]
+        conv = got if BLOCKS[i][0] == "deconv" else unshard(
+            [r["blocks"][(i, "conv")] for r in ranks])
+        np.testing.assert_array_equal(conv, want)
+    np.testing.assert_allclose(got, ref["ref"], atol=2e-5)
 
 
 def test_width_sharded_detector_exact(two_ranks):
@@ -437,7 +524,7 @@ def four_ranks(tmp_path_factory, two_ranks):
 
 def test_four_ranks_halo_and_detectors(four_ranks, two_ranks):
     _check_halo(four_ranks["ranks"], four_ranks["inputs"], 4)
-    _check_detectors(four_ranks["ranks"], two_ranks["dets"])
+    _check_detectors(four_ranks["ranks"], {s: two_ranks["dets"][s] for s in STEMS})
 
 
 def test_width_check_names_the_widths_that_work():
