@@ -8,15 +8,22 @@ check its kernels.
 phase 23's rank process, ``... chip_smoke.py width-rank ARGS`` the
 width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
 ``chip_smoke.py convert WORK`` phase 29's conversion process; the script
-starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone.)
+starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone,
+``chip_smoke.py kernel-shapes`` the kernels' checks past the configs'
+shapes and phase 44, ``chip_smoke.py shipped-times PARENT`` the shipped
+shapes' kernel times beside those of another checkout, each round a
+``chip_smoke.py shipped-round TREE`` process.)
 
 Phases, each of which raises (non-zero exit) on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into ``build/``;
-   ptxas's register and spill lines (kept beside the library, so a reused
-   build is checked too), and zero spills in both instances of K1 and of
-   K4 and in the six of K3;
+   ptxas's registers and spills for every function (kept beside the
+   library, so a reused build is checked too), and zero spills in both
+   wgmma instances of K1 and of K4 and in the six of K3; the spills of
+   the four (bf16 and fp32, 64- and 256-wide) instances of each tiled
+   stem kernel are printed, not gated (at 255 registers they spill a few
+   words a thread);
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
@@ -24,16 +31,21 @@ Phases, each of which raises (non-zero exit) on failure:
    (Waymo's padded 64x2656 image) and the synthetic configs' C = 32; and
    at C = 96 and 160, which the kernel pads to its 128- and 256-wide
    instances: max|diff| <= 2e-2 * max|ref| (fp32 accumulation order,
-   one-ulp bf16 flips of the intermediate ``p``); a C the kernel does not
-   take (48, 288) raises;
+   one-ulp bf16 flips of the intermediate ``p``); then in bf16 and fp32 at
+   every C of ``ANY_C`` (8, 36, 48, 100, 200, 208, 288, 512: both wgmma
+   instances, C padded by the wrapper off their multiple, and the tiled
+   kernel), at (1, 3, 37) and (2, 4, 70),
+   bf16 within the same bound, fp32 within ``K1_FP32_TOL`` (1e-4) *
+   max|ref| (the same products summed in another order, TF32 off);
 4. K2 (NMS scan) against its plain twin on the same IoU tensors, WEIGHTED
    and HARD, at B in {1, 2, 3} x cap in ``NMS_CAPS`` (1, 37 and 1023
    among them, which take the scalar instances) and on edge-case
    matrices (zeros on the diagonal, asymmetric, invalid boxes in the
    middle, every box suppressed, duplicated boxes) at cap 37, 100 and
    1024, and with the IoU and scores 4 bytes off a 16-byte boundary at
-   cap 1024: ``keep`` identical, ``merged`` within 1e-4; a payload of 8
-   is refused (caps past 4096: phase 39);
+   cap 1024: ``keep`` identical, ``merged`` within 1e-4; and at payload
+   widths P = 5 and 12 (the any-P merge) at caps 37 and 1024 (caps past
+   4096: phase 39);
 5. main path: ATen's CUDA ``addcmul``, on which the BatchNorm epilogue
    rests, must be one fused multiply-add (equal to a correctly rounded
    fp64 reference on 4M values); ``Predictor`` on the full rv-av2 flagship
@@ -55,7 +67,10 @@ Phases, each of which raises (non-zero exit) on failure:
 7. K3 (int8 3x3 conv) against its plain twin at small odd shapes, stride
    1 and 2, bf16 and fp32 output, in both operand forms
    (int8, and bf16/fp32 activations with ``in_scale`` on rounding ties and
-   beyond the clamp): ``torch.equal`` (integer work is exact); and the
+   beyond the clamp): ``torch.equal`` (integer work is exact), also at the
+   channel counts of ``K3_TAIL_SHAPES`` (Cin 3, 8, 24, 40, 48, 100, padded
+   to 32 by the wrapper; Cout 5, 8, 24, 37, 40, 136 stored under a mask);
+   and the
    fused quantizer alone against ``quantize_to_int8`` on every finite
    bf16 value and on fp32 values around every rounding boundary, at
    scales inside and outside the range of its Markstein division;
@@ -80,8 +95,9 @@ Phases, each of which raises (non-zero exit) on failure:
    96), (1, 3, 37, 160) and on edge cases that bind every clamp and
    rounding tie (``k4_edge_case``) at C = 256 and 128: max|diff| <= 1e-4 *
    max|ref|, the count of differing elements printed (expected 0: the
-   kernel's arithmetic is its twin's); a C it does not take (48, 288)
-   raises; K4's time (eager and graph replay), bound and twin's time,
+   kernel's arithmetic is its twin's); then with bf16 and fp32 ``g`` at
+   every C of ``ANY_C`` and on the edge case at C = 40 and 288, within the
+   same bound; K4's time (eager and graph replay), bound and twin's time,
    and a profiler table of one request with the K4 stem;
 11. ms per request of both int8 paths;
 12. training, card against CPU: one train step (``training.state.
@@ -277,13 +293,14 @@ Phases, each of which raises (non-zero exit) on failure:
     (training and scoring in subprocesses) and ``tools.scale_drill
     --sweeps 100 --logs 2 --dense``, each a cut in depth, printed as such;
     the launches of phases 31-36 (``tools_launches``): all four kernels;
-37. ``utils.compile_opts``: the pipeline of the tiny config at 32
-    channels in bf16 with the K1 stem (B=1 16x256) under
+37. ``utils.compile_opts``: the pipeline of the tiny config (widths 8,
+    fp32: K1's tiled kernel) and of the tiny config at 32 channels in bf16
+    (K1's wgmma kernel), each with the K1 stem (B=1 16x256) under
     ``RV3D_COMPILER_OPTIONS=max_autotune=False`` (``torch.compile``):
     ``keep`` equal to eager's and not empty, heads within 2e-2 x max|ref|,
     K1 and K2 launched by the compiled program (``compile_launches``); the
-    bench's compiled pipeline keep-equal to its eager one; an unknown
-    option raises. The flagship is not compiled (a cut);
+    bench's compiled pipeline on the bf16 config keep-equal to its eager
+    one; an unknown option raises. The flagship is not compiled (a cut);
 38. ``dryrun.entry()`` once (finite heads), then
     ``dryrun.dryrun_multichip(<cards>)``: its four phases as NCCL ranks in
     spawned processes, each reporting OK (none skipped for time);
@@ -330,10 +347,31 @@ Phases, each of which raises (non-zero exit) on failure:
     conv under a one-rank width context equal to their runs without it
     (``conv_shapes_launches``: the kernels' launches in its requests).
 
+44. the kernels past the configs' shapes on the main paths: the tiny
+    config (widths 8, B=2 16x256) served on the card in fp32 with the K1
+    stem (K1's tiled fp32 kernel), in bf16 (K1's 128-wide instance) and in
+    int8 quantized from fp32 with the K4 stem (K4's tiled fp32 kernel, K3
+    at Cin 8), each against the same weights served on the CPU (heads at
+    the CPU tests' tolerances: ``gate_heads``); one fp32 rv-av2 request
+    with the K1 stem at B=2 64x1808 (3 requests timed, K1 and K2 launches:
+    the K1 fp32 entry's ``launches``), the same model against its CPU run
+    at B=1 8x256 (heads within 1e-3 * max|ref|); K1 fp32 at the flagship
+    stem against its twin (``K1_FP32_TOL``), timed (eager, graph replay,
+    twin) beside its fp32 FFMA bound: the kernels line's
+    ``meta_kernel_fused_fp32`` entry; K4 with fp32 ``g`` at the flagship
+    stem (the tiled kernel; an int8 model quantized from fp32) against its
+    twin, differing elements counted, timed beside twin and bound; K1 and
+    K4 at C = 36, 48 and 512 in bf16 and fp32 against their twins, each
+    timed beside its twin and bound, with the wrappers' pad copies at C =
+    36 in bf16 timed alone; K3 at a tail shape (2, 64, 1808, 48) -> 40
+    equal to its twin and timed, with the wrapper's Cin pad copy timed
+    alone.
+
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
 step times not measured); ``python3 chip_smoke.py conv-shapes`` the build
-and phase 43.
+and phase 43; ``python3 chip_smoke.py kernel-shapes`` the build, the
+checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44.
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -369,6 +407,23 @@ NMS_EDGE_CASES = ("zero_diagonal", "asymmetric", "invalid_middle", "all_suppress
 # Caps K2 is held at: those not a multiple of 4 (1, 37, 1023) take the
 # kernels' scalar instances, the others their 16-byte loads.
 NMS_CAPS = (1, 37, 100, 512, 1023, 1024, 2048, 4096)
+# Channel counts at which K1 and K4 are held against their twins past the
+# configs' widths (phases 3 and 10), in bf16 and fp32: in bf16 the wgmma
+# kernel's 128-wide instance (8, 36 and 100 padded by the wrapper where
+# they are off its multiple, 48) and its 256-wide one (200, 208), the tiled
+# kernel past 256 (288, 512); in fp32 the tiled kernel at each.
+ANY_C = (8, 36, 48, 100, 200, 208, 288, 512)
+# K1 in fp32 against its fp32 twin (TF32 off): the same products summed in
+# another order.
+K1_FP32_TOL = 1e-4
+# K3 at channel counts off the kernel's multiples (phase 7): (x shape,
+# Cout, stride); Cin padded to 32 by the wrapper, odd Cout and Cout past
+# one 128-channel tile stored under a mask.
+K3_TAIL_SHAPES = (((1, 5, 33, 8), 8, 1), ((1, 6, 18, 8), 8, 2), ((2, 3, 37, 24), 40, 1),
+                  ((1, 6, 18, 24), 40, 2), ((1, 5, 70, 48), 24, 1), ((2, 3, 37, 48), 24, 2),
+                  ((1, 3, 37, 100), 37, 2), ((1, 4, 20, 3), 5, 1), ((1, 3, 70, 40), 136, 1))
+# K2's payload widths besides the box's 9 (phase 4).
+NMS_PAYLOADS = (5, 12)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -444,24 +499,56 @@ def ptxas_spills(log: str, kernel: str) -> dict:
     return found
 
 
+# The kernels' template instances that phase 2 reads in ptxas's report:
+# (tag, name in the mangled symbol, instances, held to zero spills).
+SPILL_CHECKED = (("K1", "meta_kernel_fused_wgmma", 2, True),
+                 ("K1 tiled", "meta_kernel_fused_tiled", 4, False),
+                 ("K4", "meta_kernel_fused_i8_wgmma", 2, True),
+                 ("K4 tiled", "meta_kernel_fused_i8_tiled", 4, False),
+                 ("K3", "conv3x3_i8_wgmma", 6, True))
+
+
+def check_spills(lib) -> None:
+    """Phase 2: ptxas's registers and spills for every function of the
+    build, and no spills in the instances of ``SPILL_CHECKED`` held to
+    none."""
+    lines = lib.ptxas_log.splitlines()
+    for i, line in enumerate(lines):
+        if "error" in line:
+            say(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line and i + 2 < len(lines):
+            used = re.search(r"Used (\d+) registers", lines[i + 2])
+            say(f"  ptxas: {line.split()[-1]}: {lines[i + 1].strip()}"
+                + (f", {used[1]} registers" if used else ""))
+    for tag, kernel, n, gated in SPILL_CHECKED:
+        spills = ptxas_spills(lib.ptxas_log, kernel)
+        check(len(spills) == n, f"{tag} instances in the ptxas log: {spills}")
+        if gated:
+            check(not any(spills.values()), f"{tag} spills: {spills}")
+        say(f"{tag} ({kernel}): {len(spills)} instances, "
+            f"{sum(spills.values())} bytes spilled")
+
+
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
     t_ops = flops / flop_rate * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def stem_inputs(B, H, W, C, gen, device):
+def stem_inputs(B, H, W, C, gen, device, dtype=None):
+    """Random K1 operands, ``g``, ``feats`` and the weights in ``dtype``
+    (bf16 by default)."""
     import torch
 
     def rn(*shape, std=1.0):
         return torch.randn(shape, generator=gen) * std
 
-    bf16 = torch.bfloat16
+    dt = dtype or torch.bfloat16
     return dict(
-        g=rn(B, H, W, C).to(device, bf16),
-        feats=rn(B, H, W, C).to(device, bf16),
-        w1=rn(C, C, std=C**-0.5).to(device, bf16),
-        k=rn(9, C, C, std=C**-0.5).to(device, bf16),
+        g=rn(B, H, W, C).to(device, dt),
+        feats=rn(B, H, W, C).to(device, dt),
+        w1=rn(C, C, std=C**-0.5).to(device, dt),
+        k=rn(9, C, C, std=C**-0.5).to(device, dt),
         a0=(torch.rand(C, generator=gen) + 0.5).to(device),
         b0=rn(C, std=0.5).to(device),
         a1=(torch.rand(C, generator=gen) + 0.5).to(device),
@@ -469,9 +556,10 @@ def stem_inputs(B, H, W, C, gen, device):
     )
 
 
-def k4_inputs(B, H, W, C, gen, device):
+def k4_inputs(B, H, W, C, gen, device, dtype=None):
     """Random K4 operands at the scales the calibrated stem gives them:
-    ``hq`` spans 0-127 and ``p * feats`` about +-50 before the clamp."""
+    ``hq`` spans 0-127 and ``p * feats`` about +-50 before the clamp;
+    ``g`` and ``feats`` in ``dtype`` (bf16 by default)."""
     import torch
 
     def rn(*shape):
@@ -483,9 +571,9 @@ def k4_inputs(B, H, W, C, gen, device):
     def i8(*shape):
         return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
 
-    bf16 = torch.bfloat16
+    dt = dtype or torch.bfloat16
     return dict(
-        g=rn(B, H, W, C).to(device, bf16), feats=rn(B, H, W, C).to(device, bf16),
+        g=rn(B, H, W, C).to(device, dt), feats=rn(B, H, W, C).to(device, dt),
         w1_i8=i8(C, C).to(device), k_i8=i8(9, C, C).to(device),
         a0=u(15, 45, C).to(device), b0=(rn(C) * 30).to(device),
         a1=u(5e-4, 1.5e-3, C).to(device), b1=rn(C).to(device),
@@ -493,7 +581,7 @@ def k4_inputs(B, H, W, C, gen, device):
     )
 
 
-def k4_edge_case(B, H, W, C, gen, device):
+def k4_edge_case(B, H, W, C, gen, device, dtype=None):
     """K4 operands on which every clamp and rounding tie binds: ``hq``
     saturates at 127, ``pq`` clamps at +127 and -127, and both ``rint``
     steps meet exact .5 ties (half to even). Integral ``g``, unit or
@@ -513,9 +601,9 @@ def k4_edge_case(B, H, W, C, gen, device):
     cols = torch.arange(C)
     for _ in range(2):
         w1[torch.randint(C, (C,), generator=gen), cols] += pick((1.0, -1.0), C).to(torch.int8)
-    bf16 = torch.bfloat16
+    dt = dtype or torch.bfloat16
     return dict(
-        g=g.to(device, bf16), feats=feats.to(device, bf16), w1_i8=w1.to(device),
+        g=g.to(device, dt), feats=feats.to(device, dt), w1_i8=w1.to(device),
         k_i8=torch.randint(-127, 128, (9, C, C), generator=gen, dtype=torch.int8).to(device),
         a0=torch.ones(C, device=device), b0=pick((0.5, -0.5, 0.25, 0.0), C).to(device),
         a1=pick((1.0, 0.5), C).to(device), b1=pick((0.5, -0.5, 0.0), C).to(device),
@@ -607,20 +695,21 @@ def bn_epilogue_times(model, tensors, smi) -> None:
         f"rounded apart, on {smi}")
 
 
-def k1_cost(B, H, W, C):
+def k1_cost(B, H, W, C, elem=2):
     """(flop, bytes) of one K1 call: two C x C GEMMs per neighbour and
-    pixel; g and feats read once, the weights and affines, fp32 out."""
+    pixel; g and feats (``elem`` bytes an element: 2 in bf16, 4 in fp32)
+    read once, the weights in their dtype and the affines, fp32 out."""
     flops = 2 * B * H * W * 9 * 2 * C * C
-    nbytes = 2 * (2 * B * H * W * C) + 2 * 10 * C * C + 16 * C + 4 * B * H * W * C
+    nbytes = elem * (2 * B * H * W * C) + elem * 10 * C * C + 16 * C + 4 * B * H * W * C
     return flops, nbytes
 
 
-def k4_cost(B, H, W, C):
+def k4_cost(B, H, W, C, elem=2):
     """(operations, rate, bytes) of one K4 call: two C x C int8 GEMMs per
-    neighbour and pixel at the int8 peak; g and feats (bf16) read once, the
-    int8 weights, the affines and kdq, fp32 out."""
+    neighbour and pixel at the int8 peak; g and feats (``elem`` bytes an
+    element) read once, the int8 weights, the affines and kdq, fp32 out."""
     ops = 2 * B * H * W * 9 * 2 * C * C
-    nbytes = 2 * (2 * B * H * W * C) + 10 * C * C + 4 * 13 * C + 4 * B * H * W * C
+    nbytes = elem * (2 * B * H * W * C) + 10 * C * C + 4 * 13 * C + 4 * B * H * W * C
     return ops, H100_INT8_OPS, nbytes
 
 
@@ -895,6 +984,145 @@ def k3_shape_cost(key, B, H, in_bytes=1, out_bytes=2):
     return ops, nbytes
 
 
+def k3_equal(x, w, dq, stride, tag, in_scale=None) -> float:
+    """K3 == its twin (torch.equal) in bf16 and fp32 output."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.conv import (
+        conv3x3_i8_fused,
+        conv3x3_i8_fused_plain,
+    )
+
+    err = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        kw = dict(stride_w=stride, out_dtype=dt, in_scale=in_scale)
+        got = conv3x3_i8_fused(x, w, dq, **kw)
+        want = conv3x3_i8_fused_plain(x, w, dq, **kw)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        check(torch.equal(got, want), f"K3 {tag} {dt}: {n_diff} elements differ")
+        err = max(err, (got.float() - want.float()).abs().max().item())
+    form = "int8" if in_scale is None else f"{x.dtype} + in_scale"
+    say(f"K3 {tag} ({form}): bf16 and fp32 outputs equal to the twin")
+    return err
+
+
+def k3_odd_shapes(cases, gen, device) -> float:
+    """Phase 7: K3 against its twin on ``cases`` of (x shape, Cout,
+    stride), int8 input and the bf16/fp32 activation with ``in_scale``:
+    activations on the .5 rounding boundaries (scale 2^-6) and beyond
+    +-127.5 scales (the clamp), and random ones. Returns max|diff| (0)."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.conv import k3_plan
+
+    def rand_i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device)
+
+    err = 0.0
+    for shape, cout, stride in cases:
+        dq = torch.rand(cout, generator=gen).to(device) * 1e-3 + 1e-4
+        w = rand_i8(9, shape[-1], cout)
+        pad = k3_plan(shape[-1], cout, stride, torch.int8, False).cin_pad
+        tag = f"{shape}->{cout} stride {stride}" + (f" (Cin padded by {pad})" if pad else "")
+        err = max(err, k3_equal(rand_i8(*shape), w, dq, stride, tag))
+        ties = torch.randint(-300, 301, shape, generator=gen).float() / 2 / 64
+        for dt in (torch.bfloat16, torch.float32):
+            err = max(err, k3_equal(ties.to(device, dt), w, dq, stride, tag + " ties/clamp",
+                                    in_scale=torch.tensor(2.0**-6, device=device)))
+            xr = torch.randn(shape, generator=gen) * 0.9
+            err = max(err, k3_equal(xr.to(device, dt), w, dq, stride, tag + " randn",
+                                    in_scale=torch.tensor(0.0173, device=device)))
+    return err
+
+
+def check_k1_any_c(gen, device) -> dict:
+    """Phase 3's K1 past the configs' widths: bf16 and fp32 ``g`` at every
+    C of ``ANY_C`` (the wgmma instances or the tiled kernel, as ``k1_plan``
+    says), at (1, 3, 37) and (2, 4, 70) (image edges, ragged pixel tiles),
+    against the twin: bf16 within 2e-2 x max|ref|, fp32 within
+    ``K1_FP32_TOL`` x max|ref| (fp32 sums in another order; TF32 off).
+    Returns max|diff| by dtype name."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.stem import (
+        k1_plan,
+        meta_kernel_fused,
+        meta_kernel_fused_plain,
+    )
+
+    errs = {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, K1_FP32_TOL)):
+        for C in ANY_C:
+            plan = k1_plan(C, dt)
+            for shape in ((1, 3, 37), (2, 4, 70)):
+                x = stem_inputs(*shape, C, gen, device, dtype=dt)
+                got = meta_kernel_fused(**x)
+                want = meta_kernel_fused_plain(**x)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ref = want.abs().max().item()
+                check(bool(torch.isfinite(got).all()), f"K1 {dt} C={C} non-finite")
+                check(err <= tol * ref, f"K1 {dt} {shape} C={C}: max|diff| {err} > "
+                      f"{tol} * {ref}")
+                say(f"K1 {dt} {shape + (C,)} ({plan.kernel}, {plan.pad} channels padded): "
+                    f"max|diff| {err:.4g} (max|ref| {ref:.4g}) ok")
+                errs[str(dt)] = max(errs.get(str(dt), 0.0), err)
+    return errs
+
+
+def check_k4_any_c(gen, device) -> float:
+    """Phase 10's K4 past the configs' widths: bf16 and fp32 ``g`` at every
+    C of ``ANY_C`` (``k4_plan``), at (1, 3, 37) and (2, 4, 70), and the edge
+    case that binds every clamp and rounding tie at C = 40 and 288, against
+    the twin: within 1e-4 x max|ref|, the differing elements counted
+    (the kernels' arithmetic is the twin's). Returns max|diff|."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.stem import (
+        k4_plan,
+        meta_kernel_fused_i8,
+        meta_kernel_fused_i8_plain,
+    )
+
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        cases = [(f"{shape + (C,)}", k4_inputs(*shape, C, gen, device, dtype=dt))
+                 for C in ANY_C for shape in ((1, 3, 37), (2, 4, 70))]
+        cases += [(f"edge case {shape}", k4_edge_case(*shape, gen, device, dtype=dt))
+                  for shape in ((1, 3, 37, 40), (1, 2, 70, 288))]
+        for tag, args in cases:
+            plan = k4_plan(args["g"].shape[-1], dt)
+            got = meta_kernel_fused_i8(**args)
+            want = meta_kernel_fused_i8_plain(**args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ref = want.abs().max().item()
+            n_diff = int((got != want).sum())
+            check(bool(torch.isfinite(got).all()), f"K4 {dt} {tag} non-finite")
+            check(err <= 1e-4 * ref, f"K4 {dt} {tag}: max|diff| {err} > 1e-4 * {ref}")
+            say(f"K4 {dt} {tag} ({plan.kernel}, {plan.pad} channels padded): max|diff| "
+                f"{err:.4g} (max|ref| {ref:.4g}), {n_diff} of {got.numel()} elements "
+                f"differ; ok")
+            worst = max(worst, err)
+    return worst
+
+
+def check_k2_any_p(gen, device) -> float:
+    """Phase 4's K2 at payload widths other than the box's 9
+    (``NMS_PAYLOADS``), on the scalar (cap 37) and vector (cap 1024)
+    instances, WEIGHTED and HARD (``check_k2``). Returns max|diff|."""
+    import torch
+
+    worst = 0.0
+    for P in NMS_PAYLOADS:
+        for cap in (37, 1024):
+            iou, scores, valid, _ = nms_case(2, cap, gen, device)
+            payload = (torch.rand((2, cap, P), generator=gen) * 80 - 40).to(device)
+            worst = max(worst, check_k2(f"B 2 cap {cap} P {P}", (iou, scores, valid, payload)))
+    return worst
+
+
 def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
                 gen, smi) -> list:
     """Phases 7-11: K3 at odd shapes, the int8 path with the K1 stem and
@@ -914,46 +1142,16 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
         meta_kernel_fused_i8,
         meta_kernel_fused_i8_plain,
     )
-    from range_view_3d_detection_torch.models import blocks, quantized, stems
-
-    def rand_i8(*shape):
-        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device)
-
-    def k3_equal(x, w, dq, stride, tag, in_scale=None) -> float:
-        """K3 == its twin (torch.equal) in bf16 and fp32 output."""
-        err = 0.0
-        for dt in (torch.bfloat16, torch.float32):
-            kw = dict(stride_w=stride, out_dtype=dt, in_scale=in_scale)
-            got = conv3x3_i8_fused(x, w, dq, **kw)
-            want = conv3x3_i8_fused_plain(x, w, dq, **kw)
-            torch.cuda.synchronize()
-            n_diff = int((got != want).sum())
-            check(torch.equal(got, want), f"K3 {tag} {dt}: {n_diff} elements differ")
-            err = max(err, (got.float() - want.float()).abs().max().item())
-        form = "int8" if in_scale is None else f"{x.dtype} + in_scale"
-        say(f"K3 {tag} ({form}): bf16 and fp32 outputs equal to the twin")
-        return err
+    from range_view_3d_detection_torch.models import quantized, stems
 
     # 7. K3 against its twin at small odd shapes, in both operand forms: odd
     # H (4 rows a block), W below and above the 64-pixel tile, Cin 32/64,
     # Cout 16/32/48 (one ragged 128-channel tile) and 256/512 (several);
-    # activations on the .5 rounding boundaries (scale 2^-6) and beyond
-    # +-127.5 scales (clamp).
-    for shape, cout, stride in (((1, 5, 33, 32), 32, 1), ((1, 6, 18, 32), 32, 2),
-                                ((2, 7, 37, 64), 48, 1), ((1, 5, 131, 32), 16, 2),
-                                ((1, 3, 70, 64), 48, 1), ((1, 5, 70, 32), 512, 1),
-                                ((2, 3, 37, 64), 256, 2)):
-        dq = torch.rand(cout, generator=gen).to(device) * 1e-3 + 1e-4
-        w = rand_i8(9, shape[-1], cout)
-        tag = f"{shape}->{cout} stride {stride}"
-        k3_equal(rand_i8(*shape), w, dq, stride, tag)
-        ties = torch.randint(-300, 301, shape, generator=gen).float() / 2 / 64
-        for dt in (torch.bfloat16, torch.float32):
-            k3_equal(ties.to(device, dt), w, dq, stride, tag + " ties/clamp",
-                     in_scale=torch.tensor(2.0**-6, device=device))
-            xr = torch.randn(shape, generator=gen) * 0.9
-            k3_equal(xr.to(device, dt), w, dq, stride, tag + " randn",
-                     in_scale=torch.tensor(0.0173, device=device))
+    # then Cin and Cout off those multiples (K3_TAIL_SHAPES).
+    k3_odd_shapes((((1, 5, 33, 32), 32, 1), ((1, 6, 18, 32), 32, 2),
+                   ((2, 7, 37, 64), 48, 1), ((1, 5, 131, 32), 16, 2),
+                   ((1, 3, 70, 64), 48, 1), ((1, 5, 70, 32), 512, 1),
+                   ((2, 3, 37, 64), 256, 2)) + K3_TAIL_SHAPES, gen, device)
     # The fused quantizer alone (centre tap = identity, dq = 1, fp32 out)
     # equals quantize_to_int8 on every finite bf16 value and on fp32 values
     # within 3 ulps of every half-integer multiple of the scale.
@@ -998,27 +1196,7 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     torch.cuda.synchronize()
     say(f"int8: folded, calibrated on request 0 and quantized "
         f"in {time.perf_counter() - t0:.1f} s")
-    captured = {}
-    k3_in = dict(launches=0, unquantized=0, nhwc_contiguous=0)
-
-    def capturing(x, w, dq, *, stride_w=1, out_dtype=torch.bfloat16, in_scale=None):
-        key = (x.shape[-1], w.shape[-1], x.shape[2], stride_w)
-        entry = captured.setdefault(key, dict(
-            inputs=(x.clone(), w, dq.clone(), in_scale), out_dtype=out_dtype,
-            per_request=0))
-        entry["per_request"] += 1
-        k3_in["launches"] += 1
-        k3_in["unquantized"] += int(in_scale is not None and x.dtype != torch.int8)
-        k3_in["nhwc_contiguous"] += int(x.is_contiguous())
-        return conv3x3_i8_fused(x, w, dq, stride_w=stride_w, out_dtype=out_dtype,
-                                in_scale=in_scale)
-
-    blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = capturing
-    try:
-        predictor(*requests[0])  # warm-up, and one request's K3 inputs
-    finally:
-        blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = conv3x3_i8_fused
-    torch.cuda.synchronize()
+    captured, k3_in = capture_k3(predictor, requests[0])  # warm-up, and its K3 inputs
     dtypes = sorted({str(e["inputs"][0].dtype) for e in captured.values()})
     say(f"K3 inputs of one int8 request: {k3_in['launches']} launches, "
         f"{k3_in['unquantized']} given the unquantized activation ({', '.join(dtypes)}) "
@@ -1170,13 +1348,7 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
         say(f"K4 {tag} {tuple(args['g'].shape)}: max|diff| {err:.4g} (max|ref| "
             f"{ref:.4g}), {n_diff} of {got.numel()} elements differ; ok")
         k4_err = max(k4_err, err)
-    for bad in (48, 288):
-        try:
-            meta_kernel_fused_i8(**k4_inputs(1, 1, 64, bad, gen_k4, device))
-        except RuntimeError as e:
-            say(f"K4 C={bad}: refused ({e})")
-        else:
-            check(False, f"K4 C={bad}: the kernel accepted it")
+    k4_err = max(k4_err, check_k4_any_c(gen_k4, device))
     k4_ms = cuda_ms(lambda: meta_kernel_fused_i8(*k4_args), reps=10)
     k4_graph_ms = graph_ms(lambda: meta_kernel_fused_i8(*k4_args))
     k4_plain_ms = cuda_ms(lambda: meta_kernel_fused_i8_plain(*k4_args), reps=2, warmup=1)
@@ -3890,73 +4062,97 @@ def quant_phase(phase18: dict, work: Path, smi: str) -> dict:
     return total
 
 
-def compile_config():
-    """Phase 37's model: the tiny config at 32 channels in bf16 with the K1
-    stem (K1 takes bf16 and C a multiple of 32)."""
+def compile_configs() -> dict:
+    """Phase 37's models, each with the K1 stem: the tiny config as it is
+    (widths 8, fp32: K1's tiled kernel) and the tiny config at 32 channels
+    in bf16, the dtype the configs serve (K1's wgmma kernel)."""
     import dataclasses
 
     from range_view_3d_detection_torch import serving
 
-    return dataclasses.replace(serving._flagship_config(tiny=True), layers=(32,) * 5,
-                               dtype="bfloat16", stem_pallas=True)
+    tiny = dataclasses.replace(serving._flagship_config(tiny=True), stem_pallas=True)
+    return {"tiny fp32": tiny,
+            "tiny at 32 channels bf16": dataclasses.replace(tiny, layers=(32,) * 5,
+                                                            dtype="bfloat16")}
 
 
-def compile_phase(device, smi) -> dict:
-    """Phase 37: the pipeline under ``RV3D_COMPILER_OPTIONS``."""
-    import os
-
+def compile_pipeline(model, dec, cfg):
+    """Phase 37's pipeline: ``model``'s heads and their decode with NMS."""
     import torch
 
-    from range_view_3d_detection_torch import bench, serving
-    from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
-    from range_view_3d_detection_torch.utils import compile_opts
-
-    t0 = time.perf_counter()
-    cfg = compile_config()
-    dec = DecoderConfig(nms_cap=256, min_confidence=0.0)
-    predictor = serving.Predictor(cfg, dec, device=device,
-                                  generator=torch.Generator().manual_seed(SEED + 37))
-    model = predictor.model
-    args = tuple(torch.as_tensor(a, device=device) for a in serving._sample_inputs(1, 16, 256, 5))
+    from range_view_3d_detection_torch.models.decoder import decode
 
     def pipeline(feats, cart, mask):
         with torch.no_grad():
             out = model(feats, cart, mask)
             return out["head"][1][0], decode(out, dec, cfg.tasks_dict, use_nms=True)
 
-    heads, want = pipeline(*args)
+    return pipeline
+
+
+def compile_phase(device, smi) -> dict:
+    """Phase 37: the pipeline under ``RV3D_COMPILER_OPTIONS``, for each of
+    ``compile_configs``; the bench's compiled pipeline on the bf16 one."""
+    import os
+
+    import torch
+
+    from range_view_3d_detection_torch import bench, serving
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+    from range_view_3d_detection_torch.utils import compile_opts
+
+    t0 = time.perf_counter()
+    dec = DecoderConfig(nms_cap=256, min_confidence=0.0)
+    args = tuple(torch.as_tensor(a, device=device) for a in serving._sample_inputs(1, 16, 256, 5))
     option = "max_autotune=False"
-    os.environ[compile_opts.ENV_VAR] = option
-    try:
-        compiled = compile_opts.jit_env_options(pipeline)
-        check(compiled is not pipeline, "jit_env_options ignored the options")
-        t1 = time.perf_counter()
-        compiled(*args)
-        compile_s = time.perf_counter() - t1
-        reset_counts()
-        got_heads, got = compiled(*args)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        os.environ[compile_opts.ENV_VAR] = "no_such_option=1"
+    total = {}
+    for tag, cfg in compile_configs().items():
+        torch._dynamo.reset()  # each config compiled afresh, not past Dynamo's recompile limit
+        predictor = serving.Predictor(cfg, dec, device=device,
+                                      generator=torch.Generator().manual_seed(SEED + 37))
+        model = predictor.model
+        pipeline = compile_pipeline(model, dec, cfg)
+        heads, want = pipeline(*args)
+        os.environ[compile_opts.ENV_VAR] = option
         try:
-            compile_opts.jit_env_options(pipeline)(*args)
-        except RuntimeError as e:
-            refused = str(e).split(",")[0]
-        else:
-            check(False, "an unknown compiler option was accepted")
+            compiled = compile_opts.jit_env_options(pipeline)
+            check(compiled is not pipeline, "jit_env_options ignored the options")
+            t1 = time.perf_counter()
+            compiled(*args)
+            compile_s = time.perf_counter() - t1
+            reset_counts()
+            got_heads, got = compiled(*args)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            os.environ.pop(compile_opts.ENV_VAR, None)
+        check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
+              f"compiled pipeline ({tag}) launches {counts}")
+        check(torch.equal(got.keep, want.keep) and bool(want.keep.any()),
+              f"compiled pipeline ({tag}): keep differs from eager or is empty "
+              f"({int(want.keep.sum())})")
+        errs = {}
+        for key in ("logits", "regressands"):
+            ref = heads[key].float()
+            err = (got_heads[key].float() - ref).abs().max().item()
+            check(err <= 2e-2 * ref.abs().max().item(), f"compiled {tag} {key}: max|diff| {err}")
+            errs[key] = err
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        scores = (got.scores - want.scores).abs().max().item()
+        say(f"compile (phase 37) RV3D_COMPILER_OPTIONS={option}, {tag} with K1, B=1 16x256: "
+            f"compiled in {compile_s:.1f} s, keep equal to eager ({int(want.keep.sum())} "
+            f"kept), heads max|diff| {errs}, decoded scores max|diff| {scores:.3g}, launches "
+            f"{counts}")
+    os.environ[compile_opts.ENV_VAR] = "no_such_option=1"
+    try:
+        compile_opts.jit_env_options(pipeline)(*args)
+    except RuntimeError as e:
+        refused = str(e).split(",")[0]
+    else:
+        check(False, "an unknown compiler option was accepted")
     finally:
         os.environ.pop(compile_opts.ENV_VAR, None)
-    check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
-          f"compiled pipeline launches {counts}")
-    check(torch.equal(got.keep, want.keep) and bool(want.keep.any()),
-          f"compiled pipeline: keep differs from eager or is empty ({int(want.keep.sum())})")
-    errs = {}
-    for key in ("logits", "regressands"):
-        ref = heads[key].float()
-        err = (got_heads[key].float() - ref).abs().max().item()
-        check(err <= 2e-2 * ref.abs().max().item(), f"compiled {key}: max|diff| {err}")
-        errs[key] = err
-    # The bench's own compiled path on the same config.
+    # The bench's own compiled path on the bf16 config (the last above).
     os.environ[compile_opts.ENV_VAR] = option
     try:
         bench_kw = dict(fp=True, device=device, cfg=cfg, height=16, width=256,
@@ -3967,13 +4163,10 @@ def compile_phase(device, smi) -> dict:
     eager, _, _, _ = bench.build(1, **bench_kw)
     got_b, want_b = served(*bench_args), eager(*bench_args)
     check(torch.equal(got_b.keep, want_b.keep), "the bench compiled: keep differs from eager")
-    say(f"compile (phase 37) RV3D_COMPILER_OPTIONS={option}, the tiny config at 32 channels "
-        f"bf16 with K1, B=1 16x256 (the flagship not compiled: a cut): compiled in "
-        f"{compile_s:.1f} s, keep equal to eager ({int(want.keep.sum())} kept), heads "
-        f"max|diff| {errs}, launches {counts}; the bench's compiled pipeline keep equal to "
-        f"its eager one; an unknown option raises ({refused}); phase "
+    say(f"compile (phase 37): the bench's compiled pipeline ({tag}) keep equal to its eager "
+        f"one; an unknown option raises ({refused}); the flagship not compiled (a cut); phase "
         f"{time.perf_counter() - t0:.0f} s on {smi}")
-    return counts
+    return total
 
 
 def dryrun_phase(device, smi) -> dict:
@@ -4708,6 +4901,270 @@ def conv_shapes_phase(device, smi) -> dict:
     return launches
 
 
+def model_heads(predictor, request) -> dict:
+    """The head outputs of ``predictor.model`` on ``request``, fp32 on the
+    host."""
+    import torch
+
+    with torch.inference_mode():
+        out = predictor.model(*(torch.as_tensor(a, device=predictor.device)
+                                for a in request))
+    return {k: v.float().cpu() for k, v in out["head"][1][0].items()}
+
+
+def gate_heads(tag, got, want, form) -> str:
+    """Card heads against the CPU run's at the CPU tests' tolerance for the
+    dtype (``form``): fp32 allclose at atol = rtol = 1e-4 (``test_torch_
+    detector.py::test_served_path_tiny``), bf16 max|diff| <= 2^-5 max|ref|
+    and relative RMS <= 2^-6 (``test_served_path_tiny_bf16``), int8
+    relative RMS <= 1e-3 (``test_torch_quantized.py``), flagship widths
+    in fp32 max|diff| <= 1e-3 max|ref| (``test_served_path_flagship_widths``).
+    Returns the printed comparison."""
+    import torch
+
+    parts = []
+    for key, ref in want.items():
+        have = got[key]
+        err = (have - ref).abs().max().item()
+        top = ref.abs().max().item()
+        rms = rel_rms(have, ref)
+        if form == "fp32":
+            ok = torch.allclose(have, ref, atol=1e-4, rtol=1e-4)
+        elif form == "bf16":
+            ok = err <= 2.0**-5 * top and rms <= 2.0**-6
+        elif form == "int8":
+            ok = rms <= 1e-3
+        else:
+            ok = err <= 1e-3 * top
+        check(ok, f"{tag} {key}: max|diff| {err} (max|ref| {top}), relative RMS {rms}")
+        parts.append(f"{key} max|diff| {err:.3g} (max|ref| {top:.3g}), rel RMS {rms:.3g}")
+    return "; ".join(parts)
+
+
+def tiny_card_vs_cpu(device, smi) -> dict:
+    """Phase 44's tiny config (widths 8) served on the card in fp32 (K1
+    stem), bf16 (K1 stem) and int8 (K4 stem, quantized from the fp32
+    model), each against the same model on the CPU. Returns the launches of
+    each card request."""
+    import dataclasses
+
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+    from range_view_3d_detection_torch.models.quantized import fold_batch_norms
+
+    dec = DecoderConfig()
+    request = serving._sample_inputs(2, 16, 256, 5, seed=44)
+    tiny = dataclasses.replace(serving._flagship_config(tiny=True), stem_pallas=True)
+    launches = {}
+
+    def pair(cfg):
+        cpu = flagship_predictor(cfg, dec, "cpu", torch.Generator().manual_seed(SEED + 44),
+                                 request)
+        card = serving.Predictor(cfg, dec, device=device)
+        card.model.load_state_dict(cpu.model.state_dict())
+        return cpu, card
+
+    def serve(tag, cpu, card, form):
+        reset_counts()
+        result = card(*request)
+        torch.cuda.synchronize()
+        launches[tag] = read_counts()
+        kept = check_results([result])
+        text = gate_heads(f"tiny {tag}", model_heads(card, request),
+                          model_heads(cpu, request), form)
+        say(f"tiny config {tag} (widths {card.cfg.layers}, B=2 16x256): launches "
+            f"{launches[tag]}, kept {kept}; heads against the CPU run: {text}")
+        return launches[tag]
+
+    cpu32, card32 = pair(tiny)
+    n = serve("fp32", cpu32, card32, "fp32")
+    check(n["meta_kernel_fused"] > 0 and n["nms_scan"] > 0, f"tiny fp32 launches {n}")
+    cpu16, card16 = pair(dataclasses.replace(tiny, dtype="bfloat16"))
+    n = serve("bf16", cpu16, card16, "bf16")
+    check(n["meta_kernel_fused"] > 0 and n["nms_scan"] > 0, f"tiny bf16 launches {n}")
+    # int8: both fold the same fp32 weights (folded once, on the CPU), the
+    # card takes the CPU's calibrated scales.
+    fold_batch_norms(cpu32.model)
+    cpu32.bn_folded = card32.bn_folded = True
+    card32.model.load_state_dict(cpu32.model.state_dict())
+    cpu32.quantize([request], stem_int8=True)
+    card32.quantize(quant_tree=cpu32.quant_tree, stem_int8=True)
+    n = serve("int8", cpu32, card32, "int8")
+    check(n["meta_kernel_fused_i8"] > 0 and n["conv3x3_i8_fused"] > 0 and n["nms_scan"] > 0
+          and n["meta_kernel_fused"] == 0, f"tiny int8 launches {n}")
+    return launches
+
+
+def kernel_shapes_phase(device, smi) -> dict:
+    """Phase 44: what the kernels take past the configs' shapes, on the main
+    paths (see the module docstring). Returns K1 fp32's entry of the
+    kernels line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused, k3_plan
+    from range_view_3d_detection_torch.kernels.stem import (
+        k1_plan,
+        k4_plan,
+        meta_kernel_fused,
+        meta_kernel_fused_i8,
+        meta_kernel_fused_i8_plain,
+        meta_kernel_fused_plain,
+        padded_operands,
+    )
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+
+    t0 = time.perf_counter()
+    tiny_card_vs_cpu(device, smi)
+
+    # One fp32 rv-av2 request with the K1 stem at B=2 64x1808; the same
+    # model at a small size against its CPU run.
+    cfg = dataclasses.replace(serving._flagship_config(), dtype="float32")
+    dec = DecoderConfig()
+    request = serving._sample_inputs(2, 64, 1808, 5, seed=0)
+    predictor = flagship_predictor(cfg, dec, device, torch.Generator().manual_seed(SEED + 45),
+                                   request)
+    predictor(*request)  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    reset_counts()
+    walls = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        result = predictor(*request)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    counts = read_counts()
+    kept = check_results([result])
+    check(counts["meta_kernel_fused"] == 3 and counts["nms_scan"] == 3,
+          f"fp32 flagship launches {counts}")
+    small = serving._sample_inputs(1, 8, 256, 5, seed=1)
+    cpu = serving.Predictor(cfg, dec, device="cpu")
+    cpu.model.load_state_dict(predictor.model.state_dict())
+    text = gate_heads("fp32 flagship widths 8x256", model_heads(predictor, small),
+                      model_heads(cpu, small), "flagship")
+    del cpu
+    say(f"fp32 rv-av2 (K1 stem, {k1_plan(256, torch.float32).kernel}) B=2 64x1808: "
+        f"{statistics.median(walls):.2f} ms a request (median of 3, host clock), launches "
+        f"{counts}, kept {kept}; at B=1 8x256 the card against the CPU: {text} on {smi}")
+    del predictor, result
+    torch.cuda.empty_cache()
+
+    # K1 in fp32 at the flagship stem: the kernels line's entry.
+    gen = torch.Generator().manual_seed(SEED + 46)
+    x32 = stem_inputs(2, 64, 1808, 256, gen, device, dtype=torch.float32)
+    got = meta_kernel_fused(**x32)
+    want = meta_kernel_fused_plain(**x32)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    check(err <= K1_FP32_TOL * ref, f"K1 fp32 flagship: max|diff| {err} > {K1_FP32_TOL} * {ref}")
+    del got, want
+    ms = cuda_ms(lambda: meta_kernel_fused(**x32), reps=5, warmup=1)
+    g_ms = graph_ms(lambda: meta_kernel_fused(**x32), calls=3)
+    plain_ms = cuda_ms(lambda: meta_kernel_fused_plain(**x32), reps=2, warmup=1)
+    flops, nbytes = k1_cost(2, 64, 1808, 256, elem=4)
+    bound, by = bound_ms(flops, H100_FP32_FLOPS, nbytes)
+    say(f"K1 fp32 (2, 64, 1808, 256): max|diff| {err:.4g} (max|ref| {ref:.4g}); kernel "
+        f"{ms:.4f} ms eager ({100 * bound / ms:.1f}% of bound), {g_ms:.4f} ms graph replay, "
+        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}, {flops / 1e9:.1f} GFLOP at "
+        f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32) on {smi}")
+    del x32
+    entry = {
+        "name": "meta_kernel_fused_fp32", "route": "cuda",
+        "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused.cu",
+        "replaces": "range_view_3d_detection_tpu/kernels/stem_pallas.py:269",
+        "launches": counts["meta_kernel_fused"], "max_abs_err": err,
+        "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": by, "library_ms": None,
+    }
+
+    # K4 with fp32 g at the flagship stem, the shape an int8 model quantized
+    # from fp32 gives it (the tiled kernel).
+    x = k4_inputs(2, 64, 1808, 256, gen, device, dtype=torch.float32)
+    got, want = meta_kernel_fused_i8(**x), meta_kernel_fused_i8_plain(**x)
+    torch.cuda.synchronize()
+    err, ref = (got - want).abs().max().item(), want.abs().max().item()
+    n_diff = int((got != want).sum())
+    check(err <= 1e-4 * ref, f"K4 fp32 flagship: max|diff| {err} > 1e-4 * {ref}")
+    del got, want
+    k4 = cuda_ms(lambda: meta_kernel_fused_i8(**x), reps=3, warmup=1)
+    k4_plain = cuda_ms(lambda: meta_kernel_fused_i8_plain(**x), reps=2, warmup=1)
+    b4 = bound_ms(*k4_cost(2, 64, 1808, 256, elem=4))
+    say(f"K4 fp32 (2, 64, 1808, 256) ({k4_plan(256, torch.float32).kernel}): max|diff| "
+        f"{err:.4g} (max|ref| {ref:.4g}), {n_diff} of {x['g'].numel()} elements differ; "
+        f"kernel {k4:.4f} ms eager, plain {k4_plain:.3f} ms, bound {b4[0]:.4f} ms ({b4[1]}) "
+        f"on {smi}")
+    del x
+
+    # K1 and K4 at C = 36, 48 and 512, bf16 and fp32, against their twins,
+    # each timed beside its twin (bound at the dtype's peak; past C = 256
+    # the tiled kernels repeat the W1 product for each 256-wide output tile,
+    # 1.5x the operations at C = 512). At C = 36 in bf16 the wrappers pad C
+    # (K1 to 40, K4 to 48) with one copy of the inputs and the output's crop,
+    # timed on their own.
+    for C, shape in ((36, (2, 64, 1808)), (48, (2, 64, 1808)), (512, (1, 64, 1808))):
+        for dt in (torch.bfloat16, torch.float32):
+            elem = 2 if dt == torch.bfloat16 else 4
+            rate = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
+            flops, nbytes = k1_cost(*shape, C, elem=elem)
+            text = []
+            for name, make, fn, plain, plan, cost, tol in (
+                ("K1", stem_inputs, meta_kernel_fused, meta_kernel_fused_plain,
+                 k1_plan(C, dt), bound_ms(flops, rate, nbytes),
+                 2e-2 if dt == torch.bfloat16 else K1_FP32_TOL),
+                ("K4", k4_inputs, meta_kernel_fused_i8, meta_kernel_fused_i8_plain,
+                 k4_plan(C, dt), bound_ms(*k4_cost(*shape, C, elem=elem)), 1e-4),
+            ):
+                x = make(*shape, C, gen, device, dtype=dt)
+                got, want = fn(**x), plain(**x)
+                torch.cuda.synchronize()
+                err, ref = (got - want).abs().max().item(), want.abs().max().item()
+                n_diff = int((got != want).sum())
+                check(err <= tol * ref, f"{name} {dt} {shape + (C,)}: max|diff| {err} > "
+                      f"{tol} * {ref}")
+                del got, want
+                ms = cuda_ms(lambda: fn(**x), reps=3, warmup=1)
+                plain_ms = cuda_ms(lambda: plain(**x), reps=2, warmup=1)
+                part = (f"{name} ({plan.kernel}) {ms:.4f} ms eager, plain {plain_ms:.3f} ms, "
+                        f"bound {cost[0]:.4f} ms ({cost[1]}), max|diff| {err:.4g} (max|ref| "
+                        f"{ref:.4g}, {n_diff} elements differ)")
+                if plan.pad:
+                    out = torch.empty(shape + (C + plan.pad,), device=device)
+                    copy_ms = cuda_ms(lambda: (padded_operands(plan.pad, *x.values()),
+                                               out[..., :C].contiguous()), reps=5)
+                    part += f", of it the wrapper's pad (+{plan.pad}) copies {copy_ms:.4f} ms"
+                    del out
+                text.append(part)
+                del x
+            say(f"stems at {shape + (C,)} {dt}: " + "; ".join(text) + f" on {smi}")
+
+    # K3 at a tail shape: Cin 48 (padded to 64 by one copy of x) -> Cout 40.
+    key = (48, 40, 1808, 1)
+    x = torch.randn((2, 64, 1808, 48), generator=gen).to(device, torch.bfloat16)
+    w = torch.randint(-127, 128, (9, 48, 40), generator=gen, dtype=torch.int8).to(device)
+    dq = (torch.rand(40, generator=gen) * 1e-3 + 1e-4).to(device)
+    s_in = torch.tensor(0.0173, device=device)
+    k3_equal(x, w, dq, 1, "(2, 64, 1808, 48)->40 stride 1", in_scale=s_in)
+    kw = dict(stride_w=1, out_dtype=torch.bfloat16, in_scale=s_in)
+    k3 = cuda_ms(lambda: conv3x3_i8_fused(x, w, dq, **kw), reps=10)
+    k3_graph = graph_ms(lambda: conv3x3_i8_fused(x, w, dq, **kw))
+    pad = k3_plan(48, 40, 1, torch.bfloat16, True).cin_pad
+    pad_ms = cuda_ms(lambda: F.pad(x, (0, pad)), reps=10)
+    ops, nbytes = k3_shape_cost(key, 2, 64, 2, 2)
+    b3 = bound_ms(ops, H100_INT8_OPS, nbytes)
+    say(f"K3 tail shape (2, 64, 1808, 48)->40 stride 1, bf16 + in_scale: {k3:.4f} ms eager "
+        f"({100 * b3[0] / k3:.1f}% of bound), {k3_graph:.4f} ms graph replay, of it the "
+        f"wrapper's Cin pad copy (+{pad} channels) {pad_ms:.4f} ms; bound {b3[0]:.4f} ms "
+        f"({b3[1]}) on {smi}")
+    say(f"phase 44: {time.perf_counter() - t0:.0f} s")
+    return entry
+
+
 def flagship_predictor(cfg, dec, device, gen, request):
     """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
     non-trivial BatchNorm statistics, and each head's final conv scaled to
@@ -4773,26 +5230,14 @@ def main() -> int:
 
     # 1. Device.
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_smi()
     say(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     say(f"nvidia-smi: {smi}")
 
     # 2. Build.
     lib = _build.library()
     say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
-    for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            say(f"  ptxas: {line.strip()}")
-    for tag, kernel, n in (("K1", "meta_kernel_fused_wgmma", 2),
-                           ("K4", "meta_kernel_fused_i8_wgmma", 2),
-                           ("K3", "conv3x3_i8_wgmma", 6)):
-        spills = ptxas_spills(lib.ptxas_log, kernel)
-        check(len(spills) == n, f"{tag} instances in the ptxas log: {spills}")
-        check(not any(spills.values()), f"{tag} spills: {spills}")
-        say(f"{tag} ({kernel}): {len(spills)} instances, 0 bytes spilled")
+    check_spills(lib)
 
     # 3. K1 against its plain twin: the flagship shape, a small odd one, a
     # single row with a ragged last tile, exact tiles; the Waymo stem
@@ -4816,13 +5261,10 @@ def main() -> int:
         check(err <= 2e-2 * ref, f"K1 {shape}: max|diff| {err} > 2e-2 * {ref}")
         say(f"K1 {shape}: max|diff| {err:.4g} (max|ref| {ref:.4g}) ok")
         k1_err = max(k1_err, err)
-    for bad in (48, 288):
-        try:
-            meta_kernel_fused(**stem_inputs(1, 1, 64, bad, gen, device))
-        except RuntimeError as e:
-            say(f"K1 C={bad}: refused ({e})")
-        else:
-            check(False, f"K1 C={bad}: the kernel accepted it")
+    # Past the configs' widths, in bf16 and fp32, from a generator of its
+    # own (the main path's weights stay as they were).
+    k1_any = check_k1_any_c(torch.Generator().manual_seed(SEED + 17), device)
+    k1_err = max(k1_err, k1_any["torch.bfloat16"])
 
     # 4. K2 against its plain twin: the timed case (B=2, cap=1024, drawn
     # from the main generator as before), every B and cap it takes, and the
@@ -4851,14 +5293,8 @@ def main() -> int:
               "K2: the misaligned views are 16-byte aligned")
         k2_err = max(k2_err, check_k2(f"{tag}, IoU and scores misaligned",
                                       (iou_k2, scores_k2, valid_k2, payload_k2)))
-    # Caps past 4096 are phase 39's.
-    small = nms_case(1, 100, gen_k2, device)
-    try:
-        nms_scan(*small[:3], small[3][..., :8], iou_threshold=0.3, merge_threshold=0.5)
-    except ValueError as e:
-        say(f"K2 P = 8: refused ({e})")
-    else:
-        check(False, "K2 P = 8: the wrapper accepted it")
+    # Payloads of other widths; caps past 4096 are phase 39's.
+    k2_err = max(k2_err, check_k2_any_p(gen_k2, device))
 
     # 5. Main path: the flagship Predictor answers requests; its BatchNorm
     # epilogue rests on addcmul being one fused multiply-add.
@@ -5009,6 +5445,8 @@ def main() -> int:
     slice_counts = slice_phases(device, smi, tool_launches["dryrun"], k2_big_split)
     torch.cuda.empty_cache()
     conv_shapes_launches = conv_shapes_phase(device, smi)
+    torch.cuda.empty_cache()
+    k1_fp32 = kernel_shapes_phase(device, smi)
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -5038,11 +5476,46 @@ def main() -> int:
         k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
         if k["name"] == "nms_scan":
             k.update(slice_counts["k2_big"])
+    kernels.append(k1_fp32)
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def card_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def card_start():
+    """The subcommands' start on the first card: TF32 off, the port package
+    of this checkout importable, the device and the card's name and power
+    limit said, the kernels built. Returns ``(device, smi)``, or None
+    without a CUDA device (said on stderr)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
+              file=sys.stderr)
+        return None
+    sys.path.insert(0, str(REPO))
+    from range_view_3d_detection_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = card_smi()
+    say(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; {smi}")
+    lib = _build.library()
+    say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
+    return device, smi
 
 
 def phase18_light(device, smi) -> dict:
@@ -5067,28 +5540,15 @@ def tools_main() -> int:
     22's step times not measured)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
-              file=sys.stderr)
+    t_start = time.perf_counter()
+    start = card_start()
+    if start is None:
         return 1
-    sys.path.insert(0, str(REPO))
+    device, smi = start
     from range_view_3d_detection_torch import serving
-    from range_view_3d_detection_torch.kernels import _build
     from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
 
-    t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    say(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
-    lib = _build.library()
-    say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
     cfg, dec = serving._flagship_config(), DecoderConfig()
     request = serving._sample_inputs(2, 64, 1808, 5)
     predictor = flagship_predictor(cfg, dec, device, torch.Generator().manual_seed(SEED),
@@ -5114,34 +5574,179 @@ def tools_main() -> int:
 
 def conv_shapes_main() -> int:
     """``chip_smoke.py conv-shapes``: the build, then phase 43 alone."""
+    t_start = time.perf_counter()
+    start = card_start()
+    if start is None:
+        return 1
+    device, smi = start
+    say(json.dumps({"conv_shapes_launches": conv_shapes_phase(device, smi)}))
+    say(f"chip_smoke conv-shapes: total {time.perf_counter() - t_start:.0f} s")
+    return 0
+
+
+def capture_k3(predictor, request) -> tuple:
+    """Serve ``request`` once, recording every K3 launch (phase 8): the
+    first inputs of each distinct (Cin, Cout, W, stride) with its launches
+    a request, ``{key: {"inputs": (x, w, dq, in_scale), "out_dtype",
+    "per_request"}}``, and counts of launches, of those given the
+    unquantized activation and of those given NHWC-contiguous memory."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+    from range_view_3d_detection_torch.models import blocks, quantized
+
+    captured = {}
+    k3_in = dict(launches=0, unquantized=0, nhwc_contiguous=0)
+
+    def capturing(x, w, dq, *, stride_w=1, out_dtype=torch.bfloat16, in_scale=None):
+        key = (x.shape[-1], w.shape[-1], x.shape[2], stride_w)
+        entry = captured.setdefault(key, dict(
+            inputs=(x.clone(), w, dq.clone(), in_scale), out_dtype=out_dtype,
+            per_request=0))
+        entry["per_request"] += 1
+        k3_in["launches"] += 1
+        k3_in["unquantized"] += int(in_scale is not None and x.dtype != torch.int8)
+        k3_in["nhwc_contiguous"] += int(x.is_contiguous())
+        return conv3x3_i8_fused(x, w, dq, stride_w=stride_w, out_dtype=out_dtype,
+                                in_scale=in_scale)
+
+    blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = capturing
+    try:
+        predictor(*request)
+    finally:
+        blocks.conv3x3_i8_fused = quantized.conv3x3_i8_fused = conv3x3_i8_fused
+    torch.cuda.synchronize()
+    return captured, k3_in
+
+
+def shipped_round(tree: Path) -> int:
+    """``chip_smoke.py shipped-round TREE``: one round of
+    ``shipped-times``, with the port package of the checkout TREE (its
+    wrappers, and its ``csrc`` built into its own ``build/``): K1 at the
+    flagship stem (2, 64, 1808, 256) and the Waymo stem (2, 64, 2656, 128),
+    K4 at the flagship stem, K2 at B=2 cap 1024, and K3 summed over the 62
+    launches of one served int8 request, each by CUDA events around eager
+    launches (phase 6's method) and by CUDA-graph replay. Prints one line,
+    ``shipped_round {json}``."""
+    import torch
+
+    sys.path.insert(0, str(tree.resolve()))
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.kernels import _build
+    from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import (
+        meta_kernel_fused,
+        meta_kernel_fused_i8,
+    )
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+
+    check(Path(serving.__file__).resolve().is_relative_to(tree.resolve()),
+          f"the port package came from {serving.__file__}, not {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    _build.library()
+    gen = torch.Generator().manual_seed(SEED)
+    k1_in = stem_inputs(2, 64, 1808, 256, gen, device)
+    waymo_in = stem_inputs(2, 64, 2656, 128, gen, device)
+    k4_in = k4_inputs(2, 64, 1808, 256, gen, device)
+    k2_in = nms_case(2, 1024, gen, device)
+    nms_kw = dict(iou_threshold=0.3, merge_threshold=0.5)
+    request = serving._sample_inputs(2, 64, 1808, 5, seed=0)
+    predictor = flagship_predictor(serving._flagship_config(), DecoderConfig(), device,
+                                   gen, request)
+    k3_in = capture_k3(predictor.quantize([request], scope="full"), request)[0]
+    del predictor
+    n_k3 = sum(e["per_request"] for e in k3_in.values())
+    check(n_k3 == 62, f"K3 launches a served int8 request: {n_k3}")
+    calls = {
+        "K1": lambda: meta_kernel_fused(**k1_in),
+        "K1 Waymo": lambda: meta_kernel_fused(**waymo_in),
+        "K2": lambda: nms_scan(*k2_in, **nms_kw),
+        "K4": lambda: meta_kernel_fused_i8(**k4_in),
+    }
+    row = {}
+    for name, fn in calls.items():
+        row[name] = cuda_ms(fn, reps=20)
+        row[name + " graph"] = graph_ms(fn)
+    row["K3"] = row["K3 graph"] = 0.0
+    for key, e in k3_in.items():
+        def k3(e=e, key=key):
+            return conv3x3_i8_fused(*e["inputs"][:3], stride_w=key[3],
+                                    out_dtype=e["out_dtype"], in_scale=e["inputs"][3])
+        row["K3"] += e["per_request"] * cuda_ms(k3, reps=10)
+        row["K3 graph"] += e["per_request"] * graph_ms(k3)
+    say("shipped_round " + json.dumps(row))
+    return 0
+
+
+def shipped_times_main(parent: Path) -> int:
+    """``chip_smoke.py shipped-times PARENT``: the four kernels at their
+    shipped shapes with this checkout's port package and with PARENT's
+    (another checkout of the repository), each round a process of its own
+    (``shipped_round``), in turns: parent, this, this, parent. Prints each
+    round and each version's medians, eager and by graph replay, with the
+    card's name and power limit."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
-    from range_view_3d_detection_torch.kernels import _build
+    smi = card_smi()
+    trees = {"parent": parent, "this": REPO}
+    times = {"parent": [], "this": []}
+    for version in ("parent", "this", "this", "parent"):
+        run = subprocess.run(
+            [sys.executable, str(REPO / "chip_smoke.py"), "shipped-round",
+             str(trees[version])],
+            capture_output=True, text=True, timeout=900,
+        )
+        lines = [x for x in run.stdout.splitlines() if x.startswith("shipped_round ")]
+        check(run.returncode == 0 and len(lines) == 1,
+              f"shipped-round {version} failed:\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        row = json.loads(lines[0].split(" ", 1)[1])
+        times[version].append(row)
+        say(f"{version}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) + " ms")
+    for name in times["this"][0]:
+        med = {v: statistics.median(r[name] for r in rows) for v, rows in times.items()}
+        say(f"shipped {name}: parent {med['parent']:.4f} ms, this {med['this']:.4f} ms "
+            f"({100 * (med['this'] / med['parent'] - 1):+.2f}%) on {smi}")
+    return 0
+
+
+def kernel_shapes_main() -> int:
+    """``chip_smoke.py kernel-shapes``: the build, the kernels' checks past
+    the configs' shapes (phases 3, 4, 7 and 10's) and phase 44 alone."""
+    import torch
 
     t_start = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    say(f"device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}; {smi}")
-    lib = _build.library()
-    say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
-    say(json.dumps({"conv_shapes_launches": conv_shapes_phase(device, smi)}))
-    say(f"chip_smoke conv-shapes: total {time.perf_counter() - t_start:.0f} s")
+    start = card_start()
+    if start is None:
+        return 1
+    device, smi = start
+    from range_view_3d_detection_torch.kernels import _build
+
+    check_spills(_build.library())
+    gen = torch.Generator().manual_seed(SEED + 17)
+    check_k1_any_c(gen, device)
+    check_k2_any_p(gen, device)
+    k3_odd_shapes(K3_TAIL_SHAPES, gen, device)
+    check_k4_any_c(gen, device)
+    say(json.dumps({"k1_fp32": kernel_shapes_phase(device, smi)}))
+    say(f"chip_smoke kernel-shapes: total {time.perf_counter() - t_start:.0f} s")
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["kernel-shapes"]:
+        sys.exit(kernel_shapes_main())
+    if sys.argv[1:2] == ["shipped-times"]:
+        sys.exit(shipped_times_main(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["shipped-round"]:
+        sys.exit(shipped_round(Path(sys.argv[2])))
     if sys.argv[1:2] == ["tools"]:
         sys.exit(tools_main())
     if sys.argv[1:2] == ["conv-shapes"]:

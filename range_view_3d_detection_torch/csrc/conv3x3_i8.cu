@@ -59,6 +59,11 @@
 //   columns, so every tap reads consecutive staged rows.
 // - The epilogue dequantizes in registers (fp32 product, rounded once to
 //   the output type): the s32 tensor never reaches device memory.
+// - Any channel counts: a stage is 32 input channels, so the wrapper
+//   (kernels/conv.py) pads another Cin with zero channels of x and of the
+//   weights (q(0) = 0: the int32 sums are unchanged); the TMA reads output
+//   channels past Cout as zero weights, and the epilogue stores none of
+//   them (pairs of channels one at a time when Cout is odd).
 // - Host side: the weight tensor map is encoded per launch
 //   (cuTensorMapEncodeTiled, libcuda) and passed as a __grid_constant__;
 //   the shared-memory attribute is set once per template instance.
@@ -441,13 +446,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) fence_operand(acc[mt][i]);
 
-    // Epilogue: dequantize in registers and store.
+    // Epilogue: dequantize in registers and store; channels past Cout are
+    // not stored (an odd Cout stores its pairs one element at a time).
     const int gid = lane >> 2, tig = lane & 3;
+    const bool pairs = (Cout & 1) == 0;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int n = n0 + j * 8 + tig * 2;
       if (n >= Cout) continue;
-      const float s0 = dq[n], s1 = dq[n + 1];
+      const bool second = n + 1 < Cout;
+      const float s0 = dq[n], s1 = second ? dq[n + 1] : 0.f;
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
         const int h = h0 + wg * kMT + mt;
@@ -461,10 +469,21 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float v1 = __fmul_rn(__int2float_rn(acc[mt][4 * j + 2 * r + 1]), s1);
           const size_t o = (orow + w) * Cout + n;
           if (out_bf16) {
-            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
-                __floats2bfloat162_rn(v0, v1);
+            __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
+            if (pairs) {
+              *reinterpret_cast<__nv_bfloat162*>(ob) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              ob[0] = __float2bfloat16_rn(v0);
+              if (second) ob[1] = __float2bfloat16_rn(v1);
+            }
           } else {
-            *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+            float* of = static_cast<float*>(out) + o;
+            if (pairs) {
+              *reinterpret_cast<float2*>(of) = make_float2(v0, v1);
+            } else {
+              of[0] = v0;
+              if (second) of[1] = v1;
+            }
           }
         }
       }
@@ -505,14 +524,15 @@ int launch_stride(int stride, const CUtensorMap& wmap, const void* x,
 // or fp32 (2, likewise); wt: (9, Cout, Cin) int8; dq: (Cout,) fp32;
 // in_scale: fp32 scalar on the device (unused for int8 x);
 // out: (B, H, (W - 1) / stride + 1, Cout), bf16 if out_bf16 else fp32.
-// Cin must be a multiple of 32, Cout of 16, stride 1 or 2,
-// B * ceil(H / 4) <= 65535, H * W * Cin < 2^31; x and wt 16-byte aligned.
+// Cin must be a multiple of 32 (the wrapper pads any other Cin with zero
+// channels), Cout any, stride 1 or 2, B * ceil(H / 4) <= 65535,
+// H * W * Cin < 2^31; x and wt 16-byte aligned.
 extern "C" int rv3d_conv3x3_i8(const void* x, const void* wt, const void* dq,
                                const void* in_scale, void* out, int B, int H,
                                int W, int Cin, int Cout, int stride, int in_kind,
                                int out_bf16, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % kChunk ||
-      Cout % 16 || (stride != 1 && stride != 2) || in_kind < 0 || in_kind > 2 ||
+      (stride != 1 && stride != 2) || in_kind < 0 || in_kind > 2 ||
       (in_kind != 0 && in_scale == nullptr) ||
       (long)B * ((H + kRows - 1) / kRows) > 65535 || (long)H * W * Cin >= (1l << 31))
     return (int)cudaErrorInvalidValue;

@@ -21,13 +21,16 @@
 // GEMMs of every neighbour.
 //
 // Design, from that:
-// - C is any multiple of 32 up to 256 (the configs' META stems are 256,
-//   128 and 32 wide). The kernel is a template over a padded width Cp, 128
+// - In bf16, C is any multiple of 8 up to 256 (the configs' META stems are
+//   256, 128 and 32 wide; the TMA's global strides and the 16-byte g loads
+//   need C % 8 == 0). The kernel is a template over a padded width Cp, 128
 //   (C <= 128) or 256: the weight boxes, the hh/pf tile and the
 //   accumulators are Cp wide, and channels C..Cp-1 are zeros (the TMA
 //   fills the weights outside the C x C matrices with zeros, hh and pf
 //   there are relu(0 * 0 + 0) with zero BN affines, and they are not
-//   stored).
+//   stored). The wrapper pads a bf16 C that is not a multiple of 8 with
+//   zero channels; fp32 g and feats and C above 256 take the tiled kernel
+//   at the end of this file.
 // - A block owns 64 pixels of one row and all Cp output channels and loops
 //   over the 9 neighbours. Two consumer warpgroups split the output
 //   channels: warpgroup j owns columns [j Cp/2, (j + 1) Cp/2) of both z and
@@ -452,21 +455,304 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   return (int)cudaGetLastError();
 }
 
+// ---------------- The tiled kernel: any C, g and feats in bf16 or fp32.
+//
+// The wgmma instances above hold a tile's whole z and accumulator (Cp <=
+// 256) in registers and read bf16 through TMA. The wrapper sends this
+// kernel fp32 g and feats (an fp32 model's stem; the tensor cores have no
+// fp32 path that keeps fp32 accuracy, and TF32 keeps 10 mantissa bits)
+// and C above 256; it also takes bf16 at any C.
+//
+// Bound: the operations on the CUDA cores, 2 x 9 x 2 C^2 flop a pixel (in
+// fp32 at the flagship's B=2, 64x1808, C=256: 5.46e11 flop, 8.15 ms at the
+// H100's 67 TFLOP/s outside the tensor cores).
+//
+// Design, from that (a simple tiled FFMA kernel):
+// - A block owns a tile of output channels kTN wide (64 where C <= 64,
+//   else 256; the grid's z walks B x ceil(C / kTN) tiles) for 1024 / (kTN
+//   / 8) pixels of one row (128 or 32). Per neighbour it loops over
+//   kTN-wide chunks j of z: z_j = hh @ W1[:, j] over K = C in steps of kTK
+//   channels, hh built from g as it is staged; then pf_j = T(T(relu(a1
+//   z_j + b1)) * fs) into shared memory; then acc += pf_j @ K_n[j, tile].
+//   Past C = 256 every output tile repeats the W1 product (1.5x the flops
+//   at C = 512).
+// - 256 threads, each 4 pixels x 8 channels (two runs of 4, kTN / 2
+//   apart) of z and of the accumulator, operands from shared memory as
+//   16-byte loads (the pixel tiles k-contiguous, the weight rows
+//   n-contiguous). The stages are double-buffered, and each thread's share
+//   of the next stage (its g and weight elements) is loaded into registers
+//   while the current one is multiplied, so the L2 latency of the weight
+//   rows hides behind the FMAs; one barrier a stage.
+// - The twin's rounding points (kernels/stem.py::meta_kernel_fused_plain)
+//   with T the compute dtype, each product and sum of the affines rounded
+//   on its own; only the order of the fp32 sums differs. Channels past C
+//   are zeros, and so are neighbours outside the image.
+constexpr int kTK = 16;           // channels of K staged per step
+constexpr int kTThreads = 256;
+constexpr int kAS = kTK + 4;      // row stride of the hh tile [kTP][kAS]
+
+// The tile of the kTN-wide instance: kTX threads across its channels,
+// kTY thread rows of 4 pixels each.
+template <int kTN>
+struct Tile {
+  static constexpr int kTX = kTN / 8;
+  static constexpr int kTY = kTThreads / kTX;
+  static constexpr int kTP = 4 * kTY;   // pixels of one row per block
+  static constexpr int kPS = kTN + 4;   // row stride of the pf tile [kTP][kPS]
+  static constexpr int kA = kTP * kAS;  // one hh stage (floats)
+  static constexpr int kB = kTK * kTN;  // one weight stage (floats)
+  static constexpr int kNA = kTP * kTK / kTThreads;  // hh elements a thread stages
+  static constexpr int kNB = kB / kTThreads;         // weights a thread stages
+  // Two hh stages, two weight stages, the pf tile.
+  static constexpr int kSmemBytes = (2 * kA + 2 * kB + kTP * kPS) * 4;
+  // Output channel of a thread's q-th column (q < 8).
+  static __device__ __forceinline__ int col(int q, int tx) {
+    return (q >> 2) * (kTN / 2) + tx * 4 + (q & 3);
+  }
+};
+
+// d[i][q] += sum_k a[(4 ty + i) as + k] * b[k kTN + Tile::col(q)], k < kTK.
+template <int kTN>
+__device__ __forceinline__ void fma_tile(float (&d)[4][8], const float* a, int as,
+                                         const float* b, int ty, int tx) {
+  // One group of 4 k at a time: its 16-byte operand loads, no more, are
+  // live beside the accumulators and the next stage's prefetched elements.
+#pragma unroll 1
+  for (int k4 = 0; k4 < kTK; k4 += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + (4 * ty + i) * as + k4);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 lo = *reinterpret_cast<const float4*>(b + (k4 + u) * kTN + tx * 4);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(b + (k4 + u) * kTN + kTN / 2 + tx * 4);
+      const float bv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float ai = lane4(av[i], u);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[i][q] = fmaf(ai, bv[q], d[i][q]);
+      }
+    }
+  }
+}
+
+template <typename T, int kTN>
+__global__ void __launch_bounds__(kTThreads, 1)
+    meta_kernel_fused_tiled(const T* __restrict__ g, const T* __restrict__ f,
+                            const T* __restrict__ w1, const T* __restrict__ k,
+                            const float* __restrict__ a0, const float* __restrict__ b0,
+                            const float* __restrict__ a1, const float* __restrict__ b1,
+                            float* __restrict__ out, int H, int W, int C, int tiles) {
+  using Tl = Tile<kTN>;
+  constexpr int kTP = Tl::kTP, kPS = Tl::kPS;
+  constexpr int kNA = Tl::kNA, kNB = Tl::kNB;
+  extern __shared__ float4 tiled_smem[];
+  float* a_s = reinterpret_cast<float*>(tiled_smem);  // hh: 2 x [kTP][kAS]
+  float* b_s = a_s + 2 * Tl::kA;                       // W1 or K_n rows: 2 x [kTK][kTN]
+  float* p_s = b_s + 2 * Tl::kB;                       // pf of chunk j: [kTP][kPS]
+  const int tid = threadIdx.x, tx = tid % Tl::kTX, ty = tid / Tl::kTX;
+  // Stage s writes buffer s % 2 (counted across both products), then one
+  // barrier, then the FMAs read it: a buffer is written again only after
+  // every thread has passed the barrier that follows its last read.
+  int par = 0;
+  float ga[kNA], gb[kNA], wr[kNB];  // the next stage: g(p), g(p + d), weights
+  const int w0 = blockIdx.x * kTP, h = blockIdx.y;
+  const int b = blockIdx.z / tiles, n0 = (blockIdx.z % tiles) * kTN;
+  const size_t img = (size_t)b * H;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+
+  for (int nb = 0; nb < 9; ++nb) {
+    const int dy = nb / 3, dx = nb - 3 * (nb / 3);
+    const int hs = h + dy - 1;
+    const bool row_ok = hs >= 0 && hs < H;
+    const T* kn = k + (size_t)nb * C * C;
+    for (int j0 = 0; j0 < C; j0 += kTN) {
+      // 1. z_j = hh @ W1[:, j0 : j0 + kTN].
+      float z[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) z[i][q] = 0.f;
+      auto fetch1 = [&](int k0) {
+#pragma unroll
+        for (int e = 0; e < kNA; ++e) {
+          const int idx = tid + e * kTThreads;
+          const int c = k0 + idx % kTK, w = w0 + idx / kTK, ws = w + dx - 1;
+          const bool ok = c < C && w < W;
+          ga[e] = ok ? ld_elem(g + ((img + h) * W + w) * C + c) : 0.f;
+          gb[e] = ok && row_ok && ws >= 0 && ws < W
+                      ? ld_elem(g + ((img + hs) * W + ws) * C + c)
+                      : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < kNB; ++e) {
+          const int idx = tid + e * kTThreads;
+          const int c = k0 + idx / kTN, n = j0 + idx % kTN;
+          wr[e] = c < C && n < C ? ld_elem(w1 + (size_t)c * C + n) : 0.f;
+        }
+      };
+      const int steps1 = (C + kTK - 1) / kTK;
+      fetch1(0);
+      for (int st = 0; st < steps1; ++st, par ^= 1) {
+        float* a_b = a_s + par * Tl::kA;
+        float* b_b = b_s + par * Tl::kB;
+#pragma unroll
+        for (int e = 0; e < kNA; ++e) {
+          const int idx = tid + e * kTThreads;
+          const int c = st * kTK + idx % kTK;
+          float v = 0.f;
+          if (c < C) {
+            const float x0 = round_to<T>(__fsub_rn(gb[e], ga[e]));
+            v = round_to<T>(
+                fmaxf(__fadd_rn(__fmul_rn(x0, __ldg(a0 + c)), __ldg(b0 + c)), 0.f));
+          }
+          a_b[(idx / kTK) * kAS + idx % kTK] = v;
+        }
+#pragma unroll
+        for (int e = 0; e < kNB; ++e) b_b[tid + e * kTThreads] = wr[e];
+        __syncthreads();
+        if (st + 1 < steps1) fetch1((st + 1) * kTK);
+        fma_tile<kTN>(z, a_b, kAS, b_b, ty, tx);
+      }
+
+      // 2. pf_j = T(T(relu(a1 z + b1)) * fs), zero past C and outside the
+      // image.
+      float s1[8], t1[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = j0 + Tl::col(q, tx);
+        s1[q] = col < C ? __ldg(a1 + col) : 0.f;
+        t1[q] = col < C ? __ldg(b1 + col) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = 4 * ty + i, w = w0 + p, ws = w + dx - 1;
+        const bool ok = w < W && row_ok && ws >= 0 && ws < W;
+        float pf[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = j0 + Tl::col(q, tx);
+          const float fs =
+              ok && col < C ? ld_elem(f + ((img + hs) * W + ws) * C + col) : 0.f;
+          const float pv =
+              round_to<T>(fmaxf(__fadd_rn(__fmul_rn(z[i][q], s1[q]), t1[q]), 0.f));
+          pf[q] = round_to<T>(__fmul_rn(pv, fs));
+        }
+        *reinterpret_cast<float4*>(p_s + p * kPS + tx * 4) =
+            make_float4(pf[0], pf[1], pf[2], pf[3]);
+        *reinterpret_cast<float4*>(p_s + p * kPS + kTN / 2 + tx * 4) =
+            make_float4(pf[4], pf[5], pf[6], pf[7]);
+      }
+
+      // 3. acc += pf_j @ K_n[j0 : j0 + kTN, n0 : n0 + kTN] (the barrier of
+      // its first stage also publishes pf_j).
+      const int kj = min(kTN, C - j0);
+      auto fetch2 = [&](int k0) {
+#pragma unroll
+        for (int e = 0; e < kNB; ++e) {
+          const int idx = tid + e * kTThreads;
+          const int kk = k0 + idx / kTN, n = n0 + idx % kTN;
+          wr[e] = kk < kj && n < C ? ld_elem(kn + (size_t)(j0 + kk) * C + n) : 0.f;
+        }
+      };
+      const int steps2 = (kj + kTK - 1) / kTK;
+      fetch2(0);
+      for (int st = 0; st < steps2; ++st, par ^= 1) {
+        float* b_b = b_s + par * Tl::kB;
+#pragma unroll
+        for (int e = 0; e < kNB; ++e) b_b[tid + e * kTThreads] = wr[e];
+        __syncthreads();
+        if (st + 1 < steps2) fetch2((st + 1) * kTK);
+        fma_tile<kTN>(acc, p_s + st * kTK, kPS, b_b, ty, tx);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int w = w0 + 4 * ty + i;
+    if (w >= W) continue;
+    float* op = out + ((img + h) * W + w) * C;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = n0 + Tl::col(q, tx);
+      if (col < C) op[col] = acc[i][q];
+    }
+  }
+}
+
+template <typename T, int kTN>
+int launch_tiled(const void* g, const void* feats, const void* w1, const void* k,
+                 const void* a0, const void* b0, const void* a1, const void* b1,
+                 void* out, int B, int H, int W, int C, void* stream) {
+  using Tl = Tile<kTN>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(meta_kernel_fused_tiled<T, kTN>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = (C + kTN - 1) / kTN;
+  const dim3 grid((W + Tl::kTP - 1) / Tl::kTP, H, B * tiles);
+  meta_kernel_fused_tiled<T, kTN><<<grid, kTThreads, Tl::kSmemBytes, (cudaStream_t)stream>>>(
+      (const T*)g, (const T*)feats, (const T*)w1, (const T*)k, (const float*)a0,
+      (const float*)b0, (const float*)a1, (const float*)b1, (float*)out, H, W, C, tiles);
+  return (int)cudaGetLastError();
+}
+
+// The 64-wide instance where C <= 64, the 256-wide one past it.
+template <typename T>
+int launch_tiled_any(const void* g, const void* feats, const void* w1, const void* k,
+                     const void* a0, const void* b0, const void* a1, const void* b1,
+                     void* out, int B, int H, int W, int C, void* stream) {
+  return C <= 64 ? launch_tiled<T, 64>(g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C,
+                                       stream)
+                 : launch_tiled<T, 256>(g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C,
+                                        stream);
+}
+
 }  // namespace
 
 // g, feats: (B, H, W, C) bf16; w1t: (C, C) bf16 = W1^T; kt: (9, C, C) bf16
 // with kt[n] = K_n^T; a0, b0, a1, b1: (C,) fp32; out: (B, H, W, C) fp32.
-// C must be a multiple of 32 up to 256 (C <= 128 runs the 128-wide
-// instance, the rest the 256-wide one); w1t and kt 16-byte aligned.
+// C must be a multiple of 8 up to 256 (C <= 128 runs the 128-wide
+// instance, the rest the 256-wide one); g, feats, w1t and kt 16-byte
+// aligned.
 extern "C" int rv3d_meta_kernel_fused(const void* g, const void* feats,
                                       const void* w1t, const void* kt,
                                       const void* a0, const void* b0,
                                       const void* a1, const void* b1,
                                       void* out, int B, int H, int W, int C,
                                       void* stream) {
-  if (C <= 0 || C % 32 || C > kMaxC || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+  if (C <= 0 || C % 8 || C > kMaxC || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   return C <= 128 ? launch<128>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, C, stream)
                   : launch<256>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, C, stream);
+}
+
+// The tiled kernel. g, feats: (B, H, W, C), bf16 (fp32 == 0) or fp32
+// (fp32 != 0); w1: (C, C) = W1 ([k][n], x @ W1) and k: (9, C, C) with k[n]
+// = K_n, both in the dtype of g; a0, b0, a1, b1: (C,) fp32; out: (B, H, W,
+// C) fp32. Any C >= 1 with B * ceil(C / 256) <= 65535 and H <= 65535 (C
+// <= 64 runs the 64-wide instance, the rest the 256-wide one).
+extern "C" int rv3d_meta_kernel_fused_tiled(const void* g, const void* feats,
+                                            const void* w1, const void* k,
+                                            const void* a0, const void* b0,
+                                            const void* a1, const void* b1,
+                                            void* out, int B, int H, int W, int C,
+                                            int fp32, void* stream) {
+  if (C <= 0 || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+      (long)B * ((C + 255) / 256) > 65535)
+    return (int)cudaErrorInvalidValue;
+  return fp32 ? launch_tiled_any<float>(g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C,
+                                        stream)
+              : launch_tiled_any<__nv_bfloat16>(g, feats, w1, k, a0, b0, a1, b1, out, B,
+                                                H, W, C, stream);
 }

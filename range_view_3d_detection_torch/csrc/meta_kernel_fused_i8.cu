@@ -26,11 +26,15 @@
 // CUDA cores and not in that bound.
 //
 // Design: K1's (see its header), in int8.
-// - C is any multiple of 32 up to 256, through a template over a padded
-//   width Cp of 128 (C <= 128) or 256: the weight boxes, the hq/pq tile and
-//   the accumulators are Cp wide, and channels C..Cp-1 are zeros (the TMA
-//   fills the weights outside the C x C matrices with zeros; hq and pq
-//   there are 0 with zero affines; they are not stored).
+// - With bf16 g and feats, C is any multiple of 16 up to 256 (the int8
+//   weights' TMA strides need C % 16 == 0), through a template over a
+//   padded width Cp of 128 (C <= 128) or 256: the weight boxes, the hq/pq
+//   tile and the accumulators are Cp wide, and channels C..Cp-1 are zeros
+//   (the TMA fills the weights outside the C x C matrices with zeros; hq
+//   and pq there are 0 with zero affines; they are not stored). The
+//   wrapper pads a bf16 C that is not a multiple of 16 with zero channels;
+//   fp32 g and feats and C above 256 take the tiled kernel at the end of
+//   this file.
 // - A block owns 64 pixels of one row and all Cp output channels and loops
 //   over the 9 neighbours. Two consumer warpgroups split the output
 //   channels: warpgroup j owns columns [j Cp/2, (j + 1) Cp/2) of z, of the
@@ -558,21 +562,343 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   return (int)cudaGetLastError();
 }
 
+// ---------------- The tiled kernel: any C, g and feats in bf16 or fp32.
+//
+// The wgmma instances above take bf16 g through a TMA row map and C a
+// multiple of 16 up to 256 (their z and accumulator live in registers).
+// The wrapper sends this kernel fp32 g and feats (an int8 model quantized
+// from fp32: x0 = g(p + d) - g(p) and p * feats are fp32 there, as in
+// stem_pallas.py:97-107) and C above 256; it also takes bf16 at any C.
+//
+// Bound: two C x C integer products a neighbour and pixel, here on the
+// CUDA cores (dp4a, four int8 products a lane and instruction), besides
+// the quantize work per element.
+//
+// Design (a simple tiled dp4a kernel, K1's tiled kernel in int8):
+// - A block owns a tile of output channels kTN wide (64 where C <= 64,
+//   else 256; the grid's z walks B x ceil(C / kTN) tiles) for 1024 / (kTN
+//   / 8) pixels of one row (128 or 32). Per neighbour it loops over
+//   kTN-wide chunks j of z: z_j = hq @ W1[:, j] over K = C in steps of 4
+//   kTKW channels (64, or 32 in the 64-wide instance, whose 128-pixel
+//   stage holds as many g values), hq built from g as it is staged; then
+//   pq_j =
+//   clip(rint(relu(a1 float(z_j) + b1) * fs), +-127) into shared memory;
+//   then d += pq_j @ K_n[j, tile] in int32. After the chunks, acc +=
+//   float(d) * kdq[n], so the neighbour's sum is one exact integer before
+//   it meets the fp32 accumulator, as in the twin.
+// - 256 threads, each 4 pixels x 8 channels (two runs of 4, kTN / 2
+//   apart) of z, d and the accumulator; operands are int8 quadruples along
+//   K (one 32-bit word), from shared memory as 16-byte loads. The stages
+//   are double-buffered, and each thread's share of the next stage is
+//   loaded into registers while the current one is multiplied (K1's tiled
+//   kernel's pipeline).
+// - The twin's arithmetic step for step (__fmul_rn/__fadd_rn, rint half
+//   to even by __float2int_rn, exact int32 sums; float(z) and float(d)
+//   round as the twin's fp64 -> fp32 conversion of the same integer), so
+//   it equals kernels/stem.py::meta_kernel_fused_i8_plain bit for bit.
+constexpr int kTThreads = 256;
+
+// The tile of the kTN-wide instance: kTX threads across its channels,
+// kTY thread rows of 4 pixels each.
+template <int kTN>
+struct Tile {
+  static constexpr int kTX = kTN / 8;
+  static constexpr int kTY = kTThreads / kTX;
+  static constexpr int kTP = 4 * kTY;      // pixels of one row per block
+  static constexpr int kTKW = kTN == 64 ? 8 : 16;  // words (4 channels) of K a stage
+  static constexpr int kAW = kTKW + 4;     // row stride of the hq tile [kTP][kAW]
+  static constexpr int kBW = kTN + 4;      // row stride of a weight stage [kTKW][kBW]
+  static constexpr int kPW = kTN / 4 + 4;  // row stride of the pq tile [kTP][kPW]
+  static constexpr int kNA = kTP * kTKW / kTThreads;  // hq words a thread stages
+  static constexpr int kNB = kTN * kTKW / kTThreads;  // weight words a thread stages
+  // Output channel of a thread's q-th column (q < 8).
+  static __device__ __forceinline__ int col(int q, int tx) {
+    return (q >> 2) * (kTN / 2) + tx * 4 + (q & 3);
+  }
+};
+
+// Bytes p[0 .. min(avail, 4)) as one word (zeros past avail), low byte
+// first.
+__device__ __forceinline__ int load_s8x4(const int8_t* p, int avail) {
+  if (avail >= 4 && (reinterpret_cast<uintptr_t>(p) & 3) == 0)
+    return __ldg(reinterpret_cast<const int*>(p));
+  uint32_t v = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (e < avail) v |= (uint32_t)(uint8_t)__ldg(p + e) << (8 * e);
+  return (int)v;
+}
+
+// d[i][q] += sum_kw dp4a(a[(4 ty + i) as + kw], b[kw kBW + Tile::col(q)]),
+// kw < kTKW.
+template <int kTN>
+__device__ __forceinline__ void dp4a_tile(int (&d)[4][8], const int* a, int as,
+                                          const int* b, int ty, int tx) {
+  constexpr int kBW = Tile<kTN>::kBW, kTKW = Tile<kTN>::kTKW;
+  // One group of 4 k at a time: its 16-byte operand loads, no more, are
+  // live beside the accumulators and the next stage's prefetched elements.
+#pragma unroll 1
+  for (int k4 = 0; k4 < kTKW; k4 += 4) {
+    int4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      av[i] = *reinterpret_cast<const int4*>(a + (4 * ty + i) * as + k4);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int4 lo = *reinterpret_cast<const int4*>(b + (k4 + u) * kBW + tx * 4);
+      const int4 hi = *reinterpret_cast<const int4*>(b + (k4 + u) * kBW + kTN / 2 + tx * 4);
+      const int bv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ai = lane4(av[i], u);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[i][q] = __dp4a(ai, bv[q], d[i][q]);
+      }
+    }
+  }
+}
+
+// A thread's share of one weight stage, words (kw, n) = wt[(c0 + n) C + k0
+// + 4 kw ..][+4] for kw < kTKW, n < kTN (wt is [n][k]), into registers;
+// zeros past C in either index. Sixteen neighbouring threads read one
+// row's 64 consecutive bytes.
+template <int kTN>
+__device__ __forceinline__ void fetch_weights(int (&wr)[Tile<kTN>::kNB], const int8_t* wt,
+                                              int C, int k0, int c0, int tid) {
+  constexpr int kTKW = Tile<kTN>::kTKW;
+  const int kb = k0 + 4 * (tid % kTKW);
+#pragma unroll
+  for (int r = 0; r < Tile<kTN>::kNB; ++r) {
+    const int col = c0 + tid / kTKW + r * (kTThreads / kTKW);
+    wr[r] = col < C ? load_s8x4(wt + (size_t)col * C + kb, C - kb) : 0;
+  }
+}
+
+// The same share, from registers into a weight stage [kTKW][kBW].
+template <int kTN>
+__device__ __forceinline__ void store_weights(int* b_s, const int (&wr)[Tile<kTN>::kNB],
+                                              int tid) {
+  constexpr int kTKW = Tile<kTN>::kTKW;
+#pragma unroll
+  for (int r = 0; r < Tile<kTN>::kNB; ++r)
+    b_s[(tid % kTKW) * Tile<kTN>::kBW + tid / kTKW + r * (kTThreads / kTKW)] = wr[r];
+}
+
+template <typename T, int kTN>
+__global__ void __launch_bounds__(kTThreads, 1)
+    meta_kernel_fused_i8_tiled(const T* __restrict__ g, const T* __restrict__ f,
+                               const int8_t* __restrict__ w1t,
+                               const int8_t* __restrict__ kt,
+                               const float* __restrict__ a0, const float* __restrict__ b0,
+                               const float* __restrict__ a1, const float* __restrict__ b1,
+                               const float* __restrict__ kdq, float* __restrict__ out,
+                               int H, int W, int C, int tiles) {
+  using Tl = Tile<kTN>;
+  constexpr int kTP = Tl::kTP, kPW = Tl::kPW, kNA = Tl::kNA;
+  constexpr int kTKW = Tl::kTKW, kAW = Tl::kAW;
+  constexpr int kA = kTP * kAW, kB = kTKW * Tl::kBW;
+  __shared__ __align__(16) int a_s[2 * kA];        // hq words: 2 x [kTP][kAW]
+  __shared__ __align__(16) int b_s[2 * kB];        // weight words: 2 x [kTKW][kBW]
+  __shared__ __align__(16) int p_s[kTP * kPW];     // pq words of chunk j: [kTP][kPW]
+  const int tid = threadIdx.x, tx = tid % Tl::kTX, ty = tid / Tl::kTX;
+  // Stage s writes buffer s % 2 (counted across both products), then one
+  // barrier, then the products read it (K1's tiled kernel's order).
+  int par = 0;
+  float ga[kNA][4], gb[kNA][4];  // the next stage's g(p), g(p + d)
+  int wr[Tl::kNB];               // and its weight words
+  const int w0 = blockIdx.x * kTP, h = blockIdx.y;
+  const int b = blockIdx.z / tiles, n0 = (blockIdx.z % tiles) * kTN;
+  const size_t img = (size_t)b * H;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+
+  for (int nb = 0; nb < 9; ++nb) {
+    const int dy = nb / 3, dx = nb - 3 * (nb / 3);
+    const int hs = h + dy - 1;
+    const bool row_ok = hs >= 0 && hs < H;
+    const int8_t* kn = kt + (size_t)nb * C * C;
+    int d[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) d[i][q] = 0;
+    for (int j0 = 0; j0 < C; j0 += kTN) {
+      // 1. z_j = hq @ W1[:, j0 : j0 + kTN], hq = min(rint(relu(a0 x0 + b0)),
+      // 127) with x0 = T(g(p + d) - g(p)).
+      int z[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) z[i][q] = 0;
+      auto fetch1 = [&](int k0) {
+#pragma unroll
+        for (int a = 0; a < kNA; ++a) {
+          const int idx = tid + a * kTThreads;
+          const int w = w0 + idx / kTKW, ws = w + dx - 1;
+          const bool s_ok = row_ok && ws >= 0 && ws < W;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = k0 + 4 * (idx % kTKW) + e;
+            const bool ok = c < C && w < W;
+            ga[a][e] = ok ? ld_elem(g + ((img + h) * W + w) * C + c) : 0.f;
+            gb[a][e] = ok && s_ok ? ld_elem(g + ((img + hs) * W + ws) * C + c) : 0.f;
+          }
+        }
+        fetch_weights<kTN>(wr, w1t, C, k0, j0, tid);
+      };
+      const int steps1 = (C + 4 * kTKW - 1) / (4 * kTKW);
+      fetch1(0);
+      for (int st = 0; st < steps1; ++st, par ^= 1) {
+        int* a_b = a_s + par * kA;
+        int* b_b = b_s + par * kB;
+#pragma unroll
+        for (int a = 0; a < kNA; ++a) {
+          const int idx = tid + a * kTThreads;
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = st * 4 * kTKW + 4 * (idx % kTKW) + e;
+            if (c < C) {
+              const float x0 = round_to<T>(__fsub_rn(gb[a][e], ga[a][e]));
+              const float hv =
+                  fmaxf(__fadd_rn(__fmul_rn(x0, __ldg(a0 + c)), __ldg(b0 + c)), 0.f);
+              word |= (uint32_t)(__float2int_rn(fminf(hv, 127.f)) & 0xff) << (8 * e);
+            }
+          }
+          a_b[(idx / kTKW) * kAW + idx % kTKW] = (int)word;
+        }
+        store_weights<kTN>(b_b, wr, tid);
+        __syncthreads();
+        if (st + 1 < steps1) fetch1((st + 1) * 4 * kTKW);
+        dp4a_tile<kTN>(z, a_b, kAW, b_b, ty, tx);
+      }
+
+      // 2. pq_j = clip(rint(relu(a1 float(z) + b1) * fs), +-127), zero past
+      // C and outside the image.
+      float s1[8], t1[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = j0 + Tl::col(q, tx);
+        s1[q] = col < C ? __ldg(a1 + col) : 0.f;
+        t1[q] = col < C ? __ldg(b1 + col) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = 4 * ty + i, w = w0 + p, ws = w + dx - 1;
+        const bool ok = w < W && row_ok && ws >= 0 && ws < W;
+        uint32_t word[2] = {0, 0};
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = j0 + Tl::col(q, tx);
+          const float fs =
+              ok && col < C ? ld_elem(f + ((img + hs) * W + ws) * C + col) : 0.f;
+          const float pv =
+              fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(z[i][q]), s1[q]), t1[q]), 0.f);
+          const float qv = fminf(fmaxf(__fmul_rn(pv, fs), -127.f), 127.f);
+          word[q >> 2] |= (uint32_t)(__float2int_rn(qv) & 0xff) << (8 * (q & 3));
+        }
+        p_s[p * kPW + tx] = (int)word[0];
+        p_s[p * kPW + kTN / 8 + tx] = (int)word[1];
+      }
+
+      // 3. d += pq_j @ K_n[j0 : j0 + kTN, n0 : n0 + kTN] (int32; the
+      // barrier of its first stage also publishes pq_j).
+      const int steps2 = ((min(kTN, C - j0) + 3) / 4 + kTKW - 1) / kTKW;
+      fetch_weights<kTN>(wr, kn, C, j0, n0, tid);
+      for (int st = 0; st < steps2; ++st, par ^= 1) {
+        int* b_b = b_s + par * kB;
+        store_weights<kTN>(b_b, wr, tid);
+        __syncthreads();
+        if (st + 1 < steps2) fetch_weights<kTN>(wr, kn, C, j0 + 4 * kTKW * (st + 1), n0, tid);
+        dp4a_tile<kTN>(d, p_s + st * kTKW, kPW, b_b, ty, tx);
+      }
+    }
+    // 4. acc += float(d) * kdq[n], in neighbour order.
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = n0 + Tl::col(q, tx);
+      const float s = col < C ? __ldg(kdq + nb * C + col) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i][q] = __fadd_rn(acc[i][q], __fmul_rn(__int2float_rn(d[i][q]), s));
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int w = w0 + 4 * ty + i;
+    if (w >= W) continue;
+    float* op = out + ((img + h) * W + w) * C;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = n0 + Tl::col(q, tx);
+      if (col < C) op[col] = acc[i][q];
+    }
+  }
+}
+
+template <typename T, int kTN>
+int launch_tiled(const void* g, const void* feats, const void* w1t, const void* kt,
+                 const void* a0, const void* b0, const void* a1, const void* b1,
+                 const void* kdq, void* out, int B, int H, int W, int C, void* stream) {
+  const int tiles = (C + kTN - 1) / kTN;
+  const dim3 grid((W + Tile<kTN>::kTP - 1) / Tile<kTN>::kTP, H, B * tiles);
+  meta_kernel_fused_i8_tiled<T, kTN><<<grid, kTThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)g, (const T*)feats, (const int8_t*)w1t, (const int8_t*)kt,
+      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
+      (const float*)kdq, (float*)out, H, W, C, tiles);
+  return (int)cudaGetLastError();
+}
+
+// The 64-wide instance where C <= 64, the 256-wide one past it.
+template <typename T>
+int launch_tiled_any(const void* g, const void* feats, const void* w1t, const void* kt,
+                     const void* a0, const void* b0, const void* a1, const void* b1,
+                     const void* kdq, void* out, int B, int H, int W, int C,
+                     void* stream) {
+  return C <= 64 ? launch_tiled<T, 64>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H,
+                                       W, C, stream)
+                 : launch_tiled<T, 256>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H,
+                                        W, C, stream);
+}
+
 }  // namespace
 
 // g, feats: (B, H, W, C) bf16; w1t: (C, C) int8 = W1^T; kt: (9, C, C) int8
 // with kt[n] = K_n^T; a0, b0, a1, b1: (C,) fp32; kdq: (9, C) fp32;
-// out: (B, H, W, C) fp32. C must be a multiple of 32 up to 256 (C <= 128
-// runs the 128-wide instance, the rest the 256-wide one); w1t and kt
-// 16-byte aligned.
+// out: (B, H, W, C) fp32. C must be a multiple of 16 up to 256 (C <= 128
+// runs the 128-wide instance, the rest the 256-wide one); g, feats, w1t
+// and kt 16-byte aligned.
 extern "C" int rv3d_meta_kernel_fused_i8(
     const void* g, const void* feats, const void* w1t, const void* kt,
     const void* a0, const void* b0, const void* a1, const void* b1,
     const void* kdq, void* out, int B, int H, int W, int C, void* stream) {
-  if (C <= 0 || C % 32 || C > kMaxC || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+  if (C <= 0 || C % 16 || C > kMaxC || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   return C <= 128
              ? launch<128>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream)
              : launch<256>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream);
+}
+
+// The tiled kernel. g, feats: (B, H, W, C), bf16 (fp32 == 0) or fp32
+// (fp32 != 0); w1t: (C, C) int8 = W1^T; kt: (9, C, C) int8 with kt[n] =
+// K_n^T; a0, b0, a1, b1: (C,) fp32; kdq: (9, C) fp32; out: (B, H, W, C)
+// fp32. Any C >= 1 with B * ceil(C / 256) <= 65535 and H <= 65535 (C <= 64
+// runs the 64-wide instance, the rest the 256-wide one).
+extern "C" int rv3d_meta_kernel_fused_i8_tiled(
+    const void* g, const void* feats, const void* w1t, const void* kt,
+    const void* a0, const void* b0, const void* a1, const void* b1,
+    const void* kdq, void* out, int B, int H, int W, int C, int fp32, void* stream) {
+  if (C <= 0 || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+      (long)B * ((C + 255) / 256) > 65535)
+    return (int)cudaErrorInvalidValue;
+  return fp32 ? launch_tiled_any<float>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B,
+                                        H, W, C, stream)
+              : launch_tiled_any<__nv_bfloat16>(g, feats, w1t, kt, a0, b0, a1, b1, kdq,
+                                                out, B, H, W, C, stream);
 }

@@ -55,7 +55,10 @@
 //    its IoU row (16-byte loads where cap % 4 == 0) and its R_i once and
 //    forms the 10 fp32 sums of w_ij (wsum and the 9 payload dot
 //    products); a row that is not kept copies its payload. merged differs
-//    from the plain scan only by the order of the fp32 sums.
+//    from the plain scan only by the order of the fp32 sums. The box
+//    payload (P = 9) has its own instance; any other P >= 1 runs the same
+//    loop in passes over groups of kPass payload columns, each pass
+//    reading the IoU row again and forming wsum and kPass sums.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +66,7 @@
 namespace {
 
 constexpr int kP = 9;             // payload: x, y, z, l, w, h, sin, cos, score
-constexpr int kR = kP + 1;        // merge sums: wsum + payload
+constexpr int kPass = 8;          // payload columns a pass of the any-P merge
 constexpr int kRegCap = 4096;     // the register keep warp's largest cap
 constexpr int kMaxWordsPerLane = kRegCap / 32 / 32;  // removed-set words a lane
 constexpr int kStages = 4;        // mask slabs in flight in phase 2
@@ -329,91 +332,105 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Phase 3: the weighted merge of each kept row; other rows copy.
-__device__ __forceinline__ void merge_term(float w, int j, const float* pay_b,
-                                           float* acc) {
+// acc[0] += w, acc[1 + k] += w * payload[j, c0 + k] for the kCols columns
+// from c0 that lie below P.
+template <int kCols>
+__device__ __forceinline__ void merge_term(float w, int j, const float* pay_b, int P,
+                                           int c0, float* acc) {
   if (w != 0.f) {
     acc[0] += w;
 #pragma unroll
-    for (int k = 0; k < kP; ++k) acc[k + 1] += w * pay_b[(size_t)j * kP + k];
+    for (int k = 0; k < kCols; ++k)
+      if (c0 + k < P) acc[k + 1] += w * pay_b[(size_t)j * P + c0 + k];
   }
 }
 
-template <bool kVec>
+// kFixedP: the payload width when it is known here (9, the box payload),
+// else 0 and the runtime P, merged in passes of kPass columns.
+template <bool kVec, int kFixedP>
 __global__ void nms_merge_kernel(const float* __restrict__ iou,
                                  const float* __restrict__ scores,
                                  const float* __restrict__ payload,
                                  const uint8_t* __restrict__ keep,
                                  const uint32_t* __restrict__ seen,
                                  float* __restrict__ merged, int rows, int cap,
-                                 int nwords, float merge_thr) {
+                                 int nwords, int runtime_p, float merge_thr) {
+  constexpr int kCols = kFixedP > 0 ? kFixedP : kPass;
+  const int P = kFixedP > 0 ? kFixedP : runtime_p;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warp
   const int b = row / cap;
   const int i = row - b * cap;
-  const float* pay_b = payload + (size_t)b * cap * kP;
-  float* out = merged + (size_t)row * kP;
+  const float* pay_b = payload + (size_t)b * cap * P;
+  float* out = merged + (size_t)row * P;
   if (!keep[row]) {
-    if (lane < kP) out[lane] = pay_b[(size_t)i * kP + lane];
+    for (int k = lane; k < P; k += 32) out[k] = pay_b[(size_t)i * P + k];
     return;
   }
   const float* iou_row = iou + (size_t)row * cap;
   const float* score_b = scores + (size_t)b * cap;
   const uint32_t* removed = seen + (size_t)row * nwords;  // R_i
   const float self = score_b[i];
-  float acc[kR];
+  for (int c0 = 0; c0 < P; c0 += kCols) {
+    float acc[kCols + 1];
 #pragma unroll
-  for (int k = 0; k < kR; ++k) acc[k] = 0.f;
-  if (kVec) {
-    // Four columns a lane, 128 a warp; cap % 4 == 0.
-    for (int j0 = 4 * lane; j0 < cap; j0 += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(iou_row + j0);
-      const float4 sc = *reinterpret_cast<const float4*>(score_b + j0);
-      const uint32_t dead = removed[j0 >> 5] >> (j0 & 31);
-      const float vq[4] = {v.x, v.y, v.z, v.w};
-      const float sq[4] = {sc.x, sc.y, sc.z, sc.w};
+    for (int k = 0; k <= kCols; ++k) acc[k] = 0.f;
+    if (kVec) {
+      // Four columns a lane, 128 a warp; cap % 4 == 0.
+      for (int j0 = 4 * lane; j0 < cap; j0 += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(iou_row + j0);
+        const float4 sc = *reinterpret_cast<const float4*>(score_b + j0);
+        const uint32_t dead = removed[j0 >> 5] >> (j0 & 31);
+        const float vq[4] = {v.x, v.y, v.z, v.w};
+        const float sq[4] = {sc.x, sc.y, sc.z, sc.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float w = (!((dead >> q) & 1u) && vq[q] >= merge_thr) ? sq[q] : 0.f;
-        if (j0 + q == i) w = fmaxf(w, self);
-        merge_term(w, j0 + q, pay_b, acc);
+        for (int q = 0; q < 4; ++q) {
+          float w = (!((dead >> q) & 1u) && vq[q] >= merge_thr) ? sq[q] : 0.f;
+          if (j0 + q == i) w = fmaxf(w, self);
+          merge_term<kCols>(w, j0 + q, pay_b, P, c0, acc);
+        }
+      }
+    } else {
+      for (int j = lane; j < cap; j += 32) {
+        const bool alive = !((removed[j >> 5] >> lane) & 1u);
+        float w = (alive && iou_row[j] >= merge_thr) ? score_b[j] : 0.f;
+        if (j == i) w = fmaxf(w, self);
+        merge_term<kCols>(w, j, pay_b, P, c0, acc);
       }
     }
-  } else {
-    for (int j = lane; j < cap; j += 32) {
-      const bool alive = !((removed[j >> 5] >> lane) & 1u);
-      float w = (alive && iou_row[j] >= merge_thr) ? score_b[j] : 0.f;
-      if (j == i) w = fmaxf(w, self);
-      merge_term(w, j, pay_b, acc);
-    }
+#pragma unroll
+    for (int k = 0; k <= kCols; ++k) acc[k] = warp_sum(acc[k]);
+    const float wsum = fmaxf(acc[0], 1e-8f);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k)
+      if (lane == k && c0 + k < P) out[c0 + k] = acc[k + 1] / wsum;
   }
-#pragma unroll
-  for (int k = 0; k < kR; ++k) acc[k] = warp_sum(acc[k]);
-  const float wsum = fmaxf(acc[0], 1e-8f);
-#pragma unroll
-  for (int k = 0; k < kP; ++k)
-    if (lane == k) out[k] = acc[k + 1] / wsum;
 }
 
 }  // namespace
 
 // iou: (B, cap, cap) fp32; scores: (B, cap) fp32; valid: (B, cap) bool
-// (one byte each); payload: (B, cap, P) fp32 with P == 9; keep: (B, cap)
+// (one byte each); payload: (B, cap, P) fp32, any P >= 1; keep: (B, cap)
 // bool out; merged: (B, cap, P) fp32 out; mask: (B, 32 W, L) and seen:
 // (B, cap, W) uint32 scratch, W = ceil(cap / 32); the caller sizes the
-// mask's rows, ld words each, and this checks them: ld = W for cap <= 4096
-// (the register keep reads rows of W words), a multiple of 4 at least W
-// past it (the big keep copies 16-byte pieces). Any cap whose scratch
-// fits. Three launches on `stream`; returns the cudaError_t of the first
-// that fails.
+// mask's rows, ld words each, and this checks them: ld = W for the
+// register keep (big_keep == 0, cap <= 4096: it reads rows of W words), a
+// multiple of 4 at least W for the shared-memory keep (big_keep != 0: it
+// copies 16-byte pieces). p9_merge != 0 runs the merge's P = 9 instance
+// (P must be 9), else the any-P one. The caller's plan
+// (kernels/nms.py::k2_plan) sets both. Any cap whose scratch fits. Three
+// launches on `stream`; returns the cudaError_t of the first that fails.
 extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
                              const void* valid, const void* payload,
                              void* keep, void* merged, void* mask, void* seen,
-                             int B, int cap, int ld, int P, float iou_thr,
-                             float merge_thr, void* stream) {
-  if (P != kP || B <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
+                             int B, int cap, int ld, int P, int big_keep,
+                             int p9_merge, float iou_thr, float merge_thr,
+                             void* stream) {
+  const bool big = big_keep != 0;
+  if (P <= 0 || B <= 0 || cap <= 0 || (!big && cap > kRegCap) || (p9_merge && P != kP))
+    return (int)cudaErrorInvalidValue;
   const int nwords = (cap + 31) / 32;
-  const bool big = cap > kRegCap;
   if (big ? (ld < nwords || ld % 4 != 0) : ld != nwords)
     return (int)cudaErrorInvalidValue;
   // The big keep's chunks: at most kChunkWords words, each a multiple of 4.
@@ -458,10 +475,11 @@ extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto merge = vec ? nms_merge_kernel<true> : nms_merge_kernel<false>;
+  auto merge = p9_merge ? (vec ? nms_merge_kernel<true, kP> : nms_merge_kernel<false, kP>)
+                       : (vec ? nms_merge_kernel<true, 0> : nms_merge_kernel<false, 0>);
   merge<<<blocks, 32 * kRowsPerBlock, 0, st>>>(
       (const float*)iou, (const float*)scores, (const float*)payload,
       (const uint8_t*)keep, (const uint32_t*)seen, (float*)merged, rows, cap,
-      nwords, merge_thr);
+      nwords, P, merge_thr);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,7 @@ launch), a fake kernel for ``torch.export`` and CUDA-graph capture.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +29,48 @@ from range_view_3d_detection_torch.kernels import _build
 
 
 INT8_MAX = 127.0
+CIN_CHUNK = 32  # input channels a pipeline stage of the kernel takes
+
+
+class ConvPlan(NamedTuple):
+    """How K3 runs one call on the card.
+
+    ``in_kind``: the operand form the entry point instantiates, 0 for an
+    int8 input, 1 / 2 for a bf16 / fp32 activation quantized as it is
+    staged (the template instance is this and the width stride).
+    ``cin_pad``: the zero input channels the wrapper adds (one copy of
+    ``x`` and of the weights a call) so that Cin is a multiple of 32;
+    q(0) = 0, so the int32 sums do not change. A Cout that is not a
+    multiple of the kernel's 128-channel tile is masked on the store, with
+    no copy.
+    """
+
+    in_kind: int
+    cin_pad: int
+
+
+_IN_KINDS = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def k3_plan(Cin: int, Cout: int, stride_w: int, x_dtype: torch.dtype,
+            quantized_in_kernel: bool) -> ConvPlan:
+    """K3's launch for ``x`` of Cin channels in ``x_dtype`` (int8, or
+    bf16/fp32 with ``in_scale``: ``quantized_in_kernel``), Cout outputs
+    and width stride 1 or 2."""
+    if Cin < 1 or Cout < 1:
+        raise ValueError(f"conv3x3_i8_fused: Cin={Cin}, Cout={Cout}")
+    if stride_w not in (1, 2):
+        raise ValueError(f"conv3x3_i8_fused: stride_w={stride_w}")
+    if quantized_in_kernel:
+        in_kind = _IN_KINDS.get(x_dtype)
+    else:
+        in_kind = 0 if x_dtype == torch.int8 else None
+    if in_kind is None:
+        raise TypeError(
+            f"conv3x3_i8_fused: input {x_dtype} (in_scale "
+            f"{'given' if quantized_in_kernel else 'None'})"
+        )
+    return ConvPlan(in_kind, -Cin % CIN_CHUNK)
 
 
 def _out_width(W: int, stride_w: int) -> int:
@@ -104,9 +146,9 @@ def conv3x3_i8_fused(
     ``x_i8`` is int8, or, with ``in_scale`` (an fp32 scalar, best a 0-dim
     tensor on the input's device), the bf16/fp32 activation that the
     kernel quantizes as it stages it. A CPU tensor takes the plain twin. A
-    CUDA tensor launches the kernel or raises: Cin must be a multiple of
-    32, Cout of 16, ``out_dtype`` bf16 or fp32; the kernel's entry point
-    rejects a shape beyond its grid's limits. ``x_i8`` should be
+    CUDA tensor launches the kernel as :func:`k3_plan` says (any Cin and
+    Cout) or raises: ``out_dtype`` must be bf16 or fp32, and the kernel's
+    entry point rejects a shape beyond its grid's limits. ``x_i8`` should be
     NHWC-contiguous (channels_last memory seen through a permute); another
     layout is copied. ``w_i8`` is best a transposed view of a contiguous
     (9, Cout, Cin) tensor (the kernel's operand layout); any other layout
@@ -125,24 +167,14 @@ def conv3x3_i8_fused(
 def _check_k3(x_i8, w_i8, dq, stride_w, out_dtype, scale) -> None:
     """What the CUDA kernel takes (shapes and dtypes only)."""
     B, H, W, Cin = x_i8.shape
-    in_kinds = _IN_KINDS if scale is not None else {torch.int8: 0}
-    if x_i8.dtype not in in_kinds or w_i8.dtype != torch.int8:
-        raise TypeError(
-            f"conv3x3_i8_fused: input {x_i8.dtype} (in_scale "
-            f"{'given' if scale is not None else 'None'}), weights {w_i8.dtype}"
-        )
+    if w_i8.dtype != torch.int8:
+        raise TypeError(f"conv3x3_i8_fused: weights {w_i8.dtype}")
     if w_i8.dim() != 3 or w_i8.shape[:2] != (9, Cin):
         raise ValueError(
             f"conv3x3_i8_fused: weights {tuple(w_i8.shape)} for Cin={Cin}"
         )
     Cout = w_i8.shape[2]
-    if Cin % 32 or Cout % 16:
-        raise ValueError(
-            f"conv3x3_i8_fused: Cin={Cin} must be a multiple of 32 and "
-            f"Cout={Cout} of 16"
-        )
-    if stride_w not in (1, 2):
-        raise ValueError(f"conv3x3_i8_fused: stride_w={stride_w}")
+    k3_plan(Cin, Cout, stride_w, x_i8.dtype, scale is not None)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"conv3x3_i8_fused: out_dtype {out_dtype}")
     if dq.shape != (Cout,):
@@ -151,9 +183,6 @@ def _check_k3(x_i8, w_i8, dq, stride_w, out_dtype, scale) -> None:
         raise ValueError("conv3x3_i8_fused: inputs on different devices")
     if scale is not None and scale.numel() != 1:
         raise ValueError(f"conv3x3_i8_fused: in_scale shape {tuple(scale.shape)}")
-
-
-_IN_KINDS = {torch.bfloat16: 1, torch.float32: 2}
 
 
 @torch.library.custom_op("rv3d::conv3x3_i8", mutates_args=(), device_types="cpu")
@@ -176,9 +205,14 @@ def _(x_i8, w_i8, dq, in_scale, stride_w, out_dtype):
 def _k3_cuda(x_i8, w_i8, dq, in_scale, stride_w, out_dtype):
     B, H, W, Cin = x_i8.shape
     Cout = w_i8.shape[2]
-    in_kind = _IN_KINDS[x_i8.dtype] if in_scale is not None else 0
+    plan = k3_plan(Cin, Cout, stride_w, x_i8.dtype, in_scale is not None)
+    wt = w_i8.transpose(1, 2)  # (9, Cout, Cin): [n][k]
+    if plan.cin_pad:
+        x_i8 = F.pad(x_i8, (0, plan.cin_pad))
+        wt = F.pad(wt, (0, plan.cin_pad))
+        Cin += plan.cin_pad
     x_i8 = x_i8.contiguous()
-    wt = w_i8.transpose(1, 2).contiguous()  # (9, Cout, Cin): [n][k]
+    wt = wt.contiguous()
     dq = dq.float().contiguous()
     if x_i8.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("conv3x3_i8_fused: operands must be 16-byte aligned")
@@ -190,7 +224,7 @@ def _k3_cuda(x_i8, w_i8, dq, in_scale, stride_w, out_dtype):
         err = lib.rv3d_conv3x3_i8(
             x_i8.data_ptr(), wt.data_ptr(), dq.data_ptr(),
             None if in_scale is None else in_scale.data_ptr(), out.data_ptr(),
-            B, H, W, Cin, Cout, stride_w, in_kind,
+            B, H, W, Cin, Cout, stride_w, plan.in_kind,
             int(out_dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )

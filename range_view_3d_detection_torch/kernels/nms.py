@@ -19,7 +19,7 @@ fake kernel for ``torch.export`` and CUDA-graph capture.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,25 @@ from range_view_3d_detection_torch.kernels import _build
 
 PAYLOAD = 9  # x, y, z, l, w, h, sin(yaw), cos(yaw), score
 REGISTER_CAP = 4096  # the largest cap whose removed set the keep warp holds in registers
+
+
+class NmsPlan(NamedTuple):
+    """How K2 runs one call on the card: ``keep`` is ``"register"`` (the
+    keep warp, cap <= 4096) or ``"shared"`` (the block keep past it);
+    ``merge`` is ``"p9"`` (the box payload's instance) or ``"passes"``
+    (any other P, in ``ceil(P / 8)`` passes over each kept row). The
+    launch hands both to the entry point, which runs what they name."""
+
+    keep: str
+    merge: str
+
+
+def k2_plan(cap: int, P: int) -> NmsPlan:
+    """K2's launch at ``cap`` boxes of a ``P``-wide payload."""
+    if cap < 1 or P < 1:
+        raise ValueError(f"nms_scan: cap={cap}, P={P}")
+    return NmsPlan("register" if cap <= REGISTER_CAP else "shared",
+                   "p9" if P == PAYLOAD else "passes")
 
 
 def nms_scan_plain(
@@ -149,7 +168,7 @@ def mask_shape(B: int, cap: int) -> Tuple[int, int, int]:
     copies column chunks of rows that start on 16-byte boundaries). The
     kernel takes L from here and refuses one that breaks this rule."""
     nwords = (cap + 31) // 32
-    ld = nwords if cap <= REGISTER_CAP else (nwords + 3) // 4 * 4
+    ld = nwords if k2_plan(cap, PAYLOAD).keep == "register" else (nwords + 3) // 4 * 4
     return B, 32 * nwords, ld
 
 
@@ -165,8 +184,8 @@ def nms_scan(
     """Greedy (weighted) NMS scan over a precomputed IoU matrix.
 
     A CPU tensor takes :func:`nms_scan_plain`. A CUDA tensor launches the
-    kernel's three phases (P == 9, any B >= 1, any cap: past 4096 the keep
-    runs from shared memory) or raises. What bounds the cap is the (B,
+    kernel's three phases as :func:`k2_plan` says (any B >= 1, any cap,
+    any payload width P >= 1) or raises. What bounds the cap is the (B,
     cap, cap) IoU matrix's allocation. ``nms_scan.launches`` counts the
     calls that launch them.
     """
@@ -175,12 +194,14 @@ def nms_scan(
         if (
             iou.shape != (B, cap, cap)
             or valid.shape != (B, cap)
-            or payload.shape != (B, cap, PAYLOAD)
+            or payload.dim() != 3
+            or payload.shape[:2] != (B, cap)
         ):
             raise ValueError(
                 f"nms_scan: shapes iou{tuple(iou.shape)} scores{tuple(scores.shape)}"
                 f" valid{tuple(valid.shape)} payload{tuple(payload.shape)}"
             )
+        k2_plan(cap, payload.shape[2])
         tensors = (iou, scores, valid, payload)
         if any(t.device != iou.device for t in tensors):
             raise ValueError("nms_scan: inputs on different devices")
@@ -217,8 +238,10 @@ def _k2_cuda(iou, scores, valid, payload, iou_threshold, merge_threshold):
     scores = scores.float().contiguous()
     valid = valid.to(torch.bool).contiguous()
     payload = payload.float().contiguous()
+    P = payload.shape[2]
+    plan = k2_plan(cap, P)
     keep = torch.empty((B, cap), dtype=torch.bool, device=iou.device)
-    merged = torch.empty((B, cap, PAYLOAD), dtype=torch.float32, device=iou.device)
+    merged = torch.empty((B, cap, P), dtype=torch.float32, device=iou.device)
     _, rows, ld = mask_shape(B, cap)
     mask = torch.empty((B, rows, ld), dtype=torch.int32, device=iou.device)
     seen = torch.empty((B, cap, rows // 32), dtype=torch.int32, device=iou.device)
@@ -228,7 +251,8 @@ def _k2_cuda(iou, scores, valid, payload, iou_threshold, merge_threshold):
             iou.data_ptr(), scores.data_ptr(), valid.data_ptr(),
             payload.data_ptr(), keep.data_ptr(), merged.data_ptr(),
             mask.data_ptr(), seen.data_ptr(),
-            B, cap, ld, PAYLOAD, float(iou_threshold), float(merge_threshold),
+            B, cap, ld, P, int(plan.keep == "shared"), int(plan.merge == "p9"),
+            float(iou_threshold), float(merge_threshold),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "rv3d_nms_scan")

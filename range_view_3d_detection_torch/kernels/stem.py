@@ -11,6 +11,16 @@ Each kernel's header says what bounds it on the H100 (the two 256x256
 GEMMs per neighbour: compute, at B=2 and the flagship 64x1808 image) and
 how its design follows from that.
 
+On the card each takes what its Pallas counterpart takes: ``g`` and
+``feats`` in bf16 or fp32, any C. :func:`k1_plan` and :func:`k4_plan` say
+which of a source's two entry points a call launches and what the wrapper
+pads: the wgmma kernel takes bf16 up to C = 256 (the configs' stems are
+256, 128 and 32 wide), the wrapper padding C with zero channels to the
+kernel's TMA multiple (8 for K1, 16 for K4) where it is off it, with one
+copy of each input and of the output's crop; the tiled kernel takes fp32
+and C above 256, and pads C inside its own staging. Zero channels are
+exact: their ``hh``, ``p`` and ``p * feats`` are 0.
+
 Both are ``torch.library`` custom ops, ``rv3d::meta_kernel_fused`` and
 ``rv3d::meta_kernel_fused_i8``: the CPU kernel is the plain twin, the
 CUDA kernel launches the ctypes entry point (built at its first launch),
@@ -21,12 +31,64 @@ arguments and call the op.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from range_view_3d_detection_torch.kernels import _build
 
 NUM_NEIGHBORS = 3
+COMPUTE_DTYPES = (torch.bfloat16, torch.float32)  # "bf16 or f32", as in JAX
+
+
+class StemPlan(NamedTuple):
+    """How a stem kernel runs one call on the card.
+
+    ``kernel``: ``"wgmma"`` (the tensor-core entry point, which picks its
+    128- or 256-wide template from C) or ``"tiled"`` (the CUDA-core entry
+    point, for bf16 or fp32 as ``g`` is). ``pad``: the zero channels the
+    wrapper adds to C by copying the inputs (and crops from the output).
+    """
+
+    kernel: str
+    pad: int
+
+
+def _stem_plan(C: int, dtype: torch.dtype, multiple: int, name: str) -> StemPlan:
+    if C < 1:
+        raise ValueError(f"{name}: C={C}")
+    if dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"{name}: g in {dtype}; the kernel takes bf16 or fp32")
+    if dtype == torch.bfloat16 and C <= 256:
+        return StemPlan("wgmma", -C % multiple)
+    return StemPlan("tiled", 0)
+
+
+def k1_plan(C: int, dtype: torch.dtype) -> StemPlan:
+    """K1's launch for C channels of ``g`` in ``dtype``: bf16 up to C = 256
+    on the wgmma kernel, C padded to a multiple of 8 (the TMA's 16-byte
+    strides); fp32 and C above 256 on the tiled kernel."""
+    return _stem_plan(C, dtype, 8, "meta_kernel_fused")
+
+
+def k4_plan(C: int, dtype: torch.dtype) -> StemPlan:
+    """K4's launch for C channels of ``g`` in ``dtype``: bf16 up to C = 256
+    on the wgmma kernel, C padded to a multiple of 16 (the int8 weights'
+    TMA strides); fp32 and C above 256 on the tiled kernel."""
+    return _stem_plan(C, dtype, 16, "meta_kernel_fused_i8")
+
+
+def padded_operands(pad: int, g, feats, w1, k, *vectors) -> tuple:
+    """A stem kernel's operands with ``pad`` zero channels past C, as the
+    CUDA wrappers launch them: ``g`` and ``feats`` (..., C), the weights
+    ``w1`` (C, C) and ``k`` (9, C, C) in both of their last two dims, and
+    the per-channel ``vectors`` (affines, kdq) in their last."""
+    if not pad:
+        return (g, feats, w1, k, *vectors)
+    return (F.pad(g, (0, pad)), F.pad(feats, (0, pad)),
+            F.pad(w1, (0, pad, 0, pad)), F.pad(k, (0, pad, 0, pad)),
+            *(F.pad(v, (0, pad)) for v in vectors))
 
 
 def meta_kernel_fused_plain(
@@ -88,16 +150,13 @@ def meta_kernel_fused(
 ) -> torch.Tensor:
     """Fused 9-neighbour stem accumulation (see :func:`meta_kernel_fused_plain`).
 
-    A CPU tensor takes the plain twin, at any C. A CUDA tensor launches the
-    kernel (bf16 ``g``/``feats``, C a multiple of 32 up to 256: the
-    configs' META stems are 256, 128 and 32 wide) or raises; the kernel's
-    entry point refuses any other C. ``meta_kernel_fused.launches`` counts
-    the kernel launches.
+    A CPU tensor takes the plain twin. A CUDA tensor launches the kernel
+    that :func:`k1_plan` names (``g`` in bf16 or fp32, any C) or raises.
+    ``meta_kernel_fused.launches`` counts the kernel launches.
     """
     if g.device.type == "cuda":
         B, H, W, C = g.shape
-        if g.dtype != torch.bfloat16:
-            raise TypeError(f"meta_kernel_fused: the kernel takes bf16, got {g.dtype}")
+        k1_plan(C, g.dtype)
         if feats.shape != g.shape or w1.shape != (C, C) or k.shape != (9, C, C):
             raise ValueError(
                 f"meta_kernel_fused: shapes g{tuple(g.shape)} feats"
@@ -130,24 +189,34 @@ def _(g, feats, w1, k, a0, b0, a1, b1):
 @_k1_op.register_kernel("cuda")
 def _k1_cuda(g, feats, w1, k, a0, b0, a1, b1):
     B, H, W, C = g.shape
-    g = g.contiguous()
-    feats = feats.to(torch.bfloat16).contiguous()
-    # Transposed weights, [n][k]: the kernel's TMA boxes are K-major.
-    w1t = w1.to(torch.bfloat16).t().contiguous()
-    kt = k.to(torch.bfloat16).transpose(1, 2).contiguous()
-    a0, b0, a1, b1 = (v.float().contiguous() for v in (a0, b0, a1, b1))
-    out = torch.empty((B, H, W, C), dtype=torch.float32, device=g.device)
+    cdt = g.dtype
+    plan = k1_plan(C, cdt)
+    g, feats, w1, k, a0, b0, a1, b1 = padded_operands(
+        plan.pad, g, feats.to(cdt), w1.to(cdt), k.to(cdt),
+        *(v.float() for v in (a0, b0, a1, b1)))
+    Cp = C + plan.pad
+    g, feats = g.contiguous(), feats.contiguous()
+    if plan.kernel == "tiled":  # [k][n]: the tiled kernel stages rows of n
+        w1m, km = w1.contiguous(), k.contiguous()
+    else:  # transposed, [n][k]: the wgmma kernel's TMA boxes are K-major
+        w1m, km = w1.t().contiguous(), k.transpose(1, 2).contiguous()
+    a0, b0, a1, b1 = (v.contiguous() for v in (a0, b0, a1, b1))
+    out = torch.empty((B, H, W, Cp), dtype=torch.float32, device=g.device)
     lib = _build.library()
+    ptrs = (g.data_ptr(), feats.data_ptr(), w1m.data_ptr(), km.data_ptr(),
+            a0.data_ptr(), b0.data_ptr(), a1.data_ptr(), b1.data_ptr(), out.data_ptr())
     with torch.cuda.device(g.device):
-        err = lib.rv3d_meta_kernel_fused(
-            g.data_ptr(), feats.data_ptr(), w1t.data_ptr(), kt.data_ptr(),
-            a0.data_ptr(), b0.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-            out.data_ptr(), B, H, W, C,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "rv3d_meta_kernel_fused")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.kernel == "tiled":
+            name = "rv3d_meta_kernel_fused_tiled"
+            err = lib.rv3d_meta_kernel_fused_tiled(
+                *ptrs, B, H, W, Cp, int(cdt == torch.float32), stream)
+        else:
+            name = "rv3d_meta_kernel_fused"
+            err = lib.rv3d_meta_kernel_fused(*ptrs, B, H, W, Cp, stream)
+    _build.check(err, name)
     meta_kernel_fused.launches += 1
-    return out
+    return out[..., :C].contiguous() if plan.pad else out
 
 
 meta_kernel_fused.launches = 0
@@ -220,17 +289,16 @@ def meta_kernel_fused_i8(
 ) -> torch.Tensor:
     """int8 fused stem (see :func:`meta_kernel_fused_i8_plain`).
 
-    A CPU tensor takes the plain twin, at any C. A CUDA tensor launches the
-    kernel (bf16 ``g``/``feats``, int8 weights, C a multiple of 32 up to
-    256, as K1) or raises; the kernel's entry point refuses any other C.
-    Weights stored as transposed views of their [n][k] layout (``w1_i8 =
-    w1t.t()``, as ``MetaKernel.quantize_stem`` keeps them) pass without a
-    copy. ``meta_kernel_fused_i8.launches`` counts the kernel launches.
+    A CPU tensor takes the plain twin. A CUDA tensor launches the kernel
+    that :func:`k4_plan` names (``g`` in bf16 or fp32, int8 weights, any
+    C) or raises. Weights stored as transposed views of their [n][k]
+    layout (``w1_i8 = w1t.t()``, as ``MetaKernel.quantize_stem`` keeps
+    them) pass without a copy. ``meta_kernel_fused_i8.launches`` counts
+    the kernel launches.
     """
     if g.device.type == "cuda":
         B, H, W, C = g.shape
-        if g.dtype != torch.bfloat16:
-            raise TypeError(f"meta_kernel_fused_i8: the kernel takes bf16, got {g.dtype}")
+        k4_plan(C, g.dtype)
         if w1_i8.dtype != torch.int8 or k_i8.dtype != torch.int8:
             raise TypeError("meta_kernel_fused_i8: int8 weights expected")
         if feats.shape != g.shape or w1_i8.shape != (C, C) or k_i8.shape != (9, C, C):
@@ -268,25 +336,35 @@ def _(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq):
 @_k4_op.register_kernel("cuda")
 def _k4_cuda(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq):
     B, H, W, C = g.shape
-    g = g.contiguous()
-    feats = feats.to(torch.bfloat16).contiguous()
-    # [n][k]: the kernel's TMA boxes are K-major (s8 wgmma takes K-major A
-    # and B).
-    w1t = w1_i8.t().contiguous()
-    kt = k_i8.transpose(1, 2).contiguous()
-    a0, b0, a1, b1, kdq = (v.float().contiguous() for v in (a0, b0, a1, b1, kdq))
-    out = torch.empty((B, H, W, C), dtype=torch.float32, device=g.device)
+    cdt = g.dtype
+    plan = k4_plan(C, cdt)
+    feats = feats.to(cdt)
+    # [n][k]: the wgmma kernel's TMA boxes are K-major (s8 wgmma takes
+    # K-major A and B), and the tiled kernel reads four k of a column as
+    # one word.
+    g, feats, w1t, kt, a0, b0, a1, b1, kdq = padded_operands(
+        plan.pad, g, feats, w1_i8.t(), k_i8.transpose(1, 2),
+        *(v.float() for v in (a0, b0, a1, b1, kdq)))
+    Cp = C + plan.pad
+    g, feats, w1t, kt = (t.contiguous() for t in (g, feats, w1t, kt))
+    a0, b0, a1, b1, kdq = (v.contiguous() for v in (a0, b0, a1, b1, kdq))
+    out = torch.empty((B, H, W, Cp), dtype=torch.float32, device=g.device)
     lib = _build.library()
-    with torch.cuda.device(g.device):
-        err = lib.rv3d_meta_kernel_fused_i8(
-            g.data_ptr(), feats.data_ptr(), w1t.data_ptr(), kt.data_ptr(),
+    ptrs = (g.data_ptr(), feats.data_ptr(), w1t.data_ptr(), kt.data_ptr(),
             a0.data_ptr(), b0.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-            kdq.data_ptr(), out.data_ptr(), B, H, W, C,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "rv3d_meta_kernel_fused_i8")
+            kdq.data_ptr(), out.data_ptr())
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.kernel == "tiled":
+            name = "rv3d_meta_kernel_fused_i8_tiled"
+            err = lib.rv3d_meta_kernel_fused_i8_tiled(
+                *ptrs, B, H, W, Cp, int(cdt == torch.float32), stream)
+        else:
+            name = "rv3d_meta_kernel_fused_i8"
+            err = lib.rv3d_meta_kernel_fused_i8(*ptrs, B, H, W, Cp, stream)
+    _build.check(err, name)
     meta_kernel_fused_i8.launches += 1
-    return out
+    return out[..., :C].contiguous() if plan.pad else out
 
 
 meta_kernel_fused_i8.launches = 0

@@ -380,7 +380,18 @@ def test_bench_modes_and_their_kernels():
 
 
 def test_compile_config_takes_k1():
-    """Phase 37's model is one K1 takes: bf16, C a multiple of 32, the
-    fused stem on."""
-    cfg = chip_smoke.compile_config()
-    assert cfg.dtype == "bfloat16" and cfg.stem_pallas and cfg.layers[0] % 32 == 0
+    """Phase 37's models are ones K1 takes with the fused stem on: the tiny
+    config as it is (widths 8, fp32, K1's tiled kernel) and the tiny
+    config at 32 channels in bf16, the served dtype (K1's wgmma kernel)."""
+    import dataclasses
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.kernels.stem import k1_plan
+
+    cfgs = chip_smoke.compile_configs()
+    tiny = dataclasses.replace(serving._flagship_config(tiny=True), stem_pallas=True)
+    assert cfgs["tiny fp32"] == tiny and tiny.dtype == "float32"
+    bf16 = cfgs["tiny at 32 channels bf16"]
+    assert bf16 == dataclasses.replace(tiny, layers=(32,) * 5, dtype="bfloat16")
+    assert k1_plan(tiny.layers[0], torch.float32) == ("tiled", 0)
+    assert k1_plan(bf16.layers[0], torch.bfloat16) == ("wgmma", 0)
