@@ -20,10 +20,11 @@ Phases, each of which raises (non-zero exit) on failure:
 2. build: ``csrc/*.cu`` with ``nvcc`` for ``sm_90a`` into ``build/``;
    ptxas's registers and spills for every function (kept beside the
    library, so a reused build is checked too), and zero spills in both
-   wgmma instances of K1 and of K4 and in the six of K3; the spills of
-   the four (bf16 and fp32, 64- and 256-wide) instances of each tiled
-   stem kernel are printed, not gated (at 255 registers they spill a few
-   words a thread);
+   wgmma instances of K1 and of K4, in the four of K1's register-A kernel
+   (fp32 as 3xTF32 64-, 128- and 256-wide, bf16 output-tiled) and in the six of
+   K3; the spills of the four (bf16 and fp32, 64- and 256-wide) instances
+   of K4's tiled kernel are printed, not gated (at 255 registers they
+   spill a few words a thread);
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
@@ -32,9 +33,10 @@ Phases, each of which raises (non-zero exit) on failure:
    at C = 96 and 160, which the kernel pads to its 128- and 256-wide
    instances: max|diff| <= 2e-2 * max|ref| (fp32 accumulation order,
    one-ulp bf16 flips of the intermediate ``p``); then in bf16 and fp32 at
-   every C of ``ANY_C`` (8, 36, 48, 100, 200, 208, 288, 512: both wgmma
-   instances, C padded by the wrapper off their multiple, and the tiled
-   kernel), at (1, 3, 37) and (2, 4, 70),
+   every C of ``ANY_C`` (8, 36, 48, 100, 200, 208, 288, 512: in bf16 both
+   wgmma instances, C padded by the wrapper off their multiple, and the
+   register-A kernel's output tiles past 256; in fp32 the register-A
+   kernel as 3xTF32, C padded to 16), at (1, 3, 37) and (2, 4, 70),
    bf16 within the same bound, fp32 within ``K1_FP32_TOL`` (1e-4) *
    max|ref| (the same products summed in another order, TF32 off);
 4. K2 (NMS scan) against its plain twin on the same IoU tensors, WEIGHTED
@@ -294,11 +296,12 @@ Phases, each of which raises (non-zero exit) on failure:
     --sweeps 100 --logs 2 --dense``, each a cut in depth, printed as such;
     the launches of phases 31-36 (``tools_launches``): all four kernels;
 37. ``utils.compile_opts``: the pipeline of the tiny config (widths 8,
-    fp32: K1's tiled kernel) and of the tiny config at 32 channels in bf16
+    fp32: K1's 3xTF32 kernel) and of the tiny config at 32 channels in bf16
     (K1's wgmma kernel), each with the K1 stem (B=1 16x256) under
-    ``RV3D_COMPILER_OPTIONS=max_autotune=False`` (``torch.compile``):
-    ``keep`` equal to eager's and not empty, heads within 2e-2 x max|ref|,
-    K1 and K2 launched by the compiled program (``compile_launches``); the
+    ``RV3D_COMPILER_OPTIONS=max_autotune=False`` (``torch.compile``, over
+    the port's ``compile_opts.EAGER_NUMERICS``): the whole pipeline,
+    decode and NMS included, ``keep`` equal to eager's and not empty,
+    heads within 2e-2 x max|ref|, K1 and K2 launched by the compiled program (``compile_launches``); the
     bench's compiled pipeline on the bf16 config keep-equal to its eager
     one; an unknown option raises. The flagship is not compiled (a cut);
 38. ``dryrun.entry()`` once (finite heads), then
@@ -349,7 +352,7 @@ Phases, each of which raises (non-zero exit) on failure:
 
 44. the kernels past the configs' shapes on the main paths: the tiny
     config (widths 8, B=2 16x256) served on the card in fp32 with the K1
-    stem (K1's tiled fp32 kernel), in bf16 (K1's 128-wide instance) and in
+    stem (K1's 3xTF32 kernel), in bf16 (K1's 128-wide instance) and in
     int8 quantized from fp32 with the K4 stem (K4's tiled fp32 kernel, K3
     at Cin 8), each against the same weights served on the CPU (heads at
     the CPU tests' tolerances: ``gate_heads``); one fp32 rv-av2 request
@@ -357,21 +360,27 @@ Phases, each of which raises (non-zero exit) on failure:
     the K1 fp32 entry's ``launches``), the same model against its CPU run
     at B=1 8x256 (heads within 1e-3 * max|ref|); K1 fp32 at the flagship
     stem against its twin (``K1_FP32_TOL``), timed (eager, graph replay,
-    twin) beside its fp32 FFMA bound: the kernels line's
-    ``meta_kernel_fused_fp32`` entry; K4 with fp32 ``g`` at the flagship
-    stem (the tiled kernel; an int8 model quantized from fp32) against its
-    twin, differing elements counted, timed beside twin and bound; K1 and
-    K4 at C = 36, 48 and 512 in bf16 and fp32 against their twins, each
-    timed beside its twin and bound, with the wrappers' pad copies at C =
-    36 in bf16 timed alone; K3 at a tail shape (2, 64, 1808, 48) -> 40
-    equal to its twin and timed, with the wrapper's Cin pad copy timed
-    alone.
+    twin, and the wrapper's gather and hi/lo split of the weights alone) beside its
+    3xTF32 bound (three TF32 products per fp32 product at the dense TF32
+    peak) and the earlier CUDA-core limit (the same work as FFMA): the
+    kernels line's ``meta_kernel_fused_fp32`` entry; K1 bf16 at the
+    flagship stem on the register-A kernel's entry, beside the shipped
+    wgmma instance; K4 with fp32 ``g`` at the flagship stem (the tiled
+    kernel; an int8 model quantized from fp32) against its twin,
+    differing elements counted, timed beside twin and bound; K1 and K4 at
+    C = 36, 48, 288 and 512 in bf16 and fp32 against their twins, each
+    timed beside its twin and bound (K1 fp32: also the earlier CUDA-core
+    limit), with the wrappers' pad copies at C = 36 in bf16 timed alone;
+    K3 at a tail shape (2, 64, 1808, 48) -> 40 equal to its twin and
+    timed, with the wrapper's Cin pad copy timed alone.
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
 step times not measured); ``python3 chip_smoke.py conv-shapes`` the build
 and phase 43; ``python3 chip_smoke.py kernel-shapes`` the build, the
-checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44.
+checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44;
+``python3 chip_smoke.py compile-decode`` the build and the decode's
+stages compiled one at a time against eager (``compile_decode_phase``).
 
 Prints the card's name and power limit and a ``{"kernels": [...]}`` line
 before the last line, which is ``{"ok": true, "device": {...}}``. There is
@@ -395,6 +404,7 @@ REPO = Path(__file__).resolve().parent
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak
 H100_FP32_FLOPS = 67e12  # outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak
 H100_BYTES_PER_S = 3.35e12
 # A model, not a measurement: one dependent shared-memory round trip
 # (about 30 cycles) at the H100 SXM's 1.98 GHz boost clock. K2's greedy
@@ -409,9 +419,12 @@ NMS_EDGE_CASES = ("zero_diagonal", "asymmetric", "invalid_middle", "all_suppress
 NMS_CAPS = (1, 37, 100, 512, 1023, 1024, 2048, 4096)
 # Channel counts at which K1 and K4 are held against their twins past the
 # configs' widths (phases 3 and 10), in bf16 and fp32: in bf16 the wgmma
-# kernel's 128-wide instance (8, 36 and 100 padded by the wrapper where
-# they are off its multiple, 48) and its 256-wide one (200, 208), the tiled
-# kernel past 256 (288, 512); in fp32 the tiled kernel at each.
+# kernels' 128-wide instance (8, 36 and 100 padded by the wrapper where
+# they are off its multiple, 48) and their 256-wide one (200, 208), past
+# 256 (288, 512) K1's register-A kernel and K4's tiled one; in fp32 K1's
+# 3xTF32 kernel (its 64- and 128-wide instances to 64 and 128, then
+# 256-wide tiles) and
+# K4's tiled kernel at each.
 ANY_C = (8, 36, 48, 100, 200, 208, 288, 512)
 # K1 in fp32 against its fp32 twin (TF32 off): the same products summed in
 # another order.
@@ -502,7 +515,7 @@ def ptxas_spills(log: str, kernel: str) -> dict:
 # The kernels' template instances that phase 2 reads in ptxas's report:
 # (tag, name in the mangled symbol, instances, held to zero spills).
 SPILL_CHECKED = (("K1", "meta_kernel_fused_wgmma", 2, True),
-                 ("K1 tiled", "meta_kernel_fused_tiled", 4, False),
+                 ("K1 register-A", "meta_kernel_fused_rs", 4, True),
                  ("K4", "meta_kernel_fused_i8_wgmma", 2, True),
                  ("K4 tiled", "meta_kernel_fused_i8_tiled", 4, False),
                  ("K3", "conv3x3_i8_wgmma", 6, True))
@@ -702,6 +715,13 @@ def k1_cost(B, H, W, C, elem=2):
     flops = 2 * B * H * W * 9 * 2 * C * C
     nbytes = elem * (2 * B * H * W * C) + elem * 10 * C * C + 16 * C + 4 * B * H * W * C
     return flops, nbytes
+
+
+def k1_fp32_bound(flops, nbytes):
+    """K1 fp32's bound as the kernel computes it, 3xTF32: three TF32
+    products (hi hi, hi lo, lo hi) per fp32 product at the dense TF32 peak,
+    or the bytes; (ms, "operations" or "bytes")."""
+    return bound_ms(3 * flops, H100_TF32_FLOPS, nbytes)
 
 
 def k4_cost(B, H, W, C, elem=2):
@@ -1038,7 +1058,7 @@ def k3_odd_shapes(cases, gen, device) -> float:
 
 def check_k1_any_c(gen, device) -> dict:
     """Phase 3's K1 past the configs' widths: bf16 and fp32 ``g`` at every
-    C of ``ANY_C`` (the wgmma instances or the tiled kernel, as ``k1_plan``
+    C of ``ANY_C`` (the wgmma instances or the register-A kernel, as ``k1_plan``
     says), at (1, 3, 37) and (2, 4, 70) (image edges, ragged pixel tiles),
     against the twin: bf16 within 2e-2 x max|ref|, fp32 within
     ``K1_FP32_TOL`` x max|ref| (fp32 sums in another order; TF32 off).
@@ -4064,7 +4084,7 @@ def quant_phase(phase18: dict, work: Path, smi: str) -> dict:
 
 def compile_configs() -> dict:
     """Phase 37's models, each with the K1 stem: the tiny config as it is
-    (widths 8, fp32: K1's tiled kernel) and the tiny config at 32 channels
+    (widths 8, fp32: K1's 3xTF32 kernel) and the tiny config at 32 channels
     in bf16, the dtype the configs serve (K1's wgmma kernel)."""
     import dataclasses
 
@@ -4139,7 +4159,8 @@ def compile_phase(device, smi) -> dict:
             errs[key] = err
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         scores = (got.scores - want.scores).abs().max().item()
-        say(f"compile (phase 37) RV3D_COMPILER_OPTIONS={option}, {tag} with K1, B=1 16x256: "
+        say(f"compile (phase 37) RV3D_COMPILER_OPTIONS={option} over "
+            f"{compile_opts.EAGER_NUMERICS}, {tag} with K1, B=1 16x256: "
             f"compiled in {compile_s:.1f} s, keep equal to eager ({int(want.keep.sum())} "
             f"kept), heads max|diff| {errs}, decoded scores max|diff| {scores:.3g}, launches "
             f"{counts}")
@@ -4167,6 +4188,250 @@ def compile_phase(device, smi) -> dict:
         f"one; an unknown option raises ({refused}); the flagship not compiled (a cut); phase "
         f"{time.perf_counter() - t0:.0f} s on {smi}")
     return total
+
+
+# ``chip_smoke.py compile-decode``: inductor option sets the whole decode is
+# compiled under (the last is ``compile_opts.EAGER_NUMERICS``), and the
+# environment's options that give the port's compiled programs and
+# inductor's defaults.
+DECODE_OPTION_SETS = {
+    "inductor's defaults": {},
+    "no fp fusion": {"emulate_precision_casts": True},
+    "div_rn": {"eager_numerics.division_rounding": True},
+    "eager numerics (no fp fusion, div_rn)": {"emulate_precision_casts": True,
+                                              "eager_numerics.division_rounding": True},
+}
+PORT_SPEC = "max_autotune=False"
+DEFAULTS_SPEC = ("max_autotune=False,emulate_precision_casts=False,"
+                 "eager_numerics.division_rounding=False")
+
+
+def tensor_diff(got, want) -> str:
+    """Unequal elements of two tensors (NaN equal to NaN) and the largest
+    difference, as text."""
+    import torch
+
+    if got.dtype == torch.bool or not got.is_floating_point():
+        return f"{int((got != want).sum())} of {want.numel()} unequal"
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    diff = (got.double() - want.double()).abs().nan_to_num(0.0).max().item()
+    return f"{int((~same).sum())} of {want.numel()} unequal, max|diff| {diff:.3g}"
+
+
+def compile_decode_phase(device, smi) -> dict:
+    """Phase 37's models and input, the decode alone: which of its stages,
+    compiled by inductor, gives values that differ from eager's, and which
+    of those alone change the NMS keep. Each stage is compiled
+    (``torch.compile``, ``dynamic=False``) on eager's inputs, compared with
+    eager's output element by element, then put in place of eager's in an
+    otherwise eager decode. The whole decode is compiled under each of
+    ``DECODE_OPTION_SETS``; the pipeline (forward and decode) is timed
+    compiled whole and compiled with the decode run eagerly (a graph
+    break), under the port's options (``compile_opts.EAGER_NUMERICS``) and
+    inductor's defaults; the flagship through the bench's compiled
+    pipeline too."""
+    import os
+
+    import torch
+
+    from range_view_3d_detection_torch import bench, serving
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.models import decoder
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+    from range_view_3d_detection_torch.utils import compile_opts
+
+    check(DECODE_OPTION_SETS["eager numerics (no fp fusion, div_rn)"]
+          == compile_opts.EAGER_NUMERICS, "compile-decode: EAGER_NUMERICS changed")
+    dec = DecoderConfig(nms_cap=256, min_confidence=0.0)
+    args = tuple(torch.as_tensor(a, device=device) for a in serving._sample_inputs(1, 16, 256, 5))
+    iou_matrix = nms_ops.iou_matrix
+    config = torch._inductor.config
+    summary = {}
+    for tag, cfg in compile_configs().items():
+        torch._dynamo.reset()
+        predictor = serving.Predictor(cfg, dec, device=device,
+                                      generator=torch.Generator().manual_seed(SEED + 37))
+        model, tasks = predictor.model, cfg.tasks_dict
+        with torch.no_grad():
+            out = model(*args)
+
+        def proposals(out):
+            return decoder.decode(out, dec, tasks, use_nms=False)
+
+        def inputs_of(p):
+            cap = min(dec.nms_cap, p.scores.shape[1])
+            return nms_ops.nms_inputs(p.cuboids, p.scores, p.categories, cap=cap,
+                                      min_confidence=dec.min_confidence, mode=dec.nms_mode)
+
+        def scan(i):
+            return nms_scan(i.iou, i.scores, i.valid, i.payload,
+                            iou_threshold=dec.nms_threshold, merge_threshold=i.merge_threshold)
+
+        def result(i, keep, merged):
+            return nms_ops.nms_result(i, keep, merged, dec.num_post_nms)
+
+        def chain(stages):
+            p = stages.get("proposals", proposals)(out)
+            i = stages.get("nms_inputs", inputs_of)(p)
+            keep, merged = scan(i)
+            return stages.get("nms_result", result)(i, keep, merged)
+
+        want = decoder.decode(out, dec, tasks, use_nms=True)
+        check(torch.equal(chain({}).keep, want.keep), "compile-decode: chain != decode")
+        bev = {}
+
+        def capture(b):
+            bev["bev"] = b
+            return iou_matrix(b)
+
+        nms_ops.iou_matrix = capture
+        try:
+            p0 = proposals(out)
+            i0 = inputs_of(p0)
+        finally:
+            nms_ops.iou_matrix = iou_matrix
+        k0, m0 = scan(i0)
+        r0 = result(i0, k0, m0)
+
+        def compiled(fn, options=None):
+            return torch.compile(fn, options=options or None, dynamic=False)
+
+        lines = []
+        # The IoU matrix alone: its values and the thresholds they cross.
+        iou_c = compiled(iou_matrix)(bev["bev"])
+        flips = {t: int(((iou_c > t) != (i0.iou > t)).sum()) for t in (0.3, 0.5)}
+        nms_ops.iou_matrix = compiled(iou_matrix)
+        try:
+            with_iou = chain({})
+        finally:
+            nms_ops.iou_matrix = iou_matrix
+        lines.append(f"IoU matrix (iou_rotated_bev): {tensor_diff(iou_c, i0.iou)}; pairs "
+                     f"across 0.3 / 0.5: {flips[0.3]} / {flips[0.5]}; keep "
+                     f"{'equal' if torch.equal(with_iou.keep, want.keep) else 'differs'}")
+        # Each stage compiled whole, in an otherwise eager decode.
+        p_c = compiled(proposals)(out)
+        lines.append("proposals (sigmoid, amax, argmax, decode_boxes, sample_by_range): "
+                     + "; ".join(f"{f} {tensor_diff(getattr(p_c, f), getattr(p0, f))}"
+                                 for f in ("scores", "categories", "cuboids")))
+        i_c = compiled(inputs_of)(p0)
+        lines.append("nms_inputs (sort, gather, class offsets, sin/cos, IoU): "
+                     + "; ".join(f"{f} {tensor_diff(getattr(i_c, f), getattr(i0, f))}"
+                                 for f in ("scores", "valid", "payload", "iou")))
+        r_c = compiled(result)(i0, k0, m0)
+        lines.append("nms_result (atan2, post-NMS cap): "
+                     + "; ".join(f"{f} {tensor_diff(getattr(r_c, f), getattr(r0, f))}"
+                                 for f in ("cuboids", "scores", "keep")))
+        for name, fn in (("proposals", proposals), ("nms_inputs", inputs_of),
+                         ("nms_result", result)):
+            got = chain({name: compiled(fn)})
+            lines.append(f"only {name} compiled: keep "
+                         f"{'equal' if torch.equal(got.keep, want.keep) else 'differs'}")
+        # The whole decode under each option set.
+        whole = {}
+        for opt_tag, options in DECODE_OPTION_SETS.items():
+            if any(k not in config.get_config_copy() for k in options):
+                lines.append(f"decode compiled ({opt_tag}): this torch has no such option")
+                continue
+            torch._dynamo.reset()
+            got = compiled(lambda o: decoder.decode(o, dec, tasks, use_nms=True),
+                           {**options, "max_autotune": False})(out)
+            moved = torch.nonzero(got.keep != want.keep).tolist()
+            whole[opt_tag] = not moved
+            torch._dynamo.reset()
+            iou_o = compiled(iou_matrix, {**options, "max_autotune": False})(bev["bev"])
+            lines.append(
+                f"decode compiled ({opt_tag}): keep {'equal' if not moved else 'differs'} "
+                f"({int(want.keep.sum())} kept eager, {int(got.keep.sum())} compiled), "
+                f"scores {tensor_diff(got.scores, want.scores)}; IoU matrix alone "
+                f"{tensor_diff(iou_o, i0.iou)}; slots that differ (eager / "
+                f"compiled score): "
+                + (", ".join(f"{s} ({want.scores[b, s].item():.4g} / "
+                             f"{got.scores[b, s].item():.4g})" for b, s in moved[:8])
+                   or "none"))
+        # The pipeline as compile_opts compiles it: under the port's
+        # options, under inductor's defaults, and with the decode eager.
+        def pipeline(decode_fn):
+            def run(feats, cart, mask):
+                with torch.no_grad():
+                    return decode_fn(model(feats, cart, mask), dec, tasks, use_nms=True)
+            return run
+
+        times = {}
+        variants = (("eager numerics", PORT_SPEC, decoder.decode),
+                    ("inductor's defaults", DEFAULTS_SPEC, decoder.decode),
+                    ("decode eager", PORT_SPEC, torch.compiler.disable(decoder.decode)))
+        for name, spec, fn in variants:
+            torch._dynamo.reset()
+            os.environ[compile_opts.ENV_VAR] = spec
+            try:
+                prog = compile_opts.jit_env_options(pipeline(fn))
+                got = prog(*args)
+                times[name] = cuda_ms(lambda: prog(*args), reps=50, warmup=5)
+            finally:
+                os.environ.pop(compile_opts.ENV_VAR, None)
+            lines.append(f"pipeline compiled ({name}): keep "
+                         f"{'equal' if torch.equal(got.keep, want.keep) else 'differs'}")
+        torch._dynamo.reset()
+        with torch.no_grad():
+            times["eager"] = cuda_ms(lambda: pipeline(decoder.decode)(*args), reps=50,
+                                     warmup=5)
+        for line in lines:
+            say(f"compile-decode {tag}: {line}")
+        say(f"compile-decode {tag}: B=1 16x256 pipeline ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f" on {smi}")
+        summary[tag] = {"whole": whole, "ms": times}
+        del predictor, model, out
+    # The flagship (bf16, B=2 64x1808) through the bench's compiled
+    # pipeline, beside the eager Predictor with the same weights.
+    eager, bench_args, _, _ = bench.build(2, fp=True, device=device)
+    want = eager(*bench_args)
+    times = {"eager": cuda_ms(lambda: eager(*bench_args), reps=10)}
+    del eager
+    for name, spec in (("eager numerics", PORT_SPEC), ("inductor's defaults", DEFAULTS_SPEC)):
+        torch._dynamo.reset()
+        os.environ[compile_opts.ENV_VAR] = spec
+        try:
+            served, bench_args, _, _ = bench.build(2, fp=True, device=device)
+        finally:
+            os.environ.pop(compile_opts.ENV_VAR, None)
+        t1 = time.perf_counter()
+        got = served(*bench_args)
+        compile_s = time.perf_counter() - t1
+        times[name] = cuda_ms(lambda: served(*bench_args), reps=10)
+        say(f"compile-decode flagship bf16 B=2 64x1808, the bench's compiled pipeline "
+            f"({name}): compiled in {compile_s:.1f} s, keep "
+            f"{'equal' if torch.equal(got.keep, want.keep) else 'differs'} "
+            f"({int(want.keep.sum())} kept eager, {int(got.keep.sum())} compiled), scores "
+            f"{tensor_diff(got.scores, want.scores)}")
+        del served
+        torch.cuda.empty_cache()
+    say("compile-decode flagship bf16 B=2 64x1808 pipeline ms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f" on {smi}")
+    summary["flagship bf16"] = {"ms": times}
+    return summary
+
+
+def compile_decode_main() -> int:
+    """``chip_smoke.py compile-decode``: the build, then
+    :func:`compile_decode_phase`."""
+    import inspect
+
+    import torch
+
+    t_start = time.perf_counter()
+    start = card_start()
+    if start is None:
+        return 1
+    device, smi = start
+    from torch._inductor.codegen import triton as inductor_triton
+
+    say("compile-decode: inductor's emulate_precision_casts turns off fp fusion here: "
+        f"{'enable_fp_fusion' in inspect.getsource(inductor_triton)}; torch "
+        f"{torch.__version__}")
+    say(json.dumps({"compile_decode": compile_decode_phase(device, smi)}))
+    say(f"chip_smoke compile-decode: total {time.perf_counter() - t_start:.0f} s")
+    return 0
 
 
 def dryrun_phase(device, smi) -> dict:
@@ -5007,8 +5272,11 @@ def kernel_shapes_phase(device, smi) -> dict:
     import torch.nn.functional as F
 
     from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.kernels import _build
     from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused, k3_plan
     from range_view_3d_detection_torch.kernels.stem import (
+        StemPlan,
+        k1_operands,
         k1_plan,
         k4_plan,
         meta_kernel_fused,
@@ -5067,13 +5335,50 @@ def kernel_shapes_phase(device, smi) -> dict:
     ms = cuda_ms(lambda: meta_kernel_fused(**x32), reps=5, warmup=1)
     g_ms = graph_ms(lambda: meta_kernel_fused(**x32), calls=3)
     plain_ms = cuda_ms(lambda: meta_kernel_fused_plain(**x32), reps=2, warmup=1)
+    plan = k1_plan(256, torch.float32)
+    ops_ms = cuda_ms(lambda: k1_operands(plan, **x32), reps=5)
     flops, nbytes = k1_cost(2, 64, 1808, 256, elem=4)
-    bound, by = bound_ms(flops, H100_FP32_FLOPS, nbytes)
-    say(f"K1 fp32 (2, 64, 1808, 256): max|diff| {err:.4g} (max|ref| {ref:.4g}); kernel "
-        f"{ms:.4f} ms eager ({100 * bound / ms:.1f}% of bound), {g_ms:.4f} ms graph replay, "
-        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}, {flops / 1e9:.1f} GFLOP at "
-        f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32) on {smi}")
+    bound, by = k1_fp32_bound(flops, nbytes)
+    ffma, _ = bound_ms(flops, H100_FP32_FLOPS, nbytes)
+    say(f"K1 fp32 (2, 64, 1808, 256) ({plan.kernel}): max|diff| {err:.4g} (max|ref| "
+        f"{ref:.4g}); kernel {ms:.4f} ms eager ({100 * bound / ms:.1f}% of its 3xTF32 bound), "
+        f"{g_ms:.4f} ms graph replay, of the eager call the wrapper's operands (the weights "
+        f"gathered into the kernel's k order and split into TF32 hi and lo) {ops_ms:.4f} ms; "
+        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: 3 x {flops / 1e9:.1f} GFLOP at "
+        f"{H100_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32); the earlier CUDA-core limit (the same "
+        f"work as FFMA at {H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32) {ffma:.4f} ms on {smi}")
     del x32
+
+    # The register-A kernel's bf16 instance at the flagship stem, launched
+    # through its entry point directly (k1_plan sends bf16 at C <= 256 to
+    # the wgmma instance), beside the wgmma instance on the same inputs.
+    xb = stem_inputs(2, 64, 1808, 256, gen, device)
+    lib = _build.library()
+    rs_plan = StemPlan("wgmma_tiled", 0)
+
+    def k1_rs_bf16():
+        ops = k1_operands(rs_plan, **xb)
+        out = torch.empty(xb["g"].shape, dtype=torch.float32, device=device)
+        ptrs = (*(0 if t is None else t.data_ptr() for t in ops), out.data_ptr())
+        err = lib.rv3d_meta_kernel_fused_rs(*ptrs, 2, 64, 1808, 256, 0,
+                                            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "rv3d_meta_kernel_fused_rs")
+        return out
+
+    want = meta_kernel_fused_plain(**xb)
+    rs_err = (k1_rs_bf16() - want).abs().max().item()
+    ref = want.abs().max().item()
+    check(rs_err <= 2e-2 * ref, f"K1 register-A bf16 flagship: max|diff| {rs_err} > 2e-2 * {ref}")
+    del want
+    rows = {}
+    for name, fn in (("wgmma (shipped)", lambda: meta_kernel_fused(**xb)),
+                     ("register-A", k1_rs_bf16)):
+        rows[name] = (cuda_ms(fn, reps=10), graph_ms(fn))
+    say("K1 bf16 (2, 64, 1808, 256), the two tensor-core kernels on the same inputs: "
+        + "; ".join(f"{k} {e:.4f} ms eager, {g:.4f} ms graph replay"
+                    for k, (e, g) in rows.items())
+        + f"; register-A max|diff| {rs_err:.4g} (max|ref| {ref:.4g}) on {smi}")
+    del xb
     entry = {
         "name": "meta_kernel_fused_fp32", "route": "cuda",
         "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused.cu",
@@ -5101,21 +5406,26 @@ def kernel_shapes_phase(device, smi) -> dict:
         f"on {smi}")
     del x
 
-    # K1 and K4 at C = 36, 48 and 512, bf16 and fp32, against their twins,
-    # each timed beside its twin (bound at the dtype's peak; past C = 256
-    # the tiled kernels repeat the W1 product for each 256-wide output tile,
-    # 1.5x the operations at C = 512). At C = 36 in bf16 the wrappers pad C
-    # (K1 to 40, K4 to 48) with one copy of the inputs and the output's crop,
-    # timed on their own.
-    for C, shape in ((36, (2, 64, 1808)), (48, (2, 64, 1808)), (512, (1, 64, 1808))):
+    # K1 and K4 at C = 36, 48, 288 and 512, bf16 and fp32, against their
+    # twins, each timed beside its twin (bound at the dtype's peak, K1 fp32's
+    # as 3xTF32 with its FFMA bound beside it; past C = 256 the kernels
+    # repeat the W1 product for each 256-wide output tile, 1.5x the
+    # operations at C = 512, and the bound counts the function's). At C = 36
+    # in bf16 the wrappers pad C (K1 to 40, K4 to 48) with one copy of the
+    # inputs and the output's crop, timed on their own.
+    for C, shape in ((36, (2, 64, 1808)), (48, (2, 64, 1808)), (288, (1, 64, 1808)),
+                     (512, (1, 64, 1808))):
         for dt in (torch.bfloat16, torch.float32):
             elem = 2 if dt == torch.bfloat16 else 4
-            rate = H100_BF16_FLOPS if dt == torch.bfloat16 else H100_FP32_FLOPS
             flops, nbytes = k1_cost(*shape, C, elem=elem)
+            if dt == torch.bfloat16:
+                k1_bound = bound_ms(flops, H100_BF16_FLOPS, nbytes)
+            else:
+                k1_bound = k1_fp32_bound(flops, nbytes)
             text = []
             for name, make, fn, plain, plan, cost, tol in (
                 ("K1", stem_inputs, meta_kernel_fused, meta_kernel_fused_plain,
-                 k1_plan(C, dt), bound_ms(flops, rate, nbytes),
+                 k1_plan(C, dt), k1_bound,
                  2e-2 if dt == torch.bfloat16 else K1_FP32_TOL),
                 ("K4", k4_inputs, meta_kernel_fused_i8, meta_kernel_fused_i8_plain,
                  k4_plan(C, dt), bound_ms(*k4_cost(*shape, C, elem=elem)), 1e-4),
@@ -5133,6 +5443,9 @@ def kernel_shapes_phase(device, smi) -> dict:
                 part = (f"{name} ({plan.kernel}) {ms:.4f} ms eager, plain {plain_ms:.3f} ms, "
                         f"bound {cost[0]:.4f} ms ({cost[1]}), max|diff| {err:.4g} (max|ref| "
                         f"{ref:.4g}, {n_diff} elements differ)")
+                if name == "K1" and dt == torch.float32:
+                    part += (f", the earlier CUDA-core limit (FFMA) "
+                             f"{bound_ms(flops, H100_FP32_FLOPS, nbytes)[0]:.4f} ms")
                 if plan.pad:
                     out = torch.empty(shape + (C + plan.pad,), device=device)
                     copy_ms = cuda_ms(lambda: (padded_operands(plan.pad, *x.values()),
@@ -5751,6 +6064,8 @@ if __name__ == "__main__":
         sys.exit(tools_main())
     if sys.argv[1:2] == ["conv-shapes"]:
         sys.exit(conv_shapes_main())
+    if sys.argv[1:2] == ["compile-decode"]:
+        sys.exit(compile_decode_main())
     if sys.argv[1:2] == ["train-rank"]:
         sys.exit(train_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["width-rank"]:

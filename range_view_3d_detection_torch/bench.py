@@ -61,8 +61,9 @@ def serving_point(predictor: serving.Predictor, calib, *, fp: bool, stem_int8: b
 
 def compilable(predictor: serving.Predictor) -> Callable:
     """``predictor``'s pipeline (forward, decode, NMS) on device tensors
-    under ``no_grad``: what ``torch.compile`` takes. (Dynamo cannot resume
-    a graph inside ``Predictor.__call__``'s ``inference_mode``.)"""
+    under ``no_grad``: what ``torch.compile`` takes, all of it, under
+    ``compile_opts.EAGER_NUMERICS``. (Dynamo cannot resume a graph inside
+    ``Predictor.__call__``'s ``inference_mode``.)"""
 
     def serve(feats, cart, mask):
         with torch.no_grad():

@@ -2,8 +2,8 @@
 // (conv3x3_i8.cu, meta_kernel_fused.cu, meta_kernel_fused_i8.cu):
 // shared-memory addresses, mbarriers, TMA tensor loads, the wgmma fence /
 // commit / wait, the two stems' 128-byte-swizzle tiles, bf16 unpacking
-// and weight tensor maps, and the element loads and roundings of the two
-// stems' tiled (any C, bf16 or fp32) kernels.
+// and weight tensor maps, and the element loads and roundings of K4's
+// tiled (any C, bf16 or fp32 g) kernel.
 
 #pragma once
 
@@ -161,7 +161,7 @@ inline bool stem_weight_map(CUtensorMap* map, CUtensorMapDataType type, int elem
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// ---- The stems' tiled kernels: g and feats in either compute dtype T.
+// ---- K4's tiled kernel: g and feats in either compute dtype T.
 
 // One element of T, as fp32 (exact).
 template <typename T>

@@ -29,8 +29,8 @@
 //   fills the weights outside the C x C matrices with zeros, hh and pf
 //   there are relu(0 * 0 + 0) with zero BN affines, and they are not
 //   stored). The wrapper pads a bf16 C that is not a multiple of 8 with
-//   zero channels; fp32 g and feats and C above 256 take the tiled kernel
-//   at the end of this file.
+//   zero channels; fp32 g and feats (as 3xTF32) and bf16 C above 256 take
+//   the register-A kernel at the end of this file.
 // - A block owns 64 pixels of one row and all Cp output channels and loops
 //   over the 9 neighbours. Two consumer warpgroups split the output
 //   channels: warpgroup j owns columns [j Cp/2, (j + 1) Cp/2) of both z and
@@ -455,266 +455,589 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   return (int)cudaGetLastError();
 }
 
-// ---------------- The tiled kernel: any C, g and feats in bf16 or fp32.
+// ---------------- The register-A kernel: fp32 as 3xTF32, bf16 past C = 256.
 //
 // The wgmma instances above hold a tile's whole z and accumulator (Cp <=
 // 256) in registers and read bf16 through TMA. The wrapper sends this
-// kernel fp32 g and feats (an fp32 model's stem; the tensor cores have no
-// fp32 path that keeps fp32 accuracy, and TF32 keeps 10 mantissa bits)
-// and C above 256; it also takes bf16 at any C.
+// kernel fp32 g and feats (an fp32 model's stem) at every C, and bf16 past
+// C = 256 (kernels/stem.py::k1_plan).
 //
-// Bound: the operations on the CUDA cores, 2 x 9 x 2 C^2 flop a pixel (in
-// fp32 at the flagship's B=2, 64x1808, C=256: 5.46e11 flop, 8.15 ms at the
-// H100's 67 TFLOP/s outside the tensor cores).
+// fp32 on the tensor cores as 3xTF32: TF32 keeps 10 mantissa bits, but an
+// fp32 x is the sum of two TF32 values, hi = rna(x) and lo = rna(x - hi)
+// (cvt.rna.tf32.f32: x - hi is exact in fp32, and lo carries the next 11
+// bits), and a product x y is hi_x hi_y + hi_x lo_y + lo_x hi_y up to the
+// dropped lo_x lo_y and lo's own rounding, about 2^-21 of |x y|. So each
+// GEMM runs three wgmma k8 products into its fp32 accumulator, and the
+// result keeps the fp32 twin's accuracy (held to 1e-4 x max|ref| on the
+// card, as the FFMA kernel this replaces was).
 //
-// Design, from that (a simple tiled FFMA kernel):
-// - A block owns a tile of output channels kTN wide (64 where C <= 64,
-//   else 256; the grid's z walks B x ceil(C / kTN) tiles) for 1024 / (kTN
-//   / 8) pixels of one row (128 or 32). Per neighbour it loops over
-//   kTN-wide chunks j of z: z_j = hh @ W1[:, j] over K = C in steps of kTK
-//   channels, hh built from g as it is staged; then pf_j = T(T(relu(a1
-//   z_j + b1)) * fs) into shared memory; then acc += pf_j @ K_n[j, tile].
-//   Past C = 256 every output tile repeats the W1 product (1.5x the flops
-//   at C = 512).
-// - 256 threads, each 4 pixels x 8 channels (two runs of 4, kTN / 2
-//   apart) of z and of the accumulator, operands from shared memory as
-//   16-byte loads (the pixel tiles k-contiguous, the weight rows
-//   n-contiguous). The stages are double-buffered, and each thread's share
-//   of the next stage (its g and weight elements) is loaded into registers
-//   while the current one is multiplied, so the L2 latency of the weight
-//   rows hides behind the FMAs; one barrier a stage.
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W) at B=2, 64x1808, C=256
+// in fp32: 3 x 5.46e11 TF32 flop at 495 TFLOP/s dense, 3.31 ms (the
+// FFMA bound of the same work is 8.15 ms at 67 TFLOP/s). A 64-pixel
+// block streams W1 and K_n once per neighbour, hi and lo: 1 MB a
+// neighbour, 34 GB of L2 reads a call (3712 blocks), 5-7 ms at the L2's
+// 5-7 TB/s, which the design was reckoned to be bound by (6-8 ms). A
+// 128-pixel block would halve the stream but needs twice the
+// accumulators (z and acc of 128 pixels x 256 channels do not fit in 256
+// threads' registers beside the operands), so the block keeps 64 pixels.
+// The wrapper splits the weights into hi and lo once a launch
+// (kernels/stem.py::split_tf32): splitting the boxes in the kernel, in the
+// producer's idle warps or in the consumers, measured slower (PERF.md's
+// findings on this kernel).
+//
+// Shared memory decides the rest. hi and lo tiles of hh (64 pixels x C
+// fp32, twice) would take 128 KB at C = 256 beside a ring of 64 KB
+// stages; so A never sits in shared memory as hi/lo: wgmma takes A from
+// registers, and each thread builds its A words where it needs them.
+//
+// Design, from that:
+// - A block owns 64 pixels of one row and kN output channels (kN = 64
+//   or 128 where an fp32 C is at most that, else 256; the grid's z walks
+//   B x ceil(C / kN) output tiles). Two consumer warpgroups split the
+//   tile's columns, kN/2 each (z and the accumulator in registers, 2 x
+//   kN/4 fp32 a thread).
+//   Per neighbour and per kN-wide chunk j of z: z_j = hh @ W1[:, j] over K
+//   = C, the BN1/ReLU/x fs epilogue into pf_j, then acc += pf_j @ K_n[j,
+//   tile]. Past C = kN every output tile repeats the W1 product (1.5x the
+//   flops at C = 512).
+// - GEMM1's A is hh itself: each thread loads the 16 bytes of g it needs
+//   (centre and neighbour, its two rows m and m + 8 of the warp's 16),
+//   computes hh = T(relu(a0 T(g(p + d) - g(p)) + b0)) and, in fp32,
+//   splits it into hi and lo words; the next box's g is in flight while
+//   the current one multiplies. The two warpgroups read the same g (L1).
+// - The k order inside each group of 64 bytes (16 fp32 or 32 bf16
+//   channels: two k-steps) is permuted so that a thread's four A words of
+//   both steps are one 16-byte load: A fragment word (step s, half h) of
+//   thread t (lane % 4) is physical word 4 t + 2 s + h of the group,
+//   logical word 8 s + 4 h + t; the wrapper gathers the weights' k rows
+//   in the same order (kernels/stem.py::k1_operands), so the sum is the
+//   same.
+// - GEMM2's A is pf_j, which both warpgroups need in full: the epilogue
+//   writes it in T to a shared-memory tile (rows padded by 64 bytes, so a
+//   warp's 16-byte loads of 8 rows hit distinct banks), and GEMM2 loads
+//   its words from there (and splits them in fp32).
+// - The weights arrive by TMA as W1^T and K_n^T ([n][k], k permuted), in
+//   boxes of 128 bytes of k x kN n (128-byte swizzle, the K-major layout a
+//   wgmma descriptor reads), hi and lo together in fp32, through a ring
+//   fed by one thread of the producer warpgroup (2 stages of 64 KB in
+//   fp32, 4 of 32 KB in bf16). Each consumer waits for its box's wgmma
+//   group before it releases the stage and rewrites its A words; the other
+//   warpgroup's products fill the gap.
+// - setmaxnreg 32 / 232 (the producer only issues TMA loads): 128 x 32 +
+//   256 x 232 of the 64,512 registers the 384-thread launch holds.
 // - The twin's rounding points (kernels/stem.py::meta_kernel_fused_plain)
-//   with T the compute dtype, each product and sum of the affines rounded
-//   on its own; only the order of the fp32 sums differs. Channels past C
-//   are zeros, and so are neighbours outside the image.
-constexpr int kTK = 16;           // channels of K staged per step
-constexpr int kTThreads = 256;
-constexpr int kAS = kTK + 4;      // row stride of the hh tile [kTP][kAS]
+//   with T the compute dtype; channels past C are zeros, and so are
+//   neighbours outside the image. C is a multiple of the group (the
+//   wrapper pads it).
+constexpr int kRsProducerRegs = 32;
+constexpr int kRsConsumerRegs = 232;
 
-// The tile of the kTN-wide instance: kTX threads across its channels,
-// kTY thread rows of 4 pixels each.
-template <int kTN>
-struct Tile {
-  static constexpr int kTX = kTN / 8;
-  static constexpr int kTY = kTThreads / kTX;
-  static constexpr int kTP = 4 * kTY;   // pixels of one row per block
-  static constexpr int kPS = kTN + 4;   // row stride of the pf tile [kTP][kPS]
-  static constexpr int kA = kTP * kAS;  // one hh stage (floats)
-  static constexpr int kB = kTK * kTN;  // one weight stage (floats)
-  static constexpr int kNA = kTP * kTK / kTThreads;  // hh elements a thread stages
-  static constexpr int kNB = kB / kTThreads;         // weights a thread stages
-  // Two hh stages, two weight stages, the pf tile.
-  static constexpr int kSmemBytes = (2 * kA + 2 * kB + kTP * kPS) * 4;
-  // Output channel of a thread's q-th column (q < 8).
-  static __device__ __forceinline__ int col(int q, int tx) {
-    return (q >> 2) * (kTN / 2) + tx * 4 + (q & 3);
-  }
+template <bool kTf32, int kN>
+struct Rs {
+  static constexpr int kElem = kTf32 ? 4 : 2;        // bytes of an element of g, feats, weights
+  static constexpr int kBoxK = 128 / kElem;          // k of one weight box: a 128-byte row
+  static constexpr int kGroup = 64 / kElem;          // k of an A group: two k-steps
+  static constexpr int kParts = kTf32 ? 2 : 1;       // boxes a stage: hi and lo, or one
+  static constexpr int kStages = kTf32 ? 2 : 4;
+  static constexpr int kBoxBytes = 128 * kN;
+  static constexpr int kStageBytes = kParts * kBoxBytes;
+  static constexpr int kHalf = kN / 2;               // output channels a warpgroup
+  static constexpr int kAcc = kHalf / 2;             // its fp32 accumulators a thread
+  static constexpr int kJ = kHalf / 8;               // its 8-column groups
+  static constexpr int kRowBytes = kN * kElem + 64;  // a row of the pf tile
+  static constexpr int kSmem =
+      kStages * kStageBytes + kTileP * kRowBytes + 2 * kStages * 8 + 1024;
 };
 
-// d[i][q] += sum_k a[(4 ty + i) as + k] * b[k kTN + Tile::col(q)], k < kTK.
-template <int kTN>
-__device__ __forceinline__ void fma_tile(float (&d)[4][8], const float* a, int as,
-                                         const float* b, int ty, int tx) {
-  // One group of 4 k at a time: its 16-byte operand loads, no more, are
-  // live beside the accumulators and the next stage's prefetched elements.
-#pragma unroll 1
-  for (int k4 = 0; k4 < kTK; k4 += 4) {
-    float4 av[4];
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (+)= A @ B for one k-step, A from registers (this thread's four words
+// of the fragment), B K-major from shared memory: m64nNk8 tf32 or
+// m64nNk16 bf16, N = 128, 64 or 32 by the size of the accumulator.
+template <bool kTf32>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kTf32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+// The 64- and 32-wide forms (fp32 at C <= 128 and C <= 64; no bf16
+// instance takes them).
+template <bool kTf32>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(kTf32, "tf32 only");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <bool kTf32>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  static_assert(kTf32, "tf32 only");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One box's A operand for a consumer thread: [group q][row r][word], hi
+// (or the bf16 words) and lo (fp32 only).
+struct RsA {
+  uint32_t hi[2][2][4];
+  uint32_t lo[2][2][4];
+};
+
+// A words of x (fp32: split into hi and lo).
+template <bool kTf32>
+__device__ __forceinline__ void rs_split(RsA& a, int q, int r, const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (4 * ty + i) * as + k4);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 lo = *reinterpret_cast<const float4*>(b + (k4 + u) * kTN + tx * 4);
-      const float4 hi =
-          *reinterpret_cast<const float4*>(b + (k4 + u) * kTN + kTN / 2 + tx * 4);
-      const float bv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ai = lane4(av[i], u);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) d[i][q] = fmaf(ai, bv[q], d[i][q]);
-      }
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (kTf32) {
+      const float x = __uint_as_float(w[e]);
+      a.hi[q][r][e] = tf32_rna(x);
+      a.lo[q][r][e] = tf32_rna(__fsub_rn(x, __uint_as_float(a.hi[q][r][e])));
+    } else {
+      a.hi[q][r][e] = w[e];
     }
   }
 }
 
-template <typename T, int kTN>
-__global__ void __launch_bounds__(kTThreads, 1)
-    meta_kernel_fused_tiled(const T* __restrict__ g, const T* __restrict__ f,
-                            const T* __restrict__ w1, const T* __restrict__ k,
-                            const float* __restrict__ a0, const float* __restrict__ b0,
-                            const float* __restrict__ a1, const float* __restrict__ b1,
-                            float* __restrict__ out, int H, int W, int C, int tiles) {
-  using Tl = Tile<kTN>;
-  constexpr int kTP = Tl::kTP, kPS = Tl::kPS;
-  constexpr int kNA = Tl::kNA, kNB = Tl::kNB;
-  extern __shared__ float4 tiled_smem[];
-  float* a_s = reinterpret_cast<float*>(tiled_smem);  // hh: 2 x [kTP][kAS]
-  float* b_s = a_s + 2 * Tl::kA;                       // W1 or K_n rows: 2 x [kTK][kTN]
-  float* p_s = b_s + 2 * Tl::kB;                       // pf of chunk j: [kTP][kPS]
-  const int tid = threadIdx.x, tx = tid % Tl::kTX, ty = tid / Tl::kTX;
-  // Stage s writes buffer s % 2 (counted across both products), then one
-  // barrier, then the FMAs read it: a buffer is written again only after
-  // every thread has passed the barrier that follows its last read.
-  int par = 0;
-  float ga[kNA], gb[kNA], wr[kNB];  // the next stage: g(p), g(p + d), weights
-  const int w0 = blockIdx.x * kTP, h = blockIdx.y;
-  const int b = blockIdx.z / tiles, n0 = (blockIdx.z % tiles) * kTN;
-  const size_t img = (size_t)b * H;
+// The wgmmas of box `a` (groups q < nq) into d: B's hi part at descriptor
+// bh, lo at bl. In fp32 each k-step is lo_a hi_b + hi_a lo_b + hi_a hi_b.
+template <bool kTf32, int kAccN>
+__device__ __forceinline__ void rs_box(float (&d)[kAccN], const RsA& a, int nq, uint64_t bh,
+                                       uint64_t bl) {
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (q >= nq) break;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      // Fragment words (rows m, m + 8; halves k = t, t + 4 of the step).
+      const uint32_t hi[4] = {a.hi[q][0][2 * s], a.hi[q][1][2 * s], a.hi[q][0][2 * s + 1],
+                              a.hi[q][1][2 * s + 1]};
+      const int step = 4 * q + 2 * s;  // 32 bytes a k-step
+      if constexpr (kTf32) {
+        const uint32_t lo[4] = {a.lo[q][0][2 * s], a.lo[q][1][2 * s], a.lo[q][0][2 * s + 1],
+                                a.lo[q][1][2 * s + 1]};
+        wgmma_rs<true>(d, lo, bh + step);
+        wgmma_rs<true>(d, hi, bl + step);
+      }
+      wgmma_rs<kTf32>(d, hi, bh + step);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kAccN; ++i) fence_operand(d[i]);
+}
 
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+template <bool kTf32, int kN>
+__global__ void __launch_bounds__(kThreads, 1)
+    meta_kernel_fused_rs(const __grid_constant__ CUtensorMap w1map,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap w1lo_map,
+                         const __grid_constant__ CUtensorMap klo_map,
+                         const uint8_t* __restrict__ g, const uint8_t* __restrict__ f,
+                         const float* __restrict__ aff, float* __restrict__ out, int H,
+                         int W, int C, int tiles) {
+  using R = Rs<kTf32, kN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  uint8_t* tile = smem + R::kStages * R::kStageBytes;  // pf_j: [64][kRowBytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(tile + kTileP * R::kRowBytes);
+  uint64_t* empty = full + R::kStages;
 
-  for (int nb = 0; nb < 9; ++nb) {
-    const int dy = nb / 3, dx = nb - 3 * (nb / 3);
-    const int hs = h + dy - 1;
-    const bool row_ok = hs >= 0 && hs < H;
-    const T* kn = k + (size_t)nb * C * C;
-    for (int j0 = 0; j0 < C; j0 += kTN) {
-      // 1. z_j = hh @ W1[:, j0 : j0 + kTN].
-      float z[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) z[i][q] = 0.f;
-      auto fetch1 = [&](int k0) {
-#pragma unroll
-        for (int e = 0; e < kNA; ++e) {
-          const int idx = tid + e * kTThreads;
-          const int c = k0 + idx % kTK, w = w0 + idx / kTK, ws = w + dx - 1;
-          const bool ok = c < C && w < W;
-          ga[e] = ok ? ld_elem(g + ((img + h) * W + w) * C + c) : 0.f;
-          gb[e] = ok && row_ok && ws >= 0 && ws < W
-                      ? ld_elem(g + ((img + hs) * W + ws) * C + c)
-                      : 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < kNB; ++e) {
-          const int idx = tid + e * kTThreads;
-          const int c = k0 + idx / kTN, n = j0 + idx % kTN;
-          wr[e] = c < C && n < C ? ld_elem(w1 + (size_t)c * C + n) : 0.f;
-        }
-      };
-      const int steps1 = (C + kTK - 1) / kTK;
-      fetch1(0);
-      for (int st = 0; st < steps1; ++st, par ^= 1) {
-        float* a_b = a_s + par * Tl::kA;
-        float* b_b = b_s + par * Tl::kB;
-#pragma unroll
-        for (int e = 0; e < kNA; ++e) {
-          const int idx = tid + e * kTThreads;
-          const int c = st * kTK + idx % kTK;
-          float v = 0.f;
-          if (c < C) {
-            const float x0 = round_to<T>(__fsub_rn(gb[e], ga[e]));
-            v = round_to<T>(
-                fmaxf(__fadd_rn(__fmul_rn(x0, __ldg(a0 + c)), __ldg(b0 + c)), 0.f));
+  const int w0 = blockIdx.x * kTileP;
+  const int h = blockIdx.y;
+  const int n0 = (blockIdx.z % tiles) * kN;
+  const size_t img = (size_t)(blockIdx.z / tiles) * H;
+  const int nkb1 = (C + R::kBoxK - 1) / R::kBoxK;  // boxes of GEMM1 (K = C)
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);                       // the TMA's bytes
+      mbar_init(&empty[s], kConsumerThreads / 32);  // each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---------------- producer: one thread streams the weight boxes.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRsProducerRegs));
+    if (threadIdx.x == kConsumerThreads) {
+      int i = 0;
+      for (int nb = 0; nb < 9; ++nb) {
+        for (int j0 = 0; j0 < C; j0 += kN) {
+          const int nkb2 = (min(kN, C - j0) + R::kBoxK - 1) / R::kBoxK;
+          for (int r = 0; r < nkb1 + nkb2; ++r, ++i) {
+            const int s = i % R::kStages;
+            const int lap = i / R::kStages;
+            if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+            mbar_arrive_tx(&full[s], R::kStageBytes);
+            uint8_t* dst = ring + s * R::kStageBytes;
+            if (r < nkb1) {  // W1^T rows [j0, j0 + kN), k of box r
+              tma_load_3d(dst, &w1map, &full[s], r * R::kBoxK, j0, 0);
+              if constexpr (kTf32)
+                tma_load_3d(dst + R::kBoxBytes, &w1lo_map, &full[s], r * R::kBoxK, j0, 0);
+            } else {  // K_n^T rows [n0, n0 + kN), k of chunk j's box
+              const int k0 = j0 + (r - nkb1) * R::kBoxK;
+              tma_load_3d(dst, &kmap, &full[s], k0, n0, nb);
+              if constexpr (kTf32)
+                tma_load_3d(dst + R::kBoxBytes, &klo_map, &full[s], k0, n0, nb);
+            }
           }
-          a_b[(idx / kTK) * kAS + idx % kTK] = v;
         }
-#pragma unroll
-        for (int e = 0; e < kNB; ++e) b_b[tid + e * kTThreads] = wr[e];
-        __syncthreads();
-        if (st + 1 < steps1) fetch1((st + 1) * kTK);
-        fma_tile<kTN>(z, a_b, kAS, b_b, ty, tx);
-      }
-
-      // 2. pf_j = T(T(relu(a1 z + b1)) * fs), zero past C and outside the
-      // image.
-      float s1[8], t1[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int col = j0 + Tl::col(q, tx);
-        s1[q] = col < C ? __ldg(a1 + col) : 0.f;
-        t1[q] = col < C ? __ldg(b1 + col) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = 4 * ty + i, w = w0 + p, ws = w + dx - 1;
-        const bool ok = w < W && row_ok && ws >= 0 && ws < W;
-        float pf[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int col = j0 + Tl::col(q, tx);
-          const float fs =
-              ok && col < C ? ld_elem(f + ((img + hs) * W + ws) * C + col) : 0.f;
-          const float pv =
-              round_to<T>(fmaxf(__fadd_rn(__fmul_rn(z[i][q], s1[q]), t1[q]), 0.f));
-          pf[q] = round_to<T>(__fmul_rn(pv, fs));
-        }
-        *reinterpret_cast<float4*>(p_s + p * kPS + tx * 4) =
-            make_float4(pf[0], pf[1], pf[2], pf[3]);
-        *reinterpret_cast<float4*>(p_s + p * kPS + kTN / 2 + tx * 4) =
-            make_float4(pf[4], pf[5], pf[6], pf[7]);
-      }
-
-      // 3. acc += pf_j @ K_n[j0 : j0 + kTN, n0 : n0 + kTN] (the barrier of
-      // its first stage also publishes pf_j).
-      const int kj = min(kTN, C - j0);
-      auto fetch2 = [&](int k0) {
-#pragma unroll
-        for (int e = 0; e < kNB; ++e) {
-          const int idx = tid + e * kTThreads;
-          const int kk = k0 + idx / kTN, n = n0 + idx % kTN;
-          wr[e] = kk < kj && n < C ? ld_elem(kn + (size_t)(j0 + kk) * C + n) : 0.f;
-        }
-      };
-      const int steps2 = (kj + kTK - 1) / kTK;
-      fetch2(0);
-      for (int st = 0; st < steps2; ++st, par ^= 1) {
-        float* b_b = b_s + par * Tl::kB;
-#pragma unroll
-        for (int e = 0; e < kNB; ++e) b_b[tid + e * kTThreads] = wr[e];
-        __syncthreads();
-        if (st + 1 < steps2) fetch2((st + 1) * kTK);
-        fma_tile<kTN>(acc, p_s + st * kTK, kPS, b_b, ty, tx);
       }
     }
-  }
+  } else {
+    // ---------------- consumers: warpgroup wg owns output columns
+    // [n0 + kHalf wg, n0 + kHalf (wg + 1)) and the same columns of z_j.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRsConsumerRegs));
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int m0 = (t / 32) * 16 + gid;  // this thread's rows: m0, m0 + 8
+    // This warpgroup's n rows of a box.
+    const uint32_t ring_u32 = smem_u32(ring) + wg * R::kHalf * 128;
+    const int ng1 = C / R::kGroup;             // A groups of GEMM1
+    const int lc = tig * (16 / R::kElem);      // this thread's first channel in a group
 
+    float acc[R::kAcc];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int w = w0 + 4 * ty + i;
-    if (w >= W) continue;
-    float* op = out + ((img + h) * W + w) * C;
+    for (int i = 0; i < R::kAcc; ++i) {
+      acc[i] = 0.f;
+      fence_operand(acc[i]);
+    }
+
+    int box = 0;  // weight boxes consumed so far
+    // Waits for the next box; its hi and lo B descriptors.
+    auto next_box = [&](uint64_t& bh, uint64_t& bl) {
+      const int s = box % R::kStages;
+      mbar_wait(&full[s], (box / R::kStages) & 1);
+      bh = desc_sw128(ring_u32 + s * R::kStageBytes);
+      bl = desc_sw128(ring_u32 + s * R::kStageBytes + (R::kParts - 1) * R::kBoxBytes);
+    };
+    // Its wgmmas have retired: the stage is free.
+    auto release_box = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[box % R::kStages]);
+      ++box;
+    };
+
+    for (int nb = 0; nb < 9; ++nb) {
+      const int dy = nb / 3;
+      const int dx = nb - dy * 3;
+      const int hs = h + dy - 1;
+      const bool row_ok = hs >= 0 && hs < H;
+      // Byte offsets of this thread's two pixels (centre) and of their
+      // neighbours in g and feats; ok_*: inside the image.
+      size_t oc[2], os[2];
+      bool okc[2], oks[2];
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int col = n0 + Tl::col(q, tx);
-      if (col < C) op[col] = acc[i][q];
+      for (int r = 0; r < 2; ++r) {
+        const int w = w0 + m0 + 8 * r;
+        const int ws = w + dx - 1;
+        okc[r] = w < W;
+        oks[r] = okc[r] && row_ok && ws >= 0 && ws < W;
+        oc[r] = okc[r] ? ((img + h) * W + w) * C * R::kElem : 0;
+        os[r] = oks[r] ? ((img + hs) * W + ws) * C * R::kElem : 0;
+      }
+
+      for (int j0 = 0; j0 < C; j0 += kN) {
+        // 1. z = hh @ W1[:, j0 + this warpgroup's columns], K = C.
+        float z[R::kAcc];
+#pragma unroll
+        for (int i = 0; i < R::kAcc; ++i) {
+          z[i] = 0.f;
+          fence_operand(z[i]);
+        }
+        // g's 16 bytes of box kb's groups: centre gc and neighbour gn.
+        uint4 gc[2][2], gn[2][2];
+        auto load_g = [&](int kb) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int grp = 2 * kb + q;
+            const int off = (grp * R::kGroup + lc) * R::kElem;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              gc[q][r] = make_uint4(0, 0, 0, 0);
+              gn[q][r] = make_uint4(0, 0, 0, 0);
+              if (grp < ng1 && okc[r]) {
+                gc[q][r] = __ldg(reinterpret_cast<const uint4*>(g + oc[r] + off));
+                if (oks[r]) gn[q][r] = __ldg(reinterpret_cast<const uint4*>(g + os[r] + off));
+              }
+            }
+          }
+        };
+        load_g(0);
+        for (int kb = 0; kb < nkb1; ++kb) {
+          // hh = T(relu(a0 T(g(p + d) - g(p)) + b0)) of this box's groups.
+          RsA a;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int c = (2 * kb + q) * R::kGroup + lc;
+            const bool in = 2 * kb + q < ng1;
+            if constexpr (kTf32) {
+              const float4 sa = in ? __ldg(reinterpret_cast<const float4*>(aff + c))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+              const float4 sb = in ? __ldg(reinterpret_cast<const float4*>(aff + C + c))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+              const float a0v[4] = {sa.x, sa.y, sa.z, sa.w};
+              const float b0v[4] = {sb.x, sb.y, sb.z, sb.w};
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const uint32_t cw[4] = {gc[q][r].x, gc[q][r].y, gc[q][r].z, gc[q][r].w};
+                const uint32_t nw[4] = {gn[q][r].x, gn[q][r].y, gn[q][r].z, gn[q][r].w};
+                uint32_t hv[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float x0 = __fsub_rn(__uint_as_float(nw[e]), __uint_as_float(cw[e]));
+                  hv[e] = __float_as_uint(
+                      fmaxf(__fadd_rn(__fmul_rn(x0, a0v[e]), b0v[e]), 0.f));
+                }
+                rs_split<true>(a, q, r, make_uint4(hv[0], hv[1], hv[2], hv[3]));
+              }
+            } else {
+              float a0v[8], b0v[8];
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const float4 sa = in ? __ldg(reinterpret_cast<const float4*>(aff + c + 4 * u))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+                const float4 sb =
+                    in ? __ldg(reinterpret_cast<const float4*>(aff + C + c + 4 * u))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+                const float sav[4] = {sa.x, sa.y, sa.z, sa.w};
+                const float sbv[4] = {sb.x, sb.y, sb.z, sb.w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  a0v[4 * u + e] = sav[e];
+                  b0v[4 * u + e] = sbv[e];
+                }
+              }
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const uint32_t cw[4] = {gc[q][r].x, gc[q][r].y, gc[q][r].z, gc[q][r].w};
+                const uint32_t nw[4] = {gn[q][r].x, gn[q][r].y, gn[q][r].z, gn[q][r].w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float x0a = round_bf16(__fsub_rn(bf16_lo(nw[e]), bf16_lo(cw[e])));
+                  const float x0b = round_bf16(__fsub_rn(bf16_hi(nw[e]), bf16_hi(cw[e])));
+                  a.hi[q][r][e] = pack_bf16(
+                      fmaxf(__fadd_rn(__fmul_rn(x0a, a0v[2 * e]), b0v[2 * e]), 0.f),
+                      fmaxf(__fadd_rn(__fmul_rn(x0b, a0v[2 * e + 1]), b0v[2 * e + 1]), 0.f));
+                }
+              }
+            }
+          }
+          if (kb + 1 < nkb1) load_g(kb + 1);  // in flight while this box multiplies
+          uint64_t bh, bl;
+          next_box(bh, bl);
+          rs_box<kTf32>(z, a, min(2, ng1 - 2 * kb), bh, bl);
+          release_box();
+        }
+
+        // 2. pf_j = T(T(relu(a1 z + b1)) * fs) into the tile, once the
+        // other warpgroup's GEMM2 has read the last one.
+        consumer_sync();
+#pragma unroll
+        for (int j = 0; j < R::kJ; ++j) {
+          // A quarter of the columns at a time: their loads, no more, are
+          // live beside z and the accumulator.
+          if (j % (R::kJ / 4) == 0) asm volatile("" ::: "memory");
+          const int nl = wg * R::kHalf + j * 8 + tig * 2;  // column in the chunk
+          const int n = j0 + nl;
+          const bool col_ok = n < C;
+          const float2 s1 = col_ok ? *reinterpret_cast<const float2*>(aff + 2 * C + n)
+                                   : make_float2(0.f, 0.f);
+          const float2 t1 = col_ok ? *reinterpret_cast<const float2*>(aff + 3 * C + n)
+                                   : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const bool ok = oks[r] && col_ok;
+            const float pa =
+                fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r], s1.x), t1.x), 0.f);
+            const float pb =
+                fmaxf(__fadd_rn(__fmul_rn(z[4 * j + 2 * r + 1], s1.y), t1.y), 0.f);
+            uint8_t* dst = tile + (m0 + 8 * r) * R::kRowBytes + nl * R::kElem;
+            if constexpr (kTf32) {
+              const float2 fs = ok ? *reinterpret_cast<const float2*>(f + os[r] + n * 4)
+                                   : make_float2(0.f, 0.f);
+              *reinterpret_cast<float2*>(dst) = make_float2(__fmul_rn(pa, fs.x),
+                                                            __fmul_rn(pb, fs.y));
+            } else {
+              const uint32_t fs =
+                  ok ? *reinterpret_cast<const unsigned int*>(f + os[r] + n * 2) : 0u;
+              *reinterpret_cast<uint32_t*>(dst) =
+                  pack_bf16(__fmul_rn(round_bf16(pa), bf16_lo(fs)),
+                            __fmul_rn(round_bf16(pb), bf16_hi(fs)));
+            }
+          }
+        }
+        consumer_sync();
+
+        // 3. acc += pf_j @ K_n[j0 + k, this warpgroup's columns], K = the
+        // chunk's channels below C.
+        const int ng2 = min(kN, C - j0) / R::kGroup;
+        for (int kb = 0; 2 * kb < ng2; ++kb) {
+          RsA a;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int grp = 2 * kb + q;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const uint4 v =
+                  grp < ng2 ? *reinterpret_cast<const uint4*>(
+                                  tile + (m0 + 8 * r) * R::kRowBytes + grp * 64 + tig * 16)
+                            : make_uint4(0, 0, 0, 0);
+              rs_split<kTf32>(a, q, r, v);
+            }
+          }
+          uint64_t bh, bl;
+          next_box(bh, bl);
+          rs_box<kTf32>(acc, a, min(2, ng2 - 2 * kb), bh, bl);
+          release_box();
+        }
+      }
+    }
+
+    // Store this thread's accumulator rows and its columns below C.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int w = w0 + m0 + 8 * r;
+      if (w >= W) continue;
+      float* op = out + ((img + h) * W + w) * C;
+#pragma unroll
+      for (int j = 0; j < R::kJ; ++j) {
+        const int n = n0 + wg * R::kHalf + j * 8 + tig * 2;
+        if (n < C)
+          *reinterpret_cast<float2*>(op + n) = make_float2(acc[4 * j + 2 * r],
+                                                           acc[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
 
-template <typename T, int kTN>
-int launch_tiled(const void* g, const void* feats, const void* w1, const void* k,
-                 const void* a0, const void* b0, const void* a1, const void* b1,
-                 void* out, int B, int H, int W, int C, void* stream) {
-  using Tl = Tile<kTN>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(meta_kernel_fused_tiled<T, kTN>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmemBytes);
+template <bool kTf32, int kN>
+int launch_rs(const void* g, const void* feats, const void* w1t, const void* kt,
+              const void* w1t_lo, const void* kt_lo, const void* aff, void* out, int B, int H,
+              int W, int C, void* stream) {
+  using R = Rs<kTf32, kN>;
+  const auto type = kTf32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // W1^T and K^T, and in fp32 their lo parts (bf16 passes the hi maps
+  // again in their place, unread).
+  CUtensorMap maps[4];
+  const void* bases[4] = {w1t, kt, w1t_lo, kt_lo};
+  for (int m = 0; m < 2 * R::kParts; ++m)
+    if (!stem_weight_map(&maps[m], type, R::kElem, bases[m], C, kN, m % 2 ? 9 : 1))
+      return (int)cudaErrorInvalidValue;
+  if constexpr (!kTf32) maps[2] = maps[0], maps[3] = maps[1];
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      meta_kernel_fused_rs<kTf32, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const int tiles = (C + kTN - 1) / kTN;
-  const dim3 grid((W + Tl::kTP - 1) / Tl::kTP, H, B * tiles);
-  meta_kernel_fused_tiled<T, kTN><<<grid, kTThreads, Tl::kSmemBytes, (cudaStream_t)stream>>>(
-      (const T*)g, (const T*)feats, (const T*)w1, (const T*)k, (const float*)a0,
-      (const float*)b0, (const float*)a1, (const float*)b1, (float*)out, H, W, C, tiles);
+  const int tiles = (C + kN - 1) / kN;
+  const dim3 grid((W + kTileP - 1) / kTileP, H, B * tiles);
+  meta_kernel_fused_rs<kTf32, kN><<<grid, kThreads, R::kSmem, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const uint8_t*)g, (const uint8_t*)feats,
+      (const float*)aff, (float*)out, H, W, C, tiles);
   return (int)cudaGetLastError();
-}
-
-// The 64-wide instance where C <= 64, the 256-wide one past it.
-template <typename T>
-int launch_tiled_any(const void* g, const void* feats, const void* w1, const void* k,
-                     const void* a0, const void* b0, const void* a1, const void* b1,
-                     void* out, int B, int H, int W, int C, void* stream) {
-  return C <= 64 ? launch_tiled<T, 64>(g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C,
-                                       stream)
-                 : launch_tiled<T, 256>(g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C,
-                                        stream);
 }
 
 }  // namespace
@@ -737,22 +1060,31 @@ extern "C" int rv3d_meta_kernel_fused(const void* g, const void* feats,
                   : launch<256>(g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, C, stream);
 }
 
-// The tiled kernel. g, feats: (B, H, W, C), bf16 (fp32 == 0) or fp32
-// (fp32 != 0); w1: (C, C) = W1 ([k][n], x @ W1) and k: (9, C, C) with k[n]
-// = K_n, both in the dtype of g; a0, b0, a1, b1: (C,) fp32; out: (B, H, W,
-// C) fp32. Any C >= 1 with B * ceil(C / 256) <= 65535 and H <= 65535 (C
-// <= 64 runs the 64-wide instance, the rest the 256-wide one).
-extern "C" int rv3d_meta_kernel_fused_tiled(const void* g, const void* feats,
-                                            const void* w1, const void* k,
-                                            const void* a0, const void* b0,
-                                            const void* a1, const void* b1,
-                                            void* out, int B, int H, int W, int C,
-                                            int fp32, void* stream) {
-  if (C <= 0 || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+// The register-A kernel. g, feats: (B, H, W, C), bf16 (fp32 == 0) or fp32
+// (fp32 != 0); w1t: (C, C) = W1^T and kt: (9, C, C) with kt[n] = K_n^T,
+// their k (last) axis in the kernel's order (kernels/stem.py::
+// k1_operands), TF32 hi parts in fp32 and w1t_lo, kt_lo the lo parts (in
+// bf16 they are null); aff: (4, C) fp32, rows a0, b0, a1,
+// b1; out: (B, H, W, C) fp32. C a multiple of 16 in fp32 (C <= 64 runs
+// the 64-wide instance, C <= 128 the 128-wide one, the rest the 256-wide
+// one), of 32 in bf16, with B
+// * ceil(C / 256) <= 65535 and H <= 65535; every pointer 16-byte aligned.
+extern "C" int rv3d_meta_kernel_fused_rs(const void* g, const void* feats, const void* w1t,
+                                         const void* kt, const void* w1t_lo,
+                                         const void* kt_lo, const void* aff, void* out,
+                                         int B, int H, int W, int C, int fp32,
+                                         void* stream) {
+  if (C <= 0 || C % (fp32 ? 16 : 32) || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
       (long)B * ((C + 255) / 256) > 65535)
     return (int)cudaErrorInvalidValue;
-  return fp32 ? launch_tiled_any<float>(g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C,
-                                        stream)
-              : launch_tiled_any<__nv_bfloat16>(g, feats, w1, k, a0, b0, a1, b1, out, B,
-                                                H, W, C, stream);
+  if (!fp32)
+    return launch_rs<false, 256>(g, feats, w1t, kt, w1t_lo, kt_lo, aff, out, B, H, W, C,
+                                 stream);
+  if (C <= 64)
+    return launch_rs<true, 64>(g, feats, w1t, kt, w1t_lo, kt_lo, aff, out, B, H, W, C,
+                               stream);
+  return C <= 128 ? launch_rs<true, 128>(g, feats, w1t, kt, w1t_lo, kt_lo, aff, out, B, H, W,
+                                         C, stream)
+                  : launch_rs<true, 256>(g, feats, w1t, kt, w1t_lo, kt_lo, aff, out, B, H, W,
+                                         C, stream);
 }

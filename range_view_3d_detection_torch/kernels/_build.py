@@ -45,8 +45,8 @@ SIGNATURES = {
     "rv3d_conv3x3_i8": [_P] * 5 + [_I] * 8 + [_P],
     # g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream
     "rv3d_meta_kernel_fused_i8": [_P] * 10 + [_I] * 4 + [_P],
-    # g, feats, w1, k, a0, b0, a1, b1, out, B, H, W, C, fp32, stream
-    "rv3d_meta_kernel_fused_tiled": [_P] * 9 + [_I] * 5 + [_P],
+    # g, feats, w1t, kt, w1t_lo, kt_lo, aff, out, B, H, W, C, fp32, stream
+    "rv3d_meta_kernel_fused_rs": [_P] * 8 + [_I] * 5 + [_P],
     # g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, fp32, stream
     "rv3d_meta_kernel_fused_i8_tiled": [_P] * 10 + [_I] * 5 + [_P],
 }

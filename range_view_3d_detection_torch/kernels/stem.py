@@ -13,13 +13,16 @@ how its design follows from that.
 
 On the card each takes what its Pallas counterpart takes: ``g`` and
 ``feats`` in bf16 or fp32, any C. :func:`k1_plan` and :func:`k4_plan` say
-which of a source's two entry points a call launches and what the wrapper
-pads: the wgmma kernel takes bf16 up to C = 256 (the configs' stems are
-256, 128 and 32 wide), the wrapper padding C with zero channels to the
-kernel's TMA multiple (8 for K1, 16 for K4) where it is off it, with one
-copy of each input and of the output's crop; the tiled kernel takes fp32
-and C above 256, and pads C inside its own staging. Zero channels are
-exact: their ``hh``, ``p`` and ``p * feats`` are 0.
+which entry point of a source a call launches and what the wrapper pads
+(zero channels, with one copy of each input and of the output's crop;
+zero channels are exact: their ``hh``, ``p`` and ``p * feats`` are 0).
+K1 runs on the tensor cores at every dtype and C: bf16 up to C = 256 on
+its wgmma kernel (the configs' stems are 256, 128 and 32 wide; C padded
+to a multiple of 8, the TMA's), fp32 as 3xTF32 (:func:`split_tf32`) and
+bf16 past C = 256 on its register-A kernel, output-tiled (C padded to 16
+in fp32, 32 in bf16: a group of two k-steps). K4 takes bf16 up to C = 256
+on its wgmma kernel (C padded to a multiple of 16) and fp32 ``g`` and C
+above 256 on its tiled dp4a kernel, which pads C inside its own staging.
 
 Both are ``torch.library`` custom ops, ``rv3d::meta_kernel_fused`` and
 ``rv3d::meta_kernel_fused_i8``: the CPU kernel is the plain twin, the
@@ -45,38 +48,48 @@ COMPUTE_DTYPES = (torch.bfloat16, torch.float32)  # "bf16 or f32", as in JAX
 class StemPlan(NamedTuple):
     """How a stem kernel runs one call on the card.
 
-    ``kernel``: ``"wgmma"`` (the tensor-core entry point, which picks its
-    128- or 256-wide template from C) or ``"tiled"`` (the CUDA-core entry
-    point, for bf16 or fp32 as ``g`` is). ``pad``: the zero channels the
-    wrapper adds to C by copying the inputs (and crops from the output).
+    ``kernel``: ``"wgmma"`` (the bf16 tensor-core entry point, which picks
+    its 128- or 256-wide template from C); for K1 ``"tf32x3"`` (fp32 as
+    3xTF32) or ``"wgmma_tiled"`` (bf16 past C = 256), the two forms of its
+    register-A entry point; for K4 ``"tiled"`` (the CUDA-core entry point,
+    bf16 or fp32 as ``g`` is). ``pad``: the zero channels the wrapper adds
+    to C by copying the inputs (and crops from the output).
     """
 
     kernel: str
     pad: int
 
 
-def _stem_plan(C: int, dtype: torch.dtype, multiple: int, name: str) -> StemPlan:
+def _check_stem_args(C: int, dtype: torch.dtype, name: str) -> None:
     if C < 1:
         raise ValueError(f"{name}: C={C}")
     if dtype not in COMPUTE_DTYPES:
         raise TypeError(f"{name}: g in {dtype}; the kernel takes bf16 or fp32")
-    if dtype == torch.bfloat16 and C <= 256:
-        return StemPlan("wgmma", -C % multiple)
-    return StemPlan("tiled", 0)
 
 
 def k1_plan(C: int, dtype: torch.dtype) -> StemPlan:
-    """K1's launch for C channels of ``g`` in ``dtype``: bf16 up to C = 256
-    on the wgmma kernel, C padded to a multiple of 8 (the TMA's 16-byte
-    strides); fp32 and C above 256 on the tiled kernel."""
-    return _stem_plan(C, dtype, 8, "meta_kernel_fused")
+    """K1's launch for C channels of ``g`` in ``dtype``, all on the tensor
+    cores: bf16 up to C = 256 on the wgmma kernel, C padded to a multiple
+    of 8 (the TMA's 16-byte strides); fp32 on the register-A kernel as
+    3xTF32, C padded to a multiple of 16; bf16 past C = 256 on the
+    register-A kernel's output tiles, C padded to a multiple of 32 (16 and
+    32: one group of two k-steps, 64 bytes of a pixel row)."""
+    _check_stem_args(C, dtype, "meta_kernel_fused")
+    if dtype == torch.float32:
+        return StemPlan("tf32x3", -C % 16)
+    if C <= 256:
+        return StemPlan("wgmma", -C % 8)
+    return StemPlan("wgmma_tiled", -C % 32)
 
 
 def k4_plan(C: int, dtype: torch.dtype) -> StemPlan:
     """K4's launch for C channels of ``g`` in ``dtype``: bf16 up to C = 256
     on the wgmma kernel, C padded to a multiple of 16 (the int8 weights'
     TMA strides); fp32 and C above 256 on the tiled kernel."""
-    return _stem_plan(C, dtype, 16, "meta_kernel_fused_i8")
+    _check_stem_args(C, dtype, "meta_kernel_fused_i8")
+    if dtype == torch.bfloat16 and C <= 256:
+        return StemPlan("wgmma", -C % 16)
+    return StemPlan("tiled", 0)
 
 
 def padded_operands(pad: int, g, feats, w1, k, *vectors) -> tuple:
@@ -89,6 +102,68 @@ def padded_operands(pad: int, g, feats, w1, k, *vectors) -> tuple:
     return (F.pad(g, (0, pad)), F.pad(feats, (0, pad)),
             F.pad(w1, (0, pad, 0, pad)), F.pad(k, (0, pad, 0, pad)),
             *(F.pad(v, (0, pad)) for v in vectors))
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` as ``hi + lo``, two TF32 values in fp32 (their 13 low
+    mantissa bits zero): ``hi`` is ``x`` rounded to TF32, ``lo`` the
+    rounded rest ``x - hi`` (exact in fp32), both to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds (the register-A kernel
+    splits its A operand so); ``hi + lo`` is ``x`` within 2^-22 |x|, or
+    2^-137 where that is larger (TF32's subnormal step bounds ``lo``). NaN
+    stays NaN."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+        return torch.where(torch.isnan(v), v, out)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def k_order(C: int, elem: int, device=None) -> torch.Tensor:
+    """The register-A kernel's order of the k axis: entry ``l`` is the
+    channel that logical k ``l`` reads, for C channels of ``elem`` bytes
+    (4 in fp32, 2 in bf16). Within each group of 64 bytes (two k-steps),
+    A fragment word (step s, half h) of thread t is physical word 4 t + 2 s
+    + h, so that a thread's words of both steps are one 16-byte load; it
+    is logical word 8 s + 4 h + t (a word holds 4 / elem channels, in
+    order)."""
+    per_word = 4 // elem
+    group = 64 // elem
+    idx = torch.arange(C, device=device)
+    word, e = (idx % group) // per_word, idx % per_word
+    s, h, t = word // 8, (word // 4) % 2, word % 4
+    return idx - idx % group + (4 * t + 2 * s + h) * per_word + e
+
+
+def k1_operands(plan: StemPlan, g, feats, w1, k, a0, b0, a1, b1) -> tuple:
+    """What K1's entry point for ``plan`` takes (the output aside), from
+    the wrapper's arguments: the operands padded by ``plan.pad``; for
+    ``"wgmma"`` ``(g, feats, W1^T, K^T, a0, b0, a1, b1)`` (the weights
+    [n][k], K-major for the TMA boxes); for the register-A kernel ``(g,
+    feats, w1t, kt, w1t_lo, kt_lo, aff)``: W1^T and K_n^T with their k
+    axis in :func:`k_order`, in fp32 split by :func:`split_tf32` into hi
+    (``w1t``, ``kt``) and lo parts (None in bf16: the entry takes null
+    pointers), and the four affines stacked as ``aff`` (4, C). All
+    contiguous, in ``g``'s dtype but the fp32 affines."""
+    cdt = g.dtype
+    g, feats, w1, k, a0, b0, a1, b1 = padded_operands(
+        plan.pad, g, feats.to(cdt), w1.to(cdt), k.to(cdt),
+        *(v.float() for v in (a0, b0, a1, b1)))
+    g, feats = g.contiguous(), feats.contiguous()
+    if plan.kernel == "wgmma":
+        return (g, feats, w1.t().contiguous(), k.transpose(1, 2).contiguous(),
+                *(v.contiguous() for v in (a0, b0, a1, b1)))
+    order = k_order(w1.shape[0], g.element_size(), device=g.device)
+    w1t = w1.index_select(0, order).t().contiguous()
+    kt = k.index_select(1, order).transpose(1, 2).contiguous()
+    if plan.kernel == "tf32x3":
+        (w1t, w1t_lo), (kt, kt_lo) = split_tf32(w1t), split_tf32(kt)
+    else:
+        w1t_lo = kt_lo = None
+    return (g, feats, w1t, kt, w1t_lo, kt_lo, torch.stack([a0, b0, a1, b1]))
 
 
 def meta_kernel_fused_plain(
@@ -189,31 +264,21 @@ def _(g, feats, w1, k, a0, b0, a1, b1):
 @_k1_op.register_kernel("cuda")
 def _k1_cuda(g, feats, w1, k, a0, b0, a1, b1):
     B, H, W, C = g.shape
-    cdt = g.dtype
-    plan = k1_plan(C, cdt)
-    g, feats, w1, k, a0, b0, a1, b1 = padded_operands(
-        plan.pad, g, feats.to(cdt), w1.to(cdt), k.to(cdt),
-        *(v.float() for v in (a0, b0, a1, b1)))
+    plan = k1_plan(C, g.dtype)
+    ops = k1_operands(plan, g, feats, w1, k, a0, b0, a1, b1)
     Cp = C + plan.pad
-    g, feats = g.contiguous(), feats.contiguous()
-    if plan.kernel == "tiled":  # [k][n]: the tiled kernel stages rows of n
-        w1m, km = w1.contiguous(), k.contiguous()
-    else:  # transposed, [n][k]: the wgmma kernel's TMA boxes are K-major
-        w1m, km = w1.t().contiguous(), k.transpose(1, 2).contiguous()
-    a0, b0, a1, b1 = (v.contiguous() for v in (a0, b0, a1, b1))
     out = torch.empty((B, H, W, Cp), dtype=torch.float32, device=g.device)
     lib = _build.library()
-    ptrs = (g.data_ptr(), feats.data_ptr(), w1m.data_ptr(), km.data_ptr(),
-            a0.data_ptr(), b0.data_ptr(), a1.data_ptr(), b1.data_ptr(), out.data_ptr())
+    ptrs = (*(0 if t is None else t.data_ptr() for t in ops), out.data_ptr())
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.kernel == "tiled":
-            name = "rv3d_meta_kernel_fused_tiled"
-            err = lib.rv3d_meta_kernel_fused_tiled(
-                *ptrs, B, H, W, Cp, int(cdt == torch.float32), stream)
-        else:
+        if plan.kernel == "wgmma":
             name = "rv3d_meta_kernel_fused"
             err = lib.rv3d_meta_kernel_fused(*ptrs, B, H, W, Cp, stream)
+        else:
+            name = "rv3d_meta_kernel_fused_rs"
+            err = lib.rv3d_meta_kernel_fused_rs(
+                *ptrs, B, H, W, Cp, int(plan.kernel == "tf32x3"), stream)
     _build.check(err, name)
     meta_kernel_fused.launches += 1
     return out[..., :C].contiguous() if plan.pad else out

@@ -14,6 +14,16 @@ of a compiler knob is then one environment variable on an unchanged bench:
 
 The four kernels are ``torch.library`` ops with fake implementations, so
 a compiled program launches them without a graph break.
+
+Every compiled program starts from :data:`EAGER_NUMERICS`, which the
+environment's options may override: inductor's code then rounds as eager
+does (no contracted multiply-adds, correctly rounded division). The
+decode needs it. The NMS's rotated IoU (``ops/iou.py::
+_clipped_edge_area``) tests points against half-planes with a 1e-4
+tolerance, at class-offset coordinates of up to 14,000 m, where an fp32
+step is 1e-3. With inductor's defaults a compiled IoU matrix moved 71
+pairs across the NMS's 0.3 threshold, and the compiled decode dropped
+3 of the 253 boxes eager kept (``chip_smoke.py compile-decode``).
 """
 
 from __future__ import annotations
@@ -25,6 +35,12 @@ import torch
 from torch.utils import _pytree as pytree
 
 ENV_VAR = "RV3D_COMPILER_OPTIONS"
+# Inductor options under those of ENV_VAR (see the module docstring).
+# ``emulate_precision_casts`` also turns off Triton's fp fusion.
+EAGER_NUMERICS = {
+    "emulate_precision_casts": True,
+    "eager_numerics.division_rounding": True,
+}
 
 
 def parse_options(spec: str) -> Dict[str, str]:
@@ -76,7 +92,8 @@ def jit_env_options(fn: Callable) -> Callable:
     spec = os.environ.get(ENV_VAR, "")
     if not spec:
         return fn
-    options = {k: _typed(v) for k, v in parse_options(spec).items()}
+    options = {**EAGER_NUMERICS,
+               **{k: _typed(v) for k, v in parse_options(spec).items()}}
     cache: Dict[Tuple, Callable] = {}
 
     def wrapper(*args, **kwargs):

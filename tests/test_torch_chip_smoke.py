@@ -381,7 +381,7 @@ def test_bench_modes_and_their_kernels():
 
 def test_compile_config_takes_k1():
     """Phase 37's models are ones K1 takes with the fused stem on: the tiny
-    config as it is (widths 8, fp32, K1's tiled kernel) and the tiny
+    config as it is (widths 8, fp32, K1's 3xTF32 kernel) and the tiny
     config at 32 channels in bf16, the served dtype (K1's wgmma kernel)."""
     import dataclasses
 
@@ -393,5 +393,5 @@ def test_compile_config_takes_k1():
     assert cfgs["tiny fp32"] == tiny and tiny.dtype == "float32"
     bf16 = cfgs["tiny at 32 channels bf16"]
     assert bf16 == dataclasses.replace(tiny, layers=(32,) * 5, dtype="bfloat16")
-    assert k1_plan(tiny.layers[0], torch.float32) == ("tiled", 0)
+    assert k1_plan(tiny.layers[0], torch.float32) == ("tf32x3", 8)
     assert k1_plan(bf16.layers[0], torch.bfloat16) == ("wgmma", 0)

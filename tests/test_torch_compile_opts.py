@@ -52,3 +52,24 @@ def test_jit_env_options_with_option(monkeypatch):
     monkeypatch.setenv(compile_opts.ENV_VAR, "no_such_option=1")
     with pytest.raises(RuntimeError, match="no_such_option"):
         compile_opts.jit_env_options(lambda x: x + 1)(a)
+
+
+@pytest.mark.parametrize("spec, extra", [
+    ("max_autotune=False", {"max_autotune": False}),
+    ("emulate_precision_casts=False", {"emulate_precision_casts": False}),
+])
+def test_jit_env_options_start_from_eager_numerics(monkeypatch, spec, extra):
+    """A compiled program gets ``EAGER_NUMERICS`` under the environment's
+    options, which override them."""
+    seen = []
+
+    def fake_compile(fn, *, options, dynamic):
+        seen.append((options, dynamic))
+        return fn
+
+    monkeypatch.setattr(compile_opts.torch, "compile", fake_compile)
+    monkeypatch.setenv(compile_opts.ENV_VAR, spec)
+    assert compile_opts.jit_env_options(lambda x: x + 1)(torch.zeros(2)).tolist() == [1.0, 1.0]
+    assert seen == [({**compile_opts.EAGER_NUMERICS, **extra}, False)]
+    assert compile_opts.EAGER_NUMERICS == {"emulate_precision_casts": True,
+                                           "eager_numerics.division_rounding": True}

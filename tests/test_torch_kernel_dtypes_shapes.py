@@ -36,7 +36,8 @@ same twins by ``chip_smoke.py``).
   (``test_torch_quantized.py``'s bound).
 - Each wrapper's launch plan (``k1_plan``, ``k4_plan``, ``k3_plan``,
   ``k2_plan``), a pure function of shape and dtype that the launch
-  consumes: the shipped shapes keep their old instances (K1/K4 at C = 32,
+  consumes (K1's other routes: ``test_torch_stem_tf32.py``): the shipped
+  shapes keep their old instances (K1/K4 at C = 32,
   128 and 256 in bf16 on the wgmma kernel with no copy, every K3 shape of
   the flagship with no padding, K2's box payload on its own merge), and no
   shape or dtype the JAX kernels take is refused; and the stem wrappers'
@@ -301,8 +302,12 @@ def test_stem_plans_keep_the_shipped_instances_and_refuse_nothing(plan):
                 assert got.kernel == "wgmma"
                 assert (C + got.pad) % multiple == 0 and 0 <= got.pad < multiple
                 assert C + got.pad <= 256
-            else:
+            elif plan is tstem.k4_plan:
                 assert got == ("tiled", 0)
+            elif dt == torch.float32:  # K1: 3xTF32 on the register-A kernel
+                assert got == ("tf32x3", -C % 16)
+            else:  # K1: bf16 past 256 on the register-A kernel's output tiles
+                assert got == ("wgmma_tiled", -C % 32)
     with pytest.raises(TypeError):
         plan(32, torch.float16)
     with pytest.raises(ValueError):
