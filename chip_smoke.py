@@ -21,10 +21,9 @@ Phases, each of which raises (non-zero exit) on failure:
    ptxas's registers and spills for every function (kept beside the
    library, so a reused build is checked too), and zero spills in both
    wgmma instances of K1 and of K4, in the four of K1's register-A kernel
-   (fp32 as 3xTF32 64-, 128- and 256-wide, bf16 output-tiled) and in the six of
-   K3; the spills of the four (bf16 and fp32, 64- and 256-wide) instances
-   of K4's tiled kernel are printed, not gated (at 255 registers they
-   spill a few words a thread);
+   (fp32 as 3xTF32 64-, 128- and 256-wide, bf16 output-tiled), in the four
+   of K4's output-tiled kernel (fp32 128- and 256-wide, and the 256-wide
+   tiles past C = 256 in bf16 and fp32) and in the six of K3;
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
@@ -96,10 +95,13 @@ Phases, each of which raises (non-zero exit) on failure:
    them, the Waymo stem (2, 64, 2656, 128), (2, 32, 256, 32), (1, 3, 37,
    96), (1, 3, 37, 160) and on edge cases that bind every clamp and
    rounding tie (``k4_edge_case``) at C = 256 and 128: max|diff| <= 1e-4 *
-   max|ref|, the count of differing elements printed (expected 0: the
-   kernel's arithmetic is its twin's); then with bf16 and fp32 ``g`` at
-   every C of ``ANY_C`` and on the edge case at C = 40 and 288, within the
-   same bound; K4's time (eager and graph replay), bound and twin's time,
+   max|ref|, and no element differing (the kernel's arithmetic is its
+   twin's; the count is printed); then with bf16 and fp32 ``g`` at every C
+   of ``ANY_C``, at ``K4_WIDE_C`` (hq in one buffer, and in slabs of k)
+   and on the edge case at C = 40, 288 and 2320 (fp32 to 256 and every C
+   past it on the output-tiled kernel), within the same bound and with no
+   element differing; K4's time (eager and graph replay), bound and twin's
+   time,
    and a profiler table of one request with the K4 stem;
 11. ms per request of both int8 paths;
 12. training, card against CPU: one train step (``training.state.
@@ -353,9 +355,10 @@ Phases, each of which raises (non-zero exit) on failure:
 44. the kernels past the configs' shapes on the main paths: the tiny
     config (widths 8, B=2 16x256) served on the card in fp32 with the K1
     stem (K1's 3xTF32 kernel), in bf16 (K1's 128-wide instance) and in
-    int8 quantized from fp32 with the K4 stem (K4's tiled fp32 kernel, K3
-    at Cin 8), each against the same weights served on the CPU (heads at
-    the CPU tests' tolerances: ``gate_heads``); one fp32 rv-av2 request
+    int8 quantized from fp32 with the K4 stem (K4's output-tiled kernel
+    in fp32, K3 at Cin 8), each against the same weights served on the
+    CPU (heads at the CPU tests' tolerances: ``gate_heads``) and timed (ms
+    a request, host clock); one fp32 rv-av2 request
     with the K1 stem at B=2 64x1808 (3 requests timed, K1 and K2 launches:
     the K1 fp32 entry's ``launches``), the same model against its CPU run
     at B=1 8x256 (heads within 1e-3 * max|ref|); K1 fp32 at the flagship
@@ -365,12 +368,17 @@ Phases, each of which raises (non-zero exit) on failure:
     peak) and the earlier CUDA-core limit (the same work as FFMA): the
     kernels line's ``meta_kernel_fused_fp32`` entry; K1 bf16 at the
     flagship stem on the register-A kernel's entry, beside the shipped
-    wgmma instance; K4 with fp32 ``g`` at the flagship stem (the tiled
-    kernel; an int8 model quantized from fp32) against its twin,
-    differing elements counted, timed beside twin and bound; K1 and K4 at
-    C = 36, 48, 288 and 512 in bf16 and fp32 against their twins, each
-    timed beside its twin and bound (K1 fp32: also the earlier CUDA-core
-    limit), with the wrappers' pad copies at C = 36 in bf16 timed alone;
+    wgmma instance; K4 with fp32 ``g`` at the flagship stem (the
+    output-tiled kernel's one-tile form; an int8 model quantized from
+    fp32) against its twin, no element differing, timed (eager, graph
+    replay) beside twin and int8 tensor-core bound: the kernels line's
+    ``meta_kernel_fused_i8_fp32`` entry (its launches: the tiny int8
+    request's); K1 and K4 at C = 36, 48, 288 and 512 in bf16 and fp32
+    against their twins (K4 with no element differing), each timed beside
+    its twin and bound (K1 fp32: also the earlier CUDA-core limit; K4 also
+    by graph replay and, past 256, at its own count of operations, W1
+    repeated per output tile), with the wrappers' pad copies at C = 36 in
+    bf16 timed alone;
     K3 at a tail shape (2, 64, 1808, 48) -> 40 equal to its twin and
     timed, with the wrapper's Cin pad copy timed alone.
 
@@ -421,11 +429,14 @@ NMS_CAPS = (1, 37, 100, 512, 1023, 1024, 2048, 4096)
 # configs' widths (phases 3 and 10), in bf16 and fp32: in bf16 the wgmma
 # kernels' 128-wide instance (8, 36 and 100 padded by the wrapper where
 # they are off its multiple, 48) and their 256-wide one (200, 208), past
-# 256 (288, 512) K1's register-A kernel and K4's tiled one; in fp32 K1's
-# 3xTF32 kernel (its 64- and 128-wide instances to 64 and 128, then
-# 256-wide tiles) and
-# K4's tiled kernel at each.
+# 256 (288, 512) K1's register-A kernel and K4's output-tiled one; in fp32
+# K1's 3xTF32 kernel (its 64- and 128-wide instances to 64 and 128, then
+# 256-wide tiles) and K4's output-tiled kernel (its one-tile 128- and
+# 256-wide form to 256, then 256-wide tiles).
 ANY_C = (8, 36, 48, 100, 200, 208, 288, 512)
+# K4 past the hq tile's shared-memory room (phase 10): one hq buffer (1168)
+# and hq built in slabs of k, once a chunk (2320).
+K4_WIDE_C = (1168, 2320)
 # K1 in fp32 against its fp32 twin (TF32 off): the same products summed in
 # another order.
 K1_FP32_TOL = 1e-4
@@ -482,6 +493,22 @@ def graph_ms(fn, calls: int = 10) -> float:
     return ms
 
 
+class Laps:
+    """Seconds between marks: ``laps("part")`` closes the part that began at
+    the last mark; ``str(laps)`` lists them."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = round(now - self.t, 1)
+        self.t = now
+
+    def __str__(self) -> str:
+        return ", ".join(f"{k} {v} s" for k, v in self.s.items())
+
+
 def count_ops(predictor, request, names) -> dict:
     """How many times each ATen op in ``names`` ran in one request."""
     import torch
@@ -517,7 +544,7 @@ def ptxas_spills(log: str, kernel: str) -> dict:
 SPILL_CHECKED = (("K1", "meta_kernel_fused_wgmma", 2, True),
                  ("K1 register-A", "meta_kernel_fused_rs", 4, True),
                  ("K4", "meta_kernel_fused_i8_wgmma", 2, True),
-                 ("K4 tiled", "meta_kernel_fused_i8_tiled", 4, False),
+                 ("K4 output-tiled", "meta_kernel_fused_i8_tiles", 4, True),
                  ("K3", "conv3x3_i8_wgmma", 6, True))
 
 
@@ -1093,10 +1120,11 @@ def check_k1_any_c(gen, device) -> dict:
 
 def check_k4_any_c(gen, device) -> float:
     """Phase 10's K4 past the configs' widths: bf16 and fp32 ``g`` at every
-    C of ``ANY_C`` (``k4_plan``), at (1, 3, 37) and (2, 4, 70), and the edge
-    case that binds every clamp and rounding tie at C = 40 and 288, against
-    the twin: within 1e-4 x max|ref|, the differing elements counted
-    (the kernels' arithmetic is the twin's). Returns max|diff|."""
+    C of ``ANY_C`` (``k4_plan``), at (1, 3, 37) and (2, 4, 70), at
+    ``K4_WIDE_C`` on (1, 3, 37), and the edge case that binds every clamp
+    and rounding tie at C = 40, 288 and 2320, against the twin: within 1e-4
+    x max|ref|, and no element differing (the kernels' arithmetic is the
+    twin's). Returns max|diff|."""
     import torch
 
     from range_view_3d_detection_torch.kernels.stem import (
@@ -1106,12 +1134,18 @@ def check_k4_any_c(gen, device) -> float:
     )
 
     worst = 0.0
+    laps = Laps()
     for dt in (torch.bfloat16, torch.float32):
-        cases = [(f"{shape + (C,)}", k4_inputs(*shape, C, gen, device, dtype=dt))
+        # (tag, shape, maker), made in this order from ``gen`` as they run.
+        cases = [(f"{shape + (C,)}", shape + (C,), k4_inputs)
                  for C in ANY_C for shape in ((1, 3, 37), (2, 4, 70))]
-        cases += [(f"edge case {shape}", k4_edge_case(*shape, gen, device, dtype=dt))
-                  for shape in ((1, 3, 37, 40), (1, 2, 70, 288))]
-        for tag, args in cases:
+        cases += [(f"{(1, 3, 37, C)}", (1, 3, 37, C), k4_inputs) for C in K4_WIDE_C]
+        cases += [(f"edge case {shape}", shape, k4_edge_case)
+                  for shape in ((1, 3, 37, 40), (1, 2, 70, 288), (1, 2, 37, 2320))]
+        for i, (tag, shape, make) in enumerate(cases):
+            if i == len(ANY_C) * 2:
+                laps(f"{dt} to C = {ANY_C[-1]}")
+            args = make(*shape, gen, device, dtype=dt)
             plan = k4_plan(args["g"].shape[-1], dt)
             got = meta_kernel_fused_i8(**args)
             want = meta_kernel_fused_i8_plain(**args)
@@ -1121,10 +1155,13 @@ def check_k4_any_c(gen, device) -> float:
             n_diff = int((got != want).sum())
             check(bool(torch.isfinite(got).all()), f"K4 {dt} {tag} non-finite")
             check(err <= 1e-4 * ref, f"K4 {dt} {tag}: max|diff| {err} > 1e-4 * {ref}")
+            check(n_diff == 0, f"K4 {dt} {tag}: {n_diff} elements differ from the twin")
             say(f"K4 {dt} {tag} ({plan.kernel}, {plan.pad} channels padded): max|diff| "
                 f"{err:.4g} (max|ref| {ref:.4g}), {n_diff} of {got.numel()} elements "
                 f"differ; ok")
             worst = max(worst, err)
+        laps(f"{dt} at C = {', '.join(map(str, K4_WIDE_C))} and the edge cases")
+    say(f"K4 any C (phase 10): {laps}")
     return worst
 
 
@@ -1365,6 +1402,7 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
         n_diff = int((got != want).sum())
         check(bool(torch.isfinite(got).all()), f"K4 non-finite at {tag}")
         check(err <= 1e-4 * ref, f"K4 {tag}: max|diff| {err} > 1e-4 * {ref}")
+        check(n_diff == 0, f"K4 {tag}: {n_diff} elements differ from the twin")
         say(f"K4 {tag} {tuple(args['g'].shape)}: max|diff| {err:.4g} (max|ref| "
             f"{ref:.4g}), {n_diff} of {got.numel()} elements differ; ok")
         k4_err = max(k4_err, err)
@@ -5206,11 +5244,13 @@ def gate_heads(tag, got, want, form) -> str:
     return "; ".join(parts)
 
 
-def tiny_card_vs_cpu(device, smi) -> dict:
+def tiny_card_vs_cpu(device, smi) -> tuple:
     """Phase 44's tiny config (widths 8) served on the card in fp32 (K1
     stem), bf16 (K1 stem) and int8 (K4 stem, quantized from the fp32
-    model), each against the same model on the CPU. Returns the launches of
-    each card request."""
+    model: K4's output-tiled kernel in fp32), each against the same model
+    on the CPU. Returns the launches of each card request and the card's
+    ms for the int8 request (median of 5, host clock after a synchronize),
+    the one the kernels line's K4 fp32 entry counts."""
     import dataclasses
 
     import torch
@@ -5223,6 +5263,7 @@ def tiny_card_vs_cpu(device, smi) -> dict:
     request = serving._sample_inputs(2, 16, 256, 5, seed=44)
     tiny = dataclasses.replace(serving._flagship_config(tiny=True), stem_pallas=True)
     launches = {}
+    wall = []
 
     def pair(cfg):
         cpu = flagship_predictor(cfg, dec, "cpu", torch.Generator().manual_seed(SEED + 44),
@@ -5239,8 +5280,19 @@ def tiny_card_vs_cpu(device, smi) -> dict:
         kept = check_results([result])
         text = gate_heads(f"tiny {tag}", model_heads(card, request),
                           model_heads(cpu, request), form)
+        timed = ""
+        if tag == "int8":
+            times = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                card(*request)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            wall.append(statistics.median(times))
+            timed = f", {wall[0]:.3f} ms a request"
         say(f"tiny config {tag} (widths {card.cfg.layers}, B=2 16x256): launches "
-            f"{launches[tag]}, kept {kept}; heads against the CPU run: {text}")
+            f"{launches[tag]}, kept {kept}{timed} on {smi}; heads against the CPU run: "
+            f"{text}")
         return launches[tag]
 
     cpu32, card32 = pair(tiny)
@@ -5259,13 +5311,13 @@ def tiny_card_vs_cpu(device, smi) -> dict:
     n = serve("int8", cpu32, card32, "int8")
     check(n["meta_kernel_fused_i8"] > 0 and n["conv3x3_i8_fused"] > 0 and n["nms_scan"] > 0
           and n["meta_kernel_fused"] == 0, f"tiny int8 launches {n}")
-    return launches
+    return launches, wall[0]
 
 
-def kernel_shapes_phase(device, smi) -> dict:
+def kernel_shapes_phase(device, smi) -> list:
     """Phase 44: what the kernels take past the configs' shapes, on the main
-    paths (see the module docstring). Returns K1 fp32's entry of the
-    kernels line."""
+    paths (see the module docstring). Returns K1 fp32's and K4 fp32's
+    entries of the kernels line."""
     import dataclasses
 
     import torch
@@ -5288,7 +5340,9 @@ def kernel_shapes_phase(device, smi) -> dict:
     from range_view_3d_detection_torch.models.decoder import DecoderConfig
 
     t0 = time.perf_counter()
-    tiny_card_vs_cpu(device, smi)
+    laps = Laps()
+    tiny_launches, tiny_ms = tiny_card_vs_cpu(device, smi)
+    laps("tiny requests")
 
     # One fp32 rv-av2 request with the K1 stem at B=2 64x1808; the same
     # model at a small size against its CPU run.
@@ -5321,6 +5375,7 @@ def kernel_shapes_phase(device, smi) -> dict:
         f"{counts}, kept {kept}; at B=1 8x256 the card against the CPU: {text} on {smi}")
     del predictor, result
     torch.cuda.empty_cache()
+    laps("fp32 rv-av2 request")
 
     # K1 in fp32 at the flagship stem: the kernels line's entry.
     gen = torch.Generator().manual_seed(SEED + 46)
@@ -5348,6 +5403,7 @@ def kernel_shapes_phase(device, smi) -> dict:
         f"{H100_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32); the earlier CUDA-core limit (the same "
         f"work as FFMA at {H100_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32) {ffma:.4f} ms on {smi}")
     del x32
+    laps("K1 fp32 flagship")
 
     # The register-A kernel's bf16 instance at the flagship stem, launched
     # through its entry point directly (k1_plan sends bf16 at C <= 256 to
@@ -5379,6 +5435,7 @@ def kernel_shapes_phase(device, smi) -> dict:
                     for k, (e, g) in rows.items())
         + f"; register-A max|diff| {rs_err:.4g} (max|ref| {ref:.4g}) on {smi}")
     del xb
+    laps("K1 register-A bf16")
     entry = {
         "name": "meta_kernel_fused_fp32", "route": "cuda",
         "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused.cu",
@@ -5389,30 +5446,48 @@ def kernel_shapes_phase(device, smi) -> dict:
     }
 
     # K4 with fp32 g at the flagship stem, the shape an int8 model quantized
-    # from fp32 gives it (the tiled kernel).
+    # from fp32 gives it (the output-tiled kernel's one-tile form): the
+    # kernels line's entry, its launches those of the tiny int8 request
+    # quantized from fp32 above (the path this form serves).
     x = k4_inputs(2, 64, 1808, 256, gen, device, dtype=torch.float32)
     got, want = meta_kernel_fused_i8(**x), meta_kernel_fused_i8_plain(**x)
     torch.cuda.synchronize()
     err, ref = (got - want).abs().max().item(), want.abs().max().item()
     n_diff = int((got != want).sum())
     check(err <= 1e-4 * ref, f"K4 fp32 flagship: max|diff| {err} > 1e-4 * {ref}")
+    check(n_diff == 0, f"K4 fp32 flagship: {n_diff} elements differ from the twin")
     del got, want
-    k4 = cuda_ms(lambda: meta_kernel_fused_i8(**x), reps=3, warmup=1)
+    k4 = cuda_ms(lambda: meta_kernel_fused_i8(**x), reps=10)
+    k4_graph = graph_ms(lambda: meta_kernel_fused_i8(**x))
     k4_plain = cuda_ms(lambda: meta_kernel_fused_i8_plain(**x), reps=2, warmup=1)
     b4 = bound_ms(*k4_cost(2, 64, 1808, 256, elem=4))
     say(f"K4 fp32 (2, 64, 1808, 256) ({k4_plan(256, torch.float32).kernel}): max|diff| "
         f"{err:.4g} (max|ref| {ref:.4g}), {n_diff} of {x['g'].numel()} elements differ; "
-        f"kernel {k4:.4f} ms eager, plain {k4_plain:.3f} ms, bound {b4[0]:.4f} ms ({b4[1]}) "
-        f"on {smi}")
+        f"kernel {k4:.4f} ms eager ({100 * b4[0] / k4:.1f}% of its int8 tensor-core bound), "
+        f"{k4_graph:.4f} ms graph replay ({100 * b4[0] / k4_graph:.1f}%), plain "
+        f"{k4_plain:.3f} ms, bound {b4[0]:.4f} ms ({b4[1]}); the tiny int8 request "
+        f"quantized from fp32 (its K4 launches: {tiny_launches['int8']['meta_kernel_fused_i8']}) "
+        f"{tiny_ms:.3f} ms on {smi}")
     del x
+    laps("K4 fp32 flagship")
+    k4_entry = {
+        "name": "meta_kernel_fused_i8_fp32", "route": "cuda",
+        "source": "range_view_3d_detection_torch/csrc/meta_kernel_fused_i8.cu",
+        "replaces": "range_view_3d_detection_tpu/kernels/stem_pallas.py:176",
+        "launches": tiny_launches["int8"]["meta_kernel_fused_i8"], "max_abs_err": err,
+        "ms": k4, "graph_ms": k4_graph, "plain_ms": k4_plain, "bound_ms": b4[0],
+        "bound_by": b4[1], "library_ms": None,
+    }
 
     # K1 and K4 at C = 36, 48, 288 and 512, bf16 and fp32, against their
-    # twins, each timed beside its twin (bound at the dtype's peak, K1 fp32's
-    # as 3xTF32 with its FFMA bound beside it; past C = 256 the kernels
-    # repeat the W1 product for each 256-wide output tile, 1.5x the
-    # operations at C = 512, and the bound counts the function's). At C = 36
-    # in bf16 the wrappers pad C (K1 to 40, K4 to 48) with one copy of the
-    # inputs and the output's crop, timed on their own.
+    # twins (K4 with no element differing), each timed beside its twin
+    # (bound at the dtype's peak, K1 fp32's as 3xTF32 with its FFMA bound
+    # beside it; past C = 256 the kernels repeat the W1 product for each
+    # 256-wide output tile, 1.5x the operations at C = 512, and the bound
+    # counts the function's; K4's is also given at the kernel's own count),
+    # K4 also by graph replay. At C = 36 in bf16 the wrappers pad C (K1 to
+    # 40, K4 to 48) with one copy of the inputs and the output's crop, timed
+    # on their own.
     for C, shape in ((36, (2, 64, 1808)), (48, (2, 64, 1808)), (288, (1, 64, 1808)),
                      (512, (1, 64, 1808))):
         for dt in (torch.bfloat16, torch.float32):
@@ -5437,12 +5512,21 @@ def kernel_shapes_phase(device, smi) -> dict:
                 n_diff = int((got != want).sum())
                 check(err <= tol * ref, f"{name} {dt} {shape + (C,)}: max|diff| {err} > "
                       f"{tol} * {ref}")
+                check(name == "K1" or n_diff == 0,
+                      f"K4 {dt} {shape + (C,)}: {n_diff} elements differ from the twin")
                 del got, want
                 ms = cuda_ms(lambda: fn(**x), reps=3, warmup=1)
                 plain_ms = cuda_ms(lambda: plain(**x), reps=2, warmup=1)
                 part = (f"{name} ({plan.kernel}) {ms:.4f} ms eager, plain {plain_ms:.3f} ms, "
                         f"bound {cost[0]:.4f} ms ({cost[1]}), max|diff| {err:.4g} (max|ref| "
                         f"{ref:.4g}, {n_diff} elements differ)")
+                if name == "K4":
+                    tiles = -(-C // 256)
+                    part += (f", {graph_ms(lambda: fn(**x), calls=3):.4f} ms graph replay, "
+                             f"{100 * cost[0] / ms:.1f}% of its bound eager"
+                             + (f"; the kernel's own work (W1 repeated for each of {tiles} "
+                                f"output tiles, {(tiles + 1) / 2:.2f}x) "
+                                f"{cost[0] * (tiles + 1) / 2:.4f} ms" if C > 256 else ""))
                 if name == "K1" and dt == torch.float32:
                     part += (f", the earlier CUDA-core limit (FFMA) "
                              f"{bound_ms(flops, H100_FP32_FLOPS, nbytes)[0]:.4f} ms")
@@ -5455,6 +5539,7 @@ def kernel_shapes_phase(device, smi) -> dict:
                 text.append(part)
                 del x
             say(f"stems at {shape + (C,)} {dt}: " + "; ".join(text) + f" on {smi}")
+        laps(f"stems at C = {C}")
 
     # K3 at a tail shape: Cin 48 (padded to 64 by one copy of x) -> Cout 40.
     key = (48, 40, 1808, 1)
@@ -5474,8 +5559,9 @@ def kernel_shapes_phase(device, smi) -> dict:
         f"({100 * b3[0] / k3:.1f}% of bound), {k3_graph:.4f} ms graph replay, of it the "
         f"wrapper's Cin pad copy (+{pad} channels) {pad_ms:.4f} ms; bound {b3[0]:.4f} ms "
         f"({b3[1]}) on {smi}")
-    say(f"phase 44: {time.perf_counter() - t0:.0f} s")
-    return entry
+    laps("K3 tail shape")
+    say(f"phase 44: {time.perf_counter() - t0:.0f} s ({laps})")
+    return [entry, k4_entry]
 
 
 def flagship_predictor(cfg, dec, device, gen, request):
@@ -5535,6 +5621,7 @@ def main() -> int:
     from range_view_3d_detection_torch.models.decoder import DecoderConfig, decode
 
     t_start = time.perf_counter()
+    laps = Laps()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -5551,6 +5638,7 @@ def main() -> int:
     lib = _build.library()
     say(f"build: {lib.path} in {lib.build_seconds:.1f} s")
     check_spills(lib)
+    laps("1-2 device, build")
 
     # 3. K1 against its plain twin: the flagship shape, a small odd one, a
     # single row with a ragged last tile, exact tiles; the Waymo stem
@@ -5578,6 +5666,7 @@ def main() -> int:
     # own (the main path's weights stay as they were).
     k1_any = check_k1_any_c(torch.Generator().manual_seed(SEED + 17), device)
     k1_err = max(k1_err, k1_any["torch.bfloat16"])
+    laps("3 K1")
 
     # 4. K2 against its plain twin: the timed case (B=2, cap=1024, drawn
     # from the main generator as before), every B and cap it takes, and the
@@ -5608,6 +5697,7 @@ def main() -> int:
                                       (iou_k2, scores_k2, valid_k2, payload_k2)))
     # Payloads of other widths; caps past 4096 are phase 39's.
     k2_err = max(k2_err, check_k2_any_p(gen_k2, device))
+    laps("4 K2")
 
     # 5. Main path: the flagship Predictor answers requests; its BatchNorm
     # epilogue rests on addcmul being one fused multiply-add.
@@ -5645,6 +5735,7 @@ def main() -> int:
     export_phase5(model, cfg, dec, requests, art_dir)
     phase5_results = [host(r) for r in results]
     phase5_heads = {k: v.cpu() for k, v in bf16_heads.items()}
+    laps("5 main path")
 
     # 6. Timings at the main path's shapes.
     k1_ms = cuda_ms(lambda: meta_kernel_fused(**k1_in), reps=10)
@@ -5723,43 +5814,61 @@ def main() -> int:
         f"{2 * 1e3 / ms_per_request:.2f} frames/s; forward {fwd_ms:.3f} ms, "
         f"decode+NMS {dec_ms:.3f} ms (device) on {smi}; "
         f"total {time.perf_counter() - t_start:.0f} s")
+    laps("6 timings")
     kernels += int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec,
                            device, gen, smi)
+    laps("7-11 int8")
     del predictor, model, results, bf16_results, bf16_heads, out, made, k1_in, k1_waymo, k2_in
     torch.cuda.empty_cache()
     step_ms = training_phases(device, smi)
     torch.cuda.empty_cache()
+    laps("12-16 training")
     remat_ms = remat_phase(device, smi)
     torch.cuda.empty_cache()
+    laps("22 remat")
     trainer_launches, trainer_work = trainer_phase(device, smi)
     torch.cuda.empty_cache()
+    laps("17 Trainer")
     distributed_launches = distributed_phase(device, smi, trainer_work)
+    laps("23 distributed")
     int8_launches, qat_launches, phase18 = overfit_phase(device, smi)
     torch.cuda.empty_cache()
+    laps("18, 24 overfit, QAT")
     try:
         serving_launches = serving_phases(art_dir, requests, phase5_results, phase5_heads,
                                           cfg, dec, device, smi)
         torch.cuda.empty_cache()
+        laps("19-21 serving")
         width_launches = width_phase(art_dir / "bf16", device, smi)
+        laps("25 width")
         chunk_launches = chunk_phase(art_dir / "bf16", requests, device, smi)
+        laps("26 chunk")
         aot_launches = aot_phase(art_dir, requests, device, smi)
+        laps("27 AOT")
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
     range_partition_phase(device, smi)
     torch.cuda.empty_cache()
+    laps("28 range partition")
     converted_launches = converted_phase(device, smi)
     torch.cuda.empty_cache()
+    laps("29 converted")
     bench_launches = bench_phase(device, kind, smi)
     torch.cuda.empty_cache()
+    laps("30 bench")
     tool_launches = tools_phases(device, kind, smi, fwd_ms=fwd_ms, dec_ms=dec_ms,
                                  step_ms=step_ms, remat_ms=remat_ms["B=2 remat"],
                                  phase18=phase18)
     torch.cuda.empty_cache()
+    laps("31-38 tools")
     slice_counts = slice_phases(device, smi, tool_launches["dryrun"], k2_big_split)
     torch.cuda.empty_cache()
+    laps("39-42")
     conv_shapes_launches = conv_shapes_phase(device, smi)
     torch.cuda.empty_cache()
-    k1_fp32 = kernel_shapes_phase(device, smi)
+    laps("43 conv shapes")
+    shapes_entries = kernel_shapes_phase(device, smi)
+    laps("44 kernel shapes")
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -5789,7 +5898,8 @@ def main() -> int:
         k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
         if k["name"] == "nms_scan":
             k.update(slice_counts["k2_big"])
-    kernels.append(k1_fp32)
+    kernels += shapes_entries
+    say(f"chip_smoke: by phase {laps}")
     say(f"chip_smoke: total {time.perf_counter() - t_start:.0f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -5937,7 +6047,8 @@ def shipped_round(tree: Path) -> int:
     ``shipped-times``, with the port package of the checkout TREE (its
     wrappers, and its ``csrc`` built into its own ``build/``): K1 at the
     flagship stem (2, 64, 1808, 256) and the Waymo stem (2, 64, 2656, 128),
-    K4 at the flagship stem, K2 at B=2 cap 1024, and K3 summed over the 62
+    K4 at the flagship stem and at C = 128 (its two bf16 wgmma instances),
+    K2 at B=2 cap 1024, and K3 summed over the 62
     launches of one served int8 request, each by CUDA events around eager
     launches (phase 6's method) and by CUDA-graph replay. Prints one line,
     ``shipped_round {json}``."""
@@ -5965,6 +6076,7 @@ def shipped_round(tree: Path) -> int:
     k1_in = stem_inputs(2, 64, 1808, 256, gen, device)
     waymo_in = stem_inputs(2, 64, 2656, 128, gen, device)
     k4_in = k4_inputs(2, 64, 1808, 256, gen, device)
+    k4_128 = k4_inputs(2, 64, 1808, 128, gen, device)
     k2_in = nms_case(2, 1024, gen, device)
     nms_kw = dict(iou_threshold=0.3, merge_threshold=0.5)
     request = serving._sample_inputs(2, 64, 1808, 5, seed=0)
@@ -5979,6 +6091,7 @@ def shipped_round(tree: Path) -> int:
         "K1 Waymo": lambda: meta_kernel_fused(**waymo_in),
         "K2": lambda: nms_scan(*k2_in, **nms_kw),
         "K4": lambda: meta_kernel_fused_i8(**k4_in),
+        "K4 C=128": lambda: meta_kernel_fused_i8(**k4_128),
     }
     row = {}
     for name, fn in calls.items():
@@ -6048,7 +6161,7 @@ def kernel_shapes_main() -> int:
     check_k2_any_p(gen, device)
     k3_odd_shapes(K3_TAIL_SHAPES, gen, device)
     check_k4_any_c(gen, device)
-    say(json.dumps({"k1_fp32": kernel_shapes_phase(device, smi)}))
+    say(json.dumps({"kernels": kernel_shapes_phase(device, smi)}))
     say(f"chip_smoke kernel-shapes: total {time.perf_counter() - t_start:.0f} s")
     return 0
 

@@ -2,8 +2,7 @@
 // (conv3x3_i8.cu, meta_kernel_fused.cu, meta_kernel_fused_i8.cu):
 // shared-memory addresses, mbarriers, TMA tensor loads, the wgmma fence /
 // commit / wait, the two stems' 128-byte-swizzle tiles, bf16 unpacking
-// and weight tensor maps, and the element loads and roundings of K4's
-// tiled (any C, bf16 or fp32 g) kernel.
+// and weight tensor maps.
 
 #pragma once
 
@@ -159,38 +158,6 @@ inline bool stem_weight_map(CUtensorMap* map, CUtensorMapDataType type, int elem
                                 CU_TENSOR_MAP_SWIZZLE_128B,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// ---- K4's tiled kernel: g and feats in either compute dtype T.
-
-// One element of T, as fp32 (exact).
-template <typename T>
-__device__ __forceinline__ float ld_elem(const T* p);
-template <>
-__device__ __forceinline__ float ld_elem<float>(const float* p) {
-  return __ldg(p);
-}
-template <>
-__device__ __forceinline__ float ld_elem<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return bf16_lo(__ldg(reinterpret_cast<const unsigned short*>(p)));
-}
-
-// x rounded to T, as fp32 (the identity for fp32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return round_bf16(x);
-}
-
-// Component u (0-3) of a 4-vector; u is a constant once unrolled.
-template <typename V>
-__device__ __forceinline__ auto lane4(const V& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
 }  // namespace

@@ -32,9 +32,9 @@
 //   tile and the accumulators are Cp wide, and channels C..Cp-1 are zeros
 //   (the TMA fills the weights outside the C x C matrices with zeros; hq
 //   and pq there are 0 with zero affines; they are not stored). The
-//   wrapper pads a bf16 C that is not a multiple of 16 with zero channels;
-//   fp32 g and feats and C above 256 take the tiled kernel at the end of
-//   this file.
+//   wrapper pads a bf16 C that is not a multiple of 16 with zero channels.
+//   fp32 g and feats at C <= 256, and C above 256 in either dtype, take the
+//   output-tiled kernel at the end of this file, on the same int8 wgmma.
 // - A block owns 64 pixels of one row and all Cp output channels and loops
 //   over the 9 neighbours. Two consumer warpgroups split the output
 //   channels: warpgroup j owns columns [j Cp/2, (j + 1) Cp/2) of z, of the
@@ -526,15 +526,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A 4-D bf16 tensor map over g (B, H, W, C), boxes of one row of kRowPix
-// pixels x C channels, unswizzled; pixels outside the image arrive as zeros.
-bool row_map(CUtensorMap* map, const void* g, int B, int H, int W, int C) {
+// A 4-D tensor map over g (B, H, W, C) of `elem`-byte elements, boxes of
+// one row of kRowPix pixels x C channels, unswizzled; pixels outside the
+// image arrive as zeros.
+bool row_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* g, int B,
+             int H, int W, int C) {
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * elem, (cuuint64_t)W * C * elem,
+                                 (cuuint64_t)H * W * C * elem};
   const cuuint32_t box[4] = {(cuuint32_t)C, kRowPix, 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return cuTensorMapEncodeTiled(map, type, 4,
                                 const_cast<void*>(g), dims, strides, box, elem_strides,
                                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -548,7 +550,8 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   CUtensorMap w1map, kmap, gmap;
   constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   if (!stem_weight_map(&w1map, kU8, 1, w1t, C, kCp, 1) ||
-      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp / 2, 9) || !row_map(&gmap, g, B, H, W, C))
+      !stem_weight_map(&kmap, kU8, 1, kt, C, kCp / 2, 9) ||
+      !row_map(&gmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g, B, H, W, C))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = kSmemBytes<kCp>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -562,308 +565,702 @@ int launch(const void* g, const void* feats, const void* w1t, const void* kt,
   return (int)cudaGetLastError();
 }
 
-// ---------------- The tiled kernel: any C, g and feats in bf16 or fp32.
+// ---------------- The output-tiled kernel: fp32 g at C <= 256, C past 256.
 //
-// The wgmma instances above take bf16 g through a TMA row map and C a
-// multiple of 16 up to 256 (their z and accumulator live in registers).
-// The wrapper sends this kernel fp32 g and feats (an int8 model quantized
-// from fp32: x0 = g(p + d) - g(p) and p * feats are fp32 there, as in
-// stem_pallas.py:97-107) and C above 256; it also takes bf16 at any C.
+// The instances above read bf16 g through a TMA row map and keep z and d
+// of the whole tile (Cp <= 256) in one set of registers. This kernel takes
+// the rest (kernels/stem.py::k4_plan), on the same int8 wgmma (m64nNk32
+// s8, A and B from shared memory) and with the same warp roles: one
+// producer thread streams weight boxes by TMA through an mbarrier ring,
+// three builder warps build hq one neighbour ahead, two consumer
+// warpgroups split the output tile's columns.
+// - Form 1: fp32 g and feats at C <= 256 (an int8 model quantized from
+//   fp32: x0 = g(p + d) - g(p) and p * feats in fp32, stem_pallas.py
+//   _stem_kernel_i8 with cdt = float32), one 128- or 256-wide tile.
+// - Form 2: g in either dtype past C = 256, in 256-wide output tiles.
+// Form 2 takes fp32 at C <= 256 as well (one tile), but at the flagship
+// stem (2, 64, 1808, 256) it takes 1.8x form 1's time on an H100: its
+// builders wait on g from L2 where form 1's read staged rows, and its
+// chain of two chunks a neighbour has less to overlap (chip_probe_k4.py
+// --dtype fp32 times both; PERF.md). So form 1 stays.
 //
-// Bound: two C x C integer products a neighbour and pixel, here on the
-// CUDA cores (dp4a, four int8 products a lane and instruction), besides
-// the quantize work per element.
+// Bound on the H100: two C x C int8 GEMMs a neighbour and pixel, 5.46e11
+// operations at (2, 64, 1808, 256), 0.276 ms at 1979 TOP/s; 1.09e12 at
+// (1, 64, 1808, 512), 0.552 ms, of which form 2 does 1.5x (it repeats the
+// W1 product for each 256-wide output tile: 0.83 ms).
 //
-// Design (a simple tiled dp4a kernel, K1's tiled kernel in int8):
-// - A block owns a tile of output channels kTN wide (64 where C <= 64,
-//   else 256; the grid's z walks B x ceil(C / kTN) tiles) for 1024 / (kTN
-//   / 8) pixels of one row (128 or 32). Per neighbour it loops over
-//   kTN-wide chunks j of z: z_j = hq @ W1[:, j] over K = C in steps of 4
-//   kTKW channels (64, or 32 in the 64-wide instance, whose 128-pixel
-//   stage holds as many g values), hq built from g as it is staged; then
-//   pq_j =
-//   clip(rint(relu(a1 float(z_j) + b1) * fs), +-127) into shared memory;
-//   then d += pq_j @ K_n[j, tile] in int32. After the chunks, acc +=
-//   float(d) * kdq[n], so the neighbour's sum is one exact integer before
-//   it meets the fp32 accumulator, as in the twin.
-// - 256 threads, each 4 pixels x 8 channels (two runs of 4, kTN / 2
-//   apart) of z, d and the accumulator; operands are int8 quadruples along
-//   K (one 32-bit word), from shared memory as 16-byte loads. The stages
-//   are double-buffered, and each thread's share of the next stage is
-//   loaded into registers while the current one is multiplied (K1's tiled
-//   kernel's pipeline).
-// - The twin's arithmetic step for step (__fmul_rn/__fadd_rn, rint half
-//   to even by __float2int_rn, exact int32 sums; float(z) and float(d)
-//   round as the twin's fp64 -> fp32 conversion of the same integer), so
-//   it equals kernels/stem.py::meta_kernel_fused_i8_plain bit for bit.
-constexpr int kTThreads = 256;
+// Form 1, the reckoning. At Cp = 256 the bf16 instance fills 224 of the
+// 227 KB a block may have: W1 64 KB, 3 ring boxes 48 KB, 2 hq/pq tiles 32
+// KB, two staged g rows of 66 pixels 2 x 33 KB, the affines and kdq 13 KB.
+// In fp32 the two rows are 2 x 66 KB, 290 KB in all. The ways out:
+// - stage only the centre row and read the shifted ones from L2: the
+//   builders wait on those loads, as K1's did before its rows were staged
+//   (chip_probe_k1.py; staging the rows took K4's bf16 instance from 2.02
+//   to 1.69 ms by graph replay on an H100);
+// - stage the rows a 128-channel k-block at a time: 9 x 135 KB of L2
+//   re-reads a block, 4.5 GB a flagship call;
+// - a pre-pass writing hq for the 9 neighbours as int8: 9 x 59 MB through
+//   HBM and back, about 0.3 ms at the flagship;
+// - stream W1 through the ring with K_n: 64 KB more of L2 reads a block
+//   and neighbour (2.1 GB a flagship call, the K_n stream's size again),
+//   made by the TMA, out of the builders' way.
+// This kernel takes the last. Shared memory at Cp = 256: 3 ring boxes (48
+// KB: W1^T and K_n^T boxes of 128 k x 128 n, one warpgroup's columns
+// each), 2 hq/pq tiles (32 KB), two fp32 g rows (132 KB), the affines and
+// kdq (13 KB): 226 KB, 0.9 KB to spare. At Cp = 128 the ring has 6 boxes.
+// Registers: z and d share Cp/4 int32 a thread (z dies in the epilogue),
+// beside Cp/4 fp32 of the accumulator, as above; the shifted fp32 feats
+// would take Cp/4 more if held across GEMM1 (the bf16 instances hold
+// Cp/8), so they are loaded two 8-column groups at a time, two steps
+// ahead of the epilogue's use (the first two before GEMM1). |z|, |d| <
+// 2^22 at C <= 256, so small_int_to_float is exact.
+//
+// Form 2, C past 256 (either dtype; any C that is a multiple of 16):
+// - The grid's z walks B x ceil(C / 256) output tiles. Per neighbour and
+//   per 128-wide chunk j of z: z_j = hq @ W1[:, j] over K = C (each
+//   warpgroup 64 of the chunk's columns, m64n64k32), the BN1/ReLU/x
+//   fs/quantize epilogue into pq_j (64 x 128 int8, two tiles in turn, so
+//   a warpgroup writes the next while the other's GEMM2 reads the last),
+//   then d += pq_j @ K_n[j, tile] (m64n128k32). After the last chunk,
+//   acc += float(d) * kdq[n]: d stays one exact integer over the chunks of
+//   a neighbour, as the twin's sum is (kernels/stem.py rounds
+//   float(d) * kdq[n] once), so z_j, d and the accumulator are registers of
+//   their own: 32 + 64 + 64 a thread. ptxas keeps them at zero spills with
+//   the shifted feats loaded one step ahead (not two) and setmaxnreg 72 /
+//   216 (the builders need no more than 72).
+// - hq (64 x C int8, 32 KB at C = 512) is built once a neighbour and lives
+//   across the chunks: in two buffers up to C = 1152, in one up to 2304
+//   (the builders then wait for the neighbour's last GEMM1). Past that it
+//   does not fit, and the builders build it a slab of 1152 channels at a
+//   time, two buffers deep, for each chunk again (nchunks times the
+//   building, where a wider stem would pay for its size). W1 (C x C) does
+//   not fit either and streams through the ring, in boxes of 128 k x 64
+//   n, once per output tile.
+// - The builders read g and the BN0 affine from L2 with the image's
+//   bounds checked per pixel: two rows of 66 pixels x C do not fit beside
+//   hq, and nothing in shared memory grows with C but hq.
+// - |z| and |d| reach C x 127 x 128: past 2^22 at C = 512 (8.3e6), where
+//   small_int_to_float stops being exact, and past 2^24 at C > 1032, where
+//   float() rounds. int_to_float_rn is correctly rounded at every int32,
+//   as the twin's conversion of the exact fp64 integer is.
+//
+// The twin's arithmetic step for step, as above (__fmul_rn/__fadd_rn, rint
+// half to even, exact int32 sums), so the kernel equals
+// kernels/stem.py::meta_kernel_fused_i8_plain bit for bit. What holds each
+// form back on the card (chip_probe_k4.py --ablate): PERF.md.
 
-// The tile of the kTN-wide instance: kTX threads across its channels,
-// kTY thread rows of 4 pixels each.
-template <int kTN>
-struct Tile {
-  static constexpr int kTX = kTN / 8;
-  static constexpr int kTY = kTThreads / kTX;
-  static constexpr int kTP = 4 * kTY;      // pixels of one row per block
-  static constexpr int kTKW = kTN == 64 ? 8 : 16;  // words (4 channels) of K a stage
-  static constexpr int kAW = kTKW + 4;     // row stride of the hq tile [kTP][kAW]
-  static constexpr int kBW = kTN + 4;      // row stride of a weight stage [kTKW][kBW]
-  static constexpr int kPW = kTN / 4 + 4;  // row stride of the pq tile [kTP][kPW]
-  static constexpr int kNA = kTP * kTKW / kTThreads;  // hq words a thread stages
-  static constexpr int kNB = kTN * kTKW / kTThreads;  // weight words a thread stages
-  // Output channel of a thread's q-th column (q < 8).
-  static __device__ __forceinline__ int col(int q, int tx) {
-    return (q >> 2) * (kTN / 2) + tx * 4 + (q & 3);
+// float(i), correctly rounded (half to even), for every int i: i = 4096 hi
+// + lo with hi = i >> 12 and 0 <= lo < 4096, both exact in float (lo as
+// 2^23 + lo less 2^23), and one fused multiply-add rounds the exact sum.
+__device__ __forceinline__ float int_to_float_rn(int i) {
+  const float hi = small_int_to_float(i >> 12);
+  const float lo = __fsub_rn(__int_as_float((i & 0xFFF) | 0x4B000000), 8388608.f);
+  return __fmaf_rn(hi, 4096.f, lo);
+}
+
+// 16-byte words of 8 elements of T.
+template <typename T>
+constexpr int kWords8 = sizeof(T) / 2;
+
+// hq of 8 channels: x0 = T(s - c), min(rint(relu(a0 x0 + b0)), 127), as
+// 8 int8 bytes (c, s: 8 elements of T each).
+template <typename T>
+__device__ __forceinline__ uint2 hq8(const uint4 (&c)[kWords8<T>], const uint4 (&s)[kWords8<T>],
+                                     const float (&a0)[8], const float (&b0)[8]) {
+  float x[8];
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const uint32_t cw[4] = {c[v].x, c[v].y, c[v].z, c[v].w};
+      const uint32_t sw[4] = {s[v].x, s[v].y, s[v].z, s[v].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[4 * v + e] = __fsub_rn(__uint_as_float(sw[e]), __uint_as_float(cw[e]));
+    }
+  } else {
+    const uint32_t cw[4] = {c[0].x, c[0].y, c[0].z, c[0].w};
+    const uint32_t sw[4] = {s[0].x, s[0].y, s[0].z, s[0].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t x0 = bf16x2_sub(sw[q], cw[q]);
+      x[2 * q] = bf16_lo(x0);
+      x[2 * q + 1] = bf16_hi(x0);
+    }
   }
+  uint32_t two[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float ha = fmaxf(__fadd_rn(__fmul_rn(x[2 * q], a0[2 * q]), b0[2 * q]), 0.f);
+    const float hb = fmaxf(__fadd_rn(__fmul_rn(x[2 * q + 1], a0[2 * q + 1]), b0[2 * q + 1]), 0.f);
+    two[q] = low_bytes(rint_i8_bits(fminf(ha, 127.f)), rint_i8_bits(fminf(hb, 127.f)));
+  }
+  return make_uint2(__byte_perm(two[0], two[1], 0x5410), __byte_perm(two[2], two[3], 0x5410));
+}
+
+// Two feats values (columns n, n + 1) of T, and their floats.
+template <typename T>
+struct FsPair;
+template <>
+struct FsPair<float> {
+  using V = float2;
+  static __device__ __forceinline__ V load(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ V zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ float lo(V v) { return v.x; }
+  static __device__ __forceinline__ float hi(V v) { return v.y; }
+};
+template <>
+struct FsPair<__nv_bfloat16> {
+  using V = uint32_t;
+  static __device__ __forceinline__ V load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  static __device__ __forceinline__ V zero() { return 0u; }
+  static __device__ __forceinline__ float lo(V v) { return bf16_lo(v); }
+  static __device__ __forceinline__ float hi(V v) { return bf16_hi(v); }
 };
 
-// Bytes p[0 .. min(avail, 4)) as one word (zeros past avail), low byte
-// first.
-__device__ __forceinline__ int load_s8x4(const int8_t* p, int avail) {
-  if (avail >= 4 && (reinterpret_cast<uintptr_t>(p) & 3) == 0)
-    return __ldg(reinterpret_cast<const int*>(p));
-  uint32_t v = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (e < avail) v |= (uint32_t)(uint8_t)__ldg(p + e) << (8 * e);
-  return (int)v;
-}
+// The instance's shapes: T the dtype of g and feats, kN the output tile's
+// width, kTiled form 2.
+template <typename T, int kN, bool kTiled>
+struct Tl {
+  static constexpr int kHalf = kN / 2;            // d and acc columns a warpgroup
+  static constexpr int kZ = kTiled ? 128 : kN;    // the width of a chunk of z
+  static constexpr int kZHalf = kZ / 2;           // z columns a warpgroup
+  static constexpr int kW1Box = kKBlock * kZHalf;  // W1^T box: 128 k x kZHalf n
+  static constexpr int kKBox = kKBlock * kHalf;    // K_n^T box: 128 k x kHalf n
+  static constexpr int kSlot = kKBox;              // a ring stage (>= kW1Box)
+  static constexpr int kStages = kTiled ? 4 : (kN == 256 ? 3 : 6);
+  static constexpr int kRing = kStages * kSlot;
+  // Form 1: one staged fp32 row [kRowPix][C], in 1 KB units.
+  static constexpr int kRowBytes = (kRowPix * kN * (int)sizeof(T) + 1023) / 1024 * 1024;
+  static constexpr int kBars = (2 * kStages + 4 + (kTiled ? 0 : 3)) * 8;
+  // setmaxnreg: form 1 the instances' 80 / 208; form 2's consumers hold z_j,
+  // d and the accumulator (160 registers a thread) and take 216, which
+  // keeps ptxas at zero spills (128 x 72 + 256 x 216 = 64,512, the launch's
+  // registers).
+  static constexpr int kRegsProducer = kTiled ? 72 : kProducerRegs;
+  static constexpr int kRegsConsumer = kTiled ? 216 : kConsumerRegs;
+  // Shared memory beside form 2's hq tiles (form 1: all of it).
+  static constexpr int kFixedSmem =
+      kTiled ? kRing + 2 * kAtomBytes + kBars + 1024
+             : kRing + 2 * (kN / kKBlock) * kAtomBytes + 2 * kRowBytes + 13 * kN * 4 + kBars +
+                   1024;
+};
 
-// d[i][q] += sum_kw dp4a(a[(4 ty + i) as + kw], b[kw kBW + Tile::col(q)]),
-// kw < kTKW.
-template <int kTN>
-__device__ __forceinline__ void dp4a_tile(int (&d)[4][8], const int* a, int as,
-                                          const int* b, int ty, int tx) {
-  constexpr int kBW = Tile<kTN>::kBW, kTKW = Tile<kTN>::kTKW;
-  // One group of 4 k at a time: its 16-byte operand loads, no more, are
-  // live beside the accumulators and the next stage's prefetched elements.
-#pragma unroll 1
-  for (int k4 = 0; k4 < kTKW; k4 += 4) {
-    int4 av[4];
+constexpr int kMaxSmem = 232448;  // the H100's dynamic shared memory a block
+
+// d = A @ B (acc_in false: the first k32 step overwrites d) or d += A @ B
+// over nkb k-blocks: A the K-major tile at a_u32 (one 8 KB atom a
+// k-block), B this warpgroup's next nkb boxes of the ring, each released
+// once the wgmma group that read it has retired. Box i of the stream is
+// warpgroup i % 2's; `cnt` counts this warpgroup's.
+template <int kS, int kSlot, int kAccN>
+__device__ __forceinline__ void ring_gemm(int (&d)[kAccN], uint32_t a_u32, int nkb, bool acc_in,
+                                          int& cnt, int wg, uint64_t* full, uint64_t* empty,
+                                          uint32_t ring_u32) {
+  const bool lead = (threadIdx.x & 31) == 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const int4*>(a + (4 * ty + i) * as + k4);
+  for (int i = 0; i < kAccN; ++i) fence_operand(d[i]);
+  wgmma_fence();
+  int prev = 0;
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int box = 2 * cnt++ + wg;
+    const int s = box % kS;
+    mbar_wait(&full[s], (box / kS) & 1);
+    const uint64_t da = desc_sw128(a_u32 + kb * kAtomBytes);
+    const uint64_t db = desc_sw128(ring_u32 + s * kSlot);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int4 lo = *reinterpret_cast<const int4*>(b + (k4 + u) * kBW + tx * 4);
-      const int4 hi = *reinterpret_cast<const int4*>(b + (k4 + u) * kBW + kTN / 2 + tx * 4);
-      const int bv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ai = lane4(av[i], u);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) d[i][q] = __dp4a(ai, bv[q], d[i][q]);
-      }
+    for (int k32 = 0; k32 < 4; ++k32)
+      wgmma_s8(d, da + 2 * k32, db + 2 * k32, acc_in || kb || k32);  // +32 bytes
+    wgmma_commit();
+    if (kb > 0) {
+      wgmma_wait<1>();
+      __syncwarp();
+      if (lead) mbar_arrive(&empty[prev]);
     }
+    prev = s;
   }
-}
-
-// A thread's share of one weight stage, words (kw, n) = wt[(c0 + n) C + k0
-// + 4 kw ..][+4] for kw < kTKW, n < kTN (wt is [n][k]), into registers;
-// zeros past C in either index. Sixteen neighbouring threads read one
-// row's 64 consecutive bytes.
-template <int kTN>
-__device__ __forceinline__ void fetch_weights(int (&wr)[Tile<kTN>::kNB], const int8_t* wt,
-                                              int C, int k0, int c0, int tid) {
-  constexpr int kTKW = Tile<kTN>::kTKW;
-  const int kb = k0 + 4 * (tid % kTKW);
+  wgmma_wait<0>();
 #pragma unroll
-  for (int r = 0; r < Tile<kTN>::kNB; ++r) {
-    const int col = c0 + tid / kTKW + r * (kTThreads / kTKW);
-    wr[r] = col < C ? load_s8x4(wt + (size_t)col * C + kb, C - kb) : 0;
-  }
+  for (int i = 0; i < kAccN; ++i) fence_operand(d[i]);
+  __syncwarp();
+  if (lead) mbar_arrive(&empty[prev]);
 }
 
-// The same share, from registers into a weight stage [kTKW][kBW].
-template <int kTN>
-__device__ __forceinline__ void store_weights(int* b_s, const int (&wr)[Tile<kTN>::kNB],
-                                              int tid) {
-  constexpr int kTKW = Tile<kTN>::kTKW;
-#pragma unroll
-  for (int r = 0; r < Tile<kTN>::kNB; ++r)
-    b_s[(tid % kTKW) * Tile<kTN>::kBW + tid / kTKW + r * (kTThreads / kTKW)] = wr[r];
+// z's registers: their own in form 2, d's in form 1.
+template <bool kTiled, int kA, int kB>
+__device__ __forceinline__ decltype(auto) z_regs(int (&own)[kA], int (&d)[kB]) {
+  if constexpr (kTiled)
+    return (own);
+  else
+    return (d);
 }
 
-template <typename T, int kTN>
-__global__ void __launch_bounds__(kTThreads, 1)
-    meta_kernel_fused_i8_tiled(const T* __restrict__ g, const T* __restrict__ f,
-                               const int8_t* __restrict__ w1t,
-                               const int8_t* __restrict__ kt,
+template <typename T, int kN, bool kTiled>
+__global__ void __launch_bounds__(kThreads, 1)
+    meta_kernel_fused_i8_tiles(const __grid_constant__ CUtensorMap w1map,
+                               const __grid_constant__ CUtensorMap kmap,
+                               const __grid_constant__ CUtensorMap gmap,
+                               const T* __restrict__ g, const T* __restrict__ f,
                                const float* __restrict__ a0, const float* __restrict__ b0,
                                const float* __restrict__ a1, const float* __restrict__ b1,
-                               const float* __restrict__ kdq, float* __restrict__ out,
-                               int H, int W, int C, int tiles) {
-  using Tl = Tile<kTN>;
-  constexpr int kTP = Tl::kTP, kPW = Tl::kPW, kNA = Tl::kNA;
-  constexpr int kTKW = Tl::kTKW, kAW = Tl::kAW;
-  constexpr int kA = kTP * kAW, kB = kTKW * Tl::kBW;
-  __shared__ __align__(16) int a_s[2 * kA];        // hq words: 2 x [kTP][kAW]
-  __shared__ __align__(16) int b_s[2 * kB];        // weight words: 2 x [kTKW][kBW]
-  __shared__ __align__(16) int p_s[kTP * kPW];     // pq words of chunk j: [kTP][kPW]
-  const int tid = threadIdx.x, tx = tid % Tl::kTX, ty = tid / Tl::kTX;
-  // Stage s writes buffer s % 2 (counted across both products), then one
-  // barrier, then the products read it (K1's tiled kernel's order).
-  int par = 0;
-  float ga[kNA][4], gb[kNA][4];  // the next stage's g(p), g(p + d)
-  int wr[Tl::kNB];               // and its weight words
-  const int w0 = blockIdx.x * kTP, h = blockIdx.y;
-  const int b = blockIdx.z / tiles, n0 = (blockIdx.z % tiles) * kTN;
+                               const float* __restrict__ kdq, float* __restrict__ out, int H,
+                               int W, int C, int tiles, int nbuf, int slab) {
+  using L = Tl<T, kN, kTiled>;
+  using Fs = FsPair<T>;
+  constexpr int kS = L::kStages;
+  constexpr int kHalf = L::kHalf;
+  constexpr int kZHalf = L::kZHalf;
+  constexpr int kV = kWords8<T>;
+  // Form 1's hq/pq tile is kN wide. Form 2's pq is one atom, and its hq
+  // `slab` atoms: all of C in one build a neighbour where that fits (nslab
+  // = 1), else one build a chunk of z and slab of k.
+  const int nkb1 = kTiled ? (C + kKBlock - 1) / kKBlock : kN / kKBlock;
+  if constexpr (!kTiled) slab = nkb1;
+  const int nslab = (nkb1 + slab - 1) / slab;
+  const int hq_bytes = slab * kAtomBytes;
+  const int nchunks = kTiled ? (C + L::kZ - 1) / L::kZ : 1;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  uint8_t* pq = ring + L::kRing;                        // form 2: two pq_j tiles
+  uint8_t* hq = pq + (kTiled ? 2 * kAtomBytes : 0);     // nbuf hq tiles (form 1: hq/pq, 2)
+  uint8_t* g_mid = hq + (kTiled ? nbuf : 2) * hq_bytes;  // form 1: g row h, then
+  uint8_t* g_edge = g_mid + (kTiled ? 0 : L::kRowBytes);  // h - 1, then h + 1
+  // Form 1 only, as are the g rows: the affines and kdq ([9][kN]).
+  float* a0_s = reinterpret_cast<float*>(g_edge + (kTiled ? 0 : L::kRowBytes));
+  float* b0_s = a0_s + kN;
+  float* a1_s = b0_s + kN;
+  float* b1_s = a1_s + kN;
+  float* kdq_s = b1_s + kN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kTiled ? a0_s : kdq_s + 9 * kN);
+  uint64_t* empty = full + kS;
+  uint64_t* hq_full = empty + kS;  // hq buffer u & (nbuf - 1) holds build u
+  uint64_t* hq_empty = hq_full + 2;
+  uint64_t* g_full = hq_empty + 2;  // form 1: [0] row h; [1] row h - 1, then h + 1
+  uint64_t* g_edge_free = g_full + 2;
+  if constexpr (!kTiled) nbuf = 2;
+
+  const int w0 = blockIdx.x * kTileP;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / tiles;
+  const int n0 = (blockIdx.z % tiles) * kN;
   const size_t img = (size_t)b * H;
 
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+  if constexpr (!kTiled) {
+    for (int i = threadIdx.x; i < kN; i += kThreads) {
+      const bool real = i < C;  // padded channels get zero affines
+      a0_s[i] = real ? a0[i] : 0.f;
+      b0_s[i] = real ? b0[i] : 0.f;
+      a1_s[i] = real ? a1[i] : 0.f;
+      b1_s[i] = real ? b1[i] : 0.f;
+    }
+    for (int i = threadIdx.x; i < 9 * kN; i += kThreads) {
+      const int nb = i / kN, c = i - nb * kN;
+      kdq_s[i] = c < C ? kdq[nb * C + c] : 0.f;
+    }
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);   // the TMA's bytes
+      mbar_init(&empty[s], 4);  // the warps of the box's warpgroup
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&hq_full[i], kBuilders / 32);          // each builder warp
+      mbar_init(&hq_empty[i], kConsumerThreads / 32);  // each consumer warp
+    }
+    if constexpr (!kTiled) {
+      mbar_init(&g_full[0], 1);
+      mbar_init(&g_full[1], 1);
+      mbar_init(g_edge_free, kBuilders / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int nb = 0; nb < 9; ++nb) {
-    const int dy = nb / 3, dx = nb - 3 * (nb / 3);
-    const int hs = h + dy - 1;
-    const bool row_ok = hs >= 0 && hs < H;
-    const int8_t* kn = kt + (size_t)nb * C * C;
-    int d[4][8];
+  if (threadIdx.x >= kConsumerThreads) {
+    // ---------------- producer: one thread streams the weight boxes (and
+    // in form 1 the g rows), three warps build hq one neighbour ahead.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kRegsProducer));
+    if (threadIdx.x >= kConsumerThreads + 32) {
+      const int bt = threadIdx.x - kConsumerThreads - 32;
+      if constexpr (!kTiled) {
+        // This thread's 8 channels [ch, ch + 8), for pixels p0 + kPixGroups
+        // i, from the staged rows (row entry i is pixel w0 - 1 + i; pixels
+        // outside the image are the TMA's zeros).
+        constexpr int kPixGroups = kBuilders / (kN / 8);
+        constexpr int kPixSteps = (kTileP + kPixGroups - 1) / kPixGroups;
+        const int ch = (bt % (kN / 8)) * 8;
+        const int p0 = bt / (kN / 8);
+        const bool ch_ok = ch < C;
+        float sa0[8], sb0[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 8; ++e) {
+          sa0[e] = a0_s[ch + e];
+          sb0[e] = b0_s[ch + e];
+        }
+        const T* gc_row = reinterpret_cast<const T*>(g_mid) + C + ch;
+        mbar_wait(&g_full[0], 0);
+        for (int nb = 0; nb < 9; ++nb) {
+          const int buf = nb & 1;
+          if (nb >= 2) mbar_wait(&hq_empty[buf], ((nb >> 1) - 1) & 1);
+          uint8_t* dst = hq + buf * hq_bytes;
+          const int dy = nb / 3;
+          const int dx = nb - dy * 3;
+          if (nb == 0 || nb == 6) mbar_wait(&g_full[1], nb == 6);
+          const T* gs_row = reinterpret_cast<const T*>(dy == 1 ? g_mid : g_edge) + dx * C + ch;
+#pragma unroll 2
+          for (int i = 0; i < kPixSteps; ++i) {
+            const int p = p0 + kPixGroups * i;
+            if (p >= kTileP) break;
+            uint4 gc[kV], gs[kV];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) d[i][q] = 0;
-    for (int j0 = 0; j0 < C; j0 += kTN) {
-      // 1. z_j = hq @ W1[:, j0 : j0 + kTN], hq = min(rint(relu(a0 x0 + b0)),
-      // 127) with x0 = T(g(p + d) - g(p)).
-      int z[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) z[i][q] = 0;
-      auto fetch1 = [&](int k0) {
-#pragma unroll
-        for (int a = 0; a < kNA; ++a) {
-          const int idx = tid + a * kTThreads;
-          const int w = w0 + idx / kTKW, ws = w + dx - 1;
-          const bool s_ok = row_ok && ws >= 0 && ws < W;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = k0 + 4 * (idx % kTKW) + e;
-            const bool ok = c < C && w < W;
-            ga[a][e] = ok ? ld_elem(g + ((img + h) * W + w) * C + c) : 0.f;
-            gb[a][e] = ok && s_ok ? ld_elem(g + ((img + hs) * W + ws) * C + c) : 0.f;
+            for (int v = 0; v < kV; ++v) {
+              gc[v] = ch_ok ? reinterpret_cast<const uint4*>(gc_row + p * C)[v]
+                            : make_uint4(0, 0, 0, 0);
+              gs[v] = ch_ok ? reinterpret_cast<const uint4*>(gs_row + p * C)[v]
+                            : make_uint4(0, 0, 0, 0);
+            }
+            *reinterpret_cast<uint2*>(dst + sw128(p, ch)) = hq8<T>(gc, gs, sa0, sb0);
+          }
+          fence_proxy_async();
+          __syncwarp();
+          if ((threadIdx.x & 31) == 0) {
+            mbar_arrive(&hq_full[buf]);
+            if (nb == 2) mbar_arrive(g_edge_free);  // row h - 1 is read
           }
         }
-        fetch_weights<kTN>(wr, w1t, C, k0, j0, tid);
-      };
-      const int steps1 = (C + 4 * kTKW - 1) / (4 * kTKW);
-      fetch1(0);
-      for (int st = 0; st < steps1; ++st, par ^= 1) {
-        int* a_b = a_s + par * kA;
-        int* b_b = b_s + par * kB;
+      } else {
+        // Build u of hq: slab sl's channels [c0, c0 + 8 ng), items (pixel
+        // p, 8-channel group cg) of the tile, bt + 96 i in order, read from
+        // g in L2; zeros outside the image.
+        int u = 0;
+        for (int nb = 0; nb < 9; ++nb) {
+          // One build a neighbour, or one a chunk and slab of k.
+          for (int jb = 0; jb < (nslab == 1 ? 1 : nchunks); ++jb) {
+            for (int sl = 0; sl < nslab; ++sl, ++u) {
+              const int c0 = sl * slab * kKBlock;
+              const int ng = min(C - c0, slab * kKBlock) / 8;
+              const int buf = u & (nbuf - 1);  // nbuf is 1 or 2
+              if (u >= nbuf) mbar_wait(&hq_empty[buf], ((u >> (nbuf - 1)) - 1) & 1);
+              uint8_t* dst = hq + buf * hq_bytes;
+              const int dy = nb / 3;
+              const int dx = nb - dy * 3;
+              const int hs = h + dy - 1;
+              const bool row_ok = hs >= 0 && hs < H;
+              auto load = [&](int p, int cg, uint4 (&gc)[kV], uint4 (&gs)[kV]) {
+                const int w = w0 + p;
+                const int ws = w + dx - 1;
+                const bool c_ok = w < W;
+                const bool s_ok = c_ok && row_ok && ws >= 0 && ws < W;
+                const uint4* cp = reinterpret_cast<const uint4*>(
+                    g + ((img + h) * W + (c_ok ? w : 0)) * C + c0 + 8 * cg);
+                const uint4* sp = reinterpret_cast<const uint4*>(
+                    g + ((img + (s_ok ? hs : h)) * W + (s_ok ? ws : 0)) * C + c0 + 8 * cg);
 #pragma unroll
-        for (int a = 0; a < kNA; ++a) {
-          const int idx = tid + a * kTThreads;
-          uint32_t word = 0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = st * 4 * kTKW + 4 * (idx % kTKW) + e;
-            if (c < C) {
-              const float x0 = round_to<T>(__fsub_rn(gb[a][e], ga[a][e]));
-              const float hv =
-                  fmaxf(__fadd_rn(__fmul_rn(x0, __ldg(a0 + c)), __ldg(b0 + c)), 0.f);
-              word |= (uint32_t)(__float2int_rn(fminf(hv, 127.f)) & 0xff) << (8 * e);
+                for (int v = 0; v < kV; ++v) {
+                  gc[v] = c_ok ? __ldg(cp + v) : make_uint4(0, 0, 0, 0);
+                  gs[v] = s_ok ? __ldg(sp + v) : make_uint4(0, 0, 0, 0);
+                }
+              };
+              auto build = [&](int p, int cg, const uint4 (&gc)[kV], const uint4 (&gs)[kV]) {
+                float sa0[8], sb0[8];
+                const float4* ap = reinterpret_cast<const float4*>(a0 + c0 + 8 * cg);
+                const float4* bp = reinterpret_cast<const float4*>(b0 + c0 + 8 * cg);
+                *reinterpret_cast<float4*>(sa0) = __ldg(ap);
+                *reinterpret_cast<float4*>(sa0 + 4) = __ldg(ap + 1);
+                *reinterpret_cast<float4*>(sb0) = __ldg(bp);
+                *reinterpret_cast<float4*>(sb0 + 4) = __ldg(bp + 1);
+                *reinterpret_cast<uint2*>(dst + sw128(p, 8 * cg)) = hq8<T>(gc, gs, sa0, sb0);
+              };
+              auto next = [&](int& p, int& cg) {
+                cg += kBuilders;
+                while (cg >= ng) {
+                  cg -= ng;
+                  ++p;
+                }
+              };
+              int p = bt / ng, cg = bt - (bt / ng) * ng;
+              while (p < kTileP) {
+                if constexpr (kV == 1) {
+                  // bf16: two items a step, both loads in flight.
+                  int p2 = p, cg2 = cg;
+                  next(p2, cg2);
+                  uint4 gc0[kV], gs0[kV], gc1[kV], gs1[kV];
+                  load(p, cg, gc0, gs0);
+                  if (p2 < kTileP) load(p2, cg2, gc1, gs1);
+                  build(p, cg, gc0, gs0);
+                  if (p2 < kTileP) build(p2, cg2, gc1, gs1);
+                  p = p2;
+                  cg = cg2;
+                } else {
+                  // fp32: one item a step (two spill at 72 registers).
+                  uint4 gc0[kV], gs0[kV];
+                  load(p, cg, gc0, gs0);
+                  build(p, cg, gc0, gs0);
+                }
+                next(p, cg);
+              }
+              fence_proxy_async();
+              __syncwarp();
+              if ((threadIdx.x & 31) == 0) mbar_arrive(&hq_full[buf]);
             }
           }
-          a_b[(idx / kTKW) * kAW + idx % kTKW] = (int)word;
         }
-        store_weights<kTN>(b_b, wr, tid);
-        __syncthreads();
-        if (st + 1 < steps1) fetch1((st + 1) * 4 * kTKW);
-        dp4a_tile<kTN>(z, a_b, kAW, b_b, ty, tx);
       }
-
-      // 2. pq_j = clip(rint(relu(a1 float(z) + b1) * fs), +-127), zero past
-      // C and outside the image.
-      float s1[8], t1[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int col = j0 + Tl::col(q, tx);
-        s1[q] = col < C ? __ldg(a1 + col) : 0.f;
-        t1[q] = col < C ? __ldg(b1 + col) : 0.f;
+    } else if (threadIdx.x == kConsumerThreads) {
+      // Form 1: g rows h and h - 1 (row entry i is pixel w0 - 1 + i), then
+      // h + 1 once the builders are past neighbour 2. Per neighbour and
+      // chunk j of z: W1^T's boxes of the chunk (k-block kb, warpgroup wg's
+      // columns), then K_n^T's of the chunk's k rows (wg's columns of the
+      // output tile).
+      const int row_bytes = kRowPix * C * (int)sizeof(T);
+      if constexpr (!kTiled) {
+        mbar_arrive_tx(&g_full[0], row_bytes);
+        tma_load_4d(g_mid, &gmap, &g_full[0], 0, w0 - 1, h, b);
+        mbar_arrive_tx(&g_full[1], row_bytes);
+        tma_load_4d(g_edge, &gmap, &g_full[1], 0, w0 - 1, h - 1, b);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = 4 * ty + i, w = w0 + p, ws = w + dx - 1;
-        const bool ok = w < W && row_ok && ws >= 0 && ws < W;
-        uint32_t word[2] = {0, 0};
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int col = j0 + Tl::col(q, tx);
-          const float fs =
-              ok && col < C ? ld_elem(f + ((img + hs) * W + ws) * C + col) : 0.f;
-          const float pv =
-              fmaxf(__fadd_rn(__fmul_rn(__int2float_rn(z[i][q]), s1[q]), t1[q]), 0.f);
-          const float qv = fminf(fmaxf(__fmul_rn(pv, fs), -127.f), 127.f);
-          word[q >> 2] |= (uint32_t)(__float2int_rn(qv) & 0xff) << (8 * (q & 3));
+      int i = 0;
+      auto put = [&](const CUtensorMap* map, int bytes, int c0, int c1, int c2) {
+        const int s = i % kS;
+        const int lap = i / kS;
+        if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+        mbar_arrive_tx(&full[s], bytes);
+        tma_load_3d(ring + s * L::kSlot, map, &full[s], c0, c1, c2);
+        ++i;
+      };
+      for (int nb = 0; nb < 9; ++nb) {
+        if (!kTiled && nb == 4) {
+          mbar_wait(g_edge_free, 0);
+          mbar_arrive_tx(&g_full[1], row_bytes);
+          tma_load_4d(g_edge, &gmap, &g_full[1], 0, w0 - 1, h + 1, b);
         }
-        p_s[p * kPW + tx] = (int)word[0];
-        p_s[p * kPW + kTN / 8 + tx] = (int)word[1];
-      }
-
-      // 3. d += pq_j @ K_n[j0 : j0 + kTN, n0 : n0 + kTN] (int32; the
-      // barrier of its first stage also publishes pq_j).
-      const int steps2 = ((min(kTN, C - j0) + 3) / 4 + kTKW - 1) / kTKW;
-      fetch_weights<kTN>(wr, kn, C, j0, n0, tid);
-      for (int st = 0; st < steps2; ++st, par ^= 1) {
-        int* b_b = b_s + par * kB;
-        store_weights<kTN>(b_b, wr, tid);
-        __syncthreads();
-        if (st + 1 < steps2) fetch_weights<kTN>(wr, kn, C, j0 + 4 * kTKW * (st + 1), n0, tid);
-        dp4a_tile<kTN>(d, p_s + st * kTKW, kPW, b_b, ty, tx);
+        for (int j0 = 0; j0 < (kTiled ? C : 1); j0 += L::kZ) {
+          for (int kb = 0; kb < nkb1; ++kb)
+            for (int wg = 0; wg < 2; ++wg)
+              put(&w1map, L::kW1Box, kb * kKBlock, j0 + wg * kZHalf, 0);
+          for (int kb = 0; kb < L::kZ / kKBlock; ++kb)
+            for (int wg = 0; wg < 2; ++wg)
+              put(&kmap, L::kKBox, j0 + kb * kKBlock, n0 + wg * kHalf, nb);
+        }
       }
     }
-    // 4. acc += float(d) * kdq[n], in neighbour order.
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int col = n0 + Tl::col(q, tx);
-      const float s = col < C ? __ldg(kdq + nb * C + col) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i][q] = __fadd_rn(acc[i][q], __fmul_rn(__int2float_rn(d[i][q]), s));
-    }
-  }
+  } else {
+    // ---------------- consumers: warpgroup wg owns output columns
+    // [n0 + kHalf wg, n0 + kHalf (wg + 1)) and columns [kZHalf wg, kZHalf
+    // (wg + 1)) of each chunk of z.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kRegsConsumer));
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t & 31;
+    const int m0 = (t / 32) * 16 + (lane >> 2);  // this thread's rows: m0, m0 + 8
+    const int tig = lane & 3;
+    const uint32_t ring_u32 = smem_u32(ring);
+    constexpr int kJ = kZHalf / 8;  // 8-column groups of a warpgroup's chunk
+    // The epilogue's shifted feats, two groups a step, kD steps ahead
+    // (form 2: one, beside its three sets of registers).
+    constexpr int kSteps = kJ / 2;
+    constexpr int kD = kTiled ? 1 : 2;
+    using V = typename Fs::V;
 
+    float acc[kHalf / 2];
+    int d[kHalf / 2];  // form 1: z, then d = pq @ K_n; form 2: d
+    int zt[kTiled ? kZHalf / 2 : 1];
+    auto& z = z_regs<kTiled>(zt, d);  // form 1: d's registers
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int w = w0 + 4 * ty + i;
-    if (w >= W) continue;
-    float* op = out + ((img + h) * W + w) * C;
+    for (int i = 0; i < kHalf / 2; ++i) {
+      acc[i] = 0.f;
+      d[i] = 0;
+    }
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int col = n0 + Tl::col(q, tx);
-      if (col < C) op[col] = acc[i][q];
+    for (int i = 0; i < (kTiled ? kZHalf / 2 : 1); ++i) zt[i] = 0;
+
+    int cnt = 0;  // this warpgroup's ring boxes so far
+    int pqt = 0;  // form 2: chunks so far (pq tile pqt % 2)
+    int u = 0;    // hq builds read to their end so far (buffer u & (nbuf - 1))
+    for (int nb = 0; nb < 9; ++nb) {
+      const int dy = nb / 3;
+      const int dx = nb - dy * 3;
+      const int hs = h + dy - 1;
+      const bool row_ok = hs >= 0 && hs < H;
+      // This thread's shifted feats rows (pixels m0, m0 + 8 of the tile).
+      const T* fp[2];
+      bool fok[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int w = w0 + m0 + 8 * r;
+        const int ws = w + dx - 1;
+        fok[r] = w < W && row_ok && ws >= 0 && ws < W;
+        fp[r] = f + (fok[r] ? ((img + hs) * W + ws) * C : 0) + wg * kZHalf + tig * 2;
+      }
+
+      for (int j = 0; j < nchunks; ++j) {
+        const int j0 = j * L::kZ;  // the chunk's first column of z
+        V fq[kD + 1][2][2];
+        auto load_step = [&](int st, V (&dst)[2][2]) {
+#pragma unroll
+          for (int gi = 0; gi < 2; ++gi) {
+            const int col = j0 + wg * kZHalf + (2 * st + gi) * 8;
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              dst[gi][r] = fok[r] && col < C ? Fs::load(fp[r] + j0 + (2 * st + gi) * 8)
+                                             : Fs::zero();
+          }
+        };
+#pragma unroll
+        for (int st = 0; st < kD; ++st) load_step(st, fq[st]);
+
+        // 1. z_j = hq @ W1[:, chunk j] (int32), this warpgroup's columns,
+        // over K = C a slab of k at a time; a build is free after its last
+        // read (form 1: after GEMM2, which reads pq over it).
+        for (int sl = 0; sl < nslab; ++sl) {
+          const int buf = u & (nbuf - 1);
+          if (nslab > 1 || j == 0) mbar_wait(&hq_full[buf], (u >> (nbuf - 1)) & 1);
+          ring_gemm<kS, L::kSlot>(z, smem_u32(hq) + buf * hq_bytes,
+                                  min(slab, nkb1 - sl * slab), sl > 0, cnt, wg, full, empty,
+                                  ring_u32);
+          if (kTiled && (nslab > 1 || j == nchunks - 1)) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&hq_empty[buf]);
+            ++u;
+          }
+        }
+        uint8_t* pq_b;
+        if constexpr (kTiled) {
+          pq_b = pq + (pqt & 1) * kAtomBytes;
+        } else {
+          consumer_sync();  // both warpgroups' GEMM1 has read hq: pq goes over it
+          pq_b = hq + (u & 1) * hq_bytes;
+        }
+
+        // 2. pq_j = clip(rint(relu(a1 float(z) + b1) * fs), +-127), in the
+        // A layout, zeros past C.
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          if (st + kD < kSteps) load_step(st + kD, fq[(st + kD) % (kD + 1)]);
+#pragma unroll
+          for (int gi = 0; gi < 2; ++gi) {
+            const int jj = 2 * st + gi;
+            const int nl = wg * kZHalf + jj * 8 + tig * 2;  // column in the chunk
+            const int n = j0 + nl;
+            float2 s1, t1;
+            if constexpr (kTiled) {
+              const bool ok = n < C;
+              s1 = ok ? __ldg(reinterpret_cast<const float2*>(a1 + n)) : make_float2(0.f, 0.f);
+              t1 = ok ? __ldg(reinterpret_cast<const float2*>(b1 + n)) : make_float2(0.f, 0.f);
+            } else {
+              s1 = *reinterpret_cast<const float2*>(a1_s + n);
+              t1 = *reinterpret_cast<const float2*>(b1_s + n);
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int za = z[4 * jj + 2 * r], zb = z[4 * jj + 2 * r + 1];
+              const float fa = kTiled ? int_to_float_rn(za) : small_int_to_float(za);
+              const float fb = kTiled ? int_to_float_rn(zb) : small_int_to_float(zb);
+              const float pa = fmaxf(__fadd_rn(__fmul_rn(fa, s1.x), t1.x), 0.f);
+              const float pb = fmaxf(__fadd_rn(__fmul_rn(fb, s1.y), t1.y), 0.f);
+              const V fs = fq[st % (kD + 1)][gi][r];
+              const float qa = fminf(fmaxf(__fmul_rn(pa, Fs::lo(fs)), -127.f), 127.f);
+              const float qb = fminf(fmaxf(__fmul_rn(pb, Fs::hi(fs)), -127.f), 127.f);
+              *reinterpret_cast<uint16_t*>(pq_b + sw128(m0 + 8 * r, nl)) =
+                  static_cast<uint16_t>(low_bytes(rint_i8_bits(qa), rint_i8_bits(qb)));
+            }
+          }
+          asm volatile("" ::: "memory");
+        }
+        fence_proxy_async();
+        consumer_sync();
+
+        // 3. d (+)= pq_j @ K_n[chunk j's k, this warpgroup's columns].
+        if constexpr (kTiled) {
+          ring_gemm<kS, L::kSlot>(d, smem_u32(pq_b), 1, j > 0, cnt, wg, full, empty, ring_u32);
+          ++pqt;
+        } else {
+          ring_gemm<kS, L::kSlot>(d, smem_u32(pq_b), kN / kKBlock, false, cnt, wg, full, empty,
+                                  ring_u32);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&hq_empty[u & 1]);
+          ++u;
+        }
+      }
+
+      // 4. acc += float(d) * kdq[n], in neighbour order.
+#pragma unroll
+      for (int jj = 0; jj < kHalf / 8; ++jj) {
+        const int n = wg * kHalf + jj * 8 + tig * 2;  // column in the tile
+        float2 q;
+        if constexpr (kTiled) {
+          q = n0 + n < C ? __ldg(reinterpret_cast<const float2*>(kdq + nb * C + n0 + n))
+                         : make_float2(0.f, 0.f);
+        } else {
+          q = *reinterpret_cast<const float2*>(kdq_s + nb * kN + n);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int da = d[4 * jj + 2 * r], db = d[4 * jj + 2 * r + 1];
+          const float fa = kTiled ? int_to_float_rn(da) : small_int_to_float(da);
+          const float fb = kTiled ? int_to_float_rn(db) : small_int_to_float(db);
+          acc[4 * jj + 2 * r] = __fadd_rn(acc[4 * jj + 2 * r], __fmul_rn(fa, q.x));
+          acc[4 * jj + 2 * r + 1] = __fadd_rn(acc[4 * jj + 2 * r + 1], __fmul_rn(fb, q.y));
+        }
+      }
+    }
+
+    // Store this thread's accumulator rows and its columns below C.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int w = w0 + m0 + 8 * r;
+      if (w >= W) continue;
+      float* op = out + ((img + h) * W + w) * C + n0 + wg * kHalf + tig * 2;
+#pragma unroll
+      for (int jj = 0; jj < kHalf / 8; ++jj)
+        if (n0 + wg * kHalf + jj * 8 < C)
+          *reinterpret_cast<float2*>(op + jj * 8) =
+              make_float2(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
     }
   }
 }
 
-template <typename T, int kTN>
-int launch_tiled(const void* g, const void* feats, const void* w1t, const void* kt,
+template <typename T, int kN, bool kTiled>
+int launch_tiles(const void* g, const void* feats, const void* w1t, const void* kt,
                  const void* a0, const void* b0, const void* a1, const void* b1,
                  const void* kdq, void* out, int B, int H, int W, int C, void* stream) {
-  const int tiles = (C + kTN - 1) / kTN;
-  const dim3 grid((W + Tile<kTN>::kTP - 1) / Tile<kTN>::kTP, H, B * tiles);
-  meta_kernel_fused_i8_tiled<T, kTN><<<grid, kTThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)g, (const T*)feats, (const int8_t*)w1t, (const int8_t*)kt,
-      (const float*)a0, (const float*)b0, (const float*)a1, (const float*)b1,
-      (const float*)kdq, (float*)out, H, W, C, tiles);
+  using L = Tl<T, kN, kTiled>;
+  CUtensorMap w1map, kmap, gmap;
+  constexpr auto kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!stem_weight_map(&w1map, kU8, 1, w1t, C, L::kZHalf, 1) ||
+      !stem_weight_map(&kmap, kU8, 1, kt, C, L::kHalf, 9))
+    return (int)cudaErrorInvalidValue;
+  if constexpr (kTiled) {
+    gmap = w1map;  // unread
+  } else if (!row_map(&gmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, g, B, H, W, C)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // Form 2's hq: a neighbour's whole tile in two buffers where they fit
+  // (C <= 1152), else in one (C <= 2304), else two buffers of slabs.
+  int nbuf = 2, slab = 0;
+  if constexpr (kTiled) {
+    const int room = (kMaxSmem - L::kFixedSmem) / kAtomBytes;
+    const int nkb = (C + kKBlock - 1) / kKBlock;
+    nbuf = 2 * nkb <= room || nkb > room ? 2 : 1;
+    slab = nkb <= room / nbuf ? nkb : room / 2;
+  }
+  const int smem = L::kFixedSmem + nbuf * slab * kAtomBytes;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(meta_kernel_fused_i8_tiles<T, kN, kTiled>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = (C + kN - 1) / kN;
+  const dim3 grid((W + kTileP - 1) / kTileP, H, B * tiles);
+  meta_kernel_fused_i8_tiles<T, kN, kTiled><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      w1map, kmap, gmap, (const T*)g, (const T*)feats, (const float*)a0, (const float*)b0,
+      (const float*)a1, (const float*)b1, (const float*)kdq, (float*)out, H, W, C, tiles,
+      nbuf, slab);
   return (int)cudaGetLastError();
-}
-
-// The 64-wide instance where C <= 64, the 256-wide one past it.
-template <typename T>
-int launch_tiled_any(const void* g, const void* feats, const void* w1t, const void* kt,
-                     const void* a0, const void* b0, const void* a1, const void* b1,
-                     const void* kdq, void* out, int B, int H, int W, int C,
-                     void* stream) {
-  return C <= 64 ? launch_tiled<T, 64>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H,
-                                       W, C, stream)
-                 : launch_tiled<T, 256>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H,
-                                        W, C, stream);
 }
 
 }  // namespace
@@ -885,20 +1282,28 @@ extern "C" int rv3d_meta_kernel_fused_i8(
              : launch<256>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, stream);
 }
 
-// The tiled kernel. g, feats: (B, H, W, C), bf16 (fp32 == 0) or fp32
-// (fp32 != 0); w1t: (C, C) int8 = W1^T; kt: (9, C, C) int8 with kt[n] =
-// K_n^T; a0, b0, a1, b1: (C,) fp32; kdq: (9, C) fp32; out: (B, H, W, C)
-// fp32. Any C >= 1 with B * ceil(C / 256) <= 65535 and H <= 65535 (C <= 64
-// runs the 64-wide instance, the rest the 256-wide one).
-extern "C" int rv3d_meta_kernel_fused_i8_tiled(
+// The output-tiled kernel. g, feats: (B, H, W, C), bf16 (fp32 == 0) or
+// fp32 (fp32 != 0); w1t: (C, C) int8 = W1^T; kt: (9, C, C) int8 with
+// kt[n] = K_n^T; a0, b0, a1, b1: (C,) fp32; kdq: (9, C) fp32; out: (B, H,
+// W, C) fp32. C a multiple of 16; form 1 (tiled == 0): fp32, C <= 256 (C
+// <= 128 runs the 128-wide instance, the rest the 256-wide one); form 2
+// (tiled != 0): either dtype, any C with B * ceil(C / 256) <= 65535. H <=
+// 65535; g, feats, w1t and kt 16-byte aligned.
+extern "C" int rv3d_meta_kernel_fused_i8_tiles(
     const void* g, const void* feats, const void* w1t, const void* kt,
     const void* a0, const void* b0, const void* a1, const void* b1,
-    const void* kdq, void* out, int B, int H, int W, int C, int fp32, void* stream) {
-  if (C <= 0 || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
-      (long)B * ((C + 255) / 256) > 65535)
+    const void* kdq, void* out, int B, int H, int W, int C, int fp32, int tiled,
+    void* stream) {
+  if (C <= 0 || C % 16 || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
+      (long)B * ((C + 255) / 256) > 65535 || (!tiled && (!fp32 || C > kMaxC)))
     return (int)cudaErrorInvalidValue;
-  return fp32 ? launch_tiled_any<float>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B,
-                                        H, W, C, stream)
-              : launch_tiled_any<__nv_bfloat16>(g, feats, w1t, kt, a0, b0, a1, b1, kdq,
-                                                out, B, H, W, C, stream);
+  if (tiled)
+    return fp32 ? launch_tiles<float, 256, true>(g, feats, w1t, kt, a0, b0, a1, b1, kdq, out,
+                                                 B, H, W, C, stream)
+                : launch_tiles<__nv_bfloat16, 256, true>(g, feats, w1t, kt, a0, b0, a1, b1,
+                                                         kdq, out, B, H, W, C, stream);
+  return C <= 128 ? launch_tiles<float, 128, false>(g, feats, w1t, kt, a0, b0, a1, b1, kdq,
+                                                    out, B, H, W, C, stream)
+                  : launch_tiles<float, 256, false>(g, feats, w1t, kt, a0, b0, a1, b1, kdq,
+                                                    out, B, H, W, C, stream);
 }

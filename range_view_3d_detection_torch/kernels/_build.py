@@ -47,8 +47,9 @@ SIGNATURES = {
     "rv3d_meta_kernel_fused_i8": [_P] * 10 + [_I] * 4 + [_P],
     # g, feats, w1t, kt, w1t_lo, kt_lo, aff, out, B, H, W, C, fp32, stream
     "rv3d_meta_kernel_fused_rs": [_P] * 8 + [_I] * 5 + [_P],
-    # g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, fp32, stream
-    "rv3d_meta_kernel_fused_i8_tiled": [_P] * 10 + [_I] * 5 + [_P],
+    # g, feats, w1t, kt, a0, b0, a1, b1, kdq, out, B, H, W, C, fp32, tiled,
+    # stream
+    "rv3d_meta_kernel_fused_i8_tiles": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 

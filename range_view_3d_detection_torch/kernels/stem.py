@@ -20,9 +20,11 @@ K1 runs on the tensor cores at every dtype and C: bf16 up to C = 256 on
 its wgmma kernel (the configs' stems are 256, 128 and 32 wide; C padded
 to a multiple of 8, the TMA's), fp32 as 3xTF32 (:func:`split_tf32`) and
 bf16 past C = 256 on its register-A kernel, output-tiled (C padded to 16
-in fp32, 32 in bf16: a group of two k-steps). K4 takes bf16 up to C = 256
-on its wgmma kernel (C padded to a multiple of 16) and fp32 ``g`` and C
-above 256 on its tiled dp4a kernel, which pads C inside its own staging.
+in fp32, 32 in bf16: a group of two k-steps). K4 runs on the int8 tensor
+cores at every dtype and C: bf16 up to C = 256 on
+its wgmma kernel, fp32 ``g`` up to C = 256 and either dtype past it on
+its output-tiled kernel (both forms of one entry point), C padded to a
+multiple of 16 (the int8 weights' TMA strides) in each.
 
 Both are ``torch.library`` custom ops, ``rv3d::meta_kernel_fused`` and
 ``rv3d::meta_kernel_fused_i8``: the CPU kernel is the plain twin, the
@@ -51,9 +53,11 @@ class StemPlan(NamedTuple):
     ``kernel``: ``"wgmma"`` (the bf16 tensor-core entry point, which picks
     its 128- or 256-wide template from C); for K1 ``"tf32x3"`` (fp32 as
     3xTF32) or ``"wgmma_tiled"`` (bf16 past C = 256), the two forms of its
-    register-A entry point; for K4 ``"tiled"`` (the CUDA-core entry point,
-    bf16 or fp32 as ``g`` is). ``pad``: the zero channels the wrapper adds
-    to C by copying the inputs (and crops from the output).
+    register-A entry point; for K4 ``"wgmma_fp32"`` (fp32 ``g`` up to C =
+    256) or ``"wgmma_tiled"`` (past C = 256, bf16 or fp32 as ``g`` is), the
+    two forms of its output-tiled entry point. ``pad``: the zero channels
+    the wrapper adds to C by copying the inputs (and crops from the
+    output).
     """
 
     kernel: str
@@ -83,13 +87,15 @@ def k1_plan(C: int, dtype: torch.dtype) -> StemPlan:
 
 
 def k4_plan(C: int, dtype: torch.dtype) -> StemPlan:
-    """K4's launch for C channels of ``g`` in ``dtype``: bf16 up to C = 256
-    on the wgmma kernel, C padded to a multiple of 16 (the int8 weights'
-    TMA strides); fp32 and C above 256 on the tiled kernel."""
+    """K4's launch for C channels of ``g`` in ``dtype``, all on the int8
+    tensor cores with C padded to a multiple of 16 (the int8 weights' TMA
+    strides): bf16 up to C = 256 on the wgmma kernel, fp32 up to C = 256
+    on the output-tiled kernel's one-tile form, and either dtype past C =
+    256 on its 256-wide output tiles."""
     _check_stem_args(C, dtype, "meta_kernel_fused_i8")
-    if dtype == torch.bfloat16 and C <= 256:
-        return StemPlan("wgmma", -C % 16)
-    return StemPlan("tiled", 0)
+    if C <= 256:
+        return StemPlan("wgmma" if dtype == torch.bfloat16 else "wgmma_fp32", -C % 16)
+    return StemPlan("wgmma_tiled", -C % 16)
 
 
 def padded_operands(pad: int, g, feats, w1, k, *vectors) -> tuple:
@@ -404,9 +410,8 @@ def _k4_cuda(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq):
     cdt = g.dtype
     plan = k4_plan(C, cdt)
     feats = feats.to(cdt)
-    # [n][k]: the wgmma kernel's TMA boxes are K-major (s8 wgmma takes
-    # K-major A and B), and the tiled kernel reads four k of a column as
-    # one word.
+    # [n][k]: both kernels' TMA boxes are K-major (s8 wgmma takes K-major
+    # A and B).
     g, feats, w1t, kt, a0, b0, a1, b1, kdq = padded_operands(
         plan.pad, g, feats, w1_i8.t(), k_i8.transpose(1, 2),
         *(v.float() for v in (a0, b0, a1, b1, kdq)))
@@ -420,13 +425,14 @@ def _k4_cuda(g, feats, w1_i8, k_i8, a0, b0, a1, b1, kdq):
             kdq.data_ptr(), out.data_ptr())
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.kernel == "tiled":
-            name = "rv3d_meta_kernel_fused_i8_tiled"
-            err = lib.rv3d_meta_kernel_fused_i8_tiled(
-                *ptrs, B, H, W, Cp, int(cdt == torch.float32), stream)
-        else:
+        if plan.kernel == "wgmma":
             name = "rv3d_meta_kernel_fused_i8"
             err = lib.rv3d_meta_kernel_fused_i8(*ptrs, B, H, W, Cp, stream)
+        else:
+            name = "rv3d_meta_kernel_fused_i8_tiles"
+            err = lib.rv3d_meta_kernel_fused_i8_tiles(
+                *ptrs, B, H, W, Cp, int(cdt == torch.float32),
+                int(plan.kernel == "wgmma_tiled"), stream)
     _build.check(err, name)
     meta_kernel_fused_i8.launches += 1
     return out[..., :C].contiguous() if plan.pad else out

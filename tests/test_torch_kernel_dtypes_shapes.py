@@ -302,8 +302,8 @@ def test_stem_plans_keep_the_shipped_instances_and_refuse_nothing(plan):
                 assert got.kernel == "wgmma"
                 assert (C + got.pad) % multiple == 0 and 0 <= got.pad < multiple
                 assert C + got.pad <= 256
-            elif plan is tstem.k4_plan:
-                assert got == ("tiled", 0)
+            elif plan is tstem.k4_plan:  # fp32 to 256, and past 256: the output-tiled kernel
+                assert got == ("wgmma_fp32" if C <= 256 else "wgmma_tiled", -C % 16)
             elif dt == torch.float32:  # K1: 3xTF32 on the register-A kernel
                 assert got == ("tf32x3", -C % 16)
             else:  # K1: bf16 past 256 on the register-A kernel's output tiles
