@@ -23,7 +23,9 @@ Phases, each of which raises (non-zero exit) on failure:
    wgmma instances of K1 and of K4, in the four of K1's register-A kernel
    (fp32 as 3xTF32 64-, 128- and 256-wide, bf16 output-tiled), in the four
    of K4's output-tiled kernel (fp32 128- and 256-wide, and the 256-wide
-   tiles past C = 256 in bf16 and fp32) and in the six of K3;
+   tiles past C = 256 in bf16 and fp32), in the six of K3, and in K2's
+   keep past cap 4096, its ``killed_at`` pass and its eight merge
+   instances;
 3. K1 (fused MetaKernel stem) against its plain twin at the flagship
    shape, at a small odd shape (edges, ragged tiles), at a single row
    with a ragged last 64-pixel tile (1, 1, 70) and at exact tiles (2, 2,
@@ -261,7 +263,8 @@ Phases, each of which raises (non-zero exit) on failure:
     K1 and K2 must launch (``converted_launches`` in the kernels line).
 30. the bench: ``python -m range_view_3d_detection_torch.bench`` in a
     subprocess as a user runs it, int8 (the default), ``--fp``,
-    ``--points`` and with ``RV3D_STEM_INT8=1``, at the flagship (B=2,
+    ``--points`` and with ``RV3D_STEM_INT8=1``, the four side by side
+    (their frames/s are not clean), at the flagship (B=2,
     64x1808, ``nms_cap`` 1024): each JSON line has frames/s above 0, p50 <=
     p90, ``eager`` in its mode and the card's ``nvidia-smi`` line; the same
     four modes through ``bench.main`` in this process, counts reset before
@@ -309,20 +312,25 @@ Phases, each of which raises (non-zero exit) on failure:
 38. ``dryrun.entry()`` once (finite heads), then
     ``dryrun.dryrun_multichip(<cards>)``: its four phases as NCCL ranks in
     spawned processes, each reporting OK (none skipped for time);
-39. K2 past cap 4096 (the shared-memory keep): against its twin, WEIGHTED
+39. K2 past cap 4096 (the chain warp ahead of TMA-fed updaters, then the
+    ``killed_at`` pass and the merge on it): against its twin, WEIGHTED
     and HARD (``keep`` equal, ``merged`` within 1e-4), at B 1 and 2 x cap
     4097, 4160, 8192 and 9216 (B 1: the B 2 case's first image, held to the
     same twin run, which scans each image apart) and at B 1 x cap 16384
     (WEIGHTED: ``keep`` does not depend on the mode, and the twin takes
-    seconds a call there), the IoU matrices built in row blocks; the JAX package's dense scene
+    seconds a call there), the IoU matrices built in row blocks; at cap
+    4160, B 2 the kernel's ``killed_at`` scratch
+    (``nms_scan_with_scratch``) equal to the plain mirror's
+    (``nms_scan_ahead_plain``); the JAX package's dense scene
     (``tests/test_nms_cap.py::_dense_scene``'s draws) through
     ``batched_multiclass_nms`` at cap 9216, its kept set equal to the plain
     scan on the same IoU matrix; K2's time at cap 9216, B=2 (eager and
-    graph replay, the device time of its three kernels) beside its byte
-    bound, chain floor (a model) and the twin's time (its WEIGHTED call in
-    the B 2 check), and the device time
-    of its three kernels (taken in phase 6: late in the process the
-    profiler records no kernels) (``anycap_launches`` in the kernels line
+    graph replay) beside its byte bound, chain floor (a model) and the
+    twin's time (its WEIGHTED call in the B 2 check), and the device time
+    of each of its four kernels, mask, keep, ``killed_at`` and merge
+    (taken in phase 6: late in the process the profiler records no
+    kernels; the keep's goes into the kernels line as
+    ``keep_device_us_cap_9216``) (``anycap_launches`` in the kernels line
     counts the checks' launches);
 40. phase 38's dry-run phase 3 trained on the JAX ``(data, model)``
     layout (``dryrun.mesh_layout``: (1, 1) on one card);
@@ -545,7 +553,10 @@ SPILL_CHECKED = (("K1", "meta_kernel_fused_wgmma", 2, True),
                  ("K1 register-A", "meta_kernel_fused_rs", 4, True),
                  ("K4", "meta_kernel_fused_i8_wgmma", 2, True),
                  ("K4 output-tiled", "meta_kernel_fused_i8_tiles", 4, True),
-                 ("K3", "conv3x3_i8_wgmma", 6, True))
+                 ("K3", "conv3x3_i8_wgmma", 6, True),
+                 ("K2 keep past cap 4096", "nms_keep_ahead_kernel", 1, True),
+                 ("K2 killed_at", "nms_killed_at_kernel", 1, True),
+                 ("K2 merge", "nms_merge_kernel", 8, True))
 
 
 def check_spills(lib) -> None:
@@ -3872,20 +3883,29 @@ def bench_phase(device, kind: str, smi: str) -> dict:
     from range_view_3d_detection_torch.models.decoder import DecoderConfig
 
     t_phase = time.perf_counter()
-    for tag, args, stem in BENCH_MODES:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "range_view_3d_detection_torch.bench", *args],
-            cwd=REPO, capture_output=True, text=True, timeout=600,
-            env=_env(**({"RV3D_STEM_INT8": "1"} if stem else {})),
-        )
-        check(proc.returncode == 0, f"bench {tag} exited {proc.returncode}: "
-              f"{proc.stderr[-3000:]}")
-        line = bench_json(proc.stdout)
+    # The four CLI runs side by side: most of each is its process's start,
+    # model build and quantization on the host, so their frames/s are not
+    # clean; the in-process runs below time each mode alone.
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "range_view_3d_detection_torch.bench", *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env(**({"RV3D_STEM_INT8": "1"} if stem else {})))
+        for _, args, stem in BENCH_MODES]
+    try:
+        outs = [proc.communicate(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (tag, args, stem), proc, (stdout, stderr) in zip(BENCH_MODES, procs, outs):
+        check(proc.returncode == 0, f"bench {tag} exited {proc.returncode}: {stderr[-3000:]}")
+        line = bench_json(stdout)
         check_bench_line(tag, line, kind, smi)
         say(f"bench (phase 30) python -m range_view_3d_detection_torch.bench {' '.join(args)}"
-            f"{' with RV3D_STEM_INT8=1' if stem else ''}: {json.dumps(line)} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"{' with RV3D_STEM_INT8=1' if stem else ''}: {json.dumps(line)} (side by side)")
+    say(f"bench (phase 30): the four CLI runs side by side in "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     launches = {}
     for tag, args, stem in BENCH_MODES:
@@ -4768,11 +4788,39 @@ def check_k2_b12(cap, inputs) -> tuple:
     return worst, plain_ms["WEIGHTED"]
 
 
-K2_BIG_KERNELS = ("nms_mask_kernel", "nms_keep_big_kernel", "nms_merge_kernel")
+K2_BIG_KERNELS = ("nms_mask_kernel", "nms_keep_ahead_kernel", "nms_killed_at_kernel",
+                  "nms_merge_kernel")
+# Phase 39's check of the kernel's killed_at scratch against the mirror's.
+K2_KILLED_AT_CASE = (2, 4160)
+
+
+def check_k2_killed_at(inputs) -> int:
+    """The kernel's ``killed_at`` scratch past cap 4096 equal to the plain
+    mirror's on the same inputs, and its keep and merged to the mirror's
+    (``merged`` within 1e-4). Returns how many boxes a kept row killed."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.nms import (
+        nms_scan_ahead_plain,
+        nms_scan_with_scratch,
+    )
+
+    kw = dict(iou_threshold=0.3, merge_threshold=0.5)
+    keep, merged, killed_at = nms_scan_with_scratch(*inputs, **kw)
+    keep_m, merged_m, killed_m = nms_scan_ahead_plain(*inputs, **kw)
+    torch.cuda.synchronize()
+    B, cap = keep.shape
+    check(killed_at.shape == (B, cap), f"K2 killed_at scratch shape {tuple(killed_at.shape)}")
+    check(torch.equal(killed_at, killed_m), f"K2 killed_at at cap {cap}, B {B}: "
+          f"{int((killed_at != killed_m).sum())} entries differ from the mirror's")
+    check(torch.equal(keep, keep_m), f"K2 at cap {cap}: keep differs from the mirror's")
+    err = (merged - merged_m).abs().max().item()
+    check(err <= 1e-4, f"K2 at cap {cap}: merged max|diff| {err} from the mirror's")
+    return int((killed_at < cap).sum())
 
 
 def k2_big_phases(device) -> dict:
-    """Device microseconds of each of K2's three kernels at cap 9216, B=2
+    """Device microseconds of each of K2's four kernels at cap 9216, B=2
     (a case of its own generator)."""
     import torch
 
@@ -4800,10 +4848,13 @@ def nms_any_cap_phase(device, smi, split=None) -> tuple:
     gen = torch.Generator().manual_seed(SEED + 39)
     reset_counts()
     worst, timed = 0.0, None
+    killed = 0
     for cap in NMS_BIG_CAPS:
         case = nms_case(2, cap, gen, device)
         err, twin_ms = check_k2_b12(cap, case)
         worst = max(worst, err)
+        if (2, cap) == K2_KILLED_AT_CASE:
+            killed = check_k2_killed_at(case)
         if cap == 9216:
             timed, plain_ms = case, twin_ms
         del case
@@ -4848,11 +4899,14 @@ def nms_any_cap_phase(device, smi, split=None) -> tuple:
         f"{B * cap * cap * 4 / 1e6:.1f} MB), chain floor (model) {chain:.4f} ms "
         f"({int(live_per_image.max())} live steps in the longer image); caps "
         f"{', '.join(map(str, NMS_BIG_CAPS))} at B 1-2 and 16384 at B 1 (WEIGHTED) equal to "
-        f"the twin (merged max|diff| {worst:.3g}); {time.perf_counter() - t0:.0f} s on {smi}")
+        f"the twin (merged max|diff| {worst:.3g}); killed_at at cap {K2_KILLED_AT_CASE[1]}, "
+        f"B {K2_KILLED_AT_CASE[0]} equal to the mirror's ({killed} boxes killed); "
+        f"{time.perf_counter() - t0:.0f} s on {smi}")
     del timed, inputs, res
     torch.cuda.empty_cache()
     return counts, {"ms_cap_9216": ms, "graph_ms_cap_9216": g_ms,
-                    "plain_ms_cap_9216": plain_ms, "bound_ms_cap_9216": bound}
+                    "plain_ms_cap_9216": plain_ms, "bound_ms_cap_9216": bound,
+                    "keep_device_us_cap_9216": phases["nms_keep_ahead_kernel"]}
 
 
 def mesh_phase(dryrun_results: dict, smi) -> None:

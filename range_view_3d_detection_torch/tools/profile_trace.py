@@ -6,10 +6,11 @@ by kernel (counterpart of the repo-root ``tools/profile_trace.py``):
         [--train [--remat-scope stem,heads,loss]] [--batch 1] [--device cpu]
     python -m range_view_3d_detection_torch.tools.profile_trace --summarize-only --out DIR
 
-One warm-up call, then one call traced with the CPU and CUDA activities;
-the Chrome trace goes to ``DIR/trace.json``. :func:`summarize` sums the
-device time of every GPU event of the trace (kernels, the custom ones
-among them, and memory copies and sets) by name.
+One warm-up call, two more under the profiler, then one call traced
+with the CPU and CUDA activities; the Chrome trace goes to
+``DIR/trace.json``. :func:`summarize` sums the device time of every GPU
+event of the trace (kernels, the custom ones among them, and memory
+copies and sets) by name.
 """
 
 from __future__ import annotations
@@ -37,9 +38,10 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 def trace(fn: Callable[[], object], out_dir: Path, device) -> Path:
     """Trace one call of ``fn`` (CPU and, on a card, CUDA activities) and
-    write the Chrome trace to ``out_dir/trace.json``. A first, untraced
-    call under the profiler warms it up: in a process that has profiled
-    before, a session's first kernels can otherwise go unrecorded."""
+    write the Chrome trace to ``out_dir/trace.json``. Two untraced calls
+    under the profiler warm it up: in a process that has profiled before,
+    a session's first kernels can otherwise go unrecorded (after one such
+    call, a traced request on an H100 once lost its first 40 kernels)."""
     device = torch.device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -47,10 +49,10 @@ def trace(fn: Callable[[], object], out_dir: Path, device) -> Path:
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / "trace.json"
-    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    schedule = torch.profiler.schedule(wait=0, warmup=2, active=1, repeat=1)
     with torch.profiler.profile(activities=activities, schedule=schedule,
                                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))) as prof:
-        for _ in range(2):
+        for _ in range(3):
             fn()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)

@@ -375,7 +375,7 @@ def test_k3_plan_keeps_the_flagship_shapes_and_refuses_nothing():
 
 def test_k2_plan_keeps_the_box_payload_and_refuses_nothing():
     assert tnms.k2_plan(1024, tnms.PAYLOAD) == ("register", "p9")
-    assert tnms.k2_plan(9216, tnms.PAYLOAD) == ("shared", "p9")
+    assert tnms.k2_plan(9216, tnms.PAYLOAD) == ("ahead", "p9")
     for P in range(1, 40):
         for cap in (1, 37, 4096, 4097):
             plan = tnms.k2_plan(cap, P)
