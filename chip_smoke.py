@@ -10,7 +10,8 @@ width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
 ``chip_smoke.py convert WORK`` phase 29's conversion process; the script
 starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone,
 ``chip_smoke.py kernel-shapes`` the kernels' checks past the configs'
-shapes and phase 44, ``chip_smoke.py shipped-times PARENT`` the shipped
+shapes and phase 44, ``chip_smoke.py waymo`` phases 1-2 and 45,
+``chip_smoke.py shipped-times PARENT`` the shipped
 shapes' kernel times beside those of another checkout, each round a
 ``chip_smoke.py shipped-round TREE`` process.)
 
@@ -389,12 +390,38 @@ Phases, each of which raises (non-zero exit) on failure:
     bf16 timed alone;
     K3 at a tail shape (2, 64, 1808, 48) -> 40 equal to its twin and
     timed, with the wrapper's Cin pad copy timed alone.
+45. rv-waymo, the paper's second published configuration, at its
+    published width (``waymo_configs``: ``conf/experiment/rv-waymo.yaml``
+    through ``compose`` and the port's builders; 128-channel stem and
+    stages, FPN 256, 256-channel towers, 3 classes, 6 channels, bf16,
+    nms_cap 1024), seeded weights (``flagship_predictor``), requests of
+    B=2 x 64 x 2650 padded by 3 a side with constant padding to 2656
+    (``padded_request``): 4 bf16 requests launch K1 and K2 and not K3 or
+    K4, finite detections kept, the NMS equal to the plain scan; the same
+    weights on the card against the CPU at B=1 8x256, full widths and
+    depth, in fp32 (heads within 1e-3 * max|ref|) and bf16 (``gate_heads``'
+    bf16 form); forward and decode + NMS device ms and a profiler table of
+    a request; K1 and K2 on the request's own inputs against their twins,
+    timed eager and by graph replay beside their bounds; raw points (B=2
+    x 131,072 a request, Waymo's channels, ``waymo_points_predict``) served
+    4 times as above, equal to the predictor on the clouds rasterized by
+    hand; int8 (fold, calibrate on request 0, full scope): every K3 input
+    unquantized and NHWC-contiguous, 4 requests launch K1, K2 and K3 and
+    not K4, K3 bit-equal to its twin on every shape a request launches, in
+    both operand forms, each shape timed beside its bound
+    (``k3_request_shapes``); the int8 stem: K4 and not K1; then through
+    ``bench.build`` and ``bench.measure`` one mode at a time (bf16, int8,
+    int8 K4 stem, int8 points): p50, p90 and frames/s, the bench's kernels
+    launched; 5 bf16 train steps at B=2 64x2656 (64 seeded boxes an
+    image): ms a step split by part, every parameter leaf changed, peak
+    memory. Its launches are printed in its own line.
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
 step times not measured); ``python3 chip_smoke.py conv-shapes`` the build
 and phase 43; ``python3 chip_smoke.py kernel-shapes`` the build, the
 checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44;
+``python3 chip_smoke.py waymo`` the build and its spill gate, and phase 45;
 ``python3 chip_smoke.py compile-decode`` the build and the decode's
 stages compiled one at a time against eager (``compile_decode_phase``).
 
@@ -769,6 +796,16 @@ def k4_cost(B, H, W, C, elem=2):
     ops = 2 * B * H * W * 9 * 2 * C * C
     nbytes = elem * (2 * B * H * W * C) + 10 * C * C + 4 * 13 * C + 4 * B * H * W * C
     return ops, H100_INT8_OPS, nbytes
+
+
+def k2_cost(B, cap, live, P=9):
+    """(flop, bytes) of one K2 call at ``cap`` slots: the merge's weights
+    and dot products over the payload's ``P`` columns for each of ``live``
+    kept rows (summed over the images); the IoU matrix, scores, valid and
+    payload read once, keep and merged written once."""
+    flops = live * cap * 2 * (1 + P) * 2
+    nbytes = B * cap * cap * 4 + B * cap * (4 + 1 + P * 4) + B * cap * (1 + P * 4)
+    return flops, nbytes
 
 
 def nms_case(B, cap, gen, device, duplicated=False):
@@ -1191,6 +1228,69 @@ def check_k2_any_p(gen, device) -> float:
     return worst
 
 
+def k3_request_shapes(captured, B, H, smi, config="") -> tuple:
+    """K3 against its twin on every distinct shape of one int8 request
+    (``capture_k3``'s record), in both operand forms (``k3_equal``); each
+    shape's time (CUDA events around eager launches, as for the other
+    kernels, and CUDA-graph replay beside them), bound and share of bound,
+    the int8 form's time and the twin's, and their sums over a request.
+    ``config`` names the config in the lines printed. Returns ``(sums,
+    max|diff|, bound_by)``."""
+    import torch
+
+    from range_view_3d_detection_torch.kernels.conv import (
+        conv3x3_i8_fused,
+        conv3x3_i8_fused_plain,
+        quantize_to_int8,
+    )
+
+    label = f"{config} K3" if config else "K3"
+    sums = dict(eager=0.0, graph=0.0, i8=0.0, plain=0.0, ops_ms=0.0, bytes_ms=0.0,
+                bound=0.0)
+    k3_err = 0.0
+    for key in sorted(captured):
+        e = captured[key]
+        x, w, dq, s_in = e["inputs"]
+        cin, cout, W, stride = key
+        tag = f"Cin {cin} Cout {cout} W {W} stride {stride}"
+        xq = quantize_to_int8(x, s_in)
+        k3_err = max(k3_err, k3_equal(x, w, dq, stride, tag, in_scale=s_in),
+                     k3_equal(xq, w, dq, stride, tag))
+        run = dict(stride_w=stride, out_dtype=e["out_dtype"])
+        fused = dict(run, in_scale=s_in)
+        eager = cuda_ms(lambda: conv3x3_i8_fused(x, w, dq, **fused), reps=10)
+        graph = graph_ms(lambda: conv3x3_i8_fused(x, w, dq, **fused))
+        i8_ms = graph_ms(lambda: conv3x3_i8_fused(xq, w, dq, **run))
+        plain = cuda_ms(lambda: conv3x3_i8_fused_plain(x, w, dq, **fused), reps=2, warmup=1)
+        out_bytes = 2 if e["out_dtype"] == torch.bfloat16 else 4
+        ops, nbytes = k3_shape_cost(key, B, H, x.element_size(), out_bytes)
+        bound, by = bound_ms(ops, H100_INT8_OPS, nbytes)
+        i8_bound = bound_ms(ops, H100_INT8_OPS,
+                            k3_shape_cost(key, B, H, 1, out_bytes)[1])[0]
+        n = e["per_request"]
+        sums["eager"] += n * eager
+        sums["graph"] += n * graph
+        sums["i8"] += n * i8_ms
+        sums["plain"] += n * plain
+        sums["bound"] += n * bound
+        sums["ops_ms"] += n * ops / H100_INT8_OPS * 1e3
+        sums["bytes_ms"] += n * nbytes / H100_BYTES_PER_S * 1e3
+        say(f"{label} {tag}: {n} launches/request; {x.dtype} + in_scale: kernel "
+            f"{eager:.4f} ms eager ({100 * bound / eager:.1f}% of bound), "
+            f"{graph:.4f} ms graph replay ({100 * bound / graph:.1f}%, "
+            f"{ops / graph / 1e9:.1f} TOP/s), bound {bound:.4f} ms ({by}); int8 form "
+            f"{i8_ms:.4f} ms graph replay ({100 * i8_bound / i8_ms:.1f}% of its "
+            f"bound); plain {plain:.3f} ms on {smi}")
+    k3_by = "operations" if sums["ops_ms"] >= sums["bytes_ms"] else "bytes"
+    per_request = sum(e["per_request"] for e in captured.values())
+    say(f"{label} per request: {per_request} launches, kernel {sums['eager']:.3f} ms eager "
+        f"({100 * sums['bound'] / sums['eager']:.1f}% of bound), {sums['graph']:.3f} ms "
+        f"graph replay ({100 * sums['bound'] / sums['graph']:.1f}%; int8 form "
+        f"{sums['i8']:.3f}), plain {sums['plain']:.3f} ms, bound {sums['bound']:.3f} ms "
+        f"({k3_by}) on {smi}")
+    return sums, k3_err, k3_by
+
+
 def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
                 gen, smi) -> list:
     """Phases 7-11: K3 at odd shapes, the int8 path with the K1 stem and
@@ -1199,11 +1299,7 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     import torch
     import torch.nn.functional as F
 
-    from range_view_3d_detection_torch.kernels.conv import (
-        conv3x3_i8_fused,
-        conv3x3_i8_fused_plain,
-        quantize_to_int8,
-    )
+    from range_view_3d_detection_torch.kernels.conv import conv3x3_i8_fused, quantize_to_int8
     from range_view_3d_detection_torch.kernels.nms import nms_scan
     from range_view_3d_detection_torch.kernels.stem import (
         meta_kernel_fused,
@@ -1304,51 +1400,9 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
           f"K3 launches {k3_launches} != {per_request} per request x {len(requests)}")
 
     # 9. K3 against its twin on every distinct shape of the request, in both
-    # operand forms; times (CUDA events around eager launches, as for the
-    # other kernels, and CUDA-graph replay beside them), bounds, shares.
+    # operand forms; times, bounds, shares.
     B, H = requests[0][0].shape[:2]
-    sums = dict(eager=0.0, graph=0.0, i8=0.0, plain=0.0, ops_ms=0.0, bytes_ms=0.0,
-                bound=0.0)
-    k3_err = 0.0
-    for key in sorted(captured):
-        e = captured[key]
-        x, w, dq, s_in = e["inputs"]
-        cin, cout, W, stride = key
-        tag = f"Cin {cin} Cout {cout} W {W} stride {stride}"
-        xq = quantize_to_int8(x, s_in)
-        k3_err = max(k3_err, k3_equal(x, w, dq, stride, tag, in_scale=s_in),
-                     k3_equal(xq, w, dq, stride, tag))
-        run = dict(stride_w=stride, out_dtype=e["out_dtype"])
-        fused = dict(run, in_scale=s_in)
-        eager = cuda_ms(lambda: conv3x3_i8_fused(x, w, dq, **fused), reps=10)
-        graph = graph_ms(lambda: conv3x3_i8_fused(x, w, dq, **fused))
-        i8_ms = graph_ms(lambda: conv3x3_i8_fused(xq, w, dq, **run))
-        plain = cuda_ms(lambda: conv3x3_i8_fused_plain(x, w, dq, **fused), reps=2, warmup=1)
-        out_bytes = 2 if e["out_dtype"] == torch.bfloat16 else 4
-        ops, nbytes = k3_shape_cost(key, B, H, x.element_size(), out_bytes)
-        bound, by = bound_ms(ops, H100_INT8_OPS, nbytes)
-        i8_bound = bound_ms(ops, H100_INT8_OPS,
-                            k3_shape_cost(key, B, H, 1, out_bytes)[1])[0]
-        n = e["per_request"]
-        sums["eager"] += n * eager
-        sums["graph"] += n * graph
-        sums["i8"] += n * i8_ms
-        sums["plain"] += n * plain
-        sums["bound"] += n * bound
-        sums["ops_ms"] += n * ops / H100_INT8_OPS * 1e3
-        sums["bytes_ms"] += n * nbytes / H100_BYTES_PER_S * 1e3
-        say(f"K3 {tag}: {n} launches/request; {x.dtype} + in_scale: kernel "
-            f"{eager:.4f} ms eager ({100 * bound / eager:.1f}% of bound), "
-            f"{graph:.4f} ms graph replay ({100 * bound / graph:.1f}%, "
-            f"{ops / graph / 1e9:.1f} TOP/s), bound {bound:.4f} ms ({by}); int8 form "
-            f"{i8_ms:.4f} ms graph replay ({100 * i8_bound / i8_ms:.1f}% of its "
-            f"bound); plain {plain:.3f} ms on {smi}")
-    k3_by = "operations" if sums["ops_ms"] >= sums["bytes_ms"] else "bytes"
-    say(f"K3 per request: {per_request} launches, kernel {sums['eager']:.3f} ms eager "
-        f"({100 * sums['bound'] / sums['eager']:.1f}% of bound), {sums['graph']:.3f} ms "
-        f"graph replay ({100 * sums['bound'] / sums['graph']:.1f}%; int8 form "
-        f"{sums['i8']:.3f}), plain {sums['plain']:.3f} ms, bound {sums['bound']:.3f} ms "
-        f"({k3_by}) on {smi}")
+    sums, k3_err, k3_by = k3_request_shapes(captured, B, H, smi)
     # Context: a bf16 conv (cuDNN) at the costliest shape, the head towers.
     top = max(captured, key=lambda k: k3_shape_cost(k, B, H)[0])
     cin, cout, W, stride = top
@@ -5618,6 +5672,312 @@ def kernel_shapes_phase(device, smi) -> list:
     return [entry, k4_entry]
 
 
+def waymo_configs() -> tuple:
+    """rv-waymo as the port builds it from ``conf/experiment/rv-waymo.yaml``
+    (``compose``, then ``build_detector_config``, ``build_decoder_config``
+    and the val split's ``build_dataset_config``): ``(cfg, dec, layout)``.
+    ``layout`` is what the range image and the points front end take: the
+    height, the sensor's width, the pad a side (``width_padding``) and the
+    served width, the feature names, the dataset's name, ``x_stride`` and
+    ``padding_mode``."""
+    from range_view_3d_detection_torch.data.dataset import width_padding
+    from range_view_3d_detection_torch.training.builders import (
+        build_dataset_config,
+        build_decoder_config,
+        build_detector_config,
+    )
+    from range_view_3d_detection_torch.utils.config import compose
+
+    raw = compose(REPO / "conf", "rv-waymo")
+    ds = build_dataset_config(raw, "val")
+    rv = ds.range_view
+    check(ds.x_stride == 1 and ds.padding_mode == "constant",
+          f"rv-waymo's layout: x_stride {ds.x_stride}, {ds.padding_mode} padding")
+    pad = width_padding(rv.width, ds.x_stride)
+    layout = dict(height=rv.height, sensor_width=rv.width, pad=pad, width=rv.width + 2 * pad,
+                  feature_names=rv.feature_column_names, dataset_name=ds.dataset_name,
+                  x_stride=ds.x_stride, padding_mode=ds.padding_mode)
+    return build_detector_config(raw), build_decoder_config(raw), layout
+
+
+def padded_request(B, H, sensor_width, C, seed):
+    """``serving._sample_inputs`` at the sensor's width, padded a side by
+    ``width_padding`` as the dataset's constant ``padding_mode`` pads a
+    sweep: zero features and points, no returns."""
+    import numpy as np
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.data.dataset import width_padding
+
+    pad = width_padding(sensor_width, 1)
+    spec = ((0, 0), (0, 0), (pad, pad))
+    feats, cart, mask = serving._sample_inputs(B, H, sensor_width, C, seed=seed)
+    return tuple(np.pad(a, spec + ((0, 0),) * (a.ndim - 3)) for a in (feats, cart, mask))
+
+
+def waymo_points_predict(predictor, layout):
+    """The raw-points front end in front of ``predictor`` with ``layout``'s
+    sensor (``export.make_points_predict``): ``(points_predict, extra)``."""
+    from range_view_3d_detection_torch.export import make_points_predict
+
+    return make_points_predict(
+        predictor, sensor_width=layout["sensor_width"], height=layout["height"],
+        feature_names=layout["feature_names"], dataset_name=layout["dataset_name"],
+        x_stride=layout["x_stride"], padding_mode=layout["padding_mode"])
+
+
+def waymo_points(B, n, layout, extra, seed):
+    """B synthetic clouds of ``n`` points (``export._sample_points``) at
+    ``layout``'s height and sensor width, with one channel per name of
+    ``extra``, in its order: elongation in [0, 2), intensity in [0, 3) (raw
+    Waymo intensity, which the projection's tanh plane takes)."""
+    import numpy as np
+
+    from range_view_3d_detection_torch.export import _sample_points
+
+    xyz, laser, intensity = _sample_points(B, n, layout["height"], layout["sensor_width"],
+                                           seed=seed)
+    chans = {"intensity": intensity * 3,
+             "elongation": np.random.default_rng(seed + 1).uniform(0, 2, laser.shape)
+             .astype(np.float32)}
+    return (xyz, laser, *(chans[name] for name in extra))
+
+
+# The kernels each mode of phase 45 must launch and not: the bench's, but
+# its points are served by the bf16 predictor.
+WAYMO_EXPECT = dict(BENCH_EXPECT, points=BENCH_EXPECT["bf16"])
+
+
+def waymo_phase(device, smi) -> dict:
+    """Phase 45: rv-waymo at its published width (see the module
+    docstring). Returns each mode's launches."""
+    import dataclasses
+
+    import torch
+
+    from range_view_3d_detection_torch import bench, serving
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import (
+        meta_kernel_fused,
+        meta_kernel_fused_plain,
+    )
+    from range_view_3d_detection_torch.models import stems
+    from range_view_3d_detection_torch.models.decoder import decode
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+    from range_view_3d_detection_torch.training import optim, state as state_lib
+
+    t0 = time.perf_counter()
+    laps = Laps()
+    cfg, dec, layout = waymo_configs()
+    B, H, W, C = 2, layout["height"], layout["width"], cfg.in_channels
+    requests = [padded_request(B, H, layout["sensor_width"], C, seed=s) for s in range(4)]
+    check(requests[0][0].shape == (B, H, W, C), f"rv-waymo request {requests[0][0].shape}")
+    say(f"rv-waymo (phase 45): layers {cfg.layers}, stages {cfg.stage_blocks}, FPN {cfg.fpn}, "
+        f"towers {cfg.classification_head_channels}/{cfg.regression_head_channels} x "
+        f"{cfg.num_classification_blocks}, {len(cfg.tasks_dict[0])} classes, {C} channels "
+        f"{layout['feature_names']}, {cfg.dtype}, nms_cap {dec.nms_cap}; requests B={B} "
+        f"{H}x{layout['sensor_width']} padded ({layout['padding_mode']}) to {H}x{W}")
+    launches = {}
+
+    def serve(tag, predict, model, inputs, nms_request):
+        """4 requests: the mode's kernels launch and no other, finite
+        detections kept in every image, the NMS on ``nms_request`` equal to
+        the plain scan."""
+        reset_counts()
+        t1 = time.perf_counter()
+        results = [predict(*r) for r in inputs]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / len(inputs)
+        counts = launches[tag] = read_counts()
+        need, never = WAYMO_EXPECT[tag]
+        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
+              f"rv-waymo {tag}: launches {counts}")
+        check_results(results)
+        per_image = [r.keep.sum(-1).tolist() for r in results]
+        check(min(min(n) for n in per_image) > 0, f"rv-waymo {tag}: an image kept nothing: "
+              f"{per_image}")
+        nms_err = check_nms_against_plain(model, nms_request, cfg, dec, device)
+        say(f"rv-waymo {tag}: {len(inputs)} requests, launches {counts}, kept {per_image}, NMS == "
+            f"plain scan (cuboids max|diff| {nms_err:.3g}); {ms:.3f} ms a request (host "
+            f"clock, first calls) on {smi}")
+        return results
+
+    # bf16: the served config, seeded weights (flagship_predictor's).
+    predictor = flagship_predictor(cfg, dec, device, torch.Generator().manual_seed(SEED + 45),
+                                   requests[0])
+    model = predictor.model
+    predictor(*requests[0])  # warm-up (cuDNN plans)
+    serve("bf16", predictor, model, requests, requests[0])
+    laps("bf16 requests")
+
+    # The card against the CPU on the same weights at B=1 8x256 (250 + 2 x
+    # 3 columns), full widths and depth, fp32 and bf16.
+    small = padded_request(1, 8, 250, C, seed=45)
+    texts = []
+    for dtype, form in (("float32", "flagship"), ("bfloat16", "bf16")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        cpu = serving.Predictor(c, dec, device="cpu")
+        cpu.model.load_state_dict(model.state_dict())
+        card = predictor
+        if dtype != cfg.dtype:
+            card = serving.Predictor(c, dec, device=device)
+            card.model.load_state_dict(model.state_dict())
+        text = gate_heads(f"rv-waymo {dtype} 1x8x256", model_heads(card, small),
+                          model_heads(cpu, small), form)
+        texts.append(f"{dtype}: {text}")
+        del cpu, card
+    say(f"rv-waymo heads, the card against the CPU at B=1 8x256: {'; '.join(texts)}")
+    laps("card against CPU")
+
+    # Where a request's time goes, and K1 and K2 on the request's own inputs.
+    tensors = [torch.as_tensor(a, device=device) for a in requests[0]]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(*tensors), reps=5)
+        out = model(*tensors)
+        dec_ms = cuda_ms(lambda: decode(out, dec, cfg.tasks_dict, use_nms=True), reps=5)
+        profile_request(predictor, requests[1])
+    del out
+    seen = {}
+
+    def capture_k1(*args):
+        seen.setdefault("K1", tuple(a.clone() for a in args))
+        return meta_kernel_fused(*args)
+
+    def capture_k2(*args, **kw):
+        seen.setdefault("K2", (tuple(a.clone() for a in args), kw))
+        return nms_scan(*args, **kw)
+
+    stems.meta_kernel_fused, nms_ops.nms_scan = capture_k1, capture_k2
+    try:
+        predictor(*requests[0])
+    finally:
+        stems.meta_kernel_fused, nms_ops.nms_scan = meta_kernel_fused, nms_scan
+    k1_args, (k2_args, k2_kw) = seen["K1"], seen["K2"]
+    got, want = meta_kernel_fused(*k1_args), meta_kernel_fused_plain(*k1_args)
+    torch.cuda.synchronize()
+    k1_err, k1_ref = (got - want).abs().max().item(), want.abs().max().item()
+    check(k1_err <= 2e-2 * k1_ref, f"rv-waymo K1: max|diff| {k1_err} > 2e-2 * {k1_ref}")
+    del got, want
+    k2_err = check_k2("rv-waymo request", k2_args)
+    k1_ms = cuda_ms(lambda: meta_kernel_fused(*k1_args), reps=10)
+    k1_graph = graph_ms(lambda: meta_kernel_fused(*k1_args))
+    k1_flops, k1_bytes = k1_cost(*k1_args[0].shape)
+    k1_bound = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
+    k2_ms = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
+    k2_graph = graph_ms(lambda: nms_scan(*k2_args, **k2_kw))
+    cap = k2_args[0].shape[-1]
+    live = int(nms_scan(*k2_args, **k2_kw)[0].sum())
+    k2_flops, k2_bytes = k2_cost(B, cap, live, k2_args[3].shape[-1])
+    k2_bound = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
+    say(f"rv-waymo K1 {tuple(k1_args[0].shape)} (the request's own stem inputs): max|diff| "
+        f"{k1_err:.4g} (max|ref| {k1_ref:.4g}); {k1_ms:.4f} ms eager, {k1_graph:.4f} ms graph "
+        f"replay, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) on {smi}")
+    say(f"rv-waymo K2 B {B} cap {cap} (the request's own IoU matrix, {live} kept): merged "
+        f"max|diff| {k2_err:.3g}; {k2_ms:.4f} ms eager, {k2_graph:.4f} ms graph replay, bound "
+        f"{k2_bound[0] * 1e3:.2f} us ({k2_bound[1]}) on {smi}")
+    say(f"rv-waymo bf16 request (B={B}, {H}x{W}): forward {fwd_ms:.3f} ms, decode + NMS "
+        f"{dec_ms:.3f} ms (device, CUDA events, median of 5) on {smi}")
+    del k1_args, k2_args, seen, tensors
+    laps("times, K1 and K2")
+
+    # Raw points to detections: B=2 x 131,072 points a request at the
+    # sensor's 64x2650 with Waymo's channels, padded as above.
+    points_predict, extra = waymo_points_predict(predictor, layout)
+    check(list(extra) == ["elongation", "intensity"], f"rv-waymo points channels {extra}")
+    clouds = [waymo_points(B, POINTS_N, layout, extra, seed=s) for s in range(4)]
+    rasterized = points_predict.rasterize(*clouds[0])
+    check(tuple(rasterized[0].shape) == (B, H, W, C), f"rv-waymo points {rasterized[0].shape}")
+    points_predict(*clouds[0])  # warm-up
+    results = serve("points", points_predict, model, clouds, rasterized)
+    by_hand = predictor(*rasterized)
+    check(torch.equal(results[0].keep, by_hand.keep)
+          and torch.equal(results[0].cuboids, by_hand.cuboids),
+          "rv-waymo points: detections differ from the predictor on the same rasterized clouds")
+    del results, by_hand, rasterized
+    laps("points")
+
+    # int8: fold, calibrate on request 0, quantize (full scope); K3 on every
+    # shape a request launches; then the int8 stem (K4).
+    predictor.quantize([requests[0]], scope="full")
+    captured, k3_in = capture_k3(predictor, requests[0])  # warm-up, and its K3 inputs
+    check(k3_in["unquantized"] == k3_in["launches"] == k3_in["nhwc_contiguous"],
+          f"rv-waymo: a K3 input was quantized or copied before the launch: {k3_in}")
+    per_request = sum(e["per_request"] for e in captured.values())
+    serve("int8", predictor, model, requests, requests[0])
+    check(launches["int8"]["conv3x3_i8_fused"] == per_request * len(requests),
+          f"rv-waymo int8: K3 launches {launches['int8']} != {per_request} a request x 4")
+    say(f"rv-waymo int8: {per_request} K3 launches a request at {len(captured)} shapes: "
+        + ", ".join(f"(Cin {k[0]}, Cout {k[1]}, W {k[2]}, stride {k[3]}) x {e['per_request']}"
+                    for k, e in sorted(captured.items())))
+    k3_request_shapes(captured, B, H, smi, config="rv-waymo")
+    del captured
+    laps("int8")
+    predictor.quantize(quant_tree=predictor.quant_tree, stem_int8=True)
+    predictor(*requests[0])  # warm-up
+    serve("int8 K4 stem", predictor, model, requests, requests[0])
+    del predictor, model
+    torch.cuda.empty_cache()
+    laps("int8 stem")
+
+    # The bench's span (forward, decode, NMS at cap 1024) through
+    # bench.build and bench.measure, one mode at a time.
+    rows = []
+    for tag, fp, stem in (("bf16", True, False), ("int8", False, False),
+                          ("int8 K4 stem", False, True), ("points", False, False)):
+        _set_stem_int8(stem)
+        try:
+            pipeline, args, make_batch, path = bench.build(B, fp=fp, device=device, cfg=cfg,
+                                                           height=H, width=W)
+        finally:
+            _set_stem_int8(False)
+        if tag == "points":
+            pipeline, extra = waymo_points_predict(pipeline, layout)
+
+            def make_batch(s, extra=extra):
+                return waymo_points(B, POINTS_N, layout, extra, seed=s)
+
+            args = tuple(torch.as_tensor(a, device=device) for a in make_batch(0))
+        reset_counts()
+        fps, lat = bench.measure(pipeline, args, make_batch, B)
+        torch.cuda.synchronize()
+        counts = launches[f"bench {tag}"] = read_counts()
+        need, never = BENCH_EXPECT[tag]
+        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
+              f"rv-waymo bench {tag}: launches {counts}")
+        rows.append(f"{tag} ({path}{', points' if tag == 'points' else ''}) p50 "
+                    f"{lat['latency_ms_p50']} ms, p90 {lat['latency_ms_p90']} ms, "
+                    f"{fps:.2f} frames/s")
+        del pipeline, args
+        torch.cuda.empty_cache()
+    say(f"rv-waymo bench (bench.build + bench.measure, B={B} {H}x{W}, one mode at a time): "
+        + "; ".join(rows) + f" on {smi}")
+    laps("bench modes")
+
+    # Train steps: bf16 at B=2 64x2656, 64 seeded boxes of 256 an image.
+    batch = state_lib.batch_to_device(flagship_train_batch(cfg, B, H, W, seed=SEED + 45),
+                                      device)
+    tx, _ = optim.make_optimizer(1e-3, 10, debug=True)
+    torch.cuda.reset_peak_memory_stats()
+    st = state_lib.create_state(cfg, tx, device=device,
+                                generator=torch.Generator().manual_seed(SEED + 46))
+    params0 = {n: p.detach().clone() for n, p in st.model.named_parameters()}
+    total, split, st = step_split(state_lib.make_train_step(cfg), st, batch, n=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    still = [n for n, p in st.model.named_parameters() if torch.equal(p.detach(), params0[n])]
+    check(not still, f"rv-waymo: parameters unchanged after 5 train steps: {still[:5]}")
+    say(f"rv-waymo train step (bf16, B={B} {H}x{W}, 64 boxes an image): {total:.3f} ms (CUDA "
+        f"events, median of 3 after 2 warm-up) = "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" ms; all {len(params0)} parameter leaves changed; peak memory {peak_gb:.2f} GiB "
+        f"on {smi}")
+    del st, params0, batch
+    torch.cuda.empty_cache()
+    laps("train steps")
+    say(f"phase 45: {time.perf_counter() - t0:.0f} s ({laps})")
+    say("rv-waymo launches (phase 45) " + json.dumps(launches))
+    return launches
+
+
 def flagship_predictor(cfg, dec, device, gen, request):
     """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
     non-trivial BatchNorm statistics, and each head's final conv scaled to
@@ -5807,8 +6167,7 @@ def main() -> int:
     k2_plain_ms = cuda_ms(lambda: nms_scan_plain(*k2_in, **nms_kw), reps=3, warmup=1)
     live_per_image = nms_scan(*k2_in, **nms_kw)[0].sum(-1)
     live = int(live_per_image.sum())
-    k2_flops = live * cap * 2 * (1 + 9) * 2  # weights + dot products, per image-live step
-    k2_bytes = 2 * cap * cap * 4 + 2 * cap * (4 + 1 + 9 * 4) + 2 * cap * (1 + 9 * 4)
+    k2_flops, k2_bytes = k2_cost(2, cap, live)
     k2_bound, k2_by = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
     # The greedy keep's own floor: the images run side by side, each a chain
     # of one shared-memory round trip a live step.
@@ -5923,6 +6282,9 @@ def main() -> int:
     laps("43 conv shapes")
     shapes_entries = kernel_shapes_phase(device, smi)
     laps("44 kernel shapes")
+    waymo_phase(device, smi)
+    torch.cuda.empty_cache()
+    laps("45 rv-waymo")
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -6220,23 +6582,44 @@ def kernel_shapes_main() -> int:
     return 0
 
 
+def waymo_main() -> int:
+    """``chip_smoke.py waymo``: the device, the build and its spill gate
+    (phases 1-2), then phase 45 alone."""
+    t_start = time.perf_counter()
+    start = card_start()
+    if start is None:
+        return 1
+    device, smi = start
+    from range_view_3d_detection_torch.kernels import _build
+
+    check_spills(_build.library())
+    waymo_phase(device, smi)
+    say(f"chip_smoke waymo: total {time.perf_counter() - t_start:.0f} s")
+    return 0
+
+
+# The subcommands: the first argument names one, the rest are its own.
+SUBCOMMANDS = {
+    "kernel-shapes": lambda args: kernel_shapes_main(),
+    "shipped-times": lambda args: shipped_times_main(Path(args[0])),
+    "shipped-round": lambda args: shipped_round(Path(args[0])),
+    "tools": lambda args: tools_main(),
+    "conv-shapes": lambda args: conv_shapes_main(),
+    "compile-decode": lambda args: compile_decode_main(),
+    "train-rank": train_rank,
+    "width-rank": width_rank,
+    "convert": convert_rank,
+    "waymo": lambda args: waymo_main(),
+}
+
+
+def run(argv) -> int:
+    """The subcommand ``argv`` (the arguments after the script's name)
+    names, or the whole run."""
+    if argv and argv[0] in SUBCOMMANDS:
+        return SUBCOMMANDS[argv[0]](argv[1:])
+    return main()
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["kernel-shapes"]:
-        sys.exit(kernel_shapes_main())
-    if sys.argv[1:2] == ["shipped-times"]:
-        sys.exit(shipped_times_main(Path(sys.argv[2])))
-    if sys.argv[1:2] == ["shipped-round"]:
-        sys.exit(shipped_round(Path(sys.argv[2])))
-    if sys.argv[1:2] == ["tools"]:
-        sys.exit(tools_main())
-    if sys.argv[1:2] == ["conv-shapes"]:
-        sys.exit(conv_shapes_main())
-    if sys.argv[1:2] == ["compile-decode"]:
-        sys.exit(compile_decode_main())
-    if sys.argv[1:2] == ["train-rank"]:
-        sys.exit(train_rank(sys.argv[2:]))
-    if sys.argv[1:2] == ["width-rank"]:
-        sys.exit(width_rank(sys.argv[2:]))
-    if sys.argv[1:2] == ["convert"]:
-        sys.exit(convert_rank(sys.argv[2:]))
-    sys.exit(main())
+    sys.exit(run(sys.argv[1:]))

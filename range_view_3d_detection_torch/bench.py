@@ -111,9 +111,10 @@ def build(batch: int, *, fp: bool = False, points: bool = False,
     return pipeline, args, make_batch, path
 
 
-def _run(batch: int, *, fp: bool = False, points: bool = False,
-         device: str | torch.device = "cuda") -> dict:
-    pipeline, args, make_batch, path = build(batch, fp=fp, points=points, device=device)
+def measure(pipeline: Callable, args: tuple, make_batch: Callable,
+            batch: int) -> Tuple[float, dict]:
+    """The bench's loop on a built pipeline (:func:`build`'s first three
+    values): ``(frames/s, export.latency_bench's percentiles)``."""
     for _ in range(WARMUP):
         sync(pipeline(*args))
     t0 = time.perf_counter()
@@ -122,8 +123,17 @@ def _run(batch: int, *, fp: bool = False, points: bool = False,
         if (i + 1) % CHUNK == 0:
             sync(res)
     fps = batch * ITERS / (time.perf_counter() - t0)
+    # H, W and C only size latency_bench's default batches; make_batch
+    # replaces them.
     lat = export.latency_bench(pipeline, batch=batch, iters=LATENCY_ITERS, H=HEIGHT,
                                W=WIDTH, C=5, make_batch=make_batch)
+    return fps, lat
+
+
+def _run(batch: int, *, fp: bool = False, points: bool = False,
+         device: str | torch.device = "cuda") -> dict:
+    pipeline, args, make_batch, path = build(batch, fp=fp, points=points, device=device)
+    fps, lat = measure(pipeline, args, make_batch, batch)
     spec = os.environ.get(ENV_VAR, "")
     execution = f"torch.compile({spec})" if spec else "eager"
     report = {

@@ -33,6 +33,11 @@
   logs, imports none of JAX, pyarrow, the JAX package, ``converters/`` and
   ``tools/``, and finds the AV2 corpus equal to the one on
   ``z_buffer_numpy`` and to the one from the LZ4 copy of the logs.
+- Phase 45's helpers: the rv-waymo config and decoder it builds have the
+  published widths, classes, cap and layout; its requests are B=2 x 64 x
+  2650 padded with constant padding to 2656; its raw points go through
+  ``make_points_predict`` with Waymo's projection and constant padding;
+  ``chip_smoke.py waymo`` and the other subcommands are parsed.
 """
 
 from __future__ import annotations
@@ -395,3 +400,83 @@ def test_compile_config_takes_k1():
     assert bf16 == dataclasses.replace(tiny, layers=(32,) * 5, dtype="bfloat16")
     assert k1_plan(tiny.layers[0], torch.float32) == ("tf32x3", 8)
     assert k1_plan(bf16.layers[0], torch.bfloat16) == ("wgmma", 0)
+
+
+def test_waymo_phase_config_and_request():
+    """Phase 45 builds rv-waymo as ``conf/`` publishes it (128-channel stem
+    and stages, FPN 256, 256-channel towers, 3 classes, 6 channels, bf16
+    with the fused stem, its own decoder at nms_cap 1024) and serves it
+    B=2 x 64 x 2650 padded by 3 a side, constant, to 2656; its stem takes
+    K1's and K4's 128-wide wgmma instances."""
+    from range_view_3d_detection_torch.data.dataset import WAYMO_FEATURES
+    from range_view_3d_detection_torch.kernels.stem import k1_plan, k4_plan
+    from range_view_3d_detection_torch.training import builders
+    from range_view_3d_detection_torch.utils.config import compose
+
+    cfg, dec, layout = chip_smoke.waymo_configs()
+    raw = compose("conf", "rv-waymo")
+    assert cfg == builders.build_detector_config(raw)
+    assert dec == builders.build_decoder_config(raw)
+    assert cfg.layers == (128,) * 5 and cfg.stage_blocks == (2, 3, 3, 5, 5)
+    assert cfg.fpn == ((1, 256),)
+    assert cfg.classification_head_channels == cfg.regression_head_channels == 256
+    assert cfg.num_classification_blocks == cfg.num_regression_blocks == 4
+    assert len(cfg.tasks_dict[0]) == 3 and cfg.in_channels == 6
+    assert cfg.dtype == "bfloat16" and cfg.stem_type == "META" and cfg.stem_pallas
+    assert dec.nms_cap == 1024
+    assert layout == dict(height=64, sensor_width=2650, pad=3, width=2656,
+                          feature_names=WAYMO_FEATURES, dataset_name="waymo", x_stride=1,
+                          padding_mode="constant")
+    feats, cart, mask = chip_smoke.padded_request(2, 64, 2650, cfg.in_channels, seed=0)
+    assert feats.shape == (2, 64, 2656, 6) and cart.shape == (2, 64, 2656, 3)
+    assert mask.shape == (2, 64, 2656) and mask.dtype == bool
+    for a in (feats, cart, mask):
+        assert not a[:, :, :3].any() and not a[:, :, -3:].any()
+    assert mask[:, :, 3:-3].mean() > 0.9
+    small = chip_smoke.padded_request(1, 8, 250, 6, seed=45)
+    assert small[0].shape == (1, 8, 256, 6)
+    assert k1_plan(128, torch.bfloat16) == ("wgmma", 0)
+    assert k4_plan(128, torch.bfloat16) == ("wgmma", 0)
+
+
+def test_waymo_points_front_end():
+    """Phase 45's raw points go through ``export.make_points_predict`` with
+    Waymo's layout: constant padding, the waymo projection, its two
+    extra channels in their order, into a 64 x 2656 x 6 range image."""
+    import dataclasses
+
+    from range_view_3d_detection_torch import serving
+
+    cfg, dec, layout = chip_smoke.waymo_configs()
+    tiny = dataclasses.replace(serving._flagship_config(tiny=True), in_channels=6)
+    predictor = serving.Predictor(tiny, dec, device="cpu")
+    points_predict, extra = chip_smoke.waymo_points_predict(predictor, layout)
+    assert extra == ["elongation", "intensity"]
+    kw = points_predict.kw
+    assert kw["padding_mode"] == "constant" and kw["pad"] == 3 and kw["width"] == 2650
+    assert kw["dataset_name"] == "waymo" and kw["x_stride"] == 1 and kw["height"] == 64
+    clouds = chip_smoke.waymo_points(2, 4096, layout, extra, seed=0)
+    xyz, laser, elongation, intensity = clouds
+    assert xyz.shape == (2, 4096, 3) and laser.shape == elongation.shape == (2, 4096)
+    assert 0 <= elongation.min() and elongation.max() < 2 and intensity.max() > 1
+    feats, cart, mask = points_predict.rasterize(*clouds)
+    assert tuple(feats.shape) == (2, 64, 2656, 6) and mask.any()
+    assert not mask[:, :, :3].any() and not mask[:, :, -3:].any()
+
+
+def test_subcommands_are_parsed(monkeypatch):
+    """``chip_smoke.py waymo`` runs phase 45's entry point; a subcommand's
+    own arguments reach it; no argument runs the whole script."""
+    called = []
+    monkeypatch.setattr(chip_smoke, "waymo_main", lambda: called.append("waymo") or 45)
+    monkeypatch.setattr(chip_smoke, "convert_rank", lambda args: called.append(args) or 29)
+    monkeypatch.setitem(chip_smoke.SUBCOMMANDS, "convert", chip_smoke.convert_rank)
+    monkeypatch.setattr(chip_smoke, "main", lambda: called.append("main") or 0)
+    assert chip_smoke.run(["waymo"]) == 45
+    assert chip_smoke.run(["convert", "WORK"]) == 29
+    assert chip_smoke.run([]) == 0
+    assert called == ["waymo", ["WORK"], "main"]
+    assert set(chip_smoke.SUBCOMMANDS) == {
+        "waymo", "kernel-shapes", "tools", "conv-shapes", "compile-decode", "train-rank",
+        "width-rank", "convert", "shipped-times", "shipped-round"}
+

@@ -45,9 +45,19 @@ from test_torch_blocks import randomize_bn
 torch.set_num_threads(2)
 
 
-def _served_pair(jcfg, tcfg, B, H, W, seed, other_classes_bias=0.0, return_inputs=False):
-    feats, cart, _ = serving._sample_inputs(B, H, W, jcfg.in_channels, seed=seed)
-    mask = np.random.default_rng(seed + 1).uniform(size=(B, H, W)) < 0.3
+def _served_pair(jcfg, tcfg, B, H, W, seed, other_classes_bias=0.0, return_inputs=False,
+                 jdec=DecoderConfig(), tdec=TDecoderConfig(), pad=0):
+    """Both packages' served path on one seeded batch: ``(out, tout, ref,
+    got)`` (JAX's head outputs, the port's, JAX's NMS result, the port's),
+    and with ``return_inputs`` the weights and the batch. ``jdec`` and
+    ``tdec`` are each package's decoder config. ``pad`` > 0: the image is
+    ``W - 2 pad`` columns wide, padded to ``W`` as the dataset's constant
+    ``padding_mode`` pads it (zero features and points, no returns)."""
+    feats, cart, _ = serving._sample_inputs(B, H, W - 2 * pad, jcfg.in_channels, seed=seed)
+    mask = np.random.default_rng(seed + 1).uniform(size=(B, H, W - 2 * pad)) < 0.3
+    spec = ((0, 0), (0, 0), (pad, pad))
+    feats, cart = (np.pad(a, spec + ((0, 0),)) for a in (feats, cart))
+    mask = np.pad(mask, spec)
     batch = tuple(jnp.asarray(a) for a in (feats, cart, mask))
     model = Detector(jcfg)
     v = model.init(jax.random.PRNGKey(seed), *batch, train=False)
@@ -74,14 +84,14 @@ def _served_pair(jcfg, tcfg, B, H, W, seed, other_classes_bias=0.0, return_input
         else:
             final["bias"][3:6] = np.log(8.0)
     out = apply()
-    ref = decode(out, DecoderConfig(), jcfg.tasks_dict, use_nms=True)
-    proposals = decode(out, DecoderConfig(), jcfg.tasks_dict, use_nms=False)
-    n_valid = (np.asarray(proposals.scores) >= DecoderConfig().min_confidence).sum(-1)
+    ref = decode(out, jdec, jcfg.tasks_dict, use_nms=True)
+    proposals = decode(out, jdec, jcfg.tasks_dict, use_nms=False)
+    n_valid = (np.asarray(proposals.scores) >= jdec.min_confidence).sum(-1)
     # Real NMS work: every image keeps some proposals and suppresses some.
     n_keep = np.asarray(ref.keep).sum(-1)
     assert (0 < n_keep).all() and (n_keep < n_valid).all(), (n_keep, n_valid)
 
-    predictor = serving.Predictor(tcfg, TDecoderConfig(), device="cpu")
+    predictor = serving.Predictor(tcfg, tdec, device="cpu")
     load_flax_variables(predictor.model, params, stats)
     with torch.inference_mode():
         tout = predictor.model(
@@ -189,10 +199,11 @@ def test_served_path_flagship_widths_all_categories():
     assert ((keep & ~close).sum(-1) <= 1).all(), np.argwhere(keep & ~close)
 
 
-def _check_kept_boxes(ref, got):
+def _check_kept_boxes(ref, got, unmatched=0):
     """The same boxes kept, slot order aside: per image the same count,
     and each reference box matched one to one by a kept box of its
-    category whose BEV centre lies within 0.05 m; matched boxes within
+    category whose BEV centre lies within 0.05 m, all but at most
+    ``unmatched`` of an image's; matched boxes within
     0.05 m in x, y, z and 5% in l, w, h, scores within 2e-2. The yaw is
     the atan2 of the sin and cos regressands, whose (sin, cos) vectors
     are short with random weights, so a bf16 ulp in either can turn a box
@@ -208,7 +219,9 @@ def _check_kept_boxes(ref, got):
         dist = np.linalg.norm(rc[:, None, :2] - gc[None, :, :2], axis=-1)
         dist[rcat[:, None] != gcat[None]] = np.inf
         j = dist.argmin(1)
-        assert (dist[np.arange(len(j)), j] <= 0.05).all()
+        near = dist[np.arange(len(j)), j] <= 0.05
+        assert (~near).sum() <= unmatched, np.argwhere(~near)
+        j, rc = j[near], rc[near]
         assert len(set(j.tolist())) == len(j)  # one to one
         gc = gc[j]
         np.testing.assert_allclose(gc[:, :3], rc[:, :3], atol=0.05, rtol=0)
@@ -217,7 +230,7 @@ def _check_kept_boxes(ref, got):
         median, p90 = np.quantile(np.abs(dyaw), [0.5, 0.9])
         assert median <= 0.01 and p90 <= 0.1, (median, p90)
         np.testing.assert_allclose(
-            got.scores[b].numpy()[kg][j], np.asarray(ref.scores[b])[kr], atol=2e-2
+            got.scores[b].numpy()[kg][j], np.asarray(ref.scores[b])[kr][near], atol=2e-2
         )
 
 
