@@ -11,6 +11,7 @@ width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
 starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone,
 ``chip_smoke.py kernel-shapes`` the kernels' checks past the configs'
 shapes and phase 44, ``chip_smoke.py waymo`` phases 1-2 and 45,
+``chip_smoke.py configs`` phases 1-2 and 46,
 ``chip_smoke.py shipped-times PARENT`` the shipped
 shapes' kernel times beside those of another checkout, each round a
 ``chip_smoke.py shipped-round TREE`` process.)
@@ -171,10 +172,10 @@ Phases, each of which raises (non-zero exit) on failure:
     rasterized on the card by hand (keep and categories equal, values
     within 1e-6); ``latency_bench`` (50 requests: p50/p90/p99) and
     ``stream_bench`` (20 iterations) on range images in bf16 and int8 and
-    on points in bf16; projection's share of a points request; and the
-    export CLI as a user types it, in a subprocess (``--synthetic --out
-    D``, then ``--load D --points --latency --iters 50``), its JSON line
-    parsed;
+    on points in bf16; projection's share of a points request; and
+    (beside phase 37) the export CLI as a user types it, in a subprocess
+    (``--synthetic --out D``, then ``--load D --points --latency --iters
+    50``), its JSON line parsed;
 22. remat: the flagship train step (bf16, B=2 64x1808, 64 boxes an
     image) without remat and with every group of ``remat_scope``, from the
     same weights: the loss and the running statistics equal bit for bit,
@@ -182,7 +183,7 @@ Phases, each of which raises (non-zero exit) on failure:
     median leaf within 2e-3 of its max, the worst within 1e-3 plus twice
     the card's own run-to-run move); then each of B=2 without remat, B=2
     with it and B=4 with it: ms a step (CUDA events, 2 warm-up, median of
-    5) split into targets, forward, loss, backward and optimizer, and
+    3, a cut from 5) split into targets, forward, loss, backward and optimizer, and
     peak memory, which must stay inside the card's;
 23. distributed: in this process, the phase-22 step as rank 0 of a NCCL
     group of one (``parallel/mesh.py``'s collectives all run) against the
@@ -263,12 +264,14 @@ Phases, each of which raises (non-zero exit) on failure:
     ``Predictor``.
     K1 and K2 must launch (``converted_launches`` in the kernels line).
 30. the bench: ``python -m range_view_3d_detection_torch.bench`` in a
-    subprocess as a user runs it, int8 (the default), ``--fp``,
-    ``--points`` and with ``RV3D_STEM_INT8=1``, the four side by side
-    (their frames/s are not clean), at the flagship (B=2,
-    64x1808, ``nms_cap`` 1024): each JSON line has frames/s above 0, p50 <=
-    p90, ``eager`` in its mode and the card's ``nvidia-smi`` line; the same
-    four modes through ``bench.main`` in this process, counts reset before
+    subprocess as a user runs it, int8 (the default; the other three
+    modes' subprocesses are a cut: their flags take the same entry point
+    in this process below), at the flagship (B=2, 64x1808, ``nms_cap``
+    1024), beside phase 37 (its frames/s are not clean): its JSON line
+    has frames/s above 0, p50 <= p90, ``eager`` in
+    its mode and the card's ``nvidia-smi`` line; the four modes, int8,
+    ``--fp``, ``--points`` and with ``RV3D_STEM_INT8=1``, through
+    ``bench.main`` in this process (each line gated alike), counts reset before
     and read after: K1, K2 and K3 in int8 and points, K1 and K2 (no K3) in
     bf16, K4 and not K1 under the int8 stem (``bench_*_launches`` in the
     kernels line); the bench's int8 pipeline on one request equals a
@@ -297,10 +300,11 @@ Phases, each of which raises (non-zero exit) on failure:
     accumulate stem), once with ``RV3D_STEM_INT8=1`` (K4 launches), once
     with ``--qat-steps 20``; K3 and K2 launch in each; the int8 mAP beside
     phase 18's PTQ;
-36. ``tools.quant_cert_scale --seeds 1 --epochs 2 --sweeps-per-log 8``
-    (training and scoring in subprocesses) and ``tools.scale_drill
-    --sweeps 100 --logs 2 --dense``, each a cut in depth, printed as such;
-    the launches of phases 31-36 (``tools_launches``): all four kernels;
+36. ``tools.quant_cert_scale --seeds 1 --epochs 1 --sweeps-per-log 8``
+    (training and scoring in subprocesses; beside phase 37) and
+    ``tools.scale_drill --sweeps 100 --logs 2 --dense``, each a cut in
+    depth, printed as such; the launches of phases 31-36
+    (``tools_launches``): all four kernels;
 37. ``utils.compile_opts``: the pipeline of the tiny config (widths 8,
     fp32: K1's 3xTF32 kernel) and of the tiny config at 32 channels in bf16
     (K1's wgmma kernel), each with the K1 stem (B=1 16x256) under
@@ -309,8 +313,12 @@ Phases, each of which raises (non-zero exit) on failure:
     decode and NMS included, ``keep`` equal to eager's and not empty,
     heads within 2e-2 x max|ref|, K1 and K2 launched by the compiled program (``compile_launches``); the
     bench's compiled pipeline on the bf16 config keep-equal to its eager
-    one; an unknown option raises. The flagship is not compiled (a cut);
-38. ``dryrun.entry()`` once (finite heads), then
+    one; an unknown option raises. The flagship is not compiled (a cut).
+    Beside its compiles, in processes of their own and checked when they
+    end (``BESIDE_COMPILE``): phases 21's and 30's CLI runs, phase 36's
+    ``quant_cert_scale``, phase 38's ``dryrun_multichip`` and phase 42's
+    two ``validate_nms`` runs, none of which times anything kept;
+38. ``dryrun.entry()`` once (finite heads), then (beside phase 37)
     ``dryrun.dryrun_multichip(<cards>)``: its four phases as NCCL ranks in
     spawned processes, each reporting OK (none skipped for time);
 39. K2 past cap 4096 (the chain warp ahead of TMA-fed updaters, then the
@@ -342,8 +350,8 @@ Phases, each of which raises (non-zero exit) on failure:
     library equal to the pure-Python twin; MB/s of both;
 42. the hardware tools as subprocesses, each exiting 0:
     ``tools.validate_nms`` in WEIGHTED and HARD at caps 1024, 2048, 4096 and
-    9216 (N = 9216 proposals; K2 against the plain scan; the two modes side
-    by side, so their times are not clean), ``tools.conv_ab --reps 3`` (K3
+    9216 (N = 9216 proposals; K2 against the plain scan; the two modes
+    beside phase 37, so their times are not clean), ``tools.conv_ab --reps 3`` (K3
     against ``_int_mm``'s lowering, bit for bit, then per shape and per
     request) and ``tools.fold_bench --stage res3`` with and without
     ``--int8``, each alone (``hw_tools_launches``: their launches);
@@ -391,30 +399,49 @@ Phases, each of which raises (non-zero exit) on failure:
     K3 at a tail shape (2, 64, 1808, 48) -> 40 equal to its twin and
     timed, with the wrapper's Cin pad copy timed alone.
 45. rv-waymo, the paper's second published configuration, at its
-    published width (``waymo_configs``: ``conf/experiment/rv-waymo.yaml``
-    through ``compose`` and the port's builders; 128-channel stem and
-    stages, FPN 256, 256-channel towers, 3 classes, 6 channels, bf16,
-    nms_cap 1024), seeded weights (``flagship_predictor``), requests of
-    B=2 x 64 x 2650 padded by 3 a side with constant padding to 2656
-    (``padded_request``): 4 bf16 requests launch K1 and K2 and not K3 or
-    K4, finite detections kept, the NMS equal to the plain scan; the same
-    weights on the card against the CPU at B=1 8x256, full widths and
-    depth, in fp32 (heads within 1e-3 * max|ref|) and bf16 (``gate_heads``'
-    bf16 form); forward and decode + NMS device ms and a profiler table of
-    a request; K1 and K2 on the request's own inputs against their twins,
-    timed eager and by graph replay beside their bounds; raw points (B=2
-    x 131,072 a request, Waymo's channels, ``waymo_points_predict``) served
-    4 times as above, equal to the predictor on the clouds rasterized by
-    hand; int8 (fold, calibrate on request 0, full scope): every K3 input
-    unquantized and NHWC-contiguous, 4 requests launch K1, K2 and K3 and
-    not K4, K3 bit-equal to its twin on every shape a request launches, in
-    both operand forms, each shape timed beside its bound
-    (``k3_request_shapes``); the int8 stem: K4 and not K1; then through
-    ``bench.build`` and ``bench.measure`` one mode at a time (bf16, int8,
-    int8 K4 stem, int8 points): p50, p90 and frames/s, the bench's kernels
-    launched; 5 bf16 train steps at B=2 64x2656 (64 seeded boxes an
-    image): ms a step split by part, every parameter leaf changed, peak
-    memory. Its launches are printed in its own line.
+    published width (``config_phase``; ``experiment_configs``:
+    ``conf/experiment/rv-waymo.yaml`` through ``compose`` and the port's
+    builders; 128-channel stem and stages, FPN 256, 256-channel towers, 3
+    classes, 6 channels, bf16, nms_cap 1024), seeded weights
+    (``flagship_predictor``), requests of B=2 x 64 x 2650 padded by 3 a
+    side with constant padding to 2656 (``padded_request``): 4 bf16
+    requests launch K1 and K2 (once a request) and not K3 or K4, finite
+    detections kept, the NMS equal to the plain scan; the same weights on
+    the card against the CPU at B=1 8x256, full widths and depth, in fp32
+    (heads within 1e-3 * max|ref|) and bf16 (``gate_heads``' bf16 form);
+    forward and decode + NMS device ms, a request traced by
+    ``tools.profile_trace`` (device time by kernel) beside its untraced
+    wall; K1 and K2 on the request's own inputs against their twins, timed eager
+    and by graph replay beside their bounds; raw points (B=2 x 131,072 a
+    request, Waymo's channels, ``points_front_end``) served 4 times as
+    above, equal to the predictor on the clouds rasterized by hand; int8
+    (fold, calibrate on request 0, full scope): every K3 input unquantized
+    and NHWC-contiguous, 4 requests launch K1, K2 and K3 and not K4, K3
+    bit-equal to its twin on every shape a request launches, in both
+    operand forms, each shape timed beside its bound
+    (``k3_request_shapes``); the int8 stem: K4 and not K1, K4 on the
+    request's own stem inputs with no element differing from its twin,
+    timed eager and by graph replay beside its bound; then through
+    ``bench.build`` (the config's own decoder) and ``bench.measure`` one
+    mode at a time (bf16, int8, int8 K4 stem, int8 points): p50, p90 and
+    frames/s, the bench's kernels launched; 5 bf16 train steps at B=2
+    64x2656 (64 seeded boxes an image): ms a step split by part, every
+    parameter leaf changed, peak memory. Its launches are printed in its
+    own line.
+46. the paper's baseline and the fast operating point, each as phase 45
+    runs rv-waymo (``configs_phase``), from ``conf/experiment/``: base-av2
+    (the BASIC stem, one projecting ``BasicBlock`` of 1x1 convs; stages
+    (64, 64, 128, 128, 128), FPN 128, 128-channel towers, 26 classes,
+    bf16, nms_cap 1024) at B=2 x 64 x 1800 padded by 4 a side to 1808,
+    and rv-av2-fast (rv-av2 at ``x_stride`` 4) at 64 x 1800 padded by 28 a
+    side to 1856 and every 4th column kept, 464 served; the card against
+    the CPU at B=1 8x256 (250 columns padded to 256 for base-av2, 1000
+    padded to 1024 and strided to 256 for rv-av2-fast). base-av2 launches
+    no stem kernel: bf16 and its points K2 alone, int8 K2 and K3, and its
+    three 1x1 stem convs calibrated on the int8 product (route
+    "matmul"); no int8 stem mode. rv-av2-fast launches as rv-waymo. Train
+    steps at each config's batch_size, 4. ``{name}_launches`` in the
+    kernels line: each config's served launches.
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
@@ -422,6 +449,8 @@ step times not measured); ``python3 chip_smoke.py conv-shapes`` the build
 and phase 43; ``python3 chip_smoke.py kernel-shapes`` the build, the
 checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44;
 ``python3 chip_smoke.py waymo`` the build and its spill gate, and phase 45;
+``python3 chip_smoke.py configs`` the build and its spill gate, and phase
+46;
 ``python3 chip_smoke.py compile-decode`` the build and the decode's
 stages compiled one at a time against eager (``compile_decode_phase``).
 
@@ -432,6 +461,7 @@ no CPU path: without a CUDA device the script exits non-zero.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import re
@@ -2068,7 +2098,7 @@ def overfit_phase(device, smi) -> tuple:
 
 # Phase 24: QAT fine-tuning steps and rate (``tools/quant_accuracy.py``'s
 # ``--qat-lr``; optax's ``adamw`` default weight decay of 1e-4, the clip at 35).
-QAT_STEPS = 300
+QAT_STEPS = 100  # a cut from 300, for phase 46's time
 QAT_LR = 1e-4
 
 
@@ -2449,23 +2479,7 @@ def serving_phases(art_dir: Path, requests, bf16_results, bf16_heads, cfg, dec, 
     del bf16, int8, points
     torch.cuda.empty_cache()
 
-    # The CLI as a user types it.
-    cli = [sys.executable, "-m", "range_view_3d_detection_torch.export"]
-    out = art_dir / "cli"
-    t0 = time.perf_counter()
-    for args in (["--synthetic", "--out", str(out)],
-                 ["--load", str(out), "--points", "--latency", "--iters", "50"]):
-        proc = subprocess.run(cli + args, capture_output=True, text=True, cwd=REPO,
-                              timeout=600)
-        check(proc.returncode == 0, f"export CLI {args}: rc {proc.returncode}\n"
-              f"{proc.stderr[-2000:]}")
-    stats = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(stats["iters"] == 50 and stats["device"] == torch.cuda.get_device_name(0)
-          and 0 < stats["latency_ms_min"] <= stats["latency_ms_p50"]
-          <= stats["latency_ms_p90"] <= stats["latency_ms_p99"],
-          f"export CLI latency line {stats}")
-    say(f"export CLI (--synthetic, then --load --points --latency --iters 50) in "
-        f"{time.perf_counter() - t0:.1f} s: {json.dumps(stats)} on {smi}")
+    # The CLI as a user types it goes beside phase 37 (``BESIDE_COMPILE``).
     say(f"serving phases 19-21: {time.perf_counter() - t_phase:.0f} s")
     return {
         name: {"artifact": artifact_bf16[name] + artifact_int8[name] + artifact_k4[name],
@@ -2550,7 +2564,7 @@ def step_split(step, st, batch, n: int, warmup: int = 2) -> tuple:
 
 
 def timed_steps(cfg, batch, device, seed) -> tuple:
-    """ms a train step (2 warm-up, the median of 5) split by part, and
+    """ms a train step (2 warm-up, the median of 3) split by part, and
     peak GiB, from a fresh state."""
     import torch
 
@@ -2561,7 +2575,7 @@ def timed_steps(cfg, batch, device, seed) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     st = state_lib.create_state(cfg, tx, device=device,
                                 generator=torch.Generator().manual_seed(seed))
-    total, split, st = step_split(state_lib.make_train_step(cfg), st, batch, n=7)
+    total, split, st = step_split(state_lib.make_train_step(cfg), st, batch, n=5)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     del st
     return total, split, peak_gb
@@ -2599,7 +2613,7 @@ def remat_phase(device, smi) -> dict:
         total, split, peak_gb = timed_steps(c, b, device, SEED + 23)
         step_ms[tag] = total
         check(peak_gb < total_mem, f"{tag}: peak {peak_gb:.2f} GiB of {total_mem:.2f}")
-        say(f"remat (phase 22) {tag}: {total:.3f} ms a step (CUDA events, median of 5 after "
+        say(f"remat (phase 22) {tag}: {total:.3f} ms a step (CUDA events, median of 3 after "
             f"2 warm-up) = " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f" ms; peak {peak_gb:.2f} GiB of {total_mem:.2f}; bf16 64x1808 on {smi}")
     say(f"remat phase: {time.perf_counter() - t_phase:.0f} s")
@@ -3937,29 +3951,9 @@ def bench_phase(device, kind: str, smi: str) -> dict:
     from range_view_3d_detection_torch.models.decoder import DecoderConfig
 
     t_phase = time.perf_counter()
-    # The four CLI runs side by side: most of each is its process's start,
-    # model build and quantization on the host, so their frames/s are not
-    # clean; the in-process runs below time each mode alone.
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "range_view_3d_detection_torch.bench", *args],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=_env(**({"RV3D_STEM_INT8": "1"} if stem else {})))
-        for _, args, stem in BENCH_MODES]
-    try:
-        outs = [proc.communicate(timeout=600) for proc in procs]
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for (tag, args, stem), proc, (stdout, stderr) in zip(BENCH_MODES, procs, outs):
-        check(proc.returncode == 0, f"bench {tag} exited {proc.returncode}: {stderr[-3000:]}")
-        line = bench_json(stdout)
-        check_bench_line(tag, line, kind, smi)
-        say(f"bench (phase 30) python -m range_view_3d_detection_torch.bench {' '.join(args)}"
-            f"{' with RV3D_STEM_INT8=1' if stem else ''}: {json.dumps(line)} (side by side)")
-    say(f"bench (phase 30): the four CLI runs side by side in "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    # The CLI as a user runs it goes beside phase 37 (``BESIDE_COMPILE``);
+    # here the four modes' flags go through its entry point, bench.main,
+    # each mode alone.
 
     launches = {}
     for tag, args, stem in BENCH_MODES:
@@ -4025,7 +4019,6 @@ def tools_phases(device, kind: str, smi: str, *, fwd_ms: float, dec_ms: float,
         profile_trace,
         profile_train,
         quant_accuracy,
-        quant_cert_scale,
         remat_grid,
         scale_drill,
     )
@@ -4114,17 +4107,9 @@ def tools_phases(device, kind: str, smi: str, *, fwd_ms: float, dec_ms: float,
         # 35. quant_accuracy on phase 18's run.
         quant_counts = quant_phase(phase18, work, smi)
 
-        # 36. quant_cert_scale and scale_drill, cut in depth.
+        # 36. scale_drill, cut in depth (quant_cert_scale goes beside
+        # phase 37).
         reset_counts()
-        t0 = time.perf_counter()
-        agg = quant_cert_scale.main(["--seeds", "1", "--epochs", "2", "--sweeps-per-log", "8",
-                                     "--work", str(work / "cert")])
-        check(agg["seeds"] == 1 and math.isfinite(agg["ptq_cds_delta_mean"]),
-              f"quant_cert_scale: {agg}")
-        say(f"tools.quant_cert_scale (phase 36) --seeds 1 --epochs 2 --sweeps-per-log 8 (cut "
-            f"from 3 seeds x 40 epochs x 24 sweeps): {agg['num_val_gts']} val boxes, PTQ AP "
-            f"delta {agg['ptq_ap_delta_mean']:.4f}, CDS delta {agg['ptq_cds_delta_mean']:.4f} "
-            f"({time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         walls = scale_drill.main(["--sweeps", "100", "--logs", "2", "--dense",
                                   "--work", str(work / "drill")])
@@ -4140,9 +4125,128 @@ def tools_phases(device, kind: str, smi: str, *, fwd_ms: float, dec_ms: float,
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    compile_counts = compile_phase(device, smi)
-    dryrun = dryrun_phase(device, smi)
-    return {"tools": tools_counts, "compile": compile_counts, "dryrun": dryrun}
+    dryrun_entry(smi)
+    beside = {}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(BESIDE_COMPILE)) as pool:
+        jobs = {tag: pool.submit(fn) for tag, fn in BESIDE_COMPILE.items()}
+        compile_counts = compile_phase(device, smi)
+        for tag, job in jobs.items():
+            beside[tag] = job.result()
+    say(f"phases 21, 30, 36, 38 and 42's check-only runs beside phase 37: "
+        f"{time.perf_counter() - t0:.0f} s")
+    export_cli_line(beside.pop("export CLI"), kind, smi)
+    bench_cli_line(beside.pop("bench CLI"), kind, smi)
+    cert_line(beside.pop("quant_cert_scale"))
+    dryrun = dryrun_line(beside.pop("dryrun"), smi)
+    return {"tools": tools_counts, "compile": compile_counts, "dryrun": dryrun,
+            "hw_beside": list(beside.values())}
+
+
+def run_cli(tag, args, env=None) -> tuple:
+    """``python -m`` ``args`` from the checkout, its output captured:
+    ``(tag, args, returncode, stdout, stderr, wall s)``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True,
+                          text=True, timeout=900, env=env or _env())
+    return tag, args, proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
+def export_cli_run() -> tuple:
+    """Phase 21's export CLI as a user types it, in a directory of its own:
+    ``--synthetic --out D``, then ``--load D --points --latency --iters
+    50``. Returns each step's ``run_cli`` record."""
+    out = Path(tempfile.mkdtemp(prefix="chip-smoke-export-cli-"))
+    try:
+        return tuple(run_cli("export", ["range_view_3d_detection_torch.export", *args])
+                     for args in (["--synthetic", "--out", str(out / "art")],
+                                  ["--load", str(out / "art"), "--points", "--latency",
+                                   "--iters", "50"]))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def export_cli_line(runs, kind: str, smi: str) -> None:
+    """Phase 21's export CLI (``export_cli_run``'s records): both steps
+    exit 0, the latency line's 50 requests on the card, percentiles in
+    order."""
+    for _, args, rc, _, stderr, _ in runs:
+        check(rc == 0, f"export CLI {args[1:]}: rc {rc}\n{stderr[-2000:]}")
+    stats = json.loads(runs[-1][3].strip().splitlines()[-1])
+    check(stats["iters"] == 50 and stats["device"] == kind
+          and 0 < stats["latency_ms_min"] <= stats["latency_ms_p50"]
+          <= stats["latency_ms_p90"] <= stats["latency_ms_p99"],
+          f"export CLI latency line {stats}")
+    say(f"export CLI (phase 21: --synthetic, then --load --points --latency --iters 50) in "
+        f"{sum(r[5] for r in runs):.1f} s, beside phase 37 (its latencies are not clean): "
+        f"{json.dumps(stats)} on {smi}")
+
+
+def bench_cli_line(run, kind: str, smi: str) -> None:
+    """Phase 30's CLI run (``run_cli``'s record): exit 0 and a gated JSON
+    line."""
+    _, _, rc, stdout, stderr, wall = run
+    check(rc == 0, f"bench exited {rc}: {stderr[-3000:]}")
+    line = bench_json(stdout)
+    check_bench_line("int8", line, kind, smi)
+    say(f"bench (phase 30) python -m range_view_3d_detection_torch.bench: {json.dumps(line)} "
+        f"({wall:.1f} s, beside phase 37: its frames/s are not clean)")
+
+
+def cert_run() -> tuple:
+    """Phase 36's ``tools.quant_cert_scale``, cut in depth, in a work
+    directory of its own: ``(aggregate, wall s)``."""
+    from range_view_3d_detection_torch.tools import quant_cert_scale
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-cert-"))
+    t0 = time.perf_counter()
+    try:
+        agg = quant_cert_scale.main(["--seeds", "1", "--epochs", "1", "--sweeps-per-log", "8",
+                                     "--work", str(work)])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return agg, time.perf_counter() - t0
+
+
+def cert_line(run) -> None:
+    agg, wall = run
+    check(agg["seeds"] == 1 and math.isfinite(agg["ptq_cds_delta_mean"]),
+          f"quant_cert_scale: {agg}")
+    say(f"tools.quant_cert_scale (phase 36) --seeds 1 --epochs 1 --sweeps-per-log 8 (cut "
+        f"from 3 seeds x 40 epochs x 24 sweeps): {agg['num_val_gts']} val boxes, PTQ AP "
+        f"delta {agg['ptq_ap_delta_mean']:.4f}, CDS delta {agg['ptq_cds_delta_mean']:.4f} "
+        f"({wall:.1f} s, beside phase 37)")
+
+
+def dryrun_run() -> tuple:
+    """Phase 38's ``dryrun_multichip`` over NCCL on every card (its ranks
+    are processes of their own): ``(results, n, wall s)``."""
+    import torch
+
+    from range_view_3d_detection_torch import dryrun
+
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    return dryrun.dryrun_multichip(n), n, time.perf_counter() - t0
+
+
+# Check-only runs in processes of their own, which go beside phase 37's
+# compiles (this process's GPU work then is the compiled pipelines' few
+# calls): none of them times what it runs for a number kept, and each
+# counts its own launches. The CLIs are phases 21's and 30's, the two
+# validate_nms runs phase 42's.
+BESIDE_COMPILE = {
+    "bench CLI": lambda: run_cli("bench", ["range_view_3d_detection_torch.bench"]),
+    "export CLI": export_cli_run,
+    "quant_cert_scale": cert_run,
+    "dryrun": dryrun_run,
+    "validate_nms WEIGHTED": lambda: run_cli(
+        "validate_nms", ["range_view_3d_detection_torch.tools.validate_nms",
+                         "--mode", "WEIGHTED", "--caps", "1024,2048,4096,9216"]),
+    "validate_nms HARD": lambda: run_cli(
+        "validate_nms", ["range_view_3d_detection_torch.tools.validate_nms",
+                         "--mode", "HARD", "--caps", "1024,2048,4096,9216"]),
+}
 
 
 def quant_phase(phase18: dict, work: Path, smi: str) -> dict:
@@ -4546,14 +4650,12 @@ def compile_decode_main() -> int:
     return 0
 
 
-def dryrun_phase(device, smi) -> dict:
-    """Phase 38: ``dryrun.entry()`` and ``dryrun_multichip`` over NCCL;
-    returns its results (phase 40 reads phase 3's)."""
+def dryrun_entry(smi) -> None:
+    """Phase 38's in-process part: ``dryrun.entry()``'s forward, finite."""
     import torch
 
     from range_view_3d_detection_torch import dryrun
 
-    t0 = time.perf_counter()
     model, inputs = dryrun.entry()
     with torch.inference_mode():
         out = model(*inputs)
@@ -4561,13 +4663,17 @@ def dryrun_phase(device, smi) -> dict:
     check(all(bool(torch.isfinite(v).all()) for v in head.values()), "entry(): non-finite")
     del model, inputs, out, head
     torch.cuda.empty_cache()
-    n = torch.cuda.device_count()
-    results = dryrun.dryrun_multichip(n)
+
+
+def dryrun_line(run, smi) -> dict:
+    """Phase 38's ``dryrun_multichip`` (``dryrun_run``'s record): its four
+    phases ok; returns its results (phase 40 reads phase 3's)."""
+    results, n, wall = run
     check(all(r["status"] == "ok" for r in results.values()) and len(results) == 4,
           f"dryrun_multichip({n}): {results}")
     say(f"dryrun (phase 38): entry() finite; dryrun_multichip({n}) over NCCL: "
         + "; ".join(f"{k} {v['result']}" for k, v in results.items())
-        + f" ({time.perf_counter() - t0:.0f} s) on {smi}")
+        + f" ({wall:.0f} s, beside phase 37) on {smi}")
     return results
 
 
@@ -5027,9 +5133,9 @@ def feather_zstd_phase(smi) -> None:
         f"{out_bytes / twin_s / 1e6:.2f} MB/s (host CPU of {smi})")
 
 
+# Phase 42's timed tools, each alone (its validate_nms runs go beside
+# phase 37: ``BESIDE_COMPILE``).
 HW_TOOLS = (
-    ("validate_nms", ("--mode", "WEIGHTED", "--caps", "1024,2048,4096,9216")),
-    ("validate_nms", ("--mode", "HARD", "--caps", "1024,2048,4096,9216")),
     ("conv_ab", ("--reps", "3")),
     ("fold_bench", ("--stage", "res3")),
     ("fold_bench", ("--stage", "res3", "--int8")),
@@ -5049,30 +5155,15 @@ def tool_json(stdout: str, tool: str) -> dict:
     raise RuntimeError(f"chip_smoke: no {tool} JSON line in {stdout[-2000:]!r}")
 
 
-def hw_tools_phase(smi) -> dict:
-    """Phase 42 (see the module docstring). Returns the tools' launches.
-    The two validate_nms runs go side by side (their times are not clean:
-    phase 39 times K2 alone); the others run alone."""
+def hw_tools_phase(smi, beside=()) -> dict:
+    """Phase 42 (see the module docstring): ``beside``, the validate_nms
+    runs made beside phase 37 (``run_cli`` records), then each timed tool
+    alone. Returns the tools' launches."""
     total = {k: 0 for k in kernel_counts()}
-    groups = [HW_TOOLS[:2]] + [(run,) for run in HW_TOOLS[2:]]
-    done = []
-    for group in groups:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", f"range_view_3d_detection_torch.tools.{name}", *args],
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env())
-            for name, args in group]
-        try:
-            outs = [p.communicate(timeout=900) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall = time.perf_counter() - t0
-        done += [(name, args, p.returncode, out, err, wall)
-                 for (name, args), p, (out, err) in zip(group, procs, outs)]
+    done = list(beside) + [run_cli(name, [f"range_view_3d_detection_torch.tools.{name}", *args])
+                           for name, args in HW_TOOLS]
     for name, args, rc, stdout, stderr, wall in done:
+        args = args[1:]
         check(rc == 0, f"tools.{name} {' '.join(args)} exited {rc}: {stdout[-2000:]} "
               f"{stderr[-3000:]}")
         line = tool_json(stdout, name)
@@ -5090,9 +5181,10 @@ def hw_tools_phase(smi) -> dict:
     return total
 
 
-def slice_phases(device, smi, dryrun_results: dict, k2_split=None) -> dict:
-    """Phases 39-42 (``k2_split``: phase 6's K2 split at cap 9216).
-    Returns the launch counts of 39 and 42, and K2's cap-9216 numbers."""
+def slice_phases(device, smi, dryrun_results: dict, k2_split=None, hw_beside=()) -> dict:
+    """Phases 39-42 (``k2_split``: phase 6's K2 split at cap 9216;
+    ``hw_beside``: phase 42's runs made beside phase 37). Returns the
+    launch counts of 39 and 42, and K2's cap-9216 numbers."""
     import torch
 
     t0 = time.perf_counter()
@@ -5100,7 +5192,7 @@ def slice_phases(device, smi, dryrun_results: dict, k2_split=None) -> dict:
     mesh_phase(dryrun_results, smi)
     feather_zstd_phase(smi)
     torch.cuda.empty_cache()
-    tools = hw_tools_phase(smi)
+    tools = hw_tools_phase(smi, hw_beside)
     say(f"phases 39-42: {time.perf_counter() - t0:.0f} s")
     return {"anycap": anycap, "hw_tools": tools, "k2_big": k2_big}
 
@@ -5672,13 +5764,16 @@ def kernel_shapes_phase(device, smi) -> list:
     return [entry, k4_entry]
 
 
-def waymo_configs() -> tuple:
-    """rv-waymo as the port builds it from ``conf/experiment/rv-waymo.yaml``
-    (``compose``, then ``build_detector_config``, ``build_decoder_config``
-    and the val split's ``build_dataset_config``): ``(cfg, dec, layout)``.
-    ``layout`` is what the range image and the points front end take: the
-    height, the sensor's width, the pad a side (``width_padding``) and the
-    served width, the feature names, the dataset's name, ``x_stride`` and
+def experiment_configs(name: str, x_stride: int, padding_mode: str = "constant") -> tuple:
+    """The experiment ``name`` as the port builds it from
+    ``conf/experiment/NAME.yaml`` (``compose``, then
+    ``build_detector_config``, ``build_decoder_config`` and the val split's
+    ``build_dataset_config``): ``(cfg, dec, layout)``, after checking that
+    the val split strides columns by ``x_stride`` and pads with
+    ``padding_mode``. ``layout`` is what the range image and the points
+    front end take: the height, the sensor's width, the pad a side
+    (``width_padding``) and the served width (the padded width over
+    ``x_stride``), the feature names, the dataset's name, ``x_stride`` and
     ``padding_mode``."""
     from range_view_3d_detection_torch.data.dataset import width_padding
     from range_view_3d_detection_torch.training.builders import (
@@ -5688,34 +5783,39 @@ def waymo_configs() -> tuple:
     )
     from range_view_3d_detection_torch.utils.config import compose
 
-    raw = compose(REPO / "conf", "rv-waymo")
+    raw = compose(REPO / "conf", name)
     ds = build_dataset_config(raw, "val")
     rv = ds.range_view
-    check(ds.x_stride == 1 and ds.padding_mode == "constant",
-          f"rv-waymo's layout: x_stride {ds.x_stride}, {ds.padding_mode} padding")
+    check(ds.x_stride == x_stride and ds.padding_mode == padding_mode,
+          f"{name}'s layout: x_stride {ds.x_stride}, {ds.padding_mode} padding")
     pad = width_padding(rv.width, ds.x_stride)
-    layout = dict(height=rv.height, sensor_width=rv.width, pad=pad, width=rv.width + 2 * pad,
+    layout = dict(height=rv.height, sensor_width=rv.width, pad=pad,
+                  width=(rv.width + 2 * pad) // ds.x_stride,
                   feature_names=rv.feature_column_names, dataset_name=ds.dataset_name,
                   x_stride=ds.x_stride, padding_mode=ds.padding_mode)
     return build_detector_config(raw), build_decoder_config(raw), layout
 
 
-def padded_request(B, H, sensor_width, C, seed):
+def padded_request(B, H, sensor_width, C, seed, x_stride=1, padding_mode="constant"):
     """``serving._sample_inputs`` at the sensor's width, padded a side by
-    ``width_padding`` as the dataset's constant ``padding_mode`` pads a
-    sweep: zero features and points, no returns."""
+    ``width_padding`` as the dataset's ``padding_mode`` pads a sweep
+    (constant: zero features and points, no returns; circular: the far
+    columns), then every ``x_stride``-th column, as the dataset keeps
+    them."""
     import numpy as np
 
     from range_view_3d_detection_torch import serving
     from range_view_3d_detection_torch.data.dataset import width_padding
 
-    pad = width_padding(sensor_width, 1)
+    pad = width_padding(sensor_width, x_stride)
     spec = ((0, 0), (0, 0), (pad, pad))
+    mode = "wrap" if padding_mode == "circular" else "constant"
     feats, cart, mask = serving._sample_inputs(B, H, sensor_width, C, seed=seed)
-    return tuple(np.pad(a, spec + ((0, 0),) * (a.ndim - 3)) for a in (feats, cart, mask))
+    padded = (np.pad(a, spec + ((0, 0),) * (a.ndim - 3), mode=mode) for a in (feats, cart, mask))
+    return tuple(np.ascontiguousarray(a[:, :, ::x_stride]) for a in padded)
 
 
-def waymo_points_predict(predictor, layout):
+def points_front_end(predictor, layout):
     """The raw-points front end in front of ``predictor`` with ``layout``'s
     sensor (``export.make_points_predict``): ``(points_predict, extra)``."""
     from range_view_3d_detection_torch.export import make_points_predict
@@ -5726,31 +5826,58 @@ def waymo_points_predict(predictor, layout):
         x_stride=layout["x_stride"], padding_mode=layout["padding_mode"])
 
 
-def waymo_points(B, n, layout, extra, seed):
+def sensor_points(B, n, layout, extra, seed):
     """B synthetic clouds of ``n`` points (``export._sample_points``) at
     ``layout``'s height and sensor width, with one channel per name of
-    ``extra``, in its order: elongation in [0, 2), intensity in [0, 3) (raw
-    Waymo intensity, which the projection's tanh plane takes)."""
+    ``extra``, in its order: intensity in [0, 1) (AV2's, as the bench's
+    points mode draws it) or in [0, 3) for Waymo (raw Waymo intensity,
+    which the projection's tanh plane takes), elongation in [0, 2)."""
     import numpy as np
 
     from range_view_3d_detection_torch.export import _sample_points
 
     xyz, laser, intensity = _sample_points(B, n, layout["height"], layout["sensor_width"],
                                            seed=seed)
-    chans = {"intensity": intensity * 3,
+    scale = 3 if layout["dataset_name"] == "waymo" else 1
+    chans = {"intensity": intensity * scale,
              "elongation": np.random.default_rng(seed + 1).uniform(0, 2, laser.shape)
              .astype(np.float32)}
     return (xyz, laser, *(chans[name] for name in extra))
 
 
-# The kernels each mode of phase 45 must launch and not: the bench's, but
-# its points are served by the bf16 predictor.
-WAYMO_EXPECT = dict(BENCH_EXPECT, points=BENCH_EXPECT["bf16"])
+# The kernels each mode of phases 45 and 46 must launch (> 0) and not
+# (== 0), by stem: with the MetaKernel the bench's (``BENCH_EXPECT``); the
+# BASIC stem launches neither stem kernel. The bench's points mode is
+# int8; the served points go through the bf16 predictor.
+BASIC_BENCH_EXPECT = {
+    "bf16": ({"nms_scan"}, {"meta_kernel_fused", "conv3x3_i8_fused", "meta_kernel_fused_i8"}),
+    "int8": ({"nms_scan", "conv3x3_i8_fused"}, {"meta_kernel_fused", "meta_kernel_fused_i8"}),
+    "points": ({"nms_scan", "conv3x3_i8_fused"}, {"meta_kernel_fused", "meta_kernel_fused_i8"}),
+}
+CONFIG_BENCH_EXPECT = {"META": BENCH_EXPECT, "BASIC": BASIC_BENCH_EXPECT}
+CONFIG_EXPECT = {stem: dict(modes, points=modes["bf16"])
+                 for stem, modes in CONFIG_BENCH_EXPECT.items()}
+# The points front end's channels by dataset.
+POINTS_EXTRA = {"waymo": ["elongation", "intensity"], "av2": ["intensity"]}
+# The published configurations phases 45 and 46 run: name -> (phase,
+# x_stride, the small request's sensor width, padded and strided to 256
+# served columns, seed, train batch). rv-waymo trains at B=2 (phase 45 as
+# it was), base-av2 and rv-av2-fast at their batch_size, 4.
+PUBLISHED_CONFIGS = {
+    "rv-waymo": (45, 1, 250, 45, 2),
+    "base-av2": (46, 1, 250, 46, 4),
+    "rv-av2-fast": (46, 4, 1000, 48, 4),
+}
 
 
-def waymo_phase(device, smi) -> dict:
-    """Phase 45: rv-waymo at its published width (see the module
-    docstring). Returns each mode's launches."""
+def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
+                 train_batch) -> dict:
+    """The experiment ``name`` at its published width (phases 45 and 46;
+    see the module docstring), built by ``experiment_configs`` with seeded
+    weights (``SEED + seed``), requests of B=2 at the sensor's width,
+    padded and strided as the dataset does (``padded_request``); the card
+    against the CPU on a 1 x 8 request of ``small_sensor`` columns; the
+    train steps at B = ``train_batch``. Returns each mode's launches."""
     import dataclasses
 
     import torch
@@ -5759,60 +5886,71 @@ def waymo_phase(device, smi) -> dict:
     from range_view_3d_detection_torch.kernels.nms import nms_scan
     from range_view_3d_detection_torch.kernels.stem import (
         meta_kernel_fused,
+        meta_kernel_fused_i8,
+        meta_kernel_fused_i8_plain,
         meta_kernel_fused_plain,
     )
     from range_view_3d_detection_torch.models import stems
     from range_view_3d_detection_torch.models.decoder import decode
+    from range_view_3d_detection_torch.models.quantized import Int8Conv
     from range_view_3d_detection_torch.ops import nms as nms_ops
+    from range_view_3d_detection_torch.tools import profile_trace
     from range_view_3d_detection_torch.training import optim, state as state_lib
 
     t0 = time.perf_counter()
     laps = Laps()
-    cfg, dec, layout = waymo_configs()
+    cfg, dec, layout = experiment_configs(name, x_stride)
+    meta = cfg.stem_type == "META"
+    expect, bench_expect = CONFIG_EXPECT[cfg.stem_type], CONFIG_BENCH_EXPECT[cfg.stem_type]
     B, H, W, C = 2, layout["height"], layout["width"], cfg.in_channels
-    requests = [padded_request(B, H, layout["sensor_width"], C, seed=s) for s in range(4)]
-    check(requests[0][0].shape == (B, H, W, C), f"rv-waymo request {requests[0][0].shape}")
-    say(f"rv-waymo (phase 45): layers {cfg.layers}, stages {cfg.stage_blocks}, FPN {cfg.fpn}, "
-        f"towers {cfg.classification_head_channels}/{cfg.regression_head_channels} x "
-        f"{cfg.num_classification_blocks}, {len(cfg.tasks_dict[0])} classes, {C} channels "
-        f"{layout['feature_names']}, {cfg.dtype}, nms_cap {dec.nms_cap}; requests B={B} "
-        f"{H}x{layout['sensor_width']} padded ({layout['padding_mode']}) to {H}x{W}")
+    strided = dict(x_stride=layout["x_stride"], padding_mode=layout["padding_mode"])
+    requests = [padded_request(B, H, layout["sensor_width"], C, seed=s, **strided)
+                for s in range(4)]
+    check(requests[0][0].shape == (B, H, W, C), f"{name} request {requests[0][0].shape}")
+    padded = layout["sensor_width"] + 2 * layout["pad"]
+    every = f", every {x_stride}th column: {H}x{W}" if x_stride > 1 else ""
+    say(f"{name} (phase {phase}): {cfg.stem_type} stem, layers {cfg.layers}, stages "
+        f"{cfg.stage_blocks}, FPN {cfg.fpn}, towers {cfg.classification_head_channels}/"
+        f"{cfg.regression_head_channels} x {cfg.num_classification_blocks}, "
+        f"{len(cfg.tasks_dict[0])} classes, {C} channels {layout['feature_names']}, "
+        f"{cfg.dtype}, nms_cap {dec.nms_cap}; requests B={B} {H}x{layout['sensor_width']} "
+        f"padded ({layout['padding_mode']}) to {H}x{padded}{every}")
     launches = {}
 
     def serve(tag, predict, model, inputs, nms_request):
-        """4 requests: the mode's kernels launch and no other, finite
-        detections kept in every image, the NMS on ``nms_request`` equal to
-        the plain scan."""
+        """4 requests: the mode's kernels launch and no other, K2 once a
+        request, finite detections kept in every image, the NMS on
+        ``nms_request`` equal to the plain scan."""
         reset_counts()
         t1 = time.perf_counter()
         results = [predict(*r) for r in inputs]
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3 / len(inputs)
         counts = launches[tag] = read_counts()
-        need, never = WAYMO_EXPECT[tag]
-        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
-              f"rv-waymo {tag}: launches {counts}")
+        need, never = expect[tag]
+        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never)
+              and counts["nms_scan"] == len(inputs), f"{name} {tag}: launches {counts}")
         check_results(results)
         per_image = [r.keep.sum(-1).tolist() for r in results]
-        check(min(min(n) for n in per_image) > 0, f"rv-waymo {tag}: an image kept nothing: "
+        check(min(min(n) for n in per_image) > 0, f"{name} {tag}: an image kept nothing: "
               f"{per_image}")
         nms_err = check_nms_against_plain(model, nms_request, cfg, dec, device)
-        say(f"rv-waymo {tag}: {len(inputs)} requests, launches {counts}, kept {per_image}, NMS == "
+        say(f"{name} {tag}: {len(inputs)} requests, launches {counts}, kept {per_image}, NMS == "
             f"plain scan (cuboids max|diff| {nms_err:.3g}); {ms:.3f} ms a request (host "
             f"clock, first calls) on {smi}")
         return results
 
     # bf16: the served config, seeded weights (flagship_predictor's).
-    predictor = flagship_predictor(cfg, dec, device, torch.Generator().manual_seed(SEED + 45),
+    predictor = flagship_predictor(cfg, dec, device, torch.Generator().manual_seed(SEED + seed),
                                    requests[0])
     model = predictor.model
     predictor(*requests[0])  # warm-up (cuDNN plans)
     serve("bf16", predictor, model, requests, requests[0])
     laps("bf16 requests")
 
-    # The card against the CPU on the same weights at B=1 8x256 (250 + 2 x
-    # 3 columns), full widths and depth, fp32 and bf16.
-    small = padded_request(1, 8, 250, C, seed=45)
+    # The card against the CPU on the same weights at B=1 8x256, full
+    # widths and depth, fp32 and bf16.
+    small = padded_request(1, 8, small_sensor, C, seed=45, **strided)
     texts = []
     for dtype, form in (("float32", "flagship"), ("bfloat16", "bf16")):
         c = dataclasses.replace(cfg, dtype=dtype)
@@ -5822,21 +5960,35 @@ def waymo_phase(device, smi) -> dict:
         if dtype != cfg.dtype:
             card = serving.Predictor(c, dec, device=device)
             card.model.load_state_dict(model.state_dict())
-        text = gate_heads(f"rv-waymo {dtype} 1x8x256", model_heads(card, small),
+        text = gate_heads(f"{name} {dtype} 1x8x{small[0].shape[2]}", model_heads(card, small),
                           model_heads(cpu, small), form)
         texts.append(f"{dtype}: {text}")
         del cpu, card
-    say(f"rv-waymo heads, the card against the CPU at B=1 8x256: {'; '.join(texts)}")
+    say(f"{name} heads, the card against the CPU at B=1 8x{small[0].shape[2]} "
+        f"({small_sensor} columns padded{' and strided' if x_stride > 1 else ''}): "
+        f"{'; '.join(texts)}")
     laps("card against CPU")
 
-    # Where a request's time goes, and K1 and K2 on the request's own inputs.
+    # Where a request's time goes (tools.profile_trace's trace of one
+    # request beside its untraced wall), and K1 and K2 on the request's
+    # own inputs.
     tensors = [torch.as_tensor(a, device=device) for a in requests[0]]
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(*tensors), reps=5)
         out = model(*tensors)
         dec_ms = cuda_ms(lambda: decode(out, dec, cfg.tasks_dict, use_nms=True), reps=5)
-        profile_request(predictor, requests[1])
     del out
+    trace_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-trace-"))
+    try:
+        profile_trace.trace(lambda: predictor(*requests[1]), trace_dir, device)
+        traced = profile_trace.summarize(trace_dir, top=20)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    wall = statistics.median(cuda_sync_wall(lambda: predictor(*requests[1])) for _ in range(3))
+    say(f"{name} bf16 request traced (tools.profile_trace): device time "
+        f"{traced['total_ms']:.3f} ms over {traced['events']} events; untraced wall "
+        f"{wall:.3f} ms (host clock, median of 3), device busy "
+        f"{100 * traced['total_ms'] / wall:.1f}% on {smi}")
     seen = {}
 
     def capture_k1(*args):
@@ -5852,130 +6004,192 @@ def waymo_phase(device, smi) -> dict:
         predictor(*requests[0])
     finally:
         stems.meta_kernel_fused, nms_ops.nms_scan = meta_kernel_fused, nms_scan
-    k1_args, (k2_args, k2_kw) = seen["K1"], seen["K2"]
-    got, want = meta_kernel_fused(*k1_args), meta_kernel_fused_plain(*k1_args)
-    torch.cuda.synchronize()
-    k1_err, k1_ref = (got - want).abs().max().item(), want.abs().max().item()
-    check(k1_err <= 2e-2 * k1_ref, f"rv-waymo K1: max|diff| {k1_err} > 2e-2 * {k1_ref}")
-    del got, want
-    k2_err = check_k2("rv-waymo request", k2_args)
-    k1_ms = cuda_ms(lambda: meta_kernel_fused(*k1_args), reps=10)
-    k1_graph = graph_ms(lambda: meta_kernel_fused(*k1_args))
-    k1_flops, k1_bytes = k1_cost(*k1_args[0].shape)
-    k1_bound = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
+    k2_args, k2_kw = seen["K2"]
+    if meta:
+        k1_args = seen["K1"]
+        got, want = meta_kernel_fused(*k1_args), meta_kernel_fused_plain(*k1_args)
+        torch.cuda.synchronize()
+        k1_err, k1_ref = (got - want).abs().max().item(), want.abs().max().item()
+        check(k1_err <= 2e-2 * k1_ref, f"{name} K1: max|diff| {k1_err} > 2e-2 * {k1_ref}")
+        del got, want
+        k1_ms = cuda_ms(lambda: meta_kernel_fused(*k1_args), reps=10)
+        k1_graph = graph_ms(lambda: meta_kernel_fused(*k1_args))
+        k1_flops, k1_bytes = k1_cost(*k1_args[0].shape)
+        k1_bound = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
+        say(f"{name} K1 {tuple(k1_args[0].shape)} (the request's own stem inputs): max|diff| "
+            f"{k1_err:.4g} (max|ref| {k1_ref:.4g}); {k1_ms:.4f} ms eager, {k1_graph:.4f} ms "
+            f"graph replay, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) on {smi}")
+        del k1_args
+    else:
+        check("K1" not in seen, f"{name}: the {cfg.stem_type} stem called K1")
+    k2_err = check_k2(f"{name} request", k2_args)
     k2_ms = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
     k2_graph = graph_ms(lambda: nms_scan(*k2_args, **k2_kw))
     cap = k2_args[0].shape[-1]
     live = int(nms_scan(*k2_args, **k2_kw)[0].sum())
     k2_flops, k2_bytes = k2_cost(B, cap, live, k2_args[3].shape[-1])
     k2_bound = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
-    say(f"rv-waymo K1 {tuple(k1_args[0].shape)} (the request's own stem inputs): max|diff| "
-        f"{k1_err:.4g} (max|ref| {k1_ref:.4g}); {k1_ms:.4f} ms eager, {k1_graph:.4f} ms graph "
-        f"replay, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) on {smi}")
-    say(f"rv-waymo K2 B {B} cap {cap} (the request's own IoU matrix, {live} kept): merged "
+    say(f"{name} K2 B {B} cap {cap} (the request's own IoU matrix, {live} kept): merged "
         f"max|diff| {k2_err:.3g}; {k2_ms:.4f} ms eager, {k2_graph:.4f} ms graph replay, bound "
         f"{k2_bound[0] * 1e3:.2f} us ({k2_bound[1]}) on {smi}")
-    say(f"rv-waymo bf16 request (B={B}, {H}x{W}): forward {fwd_ms:.3f} ms, decode + NMS "
+    say(f"{name} bf16 request (B={B}, {H}x{W}): forward {fwd_ms:.3f} ms, decode + NMS "
         f"{dec_ms:.3f} ms (device, CUDA events, median of 5) on {smi}")
-    del k1_args, k2_args, seen, tensors
+    del k2_args, seen, tensors
     laps("times, K1 and K2")
 
     # Raw points to detections: B=2 x 131,072 points a request at the
-    # sensor's 64x2650 with Waymo's channels, padded as above.
-    points_predict, extra = waymo_points_predict(predictor, layout)
-    check(list(extra) == ["elongation", "intensity"], f"rv-waymo points channels {extra}")
-    clouds = [waymo_points(B, POINTS_N, layout, extra, seed=s) for s in range(4)]
+    # sensor, projected, padded and strided as above.
+    points_predict, extra = points_front_end(predictor, layout)
+    check(list(extra) == POINTS_EXTRA[layout["dataset_name"]],
+          f"{name} points channels {extra}")
+    clouds = [sensor_points(B, POINTS_N, layout, extra, seed=s) for s in range(4)]
     rasterized = points_predict.rasterize(*clouds[0])
-    check(tuple(rasterized[0].shape) == (B, H, W, C), f"rv-waymo points {rasterized[0].shape}")
+    check(tuple(rasterized[0].shape) == (B, H, W, C), f"{name} points {rasterized[0].shape}")
     points_predict(*clouds[0])  # warm-up
     results = serve("points", points_predict, model, clouds, rasterized)
     by_hand = predictor(*rasterized)
     check(torch.equal(results[0].keep, by_hand.keep)
           and torch.equal(results[0].cuboids, by_hand.cuboids),
-          "rv-waymo points: detections differ from the predictor on the same rasterized clouds")
+          f"{name} points: detections differ from the predictor on the same rasterized clouds")
     del results, by_hand, rasterized
     laps("points")
 
     # int8: fold, calibrate on request 0, quantize (full scope); K3 on every
     # shape a request launches; then the int8 stem (K4).
     predictor.quantize([requests[0]], scope="full")
+    if not meta:  # the BASIC stem's 1x1 convs: calibrated, one int8 product each
+        convs = {n: m for n, m in model.RangeNet_0.BasicBlock_0.named_modules()
+                 if isinstance(m, Int8Conv)}
+        calibrated = sorted(predictor.quant_tree["RangeNet_0"]["BasicBlock_0"])
+        check(len(convs) == 3 and len(calibrated) == 3
+              and all(m.route == "matmul" for m in convs.values()),
+              f"{name}: the stem's int8 convs {({n: m.route for n, m in convs.items()})}, "
+              f"calibrated {calibrated}")
+        say(f"{name} int8 stem: {len(convs)} 1x1 convs calibrated ({', '.join(calibrated)}) "
+            f"on the int8 product (route 'matmul', the JAX lax.conv's): "
+            + ", ".join(f"{n} -> {m.cout} channels" for n, m in convs.items()))
     captured, k3_in = capture_k3(predictor, requests[0])  # warm-up, and its K3 inputs
     check(k3_in["unquantized"] == k3_in["launches"] == k3_in["nhwc_contiguous"],
-          f"rv-waymo: a K3 input was quantized or copied before the launch: {k3_in}")
+          f"{name}: a K3 input was quantized or copied before the launch: {k3_in}")
     per_request = sum(e["per_request"] for e in captured.values())
     serve("int8", predictor, model, requests, requests[0])
     check(launches["int8"]["conv3x3_i8_fused"] == per_request * len(requests),
-          f"rv-waymo int8: K3 launches {launches['int8']} != {per_request} a request x 4")
-    say(f"rv-waymo int8: {per_request} K3 launches a request at {len(captured)} shapes: "
+          f"{name} int8: K3 launches {launches['int8']} != {per_request} a request x 4")
+    say(f"{name} int8: {per_request} K3 launches a request at {len(captured)} shapes: "
         + ", ".join(f"(Cin {k[0]}, Cout {k[1]}, W {k[2]}, stride {k[3]}) x {e['per_request']}"
                     for k, e in sorted(captured.items())))
-    k3_request_shapes(captured, B, H, smi, config="rv-waymo")
+    k3_request_shapes(captured, B, H, smi, config=name)
     del captured
     laps("int8")
-    predictor.quantize(quant_tree=predictor.quant_tree, stem_int8=True)
-    predictor(*requests[0])  # warm-up
-    serve("int8 K4 stem", predictor, model, requests, requests[0])
+    if "int8 K4 stem" in expect:
+        predictor.quantize(quant_tree=predictor.quant_tree, stem_int8=True)
+
+        def capture_k4(*args):
+            seen.setdefault("K4", tuple(a.clone() for a in args))
+            return meta_kernel_fused_i8(*args)
+
+        seen = {}
+        stems.meta_kernel_fused_i8 = capture_k4
+        try:
+            predictor(*requests[0])  # warm-up, and its K4 inputs
+        finally:
+            stems.meta_kernel_fused_i8 = meta_kernel_fused_i8
+        serve("int8 K4 stem", predictor, model, requests, requests[0])
+        k4_args = seen.pop("K4")
+        got, want = meta_kernel_fused_i8(*k4_args), meta_kernel_fused_i8_plain(*k4_args)
+        torch.cuda.synchronize()
+        k4_err, k4_ref = (got - want).abs().max().item(), want.abs().max().item()
+        n_diff = int((got != want).sum())
+        check(n_diff == 0 and k4_err <= 1e-4 * k4_ref,
+              f"{name} K4: {n_diff} elements differ, max|diff| {k4_err}")
+        del got, want
+        k4_ms = cuda_ms(lambda: meta_kernel_fused_i8(*k4_args), reps=10)
+        k4_graph = graph_ms(lambda: meta_kernel_fused_i8(*k4_args))
+        k4_bound = bound_ms(*k4_cost(*k4_args[0].shape))
+        say(f"{name} K4 {tuple(k4_args[0].shape)} (the int8 request's own stem inputs): "
+            f"{n_diff} elements differ from the twin (max|ref| {k4_ref:.4g}); {k4_ms:.4f} ms "
+            f"eager, {k4_graph:.4f} ms graph replay, bound {k4_bound[0]:.4f} ms "
+            f"({k4_bound[1]}) on {smi}")
+        del k4_args
+        laps("int8 stem")
     del predictor, model
     torch.cuda.empty_cache()
-    laps("int8 stem")
 
-    # The bench's span (forward, decode, NMS at cap 1024) through
+    # The bench's span (forward, decode, NMS at the config's cap) through
     # bench.build and bench.measure, one mode at a time.
     rows = []
     for tag, fp, stem in (("bf16", True, False), ("int8", False, False),
                           ("int8 K4 stem", False, True), ("points", False, False)):
+        if tag not in bench_expect:
+            continue
         _set_stem_int8(stem)
         try:
             pipeline, args, make_batch, path = bench.build(B, fp=fp, device=device, cfg=cfg,
-                                                           height=H, width=W)
+                                                           dec=dec, height=H, width=W)
         finally:
             _set_stem_int8(False)
         if tag == "points":
-            pipeline, extra = waymo_points_predict(pipeline, layout)
+            pipeline, extra = points_front_end(pipeline, layout)
 
             def make_batch(s, extra=extra):
-                return waymo_points(B, POINTS_N, layout, extra, seed=s)
+                return sensor_points(B, POINTS_N, layout, extra, seed=s)
 
             args = tuple(torch.as_tensor(a, device=device) for a in make_batch(0))
         reset_counts()
         fps, lat = bench.measure(pipeline, args, make_batch, B)
         torch.cuda.synchronize()
         counts = launches[f"bench {tag}"] = read_counts()
-        need, never = BENCH_EXPECT[tag]
+        need, never = bench_expect[tag]
         check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
-              f"rv-waymo bench {tag}: launches {counts}")
+              f"{name} bench {tag}: launches {counts}")
         rows.append(f"{tag} ({path}{', points' if tag == 'points' else ''}) p50 "
                     f"{lat['latency_ms_p50']} ms, p90 {lat['latency_ms_p90']} ms, "
                     f"{fps:.2f} frames/s")
         del pipeline, args
         torch.cuda.empty_cache()
-    say(f"rv-waymo bench (bench.build + bench.measure, B={B} {H}x{W}, one mode at a time): "
+    say(f"{name} bench (bench.build + bench.measure, B={B} {H}x{W}, one mode at a time): "
         + "; ".join(rows) + f" on {smi}")
     laps("bench modes")
 
-    # Train steps: bf16 at B=2 64x2656, 64 seeded boxes of 256 an image.
-    batch = state_lib.batch_to_device(flagship_train_batch(cfg, B, H, W, seed=SEED + 45),
-                                      device)
+    # Train steps: bf16 at the served width, 64 seeded boxes of 256 an image.
+    batch = state_lib.batch_to_device(
+        flagship_train_batch(cfg, train_batch, H, W, seed=SEED + seed), device)
     tx, _ = optim.make_optimizer(1e-3, 10, debug=True)
     torch.cuda.reset_peak_memory_stats()
     st = state_lib.create_state(cfg, tx, device=device,
-                                generator=torch.Generator().manual_seed(SEED + 46))
+                                generator=torch.Generator().manual_seed(SEED + seed + 1))
     params0 = {n: p.detach().clone() for n, p in st.model.named_parameters()}
     total, split, st = step_split(state_lib.make_train_step(cfg), st, batch, n=5)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     still = [n for n, p in st.model.named_parameters() if torch.equal(p.detach(), params0[n])]
-    check(not still, f"rv-waymo: parameters unchanged after 5 train steps: {still[:5]}")
-    say(f"rv-waymo train step (bf16, B={B} {H}x{W}, 64 boxes an image): {total:.3f} ms (CUDA "
-        f"events, median of 3 after 2 warm-up) = "
+    check(not still, f"{name}: parameters unchanged after 5 train steps: {still[:5]}")
+    say(f"{name} train step (bf16, B={train_batch} {H}x{W}, 64 boxes an image): {total:.3f} ms "
+        f"(CUDA events, median of 3 after 2 warm-up) = "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f" ms; all {len(params0)} parameter leaves changed; peak memory {peak_gb:.2f} GiB "
         f"on {smi}")
     del st, params0, batch
     torch.cuda.empty_cache()
     laps("train steps")
-    say(f"phase 45: {time.perf_counter() - t0:.0f} s ({laps})")
-    say("rv-waymo launches (phase 45) " + json.dumps(launches))
+    say(f"phase {phase} {name}: {time.perf_counter() - t0:.0f} s ({laps})")
+    say(f"{name} launches (phase {phase}) " + json.dumps(launches))
     return launches
+
+
+def configs_phase(phase, device, smi) -> dict:
+    """Phase 45 (rv-waymo) or 46 (base-av2 and rv-av2-fast): each of
+    ``PUBLISHED_CONFIGS``' configurations of ``phase`` through
+    ``config_phase`` (see the module docstring). Returns each config's
+    launches by mode."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, (p, x_stride, small_sensor, seed, train_batch) in PUBLISHED_CONFIGS.items():
+        if p == phase:
+            out[name] = config_phase(name, phase, device, smi, x_stride=x_stride,
+                                     small_sensor=small_sensor, seed=seed,
+                                     train_batch=train_batch)
+    say(f"phase {phase}: {time.perf_counter() - t0:.0f} s")
+    return out
 
 
 def flagship_predictor(cfg, dec, device, gen, request):
@@ -6274,7 +6488,8 @@ def main() -> int:
                                  phase18=phase18)
     torch.cuda.empty_cache()
     laps("31-38 tools")
-    slice_counts = slice_phases(device, smi, tool_launches["dryrun"], k2_big_split)
+    slice_counts = slice_phases(device, smi, tool_launches["dryrun"], k2_big_split,
+                                tool_launches["hw_beside"])
     torch.cuda.empty_cache()
     laps("39-42")
     conv_shapes_launches = conv_shapes_phase(device, smi)
@@ -6282,9 +6497,12 @@ def main() -> int:
     laps("43 conv shapes")
     shapes_entries = kernel_shapes_phase(device, smi)
     laps("44 kernel shapes")
-    waymo_phase(device, smi)
+    configs_phase(45, device, smi)
     torch.cuda.empty_cache()
     laps("45 rv-waymo")
+    config_launches = configs_phase(46, device, smi)
+    torch.cuda.empty_cache()
+    laps("46 base-av2, rv-av2-fast")
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -6312,6 +6530,9 @@ def main() -> int:
         k["anycap_launches"] = slice_counts["anycap"][k["name"]]
         k["hw_tools_launches"] = slice_counts["hw_tools"][k["name"]]
         k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
+        for name, modes in config_launches.items():  # phase 46's served requests
+            k[f"{name.replace('-', '_')}_launches"] = sum(
+                counts[k["name"]] for tag, counts in modes.items() if not tag.startswith("bench"))
         if k["name"] == "nms_scan":
             k.update(slice_counts["k2_big"])
     kernels += shapes_entries
@@ -6405,7 +6626,8 @@ def tools_main() -> int:
     tool_launches = tools_phases(device, kind, smi, fwd_ms=fwd_ms, dec_ms=dec_ms,
                                  step_ms=math.nan, remat_ms=math.nan, phase18=phase18)
     torch.cuda.empty_cache()
-    slice_counts = slice_phases(device, smi, tool_launches.pop("dryrun"))
+    slice_counts = slice_phases(device, smi, tool_launches.pop("dryrun"),
+                                hw_beside=tool_launches.pop("hw_beside"))
     say(json.dumps({"bench": bench_launches, **tool_launches, **slice_counts}))
     say(f"chip_smoke tools: total {time.perf_counter() - t_start:.0f} s")
     return 0
@@ -6582,9 +6804,10 @@ def kernel_shapes_main() -> int:
     return 0
 
 
-def waymo_main() -> int:
-    """``chip_smoke.py waymo``: the device, the build and its spill gate
-    (phases 1-2), then phase 45 alone."""
+def configs_main(phase: int) -> int:
+    """``chip_smoke.py waymo`` (phase 45) and ``chip_smoke.py configs``
+    (46): the device, the build and its spill gate (phases 1-2), then the
+    phase alone."""
     t_start = time.perf_counter()
     start = card_start()
     if start is None:
@@ -6593,8 +6816,8 @@ def waymo_main() -> int:
     from range_view_3d_detection_torch.kernels import _build
 
     check_spills(_build.library())
-    waymo_phase(device, smi)
-    say(f"chip_smoke waymo: total {time.perf_counter() - t_start:.0f} s")
+    configs_phase(phase, device, smi)
+    say(f"chip_smoke phase {phase}: total {time.perf_counter() - t_start:.0f} s")
     return 0
 
 
@@ -6609,7 +6832,8 @@ SUBCOMMANDS = {
     "train-rank": train_rank,
     "width-rank": width_rank,
     "convert": convert_rank,
-    "waymo": lambda args: waymo_main(),
+    "waymo": lambda args: configs_main(45),
+    "configs": lambda args: configs_main(46),
 }
 
 

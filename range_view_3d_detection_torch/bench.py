@@ -75,19 +75,22 @@ def compilable(predictor: serving.Predictor) -> Callable:
 
 
 def build(batch: int, *, fp: bool = False, points: bool = False,
-          device: str | torch.device = "cuda", seed: int = 0, cfg=None,
+          device: str | torch.device = "cuda", seed: int = 0, cfg=None, dec=None,
           height: int = HEIGHT, width: int = WIDTH,
           state_dict=None) -> Tuple[Callable, tuple, Callable, str]:
     """The bench's pipeline: ``(pipeline, args, make_batch, path)``, ``args``
-    on the device. ``cfg`` (default the flagship), weights from ``seed`` or
+    on the device. ``cfg`` (default the flagship) and ``dec`` (default
+    ``DecoderConfig()``, the flagship's), weights from ``seed`` or
     ``state_dict``, calibrated on ``serving._sample_inputs(batch, height,
     width, C)``. Eager it is the ``Predictor`` itself; under
     ``RV3D_COMPILER_OPTIONS`` it is :func:`compilable` compiled (range
-    images only)."""
+    images only). ``points`` puts AV2's sensor (1800 columns, x_stride 1)
+    in front; another layout's front end is ``export.make_points_predict``
+    around the range-image pipeline."""
     cfg = cfg or serving._flagship_config()
     C = cfg.in_channels
     request = serving._sample_inputs(batch, height, width, C)
-    predictor = serving.Predictor(cfg, DecoderConfig(), device=device,
+    predictor = serving.Predictor(cfg, dec or DecoderConfig(), device=device,
                                   generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:
         predictor.model.load_state_dict(state_dict, strict=True)

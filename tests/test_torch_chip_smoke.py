@@ -38,6 +38,13 @@
   2650 padded with constant padding to 2656; its raw points go through
   ``make_points_predict`` with Waymo's projection and constant padding;
   ``chip_smoke.py waymo`` and the other subcommands are parsed.
+- Phase 46's: the same builders give base-av2 (the BASIC stem, 1808
+  served) and rv-av2-fast (pad 28, 464 served, constant, x_stride 4) as
+  ``conf/`` publishes them; rv-av2-fast's request is the dataset's sweep
+  padded and strided, and its points go through the front end at x_stride
+  4; each mode's expected launches name the four wrappers' counters, with
+  neither stem kernel for the BASIC stem; ``chip_smoke.py configs`` runs
+  phase 46's entry point.
 """
 
 from __future__ import annotations
@@ -413,7 +420,8 @@ def test_waymo_phase_config_and_request():
     from range_view_3d_detection_torch.training import builders
     from range_view_3d_detection_torch.utils.config import compose
 
-    cfg, dec, layout = chip_smoke.waymo_configs()
+    assert chip_smoke.PUBLISHED_CONFIGS["rv-waymo"] == (45, 1, 250, 45, 2)
+    cfg, dec, layout = chip_smoke.experiment_configs("rv-waymo", 1)
     raw = compose("conf", "rv-waymo")
     assert cfg == builders.build_detector_config(raw)
     assert dec == builders.build_decoder_config(raw)
@@ -447,15 +455,15 @@ def test_waymo_points_front_end():
 
     from range_view_3d_detection_torch import serving
 
-    cfg, dec, layout = chip_smoke.waymo_configs()
+    cfg, dec, layout = chip_smoke.experiment_configs("rv-waymo", 1)
     tiny = dataclasses.replace(serving._flagship_config(tiny=True), in_channels=6)
     predictor = serving.Predictor(tiny, dec, device="cpu")
-    points_predict, extra = chip_smoke.waymo_points_predict(predictor, layout)
+    points_predict, extra = chip_smoke.points_front_end(predictor, layout)
     assert extra == ["elongation", "intensity"]
     kw = points_predict.kw
     assert kw["padding_mode"] == "constant" and kw["pad"] == 3 and kw["width"] == 2650
     assert kw["dataset_name"] == "waymo" and kw["x_stride"] == 1 and kw["height"] == 64
-    clouds = chip_smoke.waymo_points(2, 4096, layout, extra, seed=0)
+    clouds = chip_smoke.sensor_points(2, 4096, layout, extra, seed=0)
     xyz, laser, elongation, intensity = clouds
     assert xyz.shape == (2, 4096, 3) and laser.shape == elongation.shape == (2, 4096)
     assert 0 <= elongation.min() and elongation.max() < 2 and intensity.max() > 1
@@ -465,18 +473,115 @@ def test_waymo_points_front_end():
 
 
 def test_subcommands_are_parsed(monkeypatch):
-    """``chip_smoke.py waymo`` runs phase 45's entry point; a subcommand's
-    own arguments reach it; no argument runs the whole script."""
+    """``chip_smoke.py waymo`` and ``chip_smoke.py configs`` run phases
+    45's and 46's entry points; a subcommand's own arguments reach it; no
+    argument runs the whole script."""
     called = []
-    monkeypatch.setattr(chip_smoke, "waymo_main", lambda: called.append("waymo") or 45)
+    monkeypatch.setattr(chip_smoke, "configs_main", lambda phase: called.append(phase) or phase)
     monkeypatch.setattr(chip_smoke, "convert_rank", lambda args: called.append(args) or 29)
     monkeypatch.setitem(chip_smoke.SUBCOMMANDS, "convert", chip_smoke.convert_rank)
     monkeypatch.setattr(chip_smoke, "main", lambda: called.append("main") or 0)
     assert chip_smoke.run(["waymo"]) == 45
+    assert chip_smoke.run(["configs"]) == 46
     assert chip_smoke.run(["convert", "WORK"]) == 29
     assert chip_smoke.run([]) == 0
-    assert called == ["waymo", ["WORK"], "main"]
+    assert called == [45, 46, ["WORK"], "main"]
     assert set(chip_smoke.SUBCOMMANDS) == {
-        "waymo", "kernel-shapes", "tools", "conv-shapes", "compile-decode", "train-rank",
-        "width-rank", "convert", "shipped-times", "shipped-round"}
+        "waymo", "configs", "kernel-shapes", "tools", "conv-shapes", "compile-decode",
+        "train-rank", "width-rank", "convert", "shipped-times", "shipped-round"}
+
+
+def test_published_configs_and_requests():
+    """Phase 46 builds base-av2 and rv-av2-fast as ``conf/`` publishes
+    them: base-av2 with the BASIC stem (stages 64, 64, 128 x 3, FPN 128,
+    128-channel towers, no fused stem) at 1800 columns padded by 4 to
+    1808, rv-av2-fast the flagship at x_stride 4, 1800 padded by 28 to
+    1856 and strided to 464; both AV2's five features with constant
+    padding, 26 classes, nms_cap 1024, their own decoders. A request is
+    the dataset's sweep padded and strided; the card-against-CPU request
+    is 256 columns served."""
+    from range_view_3d_detection_torch.data.dataset import AV2_FEATURES
+    from range_view_3d_detection_torch.training import builders
+    from range_view_3d_detection_torch.utils.config import compose
+
+    want = {"base-av2": (4, 1808, "BASIC", (64, 64, 128, 128, 128), ((1, 128),), 128, False),
+            "rv-av2-fast": (28, 464, "META", (256,) + (128,) * 4, ((1, 512),), 512, True)}
+    phase46 = {k: v for k, v in chip_smoke.PUBLISHED_CONFIGS.items() if v[0] == 46}
+    assert set(phase46) == set(want)
+    for name, (_, x_stride, small_sensor, _, train_batch) in phase46.items():
+        pad, served, stem, layers, fpn, towers, pallas = want[name]
+        assert train_batch == 4
+        cfg, dec, layout = chip_smoke.experiment_configs(name, x_stride)
+        raw = compose("conf", name)
+        assert cfg == builders.build_detector_config(raw)
+        assert dec == builders.build_decoder_config(raw) and dec.nms_cap == 1024
+        assert (cfg.stem_type, cfg.layers, cfg.fpn, cfg.stem_pallas) == (stem, layers, fpn, pallas)
+        assert cfg.classification_head_channels == cfg.regression_head_channels == towers
+        assert len(cfg.tasks_dict[0]) == 26 and cfg.dtype == "bfloat16"
+        assert layout == dict(height=64, sensor_width=1800, pad=pad, width=served,
+                              feature_names=AV2_FEATURES, dataset_name="av2",
+                              x_stride=x_stride, padding_mode="constant")
+        small = chip_smoke.padded_request(1, 8, small_sensor, 5, seed=45, x_stride=x_stride)
+        assert small[0].shape == (1, 8, 256, 5)
+    with pytest.raises(RuntimeError, match="x_stride 4"):
+        chip_smoke.experiment_configs("rv-av2-fast", 1)
+
+
+def test_strided_request_is_the_dataset_sweep():
+    """rv-av2-fast's request: ``_sample_inputs`` at 1800 columns, padded
+    by 28 a side with zeros, then every 4th column, as
+    ``data/dataset.py`` pads and strides a sweep; stride 1 gives phase
+    45's padded request unchanged."""
+    from range_view_3d_detection_torch import serving
+
+    feats, cart, mask = chip_smoke.padded_request(2, 4, 1800, 5, seed=3, x_stride=4)
+    f0, c0, m0 = serving._sample_inputs(2, 4, 1800, 5, seed=3)
+    assert feats.shape == (2, 4, 464, 5) and cart.shape == (2, 4, 464, 3)
+    assert mask.shape == (2, 4, 464) and feats.flags.c_contiguous
+    # padded column 4 j is sensor column 4 j - 28: columns 0-6 are padding.
+    np.testing.assert_array_equal(feats[:, :, 7:-7], f0[:, :, 0:1800:4][:, :, :450])
+    np.testing.assert_array_equal(mask[:, :, 7:-7], m0[:, :, 0:1800:4][:, :, :450])
+    assert not feats[:, :, :7].any() and not mask[:, :, -7:].any()
+    one = chip_smoke.padded_request(2, 4, 1800, 5, seed=3)
+    padded = np.pad(f0, ((0, 0), (0, 0), (4, 4), (0, 0)))
+    np.testing.assert_array_equal(one[0], padded)
+
+
+def test_fast_points_front_end():
+    """rv-av2-fast's raw points go through ``make_points_predict`` at
+    x_stride 4 with AV2's projection and constant padding, into a 64 x 464
+    x 5 range image; AV2's intensity is the bench's, unscaled."""
+    from range_view_3d_detection_torch import serving
+
+    cfg, dec, layout = chip_smoke.experiment_configs("rv-av2-fast", 4)
+    tiny = serving._flagship_config(tiny=True)
+    predictor = serving.Predictor(tiny, dec, device="cpu")
+    points_predict, extra = chip_smoke.points_front_end(predictor, layout)
+    assert extra == chip_smoke.POINTS_EXTRA["av2"] == ["intensity"]
+    kw = points_predict.kw
+    assert kw["x_stride"] == 4 and kw["pad"] == 28 and kw["padding_mode"] == "constant"
+    xyz, laser, intensity = chip_smoke.sensor_points(2, 4096, layout, extra, seed=0)
+    assert 0 <= intensity.min() and intensity.max() < 1
+    feats, cart, mask = points_predict.rasterize(xyz, laser, intensity)
+    assert tuple(feats.shape) == (2, 64, 464, 5) and mask.any()
+    assert not mask[:, :, :7].any() and not mask[:, :, -7:].any()
+
+
+@pytest.mark.parametrize("stem", ["META", "BASIC"])
+def test_config_phase_expected_launches(stem):
+    """Phases 45 and 46 expect of each served and bench mode the kernels
+    the stem takes: the META stem the bench's table (its served points
+    bf16), the BASIC stem neither stem kernel, K2 in every mode and K3 in
+    the int8 ones; only the META stem has an int8 stem mode."""
+    names = {"meta_kernel_fused", "nms_scan", "conv3x3_i8_fused", "meta_kernel_fused_i8"}
+    served, bench = chip_smoke.CONFIG_EXPECT[stem], chip_smoke.CONFIG_BENCH_EXPECT[stem]
+    assert served["points"] == bench["bf16"] and set(served) == set(bench)
+    assert ("int8 K4 stem" in served) == (stem == "META")
+    for tag, (need, never) in {**served, **{f"bench {k}": v for k, v in bench.items()}}.items():
+        assert need | never == names and not need & never and "nms_scan" in need, tag
+        assert ("conv3x3_i8_fused" in need) == ("int8" in tag or tag == "bench points"), tag
+        if stem == "BASIC":
+            assert {"meta_kernel_fused", "meta_kernel_fused_i8"} <= never, tag
+    if stem == "META":
+        assert bench == chip_smoke.BENCH_EXPECT
 

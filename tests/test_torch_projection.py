@@ -148,6 +148,9 @@ CASES = {
                            "circular", 0),
     "constant_padding": (8, 60, AV2_FEATURES, "av2", 1, "constant", 0),
     "zero_pad_rows": (8, 56, AV2_FEATURES, "av2", 1, "circular", 300),
+    # rv-av2-fast's layout: AV2 padded by width_padding(232, 4) = 12 a
+    # side, constant, every 4th column kept (256 / 4 = 64).
+    "av2_stride4_constant": (8, 232, AV2_FEATURES, "av2", 4, "constant", 0),
 }
 
 
