@@ -11,7 +11,7 @@ width-sharded serving rank of phase 25 and ``chip_scaling.py width``, and
 starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone,
 ``chip_smoke.py kernel-shapes`` the kernels' checks past the configs'
 shapes and phase 44, ``chip_smoke.py waymo`` phases 1-2 and 45,
-``chip_smoke.py configs`` phases 1-2 and 46,
+``chip_smoke.py configs [PHASE]`` phases 1-2 and 46 (or 45 or 47),
 ``chip_smoke.py shipped-times PARENT`` the shipped
 shapes' kernel times beside those of another checkout, each round a
 ``chip_smoke.py shipped-round TREE`` process.)
@@ -261,8 +261,15 @@ Phases, each of which raises (non-zero exit) on failure:
     from the LZ4 copy through the port's ``DataLoader``: ``Trainer.fit``
     2 steps at B=2 on rv-av2, ``validate`` and the AV2 evaluator (which
     reads the copied poses and map); one val batch served by the flagship
-    ``Predictor``.
-    K1 and K2 must launch (``converted_launches`` in the kernels line).
+    ``Predictor``. The nuScenes corpus converted above through the
+    rv-nuscenes ``Trainer`` at its published widths (``nuscenes_trainer_
+    run``: 32 x 1800 padded to 1808, circular in the train split, the val
+    split pinned to train as the JAX package's smoke test pins it), one
+    epoch of one step at B=2 on the card, ``validate`` to its two shards,
+    ``evaluate_predictions`` under ``detection_cfg_factory("nuscenes")``
+    (55 m, every instance), every average finite.
+    K1 and K2 must launch in each (``converted_launches`` in the kernels
+    line: both Trainers' and the served batch's).
 30. the bench: ``python -m range_view_3d_detection_torch.bench`` in a
     subprocess as a user runs it, int8 (the default; the other three
     modes' subprocesses are a cut: their flags take the same entry point
@@ -442,6 +449,19 @@ Phases, each of which raises (non-zero exit) on failure:
     "matmul"); no int8 stem mode. rv-av2-fast launches as rv-waymo. Train
     steps at each config's batch_size, 4. ``{name}_launches`` in the
     kernels line: each config's served launches.
+47. the last two experiments of ``conf/``, each as phase 45 runs rv-waymo:
+    rv-nuscenes (the META stem at 128, stages of 128, FPN 256,
+    256-channel towers, nuScenes' 10 classes, AV2's five features, bf16,
+    nms_cap 1024) at B=2 x 32 x 1800 padded by 4 a side to 1808, its
+    points at nuScenes' raw 0-255 intensity on 32 lasers, its train steps
+    on sweeps padded circularly as its train split pads them
+    (``train_padding``; the val split pads with constants); and base-waymo
+    (the BASIC stem on Waymo's six features, stages (64, 64, 128, 128,
+    128), FPN 128, 128-channel towers, 3 classes) at B=2 x 64 x 2650
+    padded by 3 a side to 2656. The card against the CPU at B=1 8x256 (248
+    columns padded by 4, 250 by 3). rv-nuscenes launches as rv-waymo;
+    base-waymo as base-av2 (no stem kernel, its three 1x1 stem convs on
+    the int8 product). Train steps at each config's batch_size, 4.
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
@@ -449,8 +469,8 @@ step times not measured); ``python3 chip_smoke.py conv-shapes`` the build
 and phase 43; ``python3 chip_smoke.py kernel-shapes`` the build, the
 checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44;
 ``python3 chip_smoke.py waymo`` the build and its spill gate, and phase 45;
-``python3 chip_smoke.py configs`` the build and its spill gate, and phase
-46;
+``python3 chip_smoke.py configs [PHASE]`` the build and its spill gate,
+and phase 46 (or the phase named: ``configs 47`` runs phase 47);
 ``python3 chip_smoke.py compile-decode`` the build and the decode's
 stages compiled one at a time against eager (``compile_decode_phase``).
 
@@ -1542,16 +1562,21 @@ def int8_phases(predictor, requests, bf16_results, bf16_heads, cfg, dec, device,
     ]
 
 
-def flagship_train_batch(cfg, B, H, W, seed, n_boxes=64):
-    """A flagship training batch: ``_sample_inputs`` and ``n_boxes`` valid
-    boxes of ``cfg.max_boxes`` slots an image, centred on seeded valid
-    returns, l, w, h in [0.5, 6] m, yaw in [-pi, pi), categories seeded."""
+def flagship_train_batch(cfg, B, H, W, seed, n_boxes=64, inputs=None):
+    """A flagship training batch: ``_sample_inputs`` (or ``inputs``, a
+    range image ``(features, cart, mask)`` of that shape) and ``n_boxes``
+    valid boxes of ``cfg.max_boxes`` slots an image, centred on seeded
+    valid returns, l, w, h in [0.5, 6] m, yaw in [-pi, pi), categories
+    seeded."""
     import numpy as np
 
     from range_view_3d_detection_torch import serving
 
     rng = np.random.default_rng(seed)
-    feats, cart, mask = serving._sample_inputs(B, H, W, cfg.in_channels, seed=seed)
+    if inputs is None:
+        inputs = serving._sample_inputs(B, H, W, cfg.in_channels, seed=seed)
+    feats, cart, mask = inputs
+    check(feats.shape == (B, H, W, cfg.in_channels), f"train batch of {feats.shape}")
     K = cfg.max_boxes
     boxes = np.zeros((B, K, 7), np.float32)
     valid = np.zeros((B, K), bool)
@@ -3877,10 +3902,92 @@ def converted_phase(device, smi) -> dict:
             f"call), kept {kept}; launches {launches}; phase "
             f"{time.perf_counter() - t_phase:.0f} s on {smi}")
         del predictor
-        return {"meta_kernel_fused": launches["K1"], "nms_scan": launches["K2"],
+
+        # 6. The nuScenes corpus converted above through the rv-nuscenes
+        # Trainer at its published widths, validated and scored.
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        meta_kernel_fused.launches = 0
+        nms_scan.launches = 0
+        nusc = nuscenes_trainer_run(work / "nuscenes", work / "run_nuscenes", device)
+        check(nusc["layers"] == (128,) * 5 and nusc["shape"] == (32, 1808, 5),
+              f"nuScenes Trainer: layers {nusc['layers']}, sweep {nusc['shape']}")
+        nusc_launches = {"K1": meta_kernel_fused.launches, "K2": nms_scan.launches}
+        check(nusc_launches["K1"] > 0 and nusc_launches["K2"] > 0,
+              f"nuScenes Trainer launches {nusc_launches}")
+        say(f"converted nuScenes corpus (phase 29): rv-nuscenes at its published widths, B=2 "
+            f"{nusc['shape']}, 1 step in {nusc['fit_s']:.2f} s (loss {nusc['loss']:.4f}), "
+            f"validate {nusc['val_s']:.2f} s ({nusc['shards']} shards), evaluator "
+            f"{nusc['eval_s']:.3f} s at {nusc['max_range_m']} m, ROI instances only: "
+            f"{nusc['eval_only_roi_instances']}, AVERAGE_METRICS "
+            + ", ".join(f"{k} {v:.4f}" for k, v in nusc["average"].items())
+            + f"; launches {nusc_launches} on {smi}")
+        return {"meta_kernel_fused": launches["K1"] + nusc_launches["K1"],
+                "nms_scan": launches["K2"] + nusc_launches["K2"],
                 "conv3x3_i8_fused": 0, "meta_kernel_fused_i8": 0}
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def nuscenes_trainer_run(corpus: Path, run_dir: Path, device, overrides=()) -> dict:
+    """Phase 29's nuScenes corpus (converted from ``write_raw_nuscenes``'
+    one scene of two sweeps, in its train split) through the rv-nuscenes
+    ``Trainer`` on ``device`` with the val split pinned to train, as the
+    JAX package's ``test_rv_nuscenes_train_smoke`` pins it: one epoch at
+    B=2 (``overrides`` after those), ``validate`` to one shard a sweep,
+    and the shards scored by ``evaluate_predictions`` under
+    ``detection_cfg_factory("nuscenes")``'s settings (55 m, every
+    instance), every average finite."""
+    import torch
+
+    from range_view_3d_detection_torch.evaluation import detection_cfg_factory
+    from range_view_3d_detection_torch.evaluation.av2_eval import evaluate_predictions
+    from range_view_3d_detection_torch.training.loop import Trainer
+    from range_view_3d_detection_torch.utils.config import compose
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = compose(REPO / "conf", "rv-nuscenes", [
+        f"++dataset.root_dir={corpus}", "++dataset._val_dataset.split_name=train",
+        f"++run_dir={run_dir}", "++trainer.max_epochs=1", "++model.batch_size=2",
+        "++model.train_log_freq=0", *overrides])
+    trainer = Trainer(cfg, device=device)
+    check(trainer.device.type == torch.device(device).type and len(trainer.train_ds) == 2
+          and len(trainer.val_ds) == 2,
+          f"nuScenes trainer on {trainer.device}, {len(trainer.train_ds)} train and "
+          f"{len(trainer.val_ds)} val sweeps")
+    item = trainer.train_ds[0]
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    sync()
+    fit_s = time.perf_counter() - t0
+    check(state.step == 1, f"nuScenes corpus: step {state.step}")
+    losses = [json.loads(x).get("loss") for x in
+              (Path(cfg["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+    losses = [x for x in losses if x is not None]
+    check(len(losses) == 1 and math.isfinite(losses[0]), f"nuScenes losses {losses}")
+    t0 = time.perf_counter()
+    pred_dir = trainer.validate()
+    sync()
+    val_s = time.perf_counter() - t0
+    shards = sorted(pred_dir.glob("*.feather"))
+    check(len(shards) == 2, f"nuScenes corpus: {len(shards)} shards")
+    eval_cfg = detection_cfg_factory("nuscenes")
+    t0 = time.perf_counter()
+    metrics = evaluate_predictions(
+        pred_dir, corpus / "train", trainer.categories, max_range_m=eval_cfg.max_range_m,
+        eval_only_roi_instances=eval_cfg.eval_only_roi_instances,
+        dataset_name=eval_cfg.dataset_name)
+    eval_s = time.perf_counter() - t0
+    avg = metrics["AVERAGE_METRICS"]
+    check(bool(avg) and all(math.isfinite(v) for v in avg.values()),
+          f"nuScenes AVERAGE_METRICS {avg}")
+    return dict(fit_s=fit_s, val_s=val_s, eval_s=eval_s, loss=losses[0], shards=len(shards),
+                average=avg, shape=tuple(item["features"].shape), layers=trainer.det_cfg.layers,
+                max_range_m=eval_cfg.max_range_m,
+                eval_only_roi_instances=eval_cfg.eval_only_roi_instances)
 
 
 # Phases 30-38: the bench and the measurement tools, driven as users run
@@ -5796,6 +5903,18 @@ def experiment_configs(name: str, x_stride: int, padding_mode: str = "constant")
     return build_detector_config(raw), build_decoder_config(raw), layout
 
 
+def train_padding(name: str) -> str:
+    """The padding mode of the experiment ``name``'s train split (its val
+    split's is ``experiment_configs``' check): rv-nuscenes pads its train
+    sweeps circularly and its val sweeps with constants, as
+    ``conf/model/range_view.yaml`` sets ``padding_mode`` on
+    ``_train_dataset`` alone and ``conf/dataset/nuscenes.yaml`` sets none."""
+    from range_view_3d_detection_torch.training.builders import build_dataset_config
+    from range_view_3d_detection_torch.utils.config import compose
+
+    return build_dataset_config(compose(REPO / "conf", name), "train").padding_mode
+
+
 def padded_request(B, H, sensor_width, C, seed, x_stride=1, padding_mode="constant"):
     """``serving._sample_inputs`` at the sensor's width, padded a side by
     ``width_padding`` as the dataset's ``padding_mode`` pads a sweep
@@ -5830,15 +5949,18 @@ def sensor_points(B, n, layout, extra, seed):
     """B synthetic clouds of ``n`` points (``export._sample_points``) at
     ``layout``'s height and sensor width, with one channel per name of
     ``extra``, in its order: intensity in [0, 1) (AV2's, as the bench's
-    points mode draws it) or in [0, 3) for Waymo (raw Waymo intensity,
-    which the projection's tanh plane takes), elongation in [0, 2)."""
+    points mode draws it), in [0, 3) for Waymo (raw Waymo intensity,
+    which the projection's tanh plane takes) or in [0, 255) for nuScenes
+    (the raw ``.pcd.bin`` value, which the converter and the projection
+    keep as is), elongation in [0, 2). The lasers are the rows of
+    ``layout``'s sensor: 32 for nuScenes."""
     import numpy as np
 
     from range_view_3d_detection_torch.export import _sample_points
 
     xyz, laser, intensity = _sample_points(B, n, layout["height"], layout["sensor_width"],
                                            seed=seed)
-    scale = 3 if layout["dataset_name"] == "waymo" else 1
+    scale = INTENSITY_SCALE.get(layout["dataset_name"], 1)
     chans = {"intensity": intensity * scale,
              "elongation": np.random.default_rng(seed + 1).uniform(0, 2, laser.shape)
              .astype(np.float32)}
@@ -5857,27 +5979,33 @@ BASIC_BENCH_EXPECT = {
 CONFIG_BENCH_EXPECT = {"META": BENCH_EXPECT, "BASIC": BASIC_BENCH_EXPECT}
 CONFIG_EXPECT = {stem: dict(modes, points=modes["bf16"])
                  for stem, modes in CONFIG_BENCH_EXPECT.items()}
-# The points front end's channels by dataset.
-POINTS_EXTRA = {"waymo": ["elongation", "intensity"], "av2": ["intensity"]}
-# The published configurations phases 45 and 46 run: name -> (phase,
-# x_stride, the small request's sensor width, padded and strided to 256
-# served columns, seed, train batch). rv-waymo trains at B=2 (phase 45 as
-# it was), base-av2 and rv-av2-fast at their batch_size, 4.
+# The points front end's channels by dataset, and the scale of its raw
+# intensity over the bench's [0, 1) (``sensor_points``).
+POINTS_EXTRA = {"waymo": ["elongation", "intensity"], "av2": ["intensity"],
+                "nuscenes": ["intensity"]}
+INTENSITY_SCALE = {"waymo": 3, "nuscenes": 255}
+# The published configurations phases 45-47 run: name -> (phase, x_stride,
+# the small request's sensor width, padded and strided to 256 served
+# columns, seed, train batch). rv-waymo trains at B=2 (phase 45 as it
+# was), the others at their batch_size, 4.
 PUBLISHED_CONFIGS = {
     "rv-waymo": (45, 1, 250, 45, 2),
     "base-av2": (46, 1, 250, 46, 4),
     "rv-av2-fast": (46, 4, 1000, 48, 4),
+    "rv-nuscenes": (47, 1, 248, 47, 4),
+    "base-waymo": (47, 1, 250, 49, 4),
 }
 
 
 def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
                  train_batch) -> dict:
-    """The experiment ``name`` at its published width (phases 45 and 46;
-    see the module docstring), built by ``experiment_configs`` with seeded
+    """The experiment ``name`` at its published width (phases 45-47; see
+    the module docstring), built by ``experiment_configs`` with seeded
     weights (``SEED + seed``), requests of B=2 at the sensor's width,
-    padded and strided as the dataset does (``padded_request``); the card
-    against the CPU on a 1 x 8 request of ``small_sensor`` columns; the
-    train steps at B = ``train_batch``. Returns each mode's launches."""
+    padded and strided as the val split does (``padded_request``); the
+    card against the CPU on a 1 x 8 request of ``small_sensor`` columns;
+    the train steps at B = ``train_batch`` on a batch padded as the train
+    split pads (``train_padding``). Returns each mode's launches."""
     import dataclasses
 
     import torch
@@ -6151,9 +6279,13 @@ def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
         + "; ".join(rows) + f" on {smi}")
     laps("bench modes")
 
-    # Train steps: bf16 at the served width, 64 seeded boxes of 256 an image.
+    # Train steps: bf16 at the served width, 64 seeded boxes of 256 an image,
+    # on sweeps padded and strided as the train split does.
+    pad_train = train_padding(name)
+    inputs = padded_request(train_batch, H, layout["sensor_width"], C, seed=SEED + seed,
+                            x_stride=layout["x_stride"], padding_mode=pad_train)
     batch = state_lib.batch_to_device(
-        flagship_train_batch(cfg, train_batch, H, W, seed=SEED + seed), device)
+        flagship_train_batch(cfg, train_batch, H, W, seed=SEED + seed, inputs=inputs), device)
     tx, _ = optim.make_optimizer(1e-3, 10, debug=True)
     torch.cuda.reset_peak_memory_stats()
     st = state_lib.create_state(cfg, tx, device=device,
@@ -6163,7 +6295,8 @@ def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     still = [n for n, p in st.model.named_parameters() if torch.equal(p.detach(), params0[n])]
     check(not still, f"{name}: parameters unchanged after 5 train steps: {still[:5]}")
-    say(f"{name} train step (bf16, B={train_batch} {H}x{W}, 64 boxes an image): {total:.3f} ms "
+    say(f"{name} train step (bf16, B={train_batch} {H}x{W}, {pad_train} padding, 64 boxes an "
+        f"image): {total:.3f} ms "
         f"(CUDA events, median of 3 after 2 warm-up) = "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
         + f" ms; all {len(params0)} parameter leaves changed; peak memory {peak_gb:.2f} GiB "
@@ -6177,7 +6310,8 @@ def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
 
 
 def configs_phase(phase, device, smi) -> dict:
-    """Phase 45 (rv-waymo) or 46 (base-av2 and rv-av2-fast): each of
+    """Phase 45 (rv-waymo), 46 (base-av2 and rv-av2-fast) or 47
+    (rv-nuscenes and base-waymo): each of
     ``PUBLISHED_CONFIGS``' configurations of ``phase`` through
     ``config_phase`` (see the module docstring). Returns each config's
     launches by mode."""
@@ -6503,6 +6637,9 @@ def main() -> int:
     config_launches = configs_phase(46, device, smi)
     torch.cuda.empty_cache()
     laps("46 base-av2, rv-av2-fast")
+    config_launches.update(configs_phase(47, device, smi))
+    torch.cuda.empty_cache()
+    laps("47 rv-nuscenes, base-waymo")
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -6530,7 +6667,7 @@ def main() -> int:
         k["anycap_launches"] = slice_counts["anycap"][k["name"]]
         k["hw_tools_launches"] = slice_counts["hw_tools"][k["name"]]
         k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
-        for name, modes in config_launches.items():  # phase 46's served requests
+        for name, modes in config_launches.items():  # phases 46-47's served requests
             k[f"{name.replace('-', '_')}_launches"] = sum(
                 counts[k["name"]] for tag, counts in modes.items() if not tag.startswith("bench"))
         if k["name"] == "nms_scan":
@@ -6805,9 +6942,11 @@ def kernel_shapes_main() -> int:
 
 
 def configs_main(phase: int) -> int:
-    """``chip_smoke.py waymo`` (phase 45) and ``chip_smoke.py configs``
-    (46): the device, the build and its spill gate (phases 1-2), then the
-    phase alone."""
+    """``chip_smoke.py waymo`` (phase 45) and ``chip_smoke.py configs
+    [PHASE]`` (46, or the phase named: 45, 46 or 47): the device, the
+    build and its spill gate (phases 1-2), then the phase alone."""
+    check(phase in {v[0] for v in PUBLISHED_CONFIGS.values()},
+          f"configs: no phase {phase} among {sorted({v[0] for v in PUBLISHED_CONFIGS.values()})}")
     t_start = time.perf_counter()
     start = card_start()
     if start is None:
@@ -6833,7 +6972,7 @@ SUBCOMMANDS = {
     "width-rank": width_rank,
     "convert": convert_rank,
     "waymo": lambda args: configs_main(45),
-    "configs": lambda args: configs_main(46),
+    "configs": lambda args: configs_main(int(args[0]) if args else 46),
 }
 
 

@@ -45,6 +45,15 @@
   4; each mode's expected launches name the four wrappers' counters, with
   neither stem kernel for the BASIC stem; ``chip_smoke.py configs`` runs
   phase 46's entry point.
+- Phase 47's: rv-nuscenes (32 rows, 1800 padded by 4 to 1808, its val
+  split constant and its train split circular) and base-waymo (the BASIC
+  stem on Waymo's six features, 2650 padded by 3 to 2656) as ``conf/``
+  publishes them; nuScenes' points (the intensity channel, raw 0-255
+  intensity, 32 lasers) through the front end; the train batch padded as
+  the train split pads; ``chip_smoke.py configs 47`` runs phase 47's
+  entry point and an unknown phase is refused; phase 29's nuScenes
+  Trainer block (``nuscenes_trainer_run``) fits, validates and scores a
+  converted ``write_raw_nuscenes`` corpus at small widths.
 """
 
 from __future__ import annotations
@@ -585,3 +594,132 @@ def test_config_phase_expected_launches(stem):
     if stem == "META":
         assert bench == chip_smoke.BENCH_EXPECT
 
+
+
+def test_last_configs_and_requests():
+    """Phase 47 builds rv-nuscenes (the META stem at 128, stages of 128,
+    FPN 256, 256-channel towers, 10 classes, AV2's five features; 32 x
+    1800 padded by 4 to 1808) and base-waymo (the BASIC stem, stages 64,
+    64, 128 x 3, FPN 128, 128-channel towers, 3 classes, Waymo's six
+    features; 64 x 2650 padded by 3 to 2656) as ``conf/`` publishes them,
+    each val split with constant padding (``experiment_configs``' check)
+    and rv-nuscenes' train split circular; the card-against-CPU request is
+    256 columns served."""
+    from range_view_3d_detection_torch.data.dataset import AV2_FEATURES, WAYMO_FEATURES
+    from range_view_3d_detection_torch.training import builders
+    from range_view_3d_detection_torch.utils.config import compose
+
+    want = {
+        "rv-nuscenes": ("META", (128,) * 5, ((1, 256),), 256, True, 10, AV2_FEATURES,
+                        "nuscenes", 32, 1800, 4, 1808, "circular"),
+        "base-waymo": ("BASIC", (64, 64, 128, 128, 128), ((1, 128),), 128, False, 3,
+                       WAYMO_FEATURES, "waymo", 64, 2650, 3, 2656, "constant"),
+    }
+    phase47 = {k: v for k, v in chip_smoke.PUBLISHED_CONFIGS.items() if v[0] == 47}
+    assert set(phase47) == set(want)
+    for name, (_, x_stride, small_sensor, _, train_batch) in phase47.items():
+        (stem, layers, fpn, towers, pallas, classes, features, dataset, height, sensor, pad,
+         served, train_mode) = want[name]
+        assert x_stride == 1 and train_batch == 4
+        cfg, dec, layout = chip_smoke.experiment_configs(name, x_stride)
+        raw = compose("conf", name)
+        assert cfg == builders.build_detector_config(raw)
+        assert dec == builders.build_decoder_config(raw) and dec.nms_cap == 1024
+        assert (cfg.stem_type, cfg.layers, cfg.fpn, cfg.stem_pallas) == (stem, layers, fpn, pallas)
+        assert cfg.classification_head_channels == cfg.regression_head_channels == towers
+        assert len(cfg.tasks_dict[0]) == classes and cfg.dtype == "bfloat16"
+        assert cfg.in_channels == len(features)
+        assert layout == dict(height=height, sensor_width=sensor, pad=pad, width=served,
+                              feature_names=features, dataset_name=dataset, x_stride=1,
+                              padding_mode="constant")
+        assert chip_smoke.train_padding(name) == train_mode
+        small = chip_smoke.padded_request(1, 8, small_sensor, cfg.in_channels, seed=45)
+        assert small[0].shape == (1, 8, 256, cfg.in_channels)
+        request = chip_smoke.padded_request(2, height, sensor, cfg.in_channels, seed=0)
+        assert request[0].shape == (2, height, served, cfg.in_channels)
+    with pytest.raises(RuntimeError, match="rv-nuscenes.s layout: x_stride 1, constant"):
+        chip_smoke.experiment_configs("rv-nuscenes", 1, padding_mode="circular")
+
+
+def test_nuscenes_points_front_end():
+    """rv-nuscenes' raw points: ``POINTS_EXTRA["nuscenes"]`` is the
+    intensity channel, ``sensor_points`` draws nuScenes' raw 0-255
+    intensity on the 32 lasers of the sensor, and the front end (the
+    nuScenes projection, constant padding) rasterizes them into a 32 x
+    1808 x 5 range image with the raw intensity kept."""
+    from range_view_3d_detection_torch import serving
+
+    cfg, dec, layout = chip_smoke.experiment_configs("rv-nuscenes", 1)
+    predictor = serving.Predictor(serving._flagship_config(tiny=True), dec, device="cpu")
+    points_predict, extra = chip_smoke.points_front_end(predictor, layout)
+    assert extra == chip_smoke.POINTS_EXTRA["nuscenes"] == ["intensity"]
+    kw = points_predict.kw
+    assert kw["dataset_name"] == "nuscenes" and kw["height"] == 32 and kw["pad"] == 4
+    assert kw["padding_mode"] == "constant"
+    xyz, laser, intensity = chip_smoke.sensor_points(2, 4096, layout, extra, seed=0)
+    assert laser.min() == 0 and laser.max() == 31
+    assert 0 <= intensity.min() and 200 < intensity.max() < 255
+    feats, cart, mask = points_predict.rasterize(xyz, laser, intensity)
+    assert tuple(feats.shape) == (2, 32, 1808, 5) and mask.any()
+    assert not mask[:, :, :4].any() and not mask[:, :, -4:].any()
+    assert float(feats[..., 0].max()) > 200
+
+
+def test_train_batch_pads_as_the_train_split():
+    """Phase 47's train batch for rv-nuscenes: the sweep padded
+    circularly (its train split's mode), the boxes centred on its valid
+    returns."""
+    cfg, _, layout = chip_smoke.experiment_configs("rv-nuscenes", 1)
+    mode = chip_smoke.train_padding("rv-nuscenes")
+    inputs = chip_smoke.padded_request(2, 4, 1800, 5, seed=3, padding_mode=mode)
+    b = chip_smoke.flagship_train_batch(cfg, 2, 4, 1808, seed=3, inputs=inputs)
+    feats, mask = b["features"], b["mask"]
+    assert feats.shape == (2, 4, 1808, 5) and b["boxes"].shape == (2, cfg.max_boxes, 7)
+    np.testing.assert_array_equal(feats[:, :, :4], feats[:, :, 1800:1804])
+    np.testing.assert_array_equal(mask[:, :, -4:], mask[:, :, 4:8])
+    for i in range(2):
+        ctr = b["boxes"][i, :64, None, :3]
+        assert (b["cart"][i][mask[i]][None] == ctr).all(-1).any(-1).all()
+    with pytest.raises(RuntimeError, match="train batch of"):
+        chip_smoke.flagship_train_batch(cfg, 2, 4, 1800, seed=3, inputs=inputs)
+
+
+def test_configs_subcommand_takes_the_phase(monkeypatch):
+    """``chip_smoke.py configs 47`` runs phase 47's entry point and
+    ``configs`` alone phase 46's; ``configs_main`` refuses a phase that
+    no published configuration has, before it looks for a card."""
+    called = []
+    monkeypatch.setattr(chip_smoke, "configs_main", lambda phase: called.append(phase) or phase)
+    assert chip_smoke.run(["configs", "47"]) == 47
+    assert chip_smoke.run(["configs"]) == 46
+    assert chip_smoke.run(["configs", "45"]) == 45
+    assert called == [47, 46, 45]
+    monkeypatch.undo()
+    monkeypatch.setattr(chip_smoke, "card_start", lambda: pytest.fail("looked for a card"))
+    with pytest.raises(RuntimeError, match="no phase 44"):
+        chip_smoke.configs_main(44)
+
+
+def test_nuscenes_trainer_run_on_the_cpu(tmp_path):
+    """Phase 29's nuScenes block on the CPU at small widths: the corpus
+    converted from ``write_raw_nuscenes`` (its train split, 32 x 360 here,
+    1800 on the card),
+    the rv-nuscenes Trainer at one step of B=2, two shards, finite
+    averages under the nuScenes settings (55 m, every instance)."""
+    from range_view_3d_detection_torch.converters.nuscenes import export as nusc_export
+
+    version = chip_smoke.write_raw_nuscenes(tmp_path / "raw", seed=chip_smoke.SEED + 292)
+    nusc_export.export_dataset(str(tmp_path / "raw"), str(tmp_path / "nuscenes"),
+                               version=version, height=32, width=360)
+    small = ["++dataset._train_dataset.range_view_config.width=360","++model._backbone.layers=[8,8,8,8,8]", "++model._backbone.stem_pallas=false",
+             "++model._head.fpn={1: 16}", "++model._head.classification_head_channels=8",
+             "++model._head.regression_head_channels=8",
+             "++model._head.num_classification_blocks=1",
+             "++model._head.num_regression_blocks=1", "++model.max_boxes=16",
+             "++model.post_processing_config.nms_cap=128", "++model.precision=float32"]
+    out = chip_smoke.nuscenes_trainer_run(tmp_path / "nuscenes", tmp_path / "run", "cpu",
+                                          overrides=small)
+    assert out["shards"] == 2 and out["shape"] == (32, 368, 5)
+    assert out["layers"] == (8,) * 5 and np.isfinite(out["loss"])
+    assert (out["max_range_m"], out["eval_only_roi_instances"]) == (55.0, False)
+    assert "AP" in out["average"]
