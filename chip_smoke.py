@@ -12,6 +12,7 @@ starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone,
 ``chip_smoke.py kernel-shapes`` the kernels' checks past the configs'
 shapes and phase 44, ``chip_smoke.py waymo`` phases 1-2 and 45,
 ``chip_smoke.py configs [PHASE]`` phases 1-2 and 46 (or 45 or 47),
+``chip_smoke.py waymo-user`` phases 1-2 and 48,
 ``chip_smoke.py shipped-times PARENT`` the shipped
 shapes' kernel times beside those of another checkout, each round a
 ``chip_smoke.py shipped-round TREE`` process.)
@@ -269,7 +270,8 @@ Phases, each of which raises (non-zero exit) on failure:
     ``evaluate_predictions`` under ``detection_cfg_factory("nuscenes")``
     (55 m, every instance), every average finite.
     K1 and K2 must launch in each (``converted_launches`` in the kernels
-    line: both Trainers' and the served batch's).
+    line: both Trainers' and the served batch's). The converted Waymo
+    corpus goes on to phase 48.
 30. the bench: ``python -m range_view_3d_detection_torch.bench`` in a
     subprocess as a user runs it, int8 (the default; the other three
     modes' subprocesses are a cut: their flags take the same entry point
@@ -462,6 +464,34 @@ Phases, each of which raises (non-zero exit) on failure:
     columns padded by 4, 250 by 3). rv-nuscenes launches as rv-waymo;
     base-waymo as base-av2 (no stem kernel, its three 1x1 stem convs on
     the int8 product). Train steps at each config's batch_size, 4.
+48. Waymo as its users run it, on phase 29's converted Waymo corpus (one
+    log of two frames at 64 x 2650; converted again when the phase runs
+    alone): the rv-waymo ``Trainer`` from ``conf/`` at its published
+    widths on the card by default, one epoch at B=2 with the val split
+    pinned to train (``waymo_trainer_run``), ``validate`` to one shard a
+    sweep, the shards scored by the WOD evaluator (``evaluate_waymo``,
+    with the recall-gap penalty and without) under
+    ``detection_cfg_factory("waymo")``, every average finite, K1 and K2
+    launched; the fitted rv-waymo exported as bf16 and int8 artifacts
+    (int8 calibrated on its train batches) and served
+    (``waymo_deploy``), each mode's requests
+    equal bit for bit to their reference, NaNs included
+    (``bit_equal``): the artifacts against the fitted model folded (and
+    quantized) in memory on 4 B=2 requests of the corpus's padded sweeps,
+    with K1 and K2 held against their twins on a request's own inputs and
+    K3 on every shape of an int8 request (``k3_request_shapes``); the
+    int8 stem (K4) once, no element differing from its twin; the corpus's
+    own raw points through the bf16 artifact's points front end against
+    the artifact on the clouds rasterized by hand; the 4 requests as one
+    CUDA-graph replay against the eager calls; the AOT programs against
+    ``load_artifact`` (``aot_phase``), the bf16 one also in a process
+    that imports only the kernels package. Each mode prints its launches
+    and ms a request (host clock, median). Last, the WOD overfit oracle
+    (``overfit.run("waymo", E)`` on the card, ``waymo_oracle``): the loss
+    by epoch, bf16 and int8 PTQ mAP and mAPH, gated on the last-10 loss
+    and the mAP without the penalty. ``waymo_user_launches`` in the
+    kernels line: the phase's launches. Its cuts are printed
+    (``waymo_user_cuts``).
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
@@ -471,6 +501,8 @@ checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44;
 ``python3 chip_smoke.py waymo`` the build and its spill gate, and phase 45;
 ``python3 chip_smoke.py configs [PHASE]`` the build and its spill gate,
 and phase 46 (or the phase named: ``configs 47`` runs phase 47);
+``python3 chip_smoke.py waymo-user`` the build and its spill gate, and
+phase 48 on a corpus it converts;
 ``python3 chip_smoke.py compile-decode`` the build and the decode's
 stages compiled one at a time against eager (``compile_decode_phase``).
 
@@ -3118,9 +3150,10 @@ print("aot child ok", range_view_3d_detection_torch.kernels.stem.meta_kernel_fus
 """
 
 
-def aot_phase(art_dir: Path, requests, device, smi) -> dict:
-    """Phase 27 (see the module docstring). Returns the launches of the
-    AOT programs' requests."""
+def aot_phase(art_dir: Path, requests, device, smi, label="phase 27") -> dict:
+    """Phase 27 (see the module docstring); ``label`` names the phase in
+    the lines printed. Returns the launches of the AOT programs'
+    requests."""
     import numpy as np
     import torch
 
@@ -3145,8 +3178,8 @@ def aot_phase(art_dir: Path, requests, device, smi) -> dict:
                       f"{err[-3000:]}")
                 for field, a, b in zip(child_want._fields, torch.load(child_out),
                                        child_want):
-                    check(torch.equal(a, b.cpu()), f"AOT child: {field} differs")
-                say(f"AOT (phase 27): a process that imports only the kernels package "
+                    check(bit_equal(a, b.cpu()), f"AOT child: {field} differs")
+                say(f"AOT ({label}): a process that imports only the kernels package "
                     f"loads and serves {paths['bf16'].name} (bf16) equal bit for bit "
                     f"({out.strip()}; {time.perf_counter() - t_child:.1f} s beside the "
                     f"int8 export)")
@@ -3163,7 +3196,7 @@ def aot_phase(art_dir: Path, requests, device, smi) -> dict:
                 total[name] += launches[name]
             for g, w in zip(got, want):
                 for field, a, b in zip(w._fields, g, w):
-                    check(torch.equal(a, b), f"AOT {tag}: {field} differs from "
+                    check(bit_equal(a, b), f"AOT {tag}: {field} differs from "
                           "load_artifact's")
             need = ("meta_kernel_fused", "nms_scan") + (
                 ("conv3x3_i8_fused",) if tag == "int8" else ())
@@ -3172,7 +3205,7 @@ def aot_phase(art_dir: Path, requests, device, smi) -> dict:
                 cuda_sync_wall(lambda: aot(*requests[1])) for _ in range(10))
             ms_ref = statistics.median(
                 cuda_sync_wall(lambda: ref(*requests[1])) for _ in range(10))
-            say(f"AOT (phase 27) {tag}: export_aot {export_s:.1f} s, {path.name} "
+            say(f"AOT ({label}) {tag}: export_aot {export_s:.1f} s, {path.name} "
                 f"{path.stat().st_size / 2**20:.1f} MiB; load_aot's outputs equal "
                 f"load_artifact's bit for bit on {len(requests)} B={B} requests; launches "
                 f"{launches}; {ms_aot:.3f} ms/request beside load_artifact's {ms_ref:.3f} "
@@ -3193,7 +3226,7 @@ def aot_phase(art_dir: Path, requests, device, smi) -> dict:
     for path in paths.values():
         path.unlink()
     torch.cuda.empty_cache()
-    say(f"AOT (phase 27): {time.perf_counter() - t_phase:.0f} s")
+    say(f"AOT ({label}): {time.perf_counter() - t_phase:.0f} s")
     return total
 
 
@@ -3738,9 +3771,11 @@ def convert_rank(argv) -> int:
     return 0
 
 
-def converted_phase(device, smi) -> dict:
+def converted_phase(device, smi, keep_waymo: Path | None = None) -> dict:
     """Phase 29 (see the module docstring). Returns the launches of K1 and
-    K2 while the converted corpus trains, validates and serves."""
+    K2 while the converted corpus trains, validates and serves.
+    ``keep_waymo``: where the converted Waymo corpus is moved for phase 48
+    (else it goes with the phase's work directory)."""
     import numpy as np
     import torch
 
@@ -3796,6 +3831,8 @@ def converted_phase(device, smi) -> dict:
               and min(conv["nuscenes_valid_pixels"]) > 10_000, f"nuScenes: {conv}")
         check(conv["waymo_sweeps"] == 2 and conv["waymo_shapes"] == [64 * 2650]
               and conv["waymo_num_pts"] == conv["waymo_valid_pixels"], f"Waymo: {conv}")
+        if keep_waymo is not None:
+            shutil.move(str(work / "waymo"), str(keep_waymo))
         av2_per_sweep = conv["av2_s"] / conv["av2_sweeps"]
         say(f"converted (phase 29): raw logs written in {write_s:.1f} s, their LZ4 copy in "
             f"{lz4_write_s:.1f} s ({lz4_buffers} buffers); conversion process "
@@ -6326,6 +6363,553 @@ def configs_phase(phase, device, smi) -> dict:
     return out
 
 
+# Phase 48: Waymo as its users run it (see the module docstring). The
+# oracle's gate, from the JAX package's own run of the same overfit on the
+# CPU (``python tests/test_torch_trainer.py overfit waymo E DIR``: the
+# corpus and overrides of scripts/debug-overfit-waymo.sh, bf16, 8 steps an
+# epoch): the WOD mAP_L2 without the recall-gap penalty (the script's
+# oracle number; a converged model reads near 1.0) 0.0803 at 30 epochs,
+# 0.4111 at 40, 0.6952 at 60, the last 10 steps' mean loss 0.663, 0.655
+# and 0.613 of the first step's. 40 epochs (320 steps, 47-63 s on an
+# NVIDIA H100 80GB HBM3 at 700.00 W) of the manual run's 250 is what the
+# phase affords; the gate sits below JAX's reading there.
+WAYMO_ORACLE_EPOCHS = 40
+WAYMO_ORACLE_BAR = 0.3
+WAYMO_ORACLE_LOSS_SHARE = 0.7
+# Phase 48's requests: B=2 pairs of the corpus's two sweeps.
+WAYMO_USER_PAIRS = ((0, 1), (1, 0), (0, 0), (1, 1))
+
+
+def waymo_user_cuts(epochs: int = WAYMO_ORACLE_EPOCHS) -> list:
+    """Phase 48's cuts, printed with its results (PERF.md section 4)."""
+    return ["corpus: phase 29's converted Waymo fixture, one log of 2 frames at 64 x 2650 "
+            "(one B=2 step an epoch), the val split pinned to train",
+            "Trainer: one epoch from random weights",
+            f"oracle: {epochs} epochs ({8 * epochs} steps) of the manual run's 250 (2000)",
+            f"requests: {len(WAYMO_USER_PAIRS)} B=2 pairs of the corpus's 2 sweeps"]
+
+
+def convert_waymo_corpus(root: Path, height: int = 64, width: int = 2650) -> Path:
+    """Phase 29's Waymo conversion again, for ``chip_smoke.py waymo-user``:
+    the same frames (``waymo_frames(2, seed=SEED + 29)``) through the
+    port's converter into ``root/train/segment-0``. Returns ``root``."""
+    from range_view_3d_detection_torch.converters.waymo import export as waymo_export
+
+    frames = waymo_frames(2, seed=SEED + 29, height=height, width=width)
+    n = waymo_export.export_log(None, root / "train" / "segment-0", frames=frames,
+                                export_cameras=False)
+    check(n == 2, f"Waymo conversion: {n} frames")
+    return root
+
+
+def waymo_trainer_run(corpus: Path, run_dir: Path, device=None, overrides=()) -> dict:
+    """Phase 48's Trainer: rv-waymo from ``conf/`` on the converted corpus
+    (``compose(REPO / "conf", "rv-waymo", ...)``; its one log is both
+    splits), one epoch at B=2 on ``device`` (None: the Trainer's default,
+    the card; ``overrides`` after the phase's), ``validate`` to one shard
+    a sweep, the shards scored by the WOD evaluator
+    (``evaluate.evaluate_dirs``: ``evaluate_waymo`` with the recall-gap
+    penalty and without) under ``detection_cfg_factory("waymo")``, every
+    average finite (mAP and mAPH at levels 1 and 2). Returns the trainer
+    and its numbers."""
+    import torch
+
+    from range_view_3d_detection_torch.evaluate import evaluate_dirs
+    from range_view_3d_detection_torch.evaluation import detection_cfg_factory
+    from range_view_3d_detection_torch.evaluation.waymo_eval import mean_ap
+    from range_view_3d_detection_torch.training.loop import Trainer
+    from range_view_3d_detection_torch.utils.config import compose
+
+    cfg = compose(REPO / "conf", "rv-waymo", [
+        f"++dataset.root_dir={corpus}", "++dataset._val_dataset.split_name=train",
+        f"++run_dir={run_dir}", "++trainer.max_epochs=1", "++model.batch_size=2",
+        "++model.train_log_freq=0", *overrides])
+    trainer = Trainer(cfg, device=device)
+    want = torch.device(device).type if device is not None else "cuda"
+    check(trainer.device.type == want and len(trainer.train_ds) == 2
+          and len(trainer.val_ds) == 2,
+          f"Waymo trainer on {trainer.device}, {len(trainer.train_ds)} train and "
+          f"{len(trainer.val_ds)} val sweeps")
+
+    def sync():
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    item = trainer.train_ds[0]
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    sync()
+    fit_s = time.perf_counter() - t0
+    check(state.step == 1, f"Waymo corpus: step {state.step}")
+    losses = [json.loads(x).get("loss") for x in
+              (Path(cfg["run_dir"]) / "metrics.jsonl").read_text().splitlines()]
+    losses = [x for x in losses if x is not None]
+    check(len(losses) == 1 and math.isfinite(losses[0]), f"Waymo losses {losses}")
+    t0 = time.perf_counter()
+    pred_dir = trainer.validate()
+    sync()
+    val_s = time.perf_counter() - t0
+    shards = sorted(pred_dir.glob("*.feather"))
+    check(len(shards) == 2, f"Waymo corpus: {len(shards)} shards")
+    eval_cfg = detection_cfg_factory("waymo")
+    check((eval_cfg.dataset_name, eval_cfg.max_range_m, eval_cfg.eval_only_roi_instances)
+          == ("waymo", math.inf, False), f"WOD settings {eval_cfg}")
+    t0 = time.perf_counter()
+    average = {}
+    for tag, penalty in (("penalty", True), ("no penalty", False)):
+        m = evaluate_dirs(pred_dir, corpus / "train", eval_cfg.dataset_name,
+                          recall_gap_penalty=penalty)
+        for level in (1, 2):
+            for metric in ("AP", "APH"):
+                average[f"m{metric}_L{level} {tag}"] = mean_ap(m, level=level, metric=metric)
+    eval_s = time.perf_counter() - t0
+    check(all(math.isfinite(v) for v in average.values()), f"WOD averages {average}")
+    return dict(trainer=trainer, fit_s=fit_s, val_s=val_s, eval_s=eval_s, loss=losses[0],
+                shards=len(shards), average=average, shape=tuple(item["features"].shape),
+                layers=trainer.det_cfg.layers)
+
+
+def corpus_requests(dataset, pairs=WAYMO_USER_PAIRS) -> list:
+    """B=2 requests ``(feats, cart, mask)`` of a dataset's items (padded as
+    its split pads them), one a pair of item indices."""
+    import numpy as np
+
+    items = {i: dataset[i] for i in sorted({i for pair in pairs for i in pair})}
+    return [tuple(np.stack([items[i][k] for i in pair]) for k in ("features", "cart", "mask"))
+            for pair in pairs]
+
+
+def corpus_clouds(corpus: Path, extra, height: int, pairs=WAYMO_USER_PAIRS) -> list:
+    """The converted corpus's own points, as a user's raw clouds: a sweep's
+    pixels with a return (range > 0), its x, y, z (the vehicle frame the
+    converter writes), the laser its row, and the channels ``extra`` names
+    (raw, as the converter keeps them); B=2 requests a pair of sweeps,
+    padded to a common count with zero rows (which the z-buffer's
+    minimum distance drops). ``height``: the sensor's rows."""
+    import numpy as np
+
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    sweeps = []
+    for path in sorted((corpus / "train").rglob("sensors/range_view/*.feather")):
+        c = read_feather(path)
+        valid = c["range"] > 0
+        rows = np.arange(len(valid)) // (len(valid) // height)
+        sweeps.append((np.stack([c["x"], c["y"], c["z"]], -1)[valid], rows[valid],
+                       [c[n][valid] for n in extra]))
+    out = []
+    for pair in pairs:
+        n = max(len(sweeps[i][0]) for i in pair)
+
+        def pad(a, n=n):
+            return np.pad(a, ((0, n - len(a)),) + ((0, 0),) * (a.ndim - 1))
+
+        out.append((np.stack([pad(sweeps[i][0]) for i in pair]).astype(np.float32),
+                    np.stack([pad(sweeps[i][1]) for i in pair]).astype(np.int32),
+                    *(np.stack([pad(sweeps[i][2][k]) for i in pair]).astype(np.float32)
+                      for k in range(len(extra)))))
+    return out
+
+
+def bit_equal(a, b) -> bool:
+    """Two tensors equal bit for bit, NaNs included: dtype, shape and bits."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def differing_fields(got, want) -> list:
+    """The fields of two results (named tuples of tensors) that are not
+    equal bit for bit."""
+    return [name for name, a, b in zip(want._fields, got, want) if not bit_equal(a, b)]
+
+
+def waymo_oracle(smi, epochs: int = WAYMO_ORACLE_EPOCHS) -> dict:
+    """Phase 48's WOD overfit oracle: ``overfit.run("waymo", epochs)`` on
+    the card (its default device: the corpus and overrides of
+    scripts/debug-overfit-waymo.sh, rv-waymo-synthetic in bf16), the loss
+    by epoch, the WOD mAP and mAPH at level 2 with and without the
+    recall-gap penalty; the gate: the last 10 steps' mean loss at most
+    ``WAYMO_ORACLE_LOSS_SHARE`` of the first step's, and the mAP without
+    the penalty at least ``WAYMO_ORACLE_BAR``. Then the int8 PTQ of its
+    weights (``overfit.int8_predictor``: full scope, calibrated on its
+    train batches) scored alike. Returns the launches of the bf16 run
+    (fit and validate) and of the int8 scoring."""
+    import torch
+
+    from range_view_3d_detection_torch import overfit
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-overfit-waymo-"))
+    launches = {}
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = overfit.run("waymo", epochs, work)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches["oracle bf16"] = read_counts()
+        trainer, losses = out["trainer"], out["losses"]
+        check(trainer.device.type == "cuda", f"the oracle ran on {trainer.device}")
+        check(len(losses) == 8 * epochs, f"the oracle took {len(losses)} steps")
+        last10 = statistics.mean(losses[-10:])
+        by_epoch = [round(statistics.mean(losses[i:i + 8]), 4) for i in range(0, len(losses), 8)]
+        wod = {"bf16": {tag: out[tag] for tag in ("penalty", "no_penalty")}}
+        # rv-waymo-synthetic's MetaKernel takes the accumulate path
+        # (``stem_pallas`` false in conf/, as in the JAX package): no K1.
+        stem = "meta_kernel_fused"
+        check(launches["oracle bf16"]["nms_scan"] > 0
+              and (launches["oracle bf16"][stem] > 0) == trainer.det_cfg.stem_pallas,
+              f"oracle launches {launches['oracle bf16']}")
+        reset_counts()
+        t0 = time.perf_counter()
+        predictor = overfit.int8_predictor(trainer)
+        seen = {}
+
+        def capture_k2(*args, **kw):
+            # The first request with proposals.
+            if "K2" not in seen or not bool(seen["K2"][0][2].any()):
+                seen["K2"] = (tuple(a.clone() for a in args), kw)
+            return nms_scan(*args, **kw)
+
+        nms_ops.nms_scan = capture_k2
+        try:
+            pred_dir = overfit.write_predictor_shards(trainer, predictor,
+                                                      work / "int8_predictions")
+        finally:
+            nms_ops.nms_scan = nms_scan
+        torch.cuda.synchronize()
+        launches["oracle int8"] = read_counts()
+        check(launches["oracle int8"]["conv3x3_i8_fused"] > 0
+              and launches["oracle int8"]["nms_scan"] > 0,
+              f"oracle int8 launches {launches['oracle int8']}")
+        int8 = overfit.score(trainer, pred_dir)
+        int8_s = time.perf_counter() - t0
+        # K2 on the trained model's own proposals.
+        k2_args, k2_kw = seen["K2"]
+        k2_err = check_k2("WOD oracle request", k2_args)
+        live = int(nms_scan(*k2_args, **k2_kw)[0].sum())
+        check(live > 0, "WOD oracle request: K2 kept nothing")
+        k2_ms = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
+        B2, cap = k2_args[0].shape[:2]
+        k2_flops, k2_bytes = k2_cost(B2, cap, live, k2_args[3].shape[-1])
+        k2_bound = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
+        say(f"WOD oracle K2 B {B2} cap {cap} (an int8 request's own IoU matrix, {live} kept, "
+            f"{int(k2_args[2].sum())} valid): merged max|diff| {k2_err:.3g}; {k2_ms:.4f} ms "
+            f"eager, bound {k2_bound[0] * 1e3:.2f} us ({k2_bound[1]}) on {smi}")
+        del seen, k2_args
+        wod["int8"] = {tag: int8[tag] for tag in ("penalty", "no_penalty")}
+        text = "; ".join(
+            f"{dtype} " + ", ".join(f"{tag.replace('_', ' ')} mAP_L2 {m['mAP_L2']:.4f} mAPH_L2 "
+                                    f"{m['mAPH_L2']:.4f}" for tag, m in ms.items())
+            for dtype, ms in wod.items())
+        say(f"WOD overfit oracle (phase 48): overfit.run('waymo', {epochs}) on "
+            f"{trainer.device}, {len(losses)} steps, fit, validate and WOD scoring in "
+            f"{run_s:.1f} s; loss {losses[0]:.4f} at step 1, last-10 mean {last10:.4f} "
+            f"({last10 / losses[0]:.3f} of it), by epoch {by_epoch}; {text}; int8 PTQ, "
+            f"shards and scoring {int8_s:.1f} s; launches {launches} (synthetic data) on {smi}")
+        check(all(math.isfinite(v) for ms in wod.values() for m in ms.values()
+                  for v in m.values()), f"oracle WOD numbers {wod}")
+        check(last10 <= WAYMO_ORACLE_LOSS_SHARE * losses[0],
+              f"oracle: last-10 mean loss {last10} > {WAYMO_ORACLE_LOSS_SHARE} of the first "
+              f"{losses[0]}")
+        check(out["no_penalty"]["mAP_L2"] >= WAYMO_ORACLE_BAR,
+              f"oracle: mAP_L2 without the penalty {out['no_penalty']['mAP_L2']} < "
+              f"{WAYMO_ORACLE_BAR} at {epochs} epochs")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
+    """Phase 48's deployment of the fitted rv-waymo (see the module
+    docstring). Returns each mode's launches."""
+    import os
+
+    import torch
+
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.data.dataset import width_padding
+    from range_view_3d_detection_torch.export import (
+        _dataset_meta_from_cfg,
+        export_artifact,
+        load_artifact,
+        make_chunked_predict,
+        make_points_predict,
+    )
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.kernels.stem import (
+        meta_kernel_fused,
+        meta_kernel_fused_i8,
+        meta_kernel_fused_i8_plain,
+        meta_kernel_fused_plain,
+    )
+    from range_view_3d_detection_torch.models import stems
+    from range_view_3d_detection_torch.models.quantized import fold_batch_norms, quant_tree_of
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+    from range_view_3d_detection_torch.ops.projection import rasterize_points
+    from range_view_3d_detection_torch.utils.msgpack import msgpack_serialize
+
+    det_cfg, dec_cfg = trainer.det_cfg, trainer.dec_cfg
+    model = trainer.state.model.eval()
+    meta = _dataset_meta_from_cfg(trainer.cfg)
+    requests = corpus_requests(trainer.val_ds)
+    B, H, W, C = requests[0][0].shape
+    check((B, H, W, C) == (2, 64, 2656, 6) and meta["padding_mode"] == "constant",
+          f"rv-waymo requests {(B, H, W, C)}, {meta['padding_mode']} padding")
+    calib = [tuple(torch.as_tensor(b[k], device=device) for k in ("features", "cart", "mask"))
+             for b in trainer.train_loader]
+    art = work / "artifacts"
+    t0 = time.perf_counter()
+    export_artifact(model, det_cfg, dec_cfg, art / "bf16", dataset_meta=meta)
+    export_artifact(model, det_cfg, dec_cfg, art / "int8", quantize_batches=calib,
+                    dataset_meta=meta)
+    say(f"rv-waymo fitted (phase 48): bf16 and int8 artifacts (int8 calibrated on its "
+        f"{len(calib)} train batch(es)) in {time.perf_counter() - t0:.1f} s, "
+        f"variables.msgpack {(art / 'bf16' / 'variables.msgpack').stat().st_size / 2**20:.1f} "
+        f"MiB")
+    launches = {}
+
+    def serve(tag, predict, inputs, want, need, never, reference):
+        """``inputs`` through ``predict`` after one warm-up call, the
+        counts reset just before and read just after: the kernels ``need``
+        launched and ``never`` not, each result equal bit for bit to
+        ``want``'s; ms a request the median of the host walls."""
+        predict(*inputs[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        got, walls = [], []
+        for r in inputs:
+            t1 = time.perf_counter()
+            got.append(predict(*r))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        counts = launches[tag] = read_counts()
+        check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
+              f"rv-waymo fitted {tag}: launches {counts}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            bad = differing_fields(g, w)
+            check(not bad, f"rv-waymo fitted {tag}: request {i}: {bad} differ from {reference}")
+        kept = [r.keep.sum(-1).tolist() for r in got]
+        odd = sum(int((~torch.isfinite(r.cuboids[r.keep])).sum()) for r in got)
+        say(f"rv-waymo fitted {tag}: {len(inputs)} B={B} requests equal bit for bit to "
+            f"{reference}; launches {counts}; kept {kept} ({odd} non-finite kept cuboid values, "
+            f"counted, not gated); {statistics.median(walls):.3f} ms a request (host clock, "
+            f"median of {len(walls)}) on {smi}")
+        return got
+
+    # bf16: the artifact against the fitted model folded in memory; K1 and
+    # K2 held against their twins on the first request's own inputs.
+    ref = serving.Predictor(det_cfg, dec_cfg, device=device)
+    ref.model.load_state_dict(model.state_dict())
+    fold_batch_norms(ref.model)
+    ref.bn_folded = True
+    want = [ref(*r) for r in requests]
+    bf16, _, _ = load_artifact(art / "bf16", device=device)
+    check(bf16.bn_folded and bf16.quant_tree is None, "bf16 artifact: not folded fp")
+    seen = {}
+
+    def capture_k1(*args):
+        seen.setdefault("K1", tuple(a.clone() for a in args))
+        return meta_kernel_fused(*args)
+
+    def capture_k2(*args, **kw):
+        seen.setdefault("K2", (tuple(a.clone() for a in args), kw))
+        return nms_scan(*args, **kw)
+
+    stems.meta_kernel_fused, nms_ops.nms_scan = capture_k1, capture_k2
+    try:
+        bf16(*requests[0])
+    finally:
+        stems.meta_kernel_fused, nms_ops.nms_scan = meta_kernel_fused, nms_scan
+    eager = serve("artifact bf16", bf16, requests, want, ("meta_kernel_fused", "nms_scan"),
+                  ("conv3x3_i8_fused", "meta_kernel_fused_i8"),
+                  "the fitted model's Predictor, folded in memory")
+    k1_args = seen["K1"]
+    got, twin = meta_kernel_fused(*k1_args), meta_kernel_fused_plain(*k1_args)
+    torch.cuda.synchronize()
+    k1_err, k1_ref = (got - twin).abs().max().item(), twin.abs().max().item()
+    check(k1_err <= 2e-2 * k1_ref, f"rv-waymo fitted K1: max|diff| {k1_err} > 2e-2 * {k1_ref}")
+    k1_ms = cuda_ms(lambda: meta_kernel_fused(*k1_args), reps=10)
+    k1_flops, k1_bytes = k1_cost(*k1_args[0].shape)
+    k1_bound = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
+    k2_args, k2_kw = seen["K2"]
+    k2_err = check_k2("rv-waymo fitted request", k2_args)
+    k2_ms = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
+    live = int(nms_scan(*k2_args, **k2_kw)[0].sum())
+    k2_flops, k2_bytes = k2_cost(B, k2_args[0].shape[-1], live, k2_args[3].shape[-1])
+    k2_bound = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
+    say(f"rv-waymo fitted K1 {tuple(k1_args[0].shape)} (a request's own stem inputs): max|diff| "
+        f"{k1_err:.4g} (max|ref| {k1_ref:.4g}), {k1_ms:.4f} ms eager, bound {k1_bound[0]:.4f} "
+        f"ms ({k1_bound[1]}); K2 cap {k2_args[0].shape[-1]} (its own IoU matrix, {live} kept): "
+        f"merged max|diff| {k2_err:.3g}, {k2_ms:.4f} ms eager, bound "
+        f"{k2_bound[0] * 1e3:.2f} us ({k2_bound[1]}) on {smi}")
+    del seen, k1_args, k2_args, got, twin, want
+
+    # int8: the artifact against the fitted model quantized in memory on
+    # the same calibration batches; K3 on every shape a request launches.
+    ref_i8 = serving.Predictor(det_cfg, dec_cfg, device=device)
+    ref_i8.model.load_state_dict(model.state_dict())
+    ref_i8.quantize(calib, scope="full")
+    want = [ref_i8(*r) for r in requests]
+    int8, _, _ = load_artifact(art / "int8", device=device)
+    written = (art / "int8" / "quant.msgpack").read_bytes()
+    check(msgpack_serialize(int8.quant_tree) == written
+          and msgpack_serialize(quant_tree_of(int8.model)) == written
+          and msgpack_serialize(ref_i8.quant_tree) == written,
+          "int8 artifact: its quant tree is not the one calibrated in memory")
+    captured, k3_in = capture_k3(int8, requests[0])
+    check(k3_in["unquantized"] == k3_in["launches"] == k3_in["nhwc_contiguous"] > 0,
+          f"rv-waymo fitted: a K3 input was quantized or copied before the launch: {k3_in}")
+    serve("artifact int8", int8, requests, want,
+          ("meta_kernel_fused", "nms_scan", "conv3x3_i8_fused"), ("meta_kernel_fused_i8",),
+          "the fitted model quantized in memory")
+    k3_request_shapes(captured, B, H, smi, config="rv-waymo fitted")
+    del captured, want
+
+    # The int8 stem (K4), once: the artifact loaded under RV3D_STEM_INT8=1.
+    os.environ["RV3D_STEM_INT8"] = "1"
+    try:
+        k4, _, _ = load_artifact(art / "int8", device=device)
+    finally:
+        del os.environ["RV3D_STEM_INT8"]
+    ref_i8.quantize(quant_tree=ref_i8.quant_tree, stem_int8=True)
+    seen = {}
+
+    def capture_k4(*args):
+        seen.setdefault("K4", tuple(a.clone() for a in args))
+        return meta_kernel_fused_i8(*args)
+
+    stems.meta_kernel_fused_i8 = capture_k4
+    try:
+        k4(*requests[0])
+    finally:
+        stems.meta_kernel_fused_i8 = meta_kernel_fused_i8
+    serve("artifact int8, K4 stem", k4, requests[:1], [ref_i8(*requests[0])],
+          ("meta_kernel_fused_i8", "nms_scan", "conv3x3_i8_fused"), ("meta_kernel_fused",),
+          "the in-memory int8 model with the int8 stem")
+    k4_args = seen["K4"]
+    got, twin = meta_kernel_fused_i8(*k4_args), meta_kernel_fused_i8_plain(*k4_args)
+    torch.cuda.synchronize()
+    n_diff = int((got != twin).sum())
+    check(n_diff == 0, f"rv-waymo fitted K4: {n_diff} elements differ from its twin")
+    say(f"rv-waymo fitted K4 {tuple(k4_args[0].shape)} (the request's own stem inputs): no "
+        f"element differs from its twin")
+    del k4, ref_i8, int8, ref, seen, k4_args, got, twin
+    torch.cuda.empty_cache()
+
+    # Raw points: the corpus's own clouds through the points front end of
+    # the bf16 artifact, against the artifact on the clouds rasterized by
+    # hand with the artifact's recorded layout.
+    layout = dict(height=meta["height"], width=meta["sensor_width"],
+                  feature_names=tuple(meta["feature_names"]),
+                  dataset_name=meta["dataset_name"], x_stride=meta["x_stride"],
+                  pad=width_padding(meta["sensor_width"], meta["x_stride"]),
+                  padding_mode=meta["padding_mode"])
+    points, extra = make_points_predict(
+        bf16, sensor_width=meta["sensor_width"], height=meta["height"],
+        feature_names=meta["feature_names"], dataset_name=meta["dataset_name"],
+        x_stride=meta["x_stride"], padding_mode=meta["padding_mode"])
+    check(list(extra) == POINTS_EXTRA["waymo"], f"rv-waymo points channels {extra}")
+    clouds = corpus_clouds(corpus, extra, height=meta["height"])
+
+    def by_hand(xyz, laser, *chans):
+        with torch.inference_mode():
+            image = rasterize_points(
+                torch.as_tensor(xyz, device=device), torch.as_tensor(laser, device=device),
+                {n: torch.as_tensor(c, device=device) for n, c in zip(extra, chans)},
+                **layout)
+        return bf16(*image)
+
+    want = [by_hand(*c) for c in clouds]
+    serve("points", points, clouds, want, ("meta_kernel_fused", "nms_scan"),
+          ("conv3x3_i8_fused", "meta_kernel_fused_i8"),
+          f"the artifact on the clouds rasterized by hand ({[c[0].shape[1] for c in clouds]} "
+          f"points a cloud)")
+    del points, want
+
+    # The chunk loop: the 4 requests as one CUDA-graph replay.
+    run = make_chunked_predict(bf16, len(requests))
+    stacked = [torch.stack([torch.as_tensor(r[j], device=device) for r in requests])
+               for j in range(3)]
+    torch.cuda.synchronize()
+    reset_counts()
+    first = run(*stacked)
+    torch.cuda.synchronize()
+    counts = launches["chunk"] = read_counts()
+    check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
+          f"rv-waymo chunk loop launches {counts}")
+    walls = []
+    for _ in range(5):
+        walls.append(cuda_sync_wall(lambda: run(*stacked)) / len(requests))
+    again = run(*stacked)
+    for got in (first, again):
+        for i, e in enumerate(eager):
+            bad = [n for n, a, b in zip(e._fields, got, e) if not bit_equal(a[i], b)]
+            check(not bad, f"rv-waymo chunk loop: request {i}: {bad} differ from the eager call")
+    say(f"rv-waymo fitted chunk loop: {len(requests)} B={B} requests as one CUDA-graph replay "
+        f"equal {len(requests)} eager calls of the bf16 artifact bit for bit (twice); launches "
+        f"while captured {counts}; {statistics.median(walls):.3f} ms a request (host clock, "
+        f"median of 5 replays) on {smi}")
+    del run, first, again, stacked, bf16, eager
+    torch.cuda.empty_cache()
+
+    # AOT: each artifact's program against load_artifact (phase 27's).
+    launches["AOT"] = aot_phase(art, requests, device, smi, label="phase 48")
+    return launches
+
+
+def waymo_user_phase(device, smi, corpus: Path | None = None) -> dict:
+    """Phase 48 (see the module docstring) on ``corpus``, phase 29's
+    converted Waymo corpus (None: converted here). Returns each kernel's
+    launches over the phase's paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    laps = Laps()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-waymo-user-"))
+    launches = {}
+    try:
+        source = "phase 29's"
+        if corpus is None:
+            corpus, source = convert_waymo_corpus(work / "sensor"), "converted here"
+        say("Waymo user path (phase 48), cuts: " + "; ".join(waymo_user_cuts()))
+        torch.cuda.synchronize()
+        reset_counts()
+        tr = waymo_trainer_run(corpus, work / "run")
+        torch.cuda.synchronize()
+        counts = launches["Trainer"] = read_counts()
+        check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
+              f"Waymo Trainer launches {counts}")
+        check(tr["layers"] == (128,) * 5 and tr["shape"] == (64, 2656, 6),
+              f"Waymo Trainer: layers {tr['layers']}, sweep {tr['shape']}")
+        say(f"Waymo corpus (phase 48, {source}): rv-waymo at its published widths on "
+            f"{tr['trainer'].device}, B=2 {tr['shape']}, 1 step in {tr['fit_s']:.2f} s (loss "
+            f"{tr['loss']:.4f}), validate {tr['val_s']:.2f} s ({tr['shards']} shards), WOD "
+            f"evaluator {tr['eval_s']:.3f} s under detection_cfg_factory('waymo'): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in tr["average"].items())
+            + f"; launches {counts} on {smi}")
+        laps("Trainer")
+        launches.update(waymo_deploy(tr["trainer"], corpus, work, device, smi))
+        del tr
+        torch.cuda.empty_cache()
+        laps("deployment")
+        launches.update(waymo_oracle(smi))
+        torch.cuda.empty_cache()
+        laps("oracle")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"phase 48 Waymo user path: {time.perf_counter() - t0:.0f} s ({laps})")
+    say("Waymo user launches (phase 48) " + json.dumps(launches))
+    return {k: sum(m[k] for m in launches.values()) for k in kernel_counts()}
+
+
 def flagship_predictor(cfg, dec, device, gen, request):
     """Phase 5's predictor: ``cfg`` with weights drawn from ``gen``,
     non-trivial BatchNorm statistics, and each head's final conv scaled to
@@ -6611,7 +7195,8 @@ def main() -> int:
     range_partition_phase(device, smi)
     torch.cuda.empty_cache()
     laps("28 range partition")
-    converted_launches = converted_phase(device, smi)
+    waymo_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-waymo-corpus-"))
+    converted_launches = converted_phase(device, smi, keep_waymo=waymo_dir / "sensor")
     torch.cuda.empty_cache()
     laps("29 converted")
     bench_launches = bench_phase(device, kind, smi)
@@ -6640,6 +7225,12 @@ def main() -> int:
     config_launches.update(configs_phase(47, device, smi))
     torch.cuda.empty_cache()
     laps("47 rv-nuscenes, base-waymo")
+    try:
+        waymo_user_launches = waymo_user_phase(device, smi, waymo_dir / "sensor")
+    finally:
+        shutil.rmtree(waymo_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    laps("48 Waymo user path")
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -6667,6 +7258,7 @@ def main() -> int:
         k["anycap_launches"] = slice_counts["anycap"][k["name"]]
         k["hw_tools_launches"] = slice_counts["hw_tools"][k["name"]]
         k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
+        k["waymo_user_launches"] = waymo_user_launches[k["name"]]
         for name, modes in config_launches.items():  # phases 46-47's served requests
             k[f"{name.replace('-', '_')}_launches"] = sum(
                 counts[k["name"]] for tag, counts in modes.items() if not tag.startswith("bench"))
@@ -6941,6 +7533,22 @@ def kernel_shapes_main() -> int:
     return 0
 
 
+def waymo_user_main() -> int:
+    """``chip_smoke.py waymo-user``: the device, the build and its spill
+    gate (phases 1-2), then phase 48 alone on a corpus converted here."""
+    t_start = time.perf_counter()
+    start = card_start()
+    if start is None:
+        return 1
+    device, smi = start
+    from range_view_3d_detection_torch.kernels import _build
+
+    check_spills(_build.library())
+    say(json.dumps({"waymo_user_launches": waymo_user_phase(device, smi)}))
+    say(f"chip_smoke phase 48: total {time.perf_counter() - t_start:.0f} s")
+    return 0
+
+
 def configs_main(phase: int) -> int:
     """``chip_smoke.py waymo`` (phase 45) and ``chip_smoke.py configs
     [PHASE]`` (46, or the phase named: 45, 46 or 47): the device, the
@@ -6973,6 +7581,7 @@ SUBCOMMANDS = {
     "convert": convert_rank,
     "waymo": lambda args: configs_main(45),
     "configs": lambda args: configs_main(int(args[0]) if args else 46),
+    "waymo-user": lambda args: waymo_user_main(),
 }
 
 

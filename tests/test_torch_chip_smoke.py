@@ -54,6 +54,15 @@
   entry point and an unknown phase is refused; phase 29's nuScenes
   Trainer block (``nuscenes_trainer_run``) fits, validates and scores a
   converted ``write_raw_nuscenes`` corpus at small widths.
+- Phase 48's: its Trainer block (``waymo_trainer_run``) composes rv-waymo
+  on a converted Waymo corpus (val pinned to train), fits one B=2 step,
+  validates to one shard a sweep and finds every WOD average finite under
+  ``detection_cfg_factory("waymo")``, at small widths on the CPU; its
+  requests are B=2 pairs of the corpus's padded sweeps and its clouds the
+  corpus's own returns, zero-padded; ``bit_equal`` tells NaNs alike and
+  signed zeros apart; the oracle's epoch count, its gates and the cut list
+  are what the phase prints; ``chip_smoke.py waymo-user`` runs phase
+  48's entry point, which fails without a card.
 """
 
 from __future__ import annotations
@@ -497,7 +506,7 @@ def test_subcommands_are_parsed(monkeypatch):
     assert called == [45, 46, ["WORK"], "main"]
     assert set(chip_smoke.SUBCOMMANDS) == {
         "waymo", "configs", "kernel-shapes", "tools", "conv-shapes", "compile-decode",
-        "train-rank", "width-rank", "convert", "shipped-times", "shipped-round"}
+        "train-rank", "width-rank", "convert", "shipped-times", "shipped-round", "waymo-user"}
 
 
 def test_published_configs_and_requests():
@@ -723,3 +732,124 @@ def test_nuscenes_trainer_run_on_the_cpu(tmp_path):
     assert out["layers"] == (8,) * 5 and np.isfinite(out["loss"])
     assert (out["max_range_m"], out["eval_only_roi_instances"]) == (55.0, False)
     assert "AP" in out["average"]
+
+
+# -- phase 48 -----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def waymo_corpus(tmp_path_factory):
+    """Phase 48's corpus at an 8 x 58 sensor: one log of two frames, as
+    phase 29 converts it (every label on a return, so the train split
+    keeps both sweeps)."""
+    from range_view_3d_detection_torch.converters.waymo import export as waymo_export
+    from test_torch_waymo_user import waymo_frames_on_points
+
+    root = tmp_path_factory.mktemp("waymo_user") / "sensor"
+    waymo_export.export_log(None, root / "train" / "segment-0",
+                            frames=waymo_frames_on_points(2, seed=chip_smoke.SEED + 29),
+                            export_cameras=False)
+    return root
+
+
+WAYMO_SMALL = ["++dataset._train_dataset.range_view_config.height=8",
+               "++dataset._train_dataset.range_view_config.width=58",
+               "++dataset._train_dataset.min_points_filter=0",
+               "++model._backbone.layers=[8,8,8,8,8]", "++model._backbone.stem_pallas=false",
+               "++model._head.fpn={1: 16}", "++model._head.classification_head_channels=8",
+               "++model._head.regression_head_channels=8",
+               "++model._head.num_classification_blocks=1",
+               "++model._head.num_regression_blocks=1", "++model.max_boxes=16",
+               "++model.post_processing_config.nms_cap=128", "++model.precision=float32"]
+
+
+def test_waymo_trainer_run_on_the_cpu(waymo_corpus, tmp_path):
+    """Phase 48's Trainer block on the CPU at small widths: rv-waymo
+    composed on the corpus, val pinned to train, one step of B=2, two
+    shards, the WOD averages (mAP and mAPH at levels 1 and 2, with the
+    penalty and without) finite."""
+    out = chip_smoke.waymo_trainer_run(waymo_corpus, tmp_path / "run", "cpu",
+                                       overrides=WAYMO_SMALL)
+    trainer = out["trainer"]
+    assert trainer.device.type == "cpu" and trainer.cfg["name"] == "rv-waymo"
+    assert trainer.cfg["dataset"]["_val_dataset"]["split_name"] == "train"
+    assert trainer.cfg["model"]["batch_size"] == 2 and trainer.max_epochs == 1
+    assert out["shards"] == 2 and out["shape"] == (8, 64, 6)
+    assert out["layers"] == (8,) * 5 and np.isfinite(out["loss"])
+    assert len(out["average"]) == 8 and all(np.isfinite(v) for v in out["average"].values())
+
+
+def test_waymo_requests_and_clouds(waymo_corpus):
+    """Phase 48's requests are ``WAYMO_USER_PAIRS`` of the padded sweeps;
+    its clouds the corpus's returns with their row as the laser and the
+    raw channels, zero-padded to the pair's larger count."""
+    from range_view_3d_detection_torch.data.dataset import RangeViewDataset
+    from range_view_3d_detection_torch.training.builders import build_dataset_config
+    from range_view_3d_detection_torch.utils.config import compose
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    cfg = compose(chip_smoke.REPO / "conf", "rv-waymo",
+                  [f"++dataset.root_dir={waymo_corpus}",
+                   "++dataset._val_dataset.split_name=train", *WAYMO_SMALL])
+    ds = RangeViewDataset(build_dataset_config(cfg, "val"))
+    requests = chip_smoke.corpus_requests(ds)
+    assert len(requests) == 4 and [r[0].shape for r in requests] == [(2, 8, 64, 6)] * 4
+    assert np.array_equal(requests[1][0][0], requests[0][0][1])
+    assert np.array_equal(requests[3][2][1], ds[1]["mask"])
+    sweeps = [read_feather(p) for p in
+              sorted(waymo_corpus.rglob("sensors/range_view/*.feather"))]
+    clouds = chip_smoke.corpus_clouds(waymo_corpus, ["elongation", "intensity"], height=8)
+    xyz, laser, elong, inten = clouds[0]
+    n = [int((c["range"] > 0).sum()) for c in sweeps]
+    assert xyz.shape == (2, max(n), 3) and laser.shape == elong.shape == inten.shape == (2, max(n))
+    valid = sweeps[1]["range"] > 0
+    np.testing.assert_array_equal(xyz[1, :n[1], 0], sweeps[1]["x"][valid])
+    np.testing.assert_array_equal(laser[1, :n[1]], (np.arange(8 * 58) // 58)[valid])
+    np.testing.assert_array_equal(inten[1, :n[1]], sweeps[1]["intensity"][valid])
+    short = int(np.argmin(n))
+    assert not xyz[short, n[short]:].any() and laser.max() == 7
+
+
+def test_bit_equal():
+    a = torch.tensor([1.0, float("nan"), 0.0])
+    assert chip_smoke.bit_equal(a, a.clone())
+    assert not chip_smoke.bit_equal(a, torch.tensor([1.0, float("nan"), -0.0]))
+    assert not chip_smoke.bit_equal(a, a.double())
+    assert chip_smoke.bit_equal(a.bfloat16(), a.bfloat16())
+    assert chip_smoke.bit_equal(torch.tensor([True, False]), torch.tensor([True, False]))
+
+
+def test_waymo_oracle_gates_and_cuts():
+    """The oracle runs ``WAYMO_ORACLE_EPOCHS`` (40) of the manual run's 250
+    epochs and gates below the JAX package's own reading there (mAP_L2
+    0.4111 without the penalty, the last-10 loss 0.655 of the first); the
+    cut list names the epochs, the corpus and the requests."""
+    assert chip_smoke.WAYMO_ORACLE_EPOCHS == 40
+    assert 0.0 < chip_smoke.WAYMO_ORACLE_BAR < 0.4111
+    assert 0.655 < chip_smoke.WAYMO_ORACLE_LOSS_SHARE < 1.0
+    cuts = chip_smoke.waymo_user_cuts()
+    assert "oracle: 40 epochs (320 steps) of the manual run's 250 (2000)" in cuts
+    assert chip_smoke.waymo_user_cuts(20)[2].startswith("oracle: 20 epochs (160 steps)")
+    assert any(c.startswith("corpus: phase 29's") for c in cuts)
+    assert any("4 B=2 pairs" in c for c in cuts)
+
+
+def test_convert_waymo_corpus_is_phase_29s(tmp_path):
+    """Run alone, phase 48 converts phase 29's frames itself: one log of
+    two sweeps, each of the sensor's size."""
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    root = chip_smoke.convert_waymo_corpus(tmp_path / "sensor", height=8, width=58)
+    sweeps = sorted((root / "train" / "segment-0" / "sensors" / "range_view").glob("*.feather"))
+    assert len(sweeps) == 2 and len(read_feather(sweeps[0])["range"]) == 8 * 58
+
+
+def test_waymo_user_subcommand(monkeypatch):
+    """``chip_smoke.py waymo-user`` runs phase 48's entry point, which
+    exits non-zero without a card."""
+    called = []
+    monkeypatch.setattr(chip_smoke, "waymo_user_main", lambda: called.append(48) or 48)
+    assert chip_smoke.run(["waymo-user"]) == 48 and called == [48]
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        assert chip_smoke.run(["waymo-user"]) == 1
