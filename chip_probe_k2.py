@@ -301,14 +301,17 @@ def main(argv=None) -> int:
     merged = torch.empty((B, cap, P), dtype=torch.float32, device="cuda")
     mask = torch.empty((B, rows, ld), dtype=torch.int32, device="cuda")
     scratch = torch.empty((B, cap, nwords), dtype=torch.int32, device="cuda")
+    nonfinite = torch.empty((B, P), dtype=torch.int32, device="cuda")
     merge_thr = 0.5  # WEIGHTED: keep does not depend on the mode
 
     def run(lib):
+        # An earlier revision takes the arguments up to the stream and
+        # ignores the last.
         err = lib.rv3d_nms_scan(
             iou.data_ptr(), scores.data_ptr(), valid.data_ptr(), payload.data_ptr(),
             keep.data_ptr(), merged.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
             B, cap, ld, P, int(plan.keep != "register"), int(plan.merge == "p9"),
-            0.3, merge_thr, torch.cuda.current_stream().cuda_stream)
+            0.3, merge_thr, torch.cuda.current_stream().cuda_stream, nonfinite.data_ptr())
         _build.check(err, "rv3d_nms_scan")
         return keep, merged
 

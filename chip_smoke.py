@@ -13,6 +13,7 @@ starts them itself. ``chip_smoke.py tools`` runs phases 30-42 alone,
 shapes and phase 44, ``chip_smoke.py waymo`` phases 1-2 and 45,
 ``chip_smoke.py configs [PHASE]`` phases 1-2 and 46 (or 45 or 47),
 ``chip_smoke.py waymo-user`` phases 1-2 and 48,
+``chip_smoke.py users`` phases 1-2 and 49,
 ``chip_smoke.py shipped-times PARENT`` the shipped
 shapes' kernel times beside those of another checkout, each round a
 ``chip_smoke.py shipped-round TREE`` process.)
@@ -47,9 +48,11 @@ Phases, each of which raises (non-zero exit) on failure:
    and HARD, at B in {1, 2, 3} x cap in ``NMS_CAPS`` (1, 37 and 1023
    among them, which take the scalar instances) and on edge-case
    matrices (zeros on the diagonal, asymmetric, invalid boxes in the
-   middle, every box suppressed, duplicated boxes) at cap 37, 100 and
-   1024, and with the IoU and scores 4 bytes off a 16-byte boundary at
-   cap 1024: ``keep`` identical, ``merged`` within 1e-4; and at payload
+   middle, every box suppressed, duplicated boxes, infinite and NaN
+   payload values) at cap 37, 100 and 1024, and with the IoU and scores 4
+   bytes off a 16-byte boundary at cap 1024: ``keep`` identical,
+   ``merged`` within 1e-4 where finite and equal where not (the same
+   infinity, or NaN in both: the twin's dense sum); and at payload
    widths P = 5 and 12 (the any-P merge) at caps 37 and 1024 (caps past
    4096: phase 39);
 5. main path: ATen's CUDA ``addcmul``, on which the BatchNorm epilogue
@@ -270,8 +273,8 @@ Phases, each of which raises (non-zero exit) on failure:
     ``evaluate_predictions`` under ``detection_cfg_factory("nuscenes")``
     (55 m, every instance), every average finite.
     K1 and K2 must launch in each (``converted_launches`` in the kernels
-    line: both Trainers' and the served batch's). The converted Waymo
-    corpus goes on to phase 48.
+    line: both Trainers' and the served batch's). The converted AV2,
+    nuScenes and Waymo corpora go on to phases 48 and 49.
 30. the bench: ``python -m range_view_3d_detection_torch.bench`` in a
     subprocess as a user runs it, int8 (the default; the other three
     modes' subprocesses are a cut: their flags take the same entry point
@@ -336,7 +339,8 @@ Phases, each of which raises (non-zero exit) on failure:
     4097, 4160, 8192 and 9216 (B 1: the B 2 case's first image, held to the
     same twin run, which scans each image apart) and at B 1 x cap 16384
     (WEIGHTED: ``keep`` does not depend on the mode, and the twin takes
-    seconds a call there), the IoU matrices built in row blocks; at cap
+    seconds a call there), the IoU matrices built in row blocks; the
+    non-finite payload case at B 2 x cap 4160 (WEIGHTED); at cap
     4160, B 2 the kernel's ``killed_at`` scratch
     (``nms_scan_with_scratch``) equal to the plain mirror's
     (``nms_scan_ahead_plain``); the JAX package's dense scene
@@ -360,7 +364,7 @@ Phases, each of which raises (non-zero exit) on failure:
 42. the hardware tools as subprocesses, each exiting 0:
     ``tools.validate_nms`` in WEIGHTED and HARD at caps 1024, 2048, 4096 and
     9216 (N = 9216 proposals; K2 against the plain scan; the two modes
-    beside phase 37, so their times are not clean), ``tools.conv_ab --reps 3`` (K3
+    beside phase 37, so their times are not clean), ``tools.conv_ab --reps 2`` (K3
     against ``_int_mm``'s lowering, bit for bit, then per shape and per
     request) and ``tools.fold_bench --stage res3`` with and without
     ``--int8``, each alone (``hw_tools_launches``: their launches);
@@ -432,8 +436,10 @@ Phases, each of which raises (non-zero exit) on failure:
     request's own stem inputs with no element differing from its twin,
     timed eager and by graph replay beside its bound; then through
     ``bench.build`` (the config's own decoder) and ``bench.measure`` one
-    mode at a time (bf16, int8, int8 K4 stem, int8 points): p50, p90 and
-    frames/s, the bench's kernels launched; 5 bf16 train steps at B=2
+    mode at a time (bf16, int8, int8 K4 stem, int8 points; 12 requests for
+    frames/s and 25 for the percentiles, half the bench's:
+    ``CONFIG_BENCH_ITERS``): p50, p90 and frames/s, the bench's kernels
+    launched; 5 bf16 train steps at B=2
     64x2656 (64 seeded boxes an image): ms a step split by part, every
     parameter leaf changed, peak memory. Its launches are printed in its
     own line.
@@ -474,7 +480,7 @@ Phases, each of which raises (non-zero exit) on failure:
     ``detection_cfg_factory("waymo")``, every average finite, K1 and K2
     launched; the fitted rv-waymo exported as bf16 and int8 artifacts
     (int8 calibrated on its train batches) and served
-    (``waymo_deploy``), each mode's requests
+    (``waymo_deploy``, then ``deploy_artifacts``), each mode's requests
     equal bit for bit to their reference, NaNs included
     (``bit_equal``): the artifacts against the fitted model folded (and
     quantized) in memory on 4 B=2 requests of the corpus's padded sweeps,
@@ -492,6 +498,47 @@ Phases, each of which raises (non-zero exit) on failure:
     and the mAP without the penalty. ``waymo_user_launches`` in the
     kernels line: the phase's launches. Its cuts are printed
     (``waymo_user_cuts``).
+49. the four other published experiments as their users run them, each
+    at its published widths and dtype (bf16) on one of phase 29's
+    converted corpora (``PUBLISHED_USERS``; converted again when the phase
+    runs alone, ``convert_user_corpora``): base-av2 and rv-av2-fast on the
+    AV2 corpus (4 train and 2 val sweeps, B=4, the published batch_size;
+    rv-av2-fast at x_stride 4), rv-nuscenes on the nuScenes corpus and
+    base-waymo on the Waymo corpus (2 sweeps each, B=2, the val split
+    pinned to train). For each: ``train.main(["experiment=NAME", ...])``
+    in this process on the card by default, one epoch with checkpointing
+    on (``user_train``: one step, every loss finite, a checkpoint, one
+    shard a val sweep, every average of the dataset's protocol finite
+    under ``evaluate_run``, and for base-waymo the WOD evaluator with the
+    recall-gap penalty and without); ``predict.main --ckpt-dir RUN
+    --out-dir OUT`` (``user_predict``: its shards equal byte for byte to
+    the Trainer's validate shards); ``export.main --run-dir RUN --out
+    ART`` bf16 and ``--quantize`` (``user_export``: ``meta.json``'s
+    dataset facts, x_stride and padding mode the val split's, the
+    published min_confidence); the artifacts through ``deploy_artifacts``
+    against the run restored in memory (``_restore_from_run_dir``) folded,
+    and quantized on the run's calibration batches, on 2 B=2 requests of
+    the val sweeps (``corpus_requests``), each mode bit-equal to its
+    reference: bf16, int8 (K3 on every shape of a request), the int8 stem
+    once (META configs: K4 with no element differing), the corpus's own
+    returns through the bf16 artifact's points front end (x_stride 4 for
+    rv-av2-fast, raw 0-255 intensity on 32 lasers for rv-nuscenes), the
+    chunk loop; K1 (META) and K2 against their twins on a request's own
+    inputs; K2 again on a non-empty matrix, one request of the bf16
+    artifact with only the decoder's ``min_confidence`` lowered to 0 in
+    memory (``lowered_confidence_predictor``; ``meta.json`` keeps the
+    published value). The AOT programs at B=2 of the configs of
+    ``USER_AOT`` (base-av2 and rv-av2-fast) are exported by the export
+    CLI (``--load ART --aot``, ``aot_export_job``) in processes beside the
+    later configs' runs, and each is checked against ``load_artifact``
+    (``aot_check``, ``published_user_aot``) once every export has ended,
+    base-av2's bf16 program also in a process that imports only the
+    kernels package (started beside the runs, serving once the program
+    is written). Nothing is timed per request while a process of the
+    phase runs beside it. Every mode prints its launches and ms a request
+    (host clock, median); ``published_user_launches`` in the kernels
+    line: the phase's launches. Its cuts are printed
+    (``published_user_cuts``).
 
 ``python3 chip_smoke.py tools`` runs the build and phases 30-42 alone
 (phase 18's run and phase 6's times made for them; phases 16's and 22's
@@ -502,7 +549,8 @@ checks of phases 3, 4, 7 and 10 past the configs' shapes and phase 44;
 ``python3 chip_smoke.py configs [PHASE]`` the build and its spill gate,
 and phase 46 (or the phase named: ``configs 47`` runs phase 47);
 ``python3 chip_smoke.py waymo-user`` the build and its spill gate, and
-phase 48 on a corpus it converts;
+phase 48 on a corpus it converts; ``python3 chip_smoke.py users`` the
+build and its spill gate, and phase 49 on corpora it converts;
 ``python3 chip_smoke.py compile-decode`` the build and the decode's
 stages compiled one at a time against eager (``compile_decode_phase``).
 
@@ -514,6 +562,7 @@ no CPU path: without a CUDA device the script exits non-zero.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import re
@@ -538,7 +587,7 @@ H100_BYTES_PER_S = 3.35e12
 SMEM_STEP_S = 30 / 1.98e9
 SEED = 0
 NMS_EDGE_CASES = ("zero_diagonal", "asymmetric", "invalid_middle", "all_suppressed",
-                  "duplicated")
+                  "duplicated", "nonfinite_payload")
 # Caps K2 is held at: those not a multiple of 4 (1, 37, 1023) take the
 # kernels' scalar instances, the others their 16-byte loads.
 NMS_CAPS = (1, 37, 100, 512, 1023, 1024, 2048, 4096)
@@ -947,6 +996,19 @@ def nms_edge_case(case, B, cap, gen, device):
         valid[:, torch.randperm(cap, generator=gen)[: cap // 8].to(device)] = False
     elif case == "all_suppressed":
         iou = torch.ones_like(iou)
+    elif case == "nonfinite_payload":
+        # Infinite and NaN values, as a model a step from random weights
+        # decodes box sizes: column 3 infinite at the first box alone (kept:
+        # its row sums the infinity, every other row meets 0 x inf), column 4
+        # at a quarter of the boxes, column 0 -inf at box 1 and +inf at box
+        # 2, column 6 NaN at one box.
+        payload = payload.clone()
+        payload[:, 0, 3] = math.inf
+        quarter = torch.randperm(cap, generator=gen)[: max(cap // 4, 1)].to(device)
+        payload[:, quarter, 4] = math.inf
+        payload[:, min(1, cap - 1), 0] = -math.inf
+        payload[:, min(2, cap - 1), 0] = math.inf
+        payload[:, int(torch.randint(cap, (1,), generator=gen)), 6] = math.nan
     return iou, scores, valid, payload
 
 
@@ -966,12 +1028,15 @@ K2_MODES = (("WEIGHTED", 0.5), ("HARD", 1.01))
 
 def check_k2(tag, inputs, modes=K2_MODES) -> float:
     """K2 against its plain twin in ``modes`` (WEIGHTED and HARD):
-    ``keep`` identical, ``merged`` within 1e-4. Returns max|merged diff|."""
+    ``keep`` identical, ``merged`` within 1e-4 where the twin's is finite
+    and equal where it is not (the same infinity, or NaN in both: a model
+    fitted one step from random weights decodes infinite box sizes).
+    Returns max|merged diff| over the finite values."""
     import torch
 
     from range_view_3d_detection_torch.kernels.nms import nms_scan, nms_scan_plain
 
-    worst, kept = 0.0, []
+    worst, kept, odd = 0.0, [], 0
     for mode, merge in modes:
         kw = dict(iou_threshold=0.3, merge_threshold=merge)
         keep, merged = nms_scan(*inputs, **kw)
@@ -979,13 +1044,19 @@ def check_k2(tag, inputs, modes=K2_MODES) -> float:
         torch.cuda.synchronize()
         check(torch.equal(keep, keep_p), f"K2 {tag} {mode}: keep differs from the "
               f"twin in {int((keep != keep_p).sum())} slots")
-        err = (merged - merged_p).abs().max().item()
+        finite = torch.isfinite(merged_p)
+        same = (merged == merged_p) | (merged.isnan() & merged_p.isnan())
+        check(bool(same[~finite].all()), f"K2 {tag} {mode}: "
+              f"{int((~same[~finite]).sum())} non-finite merged values differ from the twin's")
+        odd = max(odd, int((~finite).sum()))
+        err = (merged - merged_p)[finite].abs().max().item() if finite.any() else 0.0
         check(err <= 1e-4, f"K2 {tag} {mode}: merged max|diff| {err} > 1e-4")
         worst = max(worst, err)
         kept.append(int(keep.sum()))
     say(f"K2 {tag}: keep identical (kept "
         + ", ".join(f"{n} {mode}" for n, (mode, _) in zip(kept, modes))
-        + f" of {int(inputs[2].sum())} valid), merged max|diff| {worst:.3g} ok")
+        + f" of {int(inputs[2].sum())} valid), merged max|diff| {worst:.3g}"
+        + (f" ({odd} non-finite merged values equal to the twin's)" if odd else "") + " ok")
     return worst
 
 
@@ -3132,9 +3203,11 @@ def chunk_phase(art: Path, requests, device, smi) -> dict:
 
 
 AOT_CHILD = """
-import sys, numpy as np, torch
+import os, sys, time, numpy as np, torch
 sys.path.insert(0, {repo!r})
 import range_view_3d_detection_torch.kernels
+while not os.path.exists({ready!r}):
+    time.sleep(0.1)
 r = np.load({req!r})
 program = torch.export.load({path!r})
 device = next(iter(program.state_dict.values())).device
@@ -3157,7 +3230,7 @@ def aot_phase(art_dir: Path, requests, device, smi, label="phase 27") -> dict:
     import numpy as np
     import torch
 
-    from range_view_3d_detection_torch.export import export_aot, load_aot, load_artifact
+    from range_view_3d_detection_torch.export import export_aot
 
     t_phase = time.perf_counter()
     total = dict.fromkeys(read_counts(), 0)
@@ -3173,61 +3246,95 @@ def aot_phase(art_dir: Path, requests, device, smi, label="phase 27") -> dict:
             if child is not None:
                 # The bf16 program's child ran beside this export; it ends
                 # before anything here is timed.
-                out, err = child.communicate(timeout=600)
-                check(child.returncode == 0, f"AOT child: rc {child.returncode}\n"
-                      f"{err[-3000:]}")
-                for field, a, b in zip(child_want._fields, torch.load(child_out),
-                                       child_want):
-                    check(bit_equal(a, b.cpu()), f"AOT child: {field} differs")
-                say(f"AOT ({label}): a process that imports only the kernels package "
-                    f"loads and serves {paths['bf16'].name} (bf16) equal bit for bit "
-                    f"({out.strip()}; {time.perf_counter() - t_child:.1f} s beside the "
-                    f"int8 export)")
-            ref, _, _ = load_artifact(art_dir / tag, device=device)
-            want = [ref(*r) for r in requests]
-            aot = load_aot(path)
-            aot(*requests[0])
-            torch.cuda.synchronize()
-            reset_counts()
-            got = [aot(*r) for r in requests]
-            torch.cuda.synchronize()
-            launches = read_counts()
+                aot_child_finish(child, child_want, label, "beside the int8 export")
+            launches, want = aot_check(art_dir, tag, path, requests, device, smi, label,
+                                       f"export_aot {export_s:.1f} s")
             for name in total:
                 total[name] += launches[name]
-            for g, w in zip(got, want):
-                for field, a, b in zip(w._fields, g, w):
-                    check(bit_equal(a, b), f"AOT {tag}: {field} differs from "
-                          "load_artifact's")
-            need = ("meta_kernel_fused", "nms_scan") + (
-                ("conv3x3_i8_fused",) if tag == "int8" else ())
-            check(all(launches[k] > 0 for k in need), f"AOT {tag} launches {launches}")
-            ms_aot = statistics.median(
-                cuda_sync_wall(lambda: aot(*requests[1])) for _ in range(10))
-            ms_ref = statistics.median(
-                cuda_sync_wall(lambda: ref(*requests[1])) for _ in range(10))
-            say(f"AOT ({label}) {tag}: export_aot {export_s:.1f} s, {path.name} "
-                f"{path.stat().st_size / 2**20:.1f} MiB; load_aot's outputs equal "
-                f"load_artifact's bit for bit on {len(requests)} B={B} requests; launches "
-                f"{launches}; {ms_aot:.3f} ms/request beside load_artifact's {ms_ref:.3f} "
-                f"(median of 10, host wall through a synchronisation) on {smi}")
             if tag == "bf16":
-                child_out, child_want = art_dir / "aot_child.pt", want[0]
-                code = AOT_CHILD.format(repo=str(REPO), req=str(art_dir / "request.npz"),
-                                        path=str(path), out=str(child_out))
-                t_child = time.perf_counter()
-                child = subprocess.Popen([sys.executable, "-c", code],
-                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                         text=True)
-            del aot, ref
+                child, child_want = aot_child_start(art_dir, path), want
     finally:
-        if child is not None and child.poll() is None:
-            child.kill()
-            child.wait()
+        if child is not None and child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
     for path in paths.values():
         path.unlink()
     torch.cuda.empty_cache()
     say(f"AOT ({label}): {time.perf_counter() - t_phase:.0f} s")
     return total
+
+
+def aot_check(art_dir: Path, tag, path: Path, requests, device, smi, label, made,
+              reps: int = 10) -> tuple:
+    """The AOT program ``path`` (exported from ``art_dir / tag``; ``made``
+    says how, for the printed line) against ``load_artifact`` on
+    ``requests``: every output equal bit for bit, K2 (and K1 with a META
+    stem, K3 in int8) launched, each one's ms a request (median of
+    ``reps``). Returns ``(launches, load_artifact's first result)``."""
+    import torch
+
+    from range_view_3d_detection_torch.export import load_aot, load_artifact
+
+    B = requests[0][0].shape[0]
+    ref, _, _ = load_artifact(art_dir / tag, device=device)
+    want = [ref(*r) for r in requests]
+    aot = load_aot(path)
+    aot(*requests[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    got = [aot(*r) for r in requests]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for g, w in zip(got, want):
+        for field, a, b in zip(w._fields, g, w):
+            check(bit_equal(a, b), f"AOT {tag}: {field} differs from load_artifact's")
+    need = ("nms_scan",) + (("meta_kernel_fused",) if ref.cfg.stem_type == "META" else ()) + (
+        ("conv3x3_i8_fused",) if tag == "int8" else ())
+    check(all(launches[k] > 0 for k in need), f"AOT {tag} launches {launches}")
+    ms_aot = statistics.median(cuda_sync_wall(lambda: aot(*requests[1])) for _ in range(reps))
+    ms_ref = statistics.median(cuda_sync_wall(lambda: ref(*requests[1])) for _ in range(reps))
+    say(f"AOT ({label}) {tag}: {made}, {path.name} "
+        f"{path.stat().st_size / 2**20:.1f} MiB; load_aot's outputs equal "
+        f"load_artifact's bit for bit on {len(requests)} B={B} requests; launches "
+        f"{launches}; {ms_aot:.3f} ms/request beside load_artifact's {ms_ref:.3f} "
+        f"(median of {reps}, host wall through a synchronisation) on {smi}")
+    return launches, want[0]
+
+
+def aot_child_start(art_dir: Path, path: Path, ready: Path | None = None) -> dict:
+    """A process that imports only the kernels package and, once ``ready``
+    exists (default: ``path``, already written), serves the program
+    ``path`` on ``art_dir/request.npz``."""
+    out = art_dir / "aot_child.pt"
+    code = AOT_CHILD.format(repo=str(REPO), req=str(art_dir / "request.npz"),
+                            path=str(path), out=str(out), ready=str(ready or path))
+    return dict(proc=subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True),
+                out=out, path=path, t0=time.perf_counter())
+
+
+def aot_child_wait(child: dict) -> None:
+    """Wait for ``aot_child_start``'s process to end; its output and
+    seconds are kept in ``child``."""
+    if "stdout" not in child:
+        child["stdout"], child["stderr"] = child["proc"].communicate(timeout=600)
+        child["s"] = time.perf_counter() - child["t0"]
+
+
+def aot_child_finish(child: dict, want, label, beside) -> None:
+    """``aot_child_start``'s process ended (``aot_child_wait``): exit 0
+    and every output equal bit for bit to ``want``, ``load_artifact``'s
+    result on the request."""
+    import torch
+
+    aot_child_wait(child)
+    check(child["proc"].returncode == 0, f"AOT child: rc {child['proc'].returncode}\n"
+          f"{child['stderr'][-3000:]}")
+    for field, a, b in zip(want._fields, torch.load(child["out"]), want):
+        check(bit_equal(a, b.cpu()), f"AOT child: {field} differs")
+    say(f"AOT ({label}): a process that imports only the kernels package loads and serves "
+        f"{child['path'].name} (bf16) equal bit for bit ({child['stdout'].strip()}; "
+        f"{child['s']:.1f} s {beside})")
 
 
 def range_partition_phase(device, smi) -> None:
@@ -3771,11 +3878,12 @@ def convert_rank(argv) -> int:
     return 0
 
 
-def converted_phase(device, smi, keep_waymo: Path | None = None) -> dict:
+def converted_phase(device, smi, keep: Path | None = None) -> dict:
     """Phase 29 (see the module docstring). Returns the launches of K1 and
     K2 while the converted corpus trains, validates and serves.
-    ``keep_waymo``: where the converted Waymo corpus is moved for phase 48
-    (else it goes with the phase's work directory)."""
+    ``keep``: where the converted corpora are moved for phases 48 and 49,
+    ``keep/NAME`` for each of ``USER_CORPORA`` (else they go with the
+    phase's work directory)."""
     import numpy as np
     import torch
 
@@ -3831,8 +3939,6 @@ def converted_phase(device, smi, keep_waymo: Path | None = None) -> dict:
               and min(conv["nuscenes_valid_pixels"]) > 10_000, f"nuScenes: {conv}")
         check(conv["waymo_sweeps"] == 2 and conv["waymo_shapes"] == [64 * 2650]
               and conv["waymo_num_pts"] == conv["waymo_valid_pixels"], f"Waymo: {conv}")
-        if keep_waymo is not None:
-            shutil.move(str(work / "waymo"), str(keep_waymo))
         av2_per_sweep = conv["av2_s"] / conv["av2_sweeps"]
         say(f"converted (phase 29): raw logs written in {write_s:.1f} s, their LZ4 copy in "
             f"{lz4_write_s:.1f} s ({lz4_buffers} buffers); conversion process "
@@ -3959,6 +4065,9 @@ def converted_phase(device, smi, keep_waymo: Path | None = None) -> dict:
             f"{nusc['eval_only_roi_instances']}, AVERAGE_METRICS "
             + ", ".join(f"{k} {v:.4f}" for k, v in nusc["average"].items())
             + f"; launches {nusc_launches} on {smi}")
+        if keep is not None:
+            for name in USER_CORPORA:
+                shutil.move(str(work / name), str(keep / name))
         return {"meta_kernel_fused": launches["K1"] + nusc_launches["K1"],
                 "nms_scan": launches["K2"] + nusc_launches["K2"],
                 "conv3x3_i8_fused": 0, "meta_kernel_fused_i8": 0}
@@ -5166,6 +5275,10 @@ def nms_any_cap_phase(device, smi, split=None) -> tuple:
     # ``keep`` does not depend on the mode.
     worst = max(worst, check_k2("B 1 cap 16384", nms_case(1, 16384, gen, device),
                                 K2_MODES[:1]))
+    # Non-finite payloads on the merge's killed_at instances.
+    worst = max(worst, check_k2("nonfinite_payload B 2 cap 4160",
+                                nms_edge_case("nonfinite_payload", 2, 4160, gen, device),
+                                K2_MODES[:1]))
     torch.cuda.empty_cache()
     cuboids, scores = dense_scene()
     cub = torch.as_tensor(cuboids, device=device)[None]
@@ -5280,7 +5393,7 @@ def feather_zstd_phase(smi) -> None:
 # Phase 42's timed tools, each alone (its validate_nms runs go beside
 # phase 37: ``BESIDE_COMPILE``).
 HW_TOOLS = (
-    ("conv_ab", ("--reps", "3")),
+    ("conv_ab", ("--reps", "2")),  # of its default 5: a cut for the script's time
     ("fold_bench", ("--stage", "res3")),
     ("fold_bench", ("--stage", "res3", "--int8")),
 )
@@ -6021,6 +6134,27 @@ CONFIG_EXPECT = {stem: dict(modes, points=modes["bf16"])
 POINTS_EXTRA = {"waymo": ["elongation", "intensity"], "av2": ["intensity"],
                 "nuscenes": ["intensity"]}
 INTENSITY_SCALE = {"waymo": 3, "nuscenes": 255}
+# Phases 45-47's bench loop (``bench.measure``) on half the bench's
+# requests, its ``ITERS`` and ``LATENCY_ITERS`` set so for the call
+# (``bench_cut``): a cut for the script's time (PERF.md section 4).
+CONFIG_BENCH_ITERS = dict(ITERS=12, LATENCY_ITERS=25)
+
+
+@contextlib.contextmanager
+def bench_cut():
+    """``bench``'s request counts set to ``CONFIG_BENCH_ITERS`` inside the
+    block, and restored after it."""
+    from range_view_3d_detection_torch import bench
+
+    saved = {k: getattr(bench, k) for k in CONFIG_BENCH_ITERS}
+    for k, v in CONFIG_BENCH_ITERS.items():
+        setattr(bench, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(bench, k, v)
+
 # The published configurations phases 45-47 run: name -> (phase, x_stride,
 # the small request's sensor width, padded and strided to 256 served
 # columns, seed, train batch). rv-waymo trains at B=2 (phase 45 as it
@@ -6301,7 +6435,8 @@ def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
 
             args = tuple(torch.as_tensor(a, device=device) for a in make_batch(0))
         reset_counts()
-        fps, lat = bench.measure(pipeline, args, make_batch, B)
+        with bench_cut():
+            fps, lat = bench.measure(pipeline, args, make_batch, B)
         torch.cuda.synchronize()
         counts = launches[f"bench {tag}"] = read_counts()
         need, never = bench_expect[tag]
@@ -6312,7 +6447,10 @@ def config_phase(name, phase, device, smi, *, x_stride, small_sensor, seed,
                     f"{fps:.2f} frames/s")
         del pipeline, args
         torch.cuda.empty_cache()
-    say(f"{name} bench (bench.build + bench.measure, B={B} {H}x{W}, one mode at a time): "
+    say(f"{name} bench (bench.build + bench.measure, B={B} {H}x{W}, one mode at a time, "
+        f"{CONFIG_BENCH_ITERS['ITERS']} requests for frames/s and "
+        f"{CONFIG_BENCH_ITERS['LATENCY_ITERS']} for p50/p90, a cut from the bench's "
+        f"{bench.ITERS} and {bench.LATENCY_ITERS}): "
         + "; ".join(rows) + f" on {smi}")
     laps("bench modes")
 
@@ -6479,19 +6617,20 @@ def corpus_requests(dataset, pairs=WAYMO_USER_PAIRS) -> list:
             for pair in pairs]
 
 
-def corpus_clouds(corpus: Path, extra, height: int, pairs=WAYMO_USER_PAIRS) -> list:
+def corpus_clouds(corpus: Path, extra, height: int, pairs=WAYMO_USER_PAIRS,
+                  split: str = "train") -> list:
     """The converted corpus's own points, as a user's raw clouds: a sweep's
     pixels with a return (range > 0), its x, y, z (the vehicle frame the
     converter writes), the laser its row, and the channels ``extra`` names
-    (raw, as the converter keeps them); B=2 requests a pair of sweeps,
-    padded to a common count with zero rows (which the z-buffer's
-    minimum distance drops). ``height``: the sensor's rows."""
+    (raw, as the converter keeps them); B=2 requests a pair of the
+    ``split``'s sweeps, padded to a common count with zero rows (which the
+    z-buffer's minimum distance drops). ``height``: the sensor's rows."""
     import numpy as np
 
     from range_view_3d_detection_torch.utils.feather import read_feather
 
     sweeps = []
-    for path in sorted((corpus / "train").rglob("sensors/range_view/*.feather")):
+    for path in sorted((corpus / split).rglob("sensors/range_view/*.feather")):
         c = read_feather(path)
         valid = c["range"] > 0
         rows = np.arange(len(valid)) // (len(valid) // height)
@@ -6629,7 +6768,57 @@ def waymo_oracle(smi, epochs: int = WAYMO_ORACLE_EPOCHS) -> dict:
 
 def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
     """Phase 48's deployment of the fitted rv-waymo (see the module
-    docstring). Returns each mode's launches."""
+    docstring): its bf16 and int8 artifacts written from the Trainer's
+    model (int8 calibrated on its train batches), then ``deploy_artifacts``
+    with the AOT programs. Returns each mode's launches."""
+    import torch
+
+    from range_view_3d_detection_torch.export import _dataset_meta_from_cfg, export_artifact
+
+    det_cfg, dec_cfg = trainer.det_cfg, trainer.dec_cfg
+    model = trainer.state.model.eval()
+    meta = _dataset_meta_from_cfg(trainer.cfg)
+    requests = corpus_requests(trainer.val_ds)
+    check(meta["padding_mode"] == "constant", f"rv-waymo {meta['padding_mode']} padding")
+    calib = [tuple(torch.as_tensor(b[k], device=device) for k in ("features", "cart", "mask"))
+             for b in trainer.train_loader]
+    art = work / "artifacts"
+    t0 = time.perf_counter()
+    export_artifact(model, det_cfg, dec_cfg, art / "bf16", dataset_meta=meta)
+    export_artifact(model, det_cfg, dec_cfg, art / "int8", quantize_batches=calib,
+                    dataset_meta=meta)
+    say(f"rv-waymo fitted (phase 48): bf16 and int8 artifacts (int8 calibrated on its "
+        f"{len(calib)} train batch(es)) in {time.perf_counter() - t0:.1f} s, "
+        f"variables.msgpack {(art / 'bf16' / 'variables.msgpack').stat().st_size / 2**20:.1f} "
+        f"MiB")
+    clouds = corpus_clouds(corpus, POINTS_EXTRA["waymo"], height=meta["height"])
+    launches, _ = deploy_artifacts(
+        "rv-waymo fitted", art, model, det_cfg, dec_cfg, meta, requests, calib, clouds,
+        device, smi, shape=(2, 64, 2656, 6), aot_label="phase 48")
+    return launches
+
+
+def deploy_artifacts(name, art: Path, model, det_cfg, dec_cfg, meta, requests, calib, clouds,
+                     device, smi, *, shape, source="the fitted model", aot_label=None,
+                     timed=False) -> tuple:
+    """A trained model deployed from its artifacts (phases 48 and 49):
+    ``art``'s ``bf16`` and ``int8`` artifacts (written from ``model``, the
+    int8 one calibrated on ``calib``), each loaded by ``load_artifact`` and
+    serving ``requests`` (B=2 requests of ``shape``) equal bit for bit to
+    ``model`` folded (and quantized on ``calib``) in memory; the int8
+    artifact's quant tree the one calibrated in memory; K2, and with
+    ``det_cfg``'s MetaKernel stem K1, against their twins on the first
+    request's own inputs and K3 on every shape of an int8 request; K4
+    once under ``RV3D_STEM_INT8=1``, no element differing (MetaKernel
+    stem); ``clouds`` (the corpus's own returns of ``meta``'s
+    dataset) through the bf16 artifact's points front end against the
+    artifact on the clouds rasterized by hand with ``meta``'s layout; the
+    requests as one CUDA-graph replay against the eager calls; with
+    ``aot_label`` the AOT programs against ``load_artifact``
+    (``aot_phase``). Each mode's launches are held to the stem's
+    ``CONFIG_EXPECT``. ``name`` opens every printed line, ``source`` names
+    the reference; ``timed`` adds K1's graph replay and K4's times.
+    Returns ``(launches by mode, times)``."""
     import os
 
     import torch
@@ -6637,8 +6826,6 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
     from range_view_3d_detection_torch import serving
     from range_view_3d_detection_torch.data.dataset import width_padding
     from range_view_3d_detection_torch.export import (
-        _dataset_meta_from_cfg,
-        export_artifact,
         load_artifact,
         make_chunked_predict,
         make_points_predict,
@@ -6656,31 +6843,18 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
     from range_view_3d_detection_torch.ops.projection import rasterize_points
     from range_view_3d_detection_torch.utils.msgpack import msgpack_serialize
 
-    det_cfg, dec_cfg = trainer.det_cfg, trainer.dec_cfg
-    model = trainer.state.model.eval()
-    meta = _dataset_meta_from_cfg(trainer.cfg)
-    requests = corpus_requests(trainer.val_ds)
     B, H, W, C = requests[0][0].shape
-    check((B, H, W, C) == (2, 64, 2656, 6) and meta["padding_mode"] == "constant",
-          f"rv-waymo requests {(B, H, W, C)}, {meta['padding_mode']} padding")
-    calib = [tuple(torch.as_tensor(b[k], device=device) for k in ("features", "cart", "mask"))
-             for b in trainer.train_loader]
-    art = work / "artifacts"
-    t0 = time.perf_counter()
-    export_artifact(model, det_cfg, dec_cfg, art / "bf16", dataset_meta=meta)
-    export_artifact(model, det_cfg, dec_cfg, art / "int8", quantize_batches=calib,
-                    dataset_meta=meta)
-    say(f"rv-waymo fitted (phase 48): bf16 and int8 artifacts (int8 calibrated on its "
-        f"{len(calib)} train batch(es)) in {time.perf_counter() - t0:.1f} s, "
-        f"variables.msgpack {(art / 'bf16' / 'variables.msgpack').stat().st_size / 2**20:.1f} "
-        f"MiB")
-    launches = {}
+    check((B, H, W, C) == tuple(shape), f"{name} requests {(B, H, W, C)}, not {shape}")
+    meta_stem = det_cfg.stem_type == "META"
+    expect = CONFIG_EXPECT[det_cfg.stem_type]
+    launches, times = {}, {}
 
-    def serve(tag, predict, inputs, want, need, never, reference):
+    def serve(tag, predict, inputs, want, mode, reference):
         """``inputs`` through ``predict`` after one warm-up call, the
-        counts reset just before and read just after: the kernels ``need``
-        launched and ``never`` not, each result equal bit for bit to
-        ``want``'s; ms a request the median of the host walls."""
+        counts reset just before and read just after: the kernels of
+        ``expect[mode]`` launched and not, each result equal bit for bit
+        to ``want``'s; ms a request the median of the host walls."""
+        need, never = expect[mode]
         predict(*inputs[0])
         torch.cuda.synchronize()
         reset_counts()
@@ -6692,20 +6866,21 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
             walls.append((time.perf_counter() - t1) * 1e3)
         counts = launches[tag] = read_counts()
         check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
-              f"rv-waymo fitted {tag}: launches {counts}")
+              f"{name} {tag}: launches {counts}")
         for i, (g, w) in enumerate(zip(got, want)):
             bad = differing_fields(g, w)
-            check(not bad, f"rv-waymo fitted {tag}: request {i}: {bad} differ from {reference}")
+            check(not bad, f"{name} {tag}: request {i}: {bad} differ from {reference}")
         kept = [r.keep.sum(-1).tolist() for r in got]
         odd = sum(int((~torch.isfinite(r.cuboids[r.keep])).sum()) for r in got)
-        say(f"rv-waymo fitted {tag}: {len(inputs)} B={B} requests equal bit for bit to "
+        times[f"{tag} ms"] = statistics.median(walls)
+        say(f"{name} {tag}: {len(inputs)} B={B} requests equal bit for bit to "
             f"{reference}; launches {counts}; kept {kept} ({odd} non-finite kept cuboid values, "
             f"counted, not gated); {statistics.median(walls):.3f} ms a request (host clock, "
             f"median of {len(walls)}) on {smi}")
         return got
 
-    # bf16: the artifact against the fitted model folded in memory; K1 and
-    # K2 held against their twins on the first request's own inputs.
+    # bf16: the artifact against the model folded in memory; K1 and K2
+    # held against their twins on the first request's own inputs.
     ref = serving.Predictor(det_cfg, dec_cfg, device=device)
     ref.model.load_state_dict(model.state_dict())
     fold_batch_norms(ref.model)
@@ -6728,32 +6903,43 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
         bf16(*requests[0])
     finally:
         stems.meta_kernel_fused, nms_ops.nms_scan = meta_kernel_fused, nms_scan
-    eager = serve("artifact bf16", bf16, requests, want, ("meta_kernel_fused", "nms_scan"),
-                  ("conv3x3_i8_fused", "meta_kernel_fused_i8"),
-                  "the fitted model's Predictor, folded in memory")
-    k1_args = seen["K1"]
-    got, twin = meta_kernel_fused(*k1_args), meta_kernel_fused_plain(*k1_args)
-    torch.cuda.synchronize()
-    k1_err, k1_ref = (got - twin).abs().max().item(), twin.abs().max().item()
-    check(k1_err <= 2e-2 * k1_ref, f"rv-waymo fitted K1: max|diff| {k1_err} > 2e-2 * {k1_ref}")
-    k1_ms = cuda_ms(lambda: meta_kernel_fused(*k1_args), reps=10)
-    k1_flops, k1_bytes = k1_cost(*k1_args[0].shape)
-    k1_bound = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
+    eager = serve("artifact bf16", bf16, requests, want, "bf16",
+                  f"{source}'s Predictor, folded in memory")
+    text = []
+    if meta_stem:
+        k1_args = seen["K1"]
+        got, twin = meta_kernel_fused(*k1_args), meta_kernel_fused_plain(*k1_args)
+        torch.cuda.synchronize()
+        k1_err, k1_ref = (got - twin).abs().max().item(), twin.abs().max().item()
+        check(k1_err <= 2e-2 * k1_ref, f"{name} K1: max|diff| {k1_err} > 2e-2 * {k1_ref}")
+        k1_ms = times["K1 ms"] = cuda_ms(lambda: meta_kernel_fused(*k1_args), reps=10)
+        k1_flops, k1_bytes = k1_cost(*k1_args[0].shape)
+        k1_bound = bound_ms(k1_flops, H100_BF16_FLOPS, k1_bytes)
+        times["K1 bound"] = k1_bound
+        graph = ""
+        if timed:
+            times["K1 graph ms"] = graph_ms(lambda: meta_kernel_fused(*k1_args))
+            graph = f", {times['K1 graph ms']:.4f} ms graph replay"
+        text.append(f"K1 {tuple(k1_args[0].shape)} (a request's own stem inputs): max|diff| "
+                    f"{k1_err:.4g} (max|ref| {k1_ref:.4g}), {k1_ms:.4f} ms eager{graph}, bound "
+                    f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+        del k1_args, got, twin
+    else:
+        check("K1" not in seen, f"{name}: the BASIC stem called K1")
     k2_args, k2_kw = seen["K2"]
-    k2_err = check_k2("rv-waymo fitted request", k2_args)
-    k2_ms = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
+    k2_err = check_k2(f"{name} request", k2_args)
+    k2_ms = times["K2 ms"] = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
     live = int(nms_scan(*k2_args, **k2_kw)[0].sum())
     k2_flops, k2_bytes = k2_cost(B, k2_args[0].shape[-1], live, k2_args[3].shape[-1])
-    k2_bound = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
-    say(f"rv-waymo fitted K1 {tuple(k1_args[0].shape)} (a request's own stem inputs): max|diff| "
-        f"{k1_err:.4g} (max|ref| {k1_ref:.4g}), {k1_ms:.4f} ms eager, bound {k1_bound[0]:.4f} "
-        f"ms ({k1_bound[1]}); K2 cap {k2_args[0].shape[-1]} (its own IoU matrix, {live} kept): "
-        f"merged max|diff| {k2_err:.3g}, {k2_ms:.4f} ms eager, bound "
-        f"{k2_bound[0] * 1e3:.2f} us ({k2_bound[1]}) on {smi}")
-    del seen, k1_args, k2_args, got, twin, want
+    k2_bound = times["K2 bound"] = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
+    text.append(f"K2 cap {k2_args[0].shape[-1]} (its own IoU matrix, {live} kept): merged "
+                f"max|diff| {k2_err:.3g}, {k2_ms:.4f} ms eager, bound "
+                f"{k2_bound[0] * 1e3:.2f} us ({k2_bound[1]})")
+    say(f"{name} " + "; ".join(text) + f" on {smi}")
+    del seen, k2_args, want
 
-    # int8: the artifact against the fitted model quantized in memory on
-    # the same calibration batches; K3 on every shape a request launches.
+    # int8: the artifact against the model quantized in memory on the same
+    # calibration batches; K3 on every shape a request launches.
     ref_i8 = serving.Predictor(det_cfg, dec_cfg, device=device)
     ref_i8.model.load_state_dict(model.state_dict())
     ref_i8.quantize(calib, scope="full")
@@ -6766,42 +6952,49 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
           "int8 artifact: its quant tree is not the one calibrated in memory")
     captured, k3_in = capture_k3(int8, requests[0])
     check(k3_in["unquantized"] == k3_in["launches"] == k3_in["nhwc_contiguous"] > 0,
-          f"rv-waymo fitted: a K3 input was quantized or copied before the launch: {k3_in}")
-    serve("artifact int8", int8, requests, want,
-          ("meta_kernel_fused", "nms_scan", "conv3x3_i8_fused"), ("meta_kernel_fused_i8",),
-          "the fitted model quantized in memory")
-    k3_request_shapes(captured, B, H, smi, config="rv-waymo fitted")
+          f"{name}: a K3 input was quantized or copied before the launch: {k3_in}")
+    serve("artifact int8", int8, requests, want, "int8", f"{source} quantized in memory")
+    times["K3"] = k3_request_shapes(captured, B, H, smi, config=name)
     del captured, want
 
     # The int8 stem (K4), once: the artifact loaded under RV3D_STEM_INT8=1.
-    os.environ["RV3D_STEM_INT8"] = "1"
-    try:
-        k4, _, _ = load_artifact(art / "int8", device=device)
-    finally:
-        del os.environ["RV3D_STEM_INT8"]
-    ref_i8.quantize(quant_tree=ref_i8.quant_tree, stem_int8=True)
-    seen = {}
+    if meta_stem:
+        os.environ["RV3D_STEM_INT8"] = "1"
+        try:
+            k4, _, _ = load_artifact(art / "int8", device=device)
+        finally:
+            del os.environ["RV3D_STEM_INT8"]
+        ref_i8.quantize(quant_tree=ref_i8.quant_tree, stem_int8=True)
+        seen = {}
 
-    def capture_k4(*args):
-        seen.setdefault("K4", tuple(a.clone() for a in args))
-        return meta_kernel_fused_i8(*args)
+        def capture_k4(*args):
+            seen.setdefault("K4", tuple(a.clone() for a in args))
+            return meta_kernel_fused_i8(*args)
 
-    stems.meta_kernel_fused_i8 = capture_k4
-    try:
-        k4(*requests[0])
-    finally:
-        stems.meta_kernel_fused_i8 = meta_kernel_fused_i8
-    serve("artifact int8, K4 stem", k4, requests[:1], [ref_i8(*requests[0])],
-          ("meta_kernel_fused_i8", "nms_scan", "conv3x3_i8_fused"), ("meta_kernel_fused",),
-          "the in-memory int8 model with the int8 stem")
-    k4_args = seen["K4"]
-    got, twin = meta_kernel_fused_i8(*k4_args), meta_kernel_fused_i8_plain(*k4_args)
-    torch.cuda.synchronize()
-    n_diff = int((got != twin).sum())
-    check(n_diff == 0, f"rv-waymo fitted K4: {n_diff} elements differ from its twin")
-    say(f"rv-waymo fitted K4 {tuple(k4_args[0].shape)} (the request's own stem inputs): no "
-        f"element differs from its twin")
-    del k4, ref_i8, int8, ref, seen, k4_args, got, twin
+        stems.meta_kernel_fused_i8 = capture_k4
+        try:
+            k4(*requests[0])
+        finally:
+            stems.meta_kernel_fused_i8 = meta_kernel_fused_i8
+        serve("artifact int8, K4 stem", k4, requests[:1], [ref_i8(*requests[0])],
+              "int8 K4 stem", "the in-memory int8 model with the int8 stem")
+        k4_args = seen["K4"]
+        got, twin = meta_kernel_fused_i8(*k4_args), meta_kernel_fused_i8_plain(*k4_args)
+        torch.cuda.synchronize()
+        n_diff = int((got != twin).sum())
+        check(n_diff == 0, f"{name} K4: {n_diff} elements differ from its twin")
+        timing = ""
+        if timed:
+            times["K4 ms"] = cuda_ms(lambda: meta_kernel_fused_i8(*k4_args), reps=10)
+            times["K4 graph ms"] = graph_ms(lambda: meta_kernel_fused_i8(*k4_args))
+            times["K4 bound"] = bound_ms(*k4_cost(*k4_args[0].shape))
+            timing = (f"; {times['K4 ms']:.4f} ms eager, {times['K4 graph ms']:.4f} ms graph "
+                      f"replay, bound {times['K4 bound'][0]:.4f} ms ({times['K4 bound'][1]}) "
+                      f"on {smi}")
+        say(f"{name} K4 {tuple(k4_args[0].shape)} (the request's own stem inputs): no "
+            f"element differs from its twin{timing}")
+        del k4, seen, k4_args, got, twin
+    del ref_i8, int8, ref
     torch.cuda.empty_cache()
 
     # Raw points: the corpus's own clouds through the points front end of
@@ -6816,8 +7009,8 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
         bf16, sensor_width=meta["sensor_width"], height=meta["height"],
         feature_names=meta["feature_names"], dataset_name=meta["dataset_name"],
         x_stride=meta["x_stride"], padding_mode=meta["padding_mode"])
-    check(list(extra) == POINTS_EXTRA["waymo"], f"rv-waymo points channels {extra}")
-    clouds = corpus_clouds(corpus, extra, height=meta["height"])
+    check(list(extra) == POINTS_EXTRA[meta["dataset_name"]],
+          f"{name} points channels {extra}")
 
     def by_hand(xyz, laser, *chans):
         with torch.inference_mode():
@@ -6825,16 +7018,16 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
                 torch.as_tensor(xyz, device=device), torch.as_tensor(laser, device=device),
                 {n: torch.as_tensor(c, device=device) for n, c in zip(extra, chans)},
                 **layout)
+        check(tuple(image[0].shape) == (B, H, W, C), f"{name} points {image[0].shape}")
         return bf16(*image)
 
     want = [by_hand(*c) for c in clouds]
-    serve("points", points, clouds, want, ("meta_kernel_fused", "nms_scan"),
-          ("conv3x3_i8_fused", "meta_kernel_fused_i8"),
+    serve("points", points, clouds, want, "points",
           f"the artifact on the clouds rasterized by hand ({[c[0].shape[1] for c in clouds]} "
           f"points a cloud)")
     del points, want
 
-    # The chunk loop: the 4 requests as one CUDA-graph replay.
+    # The chunk loop: the requests as one CUDA-graph replay.
     run = make_chunked_predict(bf16, len(requests))
     stacked = [torch.stack([torch.as_tensor(r[j], device=device) for r in requests])
                for j in range(3)]
@@ -6843,8 +7036,9 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
     first = run(*stacked)
     torch.cuda.synchronize()
     counts = launches["chunk"] = read_counts()
-    check(counts["meta_kernel_fused"] > 0 and counts["nms_scan"] > 0,
-          f"rv-waymo chunk loop launches {counts}")
+    need, never = expect["bf16"]
+    check(all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in never),
+          f"{name} chunk loop launches {counts}")
     walls = []
     for _ in range(5):
         walls.append(cuda_sync_wall(lambda: run(*stacked)) / len(requests))
@@ -6852,8 +7046,9 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
     for got in (first, again):
         for i, e in enumerate(eager):
             bad = [n for n, a, b in zip(e._fields, got, e) if not bit_equal(a[i], b)]
-            check(not bad, f"rv-waymo chunk loop: request {i}: {bad} differ from the eager call")
-    say(f"rv-waymo fitted chunk loop: {len(requests)} B={B} requests as one CUDA-graph replay "
+            check(not bad, f"{name} chunk loop: request {i}: {bad} differ from the eager call")
+    times["chunk ms"] = statistics.median(walls)
+    say(f"{name} chunk loop: {len(requests)} B={B} requests as one CUDA-graph replay "
         f"equal {len(requests)} eager calls of the bf16 artifact bit for bit (twice); launches "
         f"while captured {counts}; {statistics.median(walls):.3f} ms a request (host clock, "
         f"median of 5 replays) on {smi}")
@@ -6861,8 +7056,9 @@ def waymo_deploy(trainer, corpus: Path, work: Path, device, smi) -> dict:
     torch.cuda.empty_cache()
 
     # AOT: each artifact's program against load_artifact (phase 27's).
-    launches["AOT"] = aot_phase(art, requests, device, smi, label="phase 48")
-    return launches
+    if aot_label is not None:
+        launches["AOT"] = aot_phase(art, requests, device, smi, label=aot_label)
+    return launches, times
 
 
 def waymo_user_phase(device, smi, corpus: Path | None = None) -> dict:
@@ -6908,6 +7104,507 @@ def waymo_user_phase(device, smi, corpus: Path | None = None) -> dict:
     say(f"phase 48 Waymo user path: {time.perf_counter() - t0:.0f} s ({laps})")
     say("Waymo user launches (phase 48) " + json.dumps(launches))
     return {k: sum(m[k] for m in launches.values()) for k in kernel_counts()}
+
+
+# Phase 49: the four other published experiments as their users run them
+# (see the module docstring). Each takes one of phase 29's converted
+# corpora (``USER_CORPORA``): name -> (corpus, the split its requests and
+# clouds come from, the requests' shape, the train batch). The AV2 corpus
+# holds 4 train sweeps, so base-av2 and rv-av2-fast train at their
+# published batch_size, 4; the nuScenes and Waymo corpora hold 2 sweeps,
+# so B=2 there, their val split pinned to train.
+USER_CORPORA = ("av2", "nuscenes", "waymo")
+PUBLISHED_USERS = {
+    "base-av2": ("av2", "val", (2, 64, 1808, 5), 4),
+    "rv-av2-fast": ("av2", "val", (2, 64, 464, 5), 4),
+    "rv-nuscenes": ("nuscenes", "train", (2, 32, 1808, 5), 2),
+    "base-waymo": ("waymo", "train", (2, 64, 2656, 6), 2),
+}
+USER_PAIRS = ((0, 1), (1, 0))  # the requests: B=2 pairs of two val sweeps
+# The configs whose AOT programs (bf16 and int8) phase 49 writes through the
+# export CLI: the BASIC and the META stem, at x_stride 1 and 4. The first
+# one's bf16 program is also served by a process that imports only the
+# kernels package.
+USER_AOT = ("base-av2", "rv-av2-fast")
+USER_AOT_REPS = 5  # each AOT program's timed requests: half phase 27's, a cut
+
+
+def published_user_cuts() -> list:
+    """Phase 49's cuts, printed with its results (PERF.md section 4)."""
+    return ["corpora: phase 29's converted fixtures, AV2 one train log of 4 sweeps and one "
+            "val log of 2 at 64 x 1800, nuScenes one scene of 2 sweeps at 32 x 1800, Waymo "
+            "one log of 2 frames at 64 x 2650, the last two with the val split pinned to "
+            "train",
+            "Trainer: one epoch from random weights (one step), B=4 for base-av2 and "
+            "rv-av2-fast (their published batch_size), B=2 for rv-nuscenes and base-waymo "
+            "(2 sweeps)",
+            f"requests: {len(USER_PAIRS)} B=2 pairs of the 2 val sweeps in every mode, the "
+            "int8 stem 1",
+            f"AOT: B=2 only, for {' and '.join(USER_AOT)} (the BASIC and META stems at "
+            "x_stride 1 and 4), not for rv-nuscenes and base-waymo (the same export code at "
+            "other widths; phases 27 and 48 export the META stem at 64 rows); exported by the "
+            "export CLI beside the phase's runs, checked once every export has ended; the "
+            f"kernels-only process for {USER_AOT[0]} alone; each program timed on "
+            f"{USER_AOT_REPS} requests beside load_artifact (phase 27: 10)",
+            "K2 on a non-empty matrix: one request of the bf16 artifact with the decoder's "
+            "min_confidence lowered to 0 in memory (the artifact keeps the published value)"]
+
+
+def convert_user_corpora(root: Path, av2_width: int = 1800, nuscenes_width: int = 1800,
+                         waymo_size=(64, 2650), points: int = RAW_POINTS) -> Path:
+    """Phase 29's corpora converted again, for ``chip_smoke.py users``: the
+    raw AV2 logs of ``RAW_AV2_LOGS`` (phase 29's seeds, ``points`` a
+    sweep) and the raw nuScenes scene through the port's converters at 64
+    and 32 rows, and phase 29's Waymo frames (``convert_waymo_corpus``),
+    into ``root/NAME`` for each of ``USER_CORPORA``. Returns ``root``."""
+    from range_view_3d_detection_torch.converters.av2 import export as av2_export
+    from range_view_3d_detection_torch.converters.nuscenes import export as nusc_export
+    from range_view_3d_detection_torch.utils.config import compose
+
+    categories = compose(REPO / "conf", "rv-av2")["model"]["tasks"][0]
+    for k, (split, (log_id, sweeps)) in enumerate(RAW_AV2_LOGS.items()):
+        write_raw_av2_log(root / "raw_av2" / split / log_id, sweeps=sweeps,
+                          seed=SEED + 290 + k, categories=categories, points=points)
+    version = write_raw_nuscenes(root / "raw_nuscenes", seed=SEED + 292)
+    av2_export.export_dataset(str(root / "raw_av2"), str(root / "av2"), height=64,
+                              width=av2_width)
+    nusc_export.export_dataset(str(root / "raw_nuscenes"), str(root / "nuscenes"),
+                               version=version, height=32, width=nuscenes_width)
+    convert_waymo_corpus(root / "waymo", *waymo_size)
+    for raw in ("raw_av2", "raw_nuscenes"):
+        shutil.rmtree(root / raw)
+    return root
+
+
+def _user_sync(device) -> None:
+    import torch
+
+    if torch.device(device or "cuda").type == "cuda":
+        torch.cuda.synchronize()
+
+
+def user_train(name: str, corpus: Path, run_dir: Path, *, batch: int, pin_val: bool,
+               device=None, overrides=()) -> dict:
+    """Phase 49's training as its users run it: ``train.main([f"experiment=
+    {name}", ...])`` in this process on ``corpus`` (``pin_val``: its val
+    split pinned to train), one epoch with checkpointing on, at B =
+    ``batch`` where the config's published batch_size is more than the
+    corpus holds; on the Trainer's default device, the card, unless
+    ``device`` names one (``++trainer.device``); ``overrides`` after the
+    phase's. Gates: one step, every loss finite, a checkpoint of it, one
+    shard a val sweep, every average of the dataset's protocol
+    (``evaluate_run``: AV2's with its ROI for AV2) finite; for Waymo also
+    the WOD evaluator (``evaluate_dirs``) with the recall-gap penalty and
+    without, every mAP and mAPH finite. Returns the trainer (its ``fit``
+    and ``validate`` timed) and the numbers."""
+    from range_view_3d_detection_torch import train
+    from range_view_3d_detection_torch.evaluate import evaluate_dirs
+    from range_view_3d_detection_torch.evaluation.waymo_eval import mean_ap
+    from range_view_3d_detection_torch.training import loop
+    from range_view_3d_detection_torch.utils.config import compose
+
+    published = int(compose(REPO / "conf", name)["model"]["batch_size"])
+    argv = [f"experiment={name}", f"++dataset.root_dir={corpus}", f"++run_dir={run_dir}",
+            "++trainer.max_epochs=1"]
+    if batch != published:
+        argv.append(f"++model.batch_size={batch}")
+    if pin_val:
+        argv.append("++dataset._val_dataset.split_name=train")
+    if device is not None:
+        argv.append(f"++trainer.device={device}")
+    argv += list(overrides)
+    made, walls = [], {}
+    init = loop.Trainer.__init__
+
+    def timed(fn, tag):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            _user_sync(device)
+            walls[tag] = walls.get(tag, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def capturing(self, *args, **kw):
+        init(self, *args, **kw)
+        self.fit, self.validate = timed(self.fit, "fit"), timed(self.validate, "validate")
+        made.append(self)
+
+    loop.Trainer.__init__ = capturing
+    try:
+        t0 = time.perf_counter()
+        metrics = train.main(argv)
+        _user_sync(device)
+        train_s = time.perf_counter() - t0
+    finally:
+        loop.Trainer.__init__ = init
+    check(len(made) == 1, f"{name}: train.main built {len(made)} Trainers")
+    trainer = made[0]
+    want = "cuda" if device is None else str(device)  # the entry point's default: the card
+    check(trainer.device.type == want and trainer.batch_size == batch
+          and trainer.state.step == 1,
+          f"{name}: trained on {trainer.device} at B={trainer.batch_size}, step "
+          f"{trainer.state.step}")
+    losses = [json.loads(x).get("loss") for x in
+              (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [x for x in losses if x is not None]
+    check(len(losses) == 1 and all(math.isfinite(x) for x in losses), f"{name} losses {losses}")
+    check(trainer.ckpt is not None and trainer.ckpt.latest_step() == 1
+          and (run_dir / "checkpoints" / "step_1.pt").is_file(),
+          f"{name}: no checkpoint of step 1 under {run_dir / 'checkpoints'}")
+    shards = sorted((run_dir / "predictions").glob("*.feather"))
+    check(len(shards) == len(trainer.val_ds), f"{name}: {len(shards)} shards for "
+          f"{len(trainer.val_ds)} val sweeps")
+    average = dict(metrics["AVERAGE_METRICS"])
+    dataset = trainer.cfg["dataset"]["dataset_name"]
+    if dataset == "waymo":
+        gt = corpus / trainer.cfg["dataset"]["_val_dataset"].get("split_name", "val")
+        for tag, penalty in (("penalty", True), ("no penalty", False)):
+            m = evaluate_dirs(run_dir / "predictions", gt, "waymo", recall_gap_penalty=penalty)
+            for level in (1, 2):
+                for metric in ("AP", "APH"):
+                    average[f"WOD m{metric}_L{level} {tag}"] = mean_ap(m, level=level,
+                                                                      metric=metric)
+    check(bool(average) and all(math.isfinite(v) for v in average.values()),
+          f"{name} averages {average}")
+    item = trainer.val_ds[0]
+    return dict(trainer=trainer, train_s=train_s, fit_s=walls["fit"],
+                val_s=walls["validate"], loss=losses[0], shards=len(shards), average=average,
+                shape=tuple(item["features"].shape), dataset=dataset)
+
+
+def user_predict(run_dir: Path, out_dir: Path, device=None) -> dict:
+    """``predict.main(["--ckpt-dir", RUN, "--out-dir", OUT])`` (``--device``
+    only when ``device`` names one): the run's latest checkpoint restored
+    without training, its val split decoded on the Trainer's device, the
+    shards written under ``out_dir`` each equal byte for byte to the
+    Trainer's own validate shard of that sweep (same weights, same data,
+    same process). Returns the shard count, their rows and the seconds."""
+    from range_view_3d_detection_torch import predict
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    argv = ["--ckpt-dir", str(run_dir), "--out-dir", str(out_dir)]
+    if device is not None:
+        argv += ["--device", str(device)]
+    t0 = time.perf_counter()
+    out = predict.main(argv)
+    _user_sync(device)
+    seconds = time.perf_counter() - t0
+    mine = sorted(p.name for p in out.glob("*.feather"))
+    theirs = sorted(p.name for p in (run_dir / "predictions").glob("*.feather"))
+    check(out == out_dir and mine == theirs and mine,
+          f"predict.main wrote {mine} under {out}, the Trainer {theirs}")
+    for shard in mine:
+        a, b = (out / shard).read_bytes(), (run_dir / "predictions" / shard).read_bytes()
+        if a != b:
+            got, want = read_feather(out / shard), read_feather(run_dir / "predictions" / shard)
+            bad = [k for k in want if k not in got or got[k].tobytes() != want[k].tobytes()]
+            check(False, f"predict.main's {shard} differs from the Trainer's in {bad}")
+    rows = [len(read_feather(out / s)["score"]) for s in mine]
+    return dict(shards=len(mine), rows=rows, seconds=seconds)
+
+
+def user_export(run_dir: Path, art: Path, device=None) -> dict:
+    """``export.main(["--run-dir", RUN, "--out", ART/bf16])`` and again with
+    ``--quantize`` into ``ART/int8`` (calibrated at ``_eval_shape`` on the
+    run's val items); ``--device`` only when ``device`` names one. Each
+    artifact's ``meta.json`` records the run's dataset facts, its x_stride
+    and padding mode the val split's, and its decoder the published
+    ``min_confidence``. Returns the dataset facts and the seconds."""
+    from range_view_3d_detection_torch import export
+    from range_view_3d_detection_torch.training.builders import (
+        build_dataset_config,
+        build_decoder_config,
+    )
+
+    cfg = json.loads((run_dir / "config.json").read_text())
+    val = build_dataset_config(cfg, "val")
+    dec = build_decoder_config(cfg)
+    seconds = {}
+    for tag, extra in (("bf16", []), ("int8", ["--quantize"])):
+        argv = ["--run-dir", str(run_dir), "--out", str(art / tag), *extra]
+        if device is not None:
+            argv += ["--device", str(device)]
+        t0 = time.perf_counter()
+        export.main(argv)
+        _user_sync(device)
+        seconds[tag] = time.perf_counter() - t0
+        meta = json.loads((art / tag / "meta.json").read_text())
+        ds = meta["dataset"]
+        check(ds == export._dataset_meta_from_cfg(cfg)
+              and (ds["x_stride"], ds["padding_mode"]) == (val.x_stride, val.padding_mode)
+              and meta["decoder_config"]["min_confidence"] == dec.min_confidence
+              and (art / tag / "quant.msgpack").is_file() == (tag == "int8"),
+              f"{tag} artifact of {run_dir}: {meta['dataset']}, min_confidence "
+              f"{meta['decoder_config']['min_confidence']}")
+    return dict(meta=ds, seconds=seconds, eval_shape=export._eval_shape(cfg))
+
+
+def lowered_confidence_predictor(art: Path, device) -> tuple:
+    """The bf16 artifact ``art`` loaded with only its decoder's
+    ``min_confidence`` lowered to 0, in memory: a one-step model keeps no
+    box at the published 0.1, so this is where K2 sees a non-empty matrix.
+    ``meta.json`` keeps the published value. Returns ``(predictor, the
+    published decoder config)``."""
+    import dataclasses
+
+    from range_view_3d_detection_torch.export import load_artifact
+
+    predictor, _, dec = load_artifact(art, device=device)
+    predictor.decoder_cfg = dataclasses.replace(dec, min_confidence=0.0)
+    return predictor, dec
+
+
+def aot_export_job(art: Path, shape) -> tuple:
+    """The export CLI's AOT step as a user types it, ``python -m
+    range_view_3d_detection_torch.export --load ART --aot --batch B
+    --height H --width W`` (``run_cli``'s record), on one host thread: the
+    trace is Python, and these share the host with the phase's runs."""
+    B, H, W = shape[:3]
+    return run_cli("export --aot", ["range_view_3d_detection_torch.export", "--load", str(art),
+                                    "--aot", "--batch", str(B), "--height", str(H),
+                                    "--width", str(W)], env=_env(OMP_NUM_THREADS="1"))
+
+
+def published_user_run(name: str, corpus: Path, work: Path, device, smi, pool, jobs) -> dict:
+    """One config of phase 49 up to its artifacts (see the module
+    docstring): train, export, predict; for a config of ``USER_AOT`` its
+    AOT programs handed to ``pool`` (the export CLI beside the rest of the
+    phase's runs) and added to ``jobs``, the phase's list of them, and for
+    the first of ``USER_AOT`` the kernels-only process started, to serve
+    the bf16 program once it is written. Returns its launches by step, run
+    directory, artifacts, requests, AOT jobs and that process."""
+    import numpy as np
+    import torch
+
+    from range_view_3d_detection_torch.data.dataset import RangeViewDataset
+    from range_view_3d_detection_torch.training.builders import build_dataset_config
+
+    _, split, shape, batch = PUBLISHED_USERS[name]
+    run, art = work / name / "run", work / name / "artifacts"
+    launches, laps = {}, Laps()
+
+    def beside():
+        return f"{sum(not j.done() for j in jobs)} AOT export processes running beside"
+
+    torch.cuda.synchronize()
+    reset_counts()
+    tr = user_train(name, corpus, run, batch=batch, pin_val=split == "train")
+    launches["train"] = read_counts()
+    meta_stem = tr["trainer"].det_cfg.stem_type == "META"
+    check(launches["train"]["nms_scan"] > 0
+          and (launches["train"]["meta_kernel_fused"] > 0) == meta_stem,
+          f"{name} train.main launches {launches['train']}")
+    say(f"{name} (phase 49): train.main on {tr['trainer'].device}, B={batch} "
+        f"{tr['shape']}, 1 step, fit {tr['fit_s']:.2f} s (loss {tr['loss']:.4f}), validate "
+        f"{tr['val_s']:.2f} s ({tr['shards']} shards), train.main {tr['train_s']:.2f} s in all "
+        f"({beside()}); {tr['dataset']} protocol (evaluate_run): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in tr["average"].items())
+        + f"; checkpoint step 1; launches {launches['train']} on {smi}")
+    del tr
+    torch.cuda.empty_cache()
+    laps("train")
+
+    # The artifacts before predict.main, so that their AOT exports start
+    # as early as they can.
+    reset_counts()
+    ex = user_export(run, art)
+    launches["export"] = read_counts()
+    say(f"{name} export.main --run-dir: bf16 {ex['seconds']['bf16']:.2f} s, --quantize "
+        f"{ex['seconds']['int8']:.2f} s (calibrated at {ex['eval_shape']} on the run's val "
+        f"items, {beside()}); meta.json dataset {ex['meta']}; launches {launches['export']} "
+        f"on {smi}")
+    # The requests: the corpus's own sweeps, padded and strided as the val
+    # split does.
+    cfg = json.loads((run / "config.json").read_text())
+    requests = corpus_requests(RangeViewDataset(build_dataset_config(cfg, "val")), USER_PAIRS)
+    aot, child = {}, None
+    if name in USER_AOT:
+        aot = {tag: pool.submit(aot_export_job, art / tag, shape) for tag in ("bf16", "int8")}
+        jobs.extend(aot.values())
+        if name == USER_AOT[0]:
+            np.savez(art / "request.npz", *requests[0])
+            path = art / "bf16" / f"predict_b{shape[0]}.pt2"
+            ready = path.with_suffix(".ready")
+
+            def written(job):
+                if not job.cancelled() and job.exception() is None and job.result()[2] == 0:
+                    ready.touch()
+
+            child = aot_child_start(art, path, ready)
+            aot["bf16"].add_done_callback(written)
+    laps("export")
+
+    reset_counts()
+    pr = user_predict(run, work / name / "predict")
+    launches["predict"] = read_counts()
+    check(launches["predict"]["nms_scan"] > 0
+          and (launches["predict"]["meta_kernel_fused"] > 0) == meta_stem,
+          f"{name} predict.main launches {launches['predict']}")
+    say(f"{name} predict.main --ckpt-dir: {pr['shards']} shards ({pr['rows']} rows) equal byte "
+        f"for byte to the Trainer's validate shards, {pr['seconds']:.2f} s ({beside()}); "
+        f"launches {launches['predict']} on {smi}")
+    laps("predict")
+    say(f"phase 49 {name} run: {laps}")
+    return dict(launches=launches, aot=aot, child=child, run=run, art=art, meta=ex["meta"],
+                corpus=corpus, split=split, shape=shape, requests=requests)
+
+
+def published_user_aot(name: str, r: dict, device, smi) -> None:
+    """The AOT programs the export CLI wrote for one config of phase 49
+    (``published_user_run``'s ``r``), each against ``load_artifact`` on
+    the config's requests, and the kernels-only process's result on the
+    bf16 one. Adds their launches to ``r``."""
+    r["launches"]["AOT"] = dict.fromkeys(read_counts(), 0)
+    for tag in ("bf16", "int8"):
+        wall = r["aot"][tag].result()[-1]
+        path = r["art"] / tag / f"predict_b{r['shape'][0]}.pt2"
+        check(path.is_file(), f"{name}: the export CLI wrote no {path}")
+        launches, want = aot_check(r["art"], tag, path, r["requests"], device, smi,
+                                   f"phase 49, {name}", f"the export CLI's --aot {wall:.1f} s "
+                                   "beside the phase's runs", reps=USER_AOT_REPS)
+        for k, v in launches.items():
+            r["launches"]["AOT"][k] += v
+        if tag == "bf16" and r["child"] is not None:
+            aot_child_finish(r["child"], want, f"phase 49, {name}",
+                             "from its start beside the phase's runs")
+        path.unlink()
+
+
+def published_user_deploy(name: str, r: dict, device, smi) -> None:
+    """One config of phase 49 deployed (see the module docstring): the run
+    ``r`` (``published_user_run``'s) restored in memory against its
+    artifacts (``deploy_artifacts``), and K2 on a non-empty matrix. Adds
+    the launches and kernel times to ``r``."""
+    import torch
+
+    from range_view_3d_detection_torch.export import (
+        _calibration_batches_from_run,
+        _restore_from_run_dir,
+    )
+    from range_view_3d_detection_torch.kernels.nms import nms_scan
+    from range_view_3d_detection_torch.ops import nms as nms_ops
+
+    run, art, meta, shape, launches = r["run"], r["art"], r["meta"], r["shape"], r["launches"]
+    requests = r["requests"]
+    laps = Laps()
+    # The reference: the run restored in memory; the clouds: the corpus's
+    # own returns of the requests' sweeps.
+    model, det_cfg, dec_cfg = _restore_from_run_dir(run, device)
+    calib = _calibration_batches_from_run(run)
+    clouds = corpus_clouds(r["corpus"], POINTS_EXTRA[meta["dataset_name"]],
+                           height=meta["height"], pairs=USER_PAIRS, split=r["split"])
+    deployed, times = deploy_artifacts(
+        f"{name} restored", art, model, det_cfg, dec_cfg, meta, requests, calib, clouds,
+        device, smi, shape=shape, source="the restored model", timed=True)
+    launches.update(deployed)
+    del model, calib, clouds
+    laps("deploy")
+
+    # K2 on a non-empty matrix: the bf16 artifact with min_confidence 0.
+    lowered, published = lowered_confidence_predictor(art / "bf16", device)
+    seen = {}
+
+    def capture_k2(*args, **kw):
+        seen.setdefault("K2", (tuple(a.clone() for a in args), kw))
+        return nms_scan(*args, **kw)
+
+    reset_counts()
+    nms_ops.nms_scan = capture_k2
+    try:
+        result = lowered(*requests[0])
+    finally:
+        nms_ops.nms_scan = nms_scan
+    torch.cuda.synchronize()
+    launches["min_confidence 0"] = read_counts()
+    k2_args, k2_kw = seen.pop("K2")
+    k2_err = check_k2(f"{name} min_confidence 0 request", k2_args)
+    live = int(nms_scan(*k2_args, **k2_kw)[0].sum())
+    valid = int(k2_args[2].sum())
+    on_disk = json.loads((art / "bf16" / "meta.json").read_text())["decoder_config"]
+    check(live > 0 and int(result.keep.sum()) > 0
+          and on_disk["min_confidence"] == published.min_confidence > 0,
+          f"{name} min_confidence 0: {live} kept of {valid}, artifact {on_disk}")
+    times["K2 nonempty ms"] = cuda_ms(lambda: nms_scan(*k2_args, **k2_kw), reps=20)
+    k2_flops, k2_bytes = k2_cost(shape[0], k2_args[0].shape[-1], live, k2_args[3].shape[-1])
+    times["K2 nonempty bound"] = bound_ms(k2_flops, H100_FP32_FLOPS, k2_bytes)
+    say(f"{name} K2 cap {k2_args[0].shape[-1]} on a non-empty matrix (one request of the bf16 "
+        f"artifact with the decoder's min_confidence lowered to 0 in memory; meta.json keeps "
+        f"{on_disk['min_confidence']}): {live} kept of {valid} valid, merged max|diff| "
+        f"{k2_err:.3g}; {times['K2 nonempty ms']:.4f} ms eager, bound "
+        f"{times['K2 nonempty bound'][0] * 1e3:.2f} us ({times['K2 nonempty bound'][1]}); "
+        f"launches {launches['min_confidence 0']} on {smi}")
+    del lowered, result, seen, k2_args
+    torch.cuda.empty_cache()
+    laps("min_confidence 0")
+    say(f"phase 49 {name} deployment: {laps}")
+    r["times"] = times
+
+
+def published_users_phase(device, smi, corpora: Path | None = None) -> dict:
+    """Phase 49 (see the module docstring) on ``corpora``, phase 29's
+    converted corpora (None: converted here). Returns each kernel's
+    launches over the phase's paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    laps = Laps()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-users-"))
+    runs, jobs = {}, []
+    try:
+        source = "phase 29's"
+        if corpora is None:
+            corpora, source = convert_user_corpora(work / "corpora"), "converted here"
+            laps("conversion")
+        say(f"published experiments as their users run them (phase 49, {source} corpora), "
+            f"cuts: " + "; ".join(published_user_cuts()))
+        with concurrent.futures.ThreadPoolExecutor(2 * len(USER_AOT)) as pool:
+            try:
+                # Every run and its artifacts first, the AOT exports and the
+                # kernels-only process beside the later runs; nothing is
+                # timed per request until they have ended.
+                for name, (corpus, *_) in PUBLISHED_USERS.items():
+                    runs[name] = published_user_run(name, corpora / corpus, work, device, smi,
+                                                    pool, jobs)
+                    torch.cuda.empty_cache()
+                laps("runs")
+                concurrent.futures.wait(jobs)
+                for name in USER_AOT:
+                    for job in runs[name]["aot"].values():
+                        _, args, rc, out, err, _ = job.result()
+                        check(rc == 0, f"{name} {' '.join(args)}: rc {rc}\n{out[-2000:]}\n"
+                              f"{err[-2000:]}")
+                    if runs[name]["child"] is not None:
+                        aot_child_wait(runs[name]["child"])
+                laps("the AOT exports' end")
+                for name in USER_AOT:
+                    published_user_aot(name, runs[name], device, smi)
+                    torch.cuda.empty_cache()
+                laps("AOT")
+                for name, r in runs.items():
+                    published_user_deploy(name, r, device, smi)
+                    torch.cuda.empty_cache()
+                    laps(name)
+            finally:
+                for r in runs.values():
+                    child = r["child"]
+                    if child is not None and child["proc"].poll() is None:
+                        child["proc"].kill()
+                        child["proc"].wait()
+                for job in jobs:
+                    job.cancel()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {name: r["launches"] for name, r in runs.items()}
+    times = {name: {k: v for k, v in r["times"].items() if k != "K3"} | {
+        "K3 eager": r["times"]["K3"][0]["eager"], "K3 graph": r["times"]["K3"][0]["graph"],
+        "K3 bound": r["times"]["K3"][0]["bound"]} for name, r in runs.items()}
+    say(f"phase 49 published users: {time.perf_counter() - t0:.0f} s ({laps})")
+    say("published user launches (phase 49) " + json.dumps(launches))
+    say("published user times (phase 49, ms; host clock for the modes, CUDA events for the "
+        f"kernels; nothing ran beside) on {smi} " + json.dumps(times))
+    return {k: sum(m[k] for modes in launches.values() for m in modes.values())
+            for k in kernel_counts()}
 
 
 def flagship_predictor(cfg, dec, device, gen, request):
@@ -7195,8 +7892,8 @@ def main() -> int:
     range_partition_phase(device, smi)
     torch.cuda.empty_cache()
     laps("28 range partition")
-    waymo_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-waymo-corpus-"))
-    converted_launches = converted_phase(device, smi, keep_waymo=waymo_dir / "sensor")
+    corpora = Path(tempfile.mkdtemp(prefix="chip-smoke-corpora-"))
+    converted_launches = converted_phase(device, smi, keep=corpora)
     torch.cuda.empty_cache()
     laps("29 converted")
     bench_launches = bench_phase(device, kind, smi)
@@ -7226,11 +7923,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     laps("47 rv-nuscenes, base-waymo")
     try:
-        waymo_user_launches = waymo_user_phase(device, smi, waymo_dir / "sensor")
+        waymo_user_launches = waymo_user_phase(device, smi, corpora / "waymo")
+        torch.cuda.empty_cache()
+        laps("48 Waymo user path")
+        published_user_launches = published_users_phase(device, smi, corpora)
     finally:
-        shutil.rmtree(waymo_dir, ignore_errors=True)
+        shutil.rmtree(corpora, ignore_errors=True)
     torch.cuda.empty_cache()
-    laps("48 Waymo user path")
+    laps("49 published users")
     # The training paths (phases 17-18 and, since the remat and
     # distributed slice, 23-24), their launches beside the served path's:
     # the B=4 remat Trainer, the distributed Trainer's rank 0, and the int8
@@ -7259,6 +7959,7 @@ def main() -> int:
         k["hw_tools_launches"] = slice_counts["hw_tools"][k["name"]]
         k["conv_shapes_launches"] = conv_shapes_launches[k["name"]]
         k["waymo_user_launches"] = waymo_user_launches[k["name"]]
+        k["published_user_launches"] = published_user_launches[k["name"]]
         for name, modes in config_launches.items():  # phases 46-47's served requests
             k[f"{name.replace('-', '_')}_launches"] = sum(
                 counts[k["name"]] for tag, counts in modes.items() if not tag.startswith("bench"))
@@ -7549,6 +8250,22 @@ def waymo_user_main() -> int:
     return 0
 
 
+def users_main() -> int:
+    """``chip_smoke.py users``: the device, the build and its spill gate
+    (phases 1-2), then phase 49 alone on corpora converted here."""
+    t_start = time.perf_counter()
+    start = card_start()
+    if start is None:
+        return 1
+    device, smi = start
+    from range_view_3d_detection_torch.kernels import _build
+
+    check_spills(_build.library())
+    say(json.dumps({"published_user_launches": published_users_phase(device, smi)}))
+    say(f"chip_smoke phase 49: total {time.perf_counter() - t_start:.0f} s")
+    return 0
+
+
 def configs_main(phase: int) -> int:
     """``chip_smoke.py waymo`` (phase 45) and ``chip_smoke.py configs
     [PHASE]`` (46, or the phase named: 45, 46 or 47): the device, the
@@ -7582,6 +8299,7 @@ SUBCOMMANDS = {
     "waymo": lambda args: configs_main(45),
     "configs": lambda args: configs_main(int(args[0]) if args else 46),
     "waymo-user": lambda args: waymo_user_main(),
+    "users": lambda args: users_main(),
 }
 
 

@@ -1,5 +1,5 @@
 // Greedy (weighted) NMS scan (K2) for Hopper, fp32: three launches up to
-// cap 4096, four past it.
+// cap 4096, four past it (and a memset of the non-finite counts).
 //
 // Replaces range_view_3d_detection_tpu/kernels/nms_pallas.py::
 // nms_scan_pallas (_nms_scan_kernel). Boxes come in descending score
@@ -106,6 +106,14 @@
 //    other P >= 1 runs the same loop in passes over groups of kPass
 //    payload columns, each pass reading the IoU row again and forming
 //    wsum and kPass sums.
+//    Non-finite payloads (a model a step from random weights decodes
+//    infinite box sizes). The reference's merge is a dot product over all
+//    cap boxes, so a box of weight 0 with an infinite or NaN value makes
+//    the column NaN (0 x inf); the merge here skips weight-0 boxes. So
+//    phase 1 also counts each image's non-finite payload values by column
+//    (nonfinite, (B, P) int32, zeroed first), the merge counts those among
+//    its own terms, and a column with fewer is NaN; its own terms give
+//    the reference's infinity or NaN as they are.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,16 +160,21 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Phase 1: mask[b, i, w] bit t = iou[b, i, 32 w + t] > iou_thr; rows of
-// ld >= nwords words.
+// ld >= nwords words. Also nonfinite[b, c] += 1 for each non-finite
+// payload[b, i, c] (rare: an atomic each).
 template <bool kVec>
 __global__ void nms_mask_kernel(const float* __restrict__ iou,
                                 uint32_t* __restrict__ mask, int rows,
-                                int cap, int nwords, int ld, float iou_thr) {
+                                int cap, int nwords, int ld, float iou_thr,
+                                const float* __restrict__ payload, int P,
+                                int* __restrict__ nonfinite) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // whole warp
   const int b = row / cap;
   const int i = row - b * cap;
+  // Loaded now, tested after the row's words: its latency hides behind them.
+  const float pv = lane < P ? payload[(size_t)row * P + lane] : 0.f;
   const float* src = iou + (size_t)row * cap;
   uint32_t* dst = mask + ((size_t)b * 32 * nwords + i) * ld;
   if (kVec) {
@@ -189,6 +202,9 @@ __global__ void nms_mask_kernel(const float* __restrict__ iou,
       if (lane == 0) dst[w] = word;
     }
   }
+  if (!isfinite(pv)) atomicAdd(&nonfinite[b * P + lane], 1);
+  for (int k = lane + 32; k < P; k += 32)
+    if (!isfinite(payload[(size_t)row * P + k])) atomicAdd(&nonfinite[b * P + k], 1);
 }
 
 // Phase 2: the greedy keep of one image, one warp.
@@ -533,15 +549,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Phase 4: the weighted merge of each kept row; other rows copy.
 // acc[0] += w, acc[1 + k] += w * payload[j, c0 + k] for the kCols columns
-// from c0 that lie below P.
+// from c0 that lie below P, and nf[k] += 1 where that value is not finite.
 template <int kCols>
 __device__ __forceinline__ void merge_term(float w, int j, const float* pay_b, int P,
-                                           int c0, float* acc) {
+                                           int c0, float* acc, int* nf) {
   if (w != 0.f) {
     acc[0] += w;
 #pragma unroll
     for (int k = 0; k < kCols; ++k)
-      if (c0 + k < P) acc[k + 1] += w * pay_b[(size_t)j * P + c0 + k];
+      if (c0 + k < P) {
+        const float x = pay_b[(size_t)j * P + c0 + k];
+        acc[k + 1] += w * x;
+        nf[k] += !isfinite(x);
+      }
   }
 }
 
@@ -556,6 +576,7 @@ __global__ void nms_merge_kernel(const float* __restrict__ iou,
                                  const uint8_t* __restrict__ keep,
                                  const uint8_t* __restrict__ valid,
                                  const uint32_t* __restrict__ removed_set,
+                                 const int* __restrict__ nonfinite,
                                  float* __restrict__ merged, int rows, int cap,
                                  int nwords, int runtime_p, float merge_thr) {
   constexpr int kCols = kFixedP > 0 ? kFixedP : kPass;
@@ -579,8 +600,11 @@ __global__ void nms_merge_kernel(const float* __restrict__ iou,
   const float self = score_b[i];
   for (int c0 = 0; c0 < P; c0 += kCols) {
     float acc[kCols + 1];
+    int nf[kCols];
 #pragma unroll
     for (int k = 0; k <= kCols; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) nf[k] = 0;
     if (kVec && kKilled) {
       // Four columns a lane, 128 a warp, four such chunks of the IoU row in
       // flight; valid, killed_at and the score (loaded together) only where
@@ -614,7 +638,7 @@ __global__ void nms_merge_kernel(const float* __restrict__ iou,
             }
             float w = ok && killed >= i ? sc : 0.f;
             if (j == i) w = fmaxf(w, self);
-            merge_term<kCols>(w, j, pay_b, P, c0, acc);
+            merge_term<kCols>(w, j, pay_b, P, c0, acc, nf);
           }
         }
       }
@@ -630,7 +654,7 @@ __global__ void nms_merge_kernel(const float* __restrict__ iou,
         for (int q = 0; q < 4; ++q) {
           float w = (!((dead >> q) & 1u) && vq[q] >= merge_thr) ? sq[q] : 0.f;
           if (j0 + q == i) w = fmaxf(w, self);
-          merge_term<kCols>(w, j0 + q, pay_b, P, c0, acc);
+          merge_term<kCols>(w, j0 + q, pay_b, P, c0, acc, nf);
         }
       }
     } else {
@@ -651,23 +675,28 @@ __global__ void nms_merge_kernel(const float* __restrict__ iou,
           w = (alive && iou_row[j] >= merge_thr) ? score_b[j] : 0.f;
         }
         if (j == i) w = fmaxf(w, self);
-        merge_term<kCols>(w, j, pay_b, P, c0, acc);
+        merge_term<kCols>(w, j, pay_b, P, c0, acc, nf);
       }
     }
 #pragma unroll
     for (int k = 0; k <= kCols; ++k) acc[k] = warp_sum(acc[k]);
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) nf[k] = (int)__reduce_add_sync(kFull, (unsigned)nf[k]);
     const float wsum = fmaxf(acc[0], 1e-8f);
 #pragma unroll
     for (int k = 0; k < kCols; ++k)
-      if (lane == k && c0 + k < P) out[c0 + k] = acc[k + 1] / wsum;
+      if (lane == k && c0 + k < P)  // fewer non-finite terms than values: 0 x inf
+        out[c0 + k] = nf[k] < nonfinite[b * P + c0 + k] ? __int_as_float(0x7fffffff)
+                                                         : acc[k + 1] / wsum;
   }
 }
 
 template <bool kKilled>
 cudaError_t launch_merge(bool vec, bool p9, int blocks, cudaStream_t st, const void* iou,
                          const void* scores, const void* payload, const void* keep,
-                         const void* valid, const void* removed_set, void* merged,
-                         int rows, int cap, int nwords, int P, float merge_thr) {
+                         const void* valid, const void* removed_set, const void* nonfinite,
+                         void* merged, int rows, int cap, int nwords, int P,
+                         float merge_thr) {
   auto merge = p9 ? (vec ? nms_merge_kernel<true, kP, kKilled>
                          : nms_merge_kernel<false, kP, kKilled>)
                   : (vec ? nms_merge_kernel<true, 0, kKilled>
@@ -675,7 +704,7 @@ cudaError_t launch_merge(bool vec, bool p9, int blocks, cudaStream_t st, const v
   merge<<<blocks, 32 * kRowsPerBlock, 0, st>>>(
       (const float*)iou, (const float*)scores, (const float*)payload,
       (const uint8_t*)keep, (const uint8_t*)valid, (const uint32_t*)removed_set,
-      (float*)merged, rows, cap, nwords, P, merge_thr);
+      (const int*)nonfinite, (float*)merged, rows, cap, nwords, P, merge_thr);
   return cudaGetLastError();
 }
 
@@ -691,17 +720,20 @@ cudaError_t launch_merge(bool vec, bool p9, int blocks, cudaStream_t st, const v
 // cap <= 4096: it reads rows of W words), a multiple of 4 at least W for
 // the keep past 4096 (ahead_keep != 0: TMA's 16-byte row strides).
 // p9_merge != 0 runs the merge's P = 9 instance (P must be 9), else the
-// any-P one. The caller's plan (kernels/nms.py::k2_plan) sets both. Any
-// cap whose scratch fits. Three launches (four past 4096) on `stream`;
-// returns the cudaError_t of the first that fails.
+// any-P one. The caller's plan (kernels/nms.py::k2_plan) sets both.
+// nonfinite: (B, P) int32 scratch, zeroed here (the last argument, so a
+// caller of an earlier revision's signature is still a prefix). Any cap
+// whose scratch fits. A memset and three launches (four past 4096) on
+// `stream`; returns the cudaError_t of the first that fails.
 extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
                              const void* valid, const void* payload,
                              void* keep, void* merged, void* mask, void* scratch,
                              int B, int cap, int ld, int P, int ahead_keep,
                              int p9_merge, float iou_thr, float merge_thr,
-                             void* stream) {
+                             void* stream, void* nonfinite) {
   const bool ahead = ahead_keep != 0;
-  if (P <= 0 || B <= 0 || cap <= 0 || (!ahead && cap > kRegCap) || (p9_merge && P != kP))
+  if (P <= 0 || B <= 0 || cap <= 0 || (!ahead && cap > kRegCap) || (p9_merge && P != kP) ||
+      nonfinite == nullptr)
     return (int)cudaErrorInvalidValue;
   const int nwords = (cap + 31) / 32;
   if (ahead ? (ld < nwords || ld % 4 != 0) : ld != nwords)
@@ -724,14 +756,18 @@ extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
   cudaStream_t st = (cudaStream_t)stream;
   const bool vec = cap % 4 == 0 && ((uintptr_t)iou & 15) == 0 &&
                    ((uintptr_t)scores & 15) == 0;
+  cudaError_t e = cudaMemsetAsync(nonfinite, 0, (size_t)B * P * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
   if (vec) {
     nms_mask_kernel<true><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, ld, iou_thr);
+        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, ld, iou_thr,
+        (const float*)payload, P, (int*)nonfinite);
   } else {
     nms_mask_kernel<false><<<blocks, 32 * kRowsPerBlock, 0, st>>>(
-        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, ld, iou_thr);
+        (const float*)iou, (uint32_t*)mask, rows, cap, nwords, ld, iou_thr,
+        (const float*)payload, P, (int*)nonfinite);
   }
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if (ahead) {
     // The mask as B x 32 W rows of W words, ld apart: TMA reads zeros past W.
@@ -761,8 +797,8 @@ extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     return (int)launch_merge<true>(vec, p9_merge != 0, blocks, st, iou, scores, payload,
-                                   keep, valid, scratch, merged, rows, cap, nwords, P,
-                                   merge_thr);
+                                   keep, valid, scratch, nonfinite, merged, rows, cap,
+                                   nwords, P, merge_thr);
   }
   if (smem > 48 * 1024) {  // set on every call: the attribute is per device
     e = cudaFuncSetAttribute(nms_keep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -774,6 +810,6 @@ extern "C" int rv3d_nms_scan(const void* iou, const void* scores,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)launch_merge<false>(vec, p9_merge != 0, blocks, st, iou, scores, payload,
-                                  keep, valid, scratch, merged, rows, cap, nwords, P,
-                                  merge_thr);
+                                  keep, valid, scratch, nonfinite, merged, rows, cap,
+                                  nwords, P, merge_thr);
 }

@@ -38,8 +38,8 @@ SIGNATURES = {
     # g, feats, w1t, kt, a0, b0, a1, b1, out, B, H, W, C, stream
     "rv3d_meta_kernel_fused": [_P] * 9 + [_I] * 4 + [_P],
     # iou, scores, valid, payload, keep, merged, mask, seen, B, cap, ld, P,
-    # big_keep, p9_merge, iou_thr, merge_thr, stream
-    "rv3d_nms_scan": [_P] * 8 + [_I] * 6 + [_F, _F, _P],
+    # big_keep, p9_merge, iou_thr, merge_thr, stream, nonfinite
+    "rv3d_nms_scan": [_P] * 8 + [_I] * 6 + [_F, _F, _P, _P],
     # x, wt, dq, in_scale, out, B, H, W, Cin, Cout, stride, in_kind,
     # out_bf16, stream
     "rv3d_conv3x3_i8": [_P] * 5 + [_I] * 8 + [_P],

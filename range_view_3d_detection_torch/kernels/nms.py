@@ -22,6 +22,7 @@ fake kernel for ``torch.export`` and CUDA-graph capture.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -165,11 +166,27 @@ def nms_scan_bitmask_plain(
 def _merge_plain(iou, scores, payload, keep, alive, merge_threshold):
     """The merge of each kept row i over the boxes j with ``alive[b, i, j]``
     (not in R_i) and ``iou[b, i, j] >= merge_threshold``, box i weighing at
-    least its own score; rows not kept keep their payload."""
+    least its own score; rows not kept keep their payload. As the kernel
+    forms it: sums over the terms of nonzero weight only, their infinite
+    and NaN values taken as IEEE sums take them, and NaN in a column where
+    the image holds more non-finite values than those terms (the
+    reference's dense sum meets 0 x inf there)."""
     w = torch.where(alive & (iou >= merge_threshold), scores[:, None, :], 0.0)
     eye = torch.eye(iou.shape[-1], dtype=torch.bool, device=iou.device)
     w = torch.where(eye, torch.maximum(w, scores[:, None, :]), w)
-    m = (w @ payload) / w.sum(-1).clamp_min(1e-8)[..., None]
+    finite = torch.isfinite(payload)
+    m = (w @ torch.where(finite, payload, 0.0)) / w.sum(-1).clamp_min(1e-8)[..., None]
+    member = (w != 0).float()
+
+    def count(flag):  # (B, cap, P): the terms of nonzero weight with ``flag``
+        return member @ flag.float()
+
+    nan, pos, neg = count(payload.isnan()), count(payload == math.inf), count(
+        payload == -math.inf)
+    m = torch.where(pos > 0, math.inf, m)
+    m = torch.where(neg > 0, -math.inf, m)
+    fewer = (nan + pos + neg) < (~finite).sum(1, keepdim=True)
+    m = torch.where((nan > 0) | ((pos > 0) & (neg > 0)) | fewer, math.nan, m)
     return torch.where(keep[..., None], m, payload)
 
 
@@ -345,6 +362,7 @@ def _launch(iou, scores, valid, payload, iou_threshold, merge_threshold):
     _, rows, ld = mask_shape(B, cap)
     mask = torch.empty((B, rows, ld), dtype=torch.int32, device=iou.device)
     scratch = torch.empty(scratch_shape(B, cap), dtype=torch.int32, device=iou.device)
+    nonfinite = torch.empty((B, P), dtype=torch.int32, device=iou.device)  # zeroed there
     lib = _build.library()
     with torch.cuda.device(iou.device):
         err = lib.rv3d_nms_scan(
@@ -353,7 +371,7 @@ def _launch(iou, scores, valid, payload, iou_threshold, merge_threshold):
             mask.data_ptr(), scratch.data_ptr(),
             B, cap, ld, P, int(plan.keep == "ahead"), int(plan.merge == "p9"),
             float(iou_threshold), float(merge_threshold),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, nonfinite.data_ptr(),
         )
     _build.check(err, "rv3d_nms_scan")
     return keep, merged, scratch

@@ -63,9 +63,21 @@
   signed zeros apart; the oracle's epoch count, its gates and the cut list
   are what the phase prints; ``chip_smoke.py waymo-user`` runs phase
   48's entry point, which fails without a card.
+- Phase 49's: K2's check holds non-finite merged values to the twin's
+  (the same infinity, or NaN in both) and fails on any other; the cut
+  list; ``PUBLISHED_USERS``' request shapes are the configs' own layouts
+  (rv-av2-fast's x_stride 4); its corpora converted again when the phase
+  runs alone (``convert_user_corpora``); B=2 requests of rv-av2-fast's
+  val sweeps, padded and strided; the train, predict and export blocks
+  (``user_train``, ``user_predict``, ``user_export``) on the CPU at small
+  widths; the min_confidence-0 predictor leaves the artifact's
+  ``meta.json`` as written; ``chip_smoke.py users`` runs phase 49's entry
+  point, which fails without a card.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,6 +133,9 @@ def test_nms_edge_cases(case):
         assert (iou == 1).all()
     elif case == "duplicated":
         assert (scores[:, 1:] == scores[:, :-1]).sum() >= 2 * 40
+    elif case == "nonfinite_payload":
+        assert (payload == float("inf")).any() and payload.isnan().any()
+        assert (payload == -float("inf")).any()
     _decomposition_matches_plain(iou, scores, valid, payload)
 
 
@@ -130,7 +145,9 @@ def _decomposition_matches_plain(*inputs):
         keep, merged, _ = nms_scan_bitmask_plain(*inputs, **kw)
         keep_p, merged_p = nms_scan_plain(*inputs, **kw)
         assert torch.equal(keep, keep_p)
-        torch.testing.assert_close(merged, merged_p, atol=1e-5, rtol=0)
+        # Non-finite values (the nonfinite_payload case) must match exactly:
+        # the same infinity, or NaN in both.
+        torch.testing.assert_close(merged, merged_p, atol=1e-5, rtol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("case", chip_smoke.NMS_EDGE_CASES)
@@ -506,7 +523,8 @@ def test_subcommands_are_parsed(monkeypatch):
     assert called == [45, 46, ["WORK"], "main"]
     assert set(chip_smoke.SUBCOMMANDS) == {
         "waymo", "configs", "kernel-shapes", "tools", "conv-shapes", "compile-decode",
-        "train-rank", "width-rank", "convert", "shipped-times", "shipped-round", "waymo-user"}
+        "train-rank", "width-rank", "convert", "shipped-times", "shipped-round", "waymo-user",
+        "users"}
 
 
 def test_published_configs_and_requests():
@@ -853,3 +871,187 @@ def test_waymo_user_subcommand(monkeypatch):
     monkeypatch.undo()
     if not torch.cuda.is_available():
         assert chip_smoke.run(["waymo-user"]) == 1
+
+
+# -- phase 49 -----------------------------------------------------------------
+
+
+def test_check_k2_holds_nonfinite_values(monkeypatch):
+    """K2's check takes the twin's infinities and NaNs where the kernel
+    gives the same, and fails where a non-finite value differs (on the CPU
+    the wrapper is the twin; the perturbed call stands for a kernel)."""
+    from range_view_3d_detection_torch.kernels import nms as knms
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    case = chip_smoke.nms_edge_case("nonfinite_payload", 2, 100, torch.Generator().manual_seed(4),
+                                    "cpu")
+    assert chip_smoke.check_k2("nonfinite", case) < 1e-4
+    plain = knms.nms_scan
+
+    def inf_for_nan(*args, **kw):
+        keep, merged = plain(*args, **kw)
+        return keep, torch.where(merged.isnan(), float("inf"), merged)
+
+    monkeypatch.setattr(knms, "nms_scan", inf_for_nan)
+    with pytest.raises(RuntimeError, match="non-finite merged values differ"):
+        chip_smoke.check_k2("nonfinite", case)
+
+
+def test_published_user_cuts():
+    """Phase 49's cut list names the corpora, the batches, the requests,
+    AOT at B=2 and the min_confidence-0 request."""
+    cuts = chip_smoke.published_user_cuts()
+    assert cuts[0].startswith("corpora: phase 29's converted fixtures")
+    assert any("B=4 for base-av2 and rv-av2-fast" in c and "B=2 for rv-nuscenes" in c
+               for c in cuts)
+    assert any(c.startswith(f"requests: {len(chip_smoke.USER_PAIRS)} B=2 pairs") for c in cuts)
+    assert any(c.startswith("AOT: B=2 only, for base-av2 and rv-av2-fast") for c in cuts)
+    assert chip_smoke.USER_AOT == ("base-av2", "rv-av2-fast")
+    assert all(name in chip_smoke.PUBLISHED_USERS for name in chip_smoke.USER_AOT)
+    assert any("min_confidence lowered to 0" in c for c in cuts)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.PUBLISHED_USERS))
+def test_published_users_shapes_are_the_configs(name):
+    """Each config's requests in ``PUBLISHED_USERS`` are B=2 at its own
+    served layout (``experiment_configs``), its corpus one of phase 29's,
+    its train batch the published batch_size where the corpus holds it."""
+    from range_view_3d_detection_torch.utils.config import compose
+
+    corpus, split, shape, batch = chip_smoke.PUBLISHED_USERS[name]
+    stride = 4 if name == "rv-av2-fast" else 1
+    cfg, _, layout = chip_smoke.experiment_configs(name, stride)
+    assert shape == (2, layout["height"], layout["width"], cfg.in_channels)
+    assert corpus in chip_smoke.USER_CORPORA and split == ("val" if corpus == "av2" else "train")
+    published = compose(chip_smoke.REPO / "conf", name)["model"]["batch_size"]
+    assert batch == (published if corpus == "av2" else 2) and published == 4
+    assert (cfg.stem_type == "META") == name.startswith("rv-")
+
+
+@pytest.fixture(scope="module")
+def user_corpora(tmp_path_factory):
+    """Phase 49's corpora converted as ``chip_smoke.py users`` converts
+    them, at small sensors."""
+    return chip_smoke.convert_user_corpora(
+        tmp_path_factory.mktemp("user_corpora"), av2_width=1000, nuscenes_width=248,
+        waymo_size=(8, 58), points=4000)
+
+
+def test_convert_user_corpora(user_corpora):
+    """The AV2 corpus holds 4 train and 2 val sweeps, nuScenes and Waymo
+    2 train sweeps each, at the sensors asked for; the raw logs are gone."""
+    from range_view_3d_detection_torch.utils.feather import read_feather
+
+    assert sorted(p.name for p in user_corpora.iterdir()) == sorted(chip_smoke.USER_CORPORA)
+    for name, split, n, pixels in (("av2", "train", 4, 64 * 1000), ("av2", "val", 2, 64 * 1000),
+                                   ("nuscenes", "train", 2, 32 * 248),
+                                   ("waymo", "train", 2, 8 * 58)):
+        sweeps = sorted((user_corpora / name / split).rglob("sensors/range_view/*.feather"))
+        assert len(sweeps) == n and len(read_feather(sweeps[0])["range"]) == pixels, name
+
+
+def test_fast_corpus_requests_at_x_stride_4(user_corpora):
+    """Phase 49's rv-av2-fast requests: B=2 pairs of the val sweeps as the
+    val split pads and strides them (1000 columns padded by 12 a side, every
+    4th kept: 256), the second pair the first swapped."""
+    from range_view_3d_detection_torch.data.dataset import RangeViewDataset, width_padding
+    from range_view_3d_detection_torch.training.builders import build_dataset_config
+    from range_view_3d_detection_torch.utils.config import compose
+
+    cfg = compose(chip_smoke.REPO / "conf", "rv-av2-fast",
+                  [f"++dataset.root_dir={user_corpora / 'av2'}",
+                   "++dataset._train_dataset.range_view_config.width=1000"])
+    val = build_dataset_config(cfg, "val")
+    ds = RangeViewDataset(val)
+    assert val.x_stride == 4 and width_padding(1000, 4) == 12
+    requests = chip_smoke.corpus_requests(ds, chip_smoke.USER_PAIRS)
+    assert len(requests) == 2 and [r[0].shape for r in requests] == [(2, 64, 256, 5)] * 2
+    assert np.array_equal(requests[1][0][0], requests[0][0][1])
+    assert np.array_equal(requests[0][1][0], ds[0]["cart"]) and requests[0][2].any()
+
+
+def test_user_blocks_on_the_cpu(user_corpora, tmp_path):
+    """Phase 49's train, predict and export blocks on the CPU at small
+    widths: rv-av2-fast on the AV2 corpus, one step at B=4 with its
+    checkpoint, finite AV2 averages; ``predict.main``'s shards byte-equal
+    to the Trainer's; both artifacts with the val split's x_stride and
+    padding, the published min_confidence."""
+    small = ["++dataset._train_dataset.range_view_config.width=1000",
+             "++model._backbone.layers=[8,8,8,8,8]", "++model._head.fpn={1: 16}",
+             "++model._head.classification_head_channels=8",
+             "++model._head.regression_head_channels=8",
+             "++model._head.num_classification_blocks=1",
+             "++model._head.num_regression_blocks=1", "++model.max_boxes=16",
+             "++model.post_processing_config.nms_cap=128", "++model.precision=float32"]
+    run = tmp_path / "run"
+    out = chip_smoke.user_train("rv-av2-fast", user_corpora / "av2", run, batch=4,
+                                pin_val=False, device="cpu", overrides=small)
+    assert out["trainer"].device.type == "cpu" and out["shape"] == (64, 256, 5)
+    assert out["shards"] == 2 and out["dataset"] == "av2" and np.isfinite(out["loss"])
+    assert set(out["average"]) == {"AP", "ATE", "ASE", "AOE", "CDS"}
+    pred = chip_smoke.user_predict(run, tmp_path / "pred", device="cpu")
+    assert pred["shards"] == 2 and len(pred["rows"]) == 2
+    ex = chip_smoke.user_export(run, tmp_path / "art", device="cpu")
+    assert (ex["meta"]["x_stride"], ex["meta"]["padding_mode"]) == (4, "constant")
+    assert ex["eval_shape"] == (64, 256)
+
+
+def test_lowered_confidence_predictor_keeps_meta(tmp_path):
+    """The min_confidence-0 predictor lowers the decoder in memory only:
+    the artifact's ``meta.json`` is byte for byte as written, with the
+    published 0.1."""
+    import json
+
+    from range_view_3d_detection_torch import export as texport
+    from range_view_3d_detection_torch import serving
+    from range_view_3d_detection_torch.models.decoder import DecoderConfig
+
+    cfg = serving._flagship_config(tiny=True)
+    model = serving.Predictor(cfg, DecoderConfig(), device="cpu").model
+    texport.export_artifact(model, cfg, DecoderConfig(), tmp_path / "bf16")
+    written = (tmp_path / "bf16" / "meta.json").read_bytes()
+    predictor, published = chip_smoke.lowered_confidence_predictor(tmp_path / "bf16", "cpu")
+    assert predictor.decoder_cfg.min_confidence == 0.0 and published.min_confidence == 0.1
+    assert predictor.decoder_cfg == dataclasses.replace(published, min_confidence=0.0)
+    assert (tmp_path / "bf16" / "meta.json").read_bytes() == written
+    assert json.loads(written)["decoder_config"]["min_confidence"] == 0.1
+
+
+def test_users_subcommand(monkeypatch):
+    """``chip_smoke.py users`` runs phase 49's entry point, which exits
+    non-zero without a card."""
+    called = []
+    monkeypatch.setattr(chip_smoke, "users_main", lambda: called.append(49) or 49)
+    assert chip_smoke.run(["users"]) == 49 and called == [49]
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        assert chip_smoke.run(["users"]) == 1
+
+
+def test_config_bench_iters_take_the_bench_loop(monkeypatch):
+    """Phases 45-47 run the bench's loop (``bench.measure``) on half its
+    requests (``CONFIG_BENCH_ITERS`` inside ``bench_cut``): the warm-up, 12
+    timed requests for frames/s, then ``latency_bench``'s two warm-ups and
+    25; the bench's own counts are back after the block, and 12 is a
+    multiple of its chunk."""
+    from range_view_3d_detection_torch import bench, export
+
+    calls = []
+
+    def pipeline(*args):
+        calls.append(args)
+        return (torch.zeros(2),)
+
+    pipeline.device = "cpu"
+
+    def make_batch(seed):
+        return (np.full((2, 1), seed, np.float32),)
+
+    monkeypatch.setattr(export, "_device_name", lambda predict: "cpu")
+    args = tuple(torch.as_tensor(a) for a in make_batch(0))
+    saved = bench.ITERS, bench.LATENCY_ITERS
+    with chip_smoke.bench_cut():
+        fps, lat = bench.measure(pipeline, args, make_batch, 2)
+    assert chip_smoke.CONFIG_BENCH_ITERS == dict(ITERS=12, LATENCY_ITERS=25)
+    assert len(calls) == bench.WARMUP + 12 + 2 + 25 and fps > 0 and lat["iters"] == 25
+    assert (bench.ITERS, bench.LATENCY_ITERS) == saved and 12 % bench.CHUNK == 0

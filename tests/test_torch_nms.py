@@ -3,11 +3,14 @@
 - ``iou_rotated_bev`` against the JAX ``ops.iou``: atol 1e-5.
 - The plain scan against the JAX Pallas scan in interpret mode on the
   same IoU matrix: ``keep`` equal, ``merged`` within 1e-5.
-- The kernel's three phases in torch ops (``nms_scan_bitmask_plain``)
-  against the plain scan and the JAX Pallas scan in interpret mode, on
-  edge cases (WEIGHTED and HARD, cap 64 and the ragged 100): ``keep``
-  equal, ``killed_at`` equal to the first kept row above the threshold,
-  ``merged`` within 1e-5.
+- The kernel's phases in torch ops (``nms_scan_bitmask_plain`` and,
+  past cap 4096, ``nms_scan_ahead_plain``) against the plain scan and
+  the JAX Pallas scan in interpret mode, on edge cases (WEIGHTED and
+  HARD, cap 64 and the ragged 100): ``keep`` equal, ``killed_at`` equal
+  to the first kept row above the threshold, ``merged`` within 1e-5.
+  One case puts infinities and a NaN in the payload: where JAX's dense
+  dot product meets 0 x inf the merged value is NaN, and the port's
+  must be NaN there too (the same infinity, or NaN, in both).
 - The port's batched multi-class NMS against the JAX ``multiclass_nms``
   (lax block scan and Pallas interpret) for WEIGHTED, HARD, duplicated
   boxes (exact ties), a post-NMS cap and cap > n: ``keep`` equal, kept
@@ -23,6 +26,7 @@ import torch
 
 from range_view_3d_detection_torch.kernels.nms import (
     nms_scan,
+    nms_scan_ahead_plain,
     nms_scan_bitmask_plain,
     nms_scan_plain,
 )
@@ -142,6 +146,15 @@ def _scan_inputs(case, cap, seed):
             [boxes[:, :6], np.sin(boxes[:, 6:]), np.cos(boxes[:, 6:]), scores[:, None]],
             axis=-1,
         ).astype(np.float32)
+        if case == "nonfinite_payload":
+            # As a model a step from random weights decodes box sizes:
+            # column 3 +inf at the first box alone, column 4 at a quarter
+            # of the boxes, column 0 -inf and +inf at boxes 1 and 2, and
+            # one NaN in column 6.
+            payload[0, 3] = np.inf
+            payload[rng.choice(cap, cap // 4, replace=False), 4] = np.inf
+            payload[1, 0], payload[2, 0] = -np.inf, np.inf
+            payload[rng.integers(cap), 6] = np.nan
         images.append((iou, scores, valid, payload))
     return [np.stack(a) for a in zip(*images)]
 
@@ -159,7 +172,7 @@ def _first_killer(iou, valid, keep, threshold):
 
 
 SCAN_CASES = ["random", "zero_diagonal", "asymmetric", "invalid_middle",
-              "all_suppressed", "duplicated"]
+              "all_suppressed", "duplicated", "nonfinite_payload"]
 
 
 @pytest.mark.parametrize("cap", [64, 100])
@@ -173,14 +186,29 @@ def test_bitmask_decomposition_matches_scan(case, merge_threshold, cap):
         *(torch.from_numpy(a) for a in arrays), **kw
     )
     keep_p, merged_p = nms_scan_plain(*(torch.from_numpy(a) for a in arrays), **kw)
-    assert torch.equal(keep, keep_p)
-    np.testing.assert_allclose(merged.numpy(), merged_p.numpy(), atol=1e-5)
+    keep_a, merged_a, killed_a = nms_scan_ahead_plain(
+        *(torch.from_numpy(a) for a in arrays), **kw
+    )
+    assert torch.equal(keep, keep_p) and torch.equal(keep_a, keep)
+    assert torch.equal(killed_a, killed_at)
+    # assert_allclose holds infinities equal and NaNs equal (equal_nan).
+    np.testing.assert_allclose(merged.numpy(), merged_p.numpy(), atol=1e-5, equal_nan=True)
+    np.testing.assert_allclose(merged_a.numpy(), merged_p.numpy(), atol=1e-5, equal_nan=True)
     for b in range(2):
         want_keep, want_merged = nms_scan_pallas(
             iou[b], scores[b], valid[b], payload[b], interpret=True, **kw
         )
+        want_merged = np.asarray(want_merged)
         np.testing.assert_array_equal(keep[b].numpy(), np.asarray(want_keep))
-        np.testing.assert_allclose(merged[b].numpy(), np.asarray(want_merged), atol=1e-5)
+        for got in (merged, merged_p, merged_a):
+            np.testing.assert_allclose(got[b].numpy(), want_merged, atol=1e-5, equal_nan=True)
+        if case == "nonfinite_payload":
+            # JAX's dense sum meets 0 x inf in every kept row of columns 0,
+            # 3, 4 and 6, and sums the infinity itself only at box 0's row.
+            kept = np.asarray(want_keep)
+            assert np.isnan(want_merged[kept][:, [0, 4, 6]]).all()
+            assert np.isnan(want_merged[kept][1:, 3]).all()
+            assert want_merged[0, 3] == np.inf and kept[0]
         k = keep[b].numpy()
         np.testing.assert_array_equal(
             killed_at[b].numpy(), _first_killer(iou[b], valid[b], k, 0.3)
